@@ -1,0 +1,461 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (gritlm_tpu_torch) on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Builds the port's hand-written kernels from gritlm_tpu_torch/csrc, holds
+each against its plain PyTorch version at Mistral-7B shapes, drives the
+port's main path (GritLM.encode and greedy GritLM.generate on a full-width
+Mistral-7B with random bf16 weights) through the kernels, and times each
+kernel beside its bound, its plain version and one PyTorch library call.
+
+Phases, any failure exits non-zero:
+  1. device and build: card name and power limit, nvcc's register and
+     shared-memory report
+  2. each kernel against its plain version on the card
+  3. encode at full width (launch counts set to 0 before, read after)
+  4. greedy generate at full width: prefill through K1 (bucket >= 128) and
+     through K3 (bucket 64), generate from an encode(get_cache=True), and
+     generate over the int8 KV cache
+  5. kernel times (device time from torch.profiler, and per-call time
+     between CUDA events, 25 calls after warm-up), encode and
+     decode rates, and a profile (device time by kernel, idle share) of one
+     encode and one short generate
+
+Output: a `kernels` JSON line, the card line, then as the last line
+{"ok": true, "device": {...}}. Exits 2 with no result when there is no CUDA
+device or the port's package is not beside this script.
+"""
+
+from __future__ import annotations
+
+import json
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16
+PEAK_BYTES = 3.35e12  # H100 SXM HBM3
+ATTN_ATOL = 2e-2  # bf16 outputs; kernels round P to bf16 before P.V
+POOL_ATOL = 1e-4  # fp32 sums of the same bf16 inputs in another order
+COSINE_MIN = 0.999
+
+SENTENCES = [
+    "Bitcoin is a decentralized digital currency without a central bank.",
+    "The mitochondria is the powerhouse of the cell.",
+    "A transformer layer applies attention followed by a feed-forward network.",
+    "Paris is the capital and most populous city of France, on the Seine.",
+    "Rotary position embeddings rotate query and key vectors by position-dependent "
+    "angles, so that their dot product depends on the relative distance.",
+    "GritLM unifies text embedding and generation in one model.",
+    "The quick brown fox jumps over the lazy dog.",
+    "Key-value caches let a decoder reuse attention keys and values across steps, "
+    "which turns each generated token into a read of the cache instead of a "
+    "recomputation of the whole prefix.",
+    "Photosynthesis converts light energy into chemical energy.",
+    "The Great Wall of China stretches thousands of kilometres.",
+    "Mean pooling averages the hidden states of the tokens of a sentence.",
+    "Water boils at one hundred degrees Celsius at sea level.",
+    "Instruction tuning teaches a model to follow natural-language task descriptions.",
+    "Shakespeare wrote Hamlet around the year 1600.",
+    "A sliding window limits how far back each token may attend.",
+    "Embeddings map text to vectors whose cosine similarity reflects meaning.",
+]
+INSTRUCTION = "<|user|>\nRetrieve semantically similar text\n<|embed|>\n"
+
+
+def fail(msg: str) -> None:
+    print(f"FAIL: {msg}", flush=True)
+    raise SystemExit(1)
+
+
+def time_ms(fn, reps: int = 25, warmup: int = 3):
+    """(device_ms, call_ms) of one call of fn: device_ms is the summed device
+    time of the call's kernels (torch.profiler over `reps` calls), call_ms
+    the median time between CUDA events around single calls, which also
+    holds any time the device waits for the host to launch."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    device_us = sum(e.self_device_time_total for e in prof.key_averages()
+                    if e.device_type == DeviceType.CUDA)
+    if device_us <= 0:
+        fail("torch.profiler recorded no device time")
+    return device_us / 1e3 / reps, statistics.median(times)
+
+
+def bound(flops: float, nbytes: float):
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops > t_bytes else (t_bytes, "bytes")
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    if not (ROOT / "gritlm_tpu_torch" / "__init__.py").exists():
+        print("chip_smoke: gritlm_tpu_torch is not beside this script", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT))
+    import torch.nn.functional as F
+
+    from gritlm_tpu_torch import GritLM
+    from gritlm_tpu_torch.config import mistral_7b
+    from gritlm_tpu_torch.gritlm import _bucket
+    from gritlm_tpu_torch.models.transformer import count_params, quantize_kv
+    from gritlm_tpu_torch.ops import _build, decode_attention, flash_attention, fused_pool
+    from gritlm_tpu_torch.ops.flash_attention import keep_mask
+
+    dev = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_start = time.time()
+
+    # ---------------------------------------------------------------- 1
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} card {card}", flush=True)
+    t0 = time.time()
+    logs = _build.build_all()
+    print(f"build: {time.time() - t0:.1f} s ({', '.join(_build.SOURCES)})")
+    for name, log in logs.items():
+        for line in log.splitlines():
+            if any(w in line for w in ("registers", "spill", "Compiling entry", "error")):
+                print(f"  ptxas[{name}] {line.strip()}")
+
+    # name (of the wrapper in its module): (module, plain version, source, TPU kernel)
+    kernels = {
+        "flash_attention": (flash_attention, flash_attention.flash_attention_plain,
+                            "gritlm_tpu_torch/csrc/flash_attention.cu",
+                            "gritlm_tpu/ops/flash_attention.py:46"),
+        "flash_decode": (decode_attention, decode_attention.flash_decode_plain,
+                         "gritlm_tpu_torch/csrc/decode_attention.cu",
+                         "gritlm_tpu/ops/decode_attention.py:63"),
+        "fused_norm_mean_pool": (fused_pool, fused_pool.fused_norm_mean_pool_plain,
+                                 "gritlm_tpu_torch/csrc/fused_pool.cu",
+                                 "gritlm_tpu/ops/fused_pool.py:42"),
+    }
+    wrappers = {name: getattr(mod, name) for name, (mod, *_) in kernels.items()}
+
+    # ---------------------------------------------------------------- 2
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+
+    B, S, H, Hkv, Dh = 4, 512, 32, 8, 128
+    cases = []  # (kernel, label, fn_kernel, fn_plain, fn_library, flops, bytes, atol)
+
+    def attn_case(label, q, k, v, mask, causal, window, offset):
+        keep = keep_mask(mask, q.shape[1], k.shape[1], causal=causal,
+                         sliding_window=window if causal else None, offset=offset,
+                         device=dev)
+        keep_b = keep.expand(q.shape[0], -1, -1)
+        flops = 4.0 * int(keep_b.sum()) * H * Dh
+        slots = int(keep_b.any(1).sum())  # keys some query sees: K/V bytes to read
+        byt = slots * Hkv * Dh * 2 * 2 + nbytes(q, q, mask)
+        kw = dict(causal=causal, sliding_window=window, offset=offset)
+        qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+        am = keep[:, None]
+
+        def library():
+            return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=am, enable_gqa=True)
+
+        cases.append(("flash_attention", label,
+                      lambda: flash_attention.flash_attention(q, k, v, mask, **kw),
+                      lambda: flash_attention.flash_attention_plain(q, k, v, mask, **kw),
+                      library, flops, byt, ATTN_ATOL))
+
+    mask = torch.ones((B, S), dtype=torch.int32, device=dev)
+    mask[3, 400:] = 0  # one row with a padded tail
+    q, k, v = randn(B, S, H, Dh), randn(B, S, Hkv, Dh), randn(B, S, Hkv, Dh)
+    attn_case("bidirectional B4 S512", q, k, v, mask, False, None, 0)
+    attn_case("causal window256 B4 S512", q, k, v, mask, True, 256, 0)
+    # prefill of 256 tokens at offset 512 over a layer view of a 1024-slot cache
+    Smax_p = 1024
+    k_all_p, v_all_p = randn(2, B, Smax_p, Hkv * Dh), randn(2, B, Smax_p, Hkv * Dh)
+    mask_p = (torch.arange(Smax_p, device=dev) < 768).int()[None].repeat(B, 1)
+    attn_case("causal offset512 Sq256 cache-view", randn(B, 256, H, Dh),
+              k_all_p[1].view(B, Smax_p, Hkv, Dh), v_all_p[1].view(B, Smax_p, Hkv, Dh),
+              mask_p, True, None, 512)
+
+    Smax, L = 2048, 2
+    k_all, v_all = randn(L, B, Smax, Hkv * Dh), randn(L, B, Smax, Hkv * Dh)
+    mask_d = (torch.arange(Smax, device=dev) < 1500).int()[None].repeat(B, 1)
+    mask_d[:, 600:700] = 0  # an interior hole (concatenated RAG caches)
+    for Sq in (1, 64):
+        qd = randn(B, Sq, H, Dh)
+        offset = 1500 - Sq
+        keep = keep_mask(mask_d, Sq, Smax, causal=True, sliding_window=None,
+                         offset=offset, device=dev)
+        slots = int((keep.any(1)).sum())  # valid slots the step must read, over rows
+        flops = 4.0 * int(keep.sum()) * H * Dh
+        byt = slots * Hkv * Dh * 2 * 2 + nbytes(qd, qd, mask_d)
+        hi = 1500
+        lk = k_all[1, :, :hi].view(B, hi, Hkv, Dh).transpose(1, 2)
+        lv = v_all[1, :, :hi].view(B, hi, Hkv, Dh).transpose(1, 2)
+        am = keep[:, None, :, :hi]
+        kw = dict(causal=True, offset=offset, layer=1)
+
+        def library(qd=qd, lk=lk, lv=lv, am=am):
+            return F.scaled_dot_product_attention(qd.transpose(1, 2), lk, lv, attn_mask=am,
+                                                  enable_gqa=True)
+
+        cases.append(("flash_decode", f"Sq{Sq} B4 Smax2048 1400 valid",
+                      lambda qd=qd, kw=kw: decode_attention.flash_decode(
+                          qd, k_all, v_all, mask_d, **kw),
+                      lambda qd=qd, kw=kw: decode_attention.flash_decode_plain(
+                          qd, k_all, v_all, mask_d, **kw),
+                      library, flops, byt, ATTN_ATOL))
+
+    # the int8 cache variant of K3 at the Sq = 1 decode shape
+    k8, ks = quantize_kv(k_all.view(L * B, Smax, Hkv, Dh))
+    v8, vs = quantize_kv(v_all.view(L * B, Smax, Hkv, Dh))
+    k8, v8 = k8.view(L, B, Smax, -1), v8.view(L, B, Smax, -1)
+    scales = {"k_scale": ks.view(L, B, Smax, Hkv).transpose(2, 3).contiguous(),
+              "v_scale": vs.view(L, B, Smax, Hkv).transpose(2, 3).contiguous()}
+    qd = randn(B, 1, H, Dh)
+    keep = keep_mask(mask_d, 1, Smax, causal=True, sliding_window=None, offset=1499,
+                     device=dev)
+    slots = int(keep.any(1).sum())
+    kw8 = dict(causal=True, offset=1499, layer=1, **scales)
+    cases.append(("flash_decode", "int8 cache Sq1 B4 Smax2048 1400 valid",
+                  lambda: decode_attention.flash_decode(qd, k8, v8, mask_d, **kw8),
+                  lambda: decode_attention.flash_decode_plain(qd, k8, v8, mask_d, **kw8),
+                  None, 4.0 * int(keep.sum()) * H * Dh,
+                  slots * Hkv * (Dh + 2) * 2 + nbytes(qd, qd, mask_d), ATTN_ATOL))
+
+    Bp, D = 8, 4096
+    hidden = randn(Bp, S, D)
+    gamma = (1 + 0.1 * torch.randn(D, generator=gen, device=dev)).to(torch.bfloat16)
+    pmask = torch.ones((Bp, S), dtype=torch.int32, device=dev)
+    pmask[:, :12] = 0  # instruction prefix
+    pmask[1::2, 300:] = 0  # padding
+    rows = int(pmask.sum())
+    for method in ("mean", "weightedmean"):
+        kw = dict(eps=1e-5, method=method)
+
+        def library(kw=kw):
+            x = F.rms_norm(hidden, (D,), weight=gamma, eps=1e-5).float()
+            w = pmask.float()
+            if kw["method"] == "weightedmean":
+                w = w * w.cumsum(1)
+            e = torch.einsum("bs,bsd->bd", w, x) / w.sum(1, keepdim=True)
+            return e / e.norm(dim=-1, keepdim=True)
+
+        cases.append(("fused_norm_mean_pool", f"{method} B8 S512 D4096",
+                      lambda kw=kw: fused_pool.fused_norm_mean_pool(hidden, gamma, pmask, **kw),
+                      lambda kw=kw: fused_pool.fused_norm_mean_pool_plain(
+                          hidden, gamma, pmask, **kw),
+                      library, 4.0 * rows * D, rows * D * 2 + nbytes(gamma, pmask)
+                      + Bp * D * 4, POOL_ATOL))
+
+    max_err = {name: 0.0 for name in wrappers}
+    for name, label, fk, fp, _, _, _, atol in cases:
+        got = fk()
+        torch.cuda.synchronize()
+        want = fp()
+        if got.shape != want.shape or not torch.isfinite(got).all():
+            fail(f"{name} [{label}]: shape {tuple(got.shape)} or non-finite output")
+        err = float((got.float() - want.float()).abs().max())
+        max_err[name] = max(max_err[name], err)
+        print(f"check {name} [{label}]: max_abs_err {err:.3e} (atol {atol})", flush=True)
+        if err > atol:
+            fail(f"{name} [{label}] disagrees with its plain version: {err} > {atol}")
+
+    # ---------------------------------------------------------------- 3
+    t0 = time.time()
+    model = GritLM(mistral_7b(), seed=0)  # random bf16 weights drawn on the card
+    torch.cuda.synchronize()
+    print(f"model: Mistral-7B width, {count_params(model.params) / 1e9:.3f} B params, "
+          f"init {time.time() - t0:.1f} s", flush=True)
+
+    def encode_all():
+        a = model.encode(SENTENCES[:8])
+        b = model.encode(SENTENCES[8:], instruction=INSTRUCTION)
+        return torch.cat([torch.from_numpy(a), torch.from_numpy(b)])
+
+    for w in wrappers.values():
+        w.launches = 0
+    emb = encode_all()
+    enc_launches = {n: w.launches for n, w in wrappers.items()}
+    print(f"encode launches: {enc_launches}")
+    if tuple(emb.shape) != (16, 4096) or not torch.isfinite(emb).all():
+        fail(f"encode: shape {tuple(emb.shape)} or non-finite values")
+    norms = emb.norm(dim=-1)
+    if (norms - 1).abs().max() > 1e-3:
+        fail(f"encode: norms {norms.tolist()}")
+    if enc_launches["flash_attention"] == 0 or enc_launches["fused_norm_mean_pool"] == 0:
+        fail("encode did not go through K1 and K2")
+
+    # ---------------------------------------------------------------- 4
+    tok = model.tokenizer
+    long_prompts = ["<s><|user|>\n" + SENTENCES[4] + " " + SENTENCES[7] + "\n<|assistant|>\n",
+                    "<s><|user|>\nExplain: " + SENTENCES[2] + "\n<|assistant|>\n"]
+    short_prompts = ["<s><|user|>\nHi\n<|assistant|>\n", "<s><|user|>\nName a city.\n"]
+    before = {n: w.launches for n, w in wrappers.items()}
+    enc_long = tok(long_prompts)
+    enc_short = tok(short_prompts)
+    if enc_long["input_ids"].shape[1] <= 64 or enc_short["input_ids"].shape[1] > 64:
+        fail("generate prompts do not fall in the intended buckets")
+    res_long = model.generate_from_ids(enc_long["input_ids"], enc_long["attention_mask"],
+                                       max_new_tokens=32)
+    mid = {n: w.launches for n, w in wrappers.items()}
+    res_short = model.generate_from_ids(enc_short["input_ids"], enc_short["attention_mask"],
+                                        max_new_tokens=32)
+    _, cache = model.encode(SENTENCES[:2], get_cache=True)
+    q_enc = tok(["<|user|>\nSummarise the passage.\n<|assistant|>\n"] * 2,
+                add_special_tokens=False)
+    res_cache = model.generate_from_ids(q_enc["input_ids"], q_enc["attention_mask"],
+                                        cache=cache, max_new_tokens=16)
+    # the same weights with the int8 KV cache (K3's int8 variant)
+    qmodel = GritLM(mistral_7b(), params=model.params, kv_quant=True)
+    res_int8 = qmodel.generate_from_ids(enc_short["input_ids"], enc_short["attention_mask"],
+                                        max_new_tokens=16)
+    torch.cuda.synchronize()
+    launches = {n: w.launches for n, w in wrappers.items()}
+    gen_launches = {n: launches[n] - before[n] for n in wrappers}
+    print(f"generate launches: {gen_launches} (long-prompt call: "
+          f"{ {n: mid[n] - before[n] for n in wrappers} })")
+    if not res_int8.cache.quantized:
+        fail("kv_quant generate did not use the int8 cache")
+    for res in (res_long, res_short, res_cache, res_int8):
+        t = res.tokens
+        if not ((t >= 0) & (t < model.config.vocab_size)).all():
+            fail("generate: token ids out of range")
+    if mid["flash_attention"] == before["flash_attention"]:
+        fail("prefill at bucket >= 128 did not go through K1")
+    if gen_launches["flash_decode"] == 0:
+        fail("generate did not go through K3")
+    print("sample:", repr(tok.decode(res_long.tokens[0].tolist())))
+
+    # the same model through the plain versions on the card
+    for name, (mod, plain, *_) in kernels.items():
+        setattr(mod, name, plain)
+    try:
+        emb_plain = encode_all()
+    finally:
+        for name, (mod, *_) in kernels.items():
+            setattr(mod, name, wrappers[name])
+    cos = F.cosine_similarity(emb, emb_plain, dim=-1)
+    print(f"encode kernels vs plain versions: min cosine {float(cos.min()):.6f}")
+    if cos.min() < COSINE_MIN:
+        fail(f"encode through the kernels departs from the plain versions: {cos.tolist()}")
+
+    # ---------------------------------------------------------------- 5
+    times = {}  # per kernel: its first case (the main-path shape)
+    for name, label, fk, fp, fl, flops, byt, _ in cases:
+        ms, call_ms = time_ms(fk)
+        plain_ms, plain_call = time_ms(fp, reps=10)
+        library_ms = library_call = None  # no single PyTorch call computes the int8 variant
+        if fl is not None:
+            try:
+                library_ms, library_call = time_ms(fl)
+            except (TypeError, RuntimeError) as e:  # yardstick only; never used by the port
+                print(f"  library call for {name} [{label}] failed: {e}")
+        bms, by = bound(flops, byt)
+        print(f"time {name} [{label}]: device {ms:.4f} ms ({bms / ms * 100:.1f}% of bound "
+              f"{bms:.4f} ms, {by}), plain {plain_ms:.4f}, library "
+              f"{library_ms if library_ms is None else round(library_ms, 4)}; per call "
+              f"(events): kernel {call_ms:.4f}, plain {plain_call:.4f}, library "
+              f"{library_call if library_call is None else round(library_call, 4)}",
+              flush=True)
+        times.setdefault(name, (ms, plain_ms, library_ms, bms, by))
+
+    t0 = time.time()
+    encode_all()
+    torch.cuda.synchronize()
+    dt = time.time() - t0
+    n_tok = sum(len(tok._encode_one(s, True)) for s in SENTENCES[:8]) + sum(
+        len(tok._encode_one(INSTRUCTION + s, True)) for s in SENTENCES[8:])
+    print(f"encode: 16 sentences in {dt * 1e3:.1f} ms = {16 / dt:.1f} sentences/s, "
+          f"{n_tok / dt:.0f} tokens/s (valid tokens)")
+
+    def timed_generate(n):
+        torch.cuda.synchronize()
+        t = time.time()
+        model.generate_from_ids(enc_long["input_ids"], enc_long["attention_mask"],
+                                max_new_tokens=n)
+        torch.cuda.synchronize()
+        return time.time() - t
+
+    t1, t33 = timed_generate(1), timed_generate(33)
+    print(f"generate B=2 prompt of {enc_long['input_ids'].shape[1]} tokens (bucket "
+          f"{_bucket(enc_long['input_ids'].shape[1], model.seq_buckets)}): prefill+1 "
+          f"{t1 * 1e3:.1f} ms, decode {(t33 - t1) / 32 * 1e3:.2f} ms/token "
+          f"(host clock, 32 steps)")
+    profile_window("encode 16 sentences", encode_all)
+    profile_window("generate B=2, 8 tokens", lambda: model.generate_from_ids(
+        enc_long["input_ids"], enc_long["attention_mask"], max_new_tokens=8))
+    print(f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+          f"total {time.time() - t_start:.0f} s")
+
+    rows_out = [{
+        "name": name, "route": "cuda", "source": kernels[name][2],
+        "replaces": kernels[name][3], "launches": launches[name],
+        "max_abs_err": max_err[name], "ms": times[name][0], "plain_ms": times[name][1],
+        "bound_ms": times[name][3], "bound_by": times[name][4],
+        "library_ms": times[name][2],
+    } for name in kernels]
+    if any(r["launches"] == 0 for r in rows_out):
+        fail("a kernel of the path was never launched")
+    print(json.dumps({"kernels": rows_out}))
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+def profile_window(label: str, fn, top: int = 10) -> None:
+    """Device time by kernel over one call of `fn` (torch.profiler), and the
+    share of the window's wall time the device was idle."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.time()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.time() - t) * 1e3
+    events = [e for e in prof.key_averages()  # kernels only: ops would count twice
+              if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    busy_ms = sum(e.self_device_time_total for e in events) / 1e3
+    print(f"profile [{label}]: wall {wall_ms:.2f} ms, device busy {busy_ms:.2f} ms, "
+          f"idle share {max(0.0, 1 - busy_ms / wall_ms):.3f}")
+    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:top]:
+        print(f"  {e.self_device_time_total / 1e3:9.3f} ms {e.count:6d}x  {e.key[:90]}")
+
+
+if __name__ == "__main__":
+    sys.exit(main())

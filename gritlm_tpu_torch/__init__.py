@@ -1,0 +1,17 @@
+"""gritlm_tpu_torch: GritLM on PyTorch and CUDA for NVIDIA Hopper (H100).
+
+The port of the JAX package `gritlm_tpu`, which stays beside it as the
+reference. It imports torch and nothing of JAX or `gritlm_tpu`. Entry points
+run on CUDA unless the caller passes `device="cpu"`; there every
+hand-written kernel (flash attention, flash decode, fused norm+pool) runs its
+plain PyTorch version, which is how the CPU tests hold the port against the
+JAX package.
+
+  - models/   dense Mistral-family trunk (stacked params, KV cache)
+  - ops/      kernel wrappers + plain versions, attention dispatch, pooling
+  - csrc/     the CUDA sources, built by ops/_build.py at first use
+"""
+
+__version__ = "0.1.0"
+
+from gritlm_tpu_torch.gritlm import GritLM  # noqa: E402,F401

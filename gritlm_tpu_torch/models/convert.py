@@ -1,0 +1,69 @@
+"""Carry the JAX package's parameters over to the port.
+
+`params_from_jax` takes the JAX param pytree after `jax.tree_util.tree_map(
+np.asarray, params)` (nested dicts of numpy arrays; no JAX needed here) and
+returns the port's params: the same tree, same layouts ([L, in, out]
+stacked weights), as torch tensors on `device`. Both packages then compute
+the same function, which is what the parity tests rely on.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from gritlm_tpu_torch.config import ModelConfig
+from gritlm_tpu_torch.models.transformer import resolve_device
+
+
+def expected_shapes(cfg: ModelConfig) -> dict:
+    """Leaf path -> shape for a dense config's params."""
+    L, D, F = cfg.num_hidden_layers, cfg.hidden_size, cfg.intermediate_size
+    H, Kv, Dh, V = (cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim_,
+                    cfg.vocab_size)
+    return {
+        ("embed", "embedding"): (V, D),
+        ("layers", "ln1", "scale"): (L, D),
+        ("layers", "ln2", "scale"): (L, D),
+        ("layers", "attn", "wq"): (L, D, H * Dh),
+        ("layers", "attn", "wk"): (L, D, Kv * Dh),
+        ("layers", "attn", "wv"): (L, D, Kv * Dh),
+        ("layers", "attn", "wo"): (L, H * Dh, D),
+        ("layers", "attn", "bq"): (L, H * Dh),
+        ("layers", "attn", "bk"): (L, Kv * Dh),
+        ("layers", "attn", "bv"): (L, Kv * Dh),
+        ("layers", "mlp", "gate"): (L, D, F),
+        ("layers", "mlp", "up"): (L, D, F),
+        ("layers", "mlp", "down"): (L, F, D),
+        ("final_ln", "scale"): (D,),
+        ("lm_head", "kernel"): (D, V),
+    }
+
+
+def _to_torch(arr: np.ndarray) -> torch.Tensor:
+    arr = np.asarray(arr)
+    if arr.dtype.name == "bfloat16":  # ml_dtypes bfloat16: reinterpret the bits
+        return torch.from_numpy(arr.view(np.int16).copy()).view(torch.bfloat16)
+    return torch.from_numpy(arr.copy())
+
+
+def params_from_jax(tree: dict, cfg: ModelConfig, device=None) -> dict:
+    """The JAX param tree (numpy leaves) -> the port's param tree on
+    `device`. Raises on a leaf the dense port does not know or a shape that
+    does not match `cfg`."""
+    if cfg.is_moe:
+        raise NotImplementedError("MoE configs are not ported yet")
+    device = resolve_device(device)
+    shapes = expected_shapes(cfg)
+
+    def walk(node, path):
+        if isinstance(node, dict):
+            return {k: walk(v, path + (k,)) for k, v in node.items()}
+        if path not in shapes:
+            raise ValueError(f"params_from_jax: unknown leaf {'/'.join(path)}")
+        if tuple(np.shape(node)) != shapes[path]:
+            raise ValueError(f"params_from_jax: {'/'.join(path)} has shape "
+                             f"{tuple(np.shape(node))}, config needs {shapes[path]}")
+        return _to_torch(node).to(device)
+
+    return walk(tree, ())

@@ -1,0 +1,357 @@
+"""Decoder-only transformer (Mistral family, dense) on PyTorch tensors.
+
+Port of gritlm_tpu.models.transformer. Params are a nested dict of tensors
+with the layer axis stacked first, the same tree as the JAX package:
+
+  params = {
+    "embed":   {"embedding": [V, D]},
+    "layers": {
+      "ln1": {"scale": [L, D]},
+      "attn": {"wq": [L, D, H*Dh], "wk": [L, D, Kv*Dh], "wv": [L, D, Kv*Dh],
+               "wo": [L, H*Dh, D]},            # + bq/bk/bv for Qwen2
+      "ln2": {"scale": [L, D]},
+      "mlp": {"gate": [L, D, F], "up": [L, D, F], "down": [L, F, D]},
+    },
+    "final_ln": {"scale": [D]},
+    "lm_head": {"kernel": [D, V]},             # optional
+  }
+
+The layer loop is a Python loop. With a cache, each layer writes its K/V
+into the cache tensors in place (the JAX package returns new arrays) and
+attends against the full cache buffer.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Optional, Union
+
+import torch
+import torch.nn.functional as F
+
+from gritlm_tpu_torch.config import ModelConfig
+from gritlm_tpu_torch.ops.attention import cached_attention, multi_head_attention
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device entry points run on: CUDA unless the caller asks for
+    another. Raises when CUDA is asked for (or defaulted to) and absent; the
+    port never drops to the CPU on its own."""
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: the port runs on the GPU; pass device='cpu' to run "
+            "the kernels' plain versions on the CPU"
+        )
+    return device
+
+
+def _check_dense(cfg: ModelConfig) -> None:
+    if cfg.is_moe:
+        raise NotImplementedError("MoE configs are not ported yet")
+
+
+# ---------------------------------------------------------------------------
+# Param init
+
+
+def init_params(cfg: ModelConfig, seed: Union[int, torch.Generator] = 0,
+                with_lm_head: bool = True, device=None) -> dict:
+    """Random init (normal, std 0.02) with the layer axis stacked, drawn on
+    `device` from a seeded torch.Generator (the numbers differ from the JAX
+    package's init; tests carry JAX params over with params_from_jax)."""
+    _check_dense(cfg)
+    device = resolve_device(device)
+    gen = seed
+    if not isinstance(gen, torch.Generator):
+        gen = torch.Generator(device=device).manual_seed(int(seed))
+    L, D, Fd = cfg.num_hidden_layers, cfg.hidden_size, cfg.intermediate_size
+    H, Kv, Dh, V = (cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim_,
+                    cfg.vocab_size)
+    dt = cfg.torch_dtype
+
+    def norm(*shape):
+        t = torch.empty(shape, dtype=dt, device=device)
+        for part in (t if len(shape) == 3 else [t]):  # one layer at a time
+            part.normal_(0.0, 0.02, generator=gen)
+        return t
+
+    def ones(*shape):
+        return torch.ones(shape, dtype=dt, device=device)
+
+    attn = {
+        "wq": norm(L, D, H * Dh),
+        "wk": norm(L, D, Kv * Dh),
+        "wv": norm(L, D, Kv * Dh),
+        "wo": norm(L, H * Dh, D),
+    }
+    if cfg.attention_bias:
+        for name, n in (("bq", H * Dh), ("bk", Kv * Dh), ("bv", Kv * Dh)):
+            attn[name] = torch.zeros((L, n), dtype=dt, device=device)
+    params = {
+        "embed": {"embedding": norm(V, D)},
+        "layers": {
+            "ln1": {"scale": ones(L, D)},
+            "attn": attn,
+            "ln2": {"scale": ones(L, D)},
+            "mlp": {"gate": norm(L, D, Fd), "up": norm(L, D, Fd), "down": norm(L, Fd, D)},
+        },
+        "final_ln": {"scale": ones(D)},
+    }
+    if with_lm_head and not cfg.tie_word_embeddings:
+        params["lm_head"] = {"kernel": norm(D, V)}
+    return params
+
+
+# ---------------------------------------------------------------------------
+# Building blocks
+
+
+def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
+    dt = x.dtype
+    xf = x.float()
+    xf = xf * torch.rsqrt(xf.pow(2).mean(-1, keepdim=True) + eps)
+    # HF Mistral casts back to the input dtype before the scale multiply
+    return xf.to(dt) * scale.to(dt)
+
+
+def _rope_freqs(dh: int, theta: float, scaling=None, device=None) -> torch.Tensor:
+    inv = 1.0 / (theta ** (torch.arange(0, dh, 2, dtype=torch.float32, device=device) / dh))
+    if scaling is None:
+        return inv
+    typ, factor, lo, hi, orig = scaling
+    if typ == "linear":
+        return inv / factor
+    # llama3 NTK-by-parts: long wavelengths scale by 1/factor, short ones
+    # stay, smooth blend between
+    low_wl = orig / lo
+    high_wl = orig / hi
+    wl = 2.0 * math.pi / inv
+    smooth = (orig / wl - lo) / (hi - lo)
+    mid = (1.0 - smooth) * inv / factor + smooth * inv
+    return torch.where(wl > low_wl, inv / factor, torch.where(wl < high_wl, inv, mid))
+
+
+def rope_tables(positions: torch.Tensor, dh: int, theta: float, scaling=None):
+    """(cos, sin), each [B, S, 1, Dh/2] fp32, for positions [B, S]; forward
+    computes them once and every layer reuses them."""
+    freqs = _rope_freqs(dh, theta, scaling, device=positions.device)
+    angles = positions[..., None].float() * freqs  # [B, S, Dh/2]
+    return torch.cos(angles)[:, :, None, :], torch.sin(angles)[:, :, None, :]
+
+
+def _rotate(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+    dh = x.shape[-1]
+    x1, x2 = x[..., : dh // 2].float(), x[..., dh // 2:].float()
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
+               scaling=None) -> torch.Tensor:
+    """HF half-rotation convention. x [B, S, H, Dh], positions [B, S]."""
+    return _rotate(x, *rope_tables(positions, x.shape[-1], theta, scaling))
+
+
+@dataclasses.dataclass
+class KVCache:
+    """Static-shape KV cache. k/v: [L, B, Smax, Kv*Dh] (heads flattened, so
+    the decode kernel reads a slot's row for all heads at once); mask:
+    [B, Smax] int32 valid key slots; length: the write pointer (a Python int:
+    every row appends at the same slot). forward() writes k/v/mask in place.
+
+    int8 cache (init_cache(quant=True)): k/v int8 with per-(layer, row,
+    kv-head, slot) bf16 absmax scales k_scale/v_scale [L, B, Kv, Smax],
+    slot-minor as the decode kernel reads them."""
+
+    k: torch.Tensor
+    v: torch.Tensor
+    mask: torch.Tensor
+    length: int
+    k_scale: Optional[torch.Tensor] = None
+    v_scale: Optional[torch.Tensor] = None
+
+    @property
+    def max_len(self) -> int:
+        return self.k.shape[2]
+
+    @property
+    def quantized(self) -> bool:
+        return self.k_scale is not None
+
+    def clone(self) -> "KVCache":
+        return dataclasses.replace(self, **{
+            f.name: getattr(self, f.name).clone() for f in dataclasses.fields(self)
+            if isinstance(getattr(self, f.name), torch.Tensor)})
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None, device=None,
+               quant: bool = False) -> KVCache:
+    device = resolve_device(device)
+    L, Kv, Dh = cfg.num_hidden_layers, cfg.num_key_value_heads, cfg.head_dim_
+    dt = torch.int8 if quant else (dtype or cfg.torch_dtype)
+    scales = {}
+    if quant:
+        scales = {name: torch.zeros((L, batch, Kv, max_len), dtype=torch.bfloat16,
+                                    device=device) for name in ("k_scale", "v_scale")}
+    return KVCache(
+        k=torch.zeros((L, batch, max_len, Kv * Dh), dtype=dt, device=device),
+        v=torch.zeros((L, batch, max_len, Kv * Dh), dtype=dt, device=device),
+        mask=torch.zeros((batch, max_len), dtype=torch.int32, device=device),
+        length=0,
+        **scales,
+    )
+
+
+def quantize_kv(x: torch.Tensor) -> tuple:
+    """x [B, S, Kv, Dh] -> (int8 [B, S, Kv*Dh], scale bf16 [B, S, Kv]),
+    per-(slot, head) absmax. The scale is rounded to bf16 before quantizing,
+    so the int8 values were made with the exact scale the decode kernel
+    dequantizes with."""
+    xf = x.float()
+    scale = (xf.abs().amax(dim=-1) / 127.0).clamp_min(1e-8).to(torch.bfloat16)
+    q = torch.round(xf / scale.float()[..., None]).clamp(-127, 127).to(torch.int8)
+    B, S, Kv, Dh = x.shape
+    return q.reshape(B, S, Kv * Dh), scale
+
+
+def _attention_block(
+    p: dict,
+    x: torch.Tensor,  # [B, S, D]
+    rope: tuple,  # (cos, sin) from rope_tables
+    padding_mask: Optional[torch.Tensor],
+    cfg: ModelConfig,
+    *,
+    causal: bool,
+    # the FULL cache (written in place) and this layer's index
+    layer_cache: Optional[tuple] = None,  # (KVCache, layer)
+):
+    B, S, D = x.shape
+    H, Kv, Dh = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim_
+
+    def proj(wname: str, bname: str, nh: int) -> torch.Tensor:
+        y = x @ p[wname]
+        if bname in p:  # Qwen2-family QKV biases
+            y = y + p[bname].to(y.dtype)
+        return y.reshape(B, S, nh, Dh)
+
+    q = proj("wq", "bq", H)
+    k = proj("wk", "bk", Kv)
+    v = proj("wv", "bv", Kv)
+    q = _rotate(q, *rope)
+    k = _rotate(k, *rope)
+
+    if layer_cache is not None:
+        cache, lidx = layer_cache
+        offset = cache.length
+        if cache.quantized:
+            for x_new, data, scale in ((k, cache.k, cache.k_scale),
+                                       (v, cache.v, cache.v_scale)):
+                q8, sc = quantize_kv(x_new)
+                data[lidx, :, offset:offset + S] = q8
+                scale[lidx, :, :, offset:offset + S] = sc.transpose(1, 2)
+        else:
+            cache.k[lidx, :, offset:offset + S] = k.reshape(B, S, Kv * Dh).to(cache.k.dtype)
+            cache.v[lidx, :, offset:offset + S] = v.reshape(B, S, Kv * Dh).to(cache.v.dtype)
+        out = cached_attention(
+            q, cache.k, cache.v, cache.mask, layer=lidx, offset=offset, causal=causal,
+            sliding_window=cfg.sliding_window, num_kv_heads=Kv,
+            k_scale=cache.k_scale, v_scale=cache.v_scale,
+        )
+    else:
+        out = multi_head_attention(
+            q, k, v, padding_mask, causal=causal, sliding_window=cfg.sliding_window,
+        )
+    return out.reshape(B, S, H * Dh) @ p["wo"]
+
+
+def _dense_mlp(p: dict, x: torch.Tensor) -> torch.Tensor:
+    return (F.silu(x @ p["gate"]) * (x @ p["up"])) @ p["down"]
+
+
+# ---------------------------------------------------------------------------
+# Forward
+
+
+def _layer(tree: dict, i: int) -> dict:
+    return {k: _layer(v, i) if isinstance(v, dict) else v[i] for k, v in tree.items()}
+
+
+@torch.inference_mode()
+def forward(
+    params: dict,
+    cfg: ModelConfig,
+    input_ids: torch.Tensor,  # [B, S]
+    *,
+    attention_mask: Optional[torch.Tensor] = None,  # [B, S] 1 = real token
+    causal: bool = True,
+    positions: Optional[torch.Tensor] = None,  # [B, S]
+    cache: Optional[KVCache] = None,
+    final_norm: bool = True,
+):
+    """Run the trunk (no LM head). Returns (hidden [B,S,D], new_cache, aux).
+
+    `final_norm=False` returns the raw residual stream, for callers that fuse
+    the norm into their epilogue (ops/fused_pool on the encode path).
+    `causal=False` is the GritLM embed mode: bidirectional attention under
+    the padding mask. With `cache`, keys/values are written at
+    `cache.length` (in place) and attention runs over all valid cache slots;
+    the returned cache shares the tensors, with length advanced by S."""
+    _check_dense(cfg)
+    B, S = input_ids.shape
+    x = params["embed"]["embedding"][input_ids.long()]
+    dev = x.device
+    if positions is None:
+        start = cache.length if cache is not None else 0
+        positions = (start + torch.arange(S, device=dev))[None, :].expand(B, S)
+
+    if cache is not None:
+        offset = cache.length
+        if offset + S > cache.max_len:
+            raise ValueError(f"cache of {cache.max_len} slots cannot take {offset} + {S}")
+        step_mask = attention_mask if attention_mask is not None else torch.ones(
+            (B, S), dtype=torch.int32, device=dev)
+        cache.mask[:, offset:offset + S] = step_mask.to(cache.mask.dtype)
+
+    rope = rope_tables(positions, cfg.head_dim_, cfg.rope_theta, cfg.rope_scaling_)
+    layers = params["layers"]
+    for i in range(cfg.num_hidden_layers):
+        lp = _layer(layers, i)
+        h = rms_norm(x, lp["ln1"]["scale"], cfg.rms_norm_eps)
+        layer_cache = None if cache is None else (cache, i)
+        x = x + _attention_block(lp["attn"], h, rope, attention_mask, cfg,
+                                 causal=causal, layer_cache=layer_cache)
+        h = rms_norm(x, lp["ln2"]["scale"], cfg.rms_norm_eps)
+        x = x + _dense_mlp(lp["mlp"], h)
+
+    new_cache = None
+    if cache is not None:
+        new_cache = dataclasses.replace(cache, length=cache.length + S)
+    if final_norm:
+        x = rms_norm(x, params["final_ln"]["scale"], cfg.rms_norm_eps)
+    return x, new_cache, {}
+
+
+def lm_head_kernel(params: dict, cfg: ModelConfig, dtype) -> torch.Tensor:
+    """The [D, V] LM-head kernel."""
+    if "lm_head" in params:
+        return params["lm_head"]["kernel"].to(dtype)
+    if cfg.tie_word_embeddings:
+        return params["embed"]["embedding"].T.to(dtype)
+    raise ValueError("No LM head in params and embeddings are not tied")
+
+
+def logits_from_hidden(params: dict, cfg: ModelConfig, hidden: torch.Tensor) -> torch.Tensor:
+    return hidden @ lm_head_kernel(params, cfg, hidden.dtype)
+
+
+def forward_lm(params, cfg, input_ids, **kw):
+    """Trunk + LM head -> (logits [B,S,V], new_cache, aux)."""
+    hidden, new_cache, aux = forward(params, cfg, input_ids, **kw)
+    return logits_from_hidden(params, cfg, hidden), new_cache, aux
+
+
+def count_params(params) -> int:
+    if isinstance(params, dict):
+        return sum(count_params(v) for v in params.values())
+    return params.numel()

@@ -1,0 +1,148 @@
+"""Builds the port's CUDA kernels from `gritlm_tpu_torch/csrc/` at first use.
+
+Each source is compiled by `nvcc` for `sm_90a` into a shared library with a
+plain C interface, loaded with `ctypes`. All sources build at once, one
+`nvcc` process each, into `build/gritlm_tpu_torch_kernels/` at the root of the
+checkout (listed in `.gitignore`). A library's file name carries a hash of its
+source, the shared header and the flags, so an edited source is rebuilt and an
+unchanged one is reused.
+
+Nothing here runs at import: this module is imported on machines with no
+CUDA toolkit, where only the plain versions of the kernels run.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+from typing import Dict
+
+import torch
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "gritlm_tpu_torch_kernels"
+SOURCES = ("flash_attention", "decode_attention", "fused_pool")
+NVCC_FLAGS = (
+    "-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+_libs: Dict[str, ctypes.CDLL] = {}
+ptxas_logs: Dict[str, str] = {}  # nvcc's -Xptxas -v report, per source built here
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
+    path = os.path.join(home, "bin", "nvcc")
+    if not os.path.exists(path):
+        raise RuntimeError(
+            "nvcc not found (PATH, CUDA_HOME): the port's CUDA kernels are "
+            "built from gritlm_tpu_torch/csrc at first use"
+        )
+    return path
+
+
+def _target(name: str) -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h.update((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+
+
+def build_all() -> Dict[str, str]:
+    """Compile every library that is missing, all sources in parallel.
+    Returns the ptxas reports of the sources built by this process. Raises
+    RuntimeError with nvcc's output if a build fails."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    todo = [n for n in SOURCES if not _target(n).exists()]
+    if not todo:
+        return dict(ptxas_logs)
+    nvcc = _nvcc()
+    procs = {}
+    for name in todo:
+        out = _target(name)
+        tmp = out.with_name(f"{out.stem}.tmp{os.getpid()}.so")
+        cmd = [nvcc, *NVCC_FLAGS, f"-I{CSRC}", "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        procs[name] = (
+            subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                             text=True),
+            tmp, out,
+        )
+    failed = []
+    for name, (proc, tmp, out) in procs.items():
+        log, _ = proc.communicate()
+        ptxas_logs[name] = log
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed for {name}.cu:\n{log}")
+            continue
+        os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return dict(ptxas_logs)
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The library built from csrc/<name>.cu, building all sources first if
+    any is missing."""
+    lib = _libs.get(name)
+    if lib is None:
+        build_all()
+        lib = ctypes.CDLL(str(_target(name)))
+        _libs[name] = lib
+    return lib
+
+
+def check(rc: int, what: str) -> None:
+    """Raise if a C entry point returned a CUDA error (cudaGetLastError after
+    the launch: a refused launch never runs, and a later synchronize would
+    not report it)."""
+    if rc != 0:
+        raise RuntimeError(f"{what}: CUDA error {rc} at launch")
+
+
+def plain_path(*tensors) -> bool:
+    """True when every tensor lies on the CPU (the plain version runs),
+    False when every one lies on a CUDA device (the kernel runs). Anything
+    else raises: a CUDA tensor never takes the plain path."""
+    kinds = {t.device.type for t in tensors if t is not None}
+    if kinds == {"cpu"}:
+        return True
+    if kinds == {"cuda"}:
+        return False
+    raise ValueError(
+        f"tensors on {sorted(kinds)}: a kernel takes CUDA tensors only, "
+        "its plain version CPU tensors only"
+    )
+
+
+_sm_counts: Dict[int, int] = {}
+
+
+def sm_count(device: torch.device) -> int:
+    """Streaming multiprocessors of a CUDA device; kernels size their
+    grids (split counts) from it."""
+    idx = device.index if device.index is not None else torch.cuda.current_device()
+    if idx not in _sm_counts:
+        _sm_counts[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
+    return _sm_counts[idx]
+
+
+def stream_of(t: torch.Tensor) -> int:
+    """The handle of PyTorch's current stream on t's device (kernels launch
+    on it, so they order with PyTorch's own work)."""
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+# ctypes argument kinds used by the kernel modules
+P = ctypes.c_void_p
+I32 = ctypes.c_int
+I64 = ctypes.c_longlong
+F32 = ctypes.c_float

@@ -1,0 +1,131 @@
+"""The port's CUDA kernels against their plain versions, on the card.
+
+Marked `gpu`: a CUDA kernel has no CPU mode, so these skip on a machine
+without a CUDA device (the CPU suite holds the plain versions against the
+JAX package in tests/test_torch_kernels.py). On a GPU machine (where
+tests/conftest.py cannot import jax):
+
+    python -m pytest tests/test_torch_gpu.py --noconftest
+
+Tolerances are for bf16: the kernels round probabilities to bf16 before
+P.V (K1) and outputs to bf16, where the plain versions keep fp32 until the
+last cast; attention outputs here are of order 0.1-1.
+"""
+
+import pytest
+import torch
+
+from gritlm_tpu_torch.config import ModelConfig
+from gritlm_tpu_torch.ops import decode_attention, flash_attention, fused_pool
+
+pytestmark = pytest.mark.gpu
+ATTN_ATOL = 2e-2
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+def _randn(gen, *shape, device):
+    return torch.randn(shape, generator=gen, device=device).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("causal,window,offset,Sq", [
+    (False, None, 0, 200), (True, None, 0, 200), (True, 64, 0, 200), (True, None, 128, 77),
+])
+def test_flash_attention_kernel(cuda, causal, window, offset, Sq):
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    B, Sk, H, Hkv = 2, 333, 8, 2
+    q = _randn(gen, B, Sq, H, 128, device=cuda)
+    k = _randn(gen, B, Sk, Hkv, 128, device=cuda)
+    v = _randn(gen, B, Sk, Hkv, 128, device=cuda)
+    mask = torch.ones((B, Sk), dtype=torch.int32, device=cuda)
+    mask[1, 290:] = 0
+    before = flash_attention.flash_attention.launches
+    got = flash_attention.flash_attention(q, k, v, mask, causal=causal,
+                                          sliding_window=window, offset=offset)
+    torch.cuda.synchronize()
+    want = flash_attention.flash_attention_plain(q, k, v, mask, causal=causal,
+                                                 sliding_window=window, offset=offset)
+    assert flash_attention.flash_attention.launches == before + 1
+    torch.testing.assert_close(got.float(), want.float(), atol=ATTN_ATOL, rtol=0)
+
+
+def test_flash_attention_kernel_on_cache_view(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    k_all = _randn(gen, 2, 2, 384, 256, device=cuda)
+    v_all = _randn(gen, 2, 2, 384, 256, device=cuda)
+    q = _randn(gen, 2, 130, 8, 128, device=cuda)
+    mask = (torch.arange(384, device=cuda) < 250).int()[None].repeat(2, 1)
+    lk, lv = k_all[1].view(2, 384, 2, 128), v_all[1].view(2, 384, 2, 128)
+    got = flash_attention.flash_attention(q, lk, lv, mask, causal=True, offset=120)
+    want = flash_attention.flash_attention_plain(q, lk, lv, mask, causal=True, offset=120)
+    torch.testing.assert_close(got.float(), want.float(), atol=ATTN_ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("quant", [False, True])
+@pytest.mark.parametrize("Sq,offset,window", [(1, 299, None), (7, 290, None), (3, 250, 64)])
+def test_flash_decode_kernel(cuda, Sq, offset, window, quant):
+    from gritlm_tpu_torch.models.transformer import quantize_kv
+
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    L, B, Smax, H, Hkv = 2, 3, 512, 8, 2
+    k_all = _randn(gen, L, B, Smax, Hkv * 128, device=cuda)
+    v_all = _randn(gen, L, B, Smax, Hkv * 128, device=cuda)
+    scales = {}
+    if quant:
+        k8, ks = quantize_kv(k_all.view(L * B, Smax, Hkv, 128))
+        v8, vs = quantize_kv(v_all.view(L * B, Smax, Hkv, 128))
+        k_all, v_all = k8.view(L, B, Smax, -1), v8.view(L, B, Smax, -1)
+        scales = {"k_scale": ks.view(L, B, Smax, Hkv).transpose(2, 3).contiguous(),
+                  "v_scale": vs.view(L, B, Smax, Hkv).transpose(2, 3).contiguous()}
+    q = _randn(gen, B, Sq, H, 128, device=cuda)
+    mask = (torch.rand((B, Smax), generator=gen, device=cuda) > 0.3).int()
+    mask[:, offset + Sq:] = 0
+    mask[2] = 0  # an empty row stays finite (zero)
+    got = decode_attention.flash_decode(q, k_all, v_all, mask, causal=True, offset=offset,
+                                        layer=1, sliding_window=window, **scales)
+    torch.cuda.synchronize()
+    want = decode_attention.flash_decode_plain(q, k_all, v_all, mask, causal=True,
+                                               offset=offset, layer=1, sliding_window=window,
+                                               **scales)
+    torch.testing.assert_close(got.float(), want.float(), atol=ATTN_ATOL, rtol=0)
+    assert torch.count_nonzero(got[2]) == 0
+
+
+@pytest.mark.parametrize("method", ["mean", "weightedmean"])
+def test_fused_pool_kernel(cuda, method):
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    B, S, D = 3, 700, 4096
+    hidden = _randn(gen, B, S, D, device=cuda)
+    gamma = (1 + 0.5 * torch.randn(D, generator=gen, device=cuda)).to(torch.bfloat16)
+    mask = torch.ones((B, S), dtype=torch.int32, device=cuda)
+    mask[0, :11] = 0
+    mask[1, 500:] = 0
+    mask[2] = 0
+    got = fused_pool.fused_norm_mean_pool(hidden, gamma, mask, eps=1e-5, method=method)
+    torch.cuda.synchronize()
+    want = fused_pool.fused_norm_mean_pool_plain(hidden, gamma, mask, eps=1e-5,
+                                                 method=method)
+    torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-3)
+
+
+def test_gritlm_runs_its_kernels(cuda):
+    from gritlm_tpu_torch import GritLM
+
+    cfg = ModelConfig(vocab_size=512, hidden_size=256, intermediate_size=512,
+                      num_hidden_layers=2, num_attention_heads=2, num_key_value_heads=1)
+    m = GritLM(cfg, kv_quant=True)
+    counts = [f.launches for f in (flash_attention.flash_attention,
+                                   decode_attention.flash_decode,
+                                   fused_pool.fused_norm_mean_pool)]
+    emb = m.encode(["hello world", "a longer sentence to embed"], instruction="<|embed|>\n")
+    out = m.generate(["Hi"], max_new_tokens=4)  # int8 cache through K3
+    after = [f.launches for f in (flash_attention.flash_attention,
+                                  decode_attention.flash_decode,
+                                  fused_pool.fused_norm_mean_pool)]
+    assert emb.shape == (2, 256) and isinstance(out, list)
+    assert all(a > b for a, b in zip(after, counts))
