@@ -5,19 +5,34 @@
 
 Builds the port's hand-written kernels from gritlm_tpu_torch/csrc, holds
 each against its plain PyTorch version at Mistral-7B shapes, drives the
-port's main path (GritLM.encode and greedy GritLM.generate on a full-width
-Mistral-7B with random bf16 weights) through the kernels, and times each
-kernel beside its bound, its plain version and one PyTorch library call.
+port's paths through the kernels on a full-width Mistral-7B with random
+bf16 weights (GritLM.encode and greedy GritLM.generate; FlatIndex.search
+over a 1M-row index; RAGEngine.build_index and answer_batch in all seven
+cache modes), and times each kernel beside its bound, its plain version and
+one PyTorch library call.
 
 Phases, any failure exits non-zero:
   1. device and build: card name and power limit, nvcc's register and
      shared-memory report
-  2. each kernel against its plain version on the card
-  3. encode at full width (launch counts set to 0 before, read after)
+  2. each kernel against its plain version on the card (K9 at three shapes:
+     a masked tail, Q = 3, a partial last segment)
+  3. encode at full width (launch counts set to 0 before encode, read after
+     phase 4)
   4. greedy generate at full width: prefill through K1 (bucket >= 128) and
      through K3 (bucket 64), generate from an encode(get_cache=True), and
      generate over the int8 KV cache
-  5. kernel times (device time from torch.profiler, and per-call time
+  5. search at index size: 1,000,000 random unit bf16 rows of width 4096 in
+     a FlatIndex of capacity 2^20, exact top-100 for 256 queries through K9
+     (counts set to 0 before, read after), values held against a plain
+     top-k; K9 timed at this shape; search ms per 256-query block
+  6. RAG at full width (counts set to 0 before, read after): build_index
+     over the 16 sentences with doc caches, self-retrieval at top-1,
+     answer_batch of 4 queries in all seven cache modes, the device doc
+     pool against the host store in DOC mode
+  7. the reference latency protocol through eval.latency.run_sweep: 16
+     synthetic docs of 250 and of 2000 tokens, 250-token queries, five
+     modes, batch 4, 16 new tokens, 1 warm-up and 3 timed calls
+  8. kernel times (device time from torch.profiler, and per-call time
      between CUDA events, 25 calls after warm-up), encode and
      decode rates, and a profile (device time by kernel, idle share) of one
      encode and one short generate
@@ -36,11 +51,14 @@ import sys
 import time
 from pathlib import Path
 
+import numpy as np
+
 ROOT = Path(__file__).resolve().parent
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3
 ATTN_ATOL = 2e-2  # bf16 outputs; kernels round P to bf16 before P.V
 POOL_ATOL = 1e-4  # fp32 sums of the same bf16 inputs in another order
+K9_ATOL = 1e-3  # fp32 sums of the same bf16 products in another order, unit vectors
 COSINE_MIN = 0.999
 
 SENTENCES = [
@@ -68,7 +86,10 @@ INSTRUCTION = "<|user|>\nRetrieve semantically similar text\n<|embed|>\n"
 
 
 def fail(msg: str) -> None:
+    # on both streams: a caller that keeps only the end of stderr still
+    # sees which check failed
     print(f"FAIL: {msg}", flush=True)
+    print(f"chip_smoke: FAIL: {msg}", file=sys.stderr, flush=True)
     raise SystemExit(1)
 
 
@@ -93,15 +114,22 @@ def time_ms(fn, reps: int = 25, warmup: int = 3):
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    device_us = sum(e.self_device_time_total for e in prof.key_averages()
-                    if e.device_type == DeviceType.CUDA)
-    if device_us <= 0:
-        fail("torch.profiler recorded no device time")
-    return device_us / 1e3 / reps, statistics.median(times)
+    call_ms = statistics.median(times)
+    # A trace now and then comes back without device events (seen on the
+    # H100 about once in three runs of this script): trace again, and if the
+    # second is empty too, the events' time stands in for the device time.
+    for _ in range(2):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        device_us = sum(e.self_device_time_total for e in prof.key_averages()
+                        if e.device_type == DeviceType.CUDA)
+        if device_us > 0:
+            return device_us / 1e3 / reps, call_ms
+        print("  torch.profiler recorded no device time", flush=True)
+    print("  device ms taken from CUDA events", flush=True)
+    return call_ms, call_ms
 
 
 def bound(flops: float, nbytes: float):
@@ -129,7 +157,13 @@ def main() -> int:
     from gritlm_tpu_torch.config import mistral_7b
     from gritlm_tpu_torch.gritlm import _bucket
     from gritlm_tpu_torch.models.transformer import count_params, quantize_kv
-    from gritlm_tpu_torch.ops import _build, decode_attention, flash_attention, fused_pool
+    from gritlm_tpu_torch.ops import (
+        _build,
+        decode_attention,
+        flash_attention,
+        fused_pool,
+        scores_segmax,
+    )
     from gritlm_tpu_torch.ops.flash_attention import keep_mask
 
     dev = torch.device("cuda")
@@ -162,8 +196,19 @@ def main() -> int:
         "fused_norm_mean_pool": (fused_pool, fused_pool.fused_norm_mean_pool_plain,
                                  "gritlm_tpu_torch/csrc/fused_pool.cu",
                                  "gritlm_tpu/ops/fused_pool.py:42"),
+        "scores_segmax": (scores_segmax, scores_segmax.scores_segmax_plain,
+                          "gritlm_tpu_torch/csrc/scores_segmax.cu",
+                          "gritlm_tpu/index/flat.py:143"),
     }
     wrappers = {name: getattr(mod, name) for name, (mod, *_) in kernels.items()}
+    path_launches = {}  # path -> launches per kernel in that path's run
+
+    def reset_counts():
+        for w in wrappers.values():
+            w.launches = 0
+
+    def read_counts():
+        return {n: w.launches for n, w in wrappers.items()}
 
     # ---------------------------------------------------------------- 2
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -291,6 +336,48 @@ def main() -> int:
         if err > atol:
             fail(f"{name} [{label}] disagrees with its plain version: {err} > {atol}")
 
+    def unit_rows(n, d=4096):
+        x = torch.randn((n, d), generator=gen, device=dev)
+        return (x / x.norm(dim=-1, keepdim=True)).to(torch.bfloat16)
+
+    def check_scores_segmax(label, q, emb, n_docs):
+        """K9 against its plain version: scores within K9_ATOL where real,
+        -inf where masked; each segment maximum exactly the largest of the
+        kernel's own scores in its segment, and within K9_ATOL of the plain
+        maximum where the same column wins."""
+        got_s, got_m = scores_segmax.scores_segmax(q, emb, n_docs)
+        torch.cuda.synchronize()
+        want_s, want_m = scores_segmax.scores_segmax_plain(q, emb, n_docs)
+        Q, N = got_s.shape
+        ns = -(-N // 128)
+        if tuple(got_m.shape) != (ns, Q) or tuple(want_m.shape) != (ns, Q):
+            fail(f"scores_segmax [{label}]: segmax shape {tuple(got_m.shape)}")
+        real = got_s[:, :n_docs]
+        if not torch.isfinite(real).all() or not torch.isneginf(got_s[:, n_docs:]).all():
+            fail(f"scores_segmax [{label}]: non-finite real scores or an unmasked tail")
+        err = float((real - want_s[:, :n_docs]).abs().max())
+        own = F.pad(got_s, (0, ns * 128 - N), value=float("-inf")).view(Q, ns, 128)
+        if not torch.equal(got_m, own.amax(-1).T):
+            fail(f"scores_segmax [{label}]: a segment maximum is not its segment's largest score")
+        plain = F.pad(want_s, (0, ns * 128 - N), value=float("-inf")).view(Q, ns, 128)
+        fin = torch.isfinite(want_m)
+        if not torch.equal(fin, torch.isfinite(got_m)):
+            fail(f"scores_segmax [{label}]: masked segments differ")
+        same = (own.argmax(-1) == plain.argmax(-1)).T & fin
+        m_err = float((got_m - want_m)[same].abs().max()) if same.any() else 0.0
+        print(f"check scores_segmax [{label}]: max_abs_err scores {err:.3e}, segment maxima "
+              f"{m_err:.3e} where the same column wins ({float(same.sum() / fin.sum()):.4f} "
+              f"of segments) (atol {K9_ATOL})", flush=True)
+        if err > K9_ATOL or m_err > K9_ATOL:
+            fail(f"scores_segmax [{label}] disagrees with its plain version: {err}, {m_err}")
+        max_err["scores_segmax"] = max(max_err["scores_segmax"], err, m_err)
+
+    q9, emb9 = unit_rows(256), unit_rows(65536 + 300)
+    check_scores_segmax("Q256 N65536 n_docs 65000", q9, emb9[:65536], 65000)
+    check_scores_segmax("Q3 N65536", q9[:3], emb9[:65536], 65536)
+    check_scores_segmax("Q256 N65836 partial last segment", q9, emb9, 65536 + 250)
+    del q9, emb9
+
     # ---------------------------------------------------------------- 3
     t0 = time.time()
     model = GritLM(mistral_7b(), seed=0)  # random bf16 weights drawn on the card
@@ -303,8 +390,7 @@ def main() -> int:
         b = model.encode(SENTENCES[8:], instruction=INSTRUCTION)
         return torch.cat([torch.from_numpy(a), torch.from_numpy(b)])
 
-    for w in wrappers.values():
-        w.launches = 0
+    reset_counts()
     emb = encode_all()
     enc_launches = {n: w.launches for n, w in wrappers.items()}
     print(f"encode launches: {enc_launches}")
@@ -341,7 +427,8 @@ def main() -> int:
     res_int8 = qmodel.generate_from_ids(enc_short["input_ids"], enc_short["attention_mask"],
                                         max_new_tokens=16)
     torch.cuda.synchronize()
-    launches = {n: w.launches for n, w in wrappers.items()}
+    launches = read_counts()
+    path_launches["encode+generate"] = launches
     gen_launches = {n: launches[n] - before[n] for n in wrappers}
     print(f"generate launches: {gen_launches} (long-prompt call: "
           f"{ {n: mid[n] - before[n] for n in wrappers} })")
@@ -370,8 +457,19 @@ def main() -> int:
     if cos.min() < COSINE_MIN:
         fail(f"encode through the kernels departs from the plain versions: {cos.tolist()}")
 
+    times = {}  # per kernel: (ms, plain_ms, library_ms, bound_ms, bound_by) at its path shape
+
     # ---------------------------------------------------------------- 5
-    times = {}  # per kernel: its first case (the main-path shape)
+    search_phase(dev, check_scores_segmax, unit_rows, reset_counts, read_counts, path_launches,
+                 times)
+
+    # ---------------------------------------------------------------- 6
+    rag_phase(model, reset_counts, read_counts, path_launches)
+
+    # ---------------------------------------------------------------- 7
+    latency_phase(model)
+
+    # ---------------------------------------------------------------- 8
     for name, label, fk, fp, fl, flops, byt, _ in cases:
         ms, call_ms = time_ms(fk)
         plain_ms, plain_call = time_ms(fp, reps=10)
@@ -418,6 +516,8 @@ def main() -> int:
     print(f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
           f"total {time.time() - t_start:.0f} s")
 
+    print(f"launches by path: {json.dumps(path_launches)}")
+    launches = {n: sum(c[n] for c in path_launches.values()) for n in kernels}
     rows_out = [{
         "name": name, "route": "cuda", "source": kernels[name][2],
         "replaces": kernels[name][3], "launches": launches[name],
@@ -433,6 +533,231 @@ def main() -> int:
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def search_phase(dev, check_scores_segmax, unit_rows, reset_counts, read_counts,
+                 path_launches, times, N_DOCS=1_000_000, CAP=2**20, DIM=4096) -> None:
+    """FlatIndex at index size: 1,000,000 random unit bf16 rows of width
+    4096 (capacity 2^20, 8 GiB), exact top-100 for one 256-query block."""
+    import torch
+
+    from gritlm_tpu_torch.index import FlatIndex
+    from gritlm_tpu_torch.ops import scores_segmax
+
+    QB, K, BLOCK = 256, 100, 65536
+    t0 = time.time()
+    index = FlatIndex(DIM, CAP, device=dev)
+    first = None
+    for a in range(0, N_DOCS, BLOCK):
+        rows = unit_rows(min(BLOCK, N_DOCS - a), DIM)
+        index.add(rows)
+        first = rows if first is None else first
+    qs = unit_rows(QB, DIM)
+    torch.cuda.synchronize()
+    print(f"index: {index.n_docs} rows of {DIM} bf16 in a capacity of {index.capacity} "
+          f"({nbytes(index.embeddings) / 2**30:.2f} GiB), filled in {time.time() - t0:.1f} s",
+          flush=True)
+
+    reset_counts()
+    scores, ids = index.search(qs, k=K, mode="exact")
+    counts = read_counts()
+    path_launches["search"] = counts
+    print(f"search launches: {counts}")
+    if counts["scores_segmax"] == 0:
+        fail("search did not go through K9")
+    if scores.shape != (QB, K) or not np.isfinite(scores).all() or ids.min() < 0 \
+            or ids.max() >= index.n_docs:
+        fail("search: scores not finite or ids out of range")
+
+    def topk_error(got_s, got_i, q, emb):
+        plain = scores_segmax.scores_segmax_plain(q, emb, emb.shape[0])[0]
+        want = torch.topk(plain, K, dim=1).values.cpu()
+        at_ids = plain.gather(1, torch.from_numpy(got_i).long().to(dev)).cpu()
+        got = torch.from_numpy(got_s)
+        return max(float((got - want).abs().max()), float((at_ids - got).abs().max()))
+
+    err_full = topk_error(scores, ids, qs, index.embeddings[:index.n_docs])
+    piece = FlatIndex(DIM, BLOCK, device=dev)
+    piece.add(first)
+    err_piece = topk_error(*piece.search(qs, k=K), qs, first)
+    print(f"search values against a plain top-{K}: max abs err {err_full:.3e} over the "
+          f"1M index, {err_piece:.3e} over a 65536-row slice (atol {K9_ATOL})")
+    if max(err_full, err_piece) > K9_ATOL:
+        fail("search disagrees with a plain top-k")
+    del piece, first
+    check_scores_segmax("Q256 N2^20 1M docs (the index)", qs, index.embeddings, index.n_docs)
+
+    emb, nd = index.embeddings, index.n_docs
+    masked = (torch.arange(CAP, device=dev) >= nd)[None]
+    try:  # the yardstick's product in fp32 where this torch takes out_dtype
+        torch.mm(qs[:1], emb[:128].t(), out_dtype=torch.float32)
+        lib_fp32 = True
+    except (TypeError, RuntimeError):
+        lib_fp32 = False
+
+    def library():
+        s = (torch.mm(qs, emb.t(), out_dtype=torch.float32) if lib_fp32
+             else torch.mm(qs, emb.t()))
+        s = s.masked_fill(masked, float("-inf"))
+        return s, s.view(QB, -1, 128).amax(-1)
+
+    ms, call_ms = time_ms(lambda: scores_segmax.scores_segmax(qs, emb, nd), reps=10)
+    plain_ms, plain_call = time_ms(lambda: scores_segmax.scores_segmax_plain(qs, emb, nd),
+                                   reps=3, warmup=1)
+    library_ms, library_call = time_ms(library, reps=10)
+    flops = 2.0 * QB * nd * DIM
+    byt = nd * DIM * 2 + nbytes(qs) + QB * CAP * 4 + (CAP // 128) * QB * 4
+    bms, by = bound(flops, byt)
+    times["scores_segmax"] = (ms, plain_ms, library_ms, bms, by)
+    print(f"time scores_segmax [Q256 N2^20, 1M docs]: device {ms:.4f} ms ({bms / ms * 100:.1f}% "
+          f"of bound {bms:.4f} ms, {by}), plain {plain_ms:.4f}, library {library_ms:.4f} "
+          f"(torch.mm {'fp32' if lib_fp32 else 'bf16'} out + masked_fill + amax); per call "
+          f"(events): kernel {call_ms:.4f}, plain {plain_call:.4f}, library "
+          f"{library_call:.4f}", flush=True)
+    # One 128-row query tile reads the corpus once (Q = 256 makes two
+    # tiles); Q = 4 is the RAG path's query batch.
+    for q_rows in (128, 4):
+        qq = qs[:q_rows].contiguous()
+        q_ms, _ = time_ms(lambda: scores_segmax.scores_segmax(qq, emb, nd), reps=10)
+        q_bms, q_by = bound(2.0 * q_rows * nd * DIM,
+                            nd * DIM * 2 + nbytes(qq) + q_rows * CAP * 4 + (CAP // 128) * q_rows * 4)
+        print(f"time scores_segmax [Q{q_rows} N2^20, 1M docs]: device {q_ms:.4f} ms "
+              f"({q_bms / q_ms * 100:.1f}% of bound {q_bms:.4f} ms, {q_by})", flush=True)
+
+    walls = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        index.search(qs, k=K)
+        walls.append(time.perf_counter() - t)
+    wall = statistics.median(walls)
+    print(f"search: {QB} queries, exact top-{K} over {nd} docs: {wall * 1e3:.2f} ms per "
+          f"256-query block (host clock, median of 5) = {QB / wall:.0f} queries/s")
+    profile_window("search 256 queries over 1M docs", lambda: index.search(qs, k=K))
+    del index, emb, qs, masked
+    torch.cuda.empty_cache()
+
+
+def rag_phase(model, reset_counts, read_counts, path_launches) -> None:
+    """RAGEngine at full width over the 16 sentences: build_index with doc
+    caches, self-retrieval at top-1, answer_batch in all seven cache modes,
+    and the device pool against the host store."""
+    import torch
+
+    from gritlm_tpu_torch.rag import CacheMode, RAGEngine
+    from gritlm_tpu_torch.training.templates import gritlm_instruction
+
+    recorded = []
+    generate_from_ids = model.generate_from_ids
+
+    def recording(*args, **kwargs):  # keeps each answer's token ids for the checks
+        res = generate_from_ids(*args, **kwargs)
+        recorded.append(res.tokens)
+        return res
+
+    model.generate_from_ids = recording
+    try:
+        reset_counts()
+        t0 = time.time()
+        eng = RAGEngine(model, max_new_tokens=16, encode_max_length=512)
+        eng.build_index([{"text": s} for s in SENTENCES], batch_size=16, cache_docs=True)
+        torch.cuda.synchronize()
+        build_s = time.time() - t0
+        if eng._device_pool.get(False) is None:
+            fail("rag: the 16-passage doc store was not pinned in the device pool")
+        q_emb = model.encode_queries(SENTENCES, instruction=gritlm_instruction(""),
+                                     max_length=512, convert_to_tensor=True)
+        sc, ids = eng.index.search(q_emb, k=2)
+        hits = int((ids[:, 0] == np.arange(16)).sum())
+        print(f"rag: index + doc caches of 16 passages built in {build_s:.2f} s; "
+              f"self-retrieval top-1 {hits}/16, self scores {sc[:, 0].min():.4f} to "
+              f"{sc[:, 0].max():.4f}, smallest gap to the runner-up "
+              f"{float((sc[:, 0] - sc[:, 1]).min()):.4f}", flush=True)
+        if hits != 16:
+            fail("rag: a passage's own string did not retrieve it at top-1")
+        queries = SENTENCES[:4]
+        vocab = model.config.vocab_size
+        for mode in CacheMode:
+            res = eng.answer_batch(queries, mode=mode)
+            toks = recorded[-1]
+            if toks.shape[0] != 4 or not ((toks >= 0) & (toks < vocab)).all():
+                fail(f"rag [{mode.value}]: token ids out of range")
+            if mode != CacheMode.NO_RETRIEVAL:
+                if [r.passages[0]["text"] for r in res] != queries:
+                    fail(f"rag [{mode.value}]: a query did not retrieve its own passage")
+                if not all(np.isfinite(r.scores).all() for r in res):
+                    fail(f"rag [{mode.value}]: non-finite retrieval scores")
+            print(f"rag [{mode.value}]: {res[0].seconds * 1e3:.1f} ms/query (batch 4, 16 new "
+                  f"tokens), answer {res[0].answer!r}", flush=True)
+
+        # The pool pads rows to the corpus's widest doc, the host fetch to the
+        # batch's; with the widest passage in the batch both give the same
+        # cache layout, so the same kernels see the same inputs and the
+        # greedy tokens must be identical.
+        host = RAGEngine(model, max_new_tokens=16, encode_max_length=512, doc_pool_bytes=0)
+        host.index, host._doc_store = eng.index, eng._doc_store
+        widest = max(range(16), key=lambda d: eng._doc_store[(d, False)][2])
+        batch = [SENTENCES[widest]] + [s for s in queries if s != SENTENCES[widest]][:3]
+        ids = [SENTENCES.index(s) for s in batch]
+        a, b = eng._fetch_doc_caches(ids, False), host._fetch_doc_caches(ids, False)
+        if host._device_pool.get(False) is not None:
+            fail("rag: doc_pool_bytes=0 still pinned a device pool")
+        if a.length != b.length or not all(torch.equal(getattr(a, f), getattr(b, f))
+                                           for f in ("k", "v", "mask")):
+            fail("rag: the device pool and the host store give different doc caches")
+        eng._stacked_last = None  # gather from the pool again
+        eng.answer_batch(batch, mode=CacheMode.DOC)
+        pooled = recorded[-1]
+        host.answer_batch(batch, mode=CacheMode.DOC)
+        if not torch.equal(pooled, recorded[-1]):
+            fail("rag: the device pool and the host store give different greedy tokens")
+        print("rag [doc]: device pool and host store give identical caches and greedy tokens")
+        torch.cuda.synchronize()
+        counts = read_counts()
+    finally:
+        del model.generate_from_ids
+    path_launches["rag"] = counts
+    print(f"rag launches: {counts}")
+    if any(c == 0 for c in counts.values()):
+        fail("rag did not go through every kernel of its path (K1, K2, K3, K9)")
+    del eng, host
+    torch.cuda.empty_cache()
+
+
+def latency_phase(model) -> None:
+    """The reference latency protocol through eval.latency.run_sweep:
+    16 docs of 250 and 2000 tokens, 250-token queries, batch 4, 16 new
+    tokens, 1 warm-up and 3 timed calls per mode. p50 seconds per query."""
+    import torch
+
+    from gritlm_tpu_torch.eval import latency
+    from gritlm_tpu_torch.training.templates import gritlm_instruction
+
+    t0 = time.time()
+    lengths, modes = (250, 2000), latency.SWEEP_MODES
+    sweep = latency.run_sweep(model, lengths=lengths, modes=modes, query_lengths=(250,),
+                              max_new_tokens=16, n_queries=4, reps=3, warmup=1, n_docs=16)
+    cfg, tok = model.config, model.tokenizer
+    per_token = 2 * cfg.num_hidden_layers * cfg.num_key_value_heads * cfg.head_dim_ * 2
+    for dlen in lengths:
+        p50 = {m: sweep[f"250-{dlen}-16-{model.device.type}-{m}"]["p50"] for m in modes}
+        if not all(np.isfinite(v) and v > 0 for v in p50.values()):
+            fail(f"latency d{dlen}: {p50}")
+        ntok = len(tok._encode_one(gritlm_instruction("") + latency.synthetic_text(tok, dlen),
+                                   True))
+        store = 16 * ntok * per_token
+        where = ("device pool" if store <= 2 * 2**30
+                 else "host store (over the 2 GiB doc_pool_bytes)")
+        base = p50["prompt_query_doc"]
+        print(f"latency q250 d{dlen}: 16 docs of {ntok} tokens, doc store "
+              f"{store / 2**30:.2f} GiB -> {where}; p50 s/query "
+              + ", ".join(f"{m} {v:.4f}" for m, v in p50.items())
+              + f"; doc {(p50['doc'] / base - 1) * 100:+.1f}%, docquery "
+              f"{(p50['docquery'] / base - 1) * 100:+.1f}% against prompt_query_doc",
+              flush=True)
+    print(f"latency sweep: {time.time() - t0:.0f} s, dispatch floor "
+          f"{sweep['_meta']['dispatch_floor_s'] * 1e6:.1f} us")
+    torch.cuda.empty_cache()
 
 
 def profile_window(label: str, fn, top: int = 10) -> None:
@@ -451,6 +776,9 @@ def profile_window(label: str, fn, top: int = 10) -> None:
     events = [e for e in prof.key_averages()  # kernels only: ops would count twice
               if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
     busy_ms = sum(e.self_device_time_total for e in events) / 1e3
+    if not events:  # an empty trace (see time_ms): no idle share to report
+        print(f"profile [{label}]: wall {wall_ms:.2f} ms, no device events recorded")
+        return
     print(f"profile [{label}]: wall {wall_ms:.2f} ms, device busy {busy_ms:.2f} ms, "
           f"idle share {max(0.0, 1 - busy_ms / wall_ms):.3f}")
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:top]:

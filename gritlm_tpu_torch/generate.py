@@ -137,6 +137,33 @@ def make_cache_for_prompt(cfg: ModelConfig, batch: int, prompt_len: int,
     return init_cache(cfg, batch, total, dtype=dtype, device=device, quant=quant)
 
 
+def concat_caches(a: KVCache, b: KVCache, total_len: Optional[int] = None) -> KVCache:
+    """Concatenate two caches along the slot axis (the querydoc/docquery RAG
+    modes): each cache is cut to its `length`, so the result stays dense in
+    slot space; masked-out slots in either part stay masked. `total_len`
+    sizes the output directly, with empty masked slots at the tail, so a
+    later pad_cache_to is a no-op. Int8 scales are slot-minor
+    [L, B, Kv, Smax] and concatenate on their last axis."""
+    if a.quantized != b.quantized:
+        raise ValueError("concat_caches: cannot concatenate an int8 cache with a bf16 one")
+    la, lb = int(a.length), int(b.length)
+    total = max(la + lb, total_len or 0)
+
+    def cat(xa: torch.Tensor, xb: torch.Tensor, dim: int) -> torch.Tensor:
+        shape = list(xa.shape)
+        shape[dim] = total
+        out = xa.new_zeros(shape)
+        out.narrow(dim, 0, la).copy_(xa.narrow(dim, 0, la))
+        out.narrow(dim, la, lb).copy_(xb.narrow(dim, 0, lb))
+        return out
+
+    scales = {}
+    if a.quantized:
+        scales = dict(k_scale=cat(a.k_scale, b.k_scale, 3), v_scale=cat(a.v_scale, b.v_scale, 3))
+    return KVCache(k=cat(a.k, b.k, 2), v=cat(a.v, b.v, 2), mask=cat(a.mask, b.mask, 1),
+                   length=la + lb, **scales)
+
+
 def pad_cache_to(cache: KVCache, total_len: int) -> KVCache:
     """Grow the slot axis with empty (masked-out) slots up to total_len; a
     cache that is already long enough is returned as it is."""

@@ -113,6 +113,60 @@ def test_fused_pool_kernel(cuda, method):
     torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-3)
 
 
+def _unit_rows(gen, n, d, device):
+    x = torch.randn((n, d), generator=gen, device=device)
+    return (x / x.norm(dim=-1, keepdim=True)).to(torch.bfloat16)
+
+
+# the chip_smoke shapes: a masked tail; Q not a multiple of 8; a partial
+# last segment (N not a multiple of 128)
+@pytest.mark.parametrize("Q,N,n_docs", [(256, 65536, 65000), (3, 65536, 65536),
+                                        (5, 65536 + 300, 65536 + 250)])
+def test_scores_segmax_kernel(cuda, Q, N, n_docs):
+    """fp32 sums of the same bf16 products in another order: 1e-3 absolute
+    on unit vectors. Each segment maximum is exactly the largest of the
+    kernel's own scores in its segment, -inf where every column is masked."""
+    from gritlm_tpu_torch.ops import scores_segmax as k9
+
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    q, emb = _unit_rows(gen, Q, 4096, cuda), _unit_rows(gen, N, 4096, cuda)
+    before = k9.scores_segmax.launches
+    got_s, got_m = k9.scores_segmax(q, emb, n_docs)
+    torch.cuda.synchronize()
+    want_s, want_m = k9.scores_segmax_plain(q, emb, n_docs)
+    assert k9.scores_segmax.launches == before + 1
+    assert got_m.shape == want_m.shape == (-(-N // 128), Q)
+    assert torch.isinf(got_s[:, n_docs:]).all() and (got_s[:, n_docs:] < 0).all()
+    torch.testing.assert_close(got_s[:, :n_docs], want_s[:, :n_docs], atol=1e-3, rtol=0)
+    ns = -(-N // 128)
+    own = torch.nn.functional.pad(got_s, (0, ns * 128 - N), value=float("-inf"))
+    assert torch.equal(got_m, own.view(Q, ns, 128).amax(-1).T)
+    finite = torch.isfinite(want_m)
+    assert torch.equal(finite, torch.isfinite(got_m))
+    torch.testing.assert_close(got_m[finite], want_m[finite], atol=1e-3, rtol=0)
+
+
+@pytest.mark.parametrize("n_docs,Q,k", [(70000, 256, 100), (300, 3, 5)])
+def test_flat_index_search_on_cuda(cuda, n_docs, Q, k):
+    """FlatIndex.search on the card goes through K9 and returns the values
+    of a plain top-k of the kernel's inputs (pruned path; tiny corpus)."""
+    from gritlm_tpu_torch.index import FlatIndex
+    from gritlm_tpu_torch.ops import scores_segmax as k9
+
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    docs, q = _unit_rows(gen, n_docs, 4096, cuda), _unit_rows(gen, Q, 4096, cuda)
+    idx = FlatIndex(4096, n_docs, device=cuda)
+    idx.add(docs[: n_docs // 2])
+    idx.add(docs[n_docs // 2:])
+    before = k9.scores_segmax.launches
+    scores, ids = idx.search(q, k=k)
+    assert k9.scores_segmax.launches == before + 1
+    want = torch.topk(q.float() @ docs.float().T, k, dim=1)
+    torch.testing.assert_close(torch.from_numpy(scores), want.values.cpu(), atol=1e-3, rtol=0)
+    got_vals = (q.float() @ docs.float().T).gather(1, torch.from_numpy(ids).long().to(cuda))
+    torch.testing.assert_close(got_vals.cpu(), want.values.cpu(), atol=1e-3, rtol=0)
+
+
 def test_gritlm_runs_its_kernels(cuda):
     from gritlm_tpu_torch import GritLM
 
@@ -129,3 +183,32 @@ def test_gritlm_runs_its_kernels(cuda):
                                   fused_pool.fused_norm_mean_pool)]
     assert emb.shape == (2, 256) and isinstance(out, list)
     assert all(a > b for a, b in zip(after, counts))
+
+
+def test_rag_engine_on_cuda(cuda):
+    """The RAG path on the card: every cache mode answers, search goes
+    through K9 and generation through K3, and the device pool gives the
+    host fetch's greedy answers."""
+    from gritlm_tpu_torch import GritLM
+    from gritlm_tpu_torch.ops import scores_segmax as k9
+    from gritlm_tpu_torch.rag import CacheMode, RAGEngine
+
+    cfg = ModelConfig(vocab_size=512, hidden_size=256, intermediate_size=512,
+                      num_hidden_layers=2, num_attention_heads=2, num_key_value_heads=1)
+    m = GritLM(cfg)
+    docs = [{"title": f"t{i}", "text": f"passage {i} " + "word " * (2 + 3 * i)}
+            for i in range(6)]
+    eng = RAGEngine(m, max_new_tokens=4, encode_max_length=128)
+    eng.build_index(docs, batch_size=4, cache_docs=True)
+    assert eng._device_pool[False] is not None
+    before = (k9.scores_segmax.launches, decode_attention.flash_decode.launches)
+    queries = [docs[2]["title"] + " " + docs[2]["text"], "what is passage 4?"]
+    for mode in CacheMode:
+        res = eng.answer_batch(queries, mode=mode)
+        assert len(res) == 2 and all(isinstance(r.answer, str) for r in res)
+    assert k9.scores_segmax.launches > before[0]
+    assert decode_attention.flash_decode.launches > before[1]
+    host = RAGEngine(m, max_new_tokens=4, encode_max_length=128, doc_pool_bytes=0)
+    host.index, host._doc_store = eng.index, eng._doc_store
+    got = [r.answer for r in eng.answer_batch(queries, mode="doc")]
+    assert [r.answer for r in host.answer_batch(queries, mode="doc")] == got

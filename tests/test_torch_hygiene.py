@@ -17,7 +17,13 @@ import gritlm_tpu.tokenizer as jax_tokenizer
 import gritlm_tpu_torch
 import gritlm_tpu_torch.config as port_config
 import gritlm_tpu_torch.tokenizer as port_tokenizer
-from gritlm_tpu_torch.ops import _build, decode_attention, flash_attention, fused_pool
+from gritlm_tpu_torch.ops import (
+    _build,
+    decode_attention,
+    flash_attention,
+    fused_pool,
+    scores_segmax,
+)
 
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "gritlm_tpu"}
@@ -76,6 +82,8 @@ CALLS = {
                      lambda f, x: f(x, x, x, x, causal=True, offset=3, layer=0)),
     "fused_pool": (fused_pool, "fused_norm_mean_pool", "fused_norm_mean_pool_plain",
                    lambda f, x: f(x, x, x, eps=1e-5)),
+    "scores_segmax": (scores_segmax, "scores_segmax", "scores_segmax_plain",
+                      lambda f, x: f(x, x, 7)),
 }
 
 
