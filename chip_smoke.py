@@ -8,14 +8,17 @@ each against its plain PyTorch version at Mistral-7B shapes, drives the
 port's paths through the kernels on a full-width Mistral-7B with random
 bf16 weights (GritLM.encode and greedy GritLM.generate; FlatIndex.search
 over a 1M-row index; RAGEngine.build_index and answer_batch in all seven
-cache modes), and times each kernel beside its bound, its plain version and
-one PyTorch library call.
+cache modes; the continuous-batching ServingEngine with dense, paged and
+int8 pools, and RAGEngine.serve), and times each kernel beside its bound,
+its plain version and one PyTorch library call.
 
 Phases, any failure exits non-zero:
   1. device and build: card name and power limit, nvcc's register and
      shared-memory report
   2. each kernel against its plain version on the card (K9 at three shapes:
-     a masked tail, Q = 3, a partial last segment)
+     a masked tail, Q = 3, a partial last segment; K8 at the serving shape,
+     bf16 and int8, Sq 1 and a causal Sq 8 chunk, and against K3 on the
+     same logical cache laid out dense)
   3. encode at full width (launch counts set to 0 before encode, read after
      phase 4)
   4. greedy generate at full width: prefill through K1 (bucket >= 128) and
@@ -29,10 +32,20 @@ Phases, any failure exits non-zero:
      over the 16 sentences with doc caches, self-retrieval at top-1,
      answer_batch of 4 queries in all seven cache modes, the device doc
      pool against the host store in DOC mode
-  7. the reference latency protocol through eval.latency.run_sweep: 16
+  7. serving at full width (counts set to 0 before each run, read after):
+     ServingEngine(max_batch=8, max_len=4096, chunk_size=16) over 24
+     generation requests (prompts of 32-1900 tokens, 8-64 new tokens) and 8
+     embedding requests, with a dense bf16, a paged bf16 (page 256) and a
+     paged int8 pool, and a dense pool with prefill_chunk=256 (12 requests);
+     completions, K3/K8 in the decode chunks, pool embeddings against
+     GritLM.encode, a teacher-forced check of 4 requests per run (TIE_TOL),
+     tokens/s, time to first token, device ms per decode step at B = 8 and
+     its idle share, the paged pool's peak KV reservation; then
+     RAGEngine.serve of 4 queries, dense and paged
+  8. the reference latency protocol through eval.latency.run_sweep: 16
      synthetic docs of 250 and of 2000 tokens, 250-token queries, five
      modes, batch 4, 16 new tokens, 1 warm-up and 3 timed calls
-  8. kernel times (device time from torch.profiler, and per-call time
+  9. kernel times (device time from torch.profiler, and per-call time
      between CUDA events, 25 calls after warm-up), encode and
      decode rates, and a profile (device time by kernel, idle share) of one
      encode and one short generate
@@ -60,6 +73,14 @@ ATTN_ATOL = 2e-2  # bf16 outputs; kernels round P to bf16 before P.V
 POOL_ATOL = 1e-4  # fp32 sums of the same bf16 inputs in another order
 K9_ATOL = 1e-3  # fp32 sums of the same bf16 products in another order, unit vectors
 COSINE_MIN = 0.999
+# Teacher forcing of the serving runs: an engine token may sit this far below
+# its position's largest bf16 logit in one lockstep forward over the same
+# tokens. The two routes sum attention in another order (K1 over the whole
+# sequence against K3/K8 a token at a time, bf16 probabilities against fp32),
+# and with random weights the top two logits are often closer than that
+# drift (PR 3 saw greedy tokens flip between layouts); a wrong token sits
+# several logit units below the max (logits have a spread of about 1.3).
+TIE_TOL = 0.25
 
 SENTENCES = [
     "Bitcoin is a decentralized digital currency without a central bank.",
@@ -162,6 +183,7 @@ def main() -> int:
         decode_attention,
         flash_attention,
         fused_pool,
+        paged_attention,
         scores_segmax,
     )
     from gritlm_tpu_torch.ops.flash_attention import keep_mask
@@ -199,6 +221,9 @@ def main() -> int:
         "scores_segmax": (scores_segmax, scores_segmax.scores_segmax_plain,
                           "gritlm_tpu_torch/csrc/scores_segmax.cu",
                           "gritlm_tpu/index/flat.py:143"),
+        "paged_decode": (paged_attention, paged_attention.paged_decode_plain,
+                         "gritlm_tpu_torch/csrc/paged_attention.cu",
+                         "gritlm_tpu/ops/paged_attention.py:56"),
     }
     wrappers = {name: getattr(mod, name) for name, (mod, *_) in kernels.items()}
     path_launches = {}  # path -> launches per kernel in that path's run
@@ -297,6 +322,8 @@ def main() -> int:
                   lambda: decode_attention.flash_decode_plain(qd, k8, v8, mask_d, **kw8),
                   None, 4.0 * int(keep.sum()) * H * Dh,
                   slots * Hkv * (Dh + 2) * 2 + nbytes(qd, qd, mask_d), ATTN_ATOL))
+
+    k8_cases(dev, randn, cases)
 
     Bp, D = 8, 4096
     hidden = randn(Bp, S, D)
@@ -464,12 +491,16 @@ def main() -> int:
                  times)
 
     # ---------------------------------------------------------------- 6
-    rag_phase(model, reset_counts, read_counts, path_launches)
+    rag_eng = rag_phase(model, reset_counts, read_counts, path_launches)
 
     # ---------------------------------------------------------------- 7
-    latency_phase(model)
+    serving_phase(model, rag_eng, reset_counts, read_counts, path_launches)
+    del rag_eng
 
     # ---------------------------------------------------------------- 8
+    latency_phase(model)
+
+    # ---------------------------------------------------------------- 9
     for name, label, fk, fp, fl, flops, byt, _ in cases:
         ms, call_ms = time_ms(fk)
         plain_ms, plain_call = time_ms(fp, reps=10)
@@ -533,6 +564,87 @@ def main() -> int:
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def k8_cases(dev, randn, cases, B=8, H=32, Hkv=8, Dh=128, page=256, max_len=4096) -> None:
+    """K8 at the serving shape (Mistral-7B heads, B 8, page 256, a 4096-slot
+    logical width): ragged rows, a hole, a page shared by two rows, bf16 and
+    int8 pages, Sq 1 and a causal Sq 8 chunk at per-row offsets; and K8
+    against K3 on the same logical cache laid out dense and paged."""
+    import torch
+    import torch.nn.functional as F
+
+    from gritlm_tpu_torch.models.transformer import quantize_kv
+    from gritlm_tpu_torch.ops import decode_attention, paged_attention
+
+    L, maxp = 2, max_len // page
+    lens = torch.tensor([37, 1900, 256, 700, 1333, 3000, 1, 512], device=dev)
+    need = (lens + page - 1) // page
+    P = int(need.sum()) + 1  # page 0: scratch
+    pt = torch.zeros((B, maxp), dtype=torch.int32, device=dev)
+    perm = torch.randperm(P - 1, generator=torch.Generator().manual_seed(0)) + 1
+    at = 0
+    for b in range(B):  # each row's pages, scattered over the pool
+        n = int(need[b])
+        pt[b, :n] = perm[at:at + n].to(dev)
+        at += n
+    pt[4, 0] = pt[3, 0]  # a prefix page shared by two rows
+    mask = (torch.arange(max_len, device=dev)[None] < lens[:, None]).int()
+    mask[1, 600:700] = 0  # a hole
+    k_pages, v_pages = randn(L, P, page, Hkv * Dh), randn(L, P, page, Hkv * Dh)
+    k8, ks = quantize_kv(k_pages.view(L * P, page, Hkv, Dh))
+    v8, vs = quantize_kv(v_pages.view(L * P, page, Hkv, Dh))
+    k8, v8 = k8.view(L, P, page, -1), v8.view(L, P, page, -1)
+    scales = {"k_scale": ks.view(L, P, page, Hkv).transpose(2, 3).contiguous(),
+              "v_scale": vs.view(L, P, page, Hkv).transpose(2, 3).contiguous()}
+    slots = int(mask.sum())
+    dense_k = paged_attention.gather_pages(k_pages, pt, 1).view(B, max_len, Hkv, Dh)
+    dense_v = paged_attention.gather_pages(v_pages, pt, 1).view(B, max_len, Hkv, Dh)
+    for Sq, quant in ((1, False), (1, True), (8, False), (8, True)):
+        q = randn(B, Sq, H, Dh)
+        offs = (lens - Sq).clamp_min(0).to(torch.int32)
+        kw = dict(layer=1, num_kv_heads=Hkv, causal=Sq > 1, offset=offs,
+                  **(scales if quant else {}))
+        kp, vp = (k8, v8) if quant else (k_pages, v_pages)
+        keep = mask.bool()[:, None, :].expand(B, Sq, max_len)
+        if Sq > 1:
+            keep = keep & (torch.arange(max_len, device=dev)[None, None]
+                           <= (offs[:, None] + torch.arange(Sq, device=dev))[..., None])
+        # bytes: each valid slot's K and V rows (int8: 1 byte a value plus a
+        # bf16 scale per head), q in, out, mask and page table
+        per_slot = Hkv * (Dh + 2) if quant else Hkv * Dh * 2
+        byt = slots * per_slot * 2 + nbytes(q, q, mask, pt)
+        library = None
+        if not quant:
+            am = keep[:, None]
+
+            def library(q=q, am=am):  # SDPA over the same K/V laid out dense (gather untimed)
+                return F.scaled_dot_product_attention(
+                    q.transpose(1, 2), dense_k.transpose(1, 2), dense_v.transpose(1, 2),
+                    attn_mask=am, enable_gqa=True)
+
+        cases.append(("paged_decode",
+                      f"{'int8' if quant else 'bf16'} Sq{Sq} B8 page256 {slots} valid slots",
+                      lambda q=q, kp=kp, vp=vp, kw=kw: paged_attention.paged_decode(
+                          q, kp, vp, pt, mask, **kw),
+                      lambda q=q, kp=kp, vp=vp, kw=kw: paged_attention.paged_decode_plain(
+                          q, kp, vp, pt, mask, **kw),
+                      library, 4.0 * int(keep.sum()) * H * Dh, byt, ATTN_ATOL))
+
+    # K8 against K3 on the same logical cache, dense and paged
+    q = randn(B, 1, H, Dh)
+    k_dense = torch.stack([paged_attention.gather_pages(k_pages, pt, i) for i in range(L)])
+    v_dense = torch.stack([paged_attention.gather_pages(v_pages, pt, i) for i in range(L)])
+    got = paged_attention.paged_decode(q, k_pages, v_pages, pt, mask, layer=1,
+                                       num_kv_heads=Hkv)
+    want = decode_attention.flash_decode(q, k_dense, v_dense, mask, causal=False, layer=1,
+                                         num_kv_heads=Hkv)
+    torch.cuda.synchronize()
+    err = float((got.float() - want.float()).abs().max())
+    print(f"check paged_decode against flash_decode on the same logical cache (B8, "
+          f"{slots} valid slots): max_abs_err {err:.3e} (atol {ATTN_ATOL})", flush=True)
+    if err > ATTN_ATOL or not torch.isfinite(got).all():
+        fail(f"K8 and K3 disagree on the same logical cache: {err}")
 
 
 def search_phase(dev, check_scores_segmax, unit_rows, reset_counts, read_counts,
@@ -638,7 +750,7 @@ def search_phase(dev, check_scores_segmax, unit_rows, reset_counts, read_counts,
     torch.cuda.empty_cache()
 
 
-def rag_phase(model, reset_counts, read_counts, path_launches) -> None:
+def rag_phase(model, reset_counts, read_counts, path_launches):
     """RAGEngine at full width over the 16 sentences: build_index with doc
     caches, self-retrieval at top-1, answer_batch in all seven cache modes,
     and the device pool against the host store."""
@@ -718,10 +830,211 @@ def rag_phase(model, reset_counts, read_counts, path_launches) -> None:
         del model.generate_from_ids
     path_launches["rag"] = counts
     print(f"rag launches: {counts}")
-    if any(c == 0 for c in counts.values()):
+    if any(c == 0 for n, c in counts.items() if n != "paged_decode"):
         fail("rag did not go through every kernel of its path (K1, K2, K3, K9)")
-    del eng, host
+    del host
     torch.cuda.empty_cache()
+    return eng
+
+
+def serving_phase(model, rag_eng, reset_counts, read_counts, path_launches) -> None:
+    """The continuous-batching engine at full width: 24 generation requests
+    (seeded random prompts of 32-1900 tokens, 8-64 new tokens) and 8
+    embedding requests through ServingEngine(max_batch=8, max_len=4096,
+    chunk_size=16) with a dense bf16 pool, a paged bf16 pool (page 256), a
+    paged int8-KV pool, and a dense pool with prefill_chunk=256 (12 of the
+    requests); then RAGEngine.serve of 4 queries, dense and paged, over the
+    RAG phase's index. Launch counts are set to 0 before each run and read
+    after it; their sum over the runs is the serving path's."""
+    import torch
+
+    from gritlm_tpu_torch import serving
+    from gritlm_tpu_torch.models.transformer import forward, init_cache, logits_from_hidden
+    from gritlm_tpu_torch.serving import EmbedRequest, Request, ServingEngine
+    from gritlm_tpu_torch.tokenizer import instruction_token_lens
+
+    cfg, tok, params, dev = model.config, model.tokenizer, model.params, model.device
+    V, eos = cfg.vocab_size, tok.eos_token_id
+    rng = np.random.default_rng(0)
+    specs = [(f"g{i}", rng.integers(3, V, size=int(n)).tolist(), int(m)) for i, (n, m) in
+             enumerate(zip(rng.integers(32, 1901, 24), rng.integers(8, 65, 24)))]
+    enc = tok([INSTRUCTION + s + model.embed_eos for s in SENTENCES[:8]], max_length=512)
+    ilens = instruction_token_lens(tok, INSTRUCTION, enc["input_ids"], enc["attention_mask"])
+    embed_specs = [(f"e{i}", enc["input_ids"][i, :int(enc["attention_mask"][i].sum())].tolist(),
+                    int(ilens[i])) for i in range(8)]
+    want_emb = torch.from_numpy(model.encode(SENTENCES[:8], instruction=INSTRUCTION))
+
+    decode_counts = {}  # launches inside decode chunks, per run
+    chunk_program = serving._decode_chunk_program
+
+    def counted_chunk(*args, **kw):
+        before = read_counts()
+        out = chunk_program(*args, **kw)
+        for n, c in read_counts().items():
+            decode_counts[n] = decode_counts.get(n, 0) + c - before[n]
+        return out
+
+    total = {}
+
+    def teacher_deficits(ids, toks, quant):
+        """Teacher forcing through the kernels: one causal forward over
+        prompt + the engine's tokens (a cache of the pool's KV format); per
+        generated position, how far the engine's token sits below the
+        position's largest logit (bf16 logits, as the engine's argmax)."""
+        seq = list(ids) + list(toks)
+        x = torch.tensor([seq], dtype=torch.int32, device=dev)
+        cache = init_cache(cfg, 1, len(seq), device=dev, quant=quant)
+        hidden, _, _ = forward(params, cfg, x, causal=True, cache=cache)
+        logits = logits_from_hidden(params, cfg, hidden[:, len(ids) - 1:len(seq) - 1])[0]
+        logits = logits.float()
+        chosen = logits.gather(1, torch.tensor(toks, device=dev)[:, None])[:, 0]
+        return (logits.max(1).values - chosen).cpu()
+
+    def drive(label, eng, gen_specs, with_embeds):
+        first_at, peak = {}, [0]
+
+        def on_token(rid, _tok):
+            first_at.setdefault(rid, time.perf_counter())
+            if eng.paged:
+                peak[0] = max(peak[0], eng.pool_pages - 1 - len(eng._free_pages))
+
+        eng.on_token = on_token
+        reqs = [Request(input_ids=ids, max_new_tokens=m, request_id=rid)
+                for rid, ids, m in gen_specs]
+        if with_embeds:
+            reqs += [EmbedRequest(input_ids=ids, instr_len=il, request_id=rid)
+                     for rid, ids, il in embed_specs]
+        decode_counts.clear()
+        serving._decode_chunk_program = counted_chunk
+        try:
+            reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            done = eng.run(reqs)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = read_counts()
+        finally:
+            serving._decode_chunk_program = chunk_program
+        for n, c in counts.items():
+            total[n] = total.get(n, 0) + c
+        embs = {e.request_id: e.embedding for e in eng.take_embeddings()}
+        by_id = {c.request_id: c for c in done}
+        if sorted(by_id) != sorted(rid for rid, _, _ in gen_specs):
+            fail(f"serving [{label}]: completions {sorted(by_id)}")
+        for rid, ids, m in gen_specs:
+            c = by_id[rid]
+            t = c.token_ids
+            ok = ((c.finish_reason == "length" and len(t) == m and eos not in t)
+                  or (c.finish_reason == "eos" and 0 < len(t) <= m and t[-1] == eos
+                      and eos not in t[:-1]))
+            if not ok or min(t) < 0 or max(t) >= V:
+                fail(f"serving [{label}] {rid}: {len(t)} of {m} tokens, "
+                     f"{c.finish_reason}, ids in [{min(t)}, {max(t)}]")
+        n_tok = sum(len(c.token_ids) for c in done)
+        ttft = sorted(first_at[rid] - t0 for rid, _, _ in gen_specs)
+        print(f"serving [{label}]: {len(done)} requests, {n_tok} tokens in {wall:.2f} s = "
+              f"{n_tok / wall:.1f} generated tokens/s (host clock); time to first token p50 "
+              f"{np.percentile(ttft, 50):.3f} s, p90 {np.percentile(ttft, 90):.3f} s; "
+              f"{eng._steps} decode steps; launches {counts}; in decode chunks "
+              f"{dict(decode_counts)}", flush=True)
+        if counts["flash_attention"] == 0:
+            fail(f"serving [{label}]: prefills did not go through K1")
+        k3, k8 = decode_counts.get("flash_decode", 0), decode_counts.get("paged_decode", 0)
+        if (eng.paged and (k8 == 0 or k3 != 0)) or (not eng.paged and (k3 == 0 or k8 != 0)):
+            fail(f"serving [{label}]: decode chunks launched K3 {k3} and K8 {k8} times")
+        if with_embeds:
+            if counts["fused_norm_mean_pool"] == 0:
+                fail(f"serving [{label}]: embeddings did not go through K2")
+            got = torch.from_numpy(np.stack([embs[rid] for rid, _, _ in embed_specs]))
+            cos = torch.nn.functional.cosine_similarity(got, want_emb, dim=-1)
+            print(f"serving [{label}]: pool embeddings against GritLM.encode: min cosine "
+                  f"{float(cos.min()):.6f}")
+            if float(cos.min()) < 0.9999:
+                fail(f"serving [{label}]: pool embeddings depart from GritLM.encode")
+        deficits = torch.cat([teacher_deficits(ids, by_id[rid].token_ids, eng.kv_quant)
+                              for rid, ids, _ in gen_specs[:4]])
+        print(f"serving [{label}]: teacher forcing over {len(deficits)} tokens of 4 requests: "
+              f"largest deficit to the max logit {float(deficits.max()):.4f} (TIE_TOL "
+              f"{TIE_TOL}), engine token is the argmax at "
+              f"{float((deficits == 0).float().mean()):.3f} of them", flush=True)
+        if float(deficits.max()) > TIE_TOL:
+            fail(f"serving [{label}]: an engine token is {float(deficits.max())} below its "
+                 "position's max logit")
+        return n_tok / wall, peak[0]
+
+    kw = dict(max_batch=8, max_len=4096, chunk_size=16, eos_id=eos, pad_id=tok.pad_token_id,
+              device=dev)
+    L, KD = cfg.num_hidden_layers, cfg.num_key_value_heads * cfg.head_dim_
+    rates = {}
+    eng = ServingEngine(cfg, params, **kw)
+    dense_bytes = nbytes(eng.carry.cache.k, eng.carry.cache.v)
+    rates["dense bf16"], _ = drive("dense bf16", eng, specs, True)
+    profile_decode_chunk("dense bf16", eng, chunk_program, specs)
+    del eng
+    for label, quant in (("paged bf16", False), ("paged int8", True)):
+        eng = ServingEngine(cfg, params, paged=True, page_size=256, kv_quant=quant, **kw)
+        rates[label], peak = drive(label, eng, specs, True)
+        page_bytes = 256 * L * KD * 2 * (1 if quant else 2) + (
+            2 * L * cfg.num_key_value_heads * 256 * 2 if quant else 0)
+        print(f"serving [{label}]: KV reserved at peak {peak} pages of 256 = "
+              f"{peak * page_bytes / 2**30:.3f} GiB, against {dense_bytes / 2**30:.3f} GiB "
+              f"for the dense pool (8 x 4096 slots, bf16)")
+        if label == "paged bf16":
+            profile_decode_chunk(label, eng, chunk_program, specs)
+        del eng
+    eng = ServingEngine(cfg, params, prefill_chunk=256, prompt_buckets=(256, 512, 1024, 2048),
+                        **kw)
+    rates["dense chunked prefill 256"], _ = drive("dense prefill_chunk 256", eng, specs[:12],
+                                                  False)
+    del eng
+    torch.cuda.empty_cache()
+
+    for paged in (False, True):
+        reset_counts()
+        t0 = time.perf_counter()
+        res = rag_eng.serve(SENTENCES[:4], paged=paged)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        counts = read_counts()
+        for n, c in counts.items():
+            total[n] = total.get(n, 0) + c
+        label = "paged" if paged else "dense"
+        print(f"serving [RAGEngine.serve {label}]: 4 queries in {dt:.2f} s, launches {counts}, "
+              f"answer {res[0].answer!r}", flush=True)
+        if [r.passages[0]["text"] for r in res] != SENTENCES[:4]:
+            fail(f"RAGEngine.serve [{label}]: a query did not retrieve its own passage")
+        decode_kernel = "paged_decode" if paged else "flash_decode"
+        if counts["scores_segmax"] == 0 or counts[decode_kernel] == 0:
+            fail(f"RAGEngine.serve [{label}]: search or decode skipped its kernel")
+    path_launches["serving"] = total
+    print(f"serving launches: {total}; generated tokens/s by pool: "
+          + ", ".join(f"{k} {v:.1f}" for k, v in rates.items()))
+    torch.cuda.empty_cache()
+
+
+def profile_decode_chunk(label, eng, chunk_program, specs) -> None:
+    """Device time of one 16-step decode chunk with all 8 slots active
+    (fresh requests of 64 new tokens on the engine's pool): device ms per
+    step at B = 8 and the chunk's idle share. The chunk runs outside the
+    scheduler, so the engine is spent afterwards."""
+    import torch
+
+    from gritlm_tpu_torch.serving import Request
+
+    for rid, ids, _ in specs[:8]:
+        eng.submit(Request(input_ids=ids[:200], max_new_tokens=64, request_id=f"p{rid}"))
+    eng.step()  # admits all eight and dispatches a first chunk
+    torch.cuda.synchronize()
+    if int(eng.carry.active.sum()) != 8:
+        fail(f"profile [{label}]: {int(eng.carry.active.sum())} of 8 rows active")
+    prof = profile_window(f"{label} decode chunk, B=8, 16 steps", lambda: chunk_program(
+        eng.params, eng.cfg, eng.carry, steps=16, eos_id=eng.eos_id, pad_id=eng.pad_id))
+    if prof is not None:
+        wall_ms, busy_ms = prof
+        print(f"serving [{label}]: decode at B=8: {busy_ms / 16:.3f} device ms per step, "
+              f"{wall_ms / 16:.3f} ms per step (host clock), idle share "
+              f"{max(0.0, 1 - busy_ms / wall_ms):.3f}", flush=True)
 
 
 def latency_phase(model) -> None:
@@ -760,9 +1073,10 @@ def latency_phase(model) -> None:
     torch.cuda.empty_cache()
 
 
-def profile_window(label: str, fn, top: int = 10) -> None:
+def profile_window(label: str, fn, top: int = 10):
     """Device time by kernel over one call of `fn` (torch.profiler), and the
-    share of the window's wall time the device was idle."""
+    share of the window's wall time the device was idle. Returns (wall ms,
+    device busy ms), or None for a trace without device events."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -778,11 +1092,12 @@ def profile_window(label: str, fn, top: int = 10) -> None:
     busy_ms = sum(e.self_device_time_total for e in events) / 1e3
     if not events:  # an empty trace (see time_ms): no idle share to report
         print(f"profile [{label}]: wall {wall_ms:.2f} ms, no device events recorded")
-        return
+        return None
     print(f"profile [{label}]: wall {wall_ms:.2f} ms, device busy {busy_ms:.2f} ms, "
           f"idle share {max(0.0, 1 - busy_ms / wall_ms):.3f}")
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:top]:
         print(f"  {e.self_device_time_total / 1e3:9.3f} ms {e.count:6d}x  {e.key[:90]}")
+    return wall_ms, busy_ms
 
 
 if __name__ == "__main__":

@@ -3,16 +3,18 @@
 The port of the JAX package `gritlm_tpu`, which stays beside it as the
 reference. It imports torch and nothing of JAX or `gritlm_tpu`. Entry points
 run on CUDA unless the caller passes `device="cpu"`; there every
-hand-written kernel (flash attention, flash decode, fused norm+pool, the
-index's fused scores + segment max) runs its plain PyTorch version, which is
+hand-written kernel (flash attention, flash decode, paged decode, fused
+norm+pool, the index's fused scores + segment max) runs its plain PyTorch version, which is
 how the CPU tests hold the port against the JAX package.
 
   - models/   dense Mistral-family trunk (stacked params, KV cache)
   - ops/      kernel wrappers + plain versions, attention dispatch, pooling
   - csrc/     the CUDA sources, built by ops/_build.py at first use
   - index/    FlatIndex: exact inner-product search on the device
-  - rag/      RAGEngine (seven cache modes, doc-cache store and pool), the
-              rag.eval CLI, QA metrics, tasks and corpus loading
+  - rag/      RAGEngine (seven cache modes, doc-cache store and pool,
+              serve()), the rag.eval CLI, QA metrics, tasks and corpus loading
+  - serving.py / serve.py  the continuous-batching ServingEngine (dense and
+              paged KV pools) and its CLI
   - eval/     the RAG latency protocol
   - training/ prompt templates
 """

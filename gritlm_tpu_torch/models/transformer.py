@@ -18,7 +18,9 @@ with the layer axis stacked first, the same tree as the JAX package:
 
 The layer loop is a Python loop. With a cache, each layer writes its K/V
 into the cache tensors in place (the JAX package returns new arrays) and
-attends against the full cache buffer.
+attends against the full cache buffer. With `row_offsets` (the serving
+decode step) every row appends at its own slot, into a dense `KVCache` or a
+paged `PagedKVCache`.
 """
 
 from __future__ import annotations
@@ -32,6 +34,7 @@ import torch.nn.functional as F
 
 from gritlm_tpu_torch.config import ModelConfig
 from gritlm_tpu_torch.ops.attention import cached_attention, multi_head_attention
+from gritlm_tpu_torch.ops.paged_attention import paged_decode
 
 
 def resolve_device(device=None) -> torch.device:
@@ -203,6 +206,61 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None, device=No
     )
 
 
+@dataclasses.dataclass
+class PagedKVCache:
+    """Paged serving cache (ops/paged_attention.py): K/V live in fixed-size
+    pages of a shared pool, so device memory follows the tokens requests
+    reserve instead of B x max_len. k/v: [L, n_pages, page, Kv*Dh];
+    page_table: [B, max_pages] int32, row b's logical chunk i lives in page
+    page_table[b, i]; mask: [B, max_pages*page] logical slot validity (as
+    KVCache.mask). int8 pool: scales k_scale/v_scale [L, n_pages, Kv, page].
+    Only the serving decode step (forward(row_offsets=...)) reads it:
+    prefills run on dense row caches, which serving.py copies into pages."""
+
+    k: torch.Tensor
+    v: torch.Tensor
+    mask: torch.Tensor
+    page_table: torch.Tensor
+    k_scale: Optional[torch.Tensor] = None
+    v_scale: Optional[torch.Tensor] = None
+
+    @property
+    def page_size(self) -> int:
+        return self.k.shape[2]
+
+    @property
+    def max_len(self) -> int:
+        return self.mask.shape[1]
+
+    @property
+    def quantized(self) -> bool:
+        return self.k_scale is not None
+
+
+def init_paged_cache(cfg: ModelConfig, batch: int, max_len: int, n_pages: int,
+                     page: int = 256, dtype=None, device=None,
+                     quant: bool = False) -> PagedKVCache:
+    """A pool of `n_pages` pages. Page 0 is reserved as the scratch target
+    of inactive rows' writes: allocators never hand it out (serving.py
+    starts its free list at 1)."""
+    if max_len % page:
+        raise ValueError(f"max_len {max_len} is not a multiple of page {page}")
+    device = resolve_device(device)
+    L, Kv, Dh = cfg.num_hidden_layers, cfg.num_key_value_heads, cfg.head_dim_
+    dt = torch.int8 if quant else (dtype or cfg.torch_dtype)
+    scales = {}
+    if quant:
+        scales = {name: torch.zeros((L, n_pages, Kv, page), dtype=torch.bfloat16,
+                                    device=device) for name in ("k_scale", "v_scale")}
+    return PagedKVCache(
+        k=torch.zeros((L, n_pages, page, Kv * Dh), dtype=dt, device=device),
+        v=torch.zeros((L, n_pages, page, Kv * Dh), dtype=dt, device=device),
+        mask=torch.zeros((batch, max_len), dtype=torch.int32, device=device),
+        page_table=torch.zeros((batch, max_len // page), dtype=torch.int32, device=device),
+        **scales,
+    )
+
+
 def quantize_kv(x: torch.Tensor) -> tuple:
     """x [B, S, Kv, Dh] -> (int8 [B, S, Kv*Dh], scale bf16 [B, S, Kv]),
     per-(slot, head) absmax. The scale is rounded to bf16 before quantizing,
@@ -223,8 +281,9 @@ def _attention_block(
     cfg: ModelConfig,
     *,
     causal: bool,
-    # the FULL cache (written in place) and this layer's index
-    layer_cache: Optional[tuple] = None,  # (KVCache, layer)
+    # the FULL cache (written in place), this layer's index, and the
+    # per-row write slots [B] of a serving decode step (None: cache.length)
+    layer_cache: Optional[tuple] = None,  # (KVCache | PagedKVCache, layer, row_offsets)
 ):
     B, S, D = x.shape
     H, Kv, Dh = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim_
@@ -241,8 +300,10 @@ def _attention_block(
     q = _rotate(q, *rope)
     k = _rotate(k, *rope)
 
-    if layer_cache is not None:
-        cache, lidx = layer_cache
+    if layer_cache is not None and layer_cache[2] is not None:
+        out = _append_per_row(q, k, v, padding_mask, *layer_cache, Kv)
+    elif layer_cache is not None:
+        cache, lidx, _ = layer_cache
         offset = cache.length
         if cache.quantized:
             for x_new, data, scale in ((k, cache.k, cache.k_scale),
@@ -263,6 +324,46 @@ def _attention_block(
             q, k, v, padding_mask, causal=causal, sliding_window=cfg.sliding_window,
         )
     return out.reshape(B, S, H * Dh) @ p["wo"]
+
+
+def _append_per_row(q, k, v, step_mask, cache, lidx: int, row_offsets, Kv: int):
+    """Serving decode step (S = 1): row b writes its K/V at its own logical
+    slot row_offsets[b], in place, and attends mask-bounded against its
+    valid slots (causal=False, offset 0, no sliding window: the row's mask
+    covers exactly what it has written, as in the JAX package)."""
+    B = q.shape[0]
+    rows = torch.arange(B, device=q.device)
+    if cache.quantized:
+        k2, ks = quantize_kv(k)
+        v2, vs = quantize_kv(v)
+        news = ((k2[:, 0], ks[:, 0]), (v2[:, 0], vs[:, 0]))
+    else:
+        news = ((k.reshape(B, -1).to(cache.k.dtype), None),
+                (v.reshape(B, -1).to(cache.v.dtype), None))
+    if isinstance(cache, PagedKVCache):
+        # logical slot s -> page page_table[b, s // page] at s % page.
+        # Inactive rows still write (the step is lockstep) but their table
+        # may name pages another request owns now: they write the scratch
+        # page 0 instead. Several inactive rows may write page 0 at the same
+        # offset; it is scratch that nothing reads as valid.
+        page = cache.page_size
+        pids = cache.page_table[rows, row_offsets // page].long()
+        if step_mask is not None:
+            pids = torch.where(step_mask[:, 0] > 0, pids, torch.zeros_like(pids))
+        idx = (pids, row_offsets % page)
+    else:
+        idx = (rows, row_offsets)
+    for data, scale, (x_new, sc) in ((cache.k, cache.k_scale, news[0]),
+                                     (cache.v, cache.v_scale, news[1])):
+        data[lidx][idx] = x_new
+        if sc is not None:  # slot-minor scales: [.., Kv, slots]
+            scale[lidx][idx[0], :, idx[1]] = sc
+    if isinstance(cache, PagedKVCache):
+        return paged_decode(q, cache.k, cache.v, cache.page_table, cache.mask, layer=lidx,
+                            num_kv_heads=Kv, k_scale=cache.k_scale, v_scale=cache.v_scale)
+    return cached_attention(q, cache.k, cache.v, cache.mask, layer=lidx, offset=0,
+                            causal=False, sliding_window=None, num_kv_heads=Kv,
+                            k_scale=cache.k_scale, v_scale=cache.v_scale)
 
 
 def _dense_mlp(p: dict, x: torch.Tensor) -> torch.Tensor:
@@ -286,7 +387,8 @@ def forward(
     attention_mask: Optional[torch.Tensor] = None,  # [B, S] 1 = real token
     causal: bool = True,
     positions: Optional[torch.Tensor] = None,  # [B, S]
-    cache: Optional[KVCache] = None,
+    cache: Optional[Union[KVCache, PagedKVCache]] = None,
+    row_offsets: Optional[torch.Tensor] = None,  # [B] per-row write slots
     final_norm: bool = True,
 ):
     """Run the trunk (no LM head). Returns (hidden [B,S,D], new_cache, aux).
@@ -296,16 +398,43 @@ def forward(
     `causal=False` is the GritLM embed mode: bidirectional attention under
     the padding mask. With `cache`, keys/values are written at
     `cache.length` (in place) and attention runs over all valid cache slots;
-    the returned cache shares the tensors, with length advanced by S."""
+    the returned cache shares the tensors, with length advanced by S.
+
+    With `row_offsets` [B] (the continuous-batching decode step of
+    serving.py) row b appends its token at its own slot row_offsets[b] of a
+    KVCache or PagedKVCache; `positions` (the RoPE positions) may differ from
+    the write slots, as for doc-continuation rows. The step mask is merged
+    into cache.mask with a max, so an inactive row never clears a bit, and
+    cache.length is left alone. Only S = 1 is ported: S > 1 is the
+    speculative verify chunk, which needs K3 with per-row causal offsets."""
     _check_dense(cfg)
     B, S = input_ids.shape
     x = params["embed"]["embedding"][input_ids.long()]
     dev = x.device
+    if row_offsets is not None:
+        if cache is None:
+            raise ValueError("row_offsets needs a cache")
+        if S != 1:
+            raise NotImplementedError(
+                "forward(row_offsets=...) with S > 1 is the speculative verify chunk: it "
+                "needs K3 with per-row causal offsets, queued with the spec_decode slice")
+    elif isinstance(cache, PagedKVCache):
+        raise ValueError("PagedKVCache is decode-only: it needs row_offsets (serving "
+                         "prefills run on dense row caches, copied into pages at admission)")
     if positions is None:
-        start = cache.length if cache is not None else 0
-        positions = (start + torch.arange(S, device=dev))[None, :].expand(B, S)
+        if row_offsets is not None:
+            positions = row_offsets[:, None] + torch.arange(S, device=dev)[None, :]
+        else:
+            start = cache.length if cache is not None else 0
+            positions = (start + torch.arange(S, device=dev))[None, :].expand(B, S)
 
-    if cache is not None:
+    if row_offsets is not None:
+        step = (attention_mask[:, 0] if attention_mask is not None
+                else torch.ones((B,), dtype=cache.mask.dtype, device=dev))
+        rows = torch.arange(B, device=dev)
+        cache.mask[rows, row_offsets] = torch.maximum(cache.mask[rows, row_offsets],
+                                                      step.to(cache.mask.dtype))
+    elif cache is not None:
         offset = cache.length
         if offset + S > cache.max_len:
             raise ValueError(f"cache of {cache.max_len} slots cannot take {offset} + {S}")
@@ -318,14 +447,14 @@ def forward(
     for i in range(cfg.num_hidden_layers):
         lp = _layer(layers, i)
         h = rms_norm(x, lp["ln1"]["scale"], cfg.rms_norm_eps)
-        layer_cache = None if cache is None else (cache, i)
+        layer_cache = None if cache is None else (cache, i, row_offsets)
         x = x + _attention_block(lp["attn"], h, rope, attention_mask, cfg,
                                  causal=causal, layer_cache=layer_cache)
         h = rms_norm(x, lp["ln2"]["scale"], cfg.rms_norm_eps)
         x = x + _dense_mlp(lp["mlp"], h)
 
-    new_cache = None
-    if cache is not None:
+    new_cache = cache
+    if cache is not None and row_offsets is None:
         new_cache = dataclasses.replace(cache, length=cache.length + S)
     if final_norm:
         x = rms_norm(x, params["final_ln"]["scale"], cfg.rms_norm_eps)

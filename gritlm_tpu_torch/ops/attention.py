@@ -2,9 +2,13 @@
 
 `multi_head_attention` (no cache) goes to the flash attention kernel (K1)
 for every query length; `cached_attention` goes to the flash decode kernel
-(K3) below 128 queries and to K1 on the cache layer's view above. On CPU
-tensors each kernel wrapper runs its plain version. `mha_reference` is the
-independent einsum oracle the tests hold the kernels against.
+(K3) below 128 queries and to K1 on the cache layer's view above. The
+serving decode step calls `cached_attention` with S = 1, causal=False,
+offset 0 and no window (mask-bounded, per-row write slots); over a paged
+pool the transformer calls `paged_attention.paged_decode` (K8) instead, as
+the JAX package does. On CPU tensors each kernel wrapper runs its plain
+version. `mha_reference` is the independent einsum oracle the tests hold
+the kernels against.
 """
 
 from __future__ import annotations

@@ -25,8 +25,15 @@ Scores and P.V run on the CUDA cores in fp32 (the product is small at
 Sq = 1). The int8 cache is the same kernel instantiated for int8 rows: it
 halves the bytes a step reads.
 
-Differences from the TPU kernel: one offset for all rows (no per-row
-serving offsets); Dh must be 128.
+Serving rows reach this kernel through the transformer's per-row path
+(`forward(row_offsets=...)`): the step is S = 1, each row writes its K/V at
+its own slot before attention, and the kernel runs mask-bounded (causal
+False, offset 0, no window), since a row's mask covers exactly the slots it
+has written. The split-KV pieces are shared with K8 (`csrc/split_decode.cuh`).
+
+Differences from the TPU kernel: the `offset` is one Python int for all
+rows; the per-row-offset variant for Sq > 1 (the speculative verify chunk)
+is queued with the speculative slice. Dh must be 128.
 """
 
 from __future__ import annotations

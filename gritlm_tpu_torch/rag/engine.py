@@ -21,7 +21,9 @@ trimmed to each doc's valid prefix). While the whole store fits
 `doc_pool_bytes`, it is also stacked once into a device-resident pool
 `[L, N_docs, W_max, ...]`, and a call's doc caches are one `index_select`
 out of it; a larger store is copied to the device per call. `serve()`
-(continuous batching) and `speculative=True` are not ported yet and raise.
+answers through the continuous-batching ServingEngine (greedy, dense or
+paged pool); `speculative=True` and sampling in `serve()` are not ported
+yet and raise.
 """
 
 from __future__ import annotations
@@ -486,10 +488,88 @@ class RAGEngine:
             for i in range(B)
         ]
 
-    def serve(self, queries: List[str], **kwargs) -> List[RAGResult]:
-        """Continuous-batching RAG serving needs the serving engine, which is
-        not ported yet."""
-        raise NotImplementedError("RAGEngine.serve: the serving engine is not ported yet")
+    def serve(
+        self,
+        queries: List[str],
+        max_new_tokens: Optional[int] = None,
+        slots: int = 8,
+        chunk_size: int = 16,
+        pool_max_len: int = 4096,
+        prompt_buckets=(64, 128, 256, 512),
+        temperature: float = 0.0,
+        speculative: bool = False,
+        paged: bool = False,
+        page_size: int = 256,
+    ) -> List[RAGResult]:
+        """Continuous-batching RAG serving (greedy): retrieve per query, reuse
+        each document's precomputed KV cache from the host doc store, and
+        decode every answer through one ServingEngine slot pool (doc-cache
+        mode). Each request holds a slot at its own doc bucket and frees it
+        the moment its answer ends; greedy answers are those of
+        answer_batch(mode=DOC) up to the kernels' order of sums.
+
+        paged=True pins each unique retrieved document's cache into shared
+        pool pages once; queries on the same document read the same pages.
+
+        Not ported yet: temperature > 0 and speculative=True raise
+        NotImplementedError."""
+        from gritlm_tpu_torch.serving import Request, ServingEngine
+
+        if temperature > 0.0:
+            raise NotImplementedError("RAGEngine.serve(temperature > 0): serving sampling "
+                                      "is not ported yet")
+        if speculative:
+            raise NotImplementedError("RAGEngine.serve(speculative=True): spec_decode is not "
+                                      "ported yet")
+        t0 = time.perf_counter()
+        mnt = max_new_tokens or self.max_new_tokens
+        B = len(queries)
+        if B == 0:
+            return []
+        q_emb = self.model.encode_queries(queries, instruction=gritlm_instruction(""),
+                                          max_length=self.encode_max_length,
+                                          convert_to_tensor=True)
+        sc, ids = self.index.search(q_emb, k=1)
+        doc_ids = [int(i) for i in ids[:, 0]]
+        self._ensure_doc_entries(doc_ids, after_query=False)
+
+        prompts = [CONT_AFTER_DOC_CACHE.format(query=q) + ANSWER_PROMPT for q in queries]
+        enc = self.model.tokenizer(prompts, add_special_tokens=False)
+        paged_kw: dict = {}
+        if paged:
+            # one shared page pool: every unique retrieved document pins
+            # once; per-slot private tails cover prompt + answer budget
+            uniq = sorted(set(doc_ids))
+            prefix_pages = sum(-(-self._doc_store[(d, False)][2] // page_size) for d in uniq)
+            tail = max(prompt_buckets) + mnt
+            paged_kw = dict(paged=True, page_size=page_size,
+                            pool_pages=1 + prefix_pages + slots * -(-tail // page_size) + slots)
+        eng = ServingEngine(
+            self.model.config, self.model.params, max_batch=slots, max_len=pool_max_len,
+            kv_quant=self.model.kv_quant, eos_id=self.model.tokenizer.eos_token_id,
+            pad_id=self.model.tokenizer.pad_token_id, chunk_size=chunk_size,
+            prompt_buckets=prompt_buckets, device=self.device, **paged_kw,
+        )
+        if paged:
+            for d in uniq:
+                eng.register_prefix(d, self._doc_store[(d, False)])
+        done = eng.run([
+            Request(input_ids=[t for t, m in zip(enc["input_ids"][i], enc["attention_mask"][i])
+                               if m],
+                    max_new_tokens=mnt, request_id=str(i),
+                    **({"prefix": doc_ids[i]} if paged
+                       else {"doc_cache": self._doc_store[(doc_ids[i], False)]}))
+            for i in range(B)
+        ])
+        per_q = (time.perf_counter() - t0) / B
+        by_id = {int(c.request_id): c for c in done}
+        return [
+            RAGResult(answer=self.model.tokenizer.decode(by_id[i].token_ids,
+                                                         skip_special_tokens=True),
+                      passages=[self.index.passages[doc_ids[i]]], scores=[float(sc[i, 0])],
+                      seconds=per_q)
+            for i in range(B)
+        ]
 
     def evaluate(self, queries: List[str], gold_answers: List[List[str]],
                  mode: CacheMode = CacheMode.PROMPT_QUERY_DOC,

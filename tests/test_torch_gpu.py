@@ -212,3 +212,65 @@ def test_rag_engine_on_cuda(cuda):
     host.index, host._doc_store = eng.index, eng._doc_store
     got = [r.answer for r in eng.answer_batch(queries, mode="doc")]
     assert [r.answer for r in host.answer_batch(queries, mode="doc")] == got
+
+
+@pytest.mark.parametrize("quant", [False, True])
+@pytest.mark.parametrize("Sq,causal", [(1, False), (8, True)])
+def test_paged_decode_kernel(cuda, quant, Sq, causal):
+    """K8 over a shuffled page pool: ragged rows, a hole, a page shared by
+    two rows, an empty row (0), causal verify chunks at per-row offsets."""
+    from gritlm_tpu_torch.models.transformer import quantize_kv
+    from gritlm_tpu_torch.ops import paged_attention
+
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    L, B, H, Hkv, page, maxp = 2, 4, 8, 2, 128, 4
+    P = B * maxp + 2
+    k = _randn(gen, L, P, page, Hkv * 128, device=cuda)
+    v = _randn(gen, L, P, page, Hkv * 128, device=cuda)
+    scales = {}
+    if quant:
+        k8, ks = quantize_kv(k.view(L * P, page, Hkv, 128))
+        v8, vs = quantize_kv(v.view(L * P, page, Hkv, 128))
+        k, v = k8.view(L, P, page, -1), v8.view(L, P, page, -1)
+        scales = {"k_scale": ks.view(L, P, page, Hkv).transpose(2, 3).contiguous(),
+                  "v_scale": vs.view(L, P, page, Hkv).transpose(2, 3).contiguous()}
+    pt = (torch.randperm(P - 1, generator=torch.Generator().manual_seed(0))[:B * maxp] + 1)
+    pt = pt.view(B, maxp).to(torch.int32).to(cuda)
+    pt[2, 0] = pt[0, 0]  # a shared prefix page
+    lens = torch.tensor([5, maxp * page, 131, 0], device=cuda)
+    mask = (torch.arange(maxp * page, device=cuda)[None] < lens[:, None]).int()
+    mask[1, 7:40] = 0  # a hole
+    offs = (lens - Sq).clamp_min(0).to(torch.int32)
+    q = _randn(gen, B, Sq, H, 128, device=cuda)
+    kw = dict(layer=1, num_kv_heads=Hkv, causal=causal, offset=offs, **scales)
+    before = paged_attention.paged_decode.launches
+    got = paged_attention.paged_decode(q, k, v, pt, mask, **kw)
+    torch.cuda.synchronize()
+    want = paged_attention.paged_decode_plain(q, k, v, pt, mask, **kw)
+    assert paged_attention.paged_decode.launches == before + 1
+    torch.testing.assert_close(got.float(), want.float(), atol=ATTN_ATOL, rtol=0)
+    assert torch.count_nonzero(got[3]) == 0
+
+
+def test_serving_engine_runs_its_kernels(cuda):
+    """Dense and paged pools on the card: every request completes, K3
+    serves the dense decode and K8 the paged one."""
+    from gritlm_tpu_torch import GritLM
+    from gritlm_tpu_torch.ops import paged_attention
+    from gritlm_tpu_torch.serving import Request, ServingEngine
+
+    cfg = ModelConfig(vocab_size=512, hidden_size=256, intermediate_size=512,
+                      num_hidden_layers=2, num_attention_heads=2, num_key_value_heads=1)
+    m = GritLM(cfg)
+    reqs = [Request(input_ids=list(range(3, 3 + n)), max_new_tokens=6, request_id=str(n))
+            for n in (5, 40, 70, 9, 130)]
+    for paged in (False, True):
+        before = (decode_attention.flash_decode.launches, paged_attention.paged_decode.launches)
+        eng = ServingEngine(cfg, m.params, max_batch=3, max_len=512, chunk_size=4,
+                            prompt_buckets=(128, 256), paged=paged, page_size=128)
+        done = eng.run(reqs)
+        assert sorted(c.request_id for c in done) == sorted(r.request_id for r in reqs)
+        assert all(0 < len(c.token_ids) <= 6 for c in done)
+        k3 = decode_attention.flash_decode.launches - before[0]
+        k8 = paged_attention.paged_decode.launches - before[1]
+        assert (k8 > 0 and k3 == 0) if paged else (k3 > 0 and k8 == 0)

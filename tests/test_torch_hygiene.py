@@ -22,6 +22,7 @@ from gritlm_tpu_torch.ops import (
     decode_attention,
     flash_attention,
     fused_pool,
+    paged_attention,
     scores_segmax,
 )
 
@@ -69,6 +70,19 @@ def test_gritlm_without_device_needs_cuda(monkeypatch):
         gritlm_tpu_torch.GritLM(port_config.tiny_mistral())
 
 
+def test_serving_without_device_needs_cuda(monkeypatch, tmp_path):
+    """ServingEngine and the serve CLI default to CUDA and raise without it."""
+    from gritlm_tpu_torch import serve
+    from gritlm_tpu_torch.serving import ServingEngine
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ServingEngine(port_config.tiny_mistral(), {})
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve.main(["--model_preset", "tiny_mistral", "--requests", str(tmp_path / "r.jsonl"),
+                    "--out", str(tmp_path / "o.jsonl")])
+
+
 def _fake_cuda_tensor():
     t = mock.MagicMock(spec=torch.Tensor)
     t.device = torch.device("cuda", 0)
@@ -84,6 +98,8 @@ CALLS = {
                    lambda f, x: f(x, x, x, eps=1e-5)),
     "scores_segmax": (scores_segmax, "scores_segmax", "scores_segmax_plain",
                       lambda f, x: f(x, x, 7)),
+    "paged_decode": (paged_attention, "paged_decode", "paged_decode_plain",
+                     lambda f, x: f(x, x, x, x, x, layer=0)),
 }
 
 

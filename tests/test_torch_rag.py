@@ -402,8 +402,9 @@ def test_cli_matches_jax(tmp_path, form):
 
 def test_not_ported_parts_raise(engines):
     _, te = engines
-    with pytest.raises(NotImplementedError):
-        te.serve(["q"])
+    for kw in (dict(speculative=True), dict(temperature=0.7)):
+        with pytest.raises(NotImplementedError):
+            te.serve(["q"], **kw)
     with pytest.raises(NotImplementedError):
         RAGEngine(te.model, speculative=True)
     for flag in ("--speculative", "--weight_quant"):
