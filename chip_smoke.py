@@ -9,8 +9,10 @@ port's paths through the kernels on a full-width Mistral-7B with random
 bf16 weights (GritLM.encode and greedy GritLM.generate; FlatIndex.search
 over a 1M-row index; RAGEngine.build_index and answer_batch in all seven
 cache modes; the continuous-batching ServingEngine with dense, paged and
-int8 pools, and RAGEngine.serve), and times each kernel beside its bound,
-its plain version and one PyTorch library call.
+int8 pools, and RAGEngine.serve; GRIT training with LoRA, GradCache and
+full parameters through `python -m gritlm_tpu_torch.training.run`'s main),
+and times each kernel beside its bound, its plain version and one PyTorch
+library call.
 
 Phases, any failure exits non-zero:
   1. device and build: card name and power limit, nvcc's register and
@@ -49,6 +51,21 @@ Phases, any failure exits non-zero:
      between CUDA events, 25 calls after warm-up), encode and
      decode rates, and a profile (device time by kernel, idle share) of one
      encode and one short generate
+ 10. training at full width (after the inference model is freed):
+     K4 and K5 against the plain backward at B 2, S 2048, H 32, Hkv 8
+     (causal with right padding, bidirectional with padding, causal with a
+     512 window, a fully masked row with exactly zero gradients) and
+     FlashAttentionFn against autograd through the plain forward; then,
+     with the counts set to 0 before and read after: LoRA GRIT training at
+     Mistral-7B width and full depth through training.run.main on
+     synthetic JSONL filling the default lengths (query 256, passage 2048,
+     generative 2048; batch 4, group 2; 3 steps, a checkpoint at step 2,
+     a resumed run from it, the HF export read back equal by
+     load_checkpoint); 6 LoRA steps on one batch (the loss falls); GradCache
+     (gc_chunks 2 against 1 at depth 4: loss_emb and the gradients'
+     cosine); full-parameter training at depth 8 (peak memory); K4 and K5
+     timed at the passage shape (B 8, S 2048, bidirectional) beside the
+     backward of scaled_dot_product_attention
 
 Output: a `kernels` JSON line, the card line, then as the last line
 {"ok": true, "device": {...}}. Exits 2 with no result when there is no CUDA
@@ -58,6 +75,7 @@ device or the port's package is not beside this script.
 from __future__ import annotations
 
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -70,6 +88,12 @@ ROOT = Path(__file__).resolve().parent
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3
 ATTN_ATOL = 2e-2  # bf16 outputs; kernels round P to bf16 before P.V
+# K4/K5: of the largest gradient of the case (bf16 inputs and outputs; P and
+# dS are rounded to bf16 before their products, where the plain version
+# keeps fp32); the first chip run saw 0.3-0.6%
+BWD_RTOL = 2e-2
+LSE_ATOL = 1e-3  # fp32 log-sum-exp of the same bf16 scores, summed in another order
+GC_LOSS_RTOL = 1e-2  # GradCache: the same bf16 forwards in chunks of half the batch
 POOL_ATOL = 1e-4  # fp32 sums of the same bf16 inputs in another order
 K9_ATOL = 1e-3  # fp32 sums of the same bf16 products in another order, unit vectors
 COSINE_MIN = 0.999
@@ -224,6 +248,13 @@ def main() -> int:
         "paged_decode": (paged_attention, paged_attention.paged_decode_plain,
                          "gritlm_tpu_torch/csrc/paged_attention.cu",
                          "gritlm_tpu/ops/paged_attention.py:56"),
+        "flash_attention_bwd_dq": (flash_attention, flash_attention.flash_attention_bwd_dq_plain,
+                                   "gritlm_tpu_torch/csrc/flash_attention_bwd.cu",
+                                   "gritlm_tpu/ops/flash_attention.py:376"),
+        "flash_attention_bwd_dkv": (flash_attention,
+                                    flash_attention.flash_attention_bwd_dkv_plain,
+                                    "gritlm_tpu_torch/csrc/flash_attention_bwd.cu",
+                                    "gritlm_tpu/ops/flash_attention.py:416"),
     }
     wrappers = {name: getattr(mod, name) for name, (mod, *_) in kernels.items()}
     path_launches = {}  # path -> launches per kernel in that path's run
@@ -547,6 +578,14 @@ def main() -> int:
     print(f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
           f"total {time.time() - t_start:.0f} s")
 
+    # ---------------------------------------------------------------- 10
+    del model, qmodel, cache
+    torch.cuda.empty_cache()
+    flash_bwd_checks(dev, randn, max_err)
+    training_phase(dev, reset_counts, read_counts, path_launches)
+    training_times(dev, randn, times)
+    print(f"total {time.time() - t_start:.0f} s")
+
     print(f"launches by path: {json.dumps(path_launches)}")
     launches = {n: sum(c[n] for c in path_launches.values()) for n in kernels}
     rows_out = [{
@@ -830,7 +869,8 @@ def rag_phase(model, reset_counts, read_counts, path_launches):
         del model.generate_from_ids
     path_launches["rag"] = counts
     print(f"rag launches: {counts}")
-    if any(c == 0 for n, c in counts.items() if n != "paged_decode"):
+    if any(counts[n] == 0 for n in ("flash_attention", "fused_norm_mean_pool", "flash_decode",
+                                    "scores_segmax")):
         fail("rag did not go through every kernel of its path (K1, K2, K3, K9)")
     del host
     torch.cuda.empty_cache()
@@ -1070,6 +1110,327 @@ def latency_phase(model) -> None:
               flush=True)
     print(f"latency sweep: {time.time() - t0:.0f} s, dispatch floor "
           f"{sweep['_meta']['dispatch_floor_s'] * 1e6:.1f} us")
+    torch.cuda.empty_cache()
+
+
+def flash_bwd_checks(dev, randn, max_err, B=2, S=2048, H=32, Hkv=8, window=512) -> None:
+    """K4 and K5 against the plain backward from the same saved LSE at
+    B 2, S 2048, H 32, Hkv 8, Dh 128 (bf16): causal with right padding,
+    bidirectional with padding, causal with a 512 window, and a row whose
+    keys are all masked (its gradients exactly 0); K1's LSE against the
+    plain one; FlashAttentionFn against autograd through the plain forward."""
+    import torch
+
+    from gritlm_tpu_torch.ops import flash_attention as fa
+
+    Dh = 128
+    q, k, v, do = randn(B, S, H, Dh), randn(B, S, Hkv, Dh), randn(B, S, Hkv, Dh), randn(B, S, H, Dh)
+    pad = torch.ones((B, S), dtype=torch.int32, device=dev)
+    pad[1, S * 3 // 4:] = 0
+    empty = pad.clone()
+    empty[0] = 0
+    for label, mask, causal, window in (("causal, right padding", pad, True, None),
+                                        ("bidirectional, padding", pad, False, None),
+                                        (f"causal, window {window}", pad, True, window),
+                                        ("bidirectional, row 0 fully masked", empty, False, None)):
+        kw = dict(causal=causal, sliding_window=window)
+        out, lse = fa.flash_attention(q, k, v, mask, return_lse=True, **kw)
+        got = fa.flash_attention_bwd(q, k, v, mask, out, lse, do, **kw)
+        torch.cuda.synchronize()
+        _, lse_plain = fa.flash_attention_plain(q, k, v, mask, return_lse=True, **kw)
+        lse_err = float((lse - lse_plain).abs().max())
+        want = fa.flash_attention_bwd_plain(q, k, v, mask, out, lse, do, **kw)
+        errs = []
+        for name, g, w in zip(("dq", "dk", "dv"), got, want):
+            if g.shape != w.shape or g.dtype != w.dtype or not torch.isfinite(g).all():
+                fail(f"flash backward [{label}] {name}: shape, dtype or non-finite values")
+            err, mag = float((g.float() - w.float()).abs().max()), float(w.float().abs().max())
+            errs.append(err)
+            if err > BWD_RTOL * mag:
+                fail(f"flash backward [{label}] {name} disagrees with the plain version: "
+                     f"{err} > {BWD_RTOL} x {mag}")
+            if mask is empty and float(g[0].abs().max()) != 0.0:
+                fail(f"flash backward [{label}] {name}: the fully masked row's gradient is "
+                     "not exactly 0")
+        if lse_err > LSE_ATOL:
+            fail(f"flash_attention [{label}] LSE disagrees with the plain version: {lse_err}")
+        max_err["flash_attention"] = max(max_err["flash_attention"], lse_err)
+        max_err["flash_attention_bwd_dq"] = max(max_err["flash_attention_bwd_dq"], errs[0])
+        max_err["flash_attention_bwd_dkv"] = max(max_err["flash_attention_bwd_dkv"], *errs[1:])
+        print(f"check flash backward [{label}, B{B} S{S}]: max_abs_err dq {errs[0]:.3e} "
+              f"(K4), dk {errs[1]:.3e} dv {errs[2]:.3e} (K5), lse {lse_err:.3e}; largest "
+              f"gradients {', '.join(f'{float(w.float().abs().max()):.3f}' for w in want)} "
+              f"(rtol {BWD_RTOL} of the largest, LSE atol {LSE_ATOL})", flush=True)
+    leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    out = fa.FlashAttentionFn.apply(*leaves, pad, True, None, 0)
+    got = torch.autograd.grad(out, leaves, do)
+    ref = fa.flash_attention_plain(*leaves, pad, causal=True)
+    want = torch.autograd.grad(ref, leaves, do)
+    errs = [float((g.float() - w.float()).abs().max()) for g, w in zip(got, want)]
+    mags = [float(w.float().abs().max()) for w in want]
+    print(f"check FlashAttentionFn against autograd through the plain forward [causal, "
+          f"right padding, B{B} S{S}]: max_abs_err dq {errs[0]:.3e} dk {errs[1]:.3e} dv "
+          f"{errs[2]:.3e} (rtol {BWD_RTOL} of {', '.join(f'{m:.3f}' for m in mags)})",
+          flush=True)
+    if any(e > BWD_RTOL * m for e, m in zip(errs, mags)):
+        fail("FlashAttentionFn's gradients depart from autograd through the plain forward")
+    del q, k, v, do, leaves, out, got, ref, want
+    torch.cuda.empty_cache()
+
+
+def synthetic_train_data(path: Path, n: int = 16, seed: int = 0) -> None:
+    """Embedding and generative JSONL whose texts fill the default training
+    lengths with the byte tokenizer (query 256, passage 2048, generative
+    2048 tokens): seeded random words."""
+    rng = np.random.default_rng(seed)
+    words = " ".join(SENTENCES).lower().replace(",", "").replace(".", "").split()
+
+    def text(n_chars: int) -> str:
+        out = []
+        while sum(len(w) + 1 for w in out) < n_chars:
+            out.append(words[int(rng.integers(len(words)))])
+        return " ".join(out)
+
+    path.mkdir(parents=True, exist_ok=True)
+    with open(path / "emb.jsonl", "w") as f:
+        for _ in range(n):
+            passage = ["Represent the passage for retrieval", ""]
+            row = {"query": ["Given a question, retrieve the passage that answers it", text(320)],
+                   "pos": [[passage[0], text(2300)]],
+                   "neg": [[passage[0], text(2300)] for _ in range(2)]}
+            f.write(json.dumps(row) + "\n")
+    with open(path / "gen.jsonl", "w") as f:
+        for _ in range(n):
+            f.write(json.dumps({"text": [text(200), text(2000)]}) + "\n")
+
+
+def training_phase(dev, reset_counts, read_counts, path_launches, preset="mistral_7b",
+                   lengths=(256, 2048, 2048), depths=(4, 8)) -> None:
+    """GRIT training at Mistral-7B width (counts set to 0 before, read
+    after): LoRA at full depth through training.run.main (3 steps, a
+    checkpoint at step 2, a run resumed from it, the export read back
+    equal); 6 LoRA steps on one batch; GradCache against the full batch at
+    depth 4; full-parameter training at depth 8."""
+    import dataclasses
+    import shutil
+
+    import torch
+
+    from gritlm_tpu_torch import config as cfgmod
+    from gritlm_tpu_torch.models.loader import load_checkpoint
+    from gritlm_tpu_torch.models.transformer import count_params, init_params
+    from gritlm_tpu_torch.tokenizer import ByteTokenizer
+    from gritlm_tpu_torch.training import run
+    from gritlm_tpu_torch.training.data import (
+        GritCollator,
+        GritDataset,
+        batch_iterator,
+        load_train_dirs,
+    )
+    from gritlm_tpu_torch.training.lora import make_lora_train_state, merge
+    from gritlm_tpu_torch.training.train import TrainConfig, init_train_state, leaves, train_step
+
+    work = ROOT / "build" / "chip_smoke_train"
+    shutil.rmtree(work, ignore_errors=True)
+    synthetic_train_data(work / "data")
+    cfg = getattr(cfgmod, preset)()
+    out = work / "run"
+    qlen, plen, glen = lengths
+    argv = ["--train_data", str(work / "data"), "--model_preset", preset, "--mode", "unified",
+            "--lora", "--per_device_train_batch_size", "4", "--train_group_size", "2",
+            "--query_max_len", str(qlen), "--passage_max_len", str(plen),
+            "--generative_max_len", str(glen), "--max_steps", "3", "--save_steps", "2",
+            "--logging_steps", "1", "--learning_rate", "1e-4", "--output_dir", str(out),
+            "--device", dev.type]
+    reset_counts()
+    try:
+        t0 = time.time()
+        r1 = run.main(argv)
+        t_run = time.time() - t0
+        steps = sorted(os.listdir(out / "checkpoints"))
+        print(f"train [run.main, LoRA, {cfg.num_hidden_layers} layers]: {r1['steps']} steps "
+              f"in {t_run:.1f} s "
+              f"(model init, export included), final {r1['final']}; checkpoints {steps}",
+              flush=True)
+        if r1["steps"] != 3 or "step_2" not in steps or not all(
+                np.isfinite(v) for v in r1["final"].values()):
+            fail(f"train [run.main]: {r1}, checkpoints {steps}")
+        t0 = time.time()
+        r2 = run.main(argv + ["--resume_from_checkpoint", str(out / "checkpoints" / "step_2")])
+        print(f"train [run.main resumed from step_2]: to step {r2['steps']} in "
+              f"{time.time() - t0:.1f} s, final {r2['final']}", flush=True)
+        if r2["steps"] != 3:
+            fail(f"train [resume]: ended at step {r2['steps']}")
+        for key in ("loss", "loss_emb", "loss_gen"):
+            a, b = r1["final"][key], r2["final"][key]
+            if abs(a - b) > 1e-3 * max(abs(a), 1e-6):
+                fail(f"train [resume]: step 3 {key} {b} after resuming, {a} uninterrupted")
+        # the export against the merge of the seeded base and the saved adapters
+        t0 = time.time()
+        base = init_params(cfg, 42, device=dev)
+        saved = torch.load(out / "checkpoints" / "step_3" / "state" / "train_state.pt",
+                           map_location=dev, weights_only=True)
+        merged = merge(base, saved["params"], 64 / 16)
+        cfg_back, back = load_checkpoint(r2["export"], device=dev)
+        n_export = sum(os.path.getsize(f) for f in Path(r2["export"]).iterdir())
+        same = all(torch.equal(a, b) for a, b in zip(leaves(merged), leaves(back)))
+        print(f"train [export]: {n_export / 2**30:.2f} GiB of safetensors read back in "
+              f"{time.time() - t0:.1f} s (with the seeded base and the merge); equal to the "
+              f"merged weights: {same}", flush=True)
+        if not same or cfg_back != cfg or len(leaves(back)) != len(leaves(merged)):
+            fail("train [export]: load_checkpoint does not read back the merged weights")
+        del merged, back, saved
+
+        # ---- it learns: 6 LoRA steps on one fixed batch at lr 1e-4
+        tok = ByteTokenizer()
+        emb, gen = load_train_dirs([str(work / "data")])
+        coll = GritCollator(tok, query_max_len=qlen, passage_max_len=plen,
+                            generative_max_len=glen)
+        batch = next(batch_iterator(GritDataset(emb, gen, train_group_size=2, seed=0), coll, 4,
+                                    seed=0))
+        valid = sum(int(part["attention_mask"].sum()) for part in batch.values())
+        padded = sum(part["attention_mask"].size for part in batch.values())
+        tc = TrainConfig(learning_rate=1e-4, total_steps=6)
+        run_step, state, _, _ = make_lora_train_state(cfg, tc, base, seed=0, device=dev)
+        torch.cuda.reset_peak_memory_stats()
+        losses, step_s = [], []
+        for _ in range(6):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = run_step(state, batch)
+            losses.append(float(m.loss))
+            step_s.append(time.perf_counter() - t0)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        med = statistics.median(step_s[1:])
+        print(f"train [LoRA, {cfg.num_hidden_layers} layers, one batch, lr 1e-4]: losses "
+              f"{', '.join(f'{x:.4f}' for x in losses)}; {med * 1e3:.1f} ms per step "
+              f"(median of steps 2-6, host clock) = {valid / med:.0f} valid tokens/s, "
+              f"{padded / med:.0f} padded tokens/s ({valid} valid of {padded} padded tokens "
+              f"a step); peak {peak:.2f} GiB; {count_params(state.params) / 1e6:.1f} M "
+              "trained parameters", flush=True)
+        if not all(np.isfinite(losses)) or losses[-1] >= losses[0]:
+            fail(f"train [learns]: losses {losses}")
+        profile_window(f"LoRA train step, {cfg.num_hidden_layers} layers",
+                       lambda: run_step(state, batch))
+        del state, run_step, base
+        torch.cuda.empty_cache()
+
+        # ---- GradCache against the full batch, depth 4, full parameters
+        cfg4 = dataclasses.replace(cfg, num_hidden_layers=depths[0])
+        params = init_params(cfg4, 1, device=dev)
+        runs = []
+        for gc in (1, 2):
+            tc = TrainConfig(gc_chunks=gc, total_steps=10)  # update 1 has LR 0: params stay
+            state = init_train_state(params, tc)
+            state, m = train_step(state, batch, cfg4, tc)
+            grads = [t.grad.float() for t in leaves(state.params)]
+            norm = torch.sqrt(sum(g.pow(2).sum() for g in grads))
+            runs.append((m, [g / norm for g in grads]))
+            params = state.params
+        (m1, g1), (m2, g2) = runs
+        cos = float(sum((a * b).sum() for a, b in zip(g1, g2)))
+        leaf_cos = [float((a * b).sum() / (a.norm() * b.norm())) for a, b in zip(g1, g2)]
+        worst = int(np.argmin(leaf_cos))
+        le1, le2 = float(m1.loss_emb), float(m2.loss_emb)
+        print(f"train [GradCache, {depths[0]} layers]: loss_emb {le2:.5f} with gc_chunks 2, "
+              f"{le1:.5f} with 1; gradient cosine {cos:.6f} (min {COSINE_MIN}), per "
+              f"parameter from {leaf_cos[worst]:.6f} (leaf {worst} of {len(leaf_cos)}, "
+              f"shape {tuple(g1[worst].shape)}); loss_gen {float(m2.loss_gen):.5f} / "
+              f"{float(m1.loss_gen):.5f}", flush=True)
+        if abs(le1 - le2) > GC_LOSS_RTOL * abs(le1) or cos < COSINE_MIN:
+            fail("train [GradCache]: gc_chunks 2 departs from the full batch")
+        del runs, g1, g2, grads, state, params
+        torch.cuda.empty_cache()
+
+        # ---- full-parameter training, depth 8
+        cfg8 = dataclasses.replace(cfg, num_hidden_layers=depths[1])
+        torch.cuda.reset_peak_memory_stats()
+        base_mem = torch.cuda.memory_allocated()
+        params = init_params(cfg8, 2, device=dev)
+        n_params = count_params(params)
+        tc = TrainConfig(total_steps=3)
+        state = init_train_state(params, tc)
+        losses = []
+        for _ in range(3):
+            state, m = train_step(state, batch, cfg8, tc)
+            losses.append(float(m.loss))
+        torch.cuda.synchronize()
+        peak = (torch.cuda.max_memory_allocated() - base_mem) / 2**30
+        print(f"train [full parameters, {depths[1]} layers]: losses "
+              f"{', '.join(f'{x:.4f}' for x in losses)}; {n_params / 1e9:.3f} B parameters, "
+              f"peak {peak:.2f} GiB (params, grads and two AdamW moments in bf16 "
+              f"{4 * 2 * n_params / 2**30:.2f} GiB, the rest activations and transients)",
+              flush=True)
+        if not all(np.isfinite(losses)):
+            fail(f"train [full parameters]: losses {losses}")
+        del state, params
+        torch.cuda.synchronize()
+        counts = read_counts()
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    path_launches["training"] = counts
+    print(f"training launches: {counts}")
+    if any(counts[n] == 0 for n in ("flash_attention", "flash_attention_bwd_dq",
+                                    "flash_attention_bwd_dkv")):
+        fail("training did not go through K1, K4 and K5")
+    torch.cuda.empty_cache()
+
+
+def training_times(dev, randn, times, B=8, S=2048, H=32, Hkv=8) -> None:
+    """K1 with its LSE, K4 and K5 at the passage shape (B 8, S 2048, 32/8
+    heads, bidirectional, no padding), beside their bounds, their plain
+    versions and the backward of scaled_dot_product_attention on the same
+    inputs (one library call that computes dq, dk and dv together)."""
+    import torch
+    import torch.nn.functional as F
+
+    from gritlm_tpu_torch.ops import flash_attention as fa
+
+    Dh = 128
+    q, k, v, do = randn(B, S, H, Dh), randn(B, S, Hkv, Dh), randn(B, S, Hkv, Dh), randn(B, S, H, Dh)
+    mask = torch.ones((B, S), dtype=torch.int32, device=dev)
+    out, lse = fa.flash_attention(q, k, v, mask, causal=False, return_lse=True)
+    delta = fa.attention_delta(out, do)
+    pair = 2.0 * B * H * S * S * Dh  # one product over every (query, key) pair
+    ins = nbytes(q, k, v, do, lse, delta, mask)
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True) for x in (q, k, v))
+    lib_out = F.scaled_dot_product_attention(qt, kt, vt, enable_gqa=True)
+    dot = do.transpose(1, 2)
+    lib_ms, _ = time_ms(lambda: torch.autograd.grad(lib_out, (qt, kt, vt), dot,
+                                                    retain_graph=True), reps=10)
+    kw = dict(causal=False)
+    rows = {
+        "flash_attention_bwd_dq": (
+            lambda: fa.flash_attention_bwd_dq(q, k, v, mask, do, lse, delta, **kw),
+            lambda: fa.flash_attention_bwd_dq_plain(q, k, v, mask, do, lse, delta, **kw),
+            3 * pair, ins + nbytes(q)),
+        "flash_attention_bwd_dkv": (
+            lambda: fa.flash_attention_bwd_dkv(q, k, v, mask, do, lse, delta, **kw),
+            lambda: fa.flash_attention_bwd_dkv_plain(q, k, v, mask, do, lse, delta, **kw),
+            4 * pair, ins + nbytes(k, v)),
+    }
+    for name, (fk, fp, flops, byt) in rows.items():
+        ms, call_ms = time_ms(fk, reps=10)
+        plain_ms, _ = time_ms(fp, reps=2, warmup=1)
+        bms, by = bound(flops, byt)
+        times[name] = (ms, plain_ms, lib_ms, bms, by)
+        print(f"time {name} [B{B} S{S} bidirectional]: device {ms:.4f} ms ({bms / ms * 100:.1f}% "
+              f"of bound {bms:.4f} ms, {by}), plain {plain_ms:.4f}, library {lib_ms:.4f} "
+              f"(backward of scaled_dot_product_attention: dq, dk and dv); per call (events) "
+              f"{call_ms:.4f}", flush=True)
+    ms, _ = time_ms(lambda: fa.flash_attention(q, k, v, mask, causal=False, return_lse=True),
+                    reps=10)
+    ms0, _ = time_ms(lambda: fa.flash_attention(q, k, v, mask, causal=False), reps=10)
+    plain_f, _ = time_ms(lambda: fa.flash_attention_plain(q, k, v, mask, causal=False,
+                                                          return_lse=True), reps=2, warmup=1)
+    lib_f, _ = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, enable_gqa=True),
+                       reps=10)
+    bms, by = bound(2 * pair, nbytes(q, k, v, mask, q) + B * H * S * 4)
+    print(f"time flash_attention with LSE [B{B} S{S} bidirectional]: device {ms:.4f} ms "
+          f"({bms / ms * 100:.1f}% of bound {bms:.4f} ms, {by}); without LSE {ms0:.4f}; "
+          f"plain {plain_f:.4f}; library {lib_f:.4f} (scaled_dot_product_attention forward)",
+          flush=True)
+    del q, k, v, do, qt, kt, vt, lib_out
     torch.cuda.empty_cache()
 
 

@@ -3,11 +3,13 @@
 The port of the JAX package `gritlm_tpu`, which stays beside it as the
 reference. It imports torch and nothing of JAX or `gritlm_tpu`. Entry points
 run on CUDA unless the caller passes `device="cpu"`; there every
-hand-written kernel (flash attention, flash decode, paged decode, fused
-norm+pool, the index's fused scores + segment max) runs its plain PyTorch version, which is
-how the CPU tests hold the port against the JAX package.
+hand-written kernel (flash attention forward and backward, flash decode,
+paged decode, fused norm+pool, the index's fused scores + segment max) runs
+its plain PyTorch version, which is how the CPU tests hold the port against
+the JAX package.
 
-  - models/   dense Mistral-family trunk (stacked params, KV cache)
+  - models/   dense Mistral-family trunk (stacked params, KV cache, remat,
+              lazy LoRA weights), HF-safetensors load/export
   - ops/      kernel wrappers + plain versions, attention dispatch, pooling
   - csrc/     the CUDA sources, built by ops/_build.py at first use
   - index/    FlatIndex: exact inner-product search on the device
@@ -16,7 +18,9 @@ how the CPU tests hold the port against the JAX package.
   - serving.py / serve.py  the continuous-batching ServingEngine (dense and
               paged KV pools) and its CLI
   - eval/     the RAG latency protocol
-  - training/ prompt templates
+  - training/ GRIT training on one device (train_step with GradCache,
+              LoRA, data pipeline, checkpoints) and its CLI
+              `python -m gritlm_tpu_torch.training.run`; prompt templates
 """
 
 __version__ = "0.1.0"

@@ -6,7 +6,10 @@
 // warp owns 16 query rows. Per 64-key tile: the block stages K/V (and the key
 // mask) in shared memory; each warp forms its 16x64 score tile with bf16
 // tensor-core MMAs (wmma), runs the online softmax on it in shared memory,
-// and adds P.V into its fp32 output rows, also kept in shared memory.
+// and adds P.V into its fp32 output rows, also kept in shared memory. With
+// an `lse` pointer it also writes each row's log-sum-exp of the scaled
+// scores (fp32 [B, H, Sq]; NEG_INF for a row with no valid key), which the
+// backward kernels (flash_attention_bwd.cu) rebuild P from.
 #include <mma.h>
 
 #include "common.cuh"
@@ -40,7 +43,8 @@ constexpr size_t SMEM_BYTES = OFF_MASK + size_t(BK) * 4;
 __global__ void __launch_bounds__(NTHREADS)
 flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  const bf16* __restrict__ v, const int* __restrict__ mask,
-                 bf16* __restrict__ out, int Sq, int Sk, int H, int group,
+                 bf16* __restrict__ out, float* __restrict__ lse, int Sq, int Sk,
+                 int H, int group,
                  long long q_sb, long long q_ss, long long k_sb, long long k_ss,
                  long long v_sb, long long v_ss, long long m_sb, int causal,
                  int window, int offset, float scale) {
@@ -201,13 +205,17 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     bf16* dst = out + (((long long)b * Sq + q0 + r) * H + h) * DH + c;
     *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(o8);
   }
+  if (lse != nullptr && tid < BQ && q0 + tid < Sq) {
+    const float l = sl[tid];
+    lse[((long long)b * H + h) * Sq + q0 + tid] = l > 0.f ? sm[tid] + logf(l) : NEG_INF;
+  }
 }
 
 }  // namespace
 
 extern "C" int gritlm_flash_fwd(const void* q, const void* k, const void* v,
-                                const void* mask, void* out, int B, int Sq, int Sk,
-                                int H, int Hkv, long long q_sb, long long q_ss,
+                                const void* mask, void* out, void* lse, int B, int Sq,
+                                int Sk, int H, int Hkv, long long q_sb, long long q_ss,
                                 long long k_sb, long long k_ss, long long v_sb,
                                 long long v_ss, long long m_sb, int causal, int window,
                                 int offset, float scale, void* stream) {
@@ -220,8 +228,8 @@ extern "C" int gritlm_flash_fwd(const void* q, const void* k, const void* v,
   }
   dim3 grid((Sq + BQ - 1) / BQ, H, B);
   flash_fwd_kernel<<<grid, NTHREADS, SMEM_BYTES, (cudaStream_t)stream>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const int*)mask, (bf16*)out, Sq,
-      Sk, H, H / Hkv, q_sb, q_ss, k_sb, k_ss, v_sb, v_ss, m_sb, causal, window, offset,
-      scale);
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const int*)mask, (bf16*)out,
+      (float*)lse, Sq, Sk, H, H / Hkv, q_sb, q_ss, k_sb, k_ss, v_sb, v_ss, m_sb, causal,
+      window, offset, scale);
   return (int)cudaGetLastError();
 }

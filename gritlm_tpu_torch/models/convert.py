@@ -4,7 +4,10 @@
 np.asarray, params)` (nested dicts of numpy arrays; no JAX needed here) and
 returns the port's params: the same tree, same layouts ([L, in, out]
 stacked weights), as torch tensors on `device`. Both packages then compute
-the same function, which is what the parity tests rely on.
+the same function, which is what the parity tests rely on. `lora_from_jax`
+does the same for a LoRA adapter tree, and `params_to_numpy` goes the other
+way (the port's tree as numpy arrays in the JAX package's layout), so tests
+can hold trained weights against the JAX package's.
 """
 
 from __future__ import annotations
@@ -67,3 +70,26 @@ def params_from_jax(tree: dict, cfg: ModelConfig, device=None) -> dict:
         return _to_torch(node).to(device)
 
     return walk(tree, ())
+
+
+def lora_from_jax(tree: dict, device=None) -> dict:
+    """A JAX LoRA tree ({..., name: {"A": [L, in, r], "B": [L, r, out]}},
+    numpy leaves) -> the port's LoRA tree on `device`."""
+    device = resolve_device(device)
+
+    def walk(node):
+        if isinstance(node, dict):
+            return {k: walk(v) for k, v in node.items()}
+        return _to_torch(node).to(device)
+
+    return walk(tree)
+
+
+def params_to_numpy(tree: dict) -> dict:
+    """The port's tree (params or LoRA) -> numpy arrays, same nesting and
+    layouts as the JAX package's tree; bfloat16 leaves come out as float32
+    (numpy has no bfloat16 of its own)."""
+    if isinstance(tree, dict):
+        return {k: params_to_numpy(v) for k, v in tree.items()}
+    t = tree.detach().cpu()
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()

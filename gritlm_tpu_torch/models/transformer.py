@@ -21,6 +21,15 @@ into the cache tensors in place (the JAX package returns new arrays) and
 attends against the full cache buffer. With `row_offsets` (the serving
 decode step) every row appends at its own slot, into a dense `KVCache` or a
 paged `PagedKVCache`.
+
+`forward` runs under autograd when its caller records (training); the
+inference entry points (generate, GritLM.encode, the serving programs) run
+it under `torch.inference_mode()` themselves. `remat=True` recomputes each
+layer in the backward pass (one `torch.utils.checkpoint` per layer, the
+JAX package's full-recompute `jax.checkpoint`). A kernel leaf may be a lazy
+LoRA node `{"w", "A", "B"}` (training/lora.apply_lora_lazy): `_w` resolves
+it to W + A @ B one layer at a time, so no full effective copy of the
+weights exists.
 """
 
 from __future__ import annotations
@@ -31,6 +40,7 @@ from typing import Optional, Union
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from gritlm_tpu_torch.config import ModelConfig
 from gritlm_tpu_torch.ops.attention import cached_attention, multi_head_attention
@@ -109,6 +119,22 @@ def init_params(cfg: ModelConfig, seed: Union[int, torch.Generator] = 0,
 
 # ---------------------------------------------------------------------------
 # Building blocks
+
+
+def _w(node) -> torch.Tensor:
+    """Resolve a kernel leaf to a dense tensor: a plain tensor passes
+    through; a lazy LoRA node {"w", "A", "B"} (B pre-scaled by alpha/r)
+    becomes (w + A @ B) in fp32, cast back to w's dtype, as the JAX
+    package's `_w` does."""
+    if isinstance(node, dict):
+        base = _w(node["w"])
+        delta = node["A"].float() @ node["B"].float()
+        return (base.float() + delta).to(base.dtype)
+    return node
+
+
+def _mm(x: torch.Tensor, node) -> torch.Tensor:
+    return x @ _w(node)
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
@@ -289,7 +315,7 @@ def _attention_block(
     H, Kv, Dh = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim_
 
     def proj(wname: str, bname: str, nh: int) -> torch.Tensor:
-        y = x @ p[wname]
+        y = _mm(x, p[wname])
         if bname in p:  # Qwen2-family QKV biases
             y = y + p[bname].to(y.dtype)
         return y.reshape(B, S, nh, Dh)
@@ -323,7 +349,7 @@ def _attention_block(
         out = multi_head_attention(
             q, k, v, padding_mask, causal=causal, sliding_window=cfg.sliding_window,
         )
-    return out.reshape(B, S, H * Dh) @ p["wo"]
+    return _mm(out.reshape(B, S, H * Dh), p["wo"])
 
 
 def _append_per_row(q, k, v, step_mask, cache, lidx: int, row_offsets, Kv: int):
@@ -367,18 +393,26 @@ def _append_per_row(q, k, v, step_mask, cache, lidx: int, row_offsets, Kv: int):
 
 
 def _dense_mlp(p: dict, x: torch.Tensor) -> torch.Tensor:
-    return (F.silu(x @ p["gate"]) * (x @ p["up"])) @ p["down"]
+    return _mm(F.silu(_mm(x, p["gate"])) * _mm(x, p["up"]), p["down"])
 
 
 # ---------------------------------------------------------------------------
 # Forward
 
 
-def _layer(tree: dict, i: int) -> dict:
-    return {k: _layer(v, i) if isinstance(v, dict) else v[i] for k, v in tree.items()}
+def _unstack(tree: dict, n: int) -> list:
+    """The stacked layer tree as n per-layer trees of views. One `unbind`
+    per leaf, so under autograd each stacked parameter gets one gradient
+    (the layers' gradients stacked once), not one full-size gradient per
+    layer as indexing would give."""
+    layers = [dict() for _ in range(n)]
+    for k, v in tree.items():
+        parts = _unstack(v, n) if isinstance(v, dict) else v.unbind(0)
+        for layer, part in zip(layers, parts):
+            layer[k] = part
+    return layers
 
 
-@torch.inference_mode()
 def forward(
     params: dict,
     cfg: ModelConfig,
@@ -390,8 +424,15 @@ def forward(
     cache: Optional[Union[KVCache, PagedKVCache]] = None,
     row_offsets: Optional[torch.Tensor] = None,  # [B] per-row write slots
     final_norm: bool = True,
+    remat: bool = False,
+    remat_policy: Optional[str] = None,
 ):
     """Run the trunk (no LM head). Returns (hidden [B,S,D], new_cache, aux).
+
+    `remat=True` (training, no cache) wraps each layer in one
+    `torch.utils.checkpoint(..., use_reentrant=False)`: its activations are
+    recomputed in the backward pass. Only the full recompute is ported:
+    another `remat_policy` raises NotImplementedError.
 
     `final_norm=False` returns the raw residual stream, for callers that fuse
     the norm into their epilogue (ops/fused_pool on the encode path).
@@ -408,8 +449,15 @@ def forward(
     cache.length is left alone. Only S = 1 is ported: S > 1 is the
     speculative verify chunk, which needs K3 with per-row causal offsets."""
     _check_dense(cfg)
+    if remat_policy is not None:
+        raise NotImplementedError(
+            f"remat_policy={remat_policy!r}: only the full recompute (None) is ported; "
+            "the JAX package's saveable-dots policies have no torch.utils.checkpoint "
+            "counterpart yet")
     B, S = input_ids.shape
-    x = params["embed"]["embedding"][input_ids.long()]
+    # F.embedding, not indexing: its backward sums each row's gradient in
+    # fp32, where indexing's accumulates bf16 atomics
+    x = F.embedding(input_ids.long(), params["embed"]["embedding"])
     dev = x.device
     if row_offsets is not None:
         if cache is None:
@@ -443,15 +491,20 @@ def forward(
         cache.mask[:, offset:offset + S] = step_mask.to(cache.mask.dtype)
 
     rope = rope_tables(positions, cfg.head_dim_, cfg.rope_theta, cfg.rope_scaling_)
-    layers = params["layers"]
-    for i in range(cfg.num_hidden_layers):
-        lp = _layer(layers, i)
+
+    def block(x, lp, layer_cache=None):
         h = rms_norm(x, lp["ln1"]["scale"], cfg.rms_norm_eps)
-        layer_cache = None if cache is None else (cache, i, row_offsets)
         x = x + _attention_block(lp["attn"], h, rope, attention_mask, cfg,
                                  causal=causal, layer_cache=layer_cache)
         h = rms_norm(x, lp["ln2"]["scale"], cfg.rms_norm_eps)
-        x = x + _dense_mlp(lp["mlp"], h)
+        return x + _dense_mlp(lp["mlp"], h)
+
+    recompute = remat and cache is None and torch.is_grad_enabled()
+    for i, lp in enumerate(_unstack(params["layers"], cfg.num_hidden_layers)):
+        if recompute:
+            x = checkpoint(block, x, lp, use_reentrant=False)
+        else:
+            x = block(x, lp, None if cache is None else (cache, i, row_offsets))
 
     new_cache = cache
     if cache is not None and row_offsets is None:

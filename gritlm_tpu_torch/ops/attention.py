@@ -1,7 +1,9 @@
 """Attention entry points (port of gritlm_tpu.ops.attention).
 
 `multi_head_attention` (no cache) goes to the flash attention kernel (K1)
-for every query length; `cached_attention` goes to the flash decode kernel
+for every query length, and when autograd records (training) to
+`flash_attention.FlashAttentionFn`: K1 with its LSE output, then the flash
+backward (K4, K5); `cached_attention` goes to the flash decode kernel
 (K3) below 128 queries and to K1 on the cache layer's view above. The
 serving decode step calls `cached_attention` with S = 1, causal=False,
 offset 0 and no window (mask-bounded, per-row write slots); over a paged
@@ -90,7 +92,13 @@ def multi_head_attention(
     sliding_window: Optional[int] = None,
     offset: int = 0,
 ) -> torch.Tensor:
-    """Self-attention without a cache. q [B,Sq,H,D], k/v [B,Sk,Hkv,D]."""
+    """Self-attention without a cache. q [B,Sq,H,D], k/v [B,Sk,Hkv,D]. Under
+    autograd (grad enabled and an input that requires grad) it goes through
+    FlashAttentionFn; inference keeps the plain K1 call, which writes no
+    LSE."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return flash_attention.FlashAttentionFn.apply(q, k, v, padding_mask, causal,
+                                                      sliding_window, offset)
     return flash_attention.flash_attention(
         q, k, v, padding_mask, causal=causal, sliding_window=sliding_window,
         offset=offset,

@@ -20,10 +20,24 @@ view, not a copy), skips causal tiles above the diagonal, tiles below the
 sliding window and tiles holding no valid key, and copies K/V with cp.async.
 It does not use wgmma/TMA yet.
 
+K4 and K5, the backward (`csrc/flash_attention_bwd.cu`), replace the
+Pallas `_bwd_dq_kernel` and `_bwd_dkv_kernel` (reached through `_flash_bwd`
+and `_core_bwd`). The forward saves each row's log-sum-exp (K1 with an
+`lse` output, fp32 [B, H, Sq]); the backward rebuilds P = exp(S*scale - lse)
+under the same keep mask, with delta = rowsum(dO * O) computed by torch
+ops, dQ = dS K in K4 (one block per q-tile and query head) and dK = dS^T Q,
+dV = P^T dO in K5 (one block per k-tile and kv head, looping over the GQA
+group's query heads, so the group's sum stays inside the block; the JAX
+kernel writes per query head and sums outside). What bounds them: their
+operations (K4 3 and K5 4 products of 2*Sq*Sk*Dh per head over the visible
+tiles) at training shapes; the design keeps P and dS tiles in shared
+memory, never in device memory. `FlashAttentionFn` wires K1 with LSE, K4
+and K5 into autograd; on CUDA tensors its backward launches K4 and K5 or
+raises.
+
 Differences from the TPU kernel: any Sq runs the kernel (the TPU version
 needed Sq >= 128 and sent shorter queries to an einsum); Dh must be 128
-(64/96 raise NotImplementedError instead of being padded); bf16 only; the
-backward pass (training) is not ported.
+(64/96 raise NotImplementedError instead of being padded); bf16 only.
 """
 
 from __future__ import annotations
@@ -63,37 +77,111 @@ def keep_mask(
     return keep
 
 
-def attend_plain(q, k, v, keep) -> torch.Tensor:
-    """fp32 masked softmax attention with zero output for rows that attend to
-    nothing. q [B,Sq,H,Dh], k/v [B,Sk,Hkv,Dh], keep [B or 1, Sq, Sk]."""
+def _scores_plain(q, k, keep) -> torch.Tensor:
+    """Scaled fp32 scores [B, Hkv, G, Sq, Sk], NEG_INF where not kept."""
     B, Sq, H, Dh = q.shape
     Hkv = k.shape[2]
     qg = q.float().reshape(B, Sq, Hkv, H // Hkv, Dh)
     s = torch.einsum("bqhgd,bkhd->bhgqk", qg, k.float()) * Dh ** -0.5
-    keep = keep[:, None, None]
-    s = s.masked_fill(~keep, NEG_INF)
-    p = torch.exp(s - s.amax(-1, keepdim=True)) * keep
+    return s.masked_fill(~keep[:, None, None], NEG_INF)
+
+
+def attend_plain(q, k, v, keep, return_lse: bool = False):
+    """fp32 masked softmax attention with zero output for rows that attend to
+    nothing. q [B,Sq,H,Dh], k/v [B,Sk,Hkv,Dh], keep [B or 1, Sq, Sk]. With
+    return_lse also the rows' log-sum-exp [B, H, Sq] (NEG_INF for a row with
+    no kept key), as K1 writes it."""
+    B, Sq, H, Dh = q.shape
+    s = _scores_plain(q, k, keep)
+    m = s.amax(-1, keepdim=True)
+    p = torch.exp(s - m) * keep[:, None, None]
     l = p.sum(-1, keepdim=True)
     p = p / torch.where(l > 0, l, torch.ones_like(l))
     out = torch.einsum("bhgqk,bkhd->bqhgd", p, v.float())
-    return out.reshape(B, Sq, H, Dh).to(q.dtype)
+    out = out.reshape(B, Sq, H, Dh).to(q.dtype)
+    if not return_lse:
+        return out
+    lse = torch.where(l > 0, m + torch.log(torch.where(l > 0, l, torch.ones_like(l))),
+                      torch.full_like(l, NEG_INF))
+    return out, lse.reshape(B, H, Sq).detach()
 
 
 def flash_attention_plain(q, k, v, padding_mask, *, causal, sliding_window=None,
-                          offset=0) -> torch.Tensor:
+                          offset=0, return_lse: bool = False):
     """The plain PyTorch version of K1 (same arguments as flash_attention)."""
     if not causal:
         sliding_window = None
     keep = keep_mask(padding_mask, q.shape[1], k.shape[1], causal=causal,
                      sliding_window=sliding_window, offset=offset, device=q.device)
-    return attend_plain(q, k, v, keep)
+    return attend_plain(q, k, v, keep, return_lse=return_lse)
 
 
-def _fn():
-    fn = _build.load("flash_attention").gritlm_flash_fwd
+def _bwd_plain_parts(q, k, v, padding_mask, do, lse, delta, *, causal, sliding_window,
+                     offset):
+    """P and dS [B, Hkv, G, Sq, Sk] fp32, rebuilt from the saved LSE under
+    the forward's keep mask (selected, never multiplied, to 0 elsewhere)."""
+    B, Sq, H, Dh = q.shape
+    Hkv = k.shape[2]
+    if not causal:
+        sliding_window = None
+    keep = keep_mask(padding_mask, Sq, k.shape[1], causal=causal,
+                     sliding_window=sliding_window, offset=offset, device=q.device)
+    keep = keep[:, None, None]
+    rows = (B, Hkv, H // Hkv, Sq, 1)
+    s = _scores_plain(q, k, keep[:, 0, 0])
+    p = torch.where(keep, torch.exp(s - lse.float().reshape(rows)), 0.0)
+    dog = do.float().reshape(B, Sq, Hkv, H // Hkv, Dh)
+    dp = torch.einsum("bqhgd,bkhd->bhgqk", dog, v.float())
+    ds = torch.where(keep, p * (dp - delta.float().reshape(rows)) * Dh ** -0.5, 0.0)
+    return p, ds, dog
+
+
+def flash_attention_bwd_dq_plain(q, k, v, padding_mask, do, lse, delta, *, causal,
+                                 sliding_window=None, offset=0) -> torch.Tensor:
+    """The plain PyTorch version of K4: dQ = dS K, [B, Sq, H, Dh] in q's dtype."""
+    _, ds, _ = _bwd_plain_parts(q, k, v, padding_mask, do, lse, delta, causal=causal,
+                                sliding_window=sliding_window, offset=offset)
+    return torch.einsum("bhgqk,bkhd->bqhgd", ds, k.float()).reshape(q.shape).to(q.dtype)
+
+
+def flash_attention_bwd_dkv_plain(q, k, v, padding_mask, do, lse, delta, *, causal,
+                                  sliding_window=None, offset=0):
+    """The plain PyTorch version of K5: (dK = dS^T Q, dV = P^T dO), each
+    [B, Sk, Hkv, Dh] in k's dtype, summed over each GQA group."""
+    B, Sq, H, Dh = q.shape
+    p, ds, dog = _bwd_plain_parts(q, k, v, padding_mask, do, lse, delta, causal=causal,
+                                  sliding_window=sliding_window, offset=offset)
+    qg = q.float().reshape(dog.shape)
+    dk = torch.einsum("bhgqk,bqhgd->bkhd", ds, qg)
+    dv = torch.einsum("bhgqk,bqhgd->bkhd", p, dog)
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
+def attention_delta(out: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
+    """delta = rowsum(dO * O) in fp32, [B, H, Sq] (the layout of the LSE)."""
+    return (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+
+
+def flash_attention_bwd_plain(q, k, v, padding_mask, out, lse, do, *, causal,
+                              sliding_window=None, offset=0):
+    """The plain backward from the saved LSE: (dq, dk, dv) in the inputs'
+    dtypes, dk/dv summed over each GQA group."""
+    kw = dict(causal=causal, sliding_window=sliding_window, offset=offset)
+    delta = attention_delta(out, do)
+    dq = flash_attention_bwd_dq_plain(q, k, v, padding_mask, do, lse, delta, **kw)
+    return (dq, *flash_attention_bwd_dkv_plain(q, k, v, padding_mask, do, lse, delta, **kw))
+
+
+def _fn(name: str = "gritlm_flash_fwd", lib: str = "flash_attention"):
+    fn = getattr(_build.load(lib), name)
     if fn.argtypes is None:
         P, I32, I64, F32 = _build.P, _build.I32, _build.I64, _build.F32
-        fn.argtypes = [P] * 5 + [I32] * 5 + [I64] * 7 + [I32] * 3 + [F32, P]
+        if name == "gritlm_flash_fwd":
+            fn.argtypes = [P] * 6 + [I32] * 5 + [I64] * 7 + [I32] * 3 + [F32, P]
+        elif name == "gritlm_flash_bwd_dq":
+            fn.argtypes = [P] * 8 + [I32] * 5 + [I64] * 9 + [I32] * 3 + [F32, P]
+        else:  # gritlm_flash_bwd_dkv
+            fn.argtypes = [P] * 9 + [I32] * 5 + [I64] * 9 + [I32] * 3 + [F32, P]
         fn.restype = I32
     return fn
 
@@ -111,6 +199,31 @@ def _check_bshd(t: torch.Tensor, name: str) -> None:
         raise ValueError(f"flash_attention: {name} strides {t.stride()} not supported")
 
 
+def _kernel_mask(padding_mask, B: int, Sk: int, device) -> torch.Tensor:
+    if padding_mask is None:
+        return torch.ones((B, Sk), dtype=torch.int32, device=device)
+    if tuple(padding_mask.shape) != (B, Sk):
+        raise ValueError(f"flash_attention: mask {tuple(padding_mask.shape)} != {(B, Sk)}")
+    return padding_mask.to(torch.int32).contiguous()
+
+
+def _check_qkv(q, k, v, offset) -> None:
+    for t, name in ((q, "q"), (k, "k"), (v, "v")):
+        _check_bshd(t, name)
+    if k.shape != v.shape or k.shape[0] != q.shape[0] or q.shape[2] % k.shape[2]:
+        raise ValueError(f"flash_attention: shapes q {tuple(q.shape)} k {tuple(k.shape)} "
+                         f"v {tuple(v.shape)}")
+    if not isinstance(offset, int):
+        raise TypeError("flash_attention: offset must be a Python int (one offset for all rows)")
+
+
+def _check_rows(t: torch.Tensor, shape: tuple, name: str) -> None:
+    """An fp32 contiguous [B, H, Sq] row statistic (the LSE or delta)."""
+    if t.dtype != torch.float32 or tuple(t.shape) != shape or not t.is_contiguous():
+        raise ValueError(f"flash_attention backward: {name} must be contiguous float32 "
+                         f"{shape}, got {t.dtype} {tuple(t.shape)}")
+
+
 def flash_attention(
     q: torch.Tensor,  # [B, Sq, H, Dh]
     k: torch.Tensor,  # [B, Sk, Hkv, Dh]
@@ -120,38 +233,129 @@ def flash_attention(
     causal: bool,
     sliding_window: Optional[int] = None,
     offset: int = 0,
-) -> torch.Tensor:
+    return_lse: bool = False,
+):
     """Attention forward. CPU tensors run the plain version; CUDA tensors run
-    the kernel or raise. Returns [B, Sq, H, Dh] in q's dtype."""
+    the kernel or raise. Returns [B, Sq, H, Dh] in q's dtype, and with
+    return_lse also the rows' fp32 log-sum-exp [B, H, Sq]."""
     if _build.plain_path(q, k, v, padding_mask):
         return flash_attention_plain(q, k, v, padding_mask, causal=causal,
-                                     sliding_window=sliding_window, offset=offset)
+                                     sliding_window=sliding_window, offset=offset,
+                                     return_lse=return_lse)
     fn = _fn()
     B, Sq, H, _ = q.shape
     _, Sk, Hkv, _ = k.shape
-    for t, name in ((q, "q"), (k, "k"), (v, "v")):
-        _check_bshd(t, name)
-    if k.shape != v.shape or k.shape[0] != B or H % Hkv:
-        raise ValueError(f"flash_attention: shapes q {tuple(q.shape)} k {tuple(k.shape)} "
-                         f"v {tuple(v.shape)}")
-    if not isinstance(offset, int):
-        raise TypeError("flash_attention: offset must be a Python int (one offset for all rows)")
-    if padding_mask is None:
-        mask = torch.ones((B, Sk), dtype=torch.int32, device=q.device)
-    else:
-        if tuple(padding_mask.shape) != (B, Sk):
-            raise ValueError(f"flash_attention: mask {tuple(padding_mask.shape)} != {(B, Sk)}")
-        mask = padding_mask.to(torch.int32).contiguous()
+    _check_qkv(q, k, v, offset)
+    mask = _kernel_mask(padding_mask, B, Sk, q.device)
     # the window is part of the causal mask (bidirectional calls ignore it)
     window = sliding_window if (causal and sliding_window) else 0
     out = torch.empty((B, Sq, H, HEAD_DIM), dtype=q.dtype, device=q.device)
+    lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device) if return_lse else None
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(), out.data_ptr(),
+            lse.data_ptr() if return_lse else None,
             B, Sq, Sk, H, Hkv, q.stride(0), q.stride(1), k.stride(0), k.stride(1),
             v.stride(0), v.stride(1), mask.stride(0), int(causal), int(window), offset,
             HEAD_DIM ** -0.5, _build.stream_of(q))
     _build.check(rc, "flash_attention")
     flash_attention.launches += 1
-    return out
+    return (out, lse) if return_lse else out
 
 
 flash_attention.launches = 0
+
+
+def _bwd_args(q, k, v, padding_mask, do, lse, delta, causal, sliding_window, offset):
+    """Checks and the shared leading arguments of K4 and K5, and the int32
+    mask whose pointer they hold (the caller keeps it alive through the
+    launch)."""
+    B, Sq, H, _ = q.shape
+    Sk = k.shape[1]
+    _check_qkv(q, k, v, offset)
+    _check_bshd(do, "do")
+    if do.shape != q.shape:
+        raise ValueError(f"flash_attention backward: do {tuple(do.shape)} != q {tuple(q.shape)}")
+    _check_rows(lse, (B, H, Sq), "lse")
+    _check_rows(delta, (B, H, Sq), "delta")
+    mask = _kernel_mask(padding_mask, B, Sk, q.device)
+    window = sliding_window if (causal and sliding_window) else 0
+    head = (q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr())
+    tail = (B, Sq, Sk, H, k.shape[2], q.stride(0), q.stride(1), k.stride(0), k.stride(1),
+            v.stride(0), v.stride(1), mask.stride(0), do.stride(0), do.stride(1),
+            int(causal), int(window), offset, HEAD_DIM ** -0.5, _build.stream_of(q))
+    return head, tail, mask
+
+
+def flash_attention_bwd_dq(q, k, v, padding_mask, do, lse, delta, *, causal,
+                           sliding_window=None, offset=0) -> torch.Tensor:
+    """K4: dQ [B, Sq, H, Dh] from the saved LSE and delta [B, H, Sq]. CPU
+    tensors run the plain version; CUDA tensors run the kernel or raise."""
+    if _build.plain_path(q, k, v, padding_mask, do, lse, delta):
+        return flash_attention_bwd_dq_plain(q, k, v, padding_mask, do, lse, delta,
+                                            causal=causal, sliding_window=sliding_window,
+                                            offset=offset)
+    fn = _fn("gritlm_flash_bwd_dq", "flash_attention_bwd")
+    head, tail, _mask = _bwd_args(q, k, v, padding_mask, do, lse, delta, causal,
+                                  sliding_window, offset)
+    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    _build.check(fn(*head, dq.data_ptr(), *tail), "flash_attention_bwd_dq")
+    flash_attention_bwd_dq.launches += 1
+    return dq
+
+
+flash_attention_bwd_dq.launches = 0
+
+
+def flash_attention_bwd_dkv(q, k, v, padding_mask, do, lse, delta, *, causal,
+                            sliding_window=None, offset=0):
+    """K5: (dK, dV), each [B, Sk, Hkv, Dh], summed over each GQA group. CPU
+    tensors run the plain version; CUDA tensors run the kernel or raise."""
+    if _build.plain_path(q, k, v, padding_mask, do, lse, delta):
+        return flash_attention_bwd_dkv_plain(q, k, v, padding_mask, do, lse, delta,
+                                             causal=causal, sliding_window=sliding_window,
+                                             offset=offset)
+    fn = _fn("gritlm_flash_bwd_dkv", "flash_attention_bwd")
+    head, tail, _mask = _bwd_args(q, k, v, padding_mask, do, lse, delta, causal,
+                                  sliding_window, offset)
+    dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
+    dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
+    _build.check(fn(*head, dk.data_ptr(), dv.data_ptr(), *tail), "flash_attention_bwd_dkv")
+    flash_attention_bwd_dkv.launches += 1
+    return dk, dv
+
+
+flash_attention_bwd_dkv.launches = 0
+
+
+def flash_attention_bwd(q, k, v, padding_mask, out, lse, do, *, causal,
+                        sliding_window=None, offset=0):
+    """The backward from the forward's saved output and LSE: delta by torch
+    ops, then K4 and K5 (their plain versions on CPU tensors). Returns
+    (dq, dk, dv) in the inputs' dtypes."""
+    kw = dict(causal=causal, sliding_window=sliding_window, offset=offset)
+    do = do.contiguous()
+    delta = attention_delta(out, do)
+    dq = flash_attention_bwd_dq(q, k, v, padding_mask, do, lse, delta, **kw)
+    dk, dv = flash_attention_bwd_dkv(q, k, v, padding_mask, do, lse, delta, **kw)
+    return dq, dk, dv
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """Attention with the flash backward: the forward runs K1 with its LSE
+    output and saves q, k, v, the mask, the output and the LSE; the backward
+    runs K4 and K5 (on CPU tensors, the plain versions of all three)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, padding_mask, causal: bool, sliding_window, offset: int):
+        out, lse = flash_attention(q, k, v, padding_mask, causal=causal,
+                                   sliding_window=sliding_window, offset=offset,
+                                   return_lse=True)
+        ctx.save_for_backward(q, k, v, padding_mask, out, lse)
+        ctx.kw = dict(causal=causal, sliding_window=sliding_window, offset=offset)
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, padding_mask, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, padding_mask, out, lse, do, **ctx.kw)
+        return dq, dk, dv, None, None, None, None

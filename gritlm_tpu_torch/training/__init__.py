@@ -1,2 +1,4 @@
-"""Training-side helpers of the port. Only the prompt templates are ported
-so far (the RAG path formats its embed instructions with them)."""
+"""GRIT training on one device: losses, the unified train step with
+GradCache (train.py), LoRA (lora.py), the data pipeline, run arguments,
+checkpoints, metrics logging, the CLI `python -m gritlm_tpu_torch.training.run`,
+and the prompt templates."""

@@ -1,0 +1,186 @@
+"""LoRA adapters for parameter-efficient GRIT training (port of
+gritlm_tpu.training.lora).
+
+A parallel `lora` tree holds {A [L, in, r], B [L, r, out]} per targeted
+kernel (reference PEFT path, gritlm/training/run.py:217-284: r 16, alpha 64
+on q/k/v/o and the MLP projections). `apply_lora_lazy` turns each adapted
+kernel into a lazy leaf {"w", "A", "B": (alpha/r) B} that the trunk
+resolves one layer at a time (models/transformer._w), so no full effective
+copy of the weights exists and only the LoRA tree gets gradients and
+optimizer state. `merge` folds the adapters into the base for export.
+
+Not ported: QLoRA (`quantize=True`, the int8 frozen base) waits for the
+quantized-weights slice with K6; `stack_adapters` / `set_adapter_ids` wait
+for per-request adapters in serving.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional, Sequence, Tuple, Union
+
+import torch
+
+from gritlm_tpu_torch.models.transformer import resolve_device
+from gritlm_tpu_torch.training.train import (
+    TrainState,
+    contrastive_loss,
+    encode_reps,
+    generative_loss,
+    init_train_state,
+    train_step,
+)
+
+DEFAULT_TARGETS = ("wq", "wk", "wv", "wo", "gate", "up", "down")
+
+
+def _target_leaves(params: dict, targets: Sequence[str]):
+    """(path, leaf) for the targeted 3-D kernels [L, in, out], depth first."""
+    out = []
+
+    def walk(node, path):
+        if isinstance(node, dict):
+            for k, v in node.items():
+                walk(v, path + (k,))
+        elif path[-1] in targets and node.dim() == 3:
+            out.append((path, node))
+
+    walk(params, ())
+    return out
+
+
+def init_lora(
+    params: dict,
+    seed: Union[int, torch.Generator] = 0,
+    r: int = 16,
+    alpha: int = 64,
+    targets: Sequence[str] = DEFAULT_TARGETS,
+) -> Tuple[Dict, float]:
+    """The LoRA tree: A ~ N(0, 0.02) drawn in fp32 from a seeded generator
+    on the base's device, B = 0 (so W_eff starts equal to W), both in the
+    base's dtype. Returns (tree, scale); scale = alpha / r stays out of the
+    tree so the optimizer never touches it."""
+    leaves = _target_leaves(params, targets)
+    gen = seed
+    if not isinstance(gen, torch.Generator):
+        device = leaves[0][1].device if leaves else torch.device("cpu")
+        gen = torch.Generator(device=device).manual_seed(int(seed))
+    tree: Dict = {}
+    for path, w in leaves:
+        L, din, dout = w.shape
+        node = tree
+        for p in path[:-1]:
+            node = node.setdefault(p, {})
+        a = torch.empty((L, din, r), dtype=torch.float32, device=w.device)
+        a.normal_(0.0, 1.0, generator=gen)
+        node[path[-1]] = {"A": (a * 0.02).to(w.dtype),
+                          "B": torch.zeros((L, r, dout), dtype=w.dtype, device=w.device)}
+    return tree, float(alpha) / float(r)
+
+
+def apply_lora_lazy(params: dict, lora: Dict, scale: float) -> dict:
+    """params with each adapted kernel a lazy leaf {"w": base, "A": A,
+    "B": scale * B (fp32)}, resolved per layer by the trunk."""
+
+    def walk(p_node, l_node):
+        if not isinstance(p_node, dict):
+            return p_node
+        out = {}
+        for k, v in p_node.items():
+            ln = l_node.get(k) if isinstance(l_node, dict) else None
+            if isinstance(ln, dict) and "A" in ln:
+                out[k] = {"w": v, "A": ln["A"], "B": ln["B"].float() * scale}
+            elif isinstance(v, dict):
+                out[k] = walk(v, ln or {})
+            else:
+                out[k] = v
+        return out
+
+    return walk(params, lora)
+
+
+def apply_lora(params: dict, lora: Dict, scale: float) -> dict:
+    """params with W -> W + scale * A @ B on every adapted kernel,
+    materialized (the export / merge path; training uses apply_lora_lazy)."""
+
+    def walk(p_node, l_node):
+        if not isinstance(p_node, dict):
+            return p_node
+        out = {}
+        for k, v in p_node.items():
+            ln = l_node.get(k) if isinstance(l_node, dict) else None
+            if isinstance(ln, dict) and "A" in ln and not isinstance(v, dict):
+                merged = torch.empty_like(v)
+                with torch.no_grad():
+                    for i in range(v.shape[0]):  # one layer in fp32 at a time
+                        delta = ln["A"][i].float() @ ln["B"][i].float()
+                        merged[i] = v[i].float() + scale * delta
+                out[k] = merged
+            elif isinstance(v, dict):
+                out[k] = walk(v, ln or {})
+            else:
+                out[k] = v
+        return out
+
+    return walk(params, lora)
+
+
+def merge(params: dict, lora: Dict, scale: float) -> dict:
+    """Fold adapters into base weights (export path)."""
+    return apply_lora(params, lora, scale)
+
+
+def _frozen(params: dict, device=None) -> dict:
+    """The tree detached from autograd (and moved to `device` if given)."""
+    if isinstance(params, dict):
+        return {k: _frozen(v, device) for k, v in params.items()}
+    return params.detach() if device is None else params.detach().to(device)
+
+
+def lora_train_step_fns(base_params: dict, cfg, tc, scale: float):
+    """loss_fn(lora, batch) -> (loss, (loss_emb, loss_gen)) with only the
+    LoRA tree differentiated; the base is closed over, detached. `batch`
+    holds tensors on the base's device."""
+    frozen = _frozen(base_params)
+    device = frozen["final_ln"]["scale"].device
+
+    def loss_fn(lora, batch):
+        params = apply_lora_lazy(frozen, lora, scale)
+        loss_gen = torch.zeros((), device=device)
+        loss_emb = torch.zeros((), device=device)
+        if "generative" in batch and tc.mode in ("unified", "generative"):
+            loss_gen = generative_loss(params, cfg, tc, batch["generative"])
+        if "query" in batch and tc.mode in ("unified", "embedding"):
+            q = encode_reps(params, cfg, tc, batch["query"])
+            p = encode_reps(params, cfg, tc, batch["passage"])
+            loss_emb = contrastive_loss(q, p, tc.temperature)
+        return loss_gen + loss_emb, (loss_emb, loss_gen)
+
+    return loss_fn
+
+
+def make_lora_train_state(
+    cfg, tc, base_params: dict, r: int = 16, alpha: int = 64, quantize: bool = False,
+    seed: int = 0, device: Optional[Union[str, torch.device]] = None,
+):
+    """The LoRA training setup on one device: the frozen base, and a
+    TrainState whose `params` IS the LoRA tree (so the checkpoint manager
+    and the run loop work unchanged). Returns (run_step, state, base,
+    scale); run_step(state, batch) is train_step with the base closed
+    over (GradCache included)."""
+    if quantize:
+        raise NotImplementedError(
+            "QLoRA (an int8 frozen base through the w8a16 matmul) waits for the "
+            "quantized-weights slice with kernel K6 (ROADMAP Queue 1 item 8)")
+    device = resolve_device(device)
+    base = _frozen(base_params, device)
+    lora, scale = init_lora(base, seed, r=r, alpha=alpha)
+    state: TrainState = init_train_state(lora, tc)
+
+    def params_fn(tree):
+        return apply_lora_lazy(base, tree, scale)
+
+    def run_step(state, batch):
+        return train_step(state, batch, cfg, tc, params_fn=params_fn)
+
+    return run_step, state, base, scale
+

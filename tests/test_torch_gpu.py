@@ -274,3 +274,96 @@ def test_serving_engine_runs_its_kernels(cuda):
         k3 = decode_attention.flash_decode.launches - before[0]
         k8 = paged_attention.paged_decode.launches - before[1]
         assert (k8 > 0 and k3 == 0) if paged else (k3 > 0 and k8 == 0)
+
+
+# (Sq, Sk, causal, window, offset, fully masked row 0)
+BWD_CASES = [(300, 300, True, None, 0, False), (300, 300, False, None, 0, False),
+             (256, 256, True, 64, 0, False), (200, 333, True, None, 100, False),
+             (256, 256, False, None, 0, True)]
+
+
+@pytest.mark.parametrize("Sq,Sk,causal,window,offset,empty_row", BWD_CASES)
+def test_flash_backward_kernels(cuda, Sq, Sk, causal, window, offset, empty_row):
+    """K4 and K5 against their plain versions from the same saved LSE, one
+    launch each. Tolerance: 2% of the largest gradient (bf16 inputs and
+    outputs, P and dS rounded to bf16 before their products); a row with
+    no valid key gets exactly zero gradients."""
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    B, H, Hkv = 2, 8, 2
+    q, do = _randn(gen, B, Sq, H, 128, device=cuda), _randn(gen, B, Sq, H, 128, device=cuda)
+    k, v = _randn(gen, B, Sk, Hkv, 128, device=cuda), _randn(gen, B, Sk, Hkv, 128, device=cuda)
+    mask = torch.ones((B, Sk), dtype=torch.int32, device=cuda)
+    mask[1, Sk - 40:] = 0
+    if empty_row:
+        mask[0] = 0
+    kw = dict(causal=causal, sliding_window=window, offset=offset)
+    out, lse = flash_attention.flash_attention(q, k, v, mask, return_lse=True, **kw)
+    before = (flash_attention.flash_attention_bwd_dq.launches,
+              flash_attention.flash_attention_bwd_dkv.launches)
+    got = flash_attention.flash_attention_bwd(q, k, v, mask, out, lse, do, **kw)
+    torch.cuda.synchronize()
+    assert (flash_attention.flash_attention_bwd_dq.launches,
+            flash_attention.flash_attention_bwd_dkv.launches) == (before[0] + 1, before[1] + 1)
+    want = flash_attention.flash_attention_bwd_plain(q, k, v, mask, out, lse, do, **kw)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.dtype == w.dtype and torch.isfinite(g).all()
+        tol = 2e-2 * float(w.float().abs().max())
+        torch.testing.assert_close(g.float(), w.float(), atol=tol, rtol=0)
+        if empty_row:
+            assert float(g[0].abs().max()) == 0.0
+
+
+def test_flash_attention_fn_on_cuda(cuda):
+    """Training attention on the card: multi_head_attention under grad goes
+    through FlashAttentionFn (K1 with LSE, then K4 and K5), and its
+    gradients follow autograd through the plain forward."""
+    from gritlm_tpu_torch.ops.attention import multi_head_attention
+
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    q, k, v = (x.requires_grad_(True) for x in (_randn(gen, 2, 256, 8, 128, device=cuda),
+                                                 _randn(gen, 2, 256, 2, 128, device=cuda),
+                                                 _randn(gen, 2, 256, 2, 128, device=cuda)))
+    mask = torch.ones((2, 256), dtype=torch.int32, device=cuda)
+    mask[0, 200:] = 0
+    w = _randn(gen, 2, 256, 8, 128, device=cuda).float()
+    wrappers = (flash_attention.flash_attention, flash_attention.flash_attention_bwd_dq,
+                flash_attention.flash_attention_bwd_dkv)
+    before = [f.launches for f in wrappers]
+    out = multi_head_attention(q, k, v, mask, causal=True)
+    got = torch.autograd.grad((out.float() * w).sum(), (q, k, v))
+    assert [f.launches - b for f, b in zip(wrappers, before)] == [1, 1, 1]
+    ref = flash_attention.flash_attention_plain(q, k, v, mask, causal=True)
+    want = torch.autograd.grad((ref.float() * w).sum(), (q, k, v))
+    for g, r in zip(got, want):
+        torch.testing.assert_close(g.float(), r.float(), rtol=0,
+                                   atol=2e-2 * float(r.float().abs().max()))
+
+
+def test_train_step_runs_its_kernels(cuda):
+    """A LoRA train step on the card (bf16, Dh 128, remat): finite losses,
+    attention forward and backward through K1, K4 and K5 (K1 twice a layer
+    with remat), and the adapters move from step 2 on."""
+    from gritlm_tpu_torch.models.transformer import init_params
+    from gritlm_tpu_torch.tokenizer import ByteTokenizer
+    from gritlm_tpu_torch.training.data import GritCollator
+    from gritlm_tpu_torch.training.lora import make_lora_train_state
+    from gritlm_tpu_torch.training.train import TrainConfig
+
+    cfg = ModelConfig(vocab_size=512, hidden_size=256, intermediate_size=512,
+                      num_hidden_layers=2, num_attention_heads=2, num_key_value_heads=1)
+    coll = GritCollator(ByteTokenizer(), query_max_len=64, passage_max_len=128,
+                        generative_max_len=128)
+    batch = coll([(("find", f"query {i}"), [("find", f"passage {i}"), ("find", f"junk {i}")],
+                   [f"what is {i}?", f"it is {i}"]) for i in range(4)])
+    tc = TrainConfig(total_steps=4, warmup_ratio=0.25, learning_rate=1e-3, gc_chunks=2)
+    run_step, state, _, _ = make_lora_train_state(cfg, tc, init_params(cfg, 0, device=cuda),
+                                                  r=4, alpha=8, device=cuda)
+    wrappers = (flash_attention.flash_attention, flash_attention.flash_attention_bwd_dq,
+                flash_attention.flash_attention_bwd_dkv)
+    before = [f.launches for f in wrappers]
+    for _ in range(2):
+        state, m = run_step(state, batch)
+    assert all(torch.isfinite(x) for x in (m.loss, m.loss_emb, m.loss_gen, m.grad_norm))
+    n = [f.launches - b for f, b in zip(wrappers, before)]
+    assert n[1] > 0 and n[1] == n[2] and n[0] >= 2 * n[1]
+    assert float(state.params["layers"]["attn"]["wq"]["B"].detach().abs().max()) > 0

@@ -92,6 +92,12 @@ def _fake_cuda_tensor():
 CALLS = {
     "flash_attention": (flash_attention, "flash_attention", "flash_attention_plain",
                         lambda f, x: f(x, x, x, x, causal=True)),
+    "flash_attention_bwd_dq": (flash_attention, "flash_attention_bwd_dq",
+                               "flash_attention_bwd_dq_plain",
+                               lambda f, x: f(x, x, x, x, x, x, x, causal=True)),
+    "flash_attention_bwd_dkv": (flash_attention, "flash_attention_bwd_dkv",
+                                "flash_attention_bwd_dkv_plain",
+                                lambda f, x: f(x, x, x, x, x, x, x, causal=False)),
     "flash_decode": (decode_attention, "flash_decode", "flash_decode_plain",
                      lambda f, x: f(x, x, x, x, causal=True, offset=3, layer=0)),
     "fused_pool": (fused_pool, "fused_norm_mean_pool", "fused_norm_mean_pool_plain",
