@@ -9,12 +9,13 @@ port's paths through the kernels on a full-width Mistral-7B with random
 bf16 weights (GritLM.encode and greedy GritLM.generate; FlatIndex.search
 over a 1M-row index; RAGEngine.build_index and answer_batch in all seven
 cache modes; the continuous-batching ServingEngine with dense, paged and
-int8 pools, and RAGEngine.serve; GRIT training with LoRA, GradCache and
-full parameters through `python -m gritlm_tpu_torch.training.run`'s main),
-and times each kernel beside its bound, its plain version and one PyTorch
+int8 pools, and RAGEngine.serve; w8a16 and w4a16 quantized weights in
+generate and serving; GRIT training with LoRA, QLoRA, GradCache and full
+parameters through `python -m gritlm_tpu_torch.training.run`'s main), and
+times each kernel beside its bound, its plain version and one PyTorch
 library call.
 
-Phases, any failure exits non-zero:
+Phases (in the order 1-9, 11, 10), any failure exits non-zero:
   1. device and build: card name and power limit, nvcc's register and
      shared-memory report
   2. each kernel against its plain version on the card (K9 at three shapes:
@@ -38,7 +39,7 @@ Phases, any failure exits non-zero:
      ServingEngine(max_batch=8, max_len=4096, chunk_size=16) over 24
      generation requests (prompts of 32-1900 tokens, 8-64 new tokens) and 8
      embedding requests, with a dense bf16, a paged bf16 (page 256) and a
-     paged int8 pool, and a dense pool with prefill_chunk=256 (12 requests);
+     paged int8 pool, and a dense pool with prefill_chunk=256 (8 requests);
      completions, K3/K8 in the decode chunks, pool embeddings against
      GritLM.encode, a teacher-forced check of 4 requests per run (TIE_TOL),
      tokens/s, time to first token, device ms per decode step at B = 8 and
@@ -65,7 +66,23 @@ Phases, any failure exits non-zero:
      (gc_chunks 2 against 1 at depth 4: loss_emb and the gradients'
      cosine); full-parameter training at depth 8 (peak memory); K4 and K5
      timed at the passage shape (B 8, S 2048, bidirectional) beside the
-     backward of scaled_dot_product_attention
+     backward of scaled_dot_product_attention; 3 QLoRA steps (int8 base,
+     make_lora_train_state(quantize=True)) at full depth: ms per step, peak
+     memory against LoRA's, finite losses
+ 11. quantized weights at full width (runs after phase 9, before phase 10
+     frees the inference model; counts set to 0 before each run and read
+     after): K6 (w8a16) and K7 (w4a16) against their plain versions at
+     Mistral-7B's projections (K6 at M 1-512, K7 at M 1-16), a layer view
+     of a stack read in place, rejected geometries raising; greedy generate
+     (B 2, 32 tokens) with GritLM(weight_quant=8), with =4, and w8 over the
+     int8 KV cache, each teacher-forced (within TIE_TOL, INT8_KV_TIE_TOL over
+     the int8 cache); the weight bytes and
+     device/host ms per decode step against bf16; 8 generation and 4
+     embedding requests through a dense w4 ServingEngine (K7 in the decode
+     chunks); K6 and K7 timed at M 8 over the five projection shapes (the
+     gate/up shape, 4096 -> 14336, is the kernel table's) beside their bounds
+     and torch.matmul of the dequantized weight, by CUDA graph replays over
+     weight copies that keep each call's weight out of L2
 
 Output: a `kernels` JSON line, the card line, then as the last line
 {"ok": true, "device": {...}}. Exits 2 with no result when there is no CUDA
@@ -74,6 +91,7 @@ device or the port's package is not beside this script.
 
 from __future__ import annotations
 
+import gc
 import json
 import os
 import statistics
@@ -105,6 +123,12 @@ COSINE_MIN = 0.999
 # drift (PR 3 saw greedy tokens flip between layouts); a wrong token sits
 # several logit units below the max (logits have a spread of about 1.3).
 TIE_TOL = 0.25
+# The same over an int8 KV cache: each K/V value rounds to 1/127 of its head's
+# absmax, and a K/V that another matmul path computed (the check's forward
+# against the generate's decode kernels) can land one int8 step away, which
+# moves logits more than bf16 rounding does (two runs of the same int8-KV
+# generate with K6 split two ways: 0.19 and 0.28).
+INT8_KV_TIE_TOL = 0.5
 
 SENTENCES = [
     "Bitcoin is a decentralized digital currency without a central bank.",
@@ -208,6 +232,7 @@ def main() -> int:
         flash_attention,
         fused_pool,
         paged_attention,
+        quant_matmul,
         scores_segmax,
     )
     from gritlm_tpu_torch.ops.flash_attention import keep_mask
@@ -255,6 +280,12 @@ def main() -> int:
                                     flash_attention.flash_attention_bwd_dkv_plain,
                                     "gritlm_tpu_torch/csrc/flash_attention_bwd.cu",
                                     "gritlm_tpu/ops/flash_attention.py:416"),
+        "w8a16_matmul": (quant_matmul, quant_matmul.w8a16_matmul_plain,
+                         "gritlm_tpu_torch/csrc/quant_matmul.cu",
+                         "gritlm_tpu/ops/quant_matmul.py:204"),
+        "w4a16_matmul": (quant_matmul, quant_matmul.w4a16_matmul_plain,
+                         "gritlm_tpu_torch/csrc/quant_matmul.cu",
+                         "gritlm_tpu/ops/quant_matmul.py:116"),
     }
     wrappers = {name: getattr(mod, name) for name, (mod, *_) in kernels.items()}
     path_launches = {}  # path -> launches per kernel in that path's run
@@ -525,7 +556,7 @@ def main() -> int:
     rag_eng = rag_phase(model, reset_counts, read_counts, path_launches)
 
     # ---------------------------------------------------------------- 7
-    serving_phase(model, rag_eng, reset_counts, read_counts, path_launches)
+    dense_step = serving_phase(model, rag_eng, reset_counts, read_counts, path_launches)
     del rag_eng
 
     # ---------------------------------------------------------------- 8
@@ -578,8 +609,14 @@ def main() -> int:
     print(f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
           f"total {time.time() - t_start:.0f} s")
 
+    # ---------------------------------------------------------------- 11
+    quant_phase(model, enc_long, dense_step, reset_counts, read_counts, path_launches, times,
+                max_err)
+    print(f"total {time.time() - t_start:.0f} s")
+
     # ---------------------------------------------------------------- 10
     del model, qmodel, cache
+    gc.collect()  # engines held in reference cycles (their on_token closures) keep their pools
     torch.cuda.empty_cache()
     flash_bwd_checks(dev, randn, max_err)
     training_phase(dev, reset_counts, read_counts, path_launches)
@@ -877,20 +914,21 @@ def rag_phase(model, reset_counts, read_counts, path_launches):
     return eng
 
 
-def serving_phase(model, rag_eng, reset_counts, read_counts, path_launches) -> None:
-    """The continuous-batching engine at full width: 24 generation requests
-    (seeded random prompts of 32-1900 tokens, 8-64 new tokens) and 8
-    embedding requests through ServingEngine(max_batch=8, max_len=4096,
-    chunk_size=16) with a dense bf16 pool, a paged bf16 pool (page 256), a
-    paged int8-KV pool, and a dense pool with prefill_chunk=256 (12 of the
-    requests); then RAGEngine.serve of 4 queries, dense and paged, over the
-    RAG phase's index. Launch counts are set to 0 before each run and read
-    after it; their sum over the runs is the serving path's."""
+def serving_workload(model, reset_counts, read_counts, total):
+    """The serving workload of `model` (whose params the engines are given):
+    24 generation requests (seeded prompts of 32-1900 tokens, 8-64 new
+    tokens) and 8 embedding requests. Returns (drive, specs); drive(label,
+    eng, gen_specs, n_embeds, decode_kernels=()) runs the requests and n
+    embedding requests through the engine with the launch counts set to 0
+    before and added to `total` after, checks every completion, the pool
+    embeddings against GritLM.encode, K3/K8 (and `decode_kernels`) inside
+    the decode chunks and a teacher-forced forward, and returns (generated
+    tokens/s, peak reserved pages)."""
     import torch
 
     from gritlm_tpu_torch import serving
     from gritlm_tpu_torch.models.transformer import forward, init_cache, logits_from_hidden
-    from gritlm_tpu_torch.serving import EmbedRequest, Request, ServingEngine
+    from gritlm_tpu_torch.serving import EmbedRequest, Request
     from gritlm_tpu_torch.tokenizer import instruction_token_lens
 
     cfg, tok, params, dev = model.config, model.tokenizer, model.params, model.device
@@ -914,8 +952,6 @@ def serving_phase(model, rag_eng, reset_counts, read_counts, path_launches) -> N
             decode_counts[n] = decode_counts.get(n, 0) + c - before[n]
         return out
 
-    total = {}
-
     def teacher_deficits(ids, toks, quant):
         """Teacher forcing through the kernels: one causal forward over
         prompt + the engine's tokens (a cache of the pool's KV format); per
@@ -930,7 +966,7 @@ def serving_phase(model, rag_eng, reset_counts, read_counts, path_launches) -> N
         chosen = logits.gather(1, torch.tensor(toks, device=dev)[:, None])[:, 0]
         return (logits.max(1).values - chosen).cpu()
 
-    def drive(label, eng, gen_specs, with_embeds):
+    def drive(label, eng, gen_specs, n_embeds, decode_kernels=()):
         first_at, peak = {}, [0]
 
         def on_token(rid, _tok):
@@ -941,9 +977,8 @@ def serving_phase(model, rag_eng, reset_counts, read_counts, path_launches) -> N
         eng.on_token = on_token
         reqs = [Request(input_ids=ids, max_new_tokens=m, request_id=rid)
                 for rid, ids, m in gen_specs]
-        if with_embeds:
-            reqs += [EmbedRequest(input_ids=ids, instr_len=il, request_id=rid)
-                     for rid, ids, il in embed_specs]
+        reqs += [EmbedRequest(input_ids=ids, instr_len=il, request_id=rid)
+                 for rid, ids, il in embed_specs[:n_embeds]]
         decode_counts.clear()
         serving._decode_chunk_program = counted_chunk
         try:
@@ -983,11 +1018,14 @@ def serving_phase(model, rag_eng, reset_counts, read_counts, path_launches) -> N
         k3, k8 = decode_counts.get("flash_decode", 0), decode_counts.get("paged_decode", 0)
         if (eng.paged and (k8 == 0 or k3 != 0)) or (not eng.paged and (k3 == 0 or k8 != 0)):
             fail(f"serving [{label}]: decode chunks launched K3 {k3} and K8 {k8} times")
-        if with_embeds:
+        for name in decode_kernels:
+            if decode_counts.get(name, 0) == 0:
+                fail(f"serving [{label}]: decode chunks never launched {name}")
+        if n_embeds:
             if counts["fused_norm_mean_pool"] == 0:
                 fail(f"serving [{label}]: embeddings did not go through K2")
-            got = torch.from_numpy(np.stack([embs[rid] for rid, _, _ in embed_specs]))
-            cos = torch.nn.functional.cosine_similarity(got, want_emb, dim=-1)
+            got = torch.from_numpy(np.stack([embs[rid] for rid, _, _ in embed_specs[:n_embeds]]))
+            cos = torch.nn.functional.cosine_similarity(got, want_emb[:n_embeds], dim=-1)
             print(f"serving [{label}]: pool embeddings against GritLM.encode: min cosine "
                   f"{float(cos.min()):.6f}")
             if float(cos.min()) < 0.9999:
@@ -1003,18 +1041,41 @@ def serving_phase(model, rag_eng, reset_counts, read_counts, path_launches) -> N
                  "position's max logit")
         return n_tok / wall, peak[0]
 
+    return drive, specs
+
+
+def serving_phase(model, rag_eng, reset_counts, read_counts, path_launches):
+    """The continuous-batching engine at full width: the serving workload
+    (serving_workload) through ServingEngine(max_batch=8, max_len=4096,
+    chunk_size=16) with a dense bf16 pool, a paged bf16 pool (page 256), a
+    paged int8-KV pool, and a dense pool with prefill_chunk=256 (8 of the
+    requests); then RAGEngine.serve of 4 queries, dense and paged, over the
+    RAG phase's index. Launch counts are set to 0 before each run and read
+    after it; their sum over the runs is the serving path's. Returns the
+    dense bf16 pool's decode step at B = 8 (profile_decode_chunk)."""
+    import torch
+
+    from gritlm_tpu_torch import serving
+    from gritlm_tpu_torch.serving import ServingEngine
+
+    cfg, tok, params, dev = model.config, model.tokenizer, model.params, model.device
+    eos = tok.eos_token_id
+    total = {}
+    drive, specs = serving_workload(model, reset_counts, read_counts, total)
+    chunk_program = serving._decode_chunk_program
+
     kw = dict(max_batch=8, max_len=4096, chunk_size=16, eos_id=eos, pad_id=tok.pad_token_id,
               device=dev)
     L, KD = cfg.num_hidden_layers, cfg.num_key_value_heads * cfg.head_dim_
     rates = {}
     eng = ServingEngine(cfg, params, **kw)
     dense_bytes = nbytes(eng.carry.cache.k, eng.carry.cache.v)
-    rates["dense bf16"], _ = drive("dense bf16", eng, specs, True)
-    profile_decode_chunk("dense bf16", eng, chunk_program, specs)
+    rates["dense bf16"], _ = drive("dense bf16", eng, specs, 8)
+    dense_step = profile_decode_chunk("dense bf16", eng, chunk_program, specs)
     del eng
     for label, quant in (("paged bf16", False), ("paged int8", True)):
         eng = ServingEngine(cfg, params, paged=True, page_size=256, kv_quant=quant, **kw)
-        rates[label], peak = drive(label, eng, specs, True)
+        rates[label], peak = drive(label, eng, specs, 8)
         page_bytes = 256 * L * KD * 2 * (1 if quant else 2) + (
             2 * L * cfg.num_key_value_heads * 256 * 2 if quant else 0)
         print(f"serving [{label}]: KV reserved at peak {peak} pages of 256 = "
@@ -1025,8 +1086,7 @@ def serving_phase(model, rag_eng, reset_counts, read_counts, path_launches) -> N
         del eng
     eng = ServingEngine(cfg, params, prefill_chunk=256, prompt_buckets=(256, 512, 1024, 2048),
                         **kw)
-    rates["dense chunked prefill 256"], _ = drive("dense prefill_chunk 256", eng, specs[:12],
-                                                  False)
+    rates["dense chunked prefill 256"], _ = drive("dense prefill_chunk 256", eng, specs[:8], 0)
     del eng
     torch.cuda.empty_cache()
 
@@ -1051,13 +1111,15 @@ def serving_phase(model, rag_eng, reset_counts, read_counts, path_launches) -> N
     print(f"serving launches: {total}; generated tokens/s by pool: "
           + ", ".join(f"{k} {v:.1f}" for k, v in rates.items()))
     torch.cuda.empty_cache()
+    return dense_step
 
 
-def profile_decode_chunk(label, eng, chunk_program, specs) -> None:
+def profile_decode_chunk(label, eng, chunk_program, specs):
     """Device time of one 16-step decode chunk with all 8 slots active
-    (fresh requests of 64 new tokens on the engine's pool): device ms per
-    step at B = 8 and the chunk's idle share. The chunk runs outside the
-    scheduler, so the engine is spent afterwards."""
+    (fresh requests of 64 new tokens on the engine's pool): returns (device
+    ms per step at B = 8, host ms per step, the chunk's idle share), or None
+    for an empty trace. The chunk runs outside the scheduler, so the engine
+    is spent afterwards."""
     import torch
 
     from gritlm_tpu_torch.serving import Request
@@ -1070,11 +1132,13 @@ def profile_decode_chunk(label, eng, chunk_program, specs) -> None:
         fail(f"profile [{label}]: {int(eng.carry.active.sum())} of 8 rows active")
     prof = profile_window(f"{label} decode chunk, B=8, 16 steps", lambda: chunk_program(
         eng.params, eng.cfg, eng.carry, steps=16, eos_id=eng.eos_id, pad_id=eng.pad_id))
-    if prof is not None:
-        wall_ms, busy_ms = prof
-        print(f"serving [{label}]: decode at B=8: {busy_ms / 16:.3f} device ms per step, "
-              f"{wall_ms / 16:.3f} ms per step (host clock), idle share "
-              f"{max(0.0, 1 - busy_ms / wall_ms):.3f}", flush=True)
+    if prof is None:
+        return None
+    wall_ms, busy_ms = prof
+    print(f"serving [{label}]: decode at B=8: {busy_ms / 16:.3f} device ms per step, "
+          f"{wall_ms / 16:.3f} ms per step (host clock), idle share "
+          f"{max(0.0, 1 - busy_ms / wall_ms):.3f}", flush=True)
+    return busy_ms / 16, wall_ms / 16, max(0.0, 1 - busy_ms / wall_ms)
 
 
 def latency_phase(model) -> None:
@@ -1111,6 +1175,323 @@ def latency_phase(model) -> None:
     print(f"latency sweep: {time.time() - t0:.0f} s, dispatch floor "
           f"{sweep['_meta']['dispatch_floor_s'] * 1e6:.1f} us")
     torch.cuda.empty_cache()
+
+
+# Mistral-7B's projections, (K, N): wq/wo, wk/wv, gate/up, down, the LM head
+QUANT_SHAPES = ((4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096), (4096, 32000))
+QUANT_RTOL = 5e-3  # relative Frobenius error against the plain version (the JAX tests' bound)
+
+
+def quant_checks(dev, max_err) -> None:
+    """K6 and K7 against their plain versions on the card at Mistral-7B's
+    projections: M 1, 3, 8, 16 (and 256, 512 for K6), a layer's view of a
+    3-layer stack read in place, and geometries the kernels reject."""
+    import torch
+
+    from gritlm_tpu_torch.models.transformer import _unstack
+    from gritlm_tpu_torch.ops import quant_matmul as qm
+    from gritlm_tpu_torch.training import quant
+
+    gen = torch.Generator(device=dev).manual_seed(11)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+
+    kinds = {"w8a16_matmul": (quant.quantize_kernel, qm.w8a16_matmul, qm.w8a16_matmul_plain,
+                              (1, 3, 8, 16, 256, 512)),
+             "w4a16_matmul": (quant.quantize_kernel_int4, qm.w4a16_matmul,
+                              qm.w4a16_matmul_plain, (1, 3, 8, 16))}
+    for name, (quantize, kernel, plain, rows) in kinds.items():
+        for K, N in QUANT_SHAPES:
+            node = quantize(randn(K, N))
+            errs = []
+            for M in rows:
+                x = randn(M, K)
+                got = kernel(x, node)
+                torch.cuda.synchronize()
+                want = plain(x, node)
+                if got.shape != want.shape or not torch.isfinite(got).all():
+                    fail(f"{name} [M{M} K{K} N{N}]: shape {tuple(got.shape)} or non-finite")
+                rel = float((got.float() - want.float()).norm() / want.float().norm())
+                err = float((got.float() - want.float()).abs().max())
+                errs.append(rel)
+                max_err[name] = max(max_err[name], err)
+                if rel > QUANT_RTOL:
+                    fail(f"{name} [M{M} K{K} N{N}] disagrees with its plain version: relative "
+                         f"error {rel} > {QUANT_RTOL}")
+            print(f"check {name} [K{K} N{N}, M {', '.join(map(str, rows))}]: relative error "
+                  f"up to {max(errs):.2e} (rtol {QUANT_RTOL}), max_abs_err so far "
+                  f"{max_err[name]:.3e}", flush=True)
+        stack = quantize(randn(3, 4096, 1024))
+        key = "q8" if name == "w8a16_matmul" else "q4"
+        view = _unstack({"w": stack}, 3)[2]["w"]
+        x = randn(8, 4096)
+        got = kernel(x, view)
+        same = torch.equal(got, kernel(x, {k: v.clone() for k, v in view.items()}))
+        offset = view[key].data_ptr() - stack[key].data_ptr()
+        print(f"check {name} [layer 2 of a 3-layer stack]: read in place at byte offset "
+              f"{offset}, equal to a contiguous copy: {same}", flush=True)
+        if offset != 2 * stack[key][0].numel() or not same:
+            fail(f"{name}: a layer view of the stack is copied or read wrongly")
+    for label, call in (
+            ("K6, N % 16 != 0", lambda: qm.w8a16_matmul(
+                randn(4, 256), quant.quantize_kernel(randn(256, 24)))),
+            ("K7, group of 8 rows", lambda: qm.w4a16_matmul(
+                randn(4, 256), quant.quantize_kernel_int4(randn(256, 128), 8)))):
+        try:
+            call()
+        except NotImplementedError as e:
+            print(f"check rejected geometry [{label}]: raises ({str(e)[:60]}...)")
+        else:
+            fail(f"{label}: a geometry the kernel rejects did not raise")
+    torch.cuda.empty_cache()
+
+
+def cold_copies(nbytes_one: int, l2_bytes: int = 50 * 2**20) -> int:
+    """Copies of a weight to cycle through so that each call finds its
+    weight out of L2 (twice the L2's size in all)."""
+    return max(1, -(-2 * l2_bytes // nbytes_one))
+
+
+def graph_ms(fn, n: int = 20) -> float:
+    """Device ms of one call of fn: the call captured once in a CUDA graph
+    and replayed n times between two CUDA events. No host launch cost enters
+    (the kernels at decode shapes take less time on the device than their
+    Python wrappers take to launch) and no profiler trace is needed (one
+    dropped a kernel now and then). Kernels in one replay run back to back,
+    gaps of about a microsecond between them included."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm-up: allocator, library workspaces, kernel attributes
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    try:
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            fn()
+        run = graph.replay
+        run()
+    except RuntimeError as e:  # a measurement, not the kernel path: say so and time the calls
+        print(f"  CUDA graph capture failed ({str(e).splitlines()[0][:80]}); timed over "
+              "back-to-back calls instead, host launch cost included", flush=True)
+        run = fn
+    start.record()
+    for _ in range(n):
+        run()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / n
+
+
+def decode_step(label, m, enc):
+    """Device and host ms per decode step of greedy generate at B = 2 (two
+    torch.profiler windows, 1 and 9 new tokens: the difference over 8
+    steps) and the steps' idle share; None for an empty trace."""
+    def gen(n):
+        return lambda: m.generate_from_ids(enc["input_ids"], enc["attention_mask"],
+                                           max_new_tokens=n)
+
+    short = profile_window(f"{label} generate B=2, 1 token", gen(1), top=0)
+    full = profile_window(f"{label} generate B=2, 9 tokens", gen(9), top=8)
+    if short is None or full is None:
+        print(f"generate [{label}]: decode step not measured (empty trace)")
+        return None
+    wall, busy = full[0] - short[0], full[1] - short[1]
+    if wall <= 0:
+        print(f"generate [{label}]: decode step not measured (9 tokens no slower than 1)")
+        return None
+    idle = max(0.0, 1 - busy / wall)
+    print(f"generate [{label}]: decode step at B=2 {busy / 8:.3f} device ms, {wall / 8:.3f} "
+          f"host ms, idle share {idle:.3f}", flush=True)
+    return busy / 8, wall / 8, idle
+
+
+def quant_phase(model, enc, dense_step, reset_counts, read_counts, path_launches, times,
+                max_err) -> None:
+    """Quantized weights at full width (counts set to 0 before each main-path
+    run, summed after): K6/K7 checks; GritLM(weight_quant=8) and (=4) over
+    the same seeded bf16 weights, greedy generate at B = 2 (32 tokens) with
+    a teacher-forced check, w8 with the int8 KV cache too; the weight bytes
+    and the decode step against bf16; the serving workload's 8 generation
+    and 4 embedding requests on a dense w4 pool; K6/K7 timed at M 8 over
+    the projection shapes."""
+    import torch
+
+    from gritlm_tpu_torch import GritLM
+    from gritlm_tpu_torch.models.transformer import forward, init_cache, logits_from_hidden
+    from gritlm_tpu_torch.ops import quant_matmul as qm
+    from gritlm_tpu_torch.serving import ServingEngine
+    from gritlm_tpu_torch.training import quant
+
+    t_phase = time.time()
+    quant_checks(model.device, max_err)
+    cfg, dev = model.config, model.device
+    total = {}
+
+    def counted(fn):
+        reset_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        for n, c in read_counts().items():
+            total[n] = total.get(n, 0) + c
+        return out
+
+    def deficits(m, res, kv_quant):
+        """Per generated token, how far it sits below its position's largest
+        logit in one causal forward over prompt + tokens. bf16 KV: both rows
+        in one right-padded batch of more than 512 rows (past K6's and K7's
+        row ceilings, so the forward dequantizes); int8 KV: each row alone
+        over an int8 cache, as the generate's."""
+        ids, mask = enc["input_ids"], enc["attention_mask"]
+        seqs = []
+        for b in range(ids.shape[0]):
+            prompt = ids[b, :int(mask[b].sum())].tolist()
+            toks = res.tokens[b, :int(res.num_valid[b])].tolist()
+            seqs.append((prompt, toks))
+        out = []
+        with torch.inference_mode():
+            if kv_quant:
+                for prompt, toks in seqs:
+                    x = torch.tensor([prompt + toks], device=dev)
+                    cache = init_cache(cfg, 1, x.shape[1], device=dev, quant=True)
+                    hidden, _, _ = forward(m.params, cfg, x, causal=True, cache=cache)
+                    out.append((hidden[0], prompt, toks))
+            else:
+                S = max(257, max(len(p) + len(t) for p, t in seqs))
+                x = torch.zeros((len(seqs), S), dtype=torch.long, device=dev)
+                am = torch.zeros((len(seqs), S), dtype=torch.int32, device=dev)
+                for b, (prompt, toks) in enumerate(seqs):
+                    x[b, :len(prompt) + len(toks)] = torch.tensor(prompt + toks)
+                    am[b, :len(prompt) + len(toks)] = 1
+                hidden, _, _ = forward(m.params, cfg, x, attention_mask=am, causal=True)
+                out = [(hidden[b], p, t) for b, (p, t) in enumerate(seqs)]
+            gaps = []
+            for h, prompt, toks in out:
+                logits = logits_from_hidden(m.params, cfg,
+                                            h[len(prompt) - 1:len(prompt) - 1 + len(toks)][None])
+                logits = logits[0].float()
+                chosen = logits.gather(1, torch.tensor(toks, device=dev)[:, None])[:, 0]
+                gaps.append((logits.max(1).values - chosen).cpu())
+        return torch.cat(gaps)
+
+    dense_bytes = quant.quantized_bytes(model.params)
+    steps = {"bf16": decode_step("bf16", model, enc)}
+    qmodels = {}
+    for bits, kernel in ((8, "w8a16_matmul"), (4, "w4a16_matmul")):
+        t0 = time.time()
+        m = GritLM(cfg, params=model.params, weight_quant=bits, device=dev)
+        torch.cuda.synchronize()
+        qmodels[bits] = m
+        nbytes_q = quant.quantized_bytes(m.params)
+        print(f"weights [w{bits}a16]: {nbytes_q / 2**30:.2f} GiB against {dense_bytes / 2**30:.2f} "
+              f"GiB bf16 ({nbytes_q / dense_bytes:.3f}); quantized on the card in "
+              f"{time.time() - t0:.1f} s", flush=True)
+        runs = [(f"w{bits}", m)]
+        if bits == 8:
+            runs.append(("w8, int8 KV", GritLM(cfg, params=m.params, kv_quant=True, device=dev)))
+        for label, mm in runs:
+            before = dict(total)
+            res = counted(lambda: mm.generate_from_ids(enc["input_ids"], enc["attention_mask"],
+                                                       max_new_tokens=32))
+            launched = {n: total.get(n, 0) - before.get(n, 0) for n in total}
+            t = res.tokens
+            if not ((t >= 0) & (t < cfg.vocab_size)).all():
+                fail(f"generate [{label}]: token ids out of range")
+            if launched.get(kernel, 0) == 0 or launched.get("flash_decode", 0) == 0:
+                fail(f"generate [{label}]: decode did not go through {kernel} and K3")
+            gaps = deficits(mm, res, mm.kv_quant)
+            tol = INT8_KV_TIE_TOL if mm.kv_quant else TIE_TOL
+            print(f"generate [{label}, B=2, 32 tokens]: launches {launched}; teacher forcing "
+                  f"over {len(gaps)} tokens: largest deficit to the max logit "
+                  f"{float(gaps.max()):.4f} (tolerance {tol}), argmax at "
+                  f"{float((gaps == 0).float().mean()):.3f}; sample "
+                  f"{mm.tokenizer.decode(t[0].tolist())[:60]!r}", flush=True)
+            if float(gaps.max()) > tol:
+                fail(f"generate [{label}]: a token is {float(gaps.max())} below its position's "
+                     "max logit")
+        steps[f"w{bits}"] = decode_step(f"w{bits}", m, enc)
+    for label, st in steps.items():
+        print(f"decode step [{label}, B=2]: " + (
+            "not measured" if st is None else
+            f"{st[0]:.3f} device ms, {st[1]:.3f} host ms, idle share {st[2]:.3f}"), flush=True)
+
+    # ---- w4 serving: 8 generation and 4 embedding requests, dense pool
+    m4 = qmodels[4]
+    drive, specs = serving_workload(m4, reset_counts, read_counts, total)
+    tok = m4.tokenizer
+    eng = ServingEngine(cfg, m4.params, max_batch=8, max_len=4096, chunk_size=16,
+                        eos_id=tok.eos_token_id, pad_id=tok.pad_token_id, device=dev)
+    drive("dense w4", eng, specs[:8], 4, decode_kernels=("w4a16_matmul",))
+    from gritlm_tpu_torch import serving
+
+    w4_step = profile_decode_chunk("dense w4", eng, serving._decode_chunk_program, specs)
+    for label, st in (("bf16 (phase 7)", dense_step), ("w4", w4_step)):
+        print(f"serving decode step [{label}, B=8]: " + (
+            "not measured" if st is None else
+            f"{st[0]:.3f} device ms, {st[1]:.3f} host ms, idle share {st[2]:.3f}"), flush=True)
+    del eng
+    path_launches["quantized"] = total
+    print(f"quantized launches: {total}")
+    if total.get("w8a16_matmul", 0) == 0 or total.get("w4a16_matmul", 0) == 0:
+        fail("the quantized paths did not go through K6 and K7")
+
+    # ---- K6 and K7 at the decode rows M 8 over every projection shape; the
+    # gate/up shape (4096 -> 14336) is the kernel table's. Times from CUDA
+    # graph replays (graph_ms), over enough copies of the weights to keep
+    # them out of L2, as in a decode step, where 31 other layers pass between
+    # two reads of a layer's weights.
+    gen = torch.Generator(device=dev).manual_seed(12)
+    M = 8
+    for K, N in QUANT_SHAPES:
+        w = torch.randn((K, N), generator=gen, device=dev).to(torch.bfloat16)
+        x = torch.randn((M, K), generator=gen, device=dev).to(torch.bfloat16)
+        for name, node, plain, kern in (
+                ("w8a16_matmul", quant.quantize_kernel(w), qm.w8a16_matmul_plain,
+                 qm.w8a16_matmul),
+                ("w4a16_matmul", quant.quantize_kernel_int4(w), qm.w4a16_matmul_plain,
+                 qm.w4a16_matmul)):
+            dense = quant.dequantize_kernel(node, torch.bfloat16)  # what quantization replaces
+            nodes = [node] + [{k: v.clone() for k, v in node.items()}
+                              for _ in range(cold_copies(nbytes(*node.values())) - 1)]
+            denses = [dense] + [dense.clone() for _ in range(cold_copies(nbytes(dense)) - 1)]
+            ms = graph_ms(lambda: [kern(x, nd) for nd in nodes]) / len(nodes)
+            library_ms = graph_ms(lambda: [torch.matmul(x, d) for d in denses]) / len(denses)
+            bms, by = bound(2.0 * M * K * N, nbytes(*node.values(), x) + M * N * 2)
+            line = (f"time {name} [M{M} K{K} N{N}]: device {ms:.4f} ms ({bms / ms * 100:.1f}% "
+                    f"of bound {bms:.4f} ms, {by}), library {library_ms:.4f} (torch.matmul "
+                    f"against the dequantized bf16 weight); CUDA graph replays over "
+                    f"{len(nodes)} / {len(denses)} weight copies")
+            if (K, N) == (4096, 14336):
+                plain_ms = graph_ms(lambda: plain(x, node), n=10)
+                times[name] = (ms, plain_ms, library_ms, bms, by)
+                line += f"; plain {plain_ms:.4f}"
+            print(line, flush=True)
+            if (K, N) == (4096, 14336):
+                try:  # PyTorch's own quantized-weight products: yardsticks, never used by the port
+                    if name == "w8a16_matmul":
+                        w8t, s8 = node["q8"].t().contiguous(), node["scale"][0].to(torch.bfloat16)
+                        other = lambda: torch._weight_int8pack_mm(x, w8t, s8)  # noqa: E731
+                    else:
+                        nib = (quant.unpack_int4(node)[0] + 8).t().to(torch.uint8)  # [N, K]
+                        packed = torch._convert_weight_to_int4pack(
+                            ((nib[:, ::2] << 4) | nib[:, 1::2]).contiguous(), 8)
+                        sz = torch.stack([node["scale"], torch.zeros_like(node["scale"])],
+                                         -1).to(torch.bfloat16).contiguous()
+                        other = lambda: torch._weight_int4pack_mm(x, packed, 32, sz)  # noqa: E731
+                    print(f"  torch.{'_weight_int8pack_mm' if name == 'w8a16_matmul' else '_weight_int4pack_mm'}"
+                          f" at the same shape: {graph_ms(other):.4f} ms (one weight copy)",
+                          flush=True)
+                except (TypeError, RuntimeError, NotImplementedError) as e:
+                    print(f"  PyTorch's packed-weight product for {name} does not run here: "
+                          f"{str(e).splitlines()[0][:100]}")
+            del dense, nodes, denses
+    del qmodels, m4, w, x
+    torch.cuda.empty_cache()
+    print(f"quantized phase: {time.time() - t_phase:.0f} s", flush=True)
 
 
 def flash_bwd_checks(dev, randn, max_err, B=2, S=2048, H=32, Hkv=8, window=512) -> None:
@@ -1209,8 +1590,9 @@ def training_phase(dev, reset_counts, read_counts, path_launches, preset="mistra
     """GRIT training at Mistral-7B width (counts set to 0 before, read
     after): LoRA at full depth through training.run.main (3 steps, a
     checkpoint at step 2, a run resumed from it, the export read back
-    equal); 6 LoRA steps on one batch; GradCache against the full batch at
-    depth 4; full-parameter training at depth 8."""
+    equal); 6 LoRA steps on one batch; 3 QLoRA steps (the base in int8) on
+    the same batch; GradCache against the full batch at depth 4;
+    full-parameter training at depth 8."""
     import dataclasses
     import shutil
 
@@ -1312,7 +1694,30 @@ def training_phase(dev, reset_counts, read_counts, path_launches, preset="mistra
             fail(f"train [learns]: losses {losses}")
         profile_window(f"LoRA train step, {cfg.num_hidden_layers} layers",
                        lambda: run_step(state, batch))
-        del state, run_step, base
+        del state, run_step
+
+        # ---- QLoRA: the same base quantized to int8 (the bf16 copy freed), 3 steps
+        run_step, state, _, _ = make_lora_train_state(cfg, tc, base, seed=0, device=dev,
+                                                      quantize=True)
+        del base
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        losses, step_s = [], []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = run_step(state, batch)
+            losses.append(float(m.loss))
+            step_s.append(time.perf_counter() - t0)
+        peak_q = torch.cuda.max_memory_allocated() / 2**30
+        med = statistics.median(step_s[1:])
+        print(f"train [QLoRA, int8 base, {cfg.num_hidden_layers} layers, one batch]: losses "
+              f"{', '.join(f'{x:.4f}' for x in losses)}; {med * 1e3:.1f} ms per step (median "
+              f"of steps 2-3, host clock) = {valid / med:.0f} valid tokens/s; peak "
+              f"{peak_q:.2f} GiB against LoRA's {peak:.2f} GiB", flush=True)
+        if not all(np.isfinite(losses)):
+            fail(f"train [QLoRA]: losses {losses}")
+        del state, run_step
         torch.cuda.empty_cache()
 
         # ---- GradCache against the full batch, depth 4, full parameters

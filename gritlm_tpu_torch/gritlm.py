@@ -3,12 +3,15 @@ gritlm_tpu.gritlm).
 
 Modes unified/embedding/generative, the four pooling methods, instruction
 masking, embed_eos, KV-cache capture, encode_queries/encode_corpus and
-generate. Batches are padded to a small set of sequence buckets, as in the
-JAX package, so the same kernel shapes recur.
+generate, w8a16 / w4a16 serving weights (`weight_quant=True|8|4`: the layer
+kernels and the LM head quantized by training/quant.py, read by the
+quantized matmuls K6 and K7), and `from_pretrained` (an HF checkpoint
+directory with its tokenizer). Batches are padded to a small set of
+sequence buckets, as in the JAX package, so the same kernel shapes recur.
 
-Not ported yet (raise NotImplementedError): `mesh=`, `weight_quant=`,
-`projection=`, `speculative=True`, MoE configs and `from_pretrained` (the
-checkpoint loader).
+Not ported yet (raise NotImplementedError): `mesh=`, `projection=` (and a
+checkpoint that carries a projection head), `speculative=True` and MoE
+configs.
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ from gritlm_tpu_torch.generate import (
     make_cache_for_prompt,
     pad_cache_to,
 )
+from gritlm_tpu_torch.models.loader import load_checkpoint
 from gritlm_tpu_torch.models.transformer import (
     KVCache,
     forward,
@@ -36,6 +40,7 @@ from gritlm_tpu_torch.models.transformer import (
 from gritlm_tpu_torch.ops import fused_pool
 from gritlm_tpu_torch.ops.pooling import POOLING_METHODS, pool
 from gritlm_tpu_torch.tokenizer import instruction_token_lens, load_tokenizer
+from gritlm_tpu_torch.training.quant import quantize_for_serving
 
 ATTN_MODES = ("bbcc", "cccc", "bb", "cc")
 
@@ -102,15 +107,14 @@ class GritLM:
         seq_buckets: Sequence[int] = (64, 128, 256, 512, 1024, 2048, 4096),
         mesh=None,
         kv_quant: bool = False,
-        weight_quant: Union[bool, int] = False,
+        weight_quant: Union[bool, int] = False,  # True or 8: int8; 4: group-wise int4
         device=None,
     ) -> None:
         if attn is not None and attn not in ATTN_MODES:
             raise ValueError(f"Mixed attention not supported: {attn}. Use one of {ATTN_MODES}")
         if pooling_method not in POOLING_METHODS:
             raise NotImplementedError(f"Unknown pooling method: {pooling_method}")
-        for name, value in (("mesh", mesh), ("weight_quant", weight_quant),
-                            ("projection", projection)):
+        for name, value in (("mesh", mesh), ("projection", projection)):
             if value:
                 raise NotImplementedError(f"GritLM({name}=...) is not ported yet")
         if config.is_moe:
@@ -128,7 +132,26 @@ class GritLM:
         if params is None:
             params = init_params(config, seed, with_lm_head=(mode != "embedding"),
                                  device=self.device)
+        if "projection" in params:
+            raise NotImplementedError(
+                "a checkpoint with a projection head: the projection is not ported yet "
+                "(ROADMAP Queue 1 item 3)")
+        if weight_quant:
+            # the layer kernels and the LM head; the embedding stays dense
+            bits = 4 if weight_quant == 4 else 8
+            params = quantize_for_serving(params, bits=bits)
         self.params = params
+
+    @classmethod
+    def from_pretrained(cls, path: str, dtype=None, **kwargs) -> "GritLM":
+        """A GritLM from an HF checkpoint directory (models/loader) and its
+        tokenizer (tokenizer.json, else the byte tokenizer). `dtype`
+        overrides the checkpoint's torch_dtype. The weights load onto
+        kwargs' `device` (CUDA by default)."""
+        cfg, params = load_checkpoint(
+            path, with_lm_head=(kwargs.get("mode", "unified") != "embedding"), dtype=dtype,
+            device=resolve_device(kwargs.get("device")))
+        return cls(cfg, params=params, tokenizer=load_tokenizer(path), **kwargs)
 
     @property
     def embed_causal(self) -> bool:

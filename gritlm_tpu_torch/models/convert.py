@@ -4,10 +4,12 @@
 np.asarray, params)` (nested dicts of numpy arrays; no JAX needed here) and
 returns the port's params: the same tree, same layouts ([L, in, out]
 stacked weights), as torch tensors on `device`. Both packages then compute
-the same function, which is what the parity tests rely on. `lora_from_jax`
-does the same for a LoRA adapter tree, and `params_to_numpy` goes the other
-way (the port's tree as numpy arrays in the JAX package's layout), so tests
-can hold trained weights against the JAX package's.
+the same function, which is what the parity tests rely on. Quantized leaves
+(int8 and int4 serving leaves, an int8 QLoRA base) carry over byte for
+byte. `lora_from_jax` does the same for a LoRA adapter tree, and
+`params_to_numpy` goes the other way (the port's tree as numpy arrays in
+the JAX package's layout), so tests can hold trained weights against the
+JAX package's.
 """
 
 from __future__ import annotations
@@ -50,9 +52,32 @@ def _to_torch(arr: np.ndarray) -> torch.Tensor:
     return torch.from_numpy(arr.copy())
 
 
+def _quantized_shapes(node: dict, dense: tuple, name: str) -> None:
+    """Check a quantized leaf against the dense [..., K, N] shape it stands
+    for: q8 int8 [..., K, N] with scale [..., 1, N]; q4 uint8 [..., K/2, N]
+    with scale [..., K/g, N], g dividing K."""
+    *lead, K, N = dense
+    scale = tuple(np.shape(node["scale"]))
+    if "q8" in node:
+        want = {"q8": (dense, np.int8), "scale": ((*lead, 1, N), np.float32)}
+    else:
+        G = scale[-2] if len(scale) == len(dense) and scale[-2] else 0
+        if not G or K % G:
+            raise ValueError(f"params_from_jax: {name} scale {scale} has no group dividing K {K}")
+        want = {"q4": ((*lead, K // 2, N), np.uint8), "scale": ((*lead, G, N), np.float32)}
+    if set(node) != set(want):
+        raise ValueError(f"params_from_jax: {name} has leaves {sorted(node)}")
+    for key, (shape, dtype) in want.items():
+        arr = np.asarray(node[key])
+        if arr.shape != shape or arr.dtype != dtype:
+            raise ValueError(f"params_from_jax: {name}/{key} is {arr.dtype} {arr.shape}, "
+                             f"the config needs {np.dtype(dtype)} {shape}")
+
+
 def params_from_jax(tree: dict, cfg: ModelConfig, device=None) -> dict:
     """The JAX param tree (numpy leaves) -> the port's param tree on
-    `device`. Raises on a leaf the dense port does not know or a shape that
+    `device`. Quantized leaves (training/quant.py layouts) carry over as
+    they are. Raises on a leaf the dense port does not know or a shape that
     does not match `cfg`."""
     if cfg.is_moe:
         raise NotImplementedError("MoE configs are not ported yet")
@@ -60,12 +85,16 @@ def params_from_jax(tree: dict, cfg: ModelConfig, device=None) -> dict:
     shapes = expected_shapes(cfg)
 
     def walk(node, path):
+        name = "/".join(path)
+        if isinstance(node, dict) and ("q8" in node or "q4" in node) and path in shapes:
+            _quantized_shapes(node, shapes[path], name)
+            return {k: _to_torch(v).to(device) for k, v in node.items()}
         if isinstance(node, dict):
             return {k: walk(v, path + (k,)) for k, v in node.items()}
         if path not in shapes:
-            raise ValueError(f"params_from_jax: unknown leaf {'/'.join(path)}")
+            raise ValueError(f"params_from_jax: unknown leaf {name}")
         if tuple(np.shape(node)) != shapes[path]:
-            raise ValueError(f"params_from_jax: {'/'.join(path)} has shape "
+            raise ValueError(f"params_from_jax: {name} has shape "
                              f"{tuple(np.shape(node))}, config needs {shapes[path]}")
         return _to_torch(node).to(device)
 

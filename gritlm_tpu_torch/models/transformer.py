@@ -29,7 +29,11 @@ layer in the backward pass (one `torch.utils.checkpoint` per layer, the
 JAX package's full-recompute `jax.checkpoint`). A kernel leaf may be a lazy
 LoRA node `{"w", "A", "B"}` (training/lora.apply_lora_lazy): `_w` resolves
 it to W + A @ B one layer at a time, so no full effective copy of the
-weights exists.
+weights exists. A kernel leaf may also be quantized (training/quant.py):
+`_mm` sends int8 and int4 serving leaves to the quantized matmuls (K6, K7)
+and `_w` dequantizes an int8 QLoRA base one layer at a time. Each layer's
+leaves are views of the stacked tensors (`_unstack`), so the kernels read a
+layer's weights in place.
 """
 
 from __future__ import annotations
@@ -43,8 +47,10 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from gritlm_tpu_torch.config import ModelConfig
+from gritlm_tpu_torch.ops import quant_matmul
 from gritlm_tpu_torch.ops.attention import cached_attention, multi_head_attention
 from gritlm_tpu_torch.ops.paged_attention import paged_decode
+from gritlm_tpu_torch.training import quant
 
 
 def resolve_device(device=None) -> torch.device:
@@ -121,20 +127,33 @@ def init_params(cfg: ModelConfig, seed: Union[int, torch.Generator] = 0,
 # Building blocks
 
 
-def _w(node) -> torch.Tensor:
-    """Resolve a kernel leaf to a dense tensor: a plain tensor passes
-    through; a lazy LoRA node {"w", "A", "B"} (B pre-scaled by alpha/r)
-    becomes (w + A @ B) in fp32, cast back to w's dtype, as the JAX
-    package's `_w` does."""
+def _w(node, dtype=None) -> torch.Tensor:
+    """Resolve a kernel leaf to a dense tensor, as the JAX package's `_w`:
+      a plain tensor passes through untouched;
+      {"q8", "scale"} / {"q4", "scale"} (training/quant.py: a serving leaf or
+        the QLoRA frozen base) is dequantized here, q * scale in fp32 cast to
+        `dtype` (bf16 by default), one layer at a time;
+      a lazy LoRA node {"w", "A", "B"} (B pre-scaled by alpha/r) becomes
+        (resolve(w) + A @ B) in fp32, cast back to the resolved base's dtype."""
     if isinstance(node, dict):
-        base = _w(node["w"])
+        if quant.is_quantized_leaf(node):
+            return quant.dequantize_kernel(node, dtype or torch.bfloat16)
+        base = _w(node["w"], dtype)
         delta = node["A"].float() @ node["B"].float()
         return (base.float() + delta).to(base.dtype)
     return node
 
 
 def _mm(x: torch.Tensor, node) -> torch.Tensor:
-    return x @ _w(node)
+    """x @ kernel leaf. Serving leaves take the quantized matmuls (int4 ->
+    K7, int8 -> K6, each dequantizing at row counts above its kernel's);
+    every other leaf (plain, lazy LoRA over a plain or int8 base) is resolved
+    by `_w`, one layer at a time."""
+    if isinstance(node, dict) and "q4" in node:
+        return quant_matmul.w4a16_matmul(x, node)
+    if isinstance(node, dict) and "q8" in node:
+        return quant_matmul.w8a16_matmul(x, node)
+    return x @ _w(node, x.dtype)
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
@@ -515,15 +534,20 @@ def forward(
 
 
 def lm_head_kernel(params: dict, cfg: ModelConfig, dtype) -> torch.Tensor:
-    """The [D, V] LM-head kernel."""
+    """The [D, V] LM-head kernel (dequantized if serving-quantized)."""
     if "lm_head" in params:
-        return params["lm_head"]["kernel"].to(dtype)
+        node = params["lm_head"]["kernel"]
+        return _w(node, dtype) if isinstance(node, dict) else node.to(dtype)
     if cfg.tie_word_embeddings:
         return params["embed"]["embedding"].T.to(dtype)
     raise ValueError("No LM head in params and embeddings are not tied")
 
 
 def logits_from_hidden(params: dict, cfg: ModelConfig, hidden: torch.Tensor) -> torch.Tensor:
+    """hidden @ the LM head; a quantized head goes through `_mm` (K6/K7 at
+    decode row counts)."""
+    if "lm_head" in params and quant.is_quantized_leaf(params["lm_head"]["kernel"]):
+        return _mm(hidden, params["lm_head"]["kernel"])
     return hidden @ lm_head_kernel(params, cfg, hidden.dtype)
 
 

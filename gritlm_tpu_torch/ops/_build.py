@@ -26,7 +26,7 @@ import torch
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "gritlm_tpu_torch_kernels"
 SOURCES = ("flash_attention", "flash_attention_bwd", "decode_attention", "paged_attention",
-           "fused_pool", "scores_segmax")
+           "fused_pool", "scores_segmax", "quant_matmul")
 NVCC_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",

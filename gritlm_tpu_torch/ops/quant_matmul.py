@@ -1,0 +1,219 @@
+"""K6 and K7: matrix products against quantized weights (w8a16, w4a16),
+hand-written for Hopper.
+
+K6 `w8a16_matmul` replaces the Pallas kernel `_kernel8` of
+`gritlm_tpu/ops/quant_matmul.py` (reached through `_w8_call` and
+`w8a16_matmul`): y = (x @ q8) * scale, x bf16 [..., K], q8 int8 [K, N],
+scale fp32 [1, N] per output channel; fp32 sums, the scale applied once at
+the end, bf16 out. K7 `w4a16_matmul` replaces `_kernel` (through `_w4_call`
+and `w4a16_matmul`): y = x[:, :K/2] @ deq(lo) + x[:, K/2:] @ deq(hi) for the
+half-split packed uint8 [K/2, N] and fp32 group scales [K/g, N], where
+deq = (nibble - 8) * scale in fp32, rounded to bf16 per weight (the
+reference's rounding), fp32 sums, bf16 out. Layouts: training/quant.py.
+
+Kernel: `csrc/quant_matmul.cu`, CUDA C++ for sm_90a (not Triton: a
+tensor-core product with its dequantization fused into the load), bound
+with ctypes. What bounds it: at decode rows (M <= 16) the bytes, one read
+of the weight (1 byte a weight for K6; 0.5 plus 0.125 of scales for K7),
+so the kernel's job is to keep the weight stream flowing on every SM. The
+design: blocks of 4 warps own a BM x 128 output tile (BM 16 up to 16 rows,
+else 64) and walk the contracting axis in stages of 128 rows, the raw
+weight bytes copied by cp.async in a ring of stages, turned into a bf16
+tile in shared memory and fed to bf16 wmma with fp32 accumulators. At
+decode a projection has few output tiles (wk/wv: 8 of them), so the
+contracting axis is split across blocks (`plan` picks the split count from
+the SM count, in whole waves of two blocks a SM); the block that finishes
+a tile last adds the tile's fp32 partial sums in split order, scales (K6)
+and rounds, so a call is one launch. The int8 and int4 values become bf16 by byte permutes and fp32
+adds: the conversion instructions run at a fraction of the ALU rate and
+bounded a first version at a third of its byte bound. The TPU kernels held the layer
+stack and a prefetched layer index so that the scan never copied a layer;
+here each layer's weights are a view of the stack (`models/transformer.
+_unstack`) whose pointer goes to the kernel as it is.
+
+Routing, as in the JAX package: up to MAX_KERNEL_ROWS8 (K6) or
+MAX_KERNEL_ROWS (K7) rows, a CUDA tensor launches the kernel or raises and
+a CPU tensor takes the plain version; more rows dequantize the layer once
+and multiply (`torch.matmul`), which is the function the reference runs at
+those row counts (`_reference8`, `_reference`).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict
+
+import torch
+
+from gritlm_tpu_torch.ops import _build
+from gritlm_tpu_torch.training import quant
+
+MAX_KERNEL_ROWS8 = 512  # K6 row ceiling (the JAX package's MAX_KERNEL_ROWS8)
+MAX_KERNEL_ROWS = 128  # K7 row ceiling (its MAX_KERNEL_ROWS)
+BN = 128  # output columns per block (csrc/quant_matmul.cu)
+DK = 128  # unpacked contracting rows per stage
+BLOCKS_PER_SM = 2  # shared memory (85-100 KB a block) allows two a SM
+MAX_SPLITS = 32
+
+
+def plan(M: int, stages: int, N: int, sms: int):
+    """(bm, splits, stages per split) for M rows, `stages` contracting
+    stages and N columns. Blocks run in waves of BLOCKS_PER_SM * sms; a
+    split plan's time goes as (waves) x (stages a block walks + about one
+    stage of fixed cost), so the plan takes the split count that minimises
+    it, the fewest splits among equals (each split adds fp32 partial sums).
+    Every split walks the same number of stages."""
+    bm = 16 if M <= 16 else 64
+    tiles = -(-N // BN) * -(-M // bm)
+    slots = BLOCKS_PER_SM * sms
+    best = None
+    for s in range(1, min(stages, MAX_SPLITS) + 1):
+        kper = -(-stages // s)
+        splits = -(-stages // kper)
+        cost = -(-tiles * splits // slots) * (kper + 1)
+        if best is None or cost < best[0]:
+            best = (cost, splits, kper)
+    return bm, best[1], best[2]
+
+
+def _rows(x: torch.Tensor) -> int:
+    return math.prod(x.shape[:-1])
+
+
+def w8a16_matmul_plain(x: torch.Tensor, node: dict) -> torch.Tensor:
+    """The plain PyTorch version of K6: the int8 weights exactly in fp32,
+    fp32 sums, the per-channel scale at the end, cast to x's dtype."""
+    y = x.float() @ node["q8"].float()
+    return (y * node["scale"].float()).to(x.dtype)
+
+
+def w4a16_matmul_plain(x: torch.Tensor, node: dict) -> torch.Tensor:
+    """The plain PyTorch version of K7: each weight (nibble - 8) * group
+    scale in fp32, cast to x's dtype (rows in unpacked order, so x @ W is
+    x[:, :K/2] @ deq(lo) + x[:, K/2:] @ deq(hi)), fp32 sums, cast."""
+    w = quant.dequantize_kernel_int4(node, x.dtype)
+    return (x.float() @ w.float()).to(x.dtype)
+
+
+def _fn(name: str):
+    fn = getattr(_build.load("quant_matmul"), name)
+    if fn.argtypes is None:
+        P, I32 = _build.P, _build.I32
+        n_ints = 6 if name == "gritlm_w8a16_matmul" else 7  # w4 adds the group
+        fn.argtypes = [P] * 6 + [I32] * n_ints + [P]
+        fn.restype = I32
+    return fn
+
+
+_tile_counters: Dict[torch.device, torch.Tensor] = {}
+
+
+def _counters(device: torch.device, tiles: int) -> torch.Tensor:
+    """The split fix-up's per-tile arrival counters on `device`: zero
+    between launches (the last block of a tile resets its counter), so one
+    buffer serves every launch on the device, as long as launches do not
+    overlap (the port launches on one stream); grown on demand."""
+    buf = _tile_counters.get(device)
+    if buf is None or buf.numel() < tiles:
+        buf = torch.zeros(max(tiles, 4096), dtype=torch.int32, device=device)
+        _tile_counters[device] = buf
+    return buf
+
+
+def _launch(fn, what: str, x2, q, scale, M, K, N, stages, *group):
+    """Plan the grid, allocate the output and the split partials, launch."""
+    out = torch.empty((M, N), dtype=torch.bfloat16, device=x2.device)
+    bm, splits, kper = plan(M, stages, N, _build.sm_count(x2.device))
+    part = counters = None
+    if splits > 1:
+        part = torch.empty((splits, M, N), dtype=torch.float32, device=x2.device)
+        counters = _counters(x2.device, -(-N // BN) * -(-M // bm))
+    rc = fn(x2.data_ptr(), q.data_ptr(), scale.data_ptr(), out.data_ptr(),
+            None if part is None else part.data_ptr(),
+            None if counters is None else counters.data_ptr(), M, K, N, *group, bm, splits,
+            kper, _build.stream_of(x2))
+    _build.check(rc, what)
+    return out
+
+
+def _x_rows(x: torch.Tensor, K: int, what: str) -> torch.Tensor:
+    """x as a contiguous, 16-byte aligned [M, K] bf16 matrix (an activation:
+    a copy here is cheap, unlike one of the weights)."""
+    if x.dtype != torch.bfloat16:
+        raise TypeError(f"{what}: x is {x.dtype}; the kernel takes bfloat16 activations")
+    x2 = x.reshape(-1, K).contiguous()
+    return x2.clone() if x2.data_ptr() % 16 else x2
+
+
+def _check_weight(t: torch.Tensor, name: str, what: str) -> None:
+    """The kernel reads a weight leaf (or a layer's view of a stack) in
+    place: it must be contiguous and 16-byte aligned; nothing is copied."""
+    if not t.is_contiguous() or t.data_ptr() % 16:
+        raise ValueError(f"{what}: {name} must be contiguous and 16-byte aligned (a layer "
+                         "view of a contiguous stack is; the kernel never copies a weight)")
+
+
+def w8a16_matmul(x: torch.Tensor, node: dict) -> torch.Tensor:
+    """x [..., K] @ dequant(node) -> [..., N] for an int8 leaf {"q8" [K, N],
+    "scale" [1, N]}, in x's dtype."""
+    q8, scale = node["q8"], node["scale"]
+    K, N = q8.shape[-2:]
+    if x.shape[-1] != K:
+        raise ValueError(f"w8a16_matmul: x {tuple(x.shape)} against q8 {tuple(q8.shape)}")
+    M = _rows(x)
+    if M > MAX_KERNEL_ROWS8:
+        return x @ quant.dequantize_kernel(node, x.dtype)
+    if _build.plain_path(x, q8, scale):
+        return w8a16_matmul_plain(x, node)
+    fn = _fn("gritlm_w8a16_matmul")
+    if q8.dtype != torch.int8 or scale.dtype != torch.float32:
+        raise TypeError(f"w8a16_matmul: q8 {q8.dtype} / scale {scale.dtype} must be int8 / float32")
+    if q8.dim() != 2 or tuple(scale.shape) != (1, N) or K % 16 or N % 16:
+        raise NotImplementedError(
+            f"w8a16_matmul: q8 {tuple(q8.shape)}, scale {tuple(scale.shape)} (2-D, K and N "
+            "multiples of 16)")
+    _check_weight(q8, "q8", "w8a16_matmul")
+    _check_weight(scale, "scale", "w8a16_matmul")
+    x2 = _x_rows(x, K, "w8a16_matmul")
+    if M == 0:
+        return torch.empty((*x.shape[:-1], N), dtype=torch.bfloat16, device=x.device)
+    out = _launch(fn, "w8a16_matmul", x2, q8, scale, M, K, N, -(-K // DK))
+    w8a16_matmul.launches += 1
+    return out.reshape(*x.shape[:-1], N)
+
+
+def w4a16_matmul(x: torch.Tensor, node: dict) -> torch.Tensor:
+    """x [..., K] @ dequant(node) -> [..., N] for an int4 leaf {"q4" [K/2, N],
+    "scale" [K/g, N]}, in x's dtype."""
+    q4, scale = node["q4"], node["scale"]
+    Kp, N = q4.shape[-2:]
+    K = 2 * Kp
+    if x.shape[-1] != K:
+        raise ValueError(f"w4a16_matmul: x {tuple(x.shape)} against q4 {tuple(q4.shape)}")
+    M = _rows(x)
+    if M > MAX_KERNEL_ROWS:
+        return x @ quant.dequantize_kernel_int4(node, x.dtype)
+    if _build.plain_path(x, q4, scale):
+        return w4a16_matmul_plain(x, node)
+    fn = _fn("gritlm_w4a16_matmul")
+    if q4.dtype != torch.uint8 or scale.dtype != torch.float32:
+        raise TypeError(f"w4a16_matmul: q4 {q4.dtype} / scale {scale.dtype} must be uint8 / float32")
+    G = scale.shape[-2]
+    g = K // G if G and K % G == 0 else 0
+    if (q4.dim() != 2 or scale.dim() != 2 or scale.shape[1] != N or g % 16 or g == 0
+            or (64 % g and g % 64) or Kp % g or N % 16):
+        raise NotImplementedError(
+            f"w4a16_matmul: q4 {tuple(q4.shape)}, scale {tuple(scale.shape)} (2-D; a group of "
+            "16, 32, 64 or a multiple of 64 rows that divides K/2; N a multiple of 16)")
+    _check_weight(q4, "q4", "w4a16_matmul")
+    _check_weight(scale, "scale", "w4a16_matmul")
+    x2 = _x_rows(x, K, "w4a16_matmul")
+    if M == 0:
+        return torch.empty((*x.shape[:-1], N), dtype=torch.bfloat16, device=x.device)
+    out = _launch(fn, "w4a16_matmul", x2, q4, scale, M, K, N, -(-Kp // (DK // 2)), g)
+    w4a16_matmul.launches += 1
+    return out.reshape(*x.shape[:-1], N)
+
+
+w8a16_matmul.launches = 0
+w4a16_matmul.launches = 0

@@ -12,8 +12,11 @@ Example (toy smoke on the CPU):
       --passages passages.jsonl --eval_data qa.jsonl \\
       --cache doc --max_new_tokens 8 --save_dir rag_out
 
-Not ported yet (raise NotImplementedError): --model_name_or_path (the
-checkpoint loader), --weight_quant, --speculative.
+A checkpoint directory (`--model_name_or_path`, HF safetensors with its
+tokenizer) or a preset with random weights (`--model_preset`); int8 serving
+weights with `--weight_quant`.
+
+Not ported yet (raises NotImplementedError): --speculative.
 """
 
 from __future__ import annotations
@@ -86,7 +89,7 @@ def get_parser() -> argparse.ArgumentParser:
     p.add_argument("--kv_quant", action="store_true",
                    help="int8 KV caches")
     p.add_argument("--weight_quant", action="store_true",
-                   help="w8a16 serving (not ported yet)")
+                   help="w8a16 serving: int8 weights + lm head")
     p.add_argument("--speculative", action="store_true",
                    help="prompt-lookup speculative decoding (not ported yet)")
     p.add_argument("--spec_k", type=int, default=7)
@@ -100,16 +103,18 @@ def _load_model(args):
     from gritlm_tpu_torch import GritLM
     from gritlm_tpu_torch import config as cfgmod
 
-    for flag in ("model_name_or_path", "weight_quant", "speculative"):
-        if getattr(args, flag):
-            raise NotImplementedError(f"--{flag}: not ported yet")
-    if not args.model_preset:
-        raise SystemExit("pass --model_preset (--model_name_or_path is not ported yet)")
-    cfg = getattr(cfgmod, args.model_preset)()
-    if args.dtype:
-        cfg = dataclasses.replace(cfg, dtype=args.dtype)
-    return GritLM(cfg, mode="unified", pooling_method=args.pooling_method, attn=args.attn,
-                  kv_quant=args.kv_quant, device=args.device)
+    if args.speculative:
+        raise NotImplementedError("--speculative: not ported yet")
+    kwargs = dict(mode="unified", pooling_method=args.pooling_method, attn=args.attn,
+                  kv_quant=args.kv_quant, weight_quant=args.weight_quant, device=args.device)
+    if args.model_name_or_path:
+        return GritLM.from_pretrained(args.model_name_or_path, dtype=args.dtype, **kwargs)
+    if args.model_preset:
+        cfg = getattr(cfgmod, args.model_preset)()
+        if args.dtype:
+            cfg = dataclasses.replace(cfg, dtype=args.dtype)
+        return GritLM(cfg, **kwargs)
+    raise SystemExit("pass --model_name_or_path or --model_preset")
 
 
 def _mode_for(args):

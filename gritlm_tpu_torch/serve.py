@@ -21,8 +21,12 @@ Usage:
   python -m gritlm_tpu_torch.serve --model_preset tiny_mistral \\
       --requests reqs.jsonl --out done.jsonl --slots 8 --max_len 2048
 
-Not ported yet (NotImplementedError): --model_name_or_path (the checkpoint
-loader), --weight_quant, --speculative, and requests with temperature > 0.
+A checkpoint directory (`--model_name_or_path`, HF safetensors with its
+tokenizer) or a preset with random weights (`--model_preset`); w8a16 or
+w4a16 weights with `--weight_quant` (or `--weight_quant 4`).
+
+Not ported yet (NotImplementedError): --speculative, and requests with
+temperature > 0.
 """
 
 from __future__ import annotations
@@ -40,7 +44,7 @@ def build_parser() -> argparse.ArgumentParser:
         formatter_class=argparse.RawDescriptionHelpFormatter,
     )
     p.add_argument("--model_name_or_path", default=None, type=str,
-                   help="HF-layout checkpoint dir (not ported yet)")
+                   help="HF-layout checkpoint dir")
     p.add_argument("--model_preset", default=None, type=str,
                    help="config preset w/ random init (tiny smoke runs)")
     p.add_argument("--dtype", default=None, type=str)
@@ -59,7 +63,7 @@ def build_parser() -> argparse.ArgumentParser:
                    help="rows per embedding dispatch (default: --slots)")
     p.add_argument("--kv_quant", action="store_true", help="int8 KV pool")
     p.add_argument("--weight_quant", default=False, nargs="?", const=True,
-                   type=lambda s: int(s), help="w8a16 serving weights (not ported yet)")
+                   type=lambda s: int(s), help="w8a16 serving weights (pass 4 for int4)")
     p.add_argument("--paged", action="store_true",
                    help="shared page pool instead of dense slots")
     p.add_argument("--page_size", type=int, default=256)
@@ -86,22 +90,22 @@ def build_parser() -> argparse.ArgumentParser:
 def _load_model(args):
     from gritlm_tpu_torch import GritLM
 
-    for flag, value in (("--model_name_or_path", args.model_name_or_path),
-                        ("--weight_quant", args.weight_quant),
-                        ("--speculative", args.speculative)):
-        if value:
-            raise NotImplementedError(f"{flag} is not ported yet")
-    if not args.model_preset:
-        raise SystemExit("pass --model_preset")
-    import dataclasses
+    if args.speculative:
+        raise NotImplementedError("--speculative is not ported yet")
+    kwargs = dict(mode="unified", pooling_method=args.pooling_method, attn=args.attn,
+                  kv_quant=args.kv_quant, weight_quant=args.weight_quant, device=args.device)
+    if args.model_name_or_path:
+        return GritLM.from_pretrained(args.model_name_or_path, dtype=args.dtype, **kwargs)
+    if args.model_preset:
+        import dataclasses
 
-    from gritlm_tpu_torch import config as cfgmod
+        from gritlm_tpu_torch import config as cfgmod
 
-    cfg = getattr(cfgmod, args.model_preset)()
-    if args.dtype:
-        cfg = dataclasses.replace(cfg, dtype=args.dtype)
-    return GritLM(cfg, mode="unified", pooling_method=args.pooling_method, attn=args.attn,
-                  kv_quant=args.kv_quant, device=args.device)
+        cfg = getattr(cfgmod, args.model_preset)()
+        if args.dtype:
+            cfg = dataclasses.replace(cfg, dtype=args.dtype)
+        return GritLM(cfg, **kwargs)
+    raise SystemExit("pass --model_name_or_path or --model_preset")
 
 
 def _to_requests(rows: List[dict], model, default_new: int):

@@ -98,7 +98,6 @@ class RunArguments:
         """Raise NotImplementedError, naming the ROADMAP Queue 1 item that
         brings it, for every option the port does not run yet."""
         not_ported = [
-            (self.qlora, "--qlora (int8 frozen base, kernel K6)", 8),
             (self.native_loader, "--native_loader (the C++ input pipeline)", 13),
             (self.seq_parallel, "--seq_parallel", 12),
             (self.mesh_stage > 1, "--mesh_stage > 1", 12),
@@ -106,8 +105,6 @@ class RunArguments:
              or self.mesh_expert != 1, "a mesh of more than one device", 12),
             (self.projection is not None, "--projection", 3),
             (self.moe_impl is not None, "--moe_impl", 11),
-            (self.model_name_or_path is not None,
-             "--model_name_or_path (HF checkpoints with their tokenizer)", 1),
             (self.remat_policy is not None, f"--remat_policy {self.remat_policy}", 7),
         ]
         for bad, what, item in not_ported:

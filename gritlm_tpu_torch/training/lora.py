@@ -9,9 +9,15 @@ resolves one layer at a time (models/transformer._w), so no full effective
 copy of the weights exists and only the LoRA tree gets gradients and
 optimizer state. `merge` folds the adapters into the base for export.
 
-Not ported: QLoRA (`quantize=True`, the int8 frozen base) waits for the
-quantized-weights slice with K6; `stack_adapters` / `set_adapter_ids` wait
-for per-request adapters in serving.
+QLoRA (`make_lora_train_state(quantize=True)`) quantizes the frozen base to
+int8 (training/quant.quantize_tree, per-channel scales). Its adapters are
+bf16, and the training forward dequantizes each layer's base in `_w`
+(q * scale in fp32, cast to the activations' dtype) before adding A @ B, as
+the JAX package does: it never reaches the w8a16 kernel K6, which has no
+backward. `merge` dequantizes the base first, so the export is dense.
+
+Not ported: `stack_adapters` / `set_adapter_ids` wait for per-request
+adapters in serving.
 """
 
 from __future__ import annotations
@@ -21,6 +27,7 @@ from typing import Dict, Optional, Sequence, Tuple, Union
 import torch
 
 from gritlm_tpu_torch.models.transformer import resolve_device
+from gritlm_tpu_torch.training.quant import dequantize_tree, quantize_tree
 from gritlm_tpu_torch.training.train import (
     TrainState,
     contrastive_loss,
@@ -34,11 +41,15 @@ DEFAULT_TARGETS = ("wq", "wk", "wv", "wo", "gate", "up", "down")
 
 
 def _target_leaves(params: dict, targets: Sequence[str]):
-    """(path, leaf) for the targeted 3-D kernels [L, in, out], depth first."""
+    """(path, leaf) for the targeted 3-D kernels [L, in, out], depth first;
+    an int8 base {"q8", "scale"} (QLoRA) gives its q8 tensor."""
     out = []
 
     def walk(node, path):
-        if isinstance(node, dict):
+        if isinstance(node, dict) and "q8" in node:
+            if path[-1] in targets and node["q8"].dim() == 3:
+                out.append((path, node["q8"]))
+        elif isinstance(node, dict):
             for k, v in node.items():
                 walk(v, path + (k,))
         elif path[-1] in targets and node.dim() == 3:
@@ -57,8 +68,8 @@ def init_lora(
 ) -> Tuple[Dict, float]:
     """The LoRA tree: A ~ N(0, 0.02) drawn in fp32 from a seeded generator
     on the base's device, B = 0 (so W_eff starts equal to W), both in the
-    base's dtype. Returns (tree, scale); scale = alpha / r stays out of the
-    tree so the optimizer never touches it."""
+    base's dtype (bf16 over an int8 base). Returns (tree, scale); scale =
+    alpha / r stays out of the tree so the optimizer never touches it."""
     leaves = _target_leaves(params, targets)
     gen = seed
     if not isinstance(gen, torch.Generator):
@@ -67,22 +78,24 @@ def init_lora(
     tree: Dict = {}
     for path, w in leaves:
         L, din, dout = w.shape
+        dt = torch.bfloat16 if w.dtype == torch.int8 else w.dtype  # int8: a quantized base
         node = tree
         for p in path[:-1]:
             node = node.setdefault(p, {})
         a = torch.empty((L, din, r), dtype=torch.float32, device=w.device)
         a.normal_(0.0, 1.0, generator=gen)
-        node[path[-1]] = {"A": (a * 0.02).to(w.dtype),
-                          "B": torch.zeros((L, r, dout), dtype=w.dtype, device=w.device)}
+        node[path[-1]] = {"A": (a * 0.02).to(dt),
+                          "B": torch.zeros((L, r, dout), dtype=dt, device=w.device)}
     return tree, float(alpha) / float(r)
 
 
 def apply_lora_lazy(params: dict, lora: Dict, scale: float) -> dict:
     """params with each adapted kernel a lazy leaf {"w": base, "A": A,
-    "B": scale * B (fp32)}, resolved per layer by the trunk."""
+    "B": scale * B (fp32)}, resolved per layer by the trunk; an int8 base
+    node is a leaf."""
 
     def walk(p_node, l_node):
-        if not isinstance(p_node, dict):
+        if not isinstance(p_node, dict) or "q8" in p_node:
             return p_node
         out = {}
         for k, v in p_node.items():
@@ -100,7 +113,9 @@ def apply_lora_lazy(params: dict, lora: Dict, scale: float) -> dict:
 
 def apply_lora(params: dict, lora: Dict, scale: float) -> dict:
     """params with W -> W + scale * A @ B on every adapted kernel,
-    materialized (the export / merge path; training uses apply_lora_lazy)."""
+    materialized (the export / merge path; training uses apply_lora_lazy).
+    A quantized base is dequantized (to bf16) first."""
+    params = dequantize_tree(params)
 
     def walk(p_node, l_node):
         if not isinstance(p_node, dict):
@@ -162,17 +177,15 @@ def make_lora_train_state(
     cfg, tc, base_params: dict, r: int = 16, alpha: int = 64, quantize: bool = False,
     seed: int = 0, device: Optional[Union[str, torch.device]] = None,
 ):
-    """The LoRA training setup on one device: the frozen base, and a
-    TrainState whose `params` IS the LoRA tree (so the checkpoint manager
-    and the run loop work unchanged). Returns (run_step, state, base,
-    scale); run_step(state, batch) is train_step with the base closed
-    over (GradCache included)."""
-    if quantize:
-        raise NotImplementedError(
-            "QLoRA (an int8 frozen base through the w8a16 matmul) waits for the "
-            "quantized-weights slice with kernel K6 (ROADMAP Queue 1 item 8)")
+    """The LoRA training setup on one device: the frozen base (int8 with
+    `quantize`: QLoRA), and a TrainState whose `params` IS the LoRA tree (so
+    the checkpoint manager and the run loop work unchanged). Returns
+    (run_step, state, base, scale); run_step(state, batch) is train_step
+    with the base closed over (GradCache included)."""
     device = resolve_device(device)
     base = _frozen(base_params, device)
+    if quantize:
+        base = quantize_tree(base)
     lora, scale = init_lora(base, seed, r=r, alpha=alpha)
     state: TrainState = init_train_state(lora, tc)
 

@@ -2,9 +2,11 @@
 
 The port of `python -m gritlm_tpu.training.run` on one device: loads JSONL
 data, builds the unified dataset / collator / sampler, runs the train step
-(GradCache inside; full parameters or LoRA), logs loss_emb / loss_gen,
-checkpoints with resume, and exports the final model as an HF-safetensors
-checkpoint (LoRA merged). It writes the JAX CLI's files: run_args.json,
+(GradCache inside; full parameters, LoRA, or QLoRA over an int8 base), logs
+loss_emb / loss_gen, checkpoints with resume, and exports the final model as
+an HF-safetensors checkpoint (LoRA merged, the base dense). The model is an
+HF checkpoint with its tokenizer (`--model_name_or_path`) or a preset with
+random weights from `--seed`. It writes the JAX CLI's files: run_args.json,
 dataset_num_samples.json, metrics.jsonl, checkpoints/step_<n>/ and export/.
 
 Example (toy run on the CPU, the kernels' plain versions):
@@ -29,7 +31,7 @@ logger = logging.getLogger("gritlm_tpu_torch.train")
 
 def main(argv=None) -> dict:
     from gritlm_tpu_torch import config as cfgmod
-    from gritlm_tpu_torch.models.loader import save_checkpoint
+    from gritlm_tpu_torch.models.loader import load_checkpoint, save_checkpoint
     from gritlm_tpu_torch.models.transformer import init_params, resolve_device
     from gritlm_tpu_torch.tokenizer import load_tokenizer
     from gritlm_tpu_torch.training.arguments import parse_args
@@ -52,16 +54,28 @@ def main(argv=None) -> dict:
     with open(os.path.join(args.output_dir, "run_args.json"), "w") as f:
         json.dump(args.__dict__, f, indent=2, default=str)
 
-    # ---- model (a preset with random weights from --seed)
-    cfg = getattr(cfgmod, args.model_preset)()
-    if args.dtype:
-        cfg = dataclasses.replace(cfg, dtype=args.dtype)
-    if cfg.is_moe:
-        raise NotImplementedError("MoE training is not ported (ROADMAP Queue 1 item 11)")
-    params = init_params(cfg, args.seed, with_lm_head=(args.mode != "embedding"),
-                         device=device)
-    tokenizer = load_tokenizer(None)
-    logger.info("model: %s (%s) on %s", args.model_preset, cfg.dtype, device)
+    # ---- model: an HF checkpoint with its tokenizer, or a preset with random
+    # weights from --seed
+    if args.model_name_or_path:
+        cfg, params = load_checkpoint(args.model_name_or_path,
+                                      with_lm_head=(args.mode != "embedding"), dtype=args.dtype,
+                                      device=device)
+        if "projection" in params:
+            raise NotImplementedError(
+                "a checkpoint with a projection head: the projection is not ported yet "
+                "(ROADMAP Queue 1 item 3)")
+        tokenizer = load_tokenizer(args.model_name_or_path)
+    else:
+        cfg = getattr(cfgmod, args.model_preset)()
+        if args.dtype:
+            cfg = dataclasses.replace(cfg, dtype=args.dtype)
+        if cfg.is_moe:
+            raise NotImplementedError("MoE training is not ported (ROADMAP Queue 1 item 11)")
+        params = init_params(cfg, args.seed, with_lm_head=(args.mode != "embedding"),
+                             device=device)
+        tokenizer = load_tokenizer(None)
+    logger.info("model: %s (%s) on %s", args.model_preset or args.model_name_or_path,
+                cfg.dtype, device)
 
     # ---- data
     emb_sets, gen_sets = load_train_dirs(args.train_data)
@@ -104,14 +118,16 @@ def main(argv=None) -> dict:
 
     # ---- state (+ resume)
     lora_setup = None
-    if args.lora:
+    if args.lora or args.qlora:
         from gritlm_tpu_torch.training.lora import make_lora_train_state
 
         run_step, state, frozen_base, lora_scale = make_lora_train_state(
-            cfg, tc, params, r=args.lora_r, alpha=args.lora_alpha, seed=args.seed,
-            device=device)
+            cfg, tc, params, r=args.lora_r, alpha=args.lora_alpha, quantize=args.qlora,
+            seed=args.seed, device=device)
         lora_setup = (frozen_base, lora_scale)
-        logger.info("lora training: r=%d alpha=%d (base frozen)", args.lora_r, args.lora_alpha)
+        logger.info("%s training: r=%d alpha=%d (base frozen%s)",
+                    "qlora" if args.qlora else "lora", args.lora_r, args.lora_alpha,
+                    ", int8" if args.qlora else "")
     else:
         state = init_train_state(params, tc)
 

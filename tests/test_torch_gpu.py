@@ -367,3 +367,118 @@ def test_train_step_runs_its_kernels(cuda):
     n = [f.launches - b for f, b in zip(wrappers, before)]
     assert n[1] > 0 and n[1] == n[2] and n[0] >= 2 * n[1]
     assert float(state.params["layers"]["attn"]["wq"]["B"].detach().abs().max()) > 0
+
+
+# Mistral-7B's projections: (K, N) of wq/wo, wk/wv, gate/up, down and the LM head
+QUANT_SHAPES = [(4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096), (4096, 32000)]
+QUANT_RTOL = 5e-3  # relative Frobenius error, the JAX package's bound for its kernels
+
+
+def _quant_node(bits, K, N, gen, device, layers=None):
+    from gritlm_tpu_torch.training import quant
+
+    shape = (K, N) if layers is None else (layers, K, N)
+    w = torch.randn(shape, generator=gen, device=device).to(torch.bfloat16)
+    return quant.quantize_kernel(w) if bits == 8 else quant.quantize_kernel_int4(w)
+
+
+def _rel_err(got, want):
+    return float((got.float() - want.float()).norm() / want.float().norm())
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("K,N", QUANT_SHAPES)
+def test_quant_matmul_kernel(cuda, bits, K, N):
+    """K6 (w8a16) and K7 (w4a16) against their plain versions at the
+    Mistral-7B projections, at decode rows and (K6) prefill-chunk rows."""
+    from gritlm_tpu_torch.ops import quant_matmul as qm
+
+    gen = torch.Generator(device=cuda).manual_seed(K + N + bits)
+    node = _quant_node(bits, K, N, gen, cuda)
+    kernel, plain = ((qm.w8a16_matmul, qm.w8a16_matmul_plain) if bits == 8
+                     else (qm.w4a16_matmul, qm.w4a16_matmul_plain))
+    rows = (1, 3, 8, 16) + ((256, 512) if bits == 8 else (128,))
+    for M in rows:
+        x = _randn(gen, M, K, device=cuda)
+        before = kernel.launches
+        got = kernel(x, node)
+        torch.cuda.synchronize()
+        want = plain(x, node)
+        assert kernel.launches == before + 1
+        assert got.shape == (M, N) and got.dtype == torch.bfloat16
+        assert torch.isfinite(got).all()
+        assert _rel_err(got, want) <= QUANT_RTOL, (M, _rel_err(got, want))
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+def test_quant_matmul_layer_view(cuda, bits):
+    """A layer's view of a [3, K, N] stack goes to the kernel in place (no
+    copy: the pointer is the stack's plus the layer offset) and gives the
+    same result as a contiguous copy of that layer."""
+    from gritlm_tpu_torch.models.transformer import _unstack
+    from gritlm_tpu_torch.ops import quant_matmul as qm
+
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    K, N = 4096, 1024
+    stack = _quant_node(bits, K, N, gen, cuda, layers=3)
+    view = _unstack({"w": stack}, 3)[1]["w"]
+    key = "q8" if bits == 8 else "q4"
+    assert view[key].data_ptr() == stack[key].data_ptr() + stack[key][0].numel()
+    copy = {k: v.clone() for k, v in view.items()}
+    kernel = qm.w8a16_matmul if bits == 8 else qm.w4a16_matmul
+    x = _randn(gen, 8, K, device=cuda)
+    got, want = kernel(x, view), kernel(x, copy)
+    assert torch.equal(got, want)
+    assert not torch.equal(got, kernel(x, _unstack({"w": stack}, 3)[0]["w"]))
+
+
+def test_quant_matmul_rejects_geometry(cuda):
+    """A CUDA tensor whose geometry the kernel does not take raises; it is
+    never computed by the plain version."""
+    from gritlm_tpu_torch.ops import quant_matmul as qm
+    from gritlm_tpu_torch.training import quant
+
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    x = _randn(gen, 4, 256, device=cuda)
+    w = torch.randn((256, 24), generator=gen, device=cuda)
+    with pytest.raises(NotImplementedError):
+        qm.w8a16_matmul(x, quant.quantize_kernel(w))  # N % 16
+    with pytest.raises(NotImplementedError):  # a group of 8 rows
+        qm.w4a16_matmul(x, quant.quantize_kernel_int4(torch.randn((256, 128), device=cuda), 8))
+    node = quant.quantize_kernel(torch.randn((256, 128), device=cuda))
+    with pytest.raises(TypeError):
+        qm.w8a16_matmul(x.float(), node)  # fp32 activations
+    with pytest.raises(ValueError):  # a weight that is not contiguous
+        qm.w8a16_matmul(x, {"q8": node["q8"].t().contiguous().t(), "scale": node["scale"]})
+
+
+def test_quantized_gritlm_runs_its_kernels(cuda):
+    """GritLM(weight_quant=8|4) on the card: encode and generate run, decode
+    goes through K6 / K7, and the greedy tokens of a w8 generate stay within
+    the logits' ties of a teacher-forced forward (decode rows through K6,
+    the forward's rows through the dequantizing matmul)."""
+    from gritlm_tpu_torch import GritLM
+    from gritlm_tpu_torch.models.transformer import forward, logits_from_hidden
+    from gritlm_tpu_torch.ops import quant_matmul as qm
+
+    cfg = ModelConfig(vocab_size=512, hidden_size=256, intermediate_size=512,
+                      num_hidden_layers=2, num_attention_heads=2, num_key_value_heads=1)
+    base = GritLM(cfg)
+    for bits, kernel in ((8, qm.w8a16_matmul), (4, qm.w4a16_matmul)):
+        m = GritLM(cfg, params=base.params, weight_quant=bits)
+        enc = m.tokenizer(["Hi there"])
+        before = kernel.launches
+        emb = m.encode(["hello world", "a longer sentence to embed"])
+        res = m.generate_from_ids(enc["input_ids"], enc["attention_mask"], max_new_tokens=6)
+        assert emb.shape == (2, 256) and res.tokens.shape == (1, 6)
+        assert kernel.launches > before
+        n = int(res.num_valid[0])
+        toks = res.tokens[0, :n].long()
+        prompt = enc["input_ids"][0].tolist()
+        with torch.inference_mode():
+            x = torch.tensor([prompt + toks.tolist()], device=cuda)
+            hidden, _, _ = forward(m.params, cfg, x, causal=True)
+            logits = logits_from_hidden(m.params, cfg, hidden)[0].float()
+        logits = logits[len(prompt) - 1:len(prompt) - 1 + n]
+        chosen = logits.gather(1, toks[:, None])[:, 0]
+        assert float((logits.max(1).values - chosen).max()) <= 0.25

@@ -23,6 +23,7 @@ from gritlm_tpu_torch.ops import (
     flash_attention,
     fused_pool,
     paged_attention,
+    quant_matmul,
     scores_segmax,
 )
 
@@ -106,7 +107,20 @@ CALLS = {
                       lambda f, x: f(x, x, 7)),
     "paged_decode": (paged_attention, "paged_decode", "paged_decode_plain",
                      lambda f, x: f(x, x, x, x, x, layer=0)),
+    "w8a16_matmul": (quant_matmul, "w8a16_matmul", "w8a16_matmul_plain",
+                     lambda f, x: f(_shaped(x, 4, 64), {"q8": _shaped(_fake_cuda_tensor(), 64, 32),
+                                                        "scale": x})),
+    "w4a16_matmul": (quant_matmul, "w4a16_matmul", "w4a16_matmul_plain",
+                     lambda f, x: f(_shaped(x, 4, 64), {"q4": _shaped(_fake_cuda_tensor(), 32, 32),
+                                                        "scale": x})),
 }
+
+
+def _shaped(t, *shape):
+    """A fake CUDA tensor with a shape (the quantized matmuls route by
+    their row count before they reach the kernel)."""
+    t.shape = torch.Size(shape)
+    return t
 
 
 @pytest.mark.parametrize("name", sorted(CALLS))

@@ -407,9 +407,6 @@ def test_not_ported_parts_raise(engines):
             te.serve(["q"], **kw)
     with pytest.raises(NotImplementedError):
         RAGEngine(te.model, speculative=True)
-    for flag in ("--speculative", "--weight_quant"):
-        with pytest.raises(NotImplementedError):
-            port_eval.main(["--model_preset", "tiny_mistral", "--device", "cpu",
-                            "--no_retrieval", flag])
     with pytest.raises(NotImplementedError):
-        port_eval.main(["--model_name_or_path", "ckpt", "--device", "cpu", "--no_retrieval"])
+        port_eval.main(["--model_preset", "tiny_mistral", "--device", "cpu", "--no_retrieval",
+                        "--speculative"])

@@ -269,5 +269,3 @@ def test_not_ported_steps_raise():
 
     with pytest.raises(NotImplementedError, match="item 11"):
         pt.train_step(None, {}, tiny_mixtral(), pt.TrainConfig())
-    with pytest.raises(NotImplementedError, match="K6"):
-        make_lora_train_state(tiny_mistral(), pt.TrainConfig(), {}, quantize=True)

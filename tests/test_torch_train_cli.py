@@ -189,7 +189,6 @@ def test_safetensors_by_hand_round_trip(tmp_path):
 
 
 NOT_PORTED = [
-    (["--qlora"], "item 8"),
     (["--native_loader"], "item 13"),
     (["--seq_parallel"], "item 12"),
     (["--mesh_stage", "2"], "item 12"),
@@ -199,7 +198,6 @@ NOT_PORTED = [
     (["--mesh_expert", "2"], "item 12"),
     (["--projection", "16"], "item 3"),
     (["--moe_impl", "dense"], "item 11"),
-    (["--model_name_or_path", "/nonexistent"], "item 1"),
     (["--remat_policy", "dots"], "item 7"),
     (["--model_preset", "tiny_mixtral"], "item 11"),
 ]
@@ -209,6 +207,70 @@ NOT_PORTED = [
 def test_not_ported_flag_raises(tmp_path, flags, item):
     with pytest.raises(NotImplementedError, match=item):
         main(_args(tmp_path / "run", 1, *flags))
+
+
+@pytest.fixture(scope="module")
+def checkpoint(tmp_path_factory):
+    """tiny_mistral's JAX weights in an HF checkpoint written by the port,
+    with a BPE tokenizer.json beside them."""
+    from tok_fixtures import make_bpe_tokenizer
+
+    from gritlm_tpu_torch.config import tiny_mistral
+    from gritlm_tpu_torch.models.convert import params_from_jax
+
+    path = tmp_path_factory.mktemp("ckpt")
+    jparams = jax_init_params(jax_tiny_mistral(), jax.random.PRNGKey(2))
+    loader.save_checkpoint(str(path), tiny_mistral(), params_from_jax(
+        jax.tree_util.tree_map(np.asarray, jparams), tiny_mistral(), device="cpu"))
+    make_bpe_tokenizer()._tok.save(str(path / "tokenizer.json"))
+    return path
+
+
+@pytest.mark.parametrize("flag", ["--qlora", "--model_name_or_path"])
+def test_ported_flag_runs(tmp_path, checkpoint, flag):
+    """The flags the port runs since the quantized-weights slice.
+    --qlora: LoRA over an int8 base; the merged export is dense (bf16
+    kernels from the dequantized base, as the JAX package's) and loads in
+    both packages' loaders with equal values. --model_name_or_path: the
+    checkpoint's weights and tokenizer; one step (its update has LR 0)
+    exports the checkpoint's weights bit for bit, and the data were
+    filtered with the checkpoint's tokenizer."""
+    from gritlm_tpu_torch.tokenizer import load_tokenizer
+
+    if flag == "--qlora":
+        r = main(_args(tmp_path / "run", 2, "--qlora", "--lora_r", "4"))
+        assert r["steps"] == 2 and all(np.isfinite(v) for v in r["final"].values())
+        _, jp = jax_loader.load_checkpoint(r["export"])
+        _, pp = loader.load_checkpoint(r["export"], device="cpu")
+        _assert_same(pp, jp)
+        raw = loader.read_safetensors(str(tmp_path / "run" / "export" / "model.safetensors"))
+        assert raw["model.layers.0.mlp.up_proj.weight"].dtype == torch.bfloat16
+        assert raw["model.norm.weight"].dtype == torch.float32
+        return
+    r = main(_args(tmp_path / "run", 1, flag, str(checkpoint)))
+    assert r["steps"] == 1
+    assert json.loads((tmp_path / "run" / "run_args.json").read_text())[
+        "model_name_or_path"] == str(checkpoint)
+    _, want = loader.load_checkpoint(str(checkpoint), device="cpu")
+    _, got = loader.load_checkpoint(r["export"], device="cpu")
+    for path, a in _leaves(want):
+        b = got
+        for k in path:
+            b = b[k]
+        assert torch.equal(b, a), path
+    tok = load_tokenizer(str(checkpoint))
+    emb, _ = pdata.load_train_dirs([TOY])
+    kept = sum(len(x) for x in pdata.filter_too_long_instructions(tok, emb, 128, 128))
+    assert json.loads((tmp_path / "run" / "dataset_num_samples.json").read_text())[
+        "embedding"] == kept
+
+
+def _leaves(tree, path=()):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _leaves(v, path + (k,))
+        else:
+            yield path + (k,), v
 
 
 def test_cli_needs_cuda_by_default(tmp_path, monkeypatch):
