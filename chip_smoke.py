@@ -65,8 +65,12 @@ Phases (in the order 1-9, 11, 10), any failure exits non-zero:
      load_checkpoint); 6 LoRA steps on one batch (the loss falls); GradCache
      (gc_chunks 2 against 1 at depth 4: loss_emb and the gradients'
      cosine); full-parameter training at depth 8 (peak memory); K4 and K5
-     timed at the passage shape (B 8, S 2048, bidirectional) beside the
-     backward of scaled_dot_product_attention; 3 QLoRA steps (int8 base,
+     timed at the passage shape (B 8, S 2048, bidirectional) and the
+     generative shape (B 4, S 2048, causal) beside the backward of
+     scaled_dot_product_attention, each by CUDA events around calls
+     launched back to back and by torch.profiler, with the achieved
+     TFLOP/s (a reading above the card's peak fails) and the library's
+     kernel names; 3 QLoRA steps (int8 base,
      make_lora_train_state(quantize=True)) at full depth: ms per step, peak
      memory against LoRA's, finite losses
  11. quantized weights at full width (runs after phase 9, before phase 10
@@ -253,7 +257,8 @@ def main() -> int:
     print(f"build: {time.time() - t0:.1f} s ({', '.join(_build.SOURCES)})")
     for name, log in logs.items():
         for line in log.splitlines():
-            if any(w in line for w in ("registers", "spill", "Compiling entry", "error")):
+            if any(w in line for w in ("registers", "spill", "Compiling entry", "error",
+                                       "warning")):
                 print(f"  ptxas[{name}] {line.strip()}")
 
     # name (of the wrapper in its module): (module, plain version, source, TPU kernel)
@@ -1781,62 +1786,149 @@ def training_phase(dev, reset_counts, read_counts, path_launches, preset="mistra
     torch.cuda.empty_cache()
 
 
-def training_times(dev, randn, times, B=8, S=2048, H=32, Hkv=8) -> None:
+def event_ms(fn, reps: int = 20, warmup: int = 3) -> float:
+    """ms of one call of fn between two CUDA events around `reps` calls
+    launched back to back (after warm-up): the device's time for the calls,
+    which never reads low when a profiler trace drops kernels."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def kernel_names(fn, top: int = 6) -> str:
+    """The device kernels of one call of fn by torch.profiler, largest
+    first, as 'ms name' (for a library call: which backend ran)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    if not events:
+        return "(no device events recorded)"
+    events.sort(key=lambda e: -e.self_device_time_total)
+    return "; ".join(f"{e.self_device_time_total / 1e3:.4f} ms {e.key[:80]}"
+                     for e in events[:top])
+
+
+def training_times(dev, randn, times, H=32, Hkv=8,
+                   shapes=((8, 2048, False), (4, 2048, True))) -> None:
     """K1 with its LSE, K4 and K5 at the passage shape (B 8, S 2048, 32/8
-    heads, bidirectional, no padding), beside their bounds, their plain
-    versions and the backward of scaled_dot_product_attention on the same
-    inputs (one library call that computes dq, dk and dv together)."""
+    heads, bidirectional, no padding) and at the generative shape (B 4,
+    S 2048, causal), beside their bounds and the backward of
+    scaled_dot_product_attention on the same inputs (one library call that
+    computes dq, dk and dv together; `is_causal` for the causal row). Each
+    time is taken two ways: CUDA events around calls launched back to back
+    (the figure kept) and torch.profiler's device sum. Operations count the
+    (query, key) pairs the mask keeps: one product is 2 x pairs x heads x
+    Dh; the library does 5 products, K4 3 and K5 4. A reading above the
+    card's peak is impossible: it is marked invalid and the table's library
+    time is then null. The bidirectional row fills `times` (plain versions
+    timed there only)."""
     import torch
     import torch.nn.functional as F
 
     from gritlm_tpu_torch.ops import flash_attention as fa
+    from gritlm_tpu_torch.ops.flash_attention import keep_mask
 
     Dh = 128
-    q, k, v, do = randn(B, S, H, Dh), randn(B, S, Hkv, Dh), randn(B, S, Hkv, Dh), randn(B, S, H, Dh)
-    mask = torch.ones((B, S), dtype=torch.int32, device=dev)
-    out, lse = fa.flash_attention(q, k, v, mask, causal=False, return_lse=True)
-    delta = fa.attention_delta(out, do)
-    pair = 2.0 * B * H * S * S * Dh  # one product over every (query, key) pair
-    ins = nbytes(q, k, v, do, lse, delta, mask)
-    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True) for x in (q, k, v))
-    lib_out = F.scaled_dot_product_attention(qt, kt, vt, enable_gqa=True)
-    dot = do.transpose(1, 2)
-    lib_ms, _ = time_ms(lambda: torch.autograd.grad(lib_out, (qt, kt, vt), dot,
-                                                    retain_graph=True), reps=10)
-    kw = dict(causal=False)
-    rows = {
-        "flash_attention_bwd_dq": (
-            lambda: fa.flash_attention_bwd_dq(q, k, v, mask, do, lse, delta, **kw),
-            lambda: fa.flash_attention_bwd_dq_plain(q, k, v, mask, do, lse, delta, **kw),
-            3 * pair, ins + nbytes(q)),
-        "flash_attention_bwd_dkv": (
-            lambda: fa.flash_attention_bwd_dkv(q, k, v, mask, do, lse, delta, **kw),
-            lambda: fa.flash_attention_bwd_dkv_plain(q, k, v, mask, do, lse, delta, **kw),
-            4 * pair, ins + nbytes(k, v)),
-    }
-    for name, (fk, fp, flops, byt) in rows.items():
-        ms, call_ms = time_ms(fk, reps=10)
-        plain_ms, _ = time_ms(fp, reps=2, warmup=1)
-        bms, by = bound(flops, byt)
-        times[name] = (ms, plain_ms, lib_ms, bms, by)
-        print(f"time {name} [B{B} S{S} bidirectional]: device {ms:.4f} ms ({bms / ms * 100:.1f}% "
-              f"of bound {bms:.4f} ms, {by}), plain {plain_ms:.4f}, library {lib_ms:.4f} "
-              f"(backward of scaled_dot_product_attention: dq, dk and dv); per call (events) "
-              f"{call_ms:.4f}", flush=True)
-    ms, _ = time_ms(lambda: fa.flash_attention(q, k, v, mask, causal=False, return_lse=True),
-                    reps=10)
-    ms0, _ = time_ms(lambda: fa.flash_attention(q, k, v, mask, causal=False), reps=10)
-    plain_f, _ = time_ms(lambda: fa.flash_attention_plain(q, k, v, mask, causal=False,
-                                                          return_lse=True), reps=2, warmup=1)
-    lib_f, _ = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, enable_gqa=True),
-                       reps=10)
-    bms, by = bound(2 * pair, nbytes(q, k, v, mask, q) + B * H * S * 4)
-    print(f"time flash_attention with LSE [B{B} S{S} bidirectional]: device {ms:.4f} ms "
-          f"({bms / ms * 100:.1f}% of bound {bms:.4f} ms, {by}); without LSE {ms0:.4f}; "
-          f"plain {plain_f:.4f}; library {lib_f:.4f} (scaled_dot_product_attention forward)",
-          flush=True)
-    del q, k, v, do, qt, kt, vt, lib_out
-    torch.cuda.empty_cache()
+    for B, S, causal in shapes:
+        label = f"B{B} S{S} {'causal' if causal else 'bidirectional'}"
+        q, k, v, do = (randn(B, S, H, Dh), randn(B, S, Hkv, Dh), randn(B, S, Hkv, Dh),
+                       randn(B, S, H, Dh))
+        mask = torch.ones((B, S), dtype=torch.int32, device=dev)
+        kw = dict(causal=causal)
+        out, lse = fa.flash_attention(q, k, v, mask, return_lse=True, **kw)
+        delta = fa.attention_delta(out, do)
+        pairs = int(keep_mask(mask, S, S, causal=causal, sliding_window=None, offset=0,
+                              device=dev).expand(B, -1, -1).sum())
+        product = 2.0 * pairs * H * Dh  # one product over every kept (query, key) pair
+        ins = nbytes(q, k, v, do, lse, delta, mask)
+
+        def tflops(n_products, ms):
+            rate = n_products * product / (ms * 1e-3) / 1e12
+            return rate, ("" if rate <= PEAK_BF16_FLOPS / 1e12 else
+                          " INVALID: above the card's peak")
+
+        qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True) for x in (q, k, v))
+        lib_out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal, enable_gqa=True)
+        dot = do.transpose(1, 2)
+
+        def library():
+            return torch.autograd.grad(lib_out, (qt, kt, vt), dot, retain_graph=True)
+
+        lib_ev = event_ms(library)
+        lib_prof, _ = time_ms(library, reps=10)
+        rate_ev, bad_ev = tflops(5, lib_ev)
+        rate_prof, bad_prof = tflops(5, lib_prof)
+        print(f"time library [{label}] backward of scaled_dot_product_attention (dq, dk, dv): "
+              f"events {lib_ev:.4f} ms = {rate_ev:.1f} TFLOP/s{bad_ev}; profiler "
+              f"{lib_prof:.4f} ms = {rate_prof:.1f} TFLOP/s{bad_prof} (5 products of "
+              f"{product / 1e9:.1f} GFLOP, {pairs} kept pairs); kernels: "
+              f"{kernel_names(library)}", flush=True)
+        lib_ms = None if bad_ev else lib_ev  # an impossible reading stays out of the table
+        rows = {
+            "flash_attention_bwd_dq": (
+                lambda: fa.flash_attention_bwd_dq(q, k, v, mask, do, lse, delta, **kw),
+                lambda: fa.flash_attention_bwd_dq_plain(q, k, v, mask, do, lse, delta, **kw),
+                3, ins + nbytes(q)),
+            "flash_attention_bwd_dkv": (
+                lambda: fa.flash_attention_bwd_dkv(q, k, v, mask, do, lse, delta, **kw),
+                lambda: fa.flash_attention_bwd_dkv_plain(q, k, v, mask, do, lse, delta, **kw),
+                4, ins + nbytes(k, v)),
+        }
+        pair_ms = 0.0
+        for name, (fk, fp, n_products, byt) in rows.items():
+            ms = event_ms(fk)
+            prof_ms, _ = time_ms(fk, reps=10)
+            pair_ms += ms
+            bms, by = bound(n_products * product, byt)
+            rate, bad = tflops(n_products, ms)
+            plain = ""
+            if not causal:
+                plain_ms, _ = time_ms(fp, reps=2, warmup=1)
+                times[name] = (ms, plain_ms, lib_ms, bms, by)
+                plain = f", plain {plain_ms:.4f}"
+            print(f"time {name} [{label}]: events {ms:.4f} ms = {rate:.1f} TFLOP/s{bad} "
+                  f"({bms / ms * 100:.1f}% of bound {bms:.4f} ms, {by}); profiler "
+                  f"{prof_ms:.4f} ms{plain}; library {lib_ev:.4f} (events)", flush=True)
+        print(f"time K4 + K5 [{label}]: {pair_ms:.4f} ms against the library's {lib_ev:.4f} "
+              f"({pair_ms / lib_ev:.2f}x{'' if lib_ms else ', library reading INVALID'})",
+              flush=True)
+        if not causal:
+            ms, _ = time_ms(lambda: fa.flash_attention(q, k, v, mask, return_lse=True, **kw),
+                            reps=10)
+            ms0, _ = time_ms(lambda: fa.flash_attention(q, k, v, mask, **kw), reps=10)
+            plain_f, _ = time_ms(lambda: fa.flash_attention_plain(q, k, v, mask, return_lse=True,
+                                                                  **kw), reps=2, warmup=1)
+
+            def lib_fwd():
+                return F.scaled_dot_product_attention(qt, kt, vt, enable_gqa=True)
+
+            lib_f = event_ms(lib_fwd)
+            lib_f_prof, _ = time_ms(lib_fwd, reps=10)
+            bms, by = bound(2 * product, nbytes(q, k, v, mask, q) + B * H * S * 4)
+            print(f"time flash_attention with LSE [{label}]: device {ms:.4f} ms "
+                  f"({bms / ms * 100:.1f}% of bound {bms:.4f} ms, {by}); without LSE "
+                  f"{ms0:.4f}; plain {plain_f:.4f}; library (scaled_dot_product_attention "
+                  f"forward) events {lib_f:.4f} = {tflops(2, lib_f)[0]:.1f} TFLOP/s, profiler "
+                  f"{lib_f_prof:.4f}", flush=True)
+        del q, k, v, do, qt, kt, vt, lib_out, out, lse, delta
+        torch.cuda.empty_cache()
 
 
 def profile_window(label: str, fn, top: int = 10):

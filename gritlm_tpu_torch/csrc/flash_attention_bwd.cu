@@ -1,389 +1,595 @@
 // K4 and K5: the flash attention backward for Hopper (sm_90a), bf16 in, fp32
-// accumulation. The design note and the plain version are in
-// gritlm_tpu_torch/ops/flash_attention.py.
+// accumulation. They replace the Pallas `_bwd_dq_kernel` and
+// `_bwd_dkv_kernel` of gritlm_tpu/ops/flash_attention.py; the plain versions
+// are in gritlm_tpu_torch/ops/flash_attention.py.
 //
 // Both kernels rebuild the probabilities from the forward's log-sum-exp,
 //   P = exp(S * scale - lse)   under the forward's keep mask, else 0
 //   dP = dO V^T,  dS = P * (dP - delta) * scale,  delta = rowsum(dO * O)
-// and never hold more than one 64 x 64 tile of P in shared memory.
+// What bounds them at training shapes: their operations (K4 three and K5
+// four products over every visited (query, key) pair), so every product is
+// a wgmma and nothing of P, dS or the gradients touches shared memory.
 //
-// K4 (dQ): one block of 4 warps per (q-tile of 64 rows, query head, batch
-// row); each warp owns 16 query rows and keeps its dQ rows in wmma
-// accumulators over the loop of 64-key tiles (dQ += dS K).
+// The design (building blocks in sm90.cuh):
+// - a block keeps its own 128 rows in shared memory for its whole life
+//   (K4: Q and dO of 128 query rows; K5: K and V of 128 keys) and streams
+//   the other side through a ring of STAGES shared-memory stages, 64 rows a
+//   tile, loaded by TMA and signalled by mbarriers, in the visit order of K1
+//   (flash_attention.cu);
+// - two consumer warpgroups each own 64 of the block's rows. Per ring tile
+//   a warpgroup issues S (or S^T) and dP (or dP^T) as wgmma with both
+//   operands in shared memory, forms P and dS in registers from the
+//   accumulators, re-packs them as bf16 A fragments (the accumulator layout
+//   is the A layout) and issues dQ += dS K (K4) or dV += P^T dO and
+//   dK += dS^T Q (K5) as wgmma with A from registers and B read transposed
+//   from the ring tile. The dQ (K4) or dK and dV (K5) accumulators stay in
+//   registers until the epilogue writes them as bf16;
+// - K4 adds a producer warpgroup whose one warp drives the ring and whose
+//   registers go to the consumers (setmaxnreg); K5, whose consumers hold
+//   128 accumulators a thread, has no producer (see its kernel);
+// - K5 streams the GQA group's query heads x their visible q-tiles as one
+//   sequence, so the group's sum stays inside the block: no atomics, and
+//   the same inputs give the same bits.
 //
-// K5 (dK, dV): one block of 4 warps per (k-tile of 64 keys, kv head, batch
-// row); each warp owns 16 keys. The block loops over the GQA group's query
-// heads and their q-tiles and accumulates dV += P^T dO and dK += dS^T Q in
-// fp32 in shared memory, so the group's sum happens inside the block and
-// dK/dV come out [B, Sk, Hkv, Dh] directly.
-//
-// Masking follows K1 (flash_attention.cu) exactly, so P agrees with the
-// forward: padding, causal with `offset`, the sliding window (causal only);
-// tiles above the causal diagonal, below the window or with no valid key
-// are skipped. A row whose keys are all masked has lse == NEG_INF and gets
-// zero gradients: every P and dS is selected, never multiplied, to 0.
-#include <mma.h>
+// Masking follows K1 exactly, so P agrees with the forward: padding, causal
+// with `offset`, the sliding window (causal only). Tiles above the causal
+// diagonal, below the window or with no valid key are never loaded (K4) or
+// skipped by the warpgroup they miss; interior tiles take a path with no
+// per-element mask. A row whose keys are all masked has lse == NEG_INF and
+// gets zero gradients: every P and dS is selected, never multiplied, to 0.
+#include <utility>
 
 #include "common.cuh"
+#include "sm90.cuh"
 
-using namespace nvcuda;
 using gritlm::bf16;
-using gritlm::NEG_INF;
 
 namespace {
 
 constexpr int DH = 128;
-constexpr int BQ = 64;
-constexpr int BK = 64;
-constexpr int NWARP = 4;
-constexpr int NTHREADS = NWARP * 32;
-constexpr int LDQK = DH + 8;  // bf16 row stride of the Q/dO/K/V tiles
-constexpr int LDS = 64 + 4;   // fp32 row stride of the 64 x 64 score tiles
-constexpr int LDP = 64 + 8;   // bf16 row stride of the 64 x 64 P / dS tiles
-constexpr int LDO = DH + 4;   // fp32 row stride of the dQ / dK / dV rows
+constexpr int WG = 128;                      // threads of a warpgroup
+constexpr int CONSUMERS = 2;                 // consumer warpgroups a block
+constexpr int NTHREADS = WG * (CONSUMERS + 1);  // K4; K5 has no producer
+constexpr int STAGES = 3;                    // ring depth
+// K4's registers a thread after setmaxnreg: the producer warpgroup's go to
+// the consumers (the SM's 65536 hold 128 x 40 + 256 x 232)
+constexpr int PRODUCER_REGS = 40;
+constexpr int CONSUMER_REGS = 232;
+static_assert(WG * PRODUCER_REGS + WG * CONSUMERS * CONSUMER_REGS <= 65536, "register split");
+constexpr int TILE = 64;                     // rows a consumer owns; rows a ring tile carries
+constexpr int BLOCK_ROWS = TILE * CONSUMERS; // the block's resident rows
+constexpr float LOG2E = 1.4426950408889634f;
 
-constexpr size_t TILE16 = size_t(64) * LDQK * 2;  // one bf16 64 x 128 tile
-constexpr size_t TILE32 = size_t(64) * LDS * 4;   // one fp32 64 x 64 tile
-constexpr size_t TILEP = size_t(64) * LDP * 2;    // one bf16 64 x 64 tile
-constexpr size_t ACC = size_t(64) * LDO * 4;      // one fp32 64 x 128 tile
+// Shared memory, from a 1024-byte aligned base: the resident tiles, the
+// ring, then small per-stage data (K4's tile metadata, K5's release
+// counts), the key mask (K5) and the barriers.
+// A 64-column half of a tile is rows x 128 bytes (see sm90.cuh).
+constexpr uint32_t HALF_T = TILE * 128;          // half of a 64-row ring tile
+constexpr uint32_t HALF_R = BLOCK_ROWS * 128;    // half of a resident tile
+constexpr uint32_t RES_BYTES = 4 * HALF_R;       // two resident tiles
+constexpr uint32_t STAGE_BYTES = 4 * HALF_T;     // two ring tiles
+constexpr uint32_t OFF_RING = RES_BYTES;
+constexpr uint32_t OFF_STATS = OFF_RING + STAGES * STAGE_BYTES;  // 512 bytes a stage
+constexpr uint32_t OFF_MASK = OFF_STATS + STAGES * 128 * 4;
+constexpr uint32_t OFF_BAR = OFF_MASK + BLOCK_ROWS * 4;
+constexpr uint32_t SMEM = OFF_BAR + (2 * STAGES + 1) * 8 + 1024;  // + alignment slack
+static_assert(SMEM <= 232448, "shared memory of one block");
 
-// K4 layout: Q, dO, K, V | S, dP | dS | lse, delta, key mask.
-// The final dQ rows are staged in the K/V region.
-constexpr size_t DQ_OFF_DO = TILE16;
-constexpr size_t DQ_OFF_K = 2 * TILE16;
-constexpr size_t DQ_OFF_V = 3 * TILE16;
-constexpr size_t DQ_OFF_S = 4 * TILE16;
-constexpr size_t DQ_OFF_DP = DQ_OFF_S + TILE32;
-constexpr size_t DQ_OFF_DS = DQ_OFF_DP + TILE32;
-constexpr size_t DQ_OFF_LSE = DQ_OFF_DS + TILEP;
-constexpr size_t DQ_OFF_DELTA = DQ_OFF_LSE + BQ * 4;
-constexpr size_t DQ_OFF_MASK = DQ_OFF_DELTA + BQ * 4;
-constexpr size_t DQ_SMEM = DQ_OFF_MASK + BK * 4;
-static_assert(2 * TILE16 >= ACC, "dQ staging must fit the K/V region");
-
-// K5 layout: K, V, Q, dO | S^T, dP^T | P^T, dS^T | dK, dV | lse, delta, mask.
-constexpr size_t KV_OFF_V = TILE16;
-constexpr size_t KV_OFF_Q = 2 * TILE16;
-constexpr size_t KV_OFF_DO = 3 * TILE16;
-constexpr size_t KV_OFF_S = 4 * TILE16;
-constexpr size_t KV_OFF_DP = KV_OFF_S + TILE32;
-constexpr size_t KV_OFF_P = KV_OFF_DP + TILE32;
-constexpr size_t KV_OFF_DS = KV_OFF_P + TILEP;
-constexpr size_t KV_OFF_DK = KV_OFF_DS + TILEP;
-constexpr size_t KV_OFF_DV = KV_OFF_DK + ACC;
-constexpr size_t KV_OFF_LSE = KV_OFF_DV + ACC;
-constexpr size_t KV_OFF_DELTA = KV_OFF_LSE + BQ * 4;
-constexpr size_t KV_OFF_MASK = KV_OFF_DELTA + BQ * 4;
-constexpr size_t KV_SMEM = KV_OFF_MASK + BK * 4;
-
-typedef wmma::fragment<wmma::accumulator, 16, 16, 16, float> Acc;
-typedef wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> FragA;
-typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> FragB;
-typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> FragBt;
-
-// Copy a 64 x 128 bf16 tile (rows at `row_stride` elements from `base`,
-// row r holding position p0 + r) into shared memory; rows at or past `n`
-// are zero-filled.
-__device__ __forceinline__ void load_tile(bf16* dst, const bf16* base, long long row_stride,
-                                          int p0, int n, int tid) {
-  for (int i = tid; i < 64 * DH / 8; i += NTHREADS) {
-    const int r = i / (DH / 8), c = (i % (DH / 8)) * 8;
-    const bool in = p0 + r < n;
-    gritlm::cp_async16(dst + r * LDQK + c, in ? base + (p0 + r) * row_stride + c : base,
-                       in ? 16 : 0);
-  }
+// byte address of half c of resident tile x / of ring tile x in stage s
+__device__ __forceinline__ uint32_t res_half(uint32_t base, int x, int c) {
+  return base + (2 * x + c) * HALF_R;
+}
+__device__ __forceinline__ uint32_t ring_half(uint32_t base, int s, int x, int c) {
+  return base + OFF_RING + s * STAGE_BYTES + (2 * x + c) * HALF_T;
 }
 
-// out[16 x 64] (fp32, ld LDS) = A[16 x 128] . B[64 x 128]^T, both bf16 with
-// row stride LDQK: one warp's rows of a score-shaped product.
-__device__ __forceinline__ void rows_times_tile_t(float* out, const bf16* a, const bf16* b) {
-  Acc acc[4];
+// Descriptors of a tile's first k-step: K-major (the reduction runs along
+// the 128 features of a row) and MN-major (it runs down the rows); the
+// k-steps' offsets are compile-time (sm90.cuh).
+__device__ __forceinline__ uint64_t kmajor(uint32_t rows) {
+  return sm90::desc_sw128(rows, 16, 1024);
+}
+__device__ __forceinline__ uint64_t mnmajor(uint32_t tile) {
+  return sm90::desc_sw128(tile, HALF_T, 1024);
+}
+
+// The forward's keep rule for (key position, query row).
+struct Keep {
+  int Sq, causal, window, offset;
+  __device__ __forceinline__ bool operator()(int key, int q) const {
+    const int qpos = offset + q;
+    return q < Sq && (!causal || key <= qpos) && (window <= 0 || key > qpos - window);
+  }
+};
+
+__device__ __forceinline__ void init_ring(uint32_t full, uint32_t empty, uint32_t res,
+                                          uint32_t full_count) {
+  for (int s = 0; s < STAGES; ++s) {
+    sm90::mbar_init(full + 8 * s, full_count);
+    sm90::mbar_init(empty + 8 * s, WG * CONSUMERS);  // every consumer thread arrives
+  }
+  sm90::mbar_init(res, 1);
+  sm90::mbar_fence_init();
+}
+
+// One 64 x N product reduced over the 128 features (N = 2 x the
+// accumulators a thread holds): 8 k-steps of 16, each 32 bytes further
+// along the row, the second 4 in the tile's other half.
+template <uint32_t A_HALF, uint32_t A_OFF, uint32_t B_OFF, int NREG, int... KK>
+__device__ __forceinline__ void feature_steps(float (&d)[NREG], uint64_t da, uint64_t db,
+                                              std::integer_sequence<int, KK...>) {
+  if constexpr (NREG == 32)
+    (sm90::wgmma_m64n64k16_ss<A_OFF + (KK / 4) * A_HALF + (KK % 4) * 32,
+                              B_OFF + (KK / 4) * HALF_T + (KK % 4) * 32>(d, da, db, KK > 0),
+     ...);
+  else
+    (sm90::wgmma_m64n32k16_ss<A_OFF + (KK / 4) * A_HALF + (KK % 4) * 32,
+                              B_OFF + (KK / 4) * HALF_T + (KK % 4) * 32>(d, da, db, KK > 0),
+     ...);
+}
+
+// S (or S^T) and dP (or dP^T) of one warpgroup, 64 x N each: `a` is the
+// warpgroup's first row of the first resident tile (the second lies
+// 2 HALF_R on), the ring tile of S starts B_OFF bytes past `b` (dP's lies
+// 2 HALF_T further). Leaves two groups in flight: S first.
+template <uint32_t B_OFF, int NREG>
+__device__ __forceinline__ void issue_scores(float (&s)[NREG], float (&dp)[NREG], uint32_t a,
+                                             uint32_t b) {
+  const uint64_t da = kmajor(a), db = kmajor(b);
+  constexpr auto steps = std::make_integer_sequence<int, DH / 16>();
+  sm90::wgmma_fence();
+  feature_steps<HALF_R, 0, B_OFF>(s, da, db, steps);
+  sm90::wgmma_commit();
+  feature_steps<HALF_R, 2 * HALF_R, B_OFF + 2 * HALF_T>(dp, da, db, steps);
+  sm90::wgmma_commit();
+}
+
+// An fp32 accumulator re-packed as bf16 A fragments, four a k-step of 16
+// columns: the accumulator layout is the A layout (sm90.cuh).
+template <int NA>
+__device__ __forceinline__ void pack_a(uint32_t (&a)[NA], const float (&x)[2 * NA]) {
 #pragma unroll
-  for (int j = 0; j < 4; ++j) wmma::fill_fragment(acc[j], 0.f);
+  for (int i = 0; i < NA; ++i) a[i] = sm90::pack_bf16(x[2 * i], x[2 * i + 1]);
+}
+
+// acc[64 x 128] += X[64 x K] . tile[K x 128], X as packed A fragments (K =
+// 4 x their count), the tile MN-major in the ring TILE_OFF bytes past
+// `tile_desc`'s: k-steps of 16 rows. Issued, not waited for; the caller
+// fences the fragments and issues wgmma_fence first.
+template <uint32_t TILE_OFF, int NA, int... KK>
+__device__ __forceinline__ void row_steps(float (&acc)[64], const uint32_t (&a)[NA],
+                                          uint64_t tile_desc, std::integer_sequence<int, KK...>) {
+  (sm90::wgmma_m64n128k16_rs_tb<TILE_OFF + KK * 16 * 128>(acc, a[4 * KK], a[4 * KK + 1],
+                                                          a[4 * KK + 2], a[4 * KK + 3],
+                                                          tile_desc, 1),
+   ...);
+}
+template <uint32_t TILE_OFF, int NA>
+__device__ __forceinline__ void issue_update(float (&acc)[64], const uint32_t (&a)[NA],
+                                             uint64_t tile_desc) {
+  row_steps<TILE_OFF>(acc, a, tile_desc, std::make_integer_sequence<int, NA / 4>());
+}
+
+// Write a warpgroup's 64 x 128 fp32 accumulator as bf16 rows: row r of the
+// thread (r0 or r0 + 8) goes to out + row_off(r) when valid.
+template <typename RowOff>
+__device__ __forceinline__ void store_rows(bf16* out, const float (&acc)[64], int r0, int n_rows,
+                                           int lane, RowOff row_off) {
 #pragma unroll
-  for (int d = 0; d < DH; d += 16) {
-    FragA fa;
-    wmma::load_matrix_sync(fa, a + d, LDQK);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      FragBt fb;
-      wmma::load_matrix_sync(fb, b + j * 16 * LDQK + d, LDQK);
-      wmma::mma_sync(acc[j], fa, fb, acc[j]);
+  for (int i = 0; i < 64; i += 2) {
+    const int r = r0 + 8 * ((i % 4) / 2);
+    if (r < n_rows) {
+      const int col = 8 * (i / 4) + 2 * (lane % 4);
+      *reinterpret_cast<uint32_t*>(out + row_off(r) + col) = sm90::pack_bf16(acc[i], acc[i + 1]);
     }
   }
-#pragma unroll
-  for (int j = 0; j < 4; ++j)
-    wmma::store_matrix_sync(out + j * 16, acc[j], LDS, wmma::mem_row_major);
-}
-
-// acc[16 x 128] (fp32 rows in shared memory, ld LDO) += A[16 x 64] . B[64 x 128],
-// A bf16 with row stride LDP, B bf16 with row stride LDQK.
-__device__ __forceinline__ void accumulate_rows(float* acc_rows, const bf16* a, const bf16* b) {
-  Acc acc[DH / 16];
-#pragma unroll
-  for (int n = 0; n < DH / 16; ++n)
-    wmma::load_matrix_sync(acc[n], acc_rows + n * 16, LDO, wmma::mem_row_major);
-#pragma unroll
-  for (int kk = 0; kk < 64; kk += 16) {
-    FragA fa;
-    wmma::load_matrix_sync(fa, a + kk, LDP);
-#pragma unroll
-    for (int n = 0; n < DH / 16; ++n) {
-      FragB fb;
-      wmma::load_matrix_sync(fb, b + kk * LDQK + n * 16, LDQK);
-      wmma::mma_sync(acc[n], fa, fb, acc[n]);
-    }
-  }
-#pragma unroll
-  for (int n = 0; n < DH / 16; ++n)
-    wmma::store_matrix_sync(acc_rows + n * 16, acc[n], LDO, wmma::mem_row_major);
-}
-
-__device__ __forceinline__ bool keeps(int kp, int qpos, int causal, int window) {
-  bool kk = true;
-  if (causal) kk = kp <= qpos;
-  if (window > 0) kk = kk && kp > qpos - window;
-  return kk;
 }
 
 // ---------------------------------------------------------------------- K4
 
-__global__ void __launch_bounds__(NTHREADS)
-flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                    const bf16* __restrict__ v, const int* __restrict__ mask,
-                    const bf16* __restrict__ dout, const float* __restrict__ lse,
-                    const float* __restrict__ delta, bf16* __restrict__ dq, int Sq, int Sk,
-                    int H, int group, long long q_sb, long long q_ss, long long k_sb,
-                    long long k_ss, long long v_sb, long long v_ss, long long m_sb,
-                    long long do_sb, long long do_ss, int causal, int window, int offset,
-                    float scale) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* sq = reinterpret_cast<bf16*>(smem);
-  bf16* sdo = reinterpret_cast<bf16*>(smem + DQ_OFF_DO);
-  bf16* sk = reinterpret_cast<bf16*>(smem + DQ_OFF_K);
-  bf16* sv = reinterpret_cast<bf16*>(smem + DQ_OFF_V);
-  float* ss = reinterpret_cast<float*>(smem + DQ_OFF_S);
-  float* sdp = reinterpret_cast<float*>(smem + DQ_OFF_DP);
-  bf16* sds = reinterpret_cast<bf16*>(smem + DQ_OFF_DS);
-  float* slse = reinterpret_cast<float*>(smem + DQ_OFF_LSE);
-  float* sdelta = reinterpret_cast<float*>(smem + DQ_OFF_DELTA);
-  int* smask = reinterpret_cast<int*>(smem + DQ_OFF_MASK);
-
-  const int q0 = blockIdx.x * BQ;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int hk = h / group;
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int lane = tid % 32;
-
-  const bf16* kb = k + b * k_sb + (long long)hk * DH;
-  const bf16* vb = v + b * v_sb + (long long)hk * DH;
-  const int* mb = mask + b * m_sb;
-
-  load_tile(sq, q + b * q_sb + (long long)h * DH, q_ss, q0, Sq, tid);
-  load_tile(sdo, dout + b * do_sb + (long long)h * DH, do_ss, q0, Sq, tid);
-  if (tid < BQ) {
-    const bool in = q0 + tid < Sq;
-    const long long row = ((long long)b * H + h) * Sq + q0 + tid;
-    slse[tid] = in ? lse[row] : 0.f;
-    sdelta[tid] = in ? delta[row] : 0.f;
-  }
-
-  Acc dqacc[DH / 16];
+// One ring tile (64 keys from kt) for one warpgroup: P and dS of its 64
+// rows (row0 and row0 + 8 for this thread), then dQ += dS K.
+template <bool EDGE>
+__device__ __forceinline__ void dq_tile(float (&dq)[64], uint32_t a_q, uint32_t k_tile,
+                                        const float (&lse2)[2], const float (&dl)[2], int row0,
+                                        int kt, unsigned lo, unsigned hi, int lane, float scale,
+                                        const Keep& keep) {
+  float s[32], dp[32];
+  issue_scores<0>(s, dp, a_q, k_tile);
+  const float scale_log2 = scale * LOG2E;
+  const int c2 = 2 * (lane % 4);
+  sm90::wgmma_wait<1>();
+  sm90::fence_regs(s);
 #pragma unroll
-  for (int n = 0; n < DH / 16; ++n) wmma::fill_fragment(dqacc[n], 0.f);
+  for (int i = 0; i < 32; ++i) {
+    const int ri = (i % 4) / 2, col = 8 * (i / 4) + c2 + i % 2;
+    float p = sm90::ex2(s[i] * scale_log2 - lse2[ri]);
+    if (EDGE) {
+      const bool kv = (((i / 4) < 4 ? lo : hi) >> (col % 32)) & 1u;
+      p = kv && keep(kt + col, row0 + 8 * ri) ? p : 0.f;
+    }
+    s[i] = p;
+  }
+  sm90::wgmma_wait<0>();
+  sm90::fence_regs(dp);
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    const int ri = (i % 4) / 2, col = 8 * (i / 4) + c2 + i % 2;
+    float ds = s[i] * (dp[i] - dl[ri]) * scale;
+    if (EDGE) {
+      const bool kv = (((i / 4) < 4 ? lo : hi) >> (col % 32)) & 1u;
+      ds = kv && keep(kt + col, row0 + 8 * ri) ? ds : 0.f;
+    }
+    dp[i] = ds;
+  }
+  uint32_t a[16];
+  pack_a(a, dp);
+  sm90::fence_regs(a);
+  sm90::wgmma_fence();
+  issue_update<0>(dq, a, mnmajor(k_tile));
+  sm90::wgmma_commit();
+  sm90::wgmma_wait<0>();
+  sm90::fence_regs(dq);
+}
+
+// One block per (128 query rows, query head, batch row). Ring tiles: K and
+// V of 64 keys, with the tile's first key and valid-key bits (keys at or
+// past kend count as invalid: causal masks them anyway).
+__global__ void __launch_bounds__(NTHREADS, 1)
+flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                    const __grid_constant__ CUtensorMap tv,
+                    const __grid_constant__ CUtensorMap tdo, const int* __restrict__ mask,
+                    const float* __restrict__ lse, const float* __restrict__ delta,
+                    bf16* __restrict__ dq, int Sq, int Sk, int H, int group, long long m_sb,
+                    int causal, int window, int offset, float scale) {
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = sm90::smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  int* meta = reinterpret_cast<int*>(smem_raw + (base - raw) + OFF_STATS);
+  const uint32_t full = base + OFF_BAR, empty = full + 8 * STAGES, res = empty + 8 * STAGES;
+
+  const int q0 = blockIdx.x * BLOCK_ROWS;
+  const int h = blockIdx.y, b = blockIdx.z, hk = h / group;
+  const int tid = threadIdx.x;
+  if (tid == 0) init_ring(full, empty, res, 1);
+  __syncthreads();
 
   // the same visited key range as the forward
-  const int q_last = offset + min(q0 + BQ, Sq) - 1;
+  const int q_last = offset + min(q0 + BLOCK_ROWS, Sq) - 1;
   int kend = Sk, kbeg = 0;
   if (causal) kend = min(Sk, q_last + 1);
-  if (window > 0) kbeg = max(0, offset + q0 - window + 1) / BK * BK;
-  gritlm::cp_async_wait_all();
-  __syncthreads();
+  if (window > 0) kbeg = max(0, offset + q0 - window + 1) / TILE * TILE;
 
-  for (int k0 = kbeg; k0 < kend; k0 += BK) {
-    int any = 0;
-    if (tid < BK) {
-      const int kp = k0 + tid;
-      smask[tid] = kp < Sk ? mb[kp] : 0;
-      any = smask[tid] != 0;
-    }
-    if (!__syncthreads_or(any)) continue;  // tile holds no valid key
-    load_tile(sk, kb, k_ss, k0, Sk, tid);
-    load_tile(sv, vb, v_ss, k0, Sk, tid);
-    gritlm::cp_async_wait_all();
-    __syncthreads();
-
-    rows_times_tile_t(ss + warp * 16 * LDS, sq + warp * 16 * LDQK, sk);    // S = Q K^T
-    rows_times_tile_t(sdp + warp * 16 * LDS, sdo + warp * 16 * LDQK, sv);  // dP = dO V^T
-    __syncwarp();
-
-    for (int rr = 0; rr < 16; ++rr) {
-      const int r = warp * 16 + rr;
-      const int qpos = offset + q0 + r;
-      const bool row_in = q0 + r < Sq;
-#pragma unroll
-      for (int t = 0; t < 2; ++t) {
-        const int c = lane + 32 * t;
-        const bool kk = row_in && smask[c] != 0 && keeps(k0 + c, qpos, causal, window);
-        const float p = kk ? expf(ss[r * LDS + c] * scale - slse[r]) : 0.f;
-        const float ds = kk ? p * (sdp[r * LDS + c] - sdelta[r]) * scale : 0.f;
-        sds[r * LDP + c] = __float2bfloat16(ds);
+  if (tid >= CONSUMERS * WG) {
+    // ------------------------------------------------------------ producer
+    sm90::regs_dec<PRODUCER_REGS>();
+    if (tid < CONSUMERS * WG + 32) {  // one warp drives the ring
+      const int lane = tid % 32;
+      if (lane == 0) {
+        sm90::mbar_arrive_expect_tx(res, RES_BYTES);
+        for (int c = 0; c < 2; ++c) {
+          sm90::tma_load_4d(res_half(base, 0, c), &tq, res, 64 * c, h, q0, b);
+          sm90::tma_load_4d(res_half(base, 1, c), &tdo, res, 64 * c, h, q0, b);
+        }
+      }
+      const int* mb = mask + b * m_sb;
+      int stage = 0;
+      uint32_t phase = 0;
+      // the key mask of the next tile is loaded while this one waits for a stage
+      int m0 = kbeg + lane < kend ? mb[kbeg + lane] : 0;
+      int m1 = kbeg + 32 + lane < kend ? mb[kbeg + 32 + lane] : 0;
+      for (int kt = kbeg; kt < kend; kt += TILE) {
+        const unsigned lo = __ballot_sync(gritlm::FULL, m0 != 0);  // keys past kend read as 0
+        const unsigned hi = __ballot_sync(gritlm::FULL, m1 != 0);
+        const int kn = kt + TILE;
+        m0 = kn + lane < kend ? mb[kn + lane] : 0;
+        m1 = kn + 32 + lane < kend ? mb[kn + 32 + lane] : 0;
+        if ((lo | hi) == 0) continue;  // the tile holds no valid key
+        sm90::mbar_wait(empty + 8 * stage, phase ^ 1);
+        if (lane == 0) {
+          int* m = meta + 128 * stage;
+          m[0] = kt;
+          m[1] = (int)lo;
+          m[2] = (int)hi;
+          const uint32_t fb = full + 8 * stage;
+          sm90::mbar_arrive_expect_tx(fb, STAGE_BYTES);
+          for (int c = 0; c < 2; ++c) {
+            sm90::tma_load_4d(ring_half(base, stage, 0, c), &tk, fb, 64 * c, hk, kt, b);
+            sm90::tma_load_4d(ring_half(base, stage, 1, c), &tv, fb, 64 * c, hk, kt, b);
+          }
+        }
+        __syncwarp();
+        if (++stage == STAGES) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+      sm90::mbar_wait(empty + 8 * stage, phase ^ 1);
+      if (lane == 0) {
+        meta[128 * stage] = -1;  // end of the sequence
+        sm90::mbar_arrive(full + 8 * stage);
       }
     }
-    __syncwarp();
+  } else {
+    // -------------------------------------------------------------- consumers
+    sm90::regs_inc<CONSUMER_REGS>();
+    // the warpgroup index broadcast from lane 0: the compiler then treats it as
+    // uniform and keeps the descriptor arithmetic in uniform registers
+    const int w = __shfl_sync(gritlm::FULL, tid / WG, 0);
+    const int warp = (tid % WG) / 32, lane = tid % 32;
+    const int qw0 = q0 + w * TILE;
+    const int row0 = qw0 + warp * 16 + lane / 4;  // the thread's rows: row0, row0 + 8
+    const long long rows = ((long long)b * H + h) * Sq;
+    float lse2[2], dl[2];
+#pragma unroll
+    for (int ri = 0; ri < 2; ++ri) {
+      const int r = row0 + 8 * ri;
+      lse2[ri] = r < Sq ? lse[rows + r] * LOG2E : 0.f;
+      dl[ri] = r < Sq ? delta[rows + r] : 0.f;
+    }
+    const Keep keep{Sq, causal, window, offset};
+    const uint32_t a_q = res_half(base, 0, 0) + w * TILE * 128;
 
-    // dQ += dS K for this warp's 16 rows
+    float acc[64];
 #pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      FragA fa;
-      wmma::load_matrix_sync(fa, sds + warp * 16 * LDP + kk, LDP);
-#pragma unroll
-      for (int n = 0; n < DH / 16; ++n) {
-        FragB fb;
-        wmma::load_matrix_sync(fb, sk + kk * LDQK + n * 16, LDQK);
-        wmma::mma_sync(dqacc[n], fa, fb, dqacc[n]);
+    for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+    sm90::mbar_wait(res, 0);
+    int stage = 0;
+    uint32_t phase = 0;
+    for (;;) {
+      sm90::mbar_wait(full + 8 * stage, phase);
+      const int* m = meta + 128 * stage;
+      const int kt = m[0];
+      if (kt < 0) break;
+      const unsigned lo = (unsigned)m[1], hi = (unsigned)m[2];
+      const bool skip = qw0 >= Sq || (causal && kt > offset + qw0 + TILE - 1) ||
+                        (window > 0 && kt + TILE - 1 <= offset + qw0 - window);
+      if (!skip) {
+        const bool edge = (lo & hi) != gritlm::FULL || qw0 + TILE > Sq ||
+                          (causal && kt + TILE - 1 > offset + qw0) ||
+                          (window > 0 && kt <= offset + qw0 + TILE - 1 - window);
+        const uint32_t k_tile = ring_half(base, stage, 0, 0);
+        if (edge)
+          dq_tile<true>(acc, a_q, k_tile, lse2, dl, row0, kt, lo, hi, lane, scale, keep);
+        else
+          dq_tile<false>(acc, a_q, k_tile, lse2, dl, row0, kt, lo, hi, lane, scale, keep);
+      }
+      sm90::mbar_arrive(empty + 8 * stage);
+      if (++stage == STAGES) {
+        stage = 0;
+        phase ^= 1;
       }
     }
-    __syncthreads();  // K/V/mask tiles are overwritten next
-  }
-
-  // stage the fp32 rows in the K/V region, then write bf16
-  float* sacc = reinterpret_cast<float*>(smem + DQ_OFF_K);
-#pragma unroll
-  for (int n = 0; n < DH / 16; ++n)
-    wmma::store_matrix_sync(sacc + warp * 16 * LDO + n * 16, dqacc[n], LDO,
-                            wmma::mem_row_major);
-  __syncthreads();
-  for (int i = tid; i < BQ * DH / 8; i += NTHREADS) {
-    const int r = i / (DH / 8), c = (i % (DH / 8)) * 8;
-    if (q0 + r >= Sq) continue;
-    __align__(16) bf16 o8[8];
-#pragma unroll
-    for (int e = 0; e < 8; ++e) o8[e] = __float2bfloat16(sacc[r * LDO + c + e]);
-    bf16* dst = dq + (((long long)b * Sq + q0 + r) * H + h) * DH + c;
-    *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(o8);
+    store_rows(dq, acc, row0, Sq, lane,
+               [&](int r) { return (((long long)b * Sq + r) * H + h) * DH; });
   }
 }
 
 // ---------------------------------------------------------------------- K5
 
-__global__ void __launch_bounds__(NTHREADS)
-flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                     const bf16* __restrict__ v, const int* __restrict__ mask,
-                     const bf16* __restrict__ dout, const float* __restrict__ lse,
-                     const float* __restrict__ delta, bf16* __restrict__ dk,
-                     bf16* __restrict__ dv, int Sq, int Sk, int H, int Hkv, int group,
-                     long long q_sb, long long q_ss, long long k_sb, long long k_ss,
-                     long long v_sb, long long v_ss, long long m_sb, long long do_sb,
-                     long long do_ss, int causal, int window, int offset, float scale) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* sk = reinterpret_cast<bf16*>(smem);
-  bf16* sv = reinterpret_cast<bf16*>(smem + KV_OFF_V);
-  bf16* sq = reinterpret_cast<bf16*>(smem + KV_OFF_Q);
-  bf16* sdo = reinterpret_cast<bf16*>(smem + KV_OFF_DO);
-  float* sst = reinterpret_cast<float*>(smem + KV_OFF_S);
-  float* sdpt = reinterpret_cast<float*>(smem + KV_OFF_DP);
-  bf16* spt = reinterpret_cast<bf16*>(smem + KV_OFF_P);
-  bf16* sdst = reinterpret_cast<bf16*>(smem + KV_OFF_DS);
-  float* sdk = reinterpret_cast<float*>(smem + KV_OFF_DK);
-  float* sdv = reinterpret_cast<float*>(smem + KV_OFF_DV);
-  float* slse = reinterpret_cast<float*>(smem + KV_OFF_LSE);
-  float* sdelta = reinterpret_cast<float*>(smem + KV_OFF_DELTA);
-  int* smask = reinterpret_cast<int*>(smem + KV_OFF_MASK);
-
-  const int k0 = blockIdx.x * BK;
-  const int hk = blockIdx.y;
-  const int b = blockIdx.z;
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int lane = tid % 32;
-
-  int any = 0;
-  if (tid < BK) {
-    const int kp = k0 + tid;
-    smask[tid] = kp < Sk ? mask[b * m_sb + kp] : 0;
-    any = smask[tid] != 0;
-  }
-  for (int i = tid; i < BK * LDO; i += NTHREADS) {
-    sdk[i] = 0.f;
-    sdv[i] = 0.f;
-  }
-  // the q rows that can see this tile: causal rows at or after its first
-  // key, window rows before its last key + window
-  const int k_last = min(k0 + BK, Sk) - 1;
-  int qbeg = 0, qend = Sq;
-  if (causal) qbeg = max(0, k0 - offset);
-  if (window > 0) qend = min(Sq, k_last + window - offset);
-  if (__syncthreads_or(any) && qbeg < qend) {
-    load_tile(sk, k + b * k_sb + (long long)hk * DH, k_ss, k0, Sk, tid);
-    load_tile(sv, v + b * v_sb + (long long)hk * DH, v_ss, k0, Sk, tid);
-    for (int g = 0; g < group; ++g) {
-      const int h = hk * group + g;
-      const bf16* qb = q + b * q_sb + (long long)h * DH;
-      const bf16* dob = dout + b * do_sb + (long long)h * DH;
-      const long long row0 = ((long long)b * H + h) * Sq;
-      for (int q0 = qbeg / BQ * BQ; q0 < qend; q0 += BQ) {
-        __syncthreads();  // the previous q-tile is consumed
-        load_tile(sq, qb, q_ss, q0, Sq, tid);
-        load_tile(sdo, dob, do_ss, q0, Sq, tid);
-        if (tid < BQ) {
-          const bool in = q0 + tid < Sq;
-          slse[tid] = in ? lse[row0 + q0 + tid] : 0.f;
-          sdelta[tid] = in ? delta[row0 + q0 + tid] : 0.f;
-        }
-        gritlm::cp_async_wait_all();
-        __syncthreads();
-
-        rows_times_tile_t(sst + warp * 16 * LDS, sk + warp * 16 * LDQK, sq);    // S^T = K Q^T
-        rows_times_tile_t(sdpt + warp * 16 * LDS, sv + warp * 16 * LDQK, sdo);  // dP^T = V dO^T
-        __syncwarp();
-
-        for (int rr = 0; rr < 16; ++rr) {
-          const int r = warp * 16 + rr;  // this warp's key
-          const bool key_in = smask[r] != 0;
+// P^T (in place of S^T) for 32 query rows: the thread's keys key[0],
+// key[1] (valid as kval) against query rows q0 + 8 j + c2 + (0, 1), whose
+// lse * log2(e) are l2[2 j], l2[2 j + 1].
+template <bool EDGE>
+__device__ __forceinline__ void probs_t(float (&s)[16], const float (&l2)[8], const int (&key)[2],
+                                        const bool (&kval)[2], int q0, int c2, float scale_log2,
+                                        const Keep& keep) {
 #pragma unroll
-          for (int t = 0; t < 2; ++t) {
-            const int c = lane + 32 * t;  // query row of the tile
-            const bool kk = key_in && q0 + c < Sq &&
-                            keeps(k0 + r, offset + q0 + c, causal, window);
-            const float p = kk ? expf(sst[r * LDS + c] * scale - slse[c]) : 0.f;
-            const float ds = kk ? p * (sdpt[r * LDS + c] - sdelta[c]) * scale : 0.f;
-            spt[r * LDP + c] = __float2bfloat16(p);
-            sdst[r * LDP + c] = __float2bfloat16(ds);
-          }
-        }
-        __syncwarp();
-
-        accumulate_rows(sdv + warp * 16 * LDO, spt + warp * 16 * LDP, sdo);  // dV += P^T dO
-        accumulate_rows(sdk + warp * 16 * LDO, sdst + warp * 16 * LDP, sq);  // dK += dS^T Q
-      }
-    }
-  }
-  __syncthreads();
-
-  for (int i = tid; i < BK * DH / 8; i += NTHREADS) {
-    const int r = i / (DH / 8), c = (i % (DH / 8)) * 8;
-    if (k0 + r >= Sk) continue;
-    __align__(16) bf16 k8[8];
-    __align__(16) bf16 v8[8];
-#pragma unroll
-    for (int e = 0; e < 8; ++e) {
-      k8[e] = __float2bfloat16(sdk[r * LDO + c + e]);
-      v8[e] = __float2bfloat16(sdv[r * LDO + c + e]);
-    }
-    const long long off = (((long long)b * Sk + k0 + r) * Hkv + hk) * DH + c;
-    *reinterpret_cast<uint4*>(dk + off) = *reinterpret_cast<const uint4*>(k8);
-    *reinterpret_cast<uint4*>(dv + off) = *reinterpret_cast<const uint4*>(v8);
+  for (int i = 0; i < 16; ++i) {
+    const int j = i / 4, e = i % 2, ri = (i % 4) / 2;
+    const float p = sm90::ex2(s[i] * scale_log2 - l2[2 * j + e]);
+    s[i] = !EDGE || (kval[ri] && keep(key[ri], q0 + 8 * j + c2 + e)) ? p : 0.f;
   }
 }
 
+// dS^T = P^T (dP^T - delta) * scale in place of dP^T.
+template <bool EDGE>
+__device__ __forceinline__ void dsoft_t(float (&dp)[16], const float (&p)[16],
+                                        const float (&dl)[8], const int (&key)[2],
+                                        const bool (&kval)[2], int q0, int c2, float scale,
+                                        const Keep& keep) {
+#pragma unroll
+  for (int i = 0; i < 16; ++i) {
+    const int j = i / 4, e = i % 2, ri = (i % 4) / 2;
+    const float ds = p[i] * (dp[i] - dl[2 * j + e]) * scale;
+    dp[i] = !EDGE || (kval[ri] && keep(key[ri], q0 + 8 * j + c2 + e)) ? ds : 0.f;
+  }
+}
+
+// Half H (query rows q0 + 32 H .. + 31) of a ring tile for one warpgroup:
+// P^T and dS^T of its 64 keys against those 32 rows, then dV += P^T dO and
+// dK += dS^T Q, issued and left in flight. Halves keep P^T and dP^T at 16
+// accumulators a thread beside the 128 of dK and dV, and let half 1's S^T
+// and dP^T overlap half 0's updates. `lrow`/`drow` are the head's lse and
+// delta rows: the thread loads the 16 values it needs first, so the loads
+// run under the products.
+template <int H>
+__device__ __forceinline__ void dkv_half(float (&dk)[64], float (&dv)[64], uint32_t a_k,
+                                         uint32_t q_tile, const float* lrow, const float* drow,
+                                         const int (&key)[2], const bool (&kval)[2], int q0,
+                                         int lane, float scale, const Keep& keep, bool edge) {
+  constexpr uint32_t ROWS = H * 32 * 128;  // byte offset of the half's rows in a tile half
+  const int c2 = 2 * (lane % 4);
+  q0 += 32 * H;
+  float l2[8], dl[8];
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    const int q = q0 + 8 * (k / 2) + c2 + k % 2;
+    l2[k] = q < keep.Sq ? __ldg(lrow + q) * LOG2E : 0.f;
+    dl[k] = q < keep.Sq ? __ldg(drow + q) : 0.f;
+  }
+  float s[16], dp[16];
+  issue_scores<ROWS>(s, dp, a_k, q_tile);
+  sm90::wgmma_wait<1>();  // S^T (and the other half's updates)
+  sm90::fence_regs(s);
+  if (edge)
+    probs_t<true>(s, l2, key, kval, q0, c2, scale * LOG2E, keep);
+  else
+    probs_t<false>(s, l2, key, kval, q0, c2, scale * LOG2E, keep);
+  sm90::wgmma_wait<0>();
+  sm90::fence_regs(dp);
+  if (edge)
+    dsoft_t<true>(dp, s, dl, key, kval, q0, c2, scale, keep);
+  else
+    dsoft_t<false>(dp, s, dl, key, kval, q0, c2, scale, keep);
+  uint32_t pa[8], da[8];
+  pack_a(pa, s);
+  pack_a(da, dp);
+  sm90::fence_regs(pa);
+  sm90::fence_regs(da);
+  sm90::wgmma_fence();
+  const uint64_t ring = mnmajor(q_tile);
+  issue_update<2 * HALF_T + ROWS>(dv, pa, ring);  // dV += P^T dO
+  issue_update<ROWS>(dk, da, ring);               // dK += dS^T Q
+  sm90::wgmma_commit();
+}
+
+// Both halves of a ring tile, then their updates settled.
+__device__ __forceinline__ void dkv_tile(float (&dk)[64], float (&dv)[64], uint32_t a_k,
+                                         uint32_t q_tile, const float* lrow, const float* drow,
+                                         const int (&key)[2], const bool (&kval)[2], int q0,
+                                         int lane, float scale, const Keep& keep, bool edge) {
+  dkv_half<0>(dk, dv, a_k, q_tile, lrow, drow, key, kval, q0, lane, scale, keep, edge);
+  dkv_half<1>(dk, dv, a_k, q_tile, lrow, drow, key, kval, q0, lane, scale, keep, edge);
+  sm90::wgmma_wait<0>();
+  sm90::fence_regs(dv);
+  sm90::fence_regs(dk);
+}
+
+// One block per (128 keys, kv head, batch row): the two consumer warpgroups
+// and no producer warp. The dK and dV accumulators (128 a thread) with the
+// products' need more registers than ptxas gave a consumer region after
+// setmaxnreg (it spilled and serialised every wgmma with 232 granted), while
+// a 256-thread block has 255 a thread by itself. Thread 0 loads the first
+// STAGES tiles; after that the warpgroup that releases a stage last refills
+// it. The sequence: the GQA group's query heads x their visible q-tiles,
+// tile i in stage i % STAGES.
+__global__ void __launch_bounds__(WG * CONSUMERS, 1)
+flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                     const __grid_constant__ CUtensorMap tv,
+                     const __grid_constant__ CUtensorMap tdo, const int* __restrict__ mask,
+                     const float* __restrict__ lse, const float* __restrict__ delta,
+                     bf16* __restrict__ dk, bf16* __restrict__ dv, int Sq, int Sk, int H,
+                     int Hkv, int group, long long m_sb, int causal, int window, int offset,
+                     float scale) {
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = sm90::smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  int* smask = reinterpret_cast<int*>(smem_raw + (base - raw) + OFF_MASK);
+  int* released = reinterpret_cast<int*>(smem_raw + (base - raw) + OFF_STATS);  // a stage's count
+  const uint32_t full = base + OFF_BAR, empty = full + 8 * STAGES, res = empty + 8 * STAGES;
+
+  const int k0 = blockIdx.x * BLOCK_ROWS;
+  const int hk = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x;
+
+  int valid = 0;
+  if (tid < BLOCK_ROWS) {
+    const int kp = k0 + tid;
+    valid = kp < Sk && mask[b * m_sb + kp] != 0;
+    smask[tid] = valid;
+  }
+  if (tid < STAGES) released[tid] = 0;
+  if (tid == 0) init_ring(full, empty, res, 1);
+  // which consumer warpgroups hold a valid key, and which only valid keys
+  // (broadcast from lane 0, so that the compiler sees block-uniform values)
+  unsigned any_bits = 0, all_bits = 0;
+#pragma unroll
+  for (int w = 0; w < CONSUMERS; ++w) {
+    const bool mine = tid >= w * TILE && tid < (w + 1) * TILE;
+    any_bits |= (unsigned)__syncthreads_or(mine && valid) << w;
+    all_bits |= (unsigned)__syncthreads_and(!mine || valid) << w;
+  }
+  any_bits = __shfl_sync(gritlm::FULL, any_bits, 0);
+  all_bits = __shfl_sync(gritlm::FULL, all_bits, 0);
+
+  // the q rows that can see this block's keys: causal rows at or after its
+  // first key, window rows before its last key + window
+  const int k_last = min(k0 + BLOCK_ROWS, Sk) - 1;
+  int qbeg = 0, qend = Sq;
+  if (causal) qbeg = max(0, k0 - offset);
+  if (window > 0) qend = min(Sq, k_last + window - offset);
+  const int qfirst = qbeg / TILE * TILE;
+  const int per_head = qend > qfirst ? (qend - qfirst + TILE - 1) / TILE : 0;
+  const int n = any_bits ? group * per_head : 0;  // ring tiles in the sequence
+
+  const auto issue = [&](int i) {  // tile i of the sequence into stage i % STAGES
+    const int s = i % STAGES, h = hk * group + i / per_head;
+    const int q0 = qfirst + (i % per_head) * TILE;
+    const uint32_t fb = full + 8 * s;
+    sm90::mbar_arrive_expect_tx(fb, STAGE_BYTES);
+    for (int c = 0; c < 2; ++c) {
+      sm90::tma_load_4d(ring_half(base, s, 0, c), &tq, fb, 64 * c, h, q0, b);
+      sm90::tma_load_4d(ring_half(base, s, 1, c), &tdo, fb, 64 * c, h, q0, b);
+    }
+  };
+  if (tid == 0 && n > 0) {
+    sm90::mbar_arrive_expect_tx(res, RES_BYTES);
+    for (int c = 0; c < 2; ++c) {
+      sm90::tma_load_4d(res_half(base, 0, c), &tk, res, 64 * c, hk, k0, b);
+      sm90::tma_load_4d(res_half(base, 1, c), &tv, res, 64 * c, hk, k0, b);
+    }
+    for (int i = 0; i < min(n, STAGES); ++i) issue(i);
+  }
+
+  const int w = __shfl_sync(gritlm::FULL, tid / WG, 0);
+  const int warp = (tid % WG) / 32, lane = tid % 32;
+  const int kw0 = k0 + w * TILE;
+  const int r_lo = warp * 16 + lane / 4;
+  const int key[2] = {kw0 + r_lo, kw0 + r_lo + 8};  // the thread's keys
+  const bool kval[2] = {smask[w * TILE + r_lo] != 0, smask[w * TILE + r_lo + 8] != 0};
+  const bool any_w = (any_bits >> w) & 1u, all_w = (all_bits >> w) & 1u;
+  const Keep keep{Sq, causal, window, offset};
+  const uint32_t a_k = res_half(base, 0, 0) + w * TILE * 128;
+
+  float dka[64], dva[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) dka[i] = dva[i] = 0.f;
+  if (n > 0) {
+    sm90::mbar_wait(res, 0);
+    for (int i = 0; i < n; ++i) {
+      const int stage = i % STAGES;
+      const uint32_t phase = (i / STAGES) & 1;
+      const int g = i / per_head, q0 = qfirst + (i - g * per_head) * TILE;
+      sm90::mbar_wait(full + 8 * stage, phase);
+      const bool skip = !any_w || (causal && kw0 > offset + q0 + TILE - 1) ||
+                        (window > 0 && kw0 + TILE - 1 <= offset + q0 - window);
+      if (!skip) {
+        const bool edge = !all_w || q0 + TILE > Sq || (causal && kw0 + TILE - 1 > offset + q0) ||
+                          (window > 0 && kw0 <= offset + q0 + TILE - 1 - window);
+        const long long row = ((long long)b * H + hk * group + g) * Sq;
+        const uint32_t q_tile = ring_half(base, stage, 0, 0);
+        if (edge)  // two copies of the tile code: interior tiles carry no mask
+          dkv_tile(dka, dva, a_k, q_tile, lse + row, delta + row, key, kval, q0, lane, scale,
+                   keep, true);
+        else
+          dkv_tile(dka, dva, a_k, q_tile, lse + row, delta + row, key, kval, q0, lane, scale,
+                   keep, false);
+      }
+      // release: after wgmma.wait_group the warpgroup's reads of the stage
+      // are done and all four warps have waited for it (a wgmma needs all
+      // four); a skipped tile syncs them instead. The warpgroup that
+      // releases last refills the stage, so neither waits for the other.
+      if (skip) asm volatile("bar.sync %0, %1;\n" ::"r"(1 + w), "n"(WG) : "memory");
+      if (tid % WG == 0 && atomicAdd(&released[stage], 1) == CONSUMERS - 1) {
+        released[stage] = 0;
+        if (i + STAGES < n) {
+          asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+          issue(i + STAGES);
+        }
+      }
+    }
+  }
+  const auto row_off = [&](int r) { return (((long long)b * Sk + r) * Hkv + hk) * DH; };
+  store_rows(dk, dka, key[0], Sk, lane, row_off);
+  store_rows(dv, dva, key[0], Sk, lane, row_off);
+}
+
 template <typename K>
-int configure(K kernel, size_t bytes, bool* done) {
+int configure(K kernel, bool* done) {
   if (*done) return 0;
   cudaError_t e =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM);
   if (e != cudaSuccess) return (int)e;
   *done = true;
   return 0;
@@ -391,6 +597,8 @@ int configure(K kernel, size_t bytes, bool* done) {
 
 }  // namespace
 
+// Strides are in elements, as the tensors give them; the tensor maps take
+// them in bytes (the wrapper checks that they are multiples of 8).
 extern "C" int gritlm_flash_bwd_dq(const void* q, const void* k, const void* v,
                                    const void* mask, const void* dout, const void* lse,
                                    const void* delta, void* dq, int B, int Sq, int Sk, int H,
@@ -400,13 +608,17 @@ extern "C" int gritlm_flash_bwd_dq(const void* q, const void* k, const void* v,
                                    int causal, int window, int offset, float scale,
                                    void* stream) {
   static bool configured = false;
-  int rc = configure(flash_bwd_dq_kernel, DQ_SMEM, &configured);
+  int rc = configure(flash_bwd_dq_kernel, &configured);
+  CUtensorMap tq, tk, tv, tdo;
+  if (!rc) rc = sm90::make_map_bshd(&tq, q, B, Sq, H, 2 * q_sb, 2 * q_ss, BLOCK_ROWS);
+  if (!rc) rc = sm90::make_map_bshd(&tdo, dout, B, Sq, H, 2 * do_sb, 2 * do_ss, BLOCK_ROWS);
+  if (!rc) rc = sm90::make_map_bshd(&tk, k, B, Sk, Hkv, 2 * k_sb, 2 * k_ss, TILE);
+  if (!rc) rc = sm90::make_map_bshd(&tv, v, B, Sk, Hkv, 2 * v_sb, 2 * v_ss, TILE);
   if (rc) return rc;
-  dim3 grid((Sq + BQ - 1) / BQ, H, B);
-  flash_bwd_dq_kernel<<<grid, NTHREADS, DQ_SMEM, (cudaStream_t)stream>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const int*)mask, (const bf16*)dout,
-      (const float*)lse, (const float*)delta, (bf16*)dq, Sq, Sk, H, H / Hkv, q_sb, q_ss, k_sb,
-      k_ss, v_sb, v_ss, m_sb, do_sb, do_ss, causal, window, offset, scale);
+  dim3 grid((Sq + BLOCK_ROWS - 1) / BLOCK_ROWS, H, B);
+  flash_bwd_dq_kernel<<<grid, NTHREADS, SMEM, (cudaStream_t)stream>>>(
+      tq, tk, tv, tdo, (const int*)mask, (const float*)lse, (const float*)delta, (bf16*)dq, Sq,
+      Sk, H, H / Hkv, m_sb, causal, window, offset, scale);
   return (int)cudaGetLastError();
 }
 
@@ -419,12 +631,16 @@ extern "C" int gritlm_flash_bwd_dkv(const void* q, const void* k, const void* v,
                                     long long do_ss, int causal, int window, int offset,
                                     float scale, void* stream) {
   static bool configured = false;
-  int rc = configure(flash_bwd_dkv_kernel, KV_SMEM, &configured);
+  int rc = configure(flash_bwd_dkv_kernel, &configured);
+  CUtensorMap tq, tk, tv, tdo;
+  if (!rc) rc = sm90::make_map_bshd(&tq, q, B, Sq, H, 2 * q_sb, 2 * q_ss, TILE);
+  if (!rc) rc = sm90::make_map_bshd(&tdo, dout, B, Sq, H, 2 * do_sb, 2 * do_ss, TILE);
+  if (!rc) rc = sm90::make_map_bshd(&tk, k, B, Sk, Hkv, 2 * k_sb, 2 * k_ss, BLOCK_ROWS);
+  if (!rc) rc = sm90::make_map_bshd(&tv, v, B, Sk, Hkv, 2 * v_sb, 2 * v_ss, BLOCK_ROWS);
   if (rc) return rc;
-  dim3 grid((Sk + BK - 1) / BK, Hkv, B);
-  flash_bwd_dkv_kernel<<<grid, NTHREADS, KV_SMEM, (cudaStream_t)stream>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const int*)mask, (const bf16*)dout,
-      (const float*)lse, (const float*)delta, (bf16*)dk, (bf16*)dv, Sq, Sk, H, Hkv, H / Hkv,
-      q_sb, q_ss, k_sb, k_ss, v_sb, v_ss, m_sb, do_sb, do_ss, causal, window, offset, scale);
+  dim3 grid((Sk + BLOCK_ROWS - 1) / BLOCK_ROWS, Hkv, B);
+  flash_bwd_dkv_kernel<<<grid, WG * CONSUMERS, SMEM, (cudaStream_t)stream>>>(
+      tq, tk, tv, tdo, (const int*)mask, (const float*)lse, (const float*)delta, (bf16*)dk,
+      (bf16*)dv, Sq, Sk, H, Hkv, H / Hkv, m_sb, causal, window, offset, scale);
   return (int)cudaGetLastError();
 }

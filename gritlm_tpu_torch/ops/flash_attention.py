@@ -30,10 +30,18 @@ dV = P^T dO in K5 (one block per k-tile and kv head, looping over the GQA
 group's query heads, so the group's sum stays inside the block; the JAX
 kernel writes per query head and sums outside). What bounds them: their
 operations (K4 3 and K5 4 products of 2*Sq*Sk*Dh per head over the visible
-tiles) at training shapes; the design keeps P and dS tiles in shared
-memory, never in device memory. `FlashAttentionFn` wires K1 with LSE, K4
-and K5 into autograd; on CUDA tensors its backward launches K4 and K5 or
-raises.
+tiles) at training shapes. So every product is a wgmma: each block keeps
+its own 128 rows (K4: Q and dO; K5: K and V) in shared memory and streams
+the other side through a 3-stage TMA ring with mbarriers (K4: a producer
+warp; K5: its consumers refill it), and two consumer warpgroups form P and
+dS in registers from the score accumulators and feed them back to wgmma as
+register operands; the dQ (K4) or dK/dV (K5) accumulators stay in
+registers until the epilogue (`csrc/sm90.cuh` holds the PTX building
+blocks). The TMA tensor maps read q/k/v/do through their batch and
+sequence strides, so `_check_bshd`'s rule (16-byte aligned base, strides
+multiples of 8 elements) is exactly what TMA needs. `FlashAttentionFn`
+wires K1 with LSE, K4 and K5 into autograd; on CUDA tensors its backward
+launches K4 and K5 or raises.
 
 Differences from the TPU kernel: any Sq runs the kernel (the TPU version
 needed Sq >= 128 and sent shorter queries to an einsum); Dh must be 128

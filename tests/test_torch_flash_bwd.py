@@ -21,12 +21,16 @@ from gritlm_tpu_torch.ops import flash_attention as fa
 
 ATOL = 1e-4
 
-# (label, S, causal, sliding_window, offset, padded row)
+# (label, S, causal, sliding_window, offset, padded row, (H, Hkv))
 CASES = [
-    ("causal S128", 128, True, None, 0, False),
-    ("bidirectional S256 padded row", 256, False, None, 0, True),
-    ("causal S256 window64 padded row", 256, True, 64, 0, True),
-    ("causal S128 offset64", 128, True, None, 64, False),
+    ("causal S128", 128, True, None, 0, False, (4, 2)),
+    ("bidirectional S256 padded row", 256, False, None, 0, True, (4, 2)),
+    ("causal S256 window64 padded row", 256, True, 64, 0, True, (4, 2)),
+    ("causal S128 offset64", 128, True, None, 64, False, (4, 2)),
+    # lengths off the kernels' 64-row tiles and 128-row blocks
+    ("bidirectional S129", 129, False, None, 0, False, (4, 2)),
+    ("causal S191 padded row H8 Hkv2", 191, True, None, 0, True, (8, 2)),
+    ("bidirectional S191 padded row H8 Hkv2", 191, False, None, 0, True, (8, 2)),
 ]
 
 
@@ -59,10 +63,10 @@ def _jax_grads(q, k, v, do, mask, causal, window, offset):
     return np.asarray(out), [np.asarray(g) for g in vjp(jnp.asarray(do))]
 
 
-@pytest.mark.parametrize("label,S,causal,window,offset,pad", CASES,
+@pytest.mark.parametrize("label,S,causal,window,offset,pad,heads", CASES,
                          ids=[c[0] for c in CASES])
-def test_backward_matches_jax(label, S, causal, window, offset, pad):
-    q, k, v, do, mask = _inputs(S, pad)
+def test_backward_matches_jax(label, S, causal, window, offset, pad, heads):
+    q, k, v, do, mask = _inputs(S, pad, H=heads[0], Hkv=heads[1])
     want_out, want = _jax_grads(q, k, v, do, mask, causal, window, offset)
     kw = dict(causal=causal, sliding_window=window, offset=offset)
     tq, tk, tv, tdo, tmask = (torch.from_numpy(x) for x in (q, k, v, do, mask))

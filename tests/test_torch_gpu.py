@@ -276,24 +276,55 @@ def test_serving_engine_runs_its_kernels(cuda):
         assert (k8 > 0 and k3 == 0) if paged else (k3 > 0 and k8 == 0)
 
 
-# (Sq, Sk, causal, window, offset, fully masked row 0)
-BWD_CASES = [(300, 300, True, None, 0, False), (300, 300, False, None, 0, False),
-             (256, 256, True, 64, 0, False), (200, 333, True, None, 100, False),
-             (256, 256, False, None, 0, True)]
+# (Sq, Sk, causal, window, offset, fully masked row 0, (H, Hkv), q/k/v as strided views)
+BWD_CASES = [(300, 300, True, None, 0, False, (8, 2), False),
+             (300, 300, False, None, 0, False, (8, 2), False),
+             (256, 256, True, 64, 0, False, (8, 2), False),
+             (200, 333, True, None, 100, False, (8, 2), False),
+             (256, 256, False, None, 0, True, (8, 2), False),
+             # the edges of the kernels' 64-row ring tiles and 128-row blocks (one
+             # query row; with one key, dq and dk would be 0 up to rounding)
+             (1, 65, False, None, 0, False, (8, 2), False),
+             (1, 129, True, None, 128, False, (8, 2), False),
+             (63, 63, True, None, 0, False, (8, 2), False),
+             (65, 65, False, None, 0, False, (8, 2), False),
+             (127, 127, True, None, 0, False, (8, 2), False),
+             (129, 129, False, None, 0, False, (8, 2), False),
+             (65, 127, False, None, 0, False, (8, 2), False),
+             (129, 63, True, None, 0, False, (8, 2), False),
+             (200, 333, False, None, 100, False, (8, 2), False),
+             (200, 333, True, 64, 100, False, (8, 2), False),
+             # the 7B head layout, views into a fused projection, a masked row
+             (320, 320, False, None, 0, False, (32, 8), False),
+             (320, 320, True, None, 0, False, (32, 8), True),
+             (300, 300, True, 64, 0, False, (8, 2), True),
+             (129, 129, True, 64, 0, True, (8, 2), False)]
 
 
-@pytest.mark.parametrize("Sq,Sk,causal,window,offset,empty_row", BWD_CASES)
-def test_flash_backward_kernels(cuda, Sq, Sk, causal, window, offset, empty_row):
+def _bwd_inputs(gen, cuda, Sq, Sk, heads, strided, B=2):
+    H, Hkv = heads
+    if strided:  # q, k, v as head slices of one [B, S, H + 2 Hkv, 128] projection
+        assert Sq == Sk
+        fused = _randn(gen, B, Sq, H + 2 * Hkv, 128, device=cuda)
+        q, k, v = fused[:, :, :H], fused[:, :, H:H + Hkv], fused[:, :, H + Hkv:]
+    else:
+        q = _randn(gen, B, Sq, H, 128, device=cuda)
+        k, v = _randn(gen, B, Sk, Hkv, 128, device=cuda), _randn(gen, B, Sk, Hkv, 128, device=cuda)
+    do = _randn(gen, B, Sq, H, 128, device=cuda)
+    mask = torch.ones((B, Sk), dtype=torch.int32, device=cuda)
+    mask[1, Sk - min(40, Sk // 3):] = 0
+    return q, k, v, do, mask
+
+
+@pytest.mark.parametrize("Sq,Sk,causal,window,offset,empty_row,heads,strided", BWD_CASES)
+def test_flash_backward_kernels(cuda, Sq, Sk, causal, window, offset, empty_row, heads,
+                                strided):
     """K4 and K5 against their plain versions from the same saved LSE, one
     launch each. Tolerance: 2% of the largest gradient (bf16 inputs and
     outputs, P and dS rounded to bf16 before their products); a row with
     no valid key gets exactly zero gradients."""
     gen = torch.Generator(device=cuda).manual_seed(7)
-    B, H, Hkv = 2, 8, 2
-    q, do = _randn(gen, B, Sq, H, 128, device=cuda), _randn(gen, B, Sq, H, 128, device=cuda)
-    k, v = _randn(gen, B, Sk, Hkv, 128, device=cuda), _randn(gen, B, Sk, Hkv, 128, device=cuda)
-    mask = torch.ones((B, Sk), dtype=torch.int32, device=cuda)
-    mask[1, Sk - 40:] = 0
+    q, k, v, do, mask = _bwd_inputs(gen, cuda, Sq, Sk, heads, strided)
     if empty_row:
         mask[0] = 0
     kw = dict(causal=causal, sliding_window=window, offset=offset)
@@ -311,6 +342,19 @@ def test_flash_backward_kernels(cuda, Sq, Sk, causal, window, offset, empty_row)
         torch.testing.assert_close(g.float(), w.float(), atol=tol, rtol=0)
         if empty_row:
             assert float(g[0].abs().max()) == 0.0
+
+
+def test_flash_backward_deterministic(cuda):
+    """Two launches of K4 and K5 on the same inputs give bit-equal dQ, dK
+    and dV (the GQA group is summed inside K5's block, in a fixed order)."""
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    q, k, v, do, mask = _bwd_inputs(gen, cuda, 300, 300, (32, 8), False)
+    out, lse = flash_attention.flash_attention(q, k, v, mask, causal=True, return_lse=True)
+    first = flash_attention.flash_attention_bwd(q, k, v, mask, out, lse, do, causal=True)
+    second = flash_attention.flash_attention_bwd(q, k, v, mask, out, lse, do, causal=True)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
 
 
 def test_flash_attention_fn_on_cuda(cuda):
