@@ -17,9 +17,13 @@ library call.
 
 Phases (in the order 1-9, 11, 10), any failure exits non-zero:
   1. device and build: card name and power limit, nvcc's register and
-     shared-memory report
-  2. each kernel against its plain version on the card (K9 at three shapes:
-     a masked tail, Q = 3, a partial last segment; K8 at the serving shape,
+     shared-memory report; for the wgmma kernels (K1, K4/K5, K9) their
+     registers, spill bytes and dynamic shared memory, failing on a spill
+     or a serialised wgmma (each library's ptxas report is kept beside it
+     in the build cache, so a cached build is checked too)
+  2. each kernel against its plain version on the card (K1 and its LSE at
+     three shapes; K9 at three shapes: a masked tail, Q = 3, a partial
+     last segment; K8 at the serving shape,
      bf16 and int8, Sq 1 and a causal Sq 8 chunk, and against K3 on the
      same logical cache laid out dense)
   3. encode at full width (launch counts set to 0 before encode, read after
@@ -30,7 +34,9 @@ Phases (in the order 1-9, 11, 10), any failure exits non-zero:
   5. search at index size: 1,000,000 random unit bf16 rows of width 4096 in
      a FlatIndex of capacity 2^20, exact top-100 for 256 queries through K9
      (counts set to 0 before, read after), values held against a plain
-     top-k; K9 timed at this shape; search ms per 256-query block
+     top-k; K9 and the library timed by CUDA events at Q 256, 128 and 4
+     (GB/s, a reading above the card's peak marked invalid; torch.profiler
+     beside); search ms per 256-query block
   6. RAG at full width (counts set to 0 before, read after): build_index
      over the 16 sentences with doc caches, self-retrieval at top-1,
      answer_batch of 4 queries in all seven cache modes, the device doc
@@ -49,7 +55,9 @@ Phases (in the order 1-9, 11, 10), any failure exits non-zero:
      synthetic docs of 250 and of 2000 tokens, 250-token queries, five
      modes, batch 4, 16 new tokens, 1 warm-up and 3 timed calls
   9. kernel times (device time from torch.profiler, and per-call time
-     between CUDA events, 25 calls after warm-up), encode and
+     between CUDA events, 25 calls after warm-up; K1 and SDPA also by CUDA
+     events around replays of ten captured calls, the table's figure, and
+     around calls launched back to back), encode and
      decode rates, and a profile (device time by kernel, idle share) of one
      encode and one short generate
  10. training at full width (after the inference model is freed):
@@ -70,7 +78,8 @@ Phases (in the order 1-9, 11, 10), any failure exits non-zero:
      scaled_dot_product_attention, each by CUDA events around calls
      launched back to back and by torch.profiler, with the achieved
      TFLOP/s (a reading above the card's peak fails) and the library's
-     kernel names; 3 QLoRA steps (int8 base,
+     kernel names; K1 with its LSE at both shapes by events beside SDPA's
+     forward; 3 QLoRA steps (int8 base,
      make_lora_train_state(quantize=True)) at full depth: ms per step, peak
      memory against LoRA's, finite losses
  11. quantized weights at full width (runs after phase 9, before phase 10
@@ -214,6 +223,38 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
+def peak_note(rate: float, peak: float) -> str:
+    """'' for a rate the card can reach, else the mark of an invalid reading
+    (a profiler that dropped kernels reads above the peak)."""
+    return "" if rate <= peak else " INVALID: above the card's peak"
+
+
+# The wgmma kernels and their sources: ptxas must give them no spills and no
+# serialised wgmma (phase 1).
+WGMMA_KERNELS = (("K1", "flash_attention", "gritlm_flash_fwd_smem"),
+                 ("K4, K5", "flash_attention_bwd", None),
+                 ("K9", "scores_segmax", "gritlm_scores_segmax_smem"))
+
+
+def wgmma_report(_build, logs) -> None:
+    """Registers, spill bytes and dynamic shared memory of the wgmma kernels
+    from the ptxas reports of the libraries in use; fails on a spill or a
+    serialised wgmma."""
+    import re
+
+    for label, source, smem_fn in WGMMA_KERNELS:
+        log = logs[source]
+        regs = re.findall(r"Used (\d+) registers", log)
+        spills = [int(n) for n in re.findall(r"(\d+) bytes spill (?:stores|loads)", log)]
+        smem = ""
+        if smem_fn is not None:
+            smem = f", {getattr(_build.load(source), smem_fn)()} bytes of dynamic shared memory"
+        print(f"  {label} ({source}.cu): ptxas registers {'/'.join(regs)} at launch, "
+              f"{max(spills, default=0)} spill bytes{smem}", flush=True)
+        if any(spills) or "serialized" in log:
+            fail(f"{label}: ptxas spilled registers or serialised a wgmma ({source}.cu)")
+
+
 def main() -> int:
     import torch
 
@@ -260,6 +301,7 @@ def main() -> int:
             if any(w in line for w in ("registers", "spill", "Compiling entry", "error",
                                        "warning")):
                 print(f"  ptxas[{name}] {line.strip()}")
+    wgmma_report(_build, logs)
 
     # name (of the wrapper in its module): (module, plain version, source, TPU kernel)
     kernels = {
@@ -310,6 +352,7 @@ def main() -> int:
 
     B, S, H, Hkv, Dh = 4, 512, 32, 8, 128
     cases = []  # (kernel, label, fn_kernel, fn_plain, fn_library, flops, bytes, atol)
+    lse_cases = []  # K1's LSE output: (label, fn_kernel, fn_plain)
 
     def attn_case(label, q, k, v, mask, causal, window, offset):
         keep = keep_mask(mask, q.shape[1], k.shape[1], causal=causal,
@@ -330,6 +373,9 @@ def main() -> int:
                       lambda: flash_attention.flash_attention(q, k, v, mask, **kw),
                       lambda: flash_attention.flash_attention_plain(q, k, v, mask, **kw),
                       library, flops, byt, ATTN_ATOL))
+        lse_cases.append((label, lambda: flash_attention.flash_attention(
+            q, k, v, mask, return_lse=True, **kw)[1], lambda: flash_attention.flash_attention_plain(
+            q, k, v, mask, return_lse=True, **kw)[1]))
 
     mask = torch.ones((B, S), dtype=torch.int32, device=dev)
     mask[3, 400:] = 0  # one row with a padded tail
@@ -429,6 +475,16 @@ def main() -> int:
         print(f"check {name} [{label}]: max_abs_err {err:.3e} (atol {atol})", flush=True)
         if err > atol:
             fail(f"{name} [{label}] disagrees with its plain version: {err} > {atol}")
+    for label, fk, fp in lse_cases:
+        got = fk()
+        torch.cuda.synchronize()
+        want = fp()
+        err = float((got - want).abs().max())
+        max_err["flash_attention"] = max(max_err["flash_attention"], err)
+        print(f"check flash_attention LSE [{label}]: max_abs_err {err:.3e} (atol {LSE_ATOL})",
+              flush=True)
+        if got.shape != want.shape or not torch.isfinite(got).all() or err > LSE_ATOL:
+            fail(f"flash_attention [{label}]: LSE disagrees with its plain version: {err}")
 
     def unit_rows(n, d=4096):
         x = torch.randn((n, d), generator=gen, device=dev)
@@ -584,6 +640,21 @@ def main() -> int:
               f"(events): kernel {call_ms:.4f}, plain {plain_call:.4f}, library "
               f"{library_call if library_call is None else round(library_call, 4)}",
               flush=True)
+        if name == "flash_attention":
+            # K1 and SDPA by CUDA events around replays of a captured call (the
+            # table's figures: at these shapes the wrapper's host time exceeds the
+            # kernel's, so calls launched back to back time the host), beside
+            # events around back-to-back calls and the profiler's reading above
+            ms, library_ms = graph_ms(fk, calls=10), graph_ms(fl, calls=10)
+            rate, lib_rate = flops / (ms * 1e-3) / 1e12, flops / (library_ms * 1e-3) / 1e12
+            print(f"time {name} [{label}] by events: {ms:.4f} ms = {rate:.1f} TFLOP/s"
+                  f"{peak_note(rate, PEAK_BF16_FLOPS / 1e12)} ({bms / ms * 100:.1f}% of bound); "
+                  f"library (scaled_dot_product_attention) {library_ms:.4f} ms = "
+                  f"{lib_rate:.1f} TFLOP/s{peak_note(lib_rate, PEAK_BF16_FLOPS / 1e12)} (CUDA "
+                  f"graph replays); back to back: kernel {event_ms(fk):.4f}, library "
+                  f"{event_ms(fl):.4f}", flush=True)
+            if peak_note(lib_rate, PEAK_BF16_FLOPS / 1e12):
+                library_ms = None  # an impossible reading stays out of the table
         times.setdefault(name, (ms, plain_ms, library_ms, bms, by))
 
     t0 = time.time()
@@ -794,28 +865,35 @@ def search_phase(dev, check_scores_segmax, unit_rows, reset_counts, read_counts,
         s = s.masked_fill(masked, float("-inf"))
         return s, s.view(QB, -1, 128).amax(-1)
 
-    ms, call_ms = time_ms(lambda: scores_segmax.scores_segmax(qs, emb, nd), reps=10)
-    plain_ms, plain_call = time_ms(lambda: scores_segmax.scores_segmax_plain(qs, emb, nd),
-                                   reps=3, warmup=1)
-    library_ms, library_call = time_ms(library, reps=10)
-    flops = 2.0 * QB * nd * DIM
-    byt = nd * DIM * 2 + nbytes(qs) + QB * CAP * 4 + (CAP // 128) * QB * 4
-    bms, by = bound(flops, byt)
-    times["scores_segmax"] = (ms, plain_ms, library_ms, bms, by)
-    print(f"time scores_segmax [Q256 N2^20, 1M docs]: device {ms:.4f} ms ({bms / ms * 100:.1f}% "
-          f"of bound {bms:.4f} ms, {by}), plain {plain_ms:.4f}, library {library_ms:.4f} "
-          f"(torch.mm {'fp32' if lib_fp32 else 'bf16'} out + masked_fill + amax); per call "
-          f"(events): kernel {call_ms:.4f}, plain {plain_call:.4f}, library "
-          f"{library_call:.4f}", flush=True)
-    # One 128-row query tile reads the corpus once (Q = 256 makes two
-    # tiles); Q = 4 is the RAG path's query batch.
-    for q_rows in (128, 4):
+    # K9 and the library by CUDA events around calls launched back to back
+    # (the table's figures), torch.profiler's device time as a second reading;
+    # Q = 128 is half a query block, Q = 4 the RAG path's query batch
+    plain_ms, _ = time_ms(lambda: scores_segmax.scores_segmax_plain(qs, emb, nd), reps=3,
+                          warmup=1)
+    for q_rows in (QB, 128, 4):
         qq = qs[:q_rows].contiguous()
-        q_ms, _ = time_ms(lambda: scores_segmax.scores_segmax(qq, emb, nd), reps=10)
-        q_bms, q_by = bound(2.0 * q_rows * nd * DIM,
-                            nd * DIM * 2 + nbytes(qq) + q_rows * CAP * 4 + (CAP // 128) * q_rows * 4)
-        print(f"time scores_segmax [Q{q_rows} N2^20, 1M docs]: device {q_ms:.4f} ms "
-              f"({q_bms / q_ms * 100:.1f}% of bound {q_bms:.4f} ms, {q_by})", flush=True)
+        flops = 2.0 * q_rows * nd * DIM
+        byt = nd * DIM * 2 + nbytes(qq) + q_rows * CAP * 4 + (CAP // 128) * q_rows * 4
+        bms, by = bound(flops, byt)
+        ms = event_ms(lambda: scores_segmax.scores_segmax(qq, emb, nd), reps=10)
+        prof_ms, _ = time_ms(lambda: scores_segmax.scores_segmax(qq, emb, nd), reps=10)
+        gbs = byt / (ms * 1e-3) / 1e9
+        line = (f"time scores_segmax [Q{q_rows} N2^20, 1M docs] by events: {ms:.4f} ms = "
+                f"{gbs:.1f} GB/s{peak_note(gbs, PEAK_BYTES / 1e9)} ({bms / ms * 100:.1f}% of "
+                f"bound {bms:.4f} ms, {by}); profiler {prof_ms:.4f} ms"
+                f"{peak_note(byt / (prof_ms * 1e-3) / 1e9, PEAK_BYTES / 1e9)}")
+        if q_rows == QB:
+            library_ms = event_ms(library, reps=10)
+            lib_prof, _ = time_ms(library, reps=10)
+            lib_gbs = byt / (library_ms * 1e-3) / 1e9
+            line += (f"; plain {plain_ms:.4f}; library (torch.mm {'fp32' if lib_fp32 else 'bf16'} "
+                     f"out + masked_fill + amax) events {library_ms:.4f} ms = {lib_gbs:.1f} GB/s"
+                     f"{peak_note(lib_gbs, PEAK_BYTES / 1e9)}, profiler {lib_prof:.4f}"
+                     f"{peak_note(byt / (lib_prof * 1e-3) / 1e9, PEAK_BYTES / 1e9)}")
+            if peak_note(lib_gbs, PEAK_BYTES / 1e9):
+                library_ms = None  # an impossible reading stays out of the table
+            times["scores_segmax"] = (ms, plain_ms, library_ms, bms, by)
+        print(line, flush=True)
 
     walls = []
     for _ in range(5):
@@ -1258,13 +1336,14 @@ def cold_copies(nbytes_one: int, l2_bytes: int = 50 * 2**20) -> int:
     return max(1, -(-2 * l2_bytes // nbytes_one))
 
 
-def graph_ms(fn, n: int = 20) -> float:
-    """Device ms of one call of fn: the call captured once in a CUDA graph
-    and replayed n times between two CUDA events. No host launch cost enters
-    (the kernels at decode shapes take less time on the device than their
-    Python wrappers take to launch) and no profiler trace is needed (one
-    dropped a kernel now and then). Kernels in one replay run back to back,
-    gaps of about a microsecond between them included."""
+def graph_ms(fn, n: int = 20, calls: int = 1) -> float:
+    """Device ms of one call of fn: `calls` calls captured once in a CUDA
+    graph and replayed n times between two CUDA events. No host launch cost
+    enters (the kernels at decode shapes take less time on the device than
+    their Python wrappers take to launch) and no profiler trace is needed
+    (one dropped a kernel now and then). Kernels in one replay run back to
+    back, gaps of about a microsecond between them included; several calls
+    a replay also hide the replay's own launch."""
     import torch
 
     side = torch.cuda.Stream()
@@ -1277,19 +1356,21 @@ def graph_ms(fn, n: int = 20) -> float:
     try:
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph):
-            fn()
+            for _ in range(calls):
+                fn()
         run = graph.replay
         run()
     except RuntimeError as e:  # a measurement, not the kernel path: say so and time the calls
         print(f"  CUDA graph capture failed ({str(e).splitlines()[0][:80]}); timed over "
               "back-to-back calls instead, host launch cost included", flush=True)
-        run = fn
+        run, n = fn, n * calls
+        calls = 1
     start.record()
     for _ in range(n):
         run()
     end.record()
     end.synchronize()
-    return start.elapsed_time(end) / n
+    return start.elapsed_time(end) / (n * calls)
 
 
 def decode_step(label, m, enc):
@@ -1909,24 +1990,33 @@ def training_times(dev, randn, times, H=32, Hkv=8,
         print(f"time K4 + K5 [{label}]: {pair_ms:.4f} ms against the library's {lib_ev:.4f} "
               f"({pair_ms / lib_ev:.2f}x{'' if lib_ms else ', library reading INVALID'})",
               flush=True)
+        # K1 with its LSE (the training forward) beside SDPA's forward on
+        # inputs that require grad (it then also keeps what its backward needs)
+        ms = event_ms(lambda: fa.flash_attention(q, k, v, mask, return_lse=True, **kw))
+        prof_ms, _ = time_ms(lambda: fa.flash_attention(q, k, v, mask, return_lse=True, **kw),
+                             reps=10)
+        ms0 = event_ms(lambda: fa.flash_attention(q, k, v, mask, **kw))
+
+        def lib_fwd():
+            return F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal, enable_gqa=True)
+
+        lib_f = event_ms(lib_fwd)
+        lib_f_prof, _ = time_ms(lib_fwd, reps=10)
+        bms, by = bound(2 * product, nbytes(q, k, v, mask, q) + B * H * S * 4)
+        rate, bad = tflops(2, ms)
+        lib_rate, lib_bad = tflops(2, lib_f)
+        prof_bad, lib_prof_bad = tflops(2, prof_ms)[1], tflops(2, lib_f_prof)[1]
+        plain = ""
         if not causal:
-            ms, _ = time_ms(lambda: fa.flash_attention(q, k, v, mask, return_lse=True, **kw),
-                            reps=10)
-            ms0, _ = time_ms(lambda: fa.flash_attention(q, k, v, mask, **kw), reps=10)
-            plain_f, _ = time_ms(lambda: fa.flash_attention_plain(q, k, v, mask, return_lse=True,
-                                                                  **kw), reps=2, warmup=1)
-
-            def lib_fwd():
-                return F.scaled_dot_product_attention(qt, kt, vt, enable_gqa=True)
-
-            lib_f = event_ms(lib_fwd)
-            lib_f_prof, _ = time_ms(lib_fwd, reps=10)
-            bms, by = bound(2 * product, nbytes(q, k, v, mask, q) + B * H * S * 4)
-            print(f"time flash_attention with LSE [{label}]: device {ms:.4f} ms "
-                  f"({bms / ms * 100:.1f}% of bound {bms:.4f} ms, {by}); without LSE "
-                  f"{ms0:.4f}; plain {plain_f:.4f}; library (scaled_dot_product_attention "
-                  f"forward) events {lib_f:.4f} = {tflops(2, lib_f)[0]:.1f} TFLOP/s, profiler "
-                  f"{lib_f_prof:.4f}", flush=True)
+            plain_f, _ = time_ms(lambda: fa.flash_attention_plain(
+                q, k, v, mask, return_lse=True, **kw), reps=2, warmup=1)
+            plain = f"; plain {plain_f:.4f}"
+        print(f"time flash_attention with LSE [{label}]: events {ms:.4f} ms = {rate:.1f} "
+              f"TFLOP/s{bad} ({bms / ms * 100:.1f}% of bound {bms:.4f} ms, {by}); profiler "
+              f"{prof_ms:.4f} ms{prof_bad}; without LSE {ms0:.4f} (events){plain}; library "
+              f"(scaled_dot_product_attention forward) events {lib_f:.4f} = {lib_rate:.1f} "
+              f"TFLOP/s{lib_bad}, profiler {lib_f_prof:.4f}{lib_prof_bad}; K1 / library "
+              f"{ms / lib_f:.2f}x", flush=True)
         del q, k, v, do, qt, kt, vt, lib_out, out, lse, delta
         torch.cuda.empty_cache()
 

@@ -27,4 +27,24 @@ which is how the CPU tests hold the port against the JAX package.
 
 __version__ = "0.1.0"
 
+import torch  # noqa: E402
+
+
+def _settle_cpu_vector_math() -> None:
+    """PyTorch's CPU build computes exp, log, sin and cos of a contiguous
+    float tensor with MKL's vector math (VML), which picks its kernel at its
+    first call in a process. When that first call comes from two intra-op
+    threads at once, one thread can get MKL's AVX2 low-accuracy exp (VML_EP,
+    relative error up to 1.5e-4) for its whole chunk: the port's plain
+    attention then came back up to 1.05e-4 off in about one fresh process in
+    ten. One call on a tiny tensor, which runs on this thread alone, makes
+    the first call before any parallel one, for each function the port's
+    plain paths use."""
+    x = torch.ones(8)
+    for f in (torch.exp, torch.log, torch.sin, torch.cos):
+        f(x)
+
+
+_settle_cpu_vector_math()
+
 from gritlm_tpu_torch.gritlm import GritLM  # noqa: E402,F401

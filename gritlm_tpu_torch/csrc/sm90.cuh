@@ -81,6 +81,16 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map
       : "memory");
 }
 
+// One box of a rank-2 tensor map (make_map_2d) into shared memory at `dst`.
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.tile.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
+      : "memory");
+}
+
 // ------------------------------------------------------------ setmaxnreg
 
 template <int N>
@@ -179,6 +189,44 @@ __device__ __forceinline__ void wgmma_m64n32k16_ss(float (&d)[16], uint64_t desc
       : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(OFF_A >> 4), "n"(OFF_B >> 4));
 }
 
+// The same with N = 128: d[64 x 128], 64 accumulators a thread (columns
+// 8 * (i / 4) + 2 * (t % 4) + i % 2).
+template <uint32_t OFF_A, uint32_t OFF_B>
+__device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64], uint64_t desc_a,
+                                                    uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n.reg .b64 da, db;\nsetp.ne.b32 p, %66, 0;\n"
+      "add.s64 da, %64, %67;\nadd.s64 db, %65, %68;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39,"
+      " %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55,"
+      " %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "da, db, p, 1, 1, 0, 0;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(OFF_A >> 4), "n"(OFF_B >> 4));
+}
+
 // d[64 x 128] (+)= A[64 x 16] . B[16 x 128], A in registers (four bf16
 // pairs a thread, in the accumulator layout above restricted to 16
 // columns: a0 row r cols 2c..2c+1, a1 row r+8, a2 row r cols 2c+8..,
@@ -235,12 +283,12 @@ __device__ __forceinline__ float ex2(float x) {
 
 // ------------------------------------------------------------------ host
 
-// A rank-4 bf16 tensor map over [B, S, heads, 128] with dense head and
-// feature axes and byte strides sb, ss (multiples of 16): boxes of 64
-// features x 1 head x box_rows positions x 1 batch row, 128-byte swizzle;
-// positions past S read as zeros. Returns 0 or a nonzero error code.
-inline int make_map_bshd(CUtensorMap* map, const void* base, int B, int S, int heads,
-                         long long sb_bytes, long long ss_bytes, int box_rows) {
+// A bf16 tensor map of rank `rank` (dims innermost first, byte strides of
+// dims 1..rank-1) with 128-byte swizzle; elements past a dim read as zeros.
+// cuTensorMapEncodeTiled is reached through the runtime's driver entry
+// point. Returns 0 or a nonzero error code.
+inline int make_map(CUtensorMap* map, const void* base, cuuint32_t rank, const cuuint64_t* dims,
+                    const cuuint64_t* strides, const cuuint32_t* box) {
   typedef CUresult (*Encode)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
                              const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
                              const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
@@ -260,15 +308,35 @@ inline int make_map_bshd(CUtensorMap* map, const void* base, int B, int S, int h
       return e != cudaSuccess ? (int)e : (int)cudaErrorNotSupported;
     encode = reinterpret_cast<Encode>(fn);
   }
-  const cuuint64_t dims[4] = {128, (cuuint64_t)heads, (cuuint64_t)S, (cuuint64_t)B};
-  const cuuint64_t strides[3] = {256, (cuuint64_t)ss_bytes, (cuuint64_t)sb_bytes};
-  const cuuint32_t box[4] = {64, 1, (cuuint32_t)box_rows, 1};
   const cuuint32_t unit[4] = {1, 1, 1, 1};
-  CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims,
+  CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(base), dims,
                       strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
                       CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                       CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : 10000 + (int)r;
+}
+
+// A rank-4 bf16 tensor map over [B, S, heads, 128] with dense head and
+// feature axes and byte strides sb, ss (multiples of 16): boxes of 64
+// features x 1 head x box_rows positions x 1 batch row; positions past S
+// read as zeros.
+inline int make_map_bshd(CUtensorMap* map, const void* base, int B, int S, int heads,
+                         long long sb_bytes, long long ss_bytes, int box_rows) {
+  const cuuint64_t dims[4] = {128, (cuuint64_t)heads, (cuuint64_t)S, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {256, (cuuint64_t)ss_bytes, (cuuint64_t)sb_bytes};
+  const cuuint32_t box[4] = {64, 1, (cuuint32_t)box_rows, 1};
+  return make_map(map, base, 4, dims, strides, box);
+}
+
+// A rank-2 bf16 tensor map over a dense row-major [rows, cols] matrix
+// (cols % 8 == 0): boxes of 64 columns x box_rows rows; rows and columns
+// past the matrix read as zeros.
+inline int make_map_2d(CUtensorMap* map, const void* base, long long rows, int cols,
+                       int box_rows) {
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * 2};
+  const cuuint32_t box[2] = {64, (cuuint32_t)box_rows};
+  return make_map(map, base, 2, dims, strides, box);
 }
 
 }  // namespace sm90

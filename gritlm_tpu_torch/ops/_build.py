@@ -5,7 +5,9 @@ plain C interface, loaded with `ctypes`. All sources build at once, one
 `nvcc` process each, into `build/gritlm_tpu_torch_kernels/` at the root of the
 checkout (listed in `.gitignore`). A library's file name carries a hash of its
 source, the shared header and the flags, so an edited source is rebuilt and an
-unchanged one is reused.
+unchanged one is reused. nvcc's `-Xptxas -v` report is kept beside each
+library (same name, `.ptxas.txt`), and a library without its report is
+rebuilt, so the report of the library in use can always be read.
 
 Nothing here runs at import: this module is imported on machines with no
 CUDA toolkit, where only the plain versions of the kernels run.
@@ -33,7 +35,6 @@ NVCC_FLAGS = (
 )
 
 _libs: Dict[str, ctypes.CDLL] = {}
-ptxas_logs: Dict[str, str] = {}  # nvcc's -Xptxas -v report, per source built here
 
 
 def _nvcc() -> str:
@@ -58,14 +59,23 @@ def _target(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
+def _report(name: str) -> Path:
+    return _target(name).with_suffix(".ptxas.txt")
+
+
 def build_all() -> Dict[str, str]:
-    """Compile every library that is missing, all sources in parallel.
-    Returns the ptxas reports of the sources built by this process. Raises
-    RuntimeError with nvcc's output if a build fails."""
+    """Compile every library that is missing (or lacks its ptxas report),
+    all sources in parallel. Returns {source: ptxas report} of every source,
+    built now or before. Raises RuntimeError with nvcc's output if a build
+    fails."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    todo = [n for n in SOURCES if not _target(n).exists()]
-    if not todo:
-        return dict(ptxas_logs)
+    todo = [n for n in SOURCES if not (_target(n).exists() and _report(n).exists())]
+    if todo:
+        _compile(todo)
+    return {n: _report(n).read_text() for n in SOURCES}
+
+
+def _compile(todo) -> None:
     nvcc = _nvcc()
     procs = {}
     for name in todo:
@@ -80,14 +90,18 @@ def build_all() -> Dict[str, str]:
     failed = []
     for name, (proc, tmp, out) in procs.items():
         log, _ = proc.communicate()
-        ptxas_logs[name] = log
         if proc.returncode != 0:
             failed.append(f"nvcc failed for {name}.cu:\n{log}")
             continue
-        os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
+        # atomic: a concurrent loader never sees half a file; the report
+        # lands first, so a library in place always has one
+        report = _report(name)
+        report_tmp = report.with_name(f"{report.name}.tmp{os.getpid()}")
+        report_tmp.write_text(log)
+        os.replace(report_tmp, report)
+        os.replace(tmp, out)
     if failed:
         raise RuntimeError("\n".join(failed))
-    return dict(ptxas_logs)
 
 
 def load(name: str) -> ctypes.CDLL:

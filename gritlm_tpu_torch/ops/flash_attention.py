@@ -10,15 +10,20 @@ maps query head h to kv head h // group and K/V are never repeated; rows
 whose every key is masked come out 0.
 
 Kernel: `csrc/flash_attention.cu`, CUDA C++ for sm_90a, bound with ctypes.
-What bounds it: at the encode and prefill shapes (S >= 64) its operations,
-4*B*H*Sq*Sk*Dh of them in bf16 matrix products; K/V are read once per
-(q-tile, head), well under the bytes bound. The design therefore puts both
-products on the tensor cores (bf16 wmma with fp32 accumulation), keeps the
-scores, probabilities and output rows in shared memory instead of device
-memory, reads q/k/v through their strides (a cache layer `k_all[l]` is a
-view, not a copy), skips causal tiles above the diagonal, tiles below the
-sliding window and tiles holding no valid key, and copies K/V with cp.async.
-It does not use wgmma/TMA yet.
+What bounds it: at the encode and training shapes (S >= 64) its operations,
+4*B*H*Sq*Sk*Dh of them in bf16 matrix products over the visited pairs,
+beside one exponential a pair; K/V are read once per (q-tile, head), well
+under the bytes bound. The design (K4's, turned to the forward): one block
+per 128 query rows and head, two consumer warpgroups of 64 rows and a
+producer warp; Q stays in shared memory, K/V stream through a 3-stage TMA
+ring of 128-key tiles (mbarriers) in the visit order, skipping causal tiles
+above the diagonal, tiles below the sliding window and tiles holding no
+valid key; S = Q K^T and O += P V are wgmma, with the online softmax on the
+score accumulators in registers, P handed to the second product as register
+fragments and O in registers until the epilogue; the next tile's S is in
+flight while this tile's softmax runs. The TMA tensor maps read q/k/v
+through their batch and sequence strides, so a cache layer `k_all[l]` is a
+view, not a copy (`csrc/sm90.cuh` holds the PTX building blocks).
 
 K4 and K5, the backward (`csrc/flash_attention_bwd.cu`), replace the
 Pallas `_bwd_dq_kernel` and `_bwd_dkv_kernel` (reached through `_flash_bwd`

@@ -17,16 +17,15 @@ tensor-core product with an epilogue), bound with ctypes. What bounds it:
 at the search's timing shape (Q = 256, N = 2^20, D = 4096) the bytes, one
 read of the 8.6 GB corpus plus the 1.07 GB fp32 score write (2.9 ms at
 3.35 TB/s), just above the 2.2 ms its 2.2 TFLOP take at the bf16 peak. The
-design: one block per (128 query rows, one 128-column segment), the depth
-walked in double-buffered shared-memory chunks with bf16 wmma and fp32
-register accumulators; the epilogue masks, writes the scores and reduces
-each row's segment maximum inside the block, so the scores are never read
-back. A query block of 256 rows makes two query tiles, so the corpus is
-read twice by the kernel; blocks are ordered query tile fastest, so the
-second read of a corpus tile is meant to come from L2 rather than device
-memory. The TPU kernel held the whole query block against a 1024-row
-corpus tile; the wgmma/TMA design that would do the same here is later
-work.
+design: a block holds the whole query block (up to 256 rows) against one
+128-column corpus tile, so the corpus is read from device memory once per
+query block; two consumer warpgroups own 128 query rows each as wgmma
+accumulators in registers, a producer warp streams 64-deep slices of the
+query block and of the corpus tile through a 4-stage TMA ring, and the grid
+is persistent (one block an SM walking the tiles). The epilogue masks,
+writes the scores and reduces each row's segment maximum straight from the
+accumulators, so the scores are never read back. Q > 256 makes several
+query blocks; tiles wholly past n_docs load nothing.
 """
 
 from __future__ import annotations

@@ -20,6 +20,7 @@ from gritlm_tpu_torch.ops import decode_attention, flash_attention, fused_pool
 
 pytestmark = pytest.mark.gpu
 ATTN_ATOL = 2e-2
+LSE_ATOL = 1e-3  # fp32 log-sum-exp of the same bf16 scores, summed in another order
 
 
 @pytest.fixture
@@ -64,6 +65,71 @@ def test_flash_attention_kernel_on_cache_view(cuda):
     got = flash_attention.flash_attention(q, lk, lv, mask, causal=True, offset=120)
     want = flash_attention.flash_attention_plain(q, lk, lv, mask, causal=True, offset=120)
     torch.testing.assert_close(got.float(), want.float(), atol=ATTN_ATOL, rtol=0)
+
+
+def _k1_against_plain(q, k, v, mask, **kw):
+    """K1 (output and LSE) against its plain version, a rerun bit-equal;
+    returns the kernel's (output, LSE)."""
+    out, lse = flash_attention.flash_attention(q, k, v, mask, return_lse=True, **kw)
+    out2, lse2 = flash_attention.flash_attention(q, k, v, mask, return_lse=True, **kw)
+    torch.cuda.synchronize()
+    want, want_lse = flash_attention.flash_attention_plain(q, k, v, mask, return_lse=True, **kw)
+    torch.testing.assert_close(out.float(), want.float(), atol=ATTN_ATOL, rtol=0)
+    torch.testing.assert_close(lse, want_lse, atol=LSE_ATOL, rtol=0)
+    assert torch.equal(out, out2) and torch.equal(lse, lse2)
+    return out, lse
+
+
+# query lengths off the 128-row blocks against key lengths off the 128-key
+# tiles; causal rows sit at the end of the keys (a prefill over a cache)
+@pytest.mark.parametrize("Sq", [1, 77, 129, 200])
+@pytest.mark.parametrize("Sk", [64, 333, 2048])
+@pytest.mark.parametrize("causal,window", [(False, None), (True, None), (True, 64)])
+def test_flash_attention_kernel_edges(cuda, Sq, Sk, causal, window):
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    B, H, Hkv = 2, 8, 2
+    q = _randn(gen, B, Sq, H, 128, device=cuda)
+    k = _randn(gen, B, Sk, Hkv, 128, device=cuda)
+    v = _randn(gen, B, Sk, Hkv, 128, device=cuda)
+    mask = torch.ones((B, Sk), dtype=torch.int32, device=cuda)
+    mask[1, Sk * 3 // 4:] = 0
+    _k1_against_plain(q, k, v, mask, causal=causal, sliding_window=window,
+                      offset=max(0, Sk - Sq) if causal else 0)
+
+
+@pytest.mark.parametrize("group", [1, 4])
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_attention_kernel_hole_and_empty_row(cuda, group, causal):
+    """GQA groups 1 and 4, an interior hole in the keys (concatenated RAG
+    caches) and a row whose keys are all masked: output 0, LSE NEG_INF."""
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    B, S, H = 2, 300, 8
+    q = _randn(gen, B, S, H, 128, device=cuda)
+    k = _randn(gen, B, S, H // group, 128, device=cuda)
+    v = _randn(gen, B, S, H // group, 128, device=cuda)
+    mask = torch.ones((B, S), dtype=torch.int32, device=cuda)
+    mask[0, 100:190] = 0
+    mask[1] = 0
+    out, lse = _k1_against_plain(q, k, v, mask, causal=causal)
+    assert torch.count_nonzero(out[1]) == 0 and bool((lse[1] == flash_attention.NEG_INF).all())
+
+
+def test_flash_attention_kernel_rows_with_and_without_keys(cuda):
+    """A 32-key window at offset 256 over keys 200-399 masked: in one block
+    some rows see keys and others none (output 0, LSE NEG_INF), and a row
+    with no key never turns into exp(0) = 1."""
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    B, Sq, Sk, H, Hkv = 2, 256, 512, 8, 2
+    q = _randn(gen, B, Sq, H, 128, device=cuda)
+    k = _randn(gen, B, Sk, Hkv, 128, device=cuda)
+    v = _randn(gen, B, Sk, Hkv, 128, device=cuda)
+    mask = torch.ones((B, Sk), dtype=torch.int32, device=cuda)
+    mask[:, 200:400] = 0
+    out, lse = _k1_against_plain(q, k, v, mask, causal=True, sliding_window=32, offset=256)
+    empty = slice(0, 400 - 256)  # rows at positions 256-399 see only masked keys
+    assert torch.count_nonzero(out[:, empty]) == 0
+    assert bool((lse[:, :, empty] == flash_attention.NEG_INF).all())
+    assert bool((lse[:, :, 400 - 256 + 31:] > flash_attention.NEG_INF).all())
 
 
 @pytest.mark.parametrize("quant", [False, True])
@@ -136,6 +202,31 @@ def test_scores_segmax_kernel(cuda, Q, N, n_docs):
     want_s, want_m = k9.scores_segmax_plain(q, emb, n_docs)
     assert k9.scores_segmax.launches == before + 1
     assert got_m.shape == want_m.shape == (-(-N // 128), Q)
+    assert torch.isinf(got_s[:, n_docs:]).all() and (got_s[:, n_docs:] < 0).all()
+    torch.testing.assert_close(got_s[:, :n_docs], want_s[:, :n_docs], atol=1e-3, rtol=0)
+    ns = -(-N // 128)
+    own = torch.nn.functional.pad(got_s, (0, ns * 128 - N), value=float("-inf"))
+    assert torch.equal(got_m, own.view(Q, ns, 128).amax(-1).T)
+    finite = torch.isfinite(want_m)
+    assert torch.equal(finite, torch.isfinite(got_m))
+    torch.testing.assert_close(got_m[finite], want_m[finite], atol=1e-3, rtol=0)
+
+
+# K9's edges: one row, the RAG path's 4, a query block of 65 rows, a full
+# block and more than a block (two launches' worth of query blocks); a
+# partial last segment, and n_docs inside a segment
+@pytest.mark.parametrize("Q", [1, 4, 65, 256, 300])
+@pytest.mark.parametrize("N,n_docs", [(65536 + 300, 65536 + 250), (65536, 65037)])
+def test_scores_segmax_kernel_edges(cuda, Q, N, n_docs):
+    from gritlm_tpu_torch.ops import scores_segmax as k9
+
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    q, emb = _unit_rows(gen, Q, 4096, cuda), _unit_rows(gen, N, 4096, cuda)
+    got_s, got_m = k9.scores_segmax(q, emb, n_docs)
+    again_s, again_m = k9.scores_segmax(q, emb, n_docs)
+    torch.cuda.synchronize()
+    want_s, want_m = k9.scores_segmax_plain(q, emb, n_docs)
+    assert torch.equal(got_s, again_s) and torch.equal(got_m, again_m)
     assert torch.isinf(got_s[:, n_docs:]).all() and (got_s[:, n_docs:] < 0).all()
     torch.testing.assert_close(got_s[:, :n_docs], want_s[:, :n_docs], atol=1e-3, rtol=0)
     ns = -(-N // 128)
