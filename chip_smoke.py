@@ -17,15 +17,17 @@ library call.
 
 Phases (in the order 1-9, 11, 10), any failure exits non-zero:
   1. device and build: card name and power limit, nvcc's register and
-     shared-memory report; for the wgmma kernels (K1, K4/K5, K9) their
-     registers, spill bytes and dynamic shared memory, failing on a spill
-     or a serialised wgmma (each library's ptxas report is kept beside it
-     in the build cache, so a cached build is checked too)
+     shared-memory report; for the redesigned kernels (K1, K4/K5, K9 on
+     wgmma; K3, K7 on mma.sync, and K6 beside K7) their registers and spill
+     bytes (the wgmma kernels' dynamic shared memory too), failing on a
+     spill or a serialised wgmma (each library's ptxas report is kept beside
+     it in the build cache, so a cached build is checked too)
   2. each kernel against its plain version on the card (K1 and its LSE at
      three shapes; K9 at three shapes: a masked tail, Q = 3, a partial
-     last segment; K8 at the serving shape,
-     bf16 and int8, Sq 1 and a causal Sq 8 chunk, and against K3 on the
-     same logical cache laid out dense)
+     last segment; K3 at Sq 1 and 64, its int8 cache, and the serving
+     decode chunk's call (B 8, Smax 4096, mask-bounded, ragged rows); K8
+     at the serving shape, bf16 and int8, Sq 1 and a causal Sq 8 chunk, and
+     against K3 on the same logical cache laid out dense)
   3. encode at full width (launch counts set to 0 before encode, read after
      phase 4)
   4. greedy generate at full width: prefill through K1 (bucket >= 128) and
@@ -57,7 +59,10 @@ Phases (in the order 1-9, 11, 10), any failure exits non-zero:
   9. kernel times (device time from torch.profiler, and per-call time
      between CUDA events, 25 calls after warm-up; K1 and SDPA also by CUDA
      events around replays of ten captured calls, the table's figure, and
-     around calls launched back to back), encode and
+     around calls launched back to back; K3 and SDPA by CUDA events around
+     graph replays over enough cache layers that every read is cold, at Sq
+     1 and 64, the int8 cache and the serving chunk's call, and K3's device
+     kernels a call counted, more than one failing), encode and
      decode rates, and a profile (device time by kernel, idle share) of one
      encode and one short generate
  10. training at full width (after the inference model is freed):
@@ -93,7 +98,8 @@ Phases (in the order 1-9, 11, 10), any failure exits non-zero:
      device/host ms per decode step against bf16; 8 generation and 4
      embedding requests through a dense w4 ServingEngine (K7 in the decode
      chunks); K6 and K7 timed at M 8 over the five projection shapes (the
-     gate/up shape, 4096 -> 14336, is the kernel table's) beside their bounds
+     gate/up shape, 4096 -> 14336, is the kernel table's), and at gate/up
+     also at M 1 and 16 (both) and 64 and 128 (K7), beside their bounds
      and torch.matmul of the dequantized weight, by CUDA graph replays over
      weight copies that keep each call's weight out of L2
 
@@ -229,20 +235,22 @@ def peak_note(rate: float, peak: float) -> str:
     return "" if rate <= peak else " INVALID: above the card's peak"
 
 
-# The wgmma kernels and their sources: ptxas must give them no spills and no
-# serialised wgmma (phase 1).
-WGMMA_KERNELS = (("K1", "flash_attention", "gritlm_flash_fwd_smem"),
+# The redesigned kernels and their sources: ptxas must give them no spills
+# and (the wgmma kernels) no serialised wgmma (phase 1).
+PTXAS_KERNELS = (("K1", "flash_attention", "gritlm_flash_fwd_smem"),
                  ("K4, K5", "flash_attention_bwd", None),
-                 ("K9", "scores_segmax", "gritlm_scores_segmax_smem"))
+                 ("K9", "scores_segmax", "gritlm_scores_segmax_smem"),
+                 ("K3", "decode_attention", None),
+                 ("K7, K6", "quant_matmul", None))
 
 
-def wgmma_report(_build, logs) -> None:
-    """Registers, spill bytes and dynamic shared memory of the wgmma kernels
-    from the ptxas reports of the libraries in use; fails on a spill or a
-    serialised wgmma."""
+def ptxas_report(_build, logs) -> None:
+    """Registers, spill bytes and dynamic shared memory of the redesigned
+    kernels from the ptxas reports of the libraries in use; fails on a spill
+    or a serialised wgmma."""
     import re
 
-    for label, source, smem_fn in WGMMA_KERNELS:
+    for label, source, smem_fn in PTXAS_KERNELS:
         log = logs[source]
         regs = re.findall(r"Used (\d+) registers", log)
         spills = [int(n) for n in re.findall(r"(\d+) bytes spill (?:stores|loads)", log)]
@@ -301,7 +309,7 @@ def main() -> int:
             if any(w in line for w in ("registers", "spill", "Compiling entry", "error",
                                        "warning")):
                 print(f"  ptxas[{name}] {line.strip()}")
-    wgmma_report(_build, logs)
+    ptxas_report(_build, logs)
 
     # name (of the wrapper in its module): (module, plain version, source, TPU kernel)
     kernels = {
@@ -435,6 +443,17 @@ def main() -> int:
                   lambda: decode_attention.flash_decode_plain(qd, k8, v8, mask_d, **kw8),
                   None, 4.0 * int(keep.sum()) * H * Dh,
                   slots * Hkv * (Dh + 2) * 2 + nbytes(qd, qd, mask_d), ATTN_ATOL))
+
+    # K3 at the serving decode chunk's call: B 8, Smax 4096, mask-bounded
+    # (causal False, offset 0), the ragged rows of the serving phase's pools
+    mask_s = serving_mask(dev)
+    k_s, v_s = randn(2, 8, 4096, Hkv * Dh), randn(2, 8, 4096, Hkv * Dh)
+    qs = randn(8, 1, H, Dh)
+    kws = dict(causal=False, layer=1, num_kv_heads=Hkv)
+    cases.append(("flash_decode", "serving B8 Smax4096 mask-bounded",
+                  lambda: decode_attention.flash_decode(qs, k_s, v_s, mask_s, **kws),
+                  lambda: decode_attention.flash_decode_plain(qs, k_s, v_s, mask_s, **kws),
+                  None, 0.0, 0.0, ATTN_ATOL))
 
     k8_cases(dev, randn, cases)
 
@@ -624,7 +643,10 @@ def main() -> int:
     latency_phase(model)
 
     # ---------------------------------------------------------------- 9
+    k3_times(dev, randn, times)
     for name, label, fk, fp, fl, flops, byt, _ in cases:
+        if name == "flash_decode":  # timed cold by k3_times
+            continue
         ms, call_ms = time_ms(fk)
         plain_ms, plain_call = time_ms(fp, reps=10)
         library_ms = library_call = None  # no single PyTorch call computes the int8 variant
@@ -718,6 +740,154 @@ def main() -> int:
     return 0
 
 
+# valid slots of the 8 rows of a serving pool at the kernel checks and
+# times of K3 and K8 (ragged, one row of a single slot; row 1 with a hole)
+SERVING_LENS = (37, 1900, 256, 700, 1333, 3000, 1, 512)
+
+
+def serving_mask(dev, max_len: int = 4096):
+    """[8, max_len] int32 slot validity of SERVING_LENS, a hole in row 1."""
+    import torch
+
+    lens = torch.tensor(SERVING_LENS, device=dev)
+    mask = (torch.arange(max_len, device=dev)[None] < lens[:, None]).int()
+    mask[1, 600:700] = 0  # a hole
+    return mask
+
+
+def kernels_per_call(fn):
+    """(kernels, device operations) one call of fn launches: the nodes of a
+    CUDA graph that captured the call (kept, and read through the CUDA
+    runtime PyTorch loaded: cudaGraphGetNodes, cudaGraphNodeGetType; kernel
+    nodes are type 0). torch.profiler dropped kernel events here (1 of 10
+    calls traced), so it cannot count."""
+    import ctypes
+
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm-up: allocator, buffers, kernel attributes
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
+        fn()
+    cudart = ctypes.CDLL(f"libcudart.so.{torch.version.cuda.split('.')[0]}")
+    raw, n = ctypes.c_void_p(graph.raw_cuda_graph()), ctypes.c_size_t(0)
+    if cudart.cudaGraphGetNodes(raw, None, ctypes.byref(n)) != 0:
+        fail("kernels_per_call: cudaGraphGetNodes failed")
+    nodes = (ctypes.c_void_p * n.value)()
+    cudart.cudaGraphGetNodes(raw, nodes, ctypes.byref(n))
+    kinds = []
+    for node in nodes:
+        kind = ctypes.c_int(-1)
+        cudart.cudaGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind))
+        kinds.append(kind.value)
+    return sum(k == 0 for k in kinds), len(kinds)
+
+
+def profiled_kernels_per_call(fn, calls: int = 10):
+    """Device kernels a call of fn launched in one torch.profiler window
+    over `calls` calls (None for a trace without device events). A trace
+    drops kernels now and then, so this reading can only fall short."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    n = sum(e.count for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0)
+    return n / calls if n else None
+
+
+def k3_times(dev, randn, times, H=32, Hkv=8, Dh=128) -> None:
+    """K3 and SDPA by CUDA events around CUDA graph replays, each call on its
+    own layer of a cache with enough layers (cold_copies) that no call finds
+    its K/V in L2, as in a decode step: at the kernel table's shape (Sq 1,
+    B 4, Smax 2048, 1400 valid slots, causal at offset 1499), a 64-token
+    prefill over it, the int8 cache, and the serving decode chunk's call
+    (B 8, Smax 4096, mask-bounded, SERVING_LENS); SDPA over the slice up to
+    the longest row with the boolean mask. A CUDA graph capture of one call
+    counts its device operations, a profiler window of ten calls its
+    kernels: more than one a call fails."""
+    import torch
+    import torch.nn.functional as F
+
+    from gritlm_tpu_torch.models.transformer import quantize_kv
+    from gritlm_tpu_torch.ops import decode_attention as da
+    from gritlm_tpu_torch.ops.flash_attention import keep_mask
+
+    mask_d = (torch.arange(2048, device=dev) < 1500).int()[None].repeat(4, 1)
+    mask_d[:, 600:700] = 0  # an interior hole, as in phase 2
+    shapes = (("Sq1 B4 Smax2048 1400 valid", 1, mask_d, True, 1499, False),
+              ("Sq64 B4 Smax2048 1400 valid", 64, mask_d, True, 1436, False),
+              ("int8 cache Sq1 B4 Smax2048 1400 valid", 1, mask_d, True, 1499, True),
+              ("serving B8 Smax4096 mask-bounded", 1, serving_mask(dev), False, 0, False))
+    for label, Sq, mask, causal, offset, quant in shapes:
+        B, Smax = mask.shape
+        keep = keep_mask(mask, Sq, Smax, causal=causal, sliding_window=None, offset=offset,
+                         device=dev).expand(B, Sq, Smax)
+        slots = int(keep.any(1).sum())  # slots some query of the row sees: K/V to read
+        per_slot = Hkv * (Dh + 2) if quant else Hkv * Dh * 2  # int8: a bf16 scale a head
+        bms, by = bound(4.0 * int(keep.sum()) * H * Dh,
+                        slots * per_slot * 2 + nbytes(mask) + 2 * B * Sq * H * Dh * 2)
+        L = cold_copies(slots * per_slot * 2)
+        k_all, v_all = randn(L, B, Smax, Hkv * Dh), randn(L, B, Smax, Hkv * Dh)
+        scales = {}
+        if quant:
+            k8, ks = quantize_kv(k_all.view(L * B, Smax, Hkv, Dh))
+            v8, vs = quantize_kv(v_all.view(L * B, Smax, Hkv, Dh))
+            k_all, v_all = k8.view(L, B, Smax, -1), v8.view(L, B, Smax, -1)
+            scales = {"k_scale": ks.view(L, B, Smax, Hkv).transpose(2, 3).contiguous(),
+                      "v_scale": vs.view(L, B, Smax, Hkv).transpose(2, 3).contiguous()}
+        q = randn(B, Sq, H, Dh)
+        kw = dict(causal=causal, offset=offset, num_kv_heads=Hkv, **scales)
+
+        def call(layer, q=q, k_all=k_all, v_all=v_all, mask=mask, kw=kw):
+            return da.flash_decode(q, k_all, v_all, mask, layer=layer, **kw)
+
+        got = call(L - 1)
+        torch.cuda.synchronize()
+        err = float((got.float() - da.flash_decode_plain(q, k_all, v_all, mask, layer=L - 1,
+                                                         **kw).float()).abs().max())
+        if err > ATTN_ATOL or not torch.isfinite(got).all():
+            fail(f"flash_decode [{label}, {L} layers] disagrees with its plain version: {err}")
+        ms = graph_ms(lambda: [call(layer) for layer in range(L)]) / L
+        library_ms = None  # no single PyTorch call computes the int8 variant
+        if not quant:
+            hi = int(keep.any(1).any(0).nonzero().max()) + 1  # the slice up to the longest row
+            qt, am = q.transpose(1, 2), keep[:, None, :, :hi]
+            views = [(k_all[layer, :, :hi].view(B, hi, Hkv, Dh).transpose(1, 2),
+                      v_all[layer, :, :hi].view(B, hi, Hkv, Dh).transpose(1, 2))
+                     for layer in range(L)]
+            library_ms = graph_ms(lambda: [F.scaled_dot_product_attention(
+                qt, lk, lv, attn_mask=am, enable_gqa=True) for lk, lv in views]) / L
+        n_kernels, n_ops = kernels_per_call(lambda: call(0))
+        profiled = profiled_kernels_per_call(lambda: call(0))
+        line = (f"time flash_decode [{label}]: device {ms:.4f} ms ({bms / ms * 100:.1f}% of "
+                f"bound {bms:.4f} ms, {by}), library "
+                f"{'none' if library_ms is None else f'{library_ms:.4f}'} (SDPA over the "
+                f"sliced cache); CUDA graph replays over {L} layers (cold); device kernels a "
+                f"call: {n_kernels} ({n_ops} device operations in its captured graph; a "
+                f"profiler window: {'no device events' if profiled is None else f'{profiled:g}'})")
+        if "flash_decode" not in times:  # the table's row
+            plain_ms = time_ms(lambda: da.flash_decode_plain(q, k_all, v_all, mask, layer=0,
+                                                             **kw), reps=10)[0]
+            times["flash_decode"] = (ms, plain_ms, library_ms, bms, by)
+            line += f"; plain {plain_ms:.4f}"
+        print(line, flush=True)
+        if n_ops > 1 or (profiled or 0) > 1:
+            fail(f"flash_decode [{label}]: {n_ops} device operations a call (profiler: "
+                 f"{profiled}), not one kernel")
+        del k_all, v_all, scales
+        torch.cuda.empty_cache()
+
+
 def k8_cases(dev, randn, cases, B=8, H=32, Hkv=8, Dh=128, page=256, max_len=4096) -> None:
     """K8 at the serving shape (Mistral-7B heads, B 8, page 256, a 4096-slot
     logical width): ragged rows, a hole, a page shared by two rows, bf16 and
@@ -730,7 +900,7 @@ def k8_cases(dev, randn, cases, B=8, H=32, Hkv=8, Dh=128, page=256, max_len=4096
     from gritlm_tpu_torch.ops import decode_attention, paged_attention
 
     L, maxp = 2, max_len // page
-    lens = torch.tensor([37, 1900, 256, 700, 1333, 3000, 1, 512], device=dev)
+    lens = torch.tensor(SERVING_LENS, device=dev)
     need = (lens + page - 1) // page
     P = int(need.sum()) + 1  # page 0: scratch
     pt = torch.zeros((B, maxp), dtype=torch.int32, device=dev)
@@ -741,8 +911,7 @@ def k8_cases(dev, randn, cases, B=8, H=32, Hkv=8, Dh=128, page=256, max_len=4096
         pt[b, :n] = perm[at:at + n].to(dev)
         at += n
     pt[4, 0] = pt[3, 0]  # a prefix page shared by two rows
-    mask = (torch.arange(max_len, device=dev)[None] < lens[:, None]).int()
-    mask[1, 600:700] = 0  # a hole
+    mask = serving_mask(dev, max_len)
     k_pages, v_pages = randn(L, P, page, Hkv * Dh), randn(L, P, page, Hkv * Dh)
     k8, ks = quantize_kv(k_pages.view(L * P, page, Hkv, Dh))
     v8, vs = quantize_kv(v_pages.view(L * P, page, Hkv, Dh))
@@ -1267,8 +1436,9 @@ QUANT_RTOL = 5e-3  # relative Frobenius error against the plain version (the JAX
 
 def quant_checks(dev, max_err) -> None:
     """K6 and K7 against their plain versions on the card at Mistral-7B's
-    projections: M 1, 3, 8, 16 (and 256, 512 for K6), a layer's view of a
-    3-layer stack read in place, and geometries the kernels reject."""
+    projections: M 1, 3, 8, 16 (and 256, 512 for K6; 17, 64, 128 for K7), a
+    layer's view of a 3-layer stack read in place, and geometries the kernels
+    reject."""
     import torch
 
     from gritlm_tpu_torch.models.transformer import _unstack
@@ -1283,7 +1453,7 @@ def quant_checks(dev, max_err) -> None:
     kinds = {"w8a16_matmul": (quant.quantize_kernel, qm.w8a16_matmul, qm.w8a16_matmul_plain,
                               (1, 3, 8, 16, 256, 512)),
              "w4a16_matmul": (quant.quantize_kernel_int4, qm.w4a16_matmul,
-                              qm.w4a16_matmul_plain, (1, 3, 8, 16))}
+                              qm.w4a16_matmul_plain, (1, 3, 8, 16, 17, 64, 128))}
     for name, (quantize, kernel, plain, rows) in kinds.items():
         for K, N in QUANT_SHAPES:
             node = quantize(randn(K, N))
@@ -1525,38 +1695,41 @@ def quant_phase(model, enc, dense_step, reset_counts, read_counts, path_launches
     if total.get("w8a16_matmul", 0) == 0 or total.get("w4a16_matmul", 0) == 0:
         fail("the quantized paths did not go through K6 and K7")
 
-    # ---- K6 and K7 at the decode rows M 8 over every projection shape; the
-    # gate/up shape (4096 -> 14336) is the kernel table's. Times from CUDA
-    # graph replays (graph_ms), over enough copies of the weights to keep
-    # them out of L2, as in a decode step, where 31 other layers pass between
-    # two reads of a layer's weights.
+    # ---- K6 and K7 at the decode rows M 8 over every projection shape (the
+    # gate/up shape, 4096 -> 14336, is the kernel table's), and at gate/up
+    # also M 1 and 16 (K6, K7) and the prefill-chunk rows 64 and 128 (K7).
+    # Times from CUDA graph replays (graph_ms), over enough copies of the
+    # weights to keep them out of L2, as in a decode step, where 31 other
+    # layers pass between two reads of a layer's weights.
     gen = torch.Generator(device=dev).manual_seed(12)
-    M = 8
     for K, N in QUANT_SHAPES:
+        gate_up = (K, N) == (4096, 14336)
         w = torch.randn((K, N), generator=gen, device=dev).to(torch.bfloat16)
-        x = torch.randn((M, K), generator=gen, device=dev).to(torch.bfloat16)
-        for name, node, plain, kern in (
+        for name, node, plain, kern, rows in (
                 ("w8a16_matmul", quant.quantize_kernel(w), qm.w8a16_matmul_plain,
-                 qm.w8a16_matmul),
+                 qm.w8a16_matmul, (8, 1, 16) if gate_up else (8,)),
                 ("w4a16_matmul", quant.quantize_kernel_int4(w), qm.w4a16_matmul_plain,
-                 qm.w4a16_matmul)):
+                 qm.w4a16_matmul, (8, 1, 16, 64, 128) if gate_up else (8,))):
             dense = quant.dequantize_kernel(node, torch.bfloat16)  # what quantization replaces
             nodes = [node] + [{k: v.clone() for k, v in node.items()}
                               for _ in range(cold_copies(nbytes(*node.values())) - 1)]
             denses = [dense] + [dense.clone() for _ in range(cold_copies(nbytes(dense)) - 1)]
-            ms = graph_ms(lambda: [kern(x, nd) for nd in nodes]) / len(nodes)
-            library_ms = graph_ms(lambda: [torch.matmul(x, d) for d in denses]) / len(denses)
-            bms, by = bound(2.0 * M * K * N, nbytes(*node.values(), x) + M * N * 2)
-            line = (f"time {name} [M{M} K{K} N{N}]: device {ms:.4f} ms ({bms / ms * 100:.1f}% "
-                    f"of bound {bms:.4f} ms, {by}), library {library_ms:.4f} (torch.matmul "
-                    f"against the dequantized bf16 weight); CUDA graph replays over "
-                    f"{len(nodes)} / {len(denses)} weight copies")
-            if (K, N) == (4096, 14336):
-                plain_ms = graph_ms(lambda: plain(x, node), n=10)
-                times[name] = (ms, plain_ms, library_ms, bms, by)
-                line += f"; plain {plain_ms:.4f}"
-            print(line, flush=True)
-            if (K, N) == (4096, 14336):
+            for M in rows:
+                x = torch.randn((M, K), generator=gen, device=dev).to(torch.bfloat16)
+                ms = graph_ms(lambda: [kern(x, nd) for nd in nodes]) / len(nodes)
+                library_ms = graph_ms(lambda: [torch.matmul(x, d) for d in denses]) / len(denses)
+                bms, by = bound(2.0 * M * K * N, nbytes(*node.values(), x) + M * N * 2)
+                line = (f"time {name} [M{M} K{K} N{N}]: device {ms:.4f} ms ({bms / ms * 100:.1f}"
+                        f"% of bound {bms:.4f} ms, {by}), library {library_ms:.4f} (torch.matmul "
+                        f"against the dequantized bf16 weight); CUDA graph replays over "
+                        f"{len(nodes)} / {len(denses)} weight copies")
+                if gate_up and M == 8:
+                    plain_ms = graph_ms(lambda: plain(x, node), n=10)
+                    times[name] = (ms, plain_ms, library_ms, bms, by)
+                    line += f"; plain {plain_ms:.4f}"
+                print(line, flush=True)
+                if not (gate_up and M == 8):
+                    continue
                 try:  # PyTorch's own quantized-weight products: yardsticks, never used by the port
                     if name == "w8a16_matmul":
                         w8t, s8 = node["q8"].t().contiguous(), node["scale"][0].to(torch.bfloat16)

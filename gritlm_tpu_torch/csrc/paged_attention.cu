@@ -2,12 +2,12 @@
 // one layer of a shared page pool [L, P, page, Kv*Dh], read in place through a
 // page table [B, maxp]: bf16 pages, or int8 pages with bf16 scales
 // [L, P, Kv, page] (template flag). The design note and the plain version are
-// in gritlm_tpu_torch/ops/paged_attention.py; the split-KV pieces it shares
-// with K3 are in split_decode.cuh.
+// in gritlm_tpu_torch/ops/paged_attention.py; its split-KV pieces are in
+// split_decode.cuh.
 //
 // Three kernels on the caller's stream: row_bound_kernel reduces each row's
 // logical mask to its page count (capped by the causal bound), on the device;
-// paged_split_kernel runs K3's split-KV design with each 32-slot tile read
+// paged_split_kernel runs the split-KV design with each 32-slot tile read
 // from page page_table[b, slot / page], and a split past its row's page count
 // exits at once; combine_kernel merges the splits.
 #include "split_decode.cuh"

@@ -1,7 +1,7 @@
-// Split-KV decode attention pieces shared by K3 (decode_attention.cu: a dense
-// cache [L, B, Smax, Kv*Dh]) and K8 (paged_attention.cu: a page pool
-// [L, P, page, Kv*Dh] read through a page table). The design notes are in
-// gritlm_tpu_torch/ops/decode_attention.py and ops/paged_attention.py.
+// Split-KV decode attention pieces of K8 (paged_attention.cu: a page pool
+// [L, P, page, Kv*Dh] read through a page table), K3's design before it
+// moved to tensor cores (decode_mma.cuh). The design note is in
+// gritlm_tpu_torch/ops/paged_attention.py.
 //
 // The unit of work is one warp, owning RW query rows of one (batch row, kv
 // head) over one split of the slots. A query row is (sq, g): position sq of

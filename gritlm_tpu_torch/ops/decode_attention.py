@@ -11,25 +11,45 @@ K/V read once; a bf16 cache, or an int8 cache with bf16 slot-minor scales
 `[L, B, Kv, Smax]` dequantized inside the kernel (K on the scores, V
 through the probabilities, as in the JAX kernel).
 
-Kernel: `csrc/decode_attention.cu`, CUDA C++ for sm_90a, bound with ctypes.
-What bounds it: the bytes of the valid K/V slots; a decode step does about
-one multiply-add per cache byte read. The TPU kernel ran one grid cell per
-batch row; at B <= 4 that would leave most of the H100's SMs idle, so the
-kernel splits the slots across warps (flash-decoding) and a second kernel
-combines the partial (max, sum, output) of the splits. The split count is
-worked out from the batch, head and SM counts. Per 32-slot tile a warp reads
-the mask first and skips tiles with no valid slot, and copies only the valid
-slots' rows (cp.async), so the bytes read follow the valid cache length, not
-Smax; the causal bound and the window cut the slot range the same way.
-Scores and P.V run on the CUDA cores in fp32 (the product is small at
-Sq = 1). The int8 cache is the same kernel instantiated for int8 rows: it
-halves the bytes a step reads.
+Kernel: `csrc/decode_attention.cu` with the tile pieces in
+`csrc/decode_mma.cuh`, CUDA C++ for sm_90a, bound with ctypes. What bounds
+it: the bytes of the valid K/V slots (about one multiply-add per cache byte
+at Sq 1), and at the serving and generate shapes, where a call reads a few
+MB, latency: the time to find the valid slots, the first bytes' round trip
+and the merge of the splits. The TPU kernel ran one grid cell per batch row;
+here a call is one launch over (batch row, kv head, 8 query rows) units
+times `n_split` blocks of 4 warps:
+  - each block scans its row's mask over the slots its rows can see (the
+    causal bound `offset + Sq`, the window) into tile bits, and cuts the
+    unit's range from the first to the last valid slot into as many of the
+    `n_split` parts as give each warp MIN_TILES_PER_WARP tiles
+    (`used_splits`; the blocks of the other parts exit at once), so a
+    serving row of 300 valid slots in a 4096-slot pool is split by its 300
+    slots and no part covers slots past the causal bound; the wrapper
+    needs no host sync for it;
+  - each warp streams its run of 16-slot tiles through a private cp.async
+    ring of 3 stages, copying only valid slots' rows and skipping tiles
+    with none;
+  - scores S^T = K Q^T and O^T += V^T P^T on tensor cores (mma.m16n8k16):
+    the slots on the MMA's 16-row side, the GQA group's query rows on its
+    8-wide side (4 rows at Sq 1 and group 4); Q stays in registers; the
+    int8 cache becomes bf16 in registers, exactly;
+  - the block merges its warps in shared memory; one split writes the
+    output, otherwise the block that finishes a unit last merges the
+    splits' partials in split order (bit-equal reruns).
+`decode_plan` picks n_split from the unit count, the SM count and the
+host-known slot range; `split_tiles` is the kernel's cut of a unit's tiles.
 
 Serving rows reach this kernel through the transformer's per-row path
 (`forward(row_offsets=...)`): the step is S = 1, each row writes its K/V at
 its own slot before attention, and the kernel runs mask-bounded (causal
 False, offset 0, no window), since a row's mask covers exactly the slots it
-has written. The split-KV pieces are shared with K8 (`csrc/split_decode.cuh`).
+has written.
+
+K8 (`paged_attention.py`) still runs the earlier split-KV design
+(`csrc/split_decode.cuh`, planned by `split_plan` below from the logical
+width); `decode_mma.cuh` keeps its pieces free of the dense addressing so
+that K8 can take them.
 
 Differences from the TPU kernel: the `offset` is one Python int for all
 rows; the per-row-offset variant for Sq > 1 (the speculative verify chunk)
@@ -45,8 +65,17 @@ import torch
 from gritlm_tpu_torch.ops import _build
 from gritlm_tpu_torch.ops.flash_attention import HEAD_DIM, attend_plain, keep_mask
 
-ROWS_PER_WARP = 4  # RW in csrc/decode_attention.cu
-TILE = 32  # TK in csrc/decode_attention.cu
+# K3 (csrc/decode_attention.cu, decode_mma.cuh)
+SLOT_TILE = 16  # TK: slots a tile
+ROW_GROUP = 8  # ROWS: query rows a unit (a warp's MMA columns)
+DECODE_WARPS = 4  # warps a block, each on its own run of the block's tiles
+BLOCKS_PER_SM = {False: 2, True: 4}  # bf16 / int8 cache: 104 KB / 55 KB of rings a block
+MIN_TILES_PER_WARP = 4  # MIN_TILES: a split's least tiles a warp
+MAX_SPLITS = 32
+
+# K8's split-KV plan (csrc/split_decode.cuh, paged_attention.cu)
+ROWS_PER_WARP = 4  # RW in csrc/split_decode.cuh
+TILE = 32  # TK in csrc/split_decode.cuh
 WARPS_PER_SM = 8  # split target: enough warps in flight to cover memory latency
 
 
@@ -80,7 +109,7 @@ def _fn():
     fn = _build.load("decode_attention").gritlm_flash_decode
     if fn.argtypes is None:
         P, I32, F32 = _build.P, _build.I32, _build.F32
-        fn.argtypes = [P] * 9 + [I32] * 11 + [F32, P]
+        fn.argtypes = [P] * 10 + [I32] * 11 + [F32, P]
         fn.restype = I32
     return fn
 
@@ -90,14 +119,66 @@ def _cdiv(a: int, b: int) -> int:
 
 
 def split_plan(B: int, Sq: int, H: int, Hkv: int, Smax: int, sms: int):
-    """(n_split, split_len, rows): enough warps to give each of `sms` SMs
-    WARPS_PER_SM, each split a whole number of 32-slot tiles; rows = query
-    rows per kv head, padded to whole warps."""
+    """K8's plan: (n_split, split_len, rows): enough warps to give each of
+    `sms` SMs WARPS_PER_SM, each split a whole number of 32-slot tiles;
+    rows = query rows per kv head, padded to whole warps."""
     rows = _cdiv(Sq * (H // Hkv), ROWS_PER_WARP) * ROWS_PER_WARP
     warps = B * Hkv * rows // ROWS_PER_WARP
     n_split = min(_cdiv(Smax, TILE), _cdiv(WARPS_PER_SM * sms, warps))
     split_len = _cdiv(_cdiv(Smax, n_split), TILE) * TILE
     return _cdiv(Smax, split_len), split_len, rows
+
+
+def slot_range(first_sq: int, last_sq: int, Smax: int, *, causal: bool, offset: int,
+               window: Optional[int]):
+    """[lo, hi): the slots that query positions first_sq .. last_sq can see
+    before the mask: below the causal bound and inside the window (the
+    kernel's bound for one unit's rows; the whole call's with 0, Sq - 1)."""
+    hi = min(Smax, offset + last_sq + 1) if causal else Smax
+    lo = max(0, offset + first_sq - window + 1) if window else 0
+    return lo, hi
+
+
+def split_tiles(n: int, s: int, parts: int):
+    """[begin, end) of part s when n tiles are cut into `parts` (the
+    kernel's part_begin: a unit's tiles into splits, a split's into warps)."""
+    return n * s // parts, n * (s + 1) // parts
+
+
+def used_splits(n_tiles: int, n_split: int) -> int:
+    """The splits the kernel uses for a unit with n_tiles valid tiles, of
+    the n_split it was launched with: at least MIN_TILES_PER_WARP tiles a
+    warp each (the kernel's used_splits; the other blocks exit at once)."""
+    return max(1, min(n_split, n_tiles // (DECODE_WARPS * MIN_TILES_PER_WARP)))
+
+
+def decode_plan(B: int, Sq: int, H: int, Hkv: int, Smax: int, sms: int, *, causal: bool,
+                offset: int = 0, window: Optional[int] = None, quant: bool = False):
+    """(n_split, n_rg) of a K3 launch: n_rg groups of ROW_GROUP query rows a
+    (batch row, kv head), and as many splits as fill BLOCKS_PER_SM blocks an
+    SM in one wave, but no more than give each warp MIN_TILES_PER_WARP of
+    the tiles the host can bound (the causal bound, the window; Smax for a
+    mask-bounded call, whose valid range only the kernel sees), and at most
+    MAX_SPLITS. The kernel uses `used_splits` of them a unit, by the valid
+    tiles it finds."""
+    n_rg = _cdiv(Sq * (H // Hkv), ROW_GROUP)
+    units = B * Hkv * n_rg
+    lo, hi = slot_range(0, Sq - 1, Smax, causal=causal, offset=offset, window=window)
+    tiles = _cdiv(hi, SLOT_TILE) - lo // SLOT_TILE if hi > lo else 0
+    n_split = min(BLOCKS_PER_SM[quant] * sms // units,
+                  _cdiv(tiles, DECODE_WARPS * MIN_TILES_PER_WARP), MAX_SPLITS)
+    return max(1, n_split), n_rg
+
+
+def partials(n_split: int, units: int, device):
+    """The split partials a launch writes when n_split > 1: (max, sum)
+    [n_split, units, ROW_GROUP, 2] and the unnormalised output rows
+    [n_split, units, ROW_GROUP, HEAD_DIM], fp32; None, None for one split."""
+    if n_split == 1:
+        return None, None
+    return (torch.empty((n_split, units, ROW_GROUP, 2), dtype=torch.float32, device=device),
+            torch.empty((n_split, units, ROW_GROUP, HEAD_DIM), dtype=torch.float32,
+                        device=device))
 
 
 def flash_decode(
@@ -145,20 +226,24 @@ def flash_decode(
     if not isinstance(offset, int) or not isinstance(layer, int) or not 0 <= layer < L:
         raise ValueError("flash_decode: offset and layer must be Python ints, 0 <= layer < L")
     if padding_mask is None:
-        mask = torch.ones((B, Smax), dtype=torch.int32, device=q.device)
+        mask = None  # the kernel takes every slot as valid
     else:
         if tuple(padding_mask.shape) != (B, Smax):
             raise ValueError(f"flash_decode: mask {tuple(padding_mask.shape)} != {(B, Smax)}")
         mask = padding_mask.to(torch.int32).contiguous()
-    n_split, split_len, rows = split_plan(B, Sq, H, hkv, Smax, _build.sm_count(q.device))
-    part_ml = torch.empty((n_split, B, hkv, rows, 2), dtype=torch.float32, device=q.device)
-    part_acc = torch.empty((n_split, B, hkv, rows, Dh), dtype=torch.float32, device=q.device)
+    n_split, n_rg = decode_plan(B, Sq, H, hkv, Smax, _build.sm_count(q.device), causal=causal,
+                                offset=offset, window=sliding_window, quant=quant)
+    units = B * hkv * n_rg
+    part_ml, part_o = partials(n_split, units, q.device)
+    counters = _build.counters(q.device, units) if n_split > 1 else None
     out = torch.empty_like(q)
-    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            k_scale.data_ptr() if quant else None, v_scale.data_ptr() if quant else None,
-            mask.data_ptr(), part_ml.data_ptr(),
-            part_acc.data_ptr(), out.data_ptr(), B, Sq, H, hkv, Smax, layer, n_split,
-            split_len, int(causal), int(sliding_window or 0), offset, Dh ** -0.5,
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), ptr(k_scale), ptr(v_scale), ptr(mask),
+            ptr(part_ml), ptr(part_o), ptr(counters), out.data_ptr(), B, Sq, H, hkv, Smax,
+            layer, n_split, n_rg, int(causal), int(sliding_window or 0), offset, Dh ** -0.5,
             _build.stream_of(q))
     _build.check(rc, "flash_decode")
     flash_decode.launches += 1

@@ -15,8 +15,8 @@ for V. Rows with an empty mask give 0.
 Kernel: `csrc/paged_attention.cu`, CUDA C++ for sm_90a, bound with ctypes.
 What bounds it: the bytes of each row's valid K/V pages (and their scales
 for int8); a step does about one multiply-add per byte it reads. The design
-is K3's split-KV flash decoding (`csrc/split_decode.cuh`, shared with K3):
-warps over 32-slot tiles, a mask ballot that skips tiles with no valid slot
+is split-KV flash decoding (`csrc/split_decode.cuh`, K3's design before K3
+moved to tensor cores in `csrc/decode_mma.cuh`): warps over 32-slot tiles, a mask ballot that skips tiles with no valid slot
 before any K/V byte is read, cp.async of only the valid rows, and a combine
 pass. Two things differ. A tile's rows are found through the page table (a
 32-slot tile never straddles a page, since page % 32 == 0). And a first
@@ -24,7 +24,7 @@ small kernel reduces each row's mask to its page count on the device (no
 host sync); a split past its row's count exits at once, so the bytes read
 follow each row's own length, not the pool's max_len. The TPU kernel ran
 one grid cell per row and streamed whole pages; the split count here is
-planned from the logical width, as for K3.
+planned from the logical width (`decode_attention.split_plan`).
 
 Differences from the TPU kernel: Dh must be 128; `page` any multiple of 32
 (the JAX kernel takes 128, 256 and 512 and sends other geometries to a

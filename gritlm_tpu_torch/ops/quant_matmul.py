@@ -11,25 +11,41 @@ half-split packed uint8 [K/2, N] and fp32 group scales [K/g, N], where
 deq = (nibble - 8) * scale in fp32, rounded to bf16 per weight (the
 reference's rounding), fp32 sums, bf16 out. Layouts: training/quant.py.
 
-Kernel: `csrc/quant_matmul.cu`, CUDA C++ for sm_90a (not Triton: a
-tensor-core product with its dequantization fused into the load), bound
-with ctypes. What bounds it: at decode rows (M <= 16) the bytes, one read
-of the weight (1 byte a weight for K6; 0.5 plus 0.125 of scales for K7),
-so the kernel's job is to keep the weight stream flowing on every SM. The
-design: blocks of 4 warps own a BM x 128 output tile (BM 16 up to 16 rows,
-else 64) and walk the contracting axis in stages of 128 rows, the raw
-weight bytes copied by cp.async in a ring of stages, turned into a bf16
-tile in shared memory and fed to bf16 wmma with fp32 accumulators. At
-decode a projection has few output tiles (wk/wv: 8 of them), so the
-contracting axis is split across blocks (`plan` picks the split count from
-the SM count, in whole waves of two blocks a SM); the block that finishes
-a tile last adds the tile's fp32 partial sums in split order, scales (K6)
-and rounds, so a call is one launch. The int8 and int4 values become bf16 by byte permutes and fp32
-adds: the conversion instructions run at a fraction of the ALU rate and
-bounded a first version at a third of its byte bound. The TPU kernels held the layer
-stack and a prefetched layer index so that the scan never copied a layer;
-here each layer's weights are a view of the stack (`models/transformer.
-_unstack`) whose pointer goes to the kernel as it is.
+Kernels: `csrc/quant_matmul.cu`, CUDA C++ for sm_90a (not Triton: tensor-core
+products with the dequantization fused into the operand), bound with
+ctypes. What bounds them: at decode rows (M <= 16) the bytes, one read of
+the weight (1 byte a weight for K6; 0.5 plus 0.125 of scales for K7), so a
+kernel's job is to keep the weight stream flowing on every SM, and to spend
+few instructions a weight doing it.
+
+K7 runs `w4_rows_kernel`: y^T = W^T x^T with `mma.sync.m16n8k16`, so
+the weight is the A operand (output columns on the MMA's 16-row side) and
+decode rows fill its 8-wide side with no padding (a block takes 8 rows up
+to M 8, else 16, and more rows take more blocks). Each lane turns whole
+16-byte runs of two packed rows into A fragments in registers (byte
+permutes, an fp32 add and multiply a weight, one `cvt.rn.bf16x2` a pair),
+with no bf16 tile in shared memory and no block barrier in the main loop:
+each of a block's 4 warps streams its own run of the contracting axis
+through a private cp.async ring of 4 raw-byte stages (16 packed rows each)
+and loads its group's scales once a group; the block that owns 128 columns
+sums its warps' partials in shared memory. At decode a projection has few
+column tiles (wk/wv: 8 of them), so the contracting axis is also split
+across blocks (`plan_w4`: about two blocks a SM); the block that
+finishes a tile last adds the tile's fp32 partial sums in split order and
+rounds, so a call is one launch and reruns are bit-equal. At 64 and 128
+rows this design also beat the staged one below on the card (PERF.md), so
+it is K7's only kernel.
+
+K6 runs the staged template: blocks of 4 warps own a BM x 128 output tile
+(BM 16 up to 16 rows, else 64) and walk the contracting axis in stages of
+128 rows, the raw int8 bytes copied by cp.async in a ring of stages,
+turned into a bf16 tile in shared memory and fed to bf16 wmma with fp32
+accumulators; split-K as above (`plan`). The int8 values become bf16 by
+byte permutes and fp32 adds: the conversion instructions run at a fraction
+of the ALU rate. The TPU kernels held the layer stack and a prefetched
+layer index so that the scan never copied a layer; here each layer's
+weights are a view of the stack (`models/transformer._unstack`) whose
+pointer goes to the kernel as it is.
 
 Routing, as in the JAX package: up to MAX_KERNEL_ROWS8 (K6) or
 MAX_KERNEL_ROWS (K7) rows, a CUDA tensor launches the kernel or raises and
@@ -41,8 +57,6 @@ those row counts (`_reference8`, `_reference`).
 from __future__ import annotations
 
 import math
-from typing import Dict
-
 import torch
 
 from gritlm_tpu_torch.ops import _build
@@ -54,6 +68,10 @@ BN = 128  # output columns per block (csrc/quant_matmul.cu)
 DK = 128  # unpacked contracting rows per stage
 BLOCKS_PER_SM = 2  # shared memory (85-100 KB a block) allows two a SM
 MAX_SPLITS = 32
+W4_STAGE = 16  # packed rows a stage of w4_rows_kernel
+W4_WARPS = 4  # warps a block, each on its own run of the block's stages
+W4_SPLIT_BLOCKS_PER_SM = 2  # split target, of the three a SM holds (57-64 KB of rings a block)
+W4_MIN_STAGES = 2  # a warp's least stages in a split
 
 
 def plan(M: int, stages: int, N: int, sms: int):
@@ -74,6 +92,23 @@ def plan(M: int, stages: int, N: int, sms: int):
         if best is None or cost < best[0]:
             best = (cost, splits, kper)
     return bm, best[1], best[2]
+
+
+def plan_w4(M: int, Kp: int, N: int, sms: int):
+    """(bm, splits, stages per split) for K7 with M rows, Kp packed rows and
+    N columns: bm 8 (M <= 8) or 16 rows a block, stages of W4_STAGE packed
+    rows (Kp is a multiple of 16: the group divides K/2). Splits give about
+    W4_SPLIT_BLOCKS_PER_SM blocks an SM over the column tiles (the blocks of
+    more rows read the same weight tiles, mostly from L2), but each warp
+    W4_MIN_STAGES stages or more: a split's fix-up costs about what a warp's
+    stage does, and measured on the card (PERF.md) this rule picked the
+    fastest split count at every projection."""
+    bm = 8 if M <= 8 else 16
+    stages = Kp // W4_STAGE
+    splits = max(1, min(W4_SPLIT_BLOCKS_PER_SM * sms // -(-N // BN),
+                        stages // (W4_WARPS * W4_MIN_STAGES), MAX_SPLITS))
+    kper = -(-stages // splits)
+    return bm, -(-stages // kper), kper
 
 
 def _rows(x: torch.Tensor) -> int:
@@ -105,29 +140,14 @@ def _fn(name: str):
     return fn
 
 
-_tile_counters: Dict[torch.device, torch.Tensor] = {}
-
-
-def _counters(device: torch.device, tiles: int) -> torch.Tensor:
-    """The split fix-up's per-tile arrival counters on `device`: zero
-    between launches (the last block of a tile resets its counter), so one
-    buffer serves every launch on the device, as long as launches do not
-    overlap (the port launches on one stream); grown on demand."""
-    buf = _tile_counters.get(device)
-    if buf is None or buf.numel() < tiles:
-        buf = torch.zeros(max(tiles, 4096), dtype=torch.int32, device=device)
-        _tile_counters[device] = buf
-    return buf
-
-
-def _launch(fn, what: str, x2, q, scale, M, K, N, stages, *group):
-    """Plan the grid, allocate the output and the split partials, launch."""
+def _launch(fn, what: str, x2, q, scale, M, K, N, planned, *group):
+    """Allocate the output and the split partials of a plan, launch."""
     out = torch.empty((M, N), dtype=torch.bfloat16, device=x2.device)
-    bm, splits, kper = plan(M, stages, N, _build.sm_count(x2.device))
+    bm, splits, kper = planned
     part = counters = None
     if splits > 1:
         part = torch.empty((splits, M, N), dtype=torch.float32, device=x2.device)
-        counters = _counters(x2.device, -(-N // BN) * -(-M // bm))
+        counters = _build.counters(x2.device, -(-N // BN) * -(-M // bm))
     rc = fn(x2.data_ptr(), q.data_ptr(), scale.data_ptr(), out.data_ptr(),
             None if part is None else part.data_ptr(),
             None if counters is None else counters.data_ptr(), M, K, N, *group, bm, splits,
@@ -177,7 +197,8 @@ def w8a16_matmul(x: torch.Tensor, node: dict) -> torch.Tensor:
     x2 = _x_rows(x, K, "w8a16_matmul")
     if M == 0:
         return torch.empty((*x.shape[:-1], N), dtype=torch.bfloat16, device=x.device)
-    out = _launch(fn, "w8a16_matmul", x2, q8, scale, M, K, N, -(-K // DK))
+    out = _launch(fn, "w8a16_matmul", x2, q8, scale, M, K, N,
+                  plan(M, -(-K // DK), N, _build.sm_count(x.device)))
     w8a16_matmul.launches += 1
     return out.reshape(*x.shape[:-1], N)
 
@@ -210,7 +231,8 @@ def w4a16_matmul(x: torch.Tensor, node: dict) -> torch.Tensor:
     x2 = _x_rows(x, K, "w4a16_matmul")
     if M == 0:
         return torch.empty((*x.shape[:-1], N), dtype=torch.bfloat16, device=x.device)
-    out = _launch(fn, "w4a16_matmul", x2, q4, scale, M, K, N, -(-Kp // (DK // 2)), g)
+    out = _launch(fn, "w4a16_matmul", x2, q4, scale, M, K, N,
+                  plan_w4(M, Kp, N, _build.sm_count(x.device)), g)
     w4a16_matmul.launches += 1
     return out.reshape(*x.shape[:-1], N)
 

@@ -162,6 +162,83 @@ def test_flash_decode_kernel(cuda, Sq, offset, window, quant):
     assert torch.count_nonzero(got[2]) == 0
 
 
+def _int8_cache(k_all, v_all, Hkv):
+    """The bf16 cache as int8 with slot-minor bf16 scales [L, B, Kv, Smax]."""
+    from gritlm_tpu_torch.models.transformer import quantize_kv
+
+    L, B, Smax, _ = k_all.shape
+    k8, ks = quantize_kv(k_all.view(L * B, Smax, Hkv, 128))
+    v8, vs = quantize_kv(v_all.view(L * B, Smax, Hkv, 128))
+    return k8.view(L, B, Smax, -1), v8.view(L, B, Smax, -1), {
+        "k_scale": ks.view(L, B, Smax, Hkv).transpose(2, 3).contiguous(),
+        "v_scale": vs.view(L, B, Smax, Hkv).transpose(2, 3).contiguous()}
+
+
+def _k3_against_plain(q, k_all, v_all, mask, **kw):
+    """K3 against its plain version, one launch a call, a rerun bit-equal;
+    returns the kernel's output."""
+    before = decode_attention.flash_decode.launches
+    got = decode_attention.flash_decode(q, k_all, v_all, mask, **kw)
+    again = decode_attention.flash_decode(q, k_all, v_all, mask, **kw)
+    torch.cuda.synchronize()
+    want = decode_attention.flash_decode_plain(q, k_all, v_all, mask, **kw)
+    assert decode_attention.flash_decode.launches == before + 2
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got.float(), want.float(), atol=ATTN_ATOL, rtol=0)
+    assert torch.equal(got, again)
+    return got
+
+
+@pytest.mark.parametrize("quant", [False, True])
+def test_flash_decode_kernel_serving_shape(cuda, quant):
+    """The serving decode chunk's call: B 8, Smax 4096, mask-bounded
+    (causal False, offset 0), rows of 0, 1, 31, 33 and 4096 valid slots and
+    three with interior holes; the empty row gives zeros."""
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    L, B, Smax, H, Hkv = 2, 8, 4096, 32, 8
+    k_all = _randn(gen, L, B, Smax, Hkv * 128, device=cuda)
+    v_all = _randn(gen, L, B, Smax, Hkv * 128, device=cuda)
+    scales = {}
+    if quant:
+        k_all, v_all, scales = _int8_cache(k_all, v_all, Hkv)
+    lens = torch.tensor([0, 1, 31, 33, 4096, 300, 1900, 17], device=cuda)
+    mask = (torch.arange(Smax, device=cuda)[None] < lens[:, None]).int()
+    mask[5, 100:180] = 0  # interior holes, one a whole 16-slot tile or more
+    mask[6, 16:1500] = 0
+    mask[7, 3:9] = 0
+    q = _randn(gen, B, 1, H, 128, device=cuda)
+    got = _k3_against_plain(q, k_all, v_all, mask, causal=False, layer=1, num_kv_heads=Hkv,
+                            **scales)
+    assert torch.count_nonzero(got[0]) == 0
+
+
+@pytest.mark.parametrize("quant", [False, True])
+@pytest.mark.parametrize("window", [None, 64])
+@pytest.mark.parametrize("Sq", [1, 7, 64])
+@pytest.mark.parametrize("group", [1, 4, 8])
+def test_flash_decode_kernel_groups_and_rows(cuda, group, Sq, window, quant):
+    """GQA groups 1, 4 and 8 (one to eight query rows a unit and several
+    units at Sq 64), causal at an offset with and without a window, holes,
+    a row with no valid slot (zeros), bf16 and int8 caches."""
+    gen = torch.Generator(device=cuda).manual_seed(10 + group + Sq)
+    L, B, Smax, Hkv = 2, 3, 1000, 2
+    H = group * Hkv
+    k_all = _randn(gen, L, B, Smax, Hkv * 128, device=cuda)
+    v_all = _randn(gen, L, B, Smax, Hkv * 128, device=cuda)
+    scales = {}
+    if quant:
+        k_all, v_all, scales = _int8_cache(k_all, v_all, Hkv)
+    offset = 700 - Sq
+    mask = (torch.rand((B, Smax), generator=gen, device=cuda) > 0.25).int()
+    mask[:, offset + Sq:] = 0
+    mask[1, :40] = 0  # left padding
+    mask[2] = 0
+    q = _randn(gen, B, Sq, H, 128, device=cuda)
+    got = _k3_against_plain(q, k_all, v_all, mask, causal=True, offset=offset, layer=1,
+                            sliding_window=window, num_kv_heads=Hkv, **scales)
+    assert torch.count_nonzero(got[2]) == 0
+
+
 @pytest.mark.parametrize("method", ["mean", "weightedmean"])
 def test_fused_pool_kernel(cuda, method):
     gen = torch.Generator(device=cuda).manual_seed(3)
@@ -532,17 +609,65 @@ def test_quant_matmul_kernel(cuda, bits, K, N):
     node = _quant_node(bits, K, N, gen, cuda)
     kernel, plain = ((qm.w8a16_matmul, qm.w8a16_matmul_plain) if bits == 8
                      else (qm.w4a16_matmul, qm.w4a16_matmul_plain))
-    rows = (1, 3, 8, 16) + ((256, 512) if bits == 8 else (128,))
+    rows = (1, 3, 8, 16) + ((256, 512) if bits == 8 else (2, 7, 9, 17, 64, 128))
     for M in rows:
         x = _randn(gen, M, K, device=cuda)
         before = kernel.launches
         got = kernel(x, node)
+        again = kernel(x, node)
         torch.cuda.synchronize()
         want = plain(x, node)
-        assert kernel.launches == before + 1
+        assert kernel.launches == before + 2
         assert got.shape == (M, N) and got.dtype == torch.bfloat16
         assert torch.isfinite(got).all()
         assert _rel_err(got, want) <= QUANT_RTOL, (M, _rel_err(got, want))
+        assert torch.equal(got, again), M  # split-K sums in split order: bit-equal reruns
+
+
+def _one_hot_rows(M, K, device):
+    """x rows that pick single contracting rows: both halves' first and last
+    rows, group edges and a spread of others (x @ W is then W's rows)."""
+    picks = [0, K // 2 - 1, K // 2, K - 1, 31, 32, K // 2 + 33, 1000 % K]
+    picks = (picks + list(range(7, K, max(1, K // M))))[:M]
+    x = torch.zeros((M, K), dtype=torch.bfloat16, device=device)
+    x[torch.arange(M), torch.tensor(picks)] = 1
+    return x
+
+
+@pytest.mark.parametrize("K,N", QUANT_SHAPES + [(4096, 1040)])
+def test_w4a16_one_hot_rows_exact(cuda, K, N):
+    """K7 against its plain version bit for bit on one-hot x rows: each
+    output row is one dequantized weight row, (nibble - 8) * scale rounded
+    to bf16. This holds the register fragments' row and column maps and the
+    per-weight rounding; N = 1040 leaves a partial column tile."""
+    from gritlm_tpu_torch.ops import quant_matmul as qm
+
+    gen = torch.Generator(device=cuda).manual_seed(K + N)
+    node = _quant_node(4, K, N, gen, cuda)
+    for M in (1, 2, 8, 9, 16, 64):
+        x = _one_hot_rows(M, K, cuda)
+        got = qm.w4a16_matmul(x, node)
+        torch.cuda.synchronize()
+        assert torch.equal(got, qm.w4a16_matmul_plain(x, node)), M
+
+
+@pytest.mark.parametrize("group", [16, 32, 64, 128])
+def test_w4a16_groups(cuda, group):
+    """Scale groups of 16, 32, 64 and 128 contracting rows: one-hot rows
+    exact, random rows within QUANT_RTOL, at decode rows and above."""
+    from gritlm_tpu_torch.ops import quant_matmul as qm
+    from gritlm_tpu_torch.training import quant
+
+    gen = torch.Generator(device=cuda).manual_seed(group)
+    K, N = 4096, 1024
+    node = quant.quantize_kernel_int4(
+        torch.randn((K, N), generator=gen, device=cuda).to(torch.bfloat16), group)
+    assert node["scale"].shape[0] == K // group
+    for M in (1, 8, 16, 17):
+        x = _one_hot_rows(M, K, cuda)
+        assert torch.equal(qm.w4a16_matmul(x, node), qm.w4a16_matmul_plain(x, node)), M
+        x = _randn(gen, M, K, device=cuda)
+        assert _rel_err(qm.w4a16_matmul(x, node), qm.w4a16_matmul_plain(x, node)) <= QUANT_RTOL
 
 
 @pytest.mark.parametrize("bits", [8, 4])
