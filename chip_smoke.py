@@ -18,10 +18,10 @@ library call.
 Phases (in the order 1-9, 11, 10), any failure exits non-zero:
   1. device and build: card name and power limit, nvcc's register and
      shared-memory report; for the redesigned kernels (K1, K4/K5, K9 on
-     wgmma; K3, K7 on mma.sync, and K6 beside K7) their registers and spill
-     bytes (the wgmma kernels' dynamic shared memory too), failing on a
-     spill or a serialised wgmma (each library's ptxas report is kept beside
-     it in the build cache, so a cached build is checked too)
+     wgmma; K3, K8, K6 and K7 on mma.sync) their registers and spill bytes
+     (the wgmma kernels' dynamic shared memory too), failing on a spill or
+     a serialised wgmma (each library's ptxas report is kept beside it in
+     the build cache, so a cached build is checked too)
   2. each kernel against its plain version on the card (K1 and its LSE at
      three shapes; K9 at three shapes: a masked tail, Q = 3, a partial
      last segment; K3 at Sq 1 and 64, its int8 cache, and the serving
@@ -61,8 +61,9 @@ Phases (in the order 1-9, 11, 10), any failure exits non-zero:
      events around replays of ten captured calls, the table's figure, and
      around calls launched back to back; K3 and SDPA by CUDA events around
      graph replays over enough cache layers that every read is cold, at Sq
-     1 and 64, the int8 cache and the serving chunk's call, and K3's device
-     kernels a call counted, more than one failing), encode and
+     1 and 64, the int8 cache and the serving chunk's call, and K8 and SDPA
+     the same way at its four phase-2 shapes; K3's and K8's device
+     operations a call counted, more than one failing), encode and
      decode rates, and a profile (device time by kernel, idle share) of one
      encode and one short generate
  10. training at full width (after the inference model is freed):
@@ -99,7 +100,8 @@ Phases (in the order 1-9, 11, 10), any failure exits non-zero:
      embedding requests through a dense w4 ServingEngine (K7 in the decode
      chunks); K6 and K7 timed at M 8 over the five projection shapes (the
      gate/up shape, 4096 -> 14336, is the kernel table's), and at gate/up
-     also at M 1 and 16 (both) and 64 and 128 (K7), beside their bounds
+     also at M 1 and 16 (both), 64 and 128 (both) and 256 and 512 (K6:
+     its staged template's rows), beside their bounds
      and torch.matmul of the dequantized weight, by CUDA graph replays over
      weight copies that keep each call's weight out of L2
 
@@ -241,6 +243,7 @@ PTXAS_KERNELS = (("K1", "flash_attention", "gritlm_flash_fwd_smem"),
                  ("K4, K5", "flash_attention_bwd", None),
                  ("K9", "scores_segmax", "gritlm_scores_segmax_smem"),
                  ("K3", "decode_attention", None),
+                 ("K8", "paged_attention", None),
                  ("K7, K6", "quant_matmul", None))
 
 
@@ -644,8 +647,9 @@ def main() -> int:
 
     # ---------------------------------------------------------------- 9
     k3_times(dev, randn, times)
+    k8_times(dev, randn, times)
     for name, label, fk, fp, fl, flops, byt, _ in cases:
-        if name == "flash_decode":  # timed cold by k3_times
+        if name in ("flash_decode", "paged_decode"):  # timed cold by k3_times, k8_times
             continue
         ms, call_ms = time_ms(fk)
         plain_ms, plain_call = time_ms(fp, reps=10)
@@ -816,7 +820,6 @@ def k3_times(dev, randn, times, H=32, Hkv=8, Dh=128) -> None:
     counts its device operations, a profiler window of ten calls its
     kernels: more than one a call fails."""
     import torch
-    import torch.nn.functional as F
 
     from gritlm_tpu_torch.models.transformer import quantize_kv
     from gritlm_tpu_torch.ops import decode_attention as da
@@ -851,55 +854,74 @@ def k3_times(dev, randn, times, H=32, Hkv=8, Dh=128) -> None:
         def call(layer, q=q, k_all=k_all, v_all=v_all, mask=mask, kw=kw):
             return da.flash_decode(q, k_all, v_all, mask, layer=layer, **kw)
 
-        got = call(L - 1)
-        torch.cuda.synchronize()
-        err = float((got.float() - da.flash_decode_plain(q, k_all, v_all, mask, layer=L - 1,
-                                                         **kw).float()).abs().max())
-        if err > ATTN_ATOL or not torch.isfinite(got).all():
-            fail(f"flash_decode [{label}, {L} layers] disagrees with its plain version: {err}")
-        ms = graph_ms(lambda: [call(layer) for layer in range(L)]) / L
-        library_ms = None  # no single PyTorch call computes the int8 variant
+        def plain(layer, q=q, k_all=k_all, v_all=v_all, mask=mask, kw=kw):
+            return da.flash_decode_plain(q, k_all, v_all, mask, layer=layer, **kw)
+
+        views = None  # no single PyTorch call computes the int8 variant
         if not quant:
             hi = int(keep.any(1).any(0).nonzero().max()) + 1  # the slice up to the longest row
-            qt, am = q.transpose(1, 2), keep[:, None, :, :hi]
             views = [(k_all[layer, :, :hi].view(B, hi, Hkv, Dh).transpose(1, 2),
                       v_all[layer, :, :hi].view(B, hi, Hkv, Dh).transpose(1, 2))
                      for layer in range(L)]
-            library_ms = graph_ms(lambda: [F.scaled_dot_product_attention(
-                qt, lk, lv, attn_mask=am, enable_gqa=True) for lk, lv in views]) / L
-        n_kernels, n_ops = kernels_per_call(lambda: call(0))
-        profiled = profiled_kernels_per_call(lambda: call(0))
-        line = (f"time flash_decode [{label}]: device {ms:.4f} ms ({bms / ms * 100:.1f}% of "
-                f"bound {bms:.4f} ms, {by}), library "
-                f"{'none' if library_ms is None else f'{library_ms:.4f}'} (SDPA over the "
-                f"sliced cache); CUDA graph replays over {L} layers (cold); device kernels a "
-                f"call: {n_kernels} ({n_ops} device operations in its captured graph; a "
-                f"profiler window: {'no device events' if profiled is None else f'{profiled:g}'})")
-        if "flash_decode" not in times:  # the table's row
-            plain_ms = time_ms(lambda: da.flash_decode_plain(q, k_all, v_all, mask, layer=0,
-                                                             **kw), reps=10)[0]
-            times["flash_decode"] = (ms, plain_ms, library_ms, bms, by)
-            line += f"; plain {plain_ms:.4f}"
-        print(line, flush=True)
-        if n_ops > 1 or (profiled or 0) > 1:
-            fail(f"flash_decode [{label}]: {n_ops} device operations a call (profiler: "
-                 f"{profiled}), not one kernel")
-        del k_all, v_all, scales
+        cold_decode_time("flash_decode", label, call, plain, L, q, keep, views, bms, by, times,
+                         "the sliced cache")
+        del k_all, v_all, scales, views
         torch.cuda.empty_cache()
 
 
-def k8_cases(dev, randn, cases, B=8, H=32, Hkv=8, Dh=128, page=256, max_len=4096) -> None:
-    """K8 at the serving shape (Mistral-7B heads, B 8, page 256, a 4096-slot
-    logical width): ragged rows, a hole, a page shared by two rows, bf16 and
-    int8 pages, Sq 1 and a causal Sq 8 chunk at per-row offsets; and K8
-    against K3 on the same logical cache laid out dense and paged."""
+def cold_decode_time(name, label, call, plain, L, q, keep, views, bms, by, times,
+                     library_on) -> None:
+    """A decode kernel (K3, K8) at one shape: call(layer) against
+    plain(layer) at the last layer, then its device ms by CUDA graph replays
+    of one call on each of L layers (cold, L from cold_copies), SDPA the
+    same way over `views` (per layer (k, v) [B, Hkv, hi, Dh]; None: no
+    library call) with keep's boolean mask sliced to hi, and the device
+    operations of one call from a captured CUDA graph beside a profiler
+    window's kernels: more than one a call fails. The first shape of a
+    kernel is its table row (with its plain version's time)."""
     import torch
     import torch.nn.functional as F
 
-    from gritlm_tpu_torch.models.transformer import quantize_kv
-    from gritlm_tpu_torch.ops import decode_attention, paged_attention
+    got = call(L - 1)
+    torch.cuda.synchronize()
+    err = float((got.float() - plain(L - 1).float()).abs().max())
+    if err > ATTN_ATOL or not torch.isfinite(got).all():
+        fail(f"{name} [{label}, {L} layers] disagrees with its plain version: {err}")
+    ms = graph_ms(lambda: [call(layer) for layer in range(L)]) / L
+    library_ms = None
+    if views is not None:
+        qt, am = q.transpose(1, 2), keep[:, None, :, :views[0][0].shape[2]]
+        library_ms = graph_ms(lambda: [F.scaled_dot_product_attention(
+            qt, lk, lv, attn_mask=am, enable_gqa=True) for lk, lv in views]) / L
+    n_kernels, n_ops = kernels_per_call(lambda: call(0))
+    profiled = profiled_kernels_per_call(lambda: call(0))
+    line = (f"time {name} [{label}]: device {ms:.4f} ms ({bms / ms * 100:.1f}% of "
+            f"bound {bms:.4f} ms, {by}), library "
+            f"{'none' if library_ms is None else f'{library_ms:.4f}'} (SDPA over "
+            f"{library_on}); CUDA graph replays over {L} layers (cold); device kernels a "
+            f"call: {n_kernels} ({n_ops} device operations in its captured graph; a "
+            f"profiler window: {'no device events' if profiled is None else f'{profiled:g}'})")
+    if name not in times:  # the table's row
+        plain_ms = time_ms(lambda: plain(0), reps=10)[0]
+        times[name] = (ms, plain_ms, library_ms, bms, by)
+        line += f"; plain {plain_ms:.4f}"
+    print(line, flush=True)
+    if n_ops > 1 or (profiled or 0) > 1:
+        fail(f"{name} [{label}]: {n_ops} device operations a call (profiler: "
+             f"{profiled}), not one kernel")
 
-    L, maxp = 2, max_len // page
+
+def paged_pool(dev, randn, L, B=8, Hkv=8, Dh=128, page=256, max_len=4096):
+    """A page pool of L layers at the serving shape: the rows of
+    SERVING_LENS on pages scattered over the pool (page 0 scratch), a
+    prefix page shared by rows 3 and 4, the serving mask (a hole in row
+    1). Returns (page_table, mask, bf16 pages (k, v), int8 pages (k, v),
+    their scales {"k_scale", "v_scale"})."""
+    import torch
+
+    from gritlm_tpu_torch.models.transformer import quantize_kv
+
+    maxp = max_len // page
     lens = torch.tensor(SERVING_LENS, device=dev)
     need = (lens + page - 1) // page
     P = int(need.sum()) + 1  # page 0: scratch
@@ -911,26 +933,57 @@ def k8_cases(dev, randn, cases, B=8, H=32, Hkv=8, Dh=128, page=256, max_len=4096
         pt[b, :n] = perm[at:at + n].to(dev)
         at += n
     pt[4, 0] = pt[3, 0]  # a prefix page shared by two rows
-    mask = serving_mask(dev, max_len)
     k_pages, v_pages = randn(L, P, page, Hkv * Dh), randn(L, P, page, Hkv * Dh)
     k8, ks = quantize_kv(k_pages.view(L * P, page, Hkv, Dh))
     v8, vs = quantize_kv(v_pages.view(L * P, page, Hkv, Dh))
-    k8, v8 = k8.view(L, P, page, -1), v8.view(L, P, page, -1)
     scales = {"k_scale": ks.view(L, P, page, Hkv).transpose(2, 3).contiguous(),
               "v_scale": vs.view(L, P, page, Hkv).transpose(2, 3).contiguous()}
+    return (pt, serving_mask(dev, max_len), (k_pages, v_pages),
+            (k8.view(L, P, page, -1), v8.view(L, P, page, -1)), scales)
+
+
+# K8's shapes: (Sq, int8 pages); Sq 8 is the causal verify chunk at per-row
+# offsets lens - 8
+K8_SHAPES = ((1, False), (1, True), (8, False), (8, True))
+
+
+def k8_keep(mask, Sq):
+    """[B, Sq, Smax] slots each query of a K8 shape sees, and the per-row
+    offsets (None at Sq 1: mask-bounded)."""
+    import torch
+
+    B, Smax = mask.shape
+    keep = mask.bool()[:, None, :].expand(B, Sq, Smax)
+    if Sq == 1:
+        return keep, None
+    offs = (torch.tensor(SERVING_LENS, device=mask.device) - Sq).clamp_min(0).to(torch.int32)
+    pos = offs[:, None] + torch.arange(Sq, device=mask.device)
+    return keep & (torch.arange(Smax, device=mask.device)[None, None] <= pos[..., None]), offs
+
+
+def k8_cases(dev, randn, cases, B=8, H=32, Hkv=8, Dh=128) -> None:
+    """K8 at the serving shape (Mistral-7B heads, B 8, page 256, a 4096-slot
+    logical width): ragged rows, a hole, a page shared by two rows, bf16 and
+    int8 pages, Sq 1 and a causal Sq 8 chunk at per-row offsets; and K8
+    against K3 on the same logical cache laid out dense and paged (whether
+    the two are bit-equal is printed: they run the same kernel body)."""
+    import torch
+    import torch.nn.functional as F
+
+    from gritlm_tpu_torch.ops import decode_attention, paged_attention
+
+    L = 2
+    pt, mask, (k_pages, v_pages), (k8, v8), scales = paged_pool(dev, randn, L)
+    max_len = mask.shape[1]
     slots = int(mask.sum())
     dense_k = paged_attention.gather_pages(k_pages, pt, 1).view(B, max_len, Hkv, Dh)
     dense_v = paged_attention.gather_pages(v_pages, pt, 1).view(B, max_len, Hkv, Dh)
-    for Sq, quant in ((1, False), (1, True), (8, False), (8, True)):
+    for Sq, quant in K8_SHAPES:
         q = randn(B, Sq, H, Dh)
-        offs = (lens - Sq).clamp_min(0).to(torch.int32)
-        kw = dict(layer=1, num_kv_heads=Hkv, causal=Sq > 1, offset=offs,
-                  **(scales if quant else {}))
+        keep, offs = k8_keep(mask, Sq)
+        kw = dict(layer=1, num_kv_heads=Hkv, causal=Sq > 1,
+                  offset=0 if offs is None else offs, **(scales if quant else {}))
         kp, vp = (k8, v8) if quant else (k_pages, v_pages)
-        keep = mask.bool()[:, None, :].expand(B, Sq, max_len)
-        if Sq > 1:
-            keep = keep & (torch.arange(max_len, device=dev)[None, None]
-                           <= (offs[:, None] + torch.arange(Sq, device=dev))[..., None])
         # bytes: each valid slot's K and V rows (int8: 1 byte a value plus a
         # bf16 scale per head), q in, out, mask and page table
         per_slot = Hkv * (Dh + 2) if quant else Hkv * Dh * 2
@@ -963,9 +1016,58 @@ def k8_cases(dev, randn, cases, B=8, H=32, Hkv=8, Dh=128, page=256, max_len=4096
     torch.cuda.synchronize()
     err = float((got.float() - want.float()).abs().max())
     print(f"check paged_decode against flash_decode on the same logical cache (B8, "
-          f"{slots} valid slots): max_abs_err {err:.3e} (atol {ATTN_ATOL})", flush=True)
+          f"{slots} valid slots): max_abs_err {err:.3e} (atol {ATTN_ATOL}), bit-equal "
+          f"{torch.equal(got, want)}", flush=True)
     if err > ATTN_ATOL or not torch.isfinite(got).all():
         fail(f"K8 and K3 disagree on the same logical cache: {err}")
+
+
+def k8_times(dev, randn, times, B=8, H=32, Hkv=8, Dh=128) -> None:
+    """K8 and SDPA by CUDA events around CUDA graph replays at the four
+    K8_SHAPES (bf16 and int8 pages, Sq 1 mask-bounded and the causal Sq 8
+    chunk at per-row offsets), each call on its own layer of a pool with
+    enough layers (cold_copies) that no call finds its K/V in L2, as in a
+    serving step; SDPA (bf16 only) over the same K/V laid out dense, sliced
+    to the longest row, with the boolean mask. Device operations a call
+    counted: more than one fails (cold_decode_time)."""
+    import torch
+
+    from gritlm_tpu_torch.ops import paged_attention as pa
+
+    lens = torch.tensor(SERVING_LENS)
+    for Sq, quant in K8_SHAPES:
+        per_slot = Hkv * (Dh + 2) if quant else Hkv * Dh * 2
+        L = cold_copies(int(lens.sum()) * per_slot * 2)
+        pt, mask, bf16_pages, int8_pages, scales = paged_pool(dev, randn, L)
+        kp, vp = int8_pages if quant else bf16_pages
+        del bf16_pages, int8_pages
+        keep, offs = k8_keep(mask, Sq)
+        slots = int(keep.any(1).sum())  # slots some query of the row sees: K/V to read
+        q = randn(B, Sq, H, Dh)
+        bms, by = bound(4.0 * int(keep.sum()) * H * Dh,
+                        slots * per_slot * 2 + nbytes(mask, pt) + 2 * B * Sq * H * Dh * 2)
+        kw = dict(num_kv_heads=Hkv, causal=Sq > 1, offset=0 if offs is None else offs,
+                  **(scales if quant else {}))
+
+        def call(layer, q=q, kp=kp, vp=vp, kw=kw):
+            return pa.paged_decode(q, kp, vp, pt, mask, layer=layer, **kw)
+
+        def plain(layer, q=q, kp=kp, vp=vp, kw=kw):
+            return pa.paged_decode_plain(q, kp, vp, pt, mask, layer=layer, **kw)
+
+        views = None  # no single PyTorch call computes the int8 variant
+        if not quant:
+            hi = int(keep.any(1).any(0).nonzero().max()) + 1
+            views = []
+            for layer in range(L):
+                dk, dv = (pa.gather_pages(x, pt, layer)[:, :hi].view(B, hi, Hkv, Dh)
+                          .transpose(1, 2) for x in (kp, vp))
+                views.append((dk, dv))
+        cold_decode_time("paged_decode", f"{'int8' if quant else 'bf16'} Sq{Sq} B8 page256 "
+                         f"{slots} slots seen", call, plain, L, q, keep, views, bms, by, times,
+                         "the dense layout")
+        del kp, vp, scales, views
+        torch.cuda.empty_cache()
 
 
 def search_phase(dev, check_scores_segmax, unit_rows, reset_counts, read_counts,
@@ -1436,7 +1538,8 @@ QUANT_RTOL = 5e-3  # relative Frobenius error against the plain version (the JAX
 
 def quant_checks(dev, max_err) -> None:
     """K6 and K7 against their plain versions on the card at Mistral-7B's
-    projections: M 1, 3, 8, 16 (and 256, 512 for K6; 17, 64, 128 for K7), a
+    projections: M 1, 3, 8, 16, 17, 64, 128 (and 256, 512 for K6: every
+    row range it routes to its rows kernel or its staged template), a
     layer's view of a 3-layer stack read in place, and geometries the kernels
     reject."""
     import torch
@@ -1451,7 +1554,7 @@ def quant_checks(dev, max_err) -> None:
         return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
 
     kinds = {"w8a16_matmul": (quant.quantize_kernel, qm.w8a16_matmul, qm.w8a16_matmul_plain,
-                              (1, 3, 8, 16, 256, 512)),
+                              (1, 3, 8, 16, 17, 64, 128, 256, 512)),
              "w4a16_matmul": (quant.quantize_kernel_int4, qm.w4a16_matmul,
                               qm.w4a16_matmul_plain, (1, 3, 8, 16, 17, 64, 128))}
     for name, (quantize, kernel, plain, rows) in kinds.items():
@@ -1697,7 +1800,8 @@ def quant_phase(model, enc, dense_step, reset_counts, read_counts, path_launches
 
     # ---- K6 and K7 at the decode rows M 8 over every projection shape (the
     # gate/up shape, 4096 -> 14336, is the kernel table's), and at gate/up
-    # also M 1 and 16 (K6, K7) and the prefill-chunk rows 64 and 128 (K7).
+    # also M 1 and 16 and the prefill-chunk rows 64 and 128 (K6, K7), 256
+    # and 512 (K6).
     # Times from CUDA graph replays (graph_ms), over enough copies of the
     # weights to keep them out of L2, as in a decode step, where 31 other
     # layers pass between two reads of a layer's weights.
@@ -1707,7 +1811,7 @@ def quant_phase(model, enc, dense_step, reset_counts, read_counts, path_launches
         w = torch.randn((K, N), generator=gen, device=dev).to(torch.bfloat16)
         for name, node, plain, kern, rows in (
                 ("w8a16_matmul", quant.quantize_kernel(w), qm.w8a16_matmul_plain,
-                 qm.w8a16_matmul, (8, 1, 16) if gate_up else (8,)),
+                 qm.w8a16_matmul, (8, 1, 16, 64, 128, 256, 512) if gate_up else (8,)),
                 ("w4a16_matmul", quant.quantize_kernel_int4(w), qm.w4a16_matmul_plain,
                  qm.w4a16_matmul, (8, 1, 16, 64, 128) if gate_up else (8,))):
             dense = quant.dequantize_kernel(node, torch.bfloat16)  # what quantization replaces

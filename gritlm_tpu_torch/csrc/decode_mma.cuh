@@ -1,7 +1,15 @@
-// Flash-decode pieces on tensor cores (mma.sync) for Hopper, used by K3
-// (decode_attention.cu: a dense cache [L, B, Smax, Kv*Dh]). They know
-// nothing of where a tile's K/V rows live, so a paged cache can feed them
-// the same way. The design note is in gritlm_tpu_torch/ops/decode_attention.py.
+// Flash decode on tensor cores (mma.sync) for Hopper: the one kernel body of
+// K3 (decode_attention.cu: a dense cache [L, B, Smax, Kv*Dh]) and K8
+// (paged_attention.cu: a page pool [L, P, page, Kv*Dh] read through a page
+// table), templated on how a tile's rows are addressed. The design notes are
+// in gritlm_tpu_torch/ops/decode_attention.py and ops/paged_attention.py.
+//
+// What bounds both: the bytes of the valid K/V slots (about one multiply-add
+// per cache byte at Sq 1), and at serving shapes, where a call reads a few
+// MB, latency: finding the valid slots, the first bytes' round trip and the
+// merge of the splits. So a call is one launch, each block finds its row's
+// valid tiles itself (no host sync, no row-bound pass), copies only valid
+// rows, and uses only as many splits as the valid tiles pay for.
 //
 // A warp owns up to 8 query rows of one (batch row, kv head): the GQA group
 // members of one or more query positions, so the group's K/V is read once.
@@ -14,7 +22,8 @@
 // fragment is S^T's C fragment transposed by movmatrix. The bf16 cache's
 // V^T comes from ldmatrix.trans; the int8 cache's K and V become bf16 in
 // registers, exactly (|q| <= 127), with K's per-slot scale on the scores
-// and V's on P.
+// and V's on P. A tile never straddles a page (page % 16 == 0), so a paged
+// tile's rows come from one page-table read.
 //
 // Fragment maps (lane = 4 g + t):
 //   Q^T / K, k-chunk c = 4 hh + cc of Dh: k slots 2t, 2t+1, 2t+8, 2t+9 hold
@@ -377,8 +386,8 @@ __device__ __forceinline__ void scan_mask(const int* __restrict__ mrow, int lo, 
   }
 }
 
-// Tiles [begin, end) of part s of n tiles cut into `parts` (the wrappers'
-// plans mirror this: ops/decode_attention.split_tiles).
+// Tiles [begin, end) of part s of n tiles cut into `parts` (the wrapper's
+// plan mirrors this: ops/decode_attention.split_tiles).
 __device__ __forceinline__ int part_begin(int n, int s, int parts) {
   return (int)((long long)n * s / parts);
 }
@@ -387,6 +396,273 @@ __device__ __forceinline__ int part_begin(int n, int s, int parts) {
 // with: each gets at least MIN_TILES a warp (ops/decode_attention.used_splits).
 __device__ __forceinline__ int used_splits(int nt, int n_split) {
   return max(1, min(n_split, nt / (WARPS * MIN_TILES)));
+}
+
+
+// The arguments of a launch, dense (K3) or paged (K8).
+struct Args {
+  const bf16* q;          // [B, Sq, H, DH]
+  const void* k;          // dense [L, B, Smax, Kv*DH], paged [L, P, page, Kv*DH]; bf16 or int8
+  const void* v;
+  const bf16* k_scale;    // int8: dense [L, B, Kv, Smax], paged [L, P, Kv, page]
+  const bf16* v_scale;
+  const int* mask;        // [B, Smax], nullptr: every slot valid
+  const int* page_table;  // paged: [B, Smax / page]
+  const int* offsets;     // [B] per-row offsets; nullptr: `offset` for every row
+  float2* part_ml;        // [n_split, units, ROWS] (n_split > 1)
+  float* part_o;          // [n_split, units, ROWS, DH]
+  int* counters;          // [units], 0 between launches (n_split > 1)
+  bf16* out;              // [B, Sq, H, DH]
+  int B, Sq, H, Kv, Smax, layer, n_split, n_rg, causal, window, offset;
+  int P, page;            // paged: pages in the pool, slots a page
+  float scale;
+};
+
+// Tile tt's K and V rows (kt, vt: its first slot's rows) into stage `st`:
+// only the live slots' rows are read (16 bytes a copy); the others are
+// zero-filled.
+template <typename T>
+__device__ __forceinline__ void copy_tile(unsigned char* st, const T* kt, const T* vt, int KD,
+                                          unsigned live, int lane) {
+  using Tl = Tile<T>;
+  constexpr int EPC = 16 / (int)sizeof(T);
+#pragma unroll
+  for (int j = 0; j < TK * Tl::CHUNKS / 32; ++j) {
+    const int i = lane + 32 * j, r = i / Tl::CHUNKS, c = i % Tl::CHUNKS;
+    const bool in = (live >> r) & 1u;
+    const int off = r * KD + c * EPC;
+    cp_async16(st + r * Tl::LD + 16 * c, in ? kt + off : kt, in ? 16 : 0);
+    cp_async16(st + Tl::KV + r * Tl::LD + 16 * c, in ? vt + off : vt, in ? 16 : 0);
+  }
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// One launch a call. Block unit * n_split + split: a unit is (batch row, kv
+// head, group of 8 query rows). The block first scans its row's mask over
+// the slots any of its rows can see (the causal bound, the window) into tile
+// bits in shared memory, and takes the first and last valid slot as the
+// unit's range; the unit's tiles are cut into as many of its n_split parts
+// as give each warp MIN_TILES or more (the blocks of parts not needed exit at
+// once), and the block's part into 4 contiguous runs, one a warp. A warp
+// streams the valid tiles of its run (tiles with no valid slot are never
+// copied, masked rows are zero-filled) through a private cp.async ring of 3
+// stages and folds each into its state on tensor cores; the block merges its
+// warps in shared memory. One split writes the output rows; otherwise each
+// split writes its partial (max, sum, output) and the block that finishes
+// the unit last merges them in split order (a counter per unit, reset by
+// that block), so reruns are bit-equal.
+template <typename T, bool PAGED>
+__global__ void __launch_bounds__(WARPS * 32) flash_decode_kernel(Args a) {
+  using Tl = Tile<T>;
+  constexpr bool QUANT = sizeof(T) == 1;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
+  const int split = blockIdx.x % a.n_split, unit = blockIdx.x / a.n_split;
+  const int rg = unit % a.n_rg, kvh = (unit / a.n_rg) % a.Kv, b = unit / (a.n_rg * a.Kv);
+  const int group = a.H / a.Kv, R = a.Sq * group;
+  const int row0 = rg * ROWS, row1 = min(R, row0 + ROWS) - 1;
+  const int offset = PAGED && a.offsets != nullptr ? a.offsets[b] : a.offset;
+  // the slots some row of the group can see
+  const int hi = a.causal ? min(a.Smax, offset + row1 / group + 1) : a.Smax;
+  const int lo = a.window > 0 ? max(0, offset + row0 / group - a.window + 1) : 0;
+  uint16_t* bits = reinterpret_cast<uint16_t*>(smem + WARPS * Tl::RING);
+  int first, last;
+  scan_mask(a.mask == nullptr ? nullptr : a.mask + (long long)b * a.Smax, lo, hi, bits, first,
+            last);
+  const int tbase = lo / TK;
+  const int T0 = last >= first ? first / TK : 0;
+  const int nt = last >= first ? last / TK + 1 - T0 : 0;  // the unit's tiles
+  const int n_used = used_splits(nt, a.n_split);
+  if (split >= n_used) return;  // a split the unit's valid range does not need
+  const int ta = T0 + part_begin(nt, split, n_used), tb = T0 + part_begin(nt, split + 1, n_used);
+  const int wa = ta + part_begin(tb - ta, warp, WARPS), wb = ta + part_begin(tb - ta, warp + 1, WARPS);
+
+  // the lane's query row g (Q^T fragment) and rows 2t, 2t+1 (softmax)
+  Warp w;
+  {
+    const int row = row0 + g;
+    const bf16* qrow = row <= row1 ? a.q + (((long long)b * a.Sq + row / group) * a.H +
+                                            kvh * group + row % group) * DH
+                                   : nullptr;
+    int qpos[2];
+    bool valid[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int r = row0 + 2 * t + i;
+      valid[i] = r <= row1;
+      qpos[i] = offset + r / group;
+    }
+    init_warp(w, qrow, t, qpos, valid);
+  }
+
+  const int KD = a.Kv * DH;
+  const T* kb = reinterpret_cast<const T*>(a.k) + kvh * DH;
+  const T* vb = reinterpret_cast<const T*>(a.v) + kvh * DH;
+  // tile tt's first slot: its K/V row (elements from kb, vb) and the index
+  // of its int8 scales. Dense: row b of layer `layer`; paged: the page that
+  // page_table[b, 16 tt / page] names, at slot 16 tt % page.
+  const long long row_base = ((long long)a.layer * a.B + b) * a.Smax;
+  const long long sc_base = (((long long)a.layer * a.B + b) * a.Kv + kvh) * a.Smax;
+  const int* pt = PAGED ? a.page_table + (long long)b * (a.Smax / a.page) : nullptr;
+  auto tile_row = [&](int tt, long long& sc) -> long long {
+    const int s0 = tt * TK;
+    if constexpr (PAGED) {
+      const int pi = s0 / a.page, in_page = s0 - pi * a.page;
+      const long long page0 = (long long)a.layer * a.P + min(max(__ldg(pt + pi), 0), a.P - 1);
+      sc = (page0 * a.Kv + kvh) * a.page + in_page;
+      return (page0 * a.page + in_page) * KD;
+    } else {
+      sc = sc_base + s0;
+      return (row_base + s0) * KD;
+    }
+  };
+  unsigned char* ring = smem + warp * Tl::RING;
+  const float sl2 = a.scale * LOG2E;
+  auto next_live = [&](int tt) {
+    while (tt < wb && bits[tt - tbase] == 0) ++tt;
+    return tt;
+  };
+  auto fetch_tile = [&](unsigned char* st, int tt) {
+    long long sc;
+    const long long row = tile_row(tt, sc);
+    copy_tile<T>(st, kb + row, vb + row, KD, bits[tt - tbase], lane);
+  };
+  // int8: the lane's scales of slots 16 tt + g, + 8 (K on the scores, V on P)
+  auto scales_of = [&](int tt, float* ks, float* vs) {
+    long long sc = 0;
+    if (tt < wb) tile_row(tt, sc);
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const bool in = tt < wb && tt * TK + g + 8 * j < a.Smax;
+      ks[j] = in ? __bfloat162float(a.k_scale[sc + g + 8 * j]) : 0.f;
+      vs[j] = in ? __bfloat162float(a.v_scale[sc + g + 8 * j]) : 0.f;
+    }
+  };
+
+  int fetch = next_live(wa);
+  int cur = fetch;
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (fetch < wb) {
+      fetch_tile(ring + s * Tl::STAGE, fetch);
+      fetch = next_live(fetch + 1);
+    }
+    cp_async_commit();
+  }
+  float ks[2] = {1.f, 1.f}, vs[2] = {1.f, 1.f}, ks_n[2], vs_n[2];
+  if (QUANT) scales_of(cur, ks_n, vs_n);
+  for (int i = 0; cur < wb; ++i) {
+    if (fetch < wb) {  // into the slot tile i - 1 left
+      fetch_tile(ring + ((i + STAGES - 1) % STAGES) * Tl::STAGE, fetch);
+      fetch = next_live(fetch + 1);
+    }
+    cp_async_commit();  // possibly empty: keeps "all but the newest STAGES-1" = tile i
+    const int nxt = next_live(cur + 1);
+    if (QUANT) {  // this tile's scales were loaded a tile ahead
+      ks[0] = ks_n[0]; ks[1] = ks_n[1]; vs[0] = vs_n[0]; vs[1] = vs_n[1];
+      scales_of(nxt, ks_n, vs_n);
+    }
+    cp_async_wait<STAGES - 1>();
+    __syncwarp();  // the other lanes' copies are visible
+    fold_tile<T>(w, ring + (i % STAGES) * Tl::STAGE, cur * TK, bits[cur - tbase], ks, vs,
+                 a.causal, a.window, sl2, lane);
+    __syncwarp();  // every lane has read the slot before it is refilled
+    cur = nxt;
+  }
+  cp_async_wait_all();
+  __syncwarp();
+  store_warp<T>(w, *reinterpret_cast<WarpOut*>(ring), lane);
+  __syncthreads();
+
+  float M, L, o[8];
+  merge_warps(smem, Tl::RING, M, L, o);
+  const int r = tid >> 4, d0 = (tid & 15) * 8, row = row0 + r;
+  const int units = gridDim.x / a.n_split;
+  bf16* dst = a.out + (((long long)b * a.Sq + row / group) * a.H + kvh * group + row % group) * DH + d0;
+  auto write_out = [&]() {
+    if (row > row1) return;
+    __align__(16) bf16 y[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) y[j] = __float2bfloat16(L > 0.f ? o[j] / L : 0.f);
+    *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(y);
+  };
+  if (n_used == 1) {
+    write_out();
+    return;
+  }
+  {  // every used split has tiles: it leaves its partial
+    const long long p = ((long long)split * units + unit) * ROWS + r;
+    if ((tid & 15) == 0) a.part_ml[p] = make_float2(M, L);
+    float4* po = reinterpret_cast<float4*>(a.part_o + p * DH + d0);
+    po[0] = make_float4(o[0], o[1], o[2], o[3]);
+    po[1] = make_float4(o[4], o[5], o[6], o[7]);
+  }
+  __shared__ bool last_block;
+  __threadfence();  // the partials, visible to the block that merges them
+  __syncthreads();
+  if (tid == 0) {
+    last_block = atomicAdd(a.counters + unit, 1) == n_used - 1;
+    if (last_block) a.counters[unit] = 0;
+  }
+  __syncthreads();
+  if (!last_block) return;
+  __threadfence();
+  // the splits' partials merged in split order, 8 splits' loads in flight at once
+  M = NEG_INF;
+  L = 0.f;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) o[j] = 0.f;
+  for (int s0 = 0; s0 < n_used; s0 += 8) {
+    float2 ml[8];
+    float4 x[8][2];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int s = s0 + j;
+      ml[j] = make_float2(NEG_INF, 0.f);
+      x[j][0] = x[j][1] = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (s < n_used) {
+        const long long p = ((long long)s * units + unit) * ROWS + r;
+        const float4* po = reinterpret_cast<const float4*>(a.part_o + p * DH + d0);
+        ml[j] = __ldcg(a.part_ml + p);
+        x[j][0] = __ldcg(po);
+        x[j][1] = __ldcg(po + 1);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {  // an absent split: max NEG_INF, sum 0, output 0
+      const float m_new = fmaxf(M, ml[j].x);
+      const float alpha = ex2(M - m_new), e = ex2(ml[j].x - m_new);
+      L = L * alpha + ml[j].y * e;
+      o[0] = o[0] * alpha + x[j][0].x * e; o[1] = o[1] * alpha + x[j][0].y * e;
+      o[2] = o[2] * alpha + x[j][0].z * e; o[3] = o[3] * alpha + x[j][0].w * e;
+      o[4] = o[4] * alpha + x[j][1].x * e; o[5] = o[5] * alpha + x[j][1].y * e;
+      o[6] = o[6] * alpha + x[j][1].z * e; o[7] = o[7] * alpha + x[j][1].w * e;
+      M = m_new;
+    }
+  }
+  write_out();
+}
+
+// Launch B * Kv * n_rg units of n_split blocks on `st`; cudaGetLastError.
+template <typename T, bool PAGED>
+int launch(const Args& a, cudaStream_t st) {
+  static int configured = 0;  // dynamic shared memory allowed so far
+  const int smem = smem_bytes<T>(a.Smax);
+  if (smem > configured) {
+    cudaError_t e = cudaFuncSetAttribute(flash_decode_kernel<T, PAGED>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return (int)e;
+    configured = smem;
+  }
+  const int units = a.B * a.Kv * a.n_rg;
+  flash_decode_kernel<T, PAGED><<<units * a.n_split, WARPS * 32, smem, st>>>(a);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace mma_decode

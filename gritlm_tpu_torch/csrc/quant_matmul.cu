@@ -2,35 +2,50 @@
 // for Hopper (sm_90a). The design notes, the routing and the plain versions
 // are in gritlm_tpu_torch/ops/quant_matmul.py.
 //
-// K7, `w4_rows_kernel`: y^T = W^T x^T with mma.sync.m16n8k16, the
-// dequantized weight as the A operand (16 output columns on the MMA's
-// 16-row side) and x as the B operand (8 rows on its 8-wide side), so decode
-// rows fill the product with no padding; a block takes 8 or 16 rows (more
-// rows: more blocks along x's rows). A block of 4 warps owns 128 output
-// columns; each warp walks its own contiguous run of the block's
-// contracting stages (16 packed rows = 32 contracting rows a stage) through
-// a private cp.async ring of 4 raw-byte stages, so no block barrier stands
-// in the main loop. Each lane reads whole 16-byte runs of two packed rows
-// r, r+1 (16 columns each) and turns them in registers into the A fragments
-// of 8 MMAs: the low nibbles of r and r+1 are k slots 2t, 2t+1, their high
-// nibbles k slots 2t+8, 2t+9 (contracting rows K/2 + r, K/2 + r + 1), so
-// x's B fragment is two bf16 pairs read as they lie in memory. Each weight
-// is (nibble - 8) * scale in fp32 rounded to bf16 by cvt.rn.bf16x2 (the
-// plain version's rounding); the group's scales sit in registers and are
-// read once a group. The block sums its warps' partial tiles in shared
-// memory.
+// What bounds both at decode rows (M <= 16): the weight's bytes (1 a weight
+// for K6, 0.5 plus scales for K7), read once; and, since each weight is
+// turned into a bf16 operand in registers, the instructions spent on each
+// weight. So the rows kernels keep the weight stream flowing on every SM
+// with no block barrier in the main loop, and spend a few ALU instructions
+// a weight.
 //
-// K6, `quant_matmul_kernel`: a block of 4 warps computes a BM x 128 tile of
-// y = x @ W over a range of the contracting axis, 128 contracting rows a
-// stage: x [BM, 128] bf16 and the stage's raw int8 weight bytes [128, 128]
-// are copied to shared memory with cp.async, in a ring of 3 stages (BM 16)
-// or 2 (BM 64); the block turns the raw bytes into a bf16 tile [128, 128] in
-// shared memory (int8 -> bf16 exactly, |q| <= 127, by byte permutes and
-// fp32 adds in place of the slow conversion instructions); bf16 wmma
-// 16x16x16 products accumulate in fp32 registers; the per-channel scale
-// commutes out of the contracting sum and is applied once at the end.
+// The rows kernels, K7's `w4_rows_kernel` and K6's `w8_rows_kernel`:
+// y^T = W^T x^T with mma.sync.m16n8k16, the dequantized weight as the A
+// operand (16 output columns on the MMA's 16-row side) and x as the B
+// operand (8 rows on its 8-wide side), so decode rows fill the product with
+// no padding; a block takes 8 or 16 rows (more rows: more blocks along x's
+// rows). A block of 4 warps owns 128 output columns; each warp walks its
+// own contiguous run of the block's contracting stages (32 contracting rows
+// a stage) through a private cp.async ring of 4 raw-byte stages. Each lane
+// reads whole 16-byte runs of weight rows (16 columns each) and turns them
+// in registers into the A fragments of 8 MMAs, whose k slots 2t, 2t+1,
+// 2t+8, 2t+9 are the contracting rows the lane read, so x's B fragment is
+// two bf16 pairs read as they lie in memory:
+//   K7: packed rows r, r+1; their low nibbles are k slots 2t, 2t+1 and
+//   their high nibbles k slots 2t+8, 2t+9 (contracting rows K/2 + r, + 1);
+//   each weight is (nibble - 8) * scale in fp32 rounded to bf16 by
+//   cvt.rn.bf16x2 (the plain version's rounding); the group's scales sit in
+//   registers and are read once a group.
+//   K6: int8 rows 2t, 2t+1, 2t+8, 2t+9 of a 16-row k-step; each byte
+//   becomes bf16 exactly (|q| <= 127 has at most 7 significant bits) by a
+//   byte permute under the exponent of 2^23 and one fp32 add, and two
+//   floats' upper halves make a bf16x2 by a second permute; the
+//   per-channel scale commutes out of the contracting sum and multiplies
+//   each column once, in the epilogue.
+// The block sums its warps' partial tiles in shared memory.
 //
-// Both: one split writes y directly. Several splits write fp32 partial sums
+// K6 above the rows kernel's range, `quant_matmul_kernel`: a block of 4
+// warps computes a 64 x 128 tile of y = x @ W over a range of the
+// contracting axis, 128 contracting rows a stage: x [64, 128] bf16 and the
+// stage's raw int8 weight bytes [128, 128] are copied to shared memory with
+// cp.async in a ring of 2 stages; the block turns the raw bytes into a bf16
+// tile [128, 128] in shared memory by the same permutes; bf16 wmma 16x16x16
+// products accumulate in fp32 registers; the scale is applied at the end.
+// It reads and converts the weight once for 64 rows, where the rows kernel
+// does so (from L2) for every 16, so it is the faster of the two above the
+// rows kernel's range (ops/quant_matmul.W8_ROWS_MAX, measured).
+//
+// All: one split writes y directly. Several splits write fp32 partial sums
 // [splits, M, N]; the block that finishes a tile last (a counter per tile)
 // sums them in split order, scales (K6) and rounds, so a call is one launch
 // and reruns are bit-equal.
@@ -58,14 +73,14 @@ struct Layout {
   static constexpr int X_BYTES = round32(BM * LDA * 2);
   static constexpr int W_BYTES = DK * BN;
   static constexpr int STAGE = X_BYTES + W_BYTES;
-  static constexpr int STAGES = BM <= 16 ? 3 : 2;
+  static constexpr int STAGES = 2;
   static constexpr int B_BYTES = DK * LDB * 2;
   static constexpr int C_BYTES = BM * LDC * 4;
   static constexpr int TAIL = B_BYTES > C_BYTES ? B_BYTES : C_BYTES;
   static constexpr int TOTAL = STAGES * STAGE + TAIL;
 };
 
-struct Args {  // of both kernels
+struct Args {  // of all kernels
   const bf16* x;          // [M, K]
   const uint8_t* w;       // int8 [K, N] (K6) or packed uint8 [K/2, N] (K7)
   const float* scale;     // [1, N] (K6) or [K/g, N] (K7)
@@ -74,7 +89,7 @@ struct Args {  // of both kernels
   int* counters;          // one per output tile, 0 between launches (splits > 1)
   int M, K, N;
   int g;                  // K7's group (contracting rows per scale row)
-  int nk;                 // stages over the whole contracting axis
+  int nk;                 // stages over the whole contracting axis (rounded up)
   int kper;               // stages per split
 };
 
@@ -168,12 +183,6 @@ __device__ __forceinline__ void store_out(const Args& a, int m, int n, float4 lo
   *reinterpret_cast<uint4*>(a.out + (long long)m * a.N + n) = *reinterpret_cast<const uint4*>(o);
 }
 
-// y[m, n:n+4] = bf16(v) (K7: no scale at the end).
-__device__ __forceinline__ void store4(const Args& a, int m, int n, float4 v) {
-  __align__(8) bf16 o[4] = {__float2bfloat16_rn(v.x), __float2bfloat16_rn(v.y),
-                            __float2bfloat16_rn(v.z), __float2bfloat16_rn(v.w)};
-  *reinterpret_cast<uint2*>(a.out + (long long)m * a.N + n) = *reinterpret_cast<const uint2*>(o);
-}
 
 template <int BM>
 __global__ void __launch_bounds__(NTHREADS) quant_matmul_kernel(Args a) {
@@ -302,19 +311,135 @@ int launch(const Args& a, int splits, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-int dispatch(const Args& a, int bm, int splits, cudaStream_t stream) {
-  if (bm == 16) return launch<16>(a, splits, stream);
-  if (bm == 64) return launch<64>(a, splits, stream);
-  return (int)cudaErrorInvalidValue;
+// ---------------------------------------------------------------- rows kernels
+namespace rows {
+
+constexpr int WARPS = 4;
+constexpr int STAGES = 4;  // ring depth of each warp
+
+__device__ __forceinline__ void mma16816(float* c, uint32_t a0, uint32_t a1, uint32_t a2,
+                                         uint32_t a3, uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
 }
 
+// y[m, n:n+4] = bf16(v), times the per-channel scale (K6) or not (K7).
+template <bool SCALED>
+__device__ __forceinline__ void store4(const Args& a, int m, int n, float4 v) {
+  if constexpr (SCALED) {
+    const float4 s = *reinterpret_cast<const float4*>(a.scale + n);
+    v.x *= s.x; v.y *= s.y; v.z *= s.z; v.w *= s.w;
+  }
+  __align__(8) bf16 o[4] = {__float2bfloat16_rn(v.x), __float2bfloat16_rn(v.y),
+                            __float2bfloat16_rn(v.z), __float2bfloat16_rn(v.w)};
+  *reinterpret_cast<uint2*>(a.out + (long long)m * a.N + n) = *reinterpret_cast<const uint2*>(o);
+}
+
+// The end of a rows kernel, once every warp's copies have landed: lane
+// (g, t)'s acc[mt][j] is the C fragment of MMA j, whose A row g is column
+// n0 + 16 g + 2 j and row g + 8 column n0 + 16 g + 2 j + 1, at x rows
+// m0 + 8 mt + 2 t, + 1. Each warp's partial tile goes over its own ring
+// (WARP bytes, rows LDR floats apart), the block sums them in warp order,
+// and one split stores y, or several leave partials that the last block of
+// the tile sums in split order.
+template <int MT, int WARP, int LDR, bool SCALED>
+__device__ __forceinline__ void epilogue(const float (&acc)[MT][8][4], const Args& a,
+                                         unsigned char* smem, int m0, int n0) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  unsigned char* ring = smem + warp * WARP;
+  // the warp's partial tile [8 MT rows][128 columns] over its own ring
+  float* red = reinterpret_cast<float*>(ring);
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      float* dst = red + (8 * mt + 2 * t + rr) * LDR + 16 * g;
+#pragma unroll
+      for (int v = 0; v < 4; ++v)  // columns 16 g + 4 v .. + 3 = MMAs 2 v, 2 v + 1
+        *reinterpret_cast<float4*>(dst + 4 * v) =
+            make_float4(acc[mt][2 * v][rr], acc[mt][2 * v][2 + rr], acc[mt][2 * v + 1][rr],
+                        acc[mt][2 * v + 1][2 + rr]);
+    }
+  __syncthreads();
+
+  // the block's tile: the four warps' partials summed in warp order
+  const bool direct = gridDim.z == 1;
+  constexpr int CP = BN / 4;  // 4-column pieces of a row
+#pragma unroll
+  for (int k = 0; k < MT * 8 * CP / (WARPS * 32); ++k) {
+    const int i = threadIdx.x + WARPS * 32 * k, r = i / CP, c = (i % CP) * 4;
+    float4 s4 = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+    for (int w = 0; w < WARPS; ++w) {
+      const float4 v = *reinterpret_cast<const float4*>(
+          reinterpret_cast<const float*>(smem + w * WARP) + r * LDR + c);
+      s4.x += v.x; s4.y += v.y; s4.z += v.z; s4.w += v.w;
+    }
+    const int m = m0 + r, n = n0 + c;
+    if (m >= a.M || n >= a.N) continue;  // N % 16 == 0: a piece is wholly in or out
+    if (direct) {
+      store4<SCALED>(a, m, n, s4);
+    } else {
+      *reinterpret_cast<float4*>(a.part + ((long long)blockIdx.z * a.M + m) * a.N + n) = s4;
+    }
+  }
+  if (direct) return;
+
+  // Split-K fix-up: the block that finishes a tile last sums the splits'
+  // partials in split order and resets the tile's counter to 0.
+  __shared__ bool last;
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    const int tile = blockIdx.y * gridDim.x + blockIdx.x;
+    last = atomicAdd(a.counters + tile, 1) == (int)gridDim.z - 1;
+    if (last) a.counters[tile] = 0;
+  }
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  constexpr int KI = MT * 8 * CP / (WARPS * 32);  // 4-column pieces a thread sums
+  float4 s4[KI];
+#pragma unroll
+  for (int k = 0; k < KI; ++k) s4[k] = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int p0 = 0; p0 < (int)gridDim.z; p0 += 8) {  // 8 splits' loads in flight at once
+    float4 v[8][KI];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int k = 0; k < KI; ++k) {
+        const int i = threadIdx.x + WARPS * 32 * k, m = m0 + i / CP, n = n0 + (i % CP) * 4;
+        const bool in = p0 + j < (int)gridDim.z && m < a.M && n < a.N;
+        v[j][k] = in ? __ldcg(reinterpret_cast<const float4*>(  // other SMs wrote these
+                           a.part + ((long long)(p0 + j) * a.M + m) * a.N + n))
+                     : make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+#pragma unroll
+    for (int j = 0; j < 8; ++j)  // split order: the same sums whichever block is last
+#pragma unroll
+      for (int k = 0; k < KI; ++k) {
+        s4[k].x += v[j][k].x; s4[k].y += v[j][k].y; s4[k].z += v[j][k].z; s4[k].w += v[j][k].w;
+      }
+  }
+#pragma unroll
+  for (int k = 0; k < KI; ++k) {
+    const int i = threadIdx.x + WARPS * 32 * k, m = m0 + i / CP, n = n0 + (i % CP) * 4;
+    if (m < a.M && n < a.N) store4<SCALED>(a, m, n, s4[k]);
+  }
+}
+
+}  // namespace rows
 
 // ---------------------------------------------------------------- K7, rows
 namespace w4 {
 
-constexpr int WARPS = 4;
+using rows::WARPS;
+using rows::STAGES;
+using rows::mma16816;
 constexpr int SK = 16;      // packed rows a stage: 32 contracting rows
-constexpr int STAGES = 4;   // ring depth of each warp
 constexpr int W_BYTES = SK * BN;   // raw nibbles: 16 rows x 128 columns
 constexpr int S_BYTES = 2 * BN * 4;  // the lo and hi halves' scale rows
 
@@ -380,14 +505,6 @@ __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
 // (nibble k of `nib` - 8) * s in fp32: the reference's weight before rounding
 __device__ __forceinline__ float deq(uint32_t nib, int k, float s) {
   return __fmul_rn(__fadd_rn(magic_float(nib, k), -8388616.0f), s);  // 2^23 + 8
-}
-
-__device__ __forceinline__ void mma16816(float* c, uint32_t a0, uint32_t a1, uint32_t a2,
-                                         uint32_t a3, uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
 }
 
 // Lane (g, t) of a warp: output columns n0 + 16 g .. 16 g + 15 and rows
@@ -474,85 +591,7 @@ __global__ void __launch_bounds__(WARPS * 32, 3) w4_rows_kernel(Args a) {
   cp_async_wait<0>();
   __syncwarp();
 
-  // the warp's partial tile [8 MT rows][128 columns] over its own ring
-  float* red = reinterpret_cast<float*>(ring);
-#pragma unroll
-  for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-    for (int rr = 0; rr < 2; ++rr) {
-      float* dst = red + (8 * mt + 2 * t + rr) * Rg::LDR + 16 * g;
-#pragma unroll
-      for (int v = 0; v < 4; ++v)  // columns 16 g + 4 v .. + 3 = MMAs 2 v, 2 v + 1
-        *reinterpret_cast<float4*>(dst + 4 * v) =
-            make_float4(acc[mt][2 * v][rr], acc[mt][2 * v][2 + rr], acc[mt][2 * v + 1][rr],
-                        acc[mt][2 * v + 1][2 + rr]);
-    }
-  __syncthreads();
-
-  // the block's tile: the four warps' partials summed in warp order
-  const bool direct = gridDim.z == 1;
-  constexpr int CP = BN / 4;  // 4-column pieces of a row
-#pragma unroll
-  for (int k = 0; k < MT * 8 * CP / (WARPS * 32); ++k) {
-    const int i = threadIdx.x + WARPS * 32 * k, r = i / CP, c = (i % CP) * 4;
-    float4 s4 = make_float4(0.f, 0.f, 0.f, 0.f);
-#pragma unroll
-    for (int w = 0; w < WARPS; ++w) {
-      const float4 v = *reinterpret_cast<const float4*>(
-          reinterpret_cast<const float*>(smem + w * Rg::WARP) + r * Rg::LDR + c);
-      s4.x += v.x; s4.y += v.y; s4.z += v.z; s4.w += v.w;
-    }
-    const int m = m0 + r, n = n0 + c;
-    if (m >= a.M || n >= a.N) continue;  // N % 16 == 0: a piece is wholly in or out
-    if (direct) {
-      store4(a, m, n, s4);
-    } else {
-      *reinterpret_cast<float4*>(a.part + ((long long)blockIdx.z * a.M + m) * a.N + n) = s4;
-    }
-  }
-  if (direct) return;
-
-  // Split-K fix-up: the block that finishes a tile last sums the splits'
-  // partials in split order and resets the tile's counter to 0.
-  __shared__ bool last;
-  __threadfence();
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    const int tile = blockIdx.y * gridDim.x + blockIdx.x;
-    last = atomicAdd(a.counters + tile, 1) == (int)gridDim.z - 1;
-    if (last) a.counters[tile] = 0;
-  }
-  __syncthreads();
-  if (!last) return;
-  __threadfence();
-  constexpr int KI = MT * 8 * CP / (WARPS * 32);  // 4-column pieces a thread sums
-  float4 s4[KI];
-#pragma unroll
-  for (int k = 0; k < KI; ++k) s4[k] = make_float4(0.f, 0.f, 0.f, 0.f);
-  for (int p0 = 0; p0 < (int)gridDim.z; p0 += 8) {  // 8 splits' loads in flight at once
-    float4 v[8][KI];
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int k = 0; k < KI; ++k) {
-        const int i = threadIdx.x + WARPS * 32 * k, m = m0 + i / CP, n = n0 + (i % CP) * 4;
-        const bool in = p0 + j < (int)gridDim.z && m < a.M && n < a.N;
-        v[j][k] = in ? __ldcg(reinterpret_cast<const float4*>(  // other SMs wrote these
-                           a.part + ((long long)(p0 + j) * a.M + m) * a.N + n))
-                     : make_float4(0.f, 0.f, 0.f, 0.f);
-      }
-#pragma unroll
-    for (int j = 0; j < 8; ++j)  // split order: the same sums whichever block is last
-#pragma unroll
-      for (int k = 0; k < KI; ++k) {
-        s4[k].x += v[j][k].x; s4[k].y += v[j][k].y; s4[k].z += v[j][k].z; s4[k].w += v[j][k].w;
-      }
-  }
-#pragma unroll
-  for (int k = 0; k < KI; ++k) {
-    const int i = threadIdx.x + WARPS * 32 * k, m = m0 + i / CP, n = n0 + (i % CP) * 4;
-    if (m < a.M && n < a.N) store4(a, m, n, s4[k]);
-  }
+  rows::epilogue<MT, Rg::WARP, Rg::LDR, false>(acc, a, smem, m0, n0);
 }
 
 template <int MT>
@@ -572,15 +611,169 @@ int launch(const Args& a, int splits, cudaStream_t stream) {
 
 }  // namespace w4
 
+// ---------------------------------------------------------------- K6, rows
+namespace w8 {
+
+using rows::WARPS;
+using rows::STAGES;
+using rows::mma16816;
+constexpr int SK = 32;             // contracting rows a stage: two k-steps of 16
+constexpr int W_BYTES = SK * BN;   // raw int8: 32 rows x 128 columns
+
+template <int MT>  // MT 8-row tiles of x: up to 8 * MT rows a block
+struct Ring {
+  static constexpr int X_BYTES = MT * 8 * SK * 2;  // [8 MT][32] bf16
+  static constexpr int STAGE = W_BYTES + X_BYTES;
+  static constexpr int WARP = STAGES * STAGE;
+  static constexpr int LDR = BN + 4;  // fp32 row stride of a warp's partial tile
+  static constexpr int RED = MT * 8 * LDR * 4;
+  static_assert(RED <= WARP, "a warp's partial tile overlays its ring");
+  static constexpr int TOTAL = WARPS * WARP;
+};
+
+// Stage s (contracting rows 32 s .. 32 s + 31) of a warp's run into `st`:
+// the raw bytes (32 rows x 8 chunks of 16 columns; chunk c of row r lands at
+// chunk c ^ (r & 6), so the 8 lanes of a quarter warp, which read rows
+// 2t + {0, 1, 8, 9} at chunk g, hit distinct banks), and x's rows m0 ..
+// m0 + 8 MT - 1 at the stage's contracting rows (chunk c = 8 of them, of row
+// m at c ^ ((m >> 1) & 3)). Rows past M or K and columns past N are
+// zero-filled (a zero x column cancels whatever weight it meets).
+template <int MT>
+__device__ __forceinline__ void load_stage(unsigned char* st, const Args& a, int m0, int n0,
+                                           int s, int lane) {
+#pragma unroll
+  for (int j = 0; j < W_BYTES / 16 / 32; ++j) {
+    const int i = lane + 32 * j, r = i / 8, c = i % 8;
+    const int kr = s * SK + r;
+    const bool in = kr < a.K && n0 + 16 * c < a.N;
+    gritlm::cp_async16(st + r * BN + 16 * (c ^ (r & 6)),
+                       in ? a.w + (long long)kr * a.N + n0 + 16 * c : a.w, in ? 16 : 0);
+  }
+  bf16* sx = reinterpret_cast<bf16*>(st + W_BYTES);
+#pragma unroll
+  for (int j = 0; j < MT; ++j) {
+    const int i = lane + 32 * j, m = i / 4, c = i % 4;
+    const int col = s * SK + 8 * c;
+    const bool in = m0 + m < a.M && col < a.K;
+    gritlm::cp_async16(sx + m * SK + 8 * (c ^ ((m >> 1) & 3)),
+                       in ? a.x + (long long)(m0 + m) * a.K + col : a.x, in ? 16 : 0);
+  }
+}
+
+// Byte k of four signed weights (w ^ 0x80808080 given) as an exact float q.
+__device__ __forceinline__ float i8(uint32_t wx, int k) {
+  return magic_float(wx, k) - 8388736.0f;  // 2^23 + 128
+}
+
+// Lane (g, t) of a warp: output columns n0 + 16 g .. 16 g + 15 and rows
+// m0 + 8 mt + 2 t, + 1 (rows::epilogue's fragment map). In a 16-row k-step
+// the lane reads rows 2t, 2t+1, 2t+8, 2t+9, the k slots of its A fragments.
+template <int MT>
+__global__ void __launch_bounds__(WARPS * 32, 3) w8_rows_kernel(Args a) {
+  using Rg = Ring<MT>;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int m0 = blockIdx.x * 8 * MT, n0 = blockIdx.y * BN;
+  const int s0 = blockIdx.z * a.kper, ns = min(a.nk, s0 + a.kper) - s0;
+  const int w0 = s0 + ns * warp / WARPS, nst = s0 + ns * (warp + 1) / WARPS - w0;
+  unsigned char* ring = smem + warp * Rg::WARP;
+
+  float acc[MT][8][4];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][j][e] = 0.f;
+
+#pragma unroll
+  for (int i = 0; i < STAGES - 1; ++i) {
+    if (i < nst) w8::load_stage<MT>(ring + i * Rg::STAGE, a, m0, n0, w0 + i, lane);
+    cp_async_commit();
+  }
+  for (int i = 0; i < nst; ++i) {
+    const int nxt = i + STAGES - 1;  // its slot was last read in step i - 1
+    if (nxt < nst)  // qualified: the staged template's load_stage has the same parameters
+      w8::load_stage<MT>(ring + (nxt % STAGES) * Rg::STAGE, a, m0, n0, w0 + nxt, lane);
+    cp_async_commit();  // possibly empty: keeps "all but the newest STAGES-1" = stage i
+    cp_async_wait<STAGES - 1>();
+    __syncwarp();  // the other lanes' copies are visible
+    const unsigned char* st = ring + (i % STAGES) * Rg::STAGE;
+    const uint32_t* sx = reinterpret_cast<const uint32_t*>(st + W_BYTES);
+#pragma unroll
+    for (int ks = 0; ks < 2; ++ks) {
+      // rows 16 ks + 2t, + 1, + 8, + 9: (r & 6) == 2 t for all four
+      const unsigned char* wr = st + (16 * ks + 2 * t) * BN + 16 * (g ^ (2 * t));
+      const uint4 q0 = *reinterpret_cast<const uint4*>(wr);
+      const uint4 q1 = *reinterpret_cast<const uint4*>(wr + BN);
+      const uint4 q2 = *reinterpret_cast<const uint4*>(wr + 8 * BN);
+      const uint4 q3 = *reinterpret_cast<const uint4*>(wr + 9 * BN);
+      uint32_t b[MT][2];
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        const int m = 8 * mt + g, sw = (m >> 1) & 3;
+        b[mt][0] = sx[m * 16 + 4 * ((2 * ks) ^ sw) + t];      // x[m, k0 + 16 ks + 2 t], + 1
+        b[mt][1] = sx[m * 16 + 4 * ((2 * ks + 1) ^ sw) + t];  // x[m, k0 + 16 ks + 2 t + 8], + 9
+      }
+      const uint32_t r0[4] = {q0.x, q0.y, q0.z, q0.w}, r1[4] = {q1.x, q1.y, q1.z, q1.w};
+      const uint32_t r2[4] = {q2.x, q2.y, q2.z, q2.w}, r3[4] = {q3.x, q3.y, q3.z, q3.w};
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {  // word q: columns 16 g + 4 q .. + 3
+        const uint32_t x0 = r0[q] ^ 0x80808080u, x1 = r1[q] ^ 0x80808080u;
+        const uint32_t x2 = r2[q] ^ 0x80808080u, x3 = r3[q] ^ 0x80808080u;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {  // MMA 2 q + h: A rows g, g + 8 = bytes 2 h, 2 h + 1
+          const uint32_t a0 = pack_upper(i8(x0, 2 * h), i8(x1, 2 * h));
+          const uint32_t a1 = pack_upper(i8(x0, 2 * h + 1), i8(x1, 2 * h + 1));
+          const uint32_t a2 = pack_upper(i8(x2, 2 * h), i8(x3, 2 * h));
+          const uint32_t a3 = pack_upper(i8(x2, 2 * h + 1), i8(x3, 2 * h + 1));
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt) mma16816(acc[mt][2 * q + h], a0, a1, a2, a3, b[mt][0], b[mt][1]);
+        }
+      }
+    }
+    __syncwarp();  // every lane has read the slot before it is refilled
+  }
+  cp_async_wait<0>();
+  __syncwarp();
+
+  rows::epilogue<MT, Rg::WARP, Rg::LDR, true>(acc, a, smem, m0, n0);
+}
+
+template <int MT>
+int launch(const Args& a, int splits, cudaStream_t stream) {
+  static bool configured = false;
+  if (!configured) {
+    cudaError_t e = cudaFuncSetAttribute(w8_rows_kernel<MT>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         Ring<MT>::TOTAL);
+    if (e != cudaSuccess) return (int)e;
+    configured = true;
+  }
+  const dim3 grid((a.M + 8 * MT - 1) / (8 * MT), (a.N + BN - 1) / BN, splits);
+  w8_rows_kernel<MT><<<grid, WARPS * 32, Ring<MT>::TOTAL, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace w8
+
 }  // namespace
 
-// K6: out [M, N] bf16 = (x [M, K] bf16 @ q8 [K, N] int8) * scale [1, N] fp32.
+// K6: out [M, N] bf16 = (x [M, K] bf16 @ q8 [K, N] int8) * scale [1, N] fp32;
+// bm 8 (M <= 8) or 16 rows a block of the rows kernel, kper in stages of 32
+// contracting rows, or bm 64 for the staged template, kper in stages of 128.
 extern "C" int gritlm_w8a16_matmul(const void* x, const void* q8, const void* scale, void* out,
                                    void* part, void* counters, int M, int K, int N, int bm,
                                    int splits, int kper, void* stream) {
+  const int sk = bm == 64 ? DK : w8::SK;
   Args a{(const bf16*)x, (const uint8_t*)q8, (const float*)scale, (bf16*)out, (float*)part,
-         (int*)counters, M, K, N, 0, (K + DK - 1) / DK, kper};
-  return dispatch(a, bm, splits, (cudaStream_t)stream);
+         (int*)counters, M, K, N, 0, (K + sk - 1) / sk, kper};
+  cudaStream_t st = (cudaStream_t)stream;
+  if (bm == 8) return w8::launch<1>(a, splits, st);
+  if (bm == 16) return w8::launch<2>(a, splits, st);
+  if (bm == 64) return launch<64>(a, splits, st);
+  return (int)cudaErrorInvalidValue;
 }
 
 // K7: out [M, N] bf16 = x[:, :K/2] @ deq(lo) + x[:, K/2:] @ deq(hi) for packed

@@ -11,14 +11,15 @@ K/V read once; a bf16 cache, or an int8 cache with bf16 slot-minor scales
 `[L, B, Kv, Smax]` dequantized inside the kernel (K on the scores, V
 through the probabilities, as in the JAX kernel).
 
-Kernel: `csrc/decode_attention.cu` with the tile pieces in
-`csrc/decode_mma.cuh`, CUDA C++ for sm_90a, bound with ctypes. What bounds
-it: the bytes of the valid K/V slots (about one multiply-add per cache byte
-at Sq 1), and at the serving and generate shapes, where a call reads a few
-MB, latency: the time to find the valid slots, the first bytes' round trip
-and the merge of the splits. The TPU kernel ran one grid cell per batch row;
-here a call is one launch over (batch row, kv head, 8 query rows) units
-times `n_split` blocks of 4 warps:
+Kernel: `csrc/decode_attention.cu` with its body in `csrc/decode_mma.cuh`
+(shared with K8, which addresses the same tiles through a page table),
+CUDA C++ for sm_90a, bound with ctypes. What bounds it: the bytes of the
+valid K/V slots (about one multiply-add per cache byte at Sq 1), and at the
+serving and generate shapes, where a call reads a few MB, latency: the time
+to find the valid slots, the first bytes' round trip and the merge of the
+splits. The TPU kernel ran one grid cell per batch row; here a call is one
+launch over (batch row, kv head, 8 query rows) units times `n_split` blocks
+of 4 warps:
   - each block scans its row's mask over the slots its rows can see (the
     causal bound `offset + Sq`, the window) into tile bits, and cuts the
     unit's range from the first to the last valid slot into as many of the
@@ -39,6 +40,7 @@ times `n_split` blocks of 4 warps:
     splits' partials in split order (bit-equal reruns).
 `decode_plan` picks n_split from the unit count, the SM count and the
 host-known slot range; `split_tiles` is the kernel's cut of a unit's tiles.
+K8 (`paged_attention.py`) plans with the same functions.
 
 Serving rows reach this kernel through the transformer's per-row path
 (`forward(row_offsets=...)`): the step is S = 1, each row writes its K/V at
@@ -46,14 +48,10 @@ its own slot before attention, and the kernel runs mask-bounded (causal
 False, offset 0, no window), since a row's mask covers exactly the slots it
 has written.
 
-K8 (`paged_attention.py`) still runs the earlier split-KV design
-(`csrc/split_decode.cuh`, planned by `split_plan` below from the logical
-width); `decode_mma.cuh` keeps its pieces free of the dense addressing so
-that K8 can take them.
-
 Differences from the TPU kernel: the `offset` is one Python int for all
-rows; the per-row-offset variant for Sq > 1 (the speculative verify chunk)
-is queued with the speculative slice. Dh must be 128.
+rows (the kernel body reads per-row offsets in K8's paged instance only;
+the per-row-offset variant for Sq > 1, the speculative verify chunk, is
+queued with the speculative slice). Dh must be 128.
 """
 
 from __future__ import annotations
@@ -65,18 +63,13 @@ import torch
 from gritlm_tpu_torch.ops import _build
 from gritlm_tpu_torch.ops.flash_attention import HEAD_DIM, attend_plain, keep_mask
 
-# K3 (csrc/decode_attention.cu, decode_mma.cuh)
+# K3 and K8 (csrc/decode_mma.cuh)
 SLOT_TILE = 16  # TK: slots a tile
 ROW_GROUP = 8  # ROWS: query rows a unit (a warp's MMA columns)
 DECODE_WARPS = 4  # warps a block, each on its own run of the block's tiles
 BLOCKS_PER_SM = {False: 2, True: 4}  # bf16 / int8 cache: 104 KB / 55 KB of rings a block
 MIN_TILES_PER_WARP = 4  # MIN_TILES: a split's least tiles a warp
 MAX_SPLITS = 32
-
-# K8's split-KV plan (csrc/split_decode.cuh, paged_attention.cu)
-ROWS_PER_WARP = 4  # RW in csrc/split_decode.cuh
-TILE = 32  # TK in csrc/split_decode.cuh
-WARPS_PER_SM = 8  # split target: enough warps in flight to cover memory latency
 
 
 def dequantize_layer(x, scale, layer, hkv, dtype) -> torch.Tensor:
@@ -118,17 +111,6 @@ def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
-def split_plan(B: int, Sq: int, H: int, Hkv: int, Smax: int, sms: int):
-    """K8's plan: (n_split, split_len, rows): enough warps to give each of
-    `sms` SMs WARPS_PER_SM, each split a whole number of 32-slot tiles;
-    rows = query rows per kv head, padded to whole warps."""
-    rows = _cdiv(Sq * (H // Hkv), ROWS_PER_WARP) * ROWS_PER_WARP
-    warps = B * Hkv * rows // ROWS_PER_WARP
-    n_split = min(_cdiv(Smax, TILE), _cdiv(WARPS_PER_SM * sms, warps))
-    split_len = _cdiv(_cdiv(Smax, n_split), TILE) * TILE
-    return _cdiv(Smax, split_len), split_len, rows
-
-
 def slot_range(first_sq: int, last_sq: int, Smax: int, *, causal: bool, offset: int,
                window: Optional[int]):
     """[lo, hi): the slots that query positions first_sq .. last_sq can see
@@ -154,7 +136,7 @@ def used_splits(n_tiles: int, n_split: int) -> int:
 
 def decode_plan(B: int, Sq: int, H: int, Hkv: int, Smax: int, sms: int, *, causal: bool,
                 offset: int = 0, window: Optional[int] = None, quant: bool = False):
-    """(n_split, n_rg) of a K3 launch: n_rg groups of ROW_GROUP query rows a
+    """(n_split, n_rg) of a K3 or K8 launch: n_rg groups of ROW_GROUP query rows a
     (batch row, kv head), and as many splits as fill BLOCKS_PER_SM blocks an
     SM in one wave, but no more than give each warp MIN_TILES_PER_WARP of
     the tiles the host can bound (the causal bound, the window; Smax for a

@@ -12,19 +12,32 @@ GQA reads the group's shared K/V once; int8 pages carry bf16 scales
 [L, P, Kv, page], applied to the scores for K and through the probabilities
 for V. Rows with an empty mask give 0.
 
-Kernel: `csrc/paged_attention.cu`, CUDA C++ for sm_90a, bound with ctypes.
-What bounds it: the bytes of each row's valid K/V pages (and their scales
-for int8); a step does about one multiply-add per byte it reads. The design
-is split-KV flash decoding (`csrc/split_decode.cuh`, K3's design before K3
-moved to tensor cores in `csrc/decode_mma.cuh`): warps over 32-slot tiles, a mask ballot that skips tiles with no valid slot
-before any K/V byte is read, cp.async of only the valid rows, and a combine
-pass. Two things differ. A tile's rows are found through the page table (a
-32-slot tile never straddles a page, since page % 32 == 0). And a first
-small kernel reduces each row's mask to its page count on the device (no
-host sync); a split past its row's count exits at once, so the bytes read
-follow each row's own length, not the pool's max_len. The TPU kernel ran
-one grid cell per row and streamed whole pages; the split count here is
-planned from the logical width (`decode_attention.split_plan`).
+Kernel: `csrc/paged_attention.cu`, CUDA C++ for sm_90a, bound with ctypes:
+K3's kernel body (`csrc/decode_mma.cuh`) with paged addressing. What bounds
+it: the bytes of each row's valid K/V slots (and their scales for int8); a
+step does about one multiply-add per byte it reads, and at the serving
+shape a call reads a few MB, so latency counts as much: finding the valid
+slots, the first bytes' round trip, the merge of the splits. The TPU kernel
+ran one grid cell per row and streamed whole pages. Here a call is one
+launch (the earlier design ran three: a row-bound pass, split-KV warps
+planned from the logical width, a combine pass):
+  - each block scans its row's logical mask over the slots its rows can see
+    (with `causal`, up to offset[b] + the last query position) into tile
+    bits, and cuts the row's valid tiles into as many of the launch's
+    splits as give each warp MIN_TILES_PER_WARP tiles (`used_splits`), so
+    the bytes read and the splits used follow each row's own length, not
+    the pool's max_len, with no host sync;
+  - each warp streams its run of 16-slot tiles through a private cp.async
+    ring, copying only valid rows; a tile never straddles a page (page %
+    32 == 0), so one page-table read gives its rows and its int8 scales;
+  - S^T = K Q^T and O^T += V^T P^T on tensor cores (mma.m16n8k16), Q in
+    registers, int8 pages converted to bf16 exactly in registers;
+  - the block merges its warps in shared memory, and the block that
+    finishes a unit last merges the splits' partials in split order.
+The plan is K3's (`decode_plan`, `partials`, `_build.counters`): the host
+bound applies when `offset` is one int; per-row offsets are the kernel's
+to apply. On the same logical cache K8 and K3 run the same folds in the
+same order.
 
 Differences from the TPU kernel: Dh must be 128; `page` any multiple of 32
 (the JAX kernel takes 128, 256 and 512 and sends other geometries to a
@@ -38,8 +51,10 @@ from typing import Optional, Union
 import torch
 
 from gritlm_tpu_torch.ops import _build
-from gritlm_tpu_torch.ops.decode_attention import TILE, split_plan
+from gritlm_tpu_torch.ops.decode_attention import decode_plan, partials
 from gritlm_tpu_torch.ops.flash_attention import HEAD_DIM, attend_plain
+
+PAGE_MULTIPLE = 32  # pages the kernel takes: a multiple of this many slots
 
 
 def _row_offsets(offset, B: int, device) -> torch.Tensor:
@@ -84,11 +99,22 @@ def paged_decode_plain(q, k_pages, v_pages, page_table, mask, *, layer=0, num_kv
     return attend_plain(q, lk, lv, keep)
 
 
+def paged_plan(B: int, Sq: int, H: int, Hkv: int, Smax: int, sms: int, *, causal: bool,
+               offset, quant: bool):
+    """(n_split, n_rg) of a K8 launch over a logical width of Smax slots:
+    K3's `decode_plan`, bounded by the causal bound only when `offset` is
+    one int for every row (a tensor of per-row offsets is the kernel's to
+    apply; the host plans over Smax and the kernel trims its splits)."""
+    host = causal and not isinstance(offset, torch.Tensor)
+    return decode_plan(B, Sq, H, Hkv, Smax, sms, causal=host, offset=int(offset) if host else 0,
+                       quant=quant)
+
+
 def _fn():
     fn = _build.load("paged_attention").gritlm_paged_decode
     if fn.argtypes is None:
         P, I32, F32 = _build.P, _build.I32, _build.F32
-        fn.argtypes = [P] * 12 + [I32] * 11 + [F32, P]
+        fn.argtypes = [P] * 12 + [I32] * 12 + [F32, P]
         fn.restype = I32
     return fn
 
@@ -133,8 +159,9 @@ def paged_decode(
     if Dh != HEAD_DIM or hkv * Dh != KD or H % hkv:
         raise NotImplementedError(f"paged_decode: q {tuple(q.shape)} over pages "
                                   f"{tuple(k_pages.shape)}")
-    if page % TILE:
-        raise NotImplementedError(f"paged_decode: page {page} is not a multiple of {TILE}")
+    if page % PAGE_MULTIPLE:
+        raise NotImplementedError(
+            f"paged_decode: page {page} is not a multiple of {PAGE_MULTIPLE}")
     if k_pages.shape != v_pages.shape:
         raise ValueError(f"paged_decode: k {tuple(k_pages.shape)} v {tuple(v_pages.shape)}")
     if not (q.is_contiguous() and k_pages.is_contiguous() and v_pages.is_contiguous()):
@@ -144,21 +171,24 @@ def paged_decode(
                          f"{tuple(mask.shape)} for B {B}, page {page}")
     if not isinstance(layer, int) or not 0 <= layer < L:
         raise ValueError("paged_decode: layer must be a Python int, 0 <= layer < L")
-    Smax = maxp * page
     table = page_table.to(torch.int32).contiguous()
     mask = mask.to(torch.int32).contiguous()
-    offsets = _row_offsets(offset, B, q.device).contiguous()
-    n_split, split_len, rows = split_plan(B, Sq, H, hkv, Smax, _build.sm_count(q.device))
-    n_valid = torch.empty((B,), dtype=torch.int32, device=q.device)
-    part_ml = torch.empty((n_split, B, hkv, rows, 2), dtype=torch.float32, device=q.device)
-    part_acc = torch.empty((n_split, B, hkv, rows, Dh), dtype=torch.float32, device=q.device)
+    offsets = None if off_t is None else _row_offsets(off_t, B, q.device).contiguous()
+    n_split, n_rg = paged_plan(B, Sq, H, hkv, maxp * page, _build.sm_count(q.device),
+                               causal=causal, offset=offset, quant=quant)
+    units = B * hkv * n_rg
+    part_ml, part_o = partials(n_split, units, q.device)
+    counters = _build.counters(q.device, units) if n_split > 1 else None
     out = torch.empty_like(q)
-    rc = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-            k_scale.data_ptr() if quant else None, v_scale.data_ptr() if quant else None,
-            table.data_ptr(), mask.data_ptr(), offsets.data_ptr(), n_valid.data_ptr(),
-            part_ml.data_ptr(), part_acc.data_ptr(), out.data_ptr(),
-            B, Sq, H, hkv, P, page, maxp, layer, n_split, split_len, int(causal),
-            Dh ** -0.5, _build.stream_of(q))
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    rc = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), ptr(k_scale), ptr(v_scale),
+            table.data_ptr(), mask.data_ptr(), ptr(offsets), ptr(part_ml), ptr(part_o),
+            ptr(counters), out.data_ptr(), B, Sq, H, hkv, P, page, maxp, layer, n_split, n_rg,
+            int(causal), 0 if off_t is not None else int(offset), Dh ** -0.5,
+            _build.stream_of(q))
     _build.check(rc, "paged_decode")
     paged_decode.launches += 1
     return out

@@ -13,44 +13,55 @@ reference's rounding), fp32 sums, bf16 out. Layouts: training/quant.py.
 
 Kernels: `csrc/quant_matmul.cu`, CUDA C++ for sm_90a (not Triton: tensor-core
 products with the dequantization fused into the operand), bound with
-ctypes. What bounds them: at decode rows (M <= 16) the bytes, one read of
-the weight (1 byte a weight for K6; 0.5 plus 0.125 of scales for K7), so a
-kernel's job is to keep the weight stream flowing on every SM, and to spend
-few instructions a weight doing it.
+ctypes. What bounds them at decode rows (M <= 16): the bytes, one read of
+the weight (1 byte a weight for K6; 0.5 plus 0.125 of scales for K7); and,
+since each weight is turned into a bf16 operand in registers, the
+instructions spent on each weight (K7 measured bound by instruction issue).
+So a kernel keeps the weight stream flowing on every SM with no block
+barrier in its main loop, and spends a few ALU instructions a weight.
 
-K7 runs `w4_rows_kernel`: y^T = W^T x^T with `mma.sync.m16n8k16`, so
-the weight is the A operand (output columns on the MMA's 16-row side) and
-decode rows fill its 8-wide side with no padding (a block takes 8 rows up
-to M 8, else 16, and more rows take more blocks). Each lane turns whole
-16-byte runs of two packed rows into A fragments in registers (byte
-permutes, an fp32 add and multiply a weight, one `cvt.rn.bf16x2` a pair),
-with no bf16 tile in shared memory and no block barrier in the main loop:
-each of a block's 4 warps streams its own run of the contracting axis
-through a private cp.async ring of 4 raw-byte stages (16 packed rows each)
-and loads its group's scales once a group; the block that owns 128 columns
-sums its warps' partials in shared memory. At decode a projection has few
-column tiles (wk/wv: 8 of them), so the contracting axis is also split
-across blocks (`plan_w4`: about two blocks a SM); the block that
-finishes a tile last adds the tile's fp32 partial sums in split order and
-rounds, so a call is one launch and reruns are bit-equal. At 64 and 128
-rows this design also beat the staged one below on the card (PERF.md), so
-it is K7's only kernel.
+At decode rows both run a rows kernel (`w4_rows_kernel`, `w8_rows_kernel`):
+y^T = W^T x^T with `mma.sync.m16n8k16`, so the weight is the A operand
+(output columns on the MMA's 16-row side) and decode rows fill its 8-wide
+side with no padding (a block takes 8 rows up to M 8, else 16, and more
+rows take more blocks). Each lane turns whole 16-byte runs of weight rows
+into A fragments in registers, with no bf16 tile in shared memory: each of
+a block's 4 warps streams its own run of the contracting axis through a
+private cp.async ring of 4 raw-byte stages (32 contracting rows each), and
+the block that owns 128 columns sums its warps' partials in shared memory.
+  - K7 reads two packed rows a lane (low nibbles k slots 2t, 2t+1, high
+    nibbles 2t+8, 2t+9: contracting rows r and K/2 + r), a byte permute,
+    an fp32 add and multiply a weight and one `cvt.rn.bf16x2` a pair, with
+    the group's scales loaded once a group.
+  - K6 reads int8 rows 2t, 2t+1, 2t+8, 2t+9 of each 16-row k-step: a byte
+    permute under the exponent of 2^23 and one fp32 add make each weight an
+    exact float (|q| <= 127), a second permute packs two floats' upper
+    halves into a bf16x2 (as fast as `cvt.rn.bf16x2.f32`, measured), and
+    the per-channel scale multiplies each column once, after the sums.
+At decode a projection has few column tiles (wk/wv: 8 of them), so the
+contracting axis is also split across blocks (`plan_rows`: each warp two
+stages or more, and about two blocks an SM over the column tiles for K7,
+one for K6, whose stages carry twice the weight bytes; the best split
+counts measured on the card); the block that finishes a tile last adds the
+tile's fp32 partial sums in split order, scales (K6) and rounds, so a call
+is one launch and reruns are bit-equal.
 
-K6 runs the staged template: blocks of 4 warps own a BM x 128 output tile
-(BM 16 up to 16 rows, else 64) and walk the contracting axis in stages of
-128 rows, the raw int8 bytes copied by cp.async in a ring of stages,
-turned into a bf16 tile in shared memory and fed to bf16 wmma with fp32
-accumulators; split-K as above (`plan`). The int8 values become bf16 by
-byte permutes and fp32 adds: the conversion instructions run at a fraction
-of the ALU rate. The TPU kernels held the layer stack and a prefetched
-layer index so that the scan never copied a layer; here each layer's
-weights are a view of the stack (`models/transformer._unstack`) whose
-pointer goes to the kernel as it is.
+Above W8_ROWS_MAX rows K6 runs the staged template: blocks of 4 warps own
+a 64 x 128 output tile and walk the contracting axis in stages of 128 rows,
+the raw int8 bytes copied by cp.async, turned into a bf16 tile in shared
+memory and fed to bf16 wmma with fp32 accumulators; split-K as above
+(`plan`). It reads and converts the weight once for 64 rows, where the rows
+kernel does so for every 16, which is why it wins above W8_ROWS_MAX rows
+(measured on the card, PERF.md). K7's rows kernel beat it at 64 and 128
+rows, so K7 has no other kernel. The TPU kernels held the layer stack and a
+prefetched layer index so that the scan never copied a layer; here each
+layer's weights are a view of the stack (`models/transformer._unstack`)
+whose pointer goes to the kernel as it is.
 
 Routing, as in the JAX package: up to MAX_KERNEL_ROWS8 (K6) or
-MAX_KERNEL_ROWS (K7) rows, a CUDA tensor launches the kernel or raises and
-a CPU tensor takes the plain version; more rows dequantize the layer once
-and multiply (`torch.matmul`), which is the function the reference runs at
+MAX_KERNEL_ROWS (K7) rows, a CUDA tensor launches a kernel or raises and a
+CPU tensor takes the plain version; more rows dequantize the layer once and
+multiply (`torch.matmul`), which is the function the reference runs at
 those row counts (`_reference8`, `_reference`).
 """
 
@@ -64,25 +75,29 @@ from gritlm_tpu_torch.training import quant
 
 MAX_KERNEL_ROWS8 = 512  # K6 row ceiling (the JAX package's MAX_KERNEL_ROWS8)
 MAX_KERNEL_ROWS = 128  # K7 row ceiling (its MAX_KERNEL_ROWS)
+W8_ROWS_MAX = 256  # K6's rows kernel up to here, its staged template above (PERF.md)
 BN = 128  # output columns per block (csrc/quant_matmul.cu)
-DK = 128  # unpacked contracting rows per stage
-BLOCKS_PER_SM = 2  # shared memory (85-100 KB a block) allows two a SM
+DK = 128  # contracting rows per stage of the staged template
+BM = 64  # rows a block of the staged template
+BLOCKS_PER_SM = 2  # shared memory (100 KB a block) allows two a SM
 MAX_SPLITS = 32
-W4_STAGE = 16  # packed rows a stage of w4_rows_kernel
-W4_WARPS = 4  # warps a block, each on its own run of the block's stages
-W4_SPLIT_BLOCKS_PER_SM = 2  # split target, of the three a SM holds (57-64 KB of rings a block)
-W4_MIN_STAGES = 2  # a warp's least stages in a split
+W4_STAGE = 16  # packed rows a stage of w4_rows_kernel (32 contracting rows)
+W8_STAGE = 32  # contracting rows a stage of w8_rows_kernel
+ROWS_WARPS = 4  # warps a block of a rows kernel, each on its own run of the block's stages
+W4_SPLIT_BLOCKS_PER_SM = 2  # K7's split target, of the three an SM holds (57-64 KB of rings)
+W8_SPLIT_BLOCKS_PER_SM = 1  # K6's: a stage carries twice K7's weight bytes (72-80 KB of rings)
+ROWS_MIN_STAGES = 2  # a warp's least stages in a split
 
 
 def plan(M: int, stages: int, N: int, sms: int):
-    """(bm, splits, stages per split) for M rows, `stages` contracting
-    stages and N columns. Blocks run in waves of BLOCKS_PER_SM * sms; a
-    split plan's time goes as (waves) x (stages a block walks + about one
-    stage of fixed cost), so the plan takes the split count that minimises
-    it, the fewest splits among equals (each split adds fp32 partial sums).
-    Every split walks the same number of stages."""
-    bm = 16 if M <= 16 else 64
-    tiles = -(-N // BN) * -(-M // bm)
+    """(bm, splits, stages per split) of K6's staged template for M rows,
+    `stages` contracting stages of DK rows and N columns. Blocks run in
+    waves of BLOCKS_PER_SM * sms; a split plan's time goes as (waves) x
+    (stages a block walks + about one stage of fixed cost), so the plan
+    takes the split count that minimises it, the fewest splits among equals
+    (each split adds fp32 partial sums). Every split walks the same number
+    of stages."""
+    tiles = -(-N // BN) * -(-M // BM)
     slots = BLOCKS_PER_SM * sms
     best = None
     for s in range(1, min(stages, MAX_SPLITS) + 1):
@@ -91,24 +106,38 @@ def plan(M: int, stages: int, N: int, sms: int):
         cost = -(-tiles * splits // slots) * (kper + 1)
         if best is None or cost < best[0]:
             best = (cost, splits, kper)
-    return bm, best[1], best[2]
+    return BM, best[1], best[2]
+
+
+def plan_rows(M: int, stages: int, N: int, sms: int, blocks_per_sm: int):
+    """(bm, splits, stages per split) of a rows kernel (K6's, K7's) with M
+    rows, `stages` contracting stages of 32 rows and N columns: bm 8
+    (M <= 8) or 16 rows a block. Splits give about `blocks_per_sm` blocks an
+    SM over the column tiles (the blocks of more rows read the same weight
+    tiles, mostly from L2), but each warp ROWS_MIN_STAGES stages or more: a
+    split's fix-up costs about what a warp's stage does. Measured on the
+    card (PERF.md), this rule picked the fastest split count at every
+    projection with two blocks an SM for K7 and one for K6."""
+    bm = 8 if M <= 8 else 16
+    splits = max(1, min(blocks_per_sm * sms // -(-N // BN),
+                        stages // (ROWS_WARPS * ROWS_MIN_STAGES), MAX_SPLITS))
+    kper = -(-stages // splits)
+    return bm, -(-stages // kper), kper
 
 
 def plan_w4(M: int, Kp: int, N: int, sms: int):
-    """(bm, splits, stages per split) for K7 with M rows, Kp packed rows and
-    N columns: bm 8 (M <= 8) or 16 rows a block, stages of W4_STAGE packed
-    rows (Kp is a multiple of 16: the group divides K/2). Splits give about
-    W4_SPLIT_BLOCKS_PER_SM blocks an SM over the column tiles (the blocks of
-    more rows read the same weight tiles, mostly from L2), but each warp
-    W4_MIN_STAGES stages or more: a split's fix-up costs about what a warp's
-    stage does, and measured on the card (PERF.md) this rule picked the
-    fastest split count at every projection."""
-    bm = 8 if M <= 8 else 16
-    stages = Kp // W4_STAGE
-    splits = max(1, min(W4_SPLIT_BLOCKS_PER_SM * sms // -(-N // BN),
-                        stages // (W4_WARPS * W4_MIN_STAGES), MAX_SPLITS))
-    kper = -(-stages // splits)
-    return bm, -(-stages // kper), kper
+    """K7's plan for Kp packed rows (a multiple of 16: the group divides
+    K/2): `plan_rows` over stages of W4_STAGE packed rows."""
+    return plan_rows(M, Kp // W4_STAGE, N, sms, W4_SPLIT_BLOCKS_PER_SM)
+
+
+def plan_w8(M: int, K: int, N: int, sms: int):
+    """K6's plan for M rows: the rows kernel's (`plan_rows` over stages of
+    W8_STAGE contracting rows, the last one short when 32 does not divide
+    K) up to W8_ROWS_MAX rows, the staged template's (`plan`) above."""
+    if M <= W8_ROWS_MAX:
+        return plan_rows(M, -(-K // W8_STAGE), N, sms, W8_SPLIT_BLOCKS_PER_SM)
+    return plan(M, -(-K // DK), N, sms)
 
 
 def _rows(x: torch.Tensor) -> int:
@@ -198,7 +227,7 @@ def w8a16_matmul(x: torch.Tensor, node: dict) -> torch.Tensor:
     if M == 0:
         return torch.empty((*x.shape[:-1], N), dtype=torch.bfloat16, device=x.device)
     out = _launch(fn, "w8a16_matmul", x2, q8, scale, M, K, N,
-                  plan(M, -(-K // DK), N, _build.sm_count(x.device)))
+                  plan_w8(M, K, N, _build.sm_count(x.device)))
     w8a16_matmul.launches += 1
     return out.reshape(*x.shape[:-1], N)
 

@@ -1,15 +1,21 @@
-"""The launch plans of K3 (flash decode) and K7 (w4a16), as pure functions.
+"""The launch plans of K3 (flash decode), K8 (paged decode), K6 (w8a16) and
+K7 (w4a16), as pure functions.
 
 They run here: the plans are Python, only the kernels they size need the
-card. K7's `plan_w4` cuts the contracting axis into splits of whole stages
-and each split into the 4 warps' runs; K3's `decode_plan` picks the split
-count and `split_tiles` is the kernel's cut of a unit's valid tiles into
-splits and warps' runs (the kernel finds the unit's first and last valid
-slot itself, by the scan this file mirrors in `_unit_tiles`).
+card. K6's and K7's rows kernels (`plan_w8` at decode rows, `plan_w4`) cut
+the contracting axis into splits of whole stages and each split into the 4
+warps' runs; K6's staged template (`plan_w8` above W8_ROWS_MAX rows) walks
+whole stages a split. K3's `decode_plan` picks the split count and
+`split_tiles` is the kernel's cut of a unit's valid tiles into splits and
+warps' runs (the kernel finds the unit's first and last valid slot itself,
+by the scan this file mirrors in `_unit_tiles`); K8 plans with the same
+functions (`paged_plan`) and reads each 16-slot tile through one page-table
+entry.
 """
 
 import numpy as np
 import pytest
+import torch
 
 from gritlm_tpu_torch.ops import decode_attention as da
 from gritlm_tpu_torch.ops import quant_matmul as qm
@@ -41,7 +47,7 @@ def test_w4_plan_covers_every_stage(K, N, sms):
         for z in range(splits):
             s0, s1 = z * kper, min(stages, (z + 1) * kper)
             assert s1 > s0, (M, z)  # no split past the contracting axis
-            for w0, w1 in _runs(s1 - s0, qm.W4_WARPS):  # the warps' runs, as the kernel cuts them
+            for w0, w1 in _runs(s1 - s0, qm.ROWS_WARPS):  # the warps' runs, as the kernel cuts them
                 seen[s0 + w0:s0 + w1] += 1
         assert (seen == 1).all(), M
 
@@ -59,9 +65,57 @@ def test_w4_plan_fills_the_card_at_decode(K, N, sms):
     for M in (1, 2, 8, 16, 64, 128):
         bm, splits, kper = qm.plan_w4(M, Kp, N, sms)
         assert col_tiles * splits <= max(col_tiles, qm.W4_SPLIT_BLOCKS_PER_SM * sms)
-        assert splits == 1 or -(-kper // qm.W4_WARPS) >= qm.W4_MIN_STAGES
+        assert splits == 1 or -(-kper // qm.ROWS_WARPS) >= qm.ROWS_MIN_STAGES
         if sms == 132:
             best = {1024: 16, 4096: 8, 14336: 2, 32000: 1}[N]
+            assert splits == best, (M, splits)
+
+
+# K6's shapes: Mistral-7B's projections, a column count off the 128-column
+# tiles and a contracting axis off the 32-row stages (K % 32 == 16)
+W8_SHAPES = W4_SHAPES + [(4112, 1040)]
+
+
+@pytest.mark.parametrize("sms", [132, 8])
+@pytest.mark.parametrize("K,N", W8_SHAPES)
+def test_w8_plan_covers_every_stage(K, N, sms):
+    """At every row count K6 takes (1-512): the rows kernel (8 or 16 rows a
+    block, stages of W8_STAGE rows, the last one short when 32 does not
+    divide K) up to W8_ROWS_MAX rows, every stage in exactly one split and
+    one warp's run; the staged template (BM rows a block, stages of DK rows)
+    above, every stage in exactly one split; no split without a stage, at
+    most MAX_SPLITS (the partials [splits, M, N])."""
+    for M in range(1, qm.MAX_KERNEL_ROWS8 + 1):
+        bm, splits, kper = qm.plan_w8(M, K, N, sms)
+        rows = M <= qm.W8_ROWS_MAX
+        assert bm == ((8 if M <= 8 else 16) if rows else qm.BM)
+        stages = -(-K // (qm.W8_STAGE if rows else qm.DK))
+        assert 1 <= splits <= qm.MAX_SPLITS
+        seen = np.zeros(stages, dtype=int)
+        for z in range(splits):
+            s0, s1 = z * kper, min(stages, (z + 1) * kper)
+            assert s1 > s0, (M, z)  # no split past the contracting axis
+            for w0, w1 in (_runs(s1 - s0, qm.ROWS_WARPS) if rows else [(0, s1 - s0)]):
+                seen[s0 + w0:s0 + w1] += 1
+        assert (seen == 1).all(), M
+
+
+@pytest.mark.parametrize("sms", [132, 8])
+@pytest.mark.parametrize("K,N", W4_SHAPES[:5])
+def test_w8_plan_fills_the_card_at_decode(K, N, sms):
+    """K6's rows kernel splits by K7's rule with one block an SM over the
+    column tiles instead of two (a K6 stage carries twice K7's weight
+    bytes), each warp two stages or more; at 132 SMs the split counts K6
+    measured best at M 8 (wq/wo and down 4, gate/up and the head 1; wk/wv 16,
+    within 2% of its best 8)."""
+    stages = -(-K // qm.W8_STAGE)
+    col_tiles = -(-N // qm.BN)
+    for M in (1, 2, 8, 9, 16, 17, 64):
+        bm, splits, kper = qm.plan_w8(M, K, N, sms)
+        assert col_tiles * splits <= max(col_tiles, qm.W8_SPLIT_BLOCKS_PER_SM * sms)
+        assert splits == 1 or -(-kper // qm.ROWS_WARPS) >= qm.ROWS_MIN_STAGES
+        if sms == 132:
+            best = {1024: 16, 4096: 4, 14336: 1, 32000: 1}[N]
             assert splits == best, (M, splits)
 
 
@@ -175,3 +229,78 @@ def test_decode_plan_bounds_the_range_on_the_host():
     assert n_rg == 1 and n_serv == da.BLOCKS_PER_SM[False] * 132 // 64
     n_pref, n_rg = da.decode_plan(4, 64, 32, 8, 2048, 132, causal=True, offset=1436)
     assert n_rg == 32 and n_pref == 1
+
+
+# (Sq, page, causal): the serving decode step (mask-bounded) and the
+# speculative verify chunk (causal at per-row offsets), pages of 32 to 512
+PAGED_SHAPES = [(1, 256, False), (1, 32, False), (8, 256, True), (8, 32, True),
+                (7, 64, True), (64, 512, True), (1, 128, True)]
+
+
+@pytest.mark.parametrize("quant", [False, True])
+@pytest.mark.parametrize("sms", [132, 8])
+@pytest.mark.parametrize("Sq,page,causal", PAGED_SHAPES)
+def test_paged_plan_covers_the_visible_slots(Sq, page, causal, sms, quant):
+    """K8 over a shuffled page pool (a page shared by two rows, an empty row,
+    a hole, rows up to the full logical width), per-row offsets: every
+    logical slot that a unit's rows can see (valid in the mask, at most
+    offset[b] + the row's query position when causal) falls in exactly one
+    split and one warp's run; no split lies past the row's valid range; and
+    each 16-slot tile lies in one page, so the kernel's one page-table read
+    a tile (page_table[b, 16 t // page], slot 16 t % page) addresses each of
+    its slots where the plain version's gather finds it."""
+    from gritlm_tpu_torch.ops import paged_attention as pa
+
+    B, H, Hkv, maxp = 6, 32, 8, 4096 // page
+    Smax = maxp * page
+    rng = np.random.default_rng(page + Sq)
+    P = B * maxp + 1
+    table = (rng.permutation(P - 1)[:B * maxp] + 1).reshape(B, maxp)
+    table[4, 0] = table[3, 0]  # a prefix page shared by two rows
+    lens = np.array([0, 1, page - 1, page + 17, Smax, 1900])
+    mask = (np.arange(Smax)[None] < lens[:, None]).astype(np.int32)
+    mask[5, 600:700] = 0  # a hole
+    offsets = np.maximum(lens - Sq, 0)
+    n_split, n_rg = pa.paged_plan(B, Sq, H, Hkv, Smax, sms, causal=causal,
+                                  offset=torch.tensor(offsets), quant=quant)
+    assert (n_split, n_rg) == da.decode_plan(B, Sq, H, Hkv, Smax, sms, causal=False,
+                                             quant=quant)  # per-row offsets: the host plans over Smax
+    group = H // Hkv
+    R = Sq * group
+    for b in range(B):
+        for rg in range(n_rg):
+            r0, r1 = rg * da.ROW_GROUP, min(R, (rg + 1) * da.ROW_GROUP) - 1
+            lo, hi = da.slot_range(r0 // group, r1 // group, Smax, causal=causal,
+                                   offset=int(offsets[b]), window=None)
+            t0, nt = _unit_tiles(mask[b], lo, hi)
+            n_used = da.used_splits(nt, n_split)
+            owner = np.zeros(Smax, dtype=int)
+            for s in range(n_used):
+                a, e = da.split_tiles(nt, s, n_used)
+                for w0, w1 in _runs(e - a, da.DECODE_WARPS):
+                    for tile in range(t0 + a + w0, t0 + a + w1):
+                        slots = tile * da.SLOT_TILE + np.arange(da.SLOT_TILE)
+                        owner[slots] += 1
+                        assert (slots // page == slots[0] // page).all()  # one page a tile
+                        first = table[b, slots[0] // page] * page + slots[0] % page
+                        assert (first + np.arange(da.SLOT_TILE)
+                                == table[b, slots // page] * page + slots % page).all()
+            visible = np.zeros(Smax, dtype=bool)
+            visible[lo:hi] = mask[b, lo:hi] != 0
+            assert (owner[visible] == 1).all(), (b, rg)
+            assert owner.max(initial=0) <= 1
+            if not visible.any():
+                assert not owner.any()
+
+
+def test_paged_plan_takes_the_host_bound_of_one_offset():
+    """One int offset for every row bounds the plan on the host as K3's
+    does; a tensor of per-row offsets leaves the bound to the kernel."""
+    from gritlm_tpu_torch.ops import paged_attention as pa
+
+    one = pa.paged_plan(4, 1, 32, 8, 4096, 132, causal=True, offset=15, quant=False)
+    assert one == da.decode_plan(4, 1, 32, 8, 4096, 132, causal=True, offset=15)
+    rows = pa.paged_plan(4, 1, 32, 8, 4096, 132, causal=True, offset=torch.tensor([15] * 4),
+                         quant=False)
+    assert rows == da.decode_plan(4, 1, 32, 8, 4096, 132, causal=False)
+    assert one[0] < rows[0]

@@ -383,15 +383,20 @@ def test_rag_engine_on_cuda(cuda):
 
 
 @pytest.mark.parametrize("quant", [False, True])
-@pytest.mark.parametrize("Sq,causal", [(1, False), (8, True)])
-def test_paged_decode_kernel(cuda, quant, Sq, causal):
-    """K8 over a shuffled page pool: ragged rows, a hole, a page shared by
-    two rows, an empty row (0), causal verify chunks at per-row offsets."""
+@pytest.mark.parametrize("page", [32, 256])
+@pytest.mark.parametrize("group", [1, 4, 8])
+@pytest.mark.parametrize("Sq,causal", [(1, False), (7, True), (8, True), (64, True)])
+def test_paged_decode_kernel(cuda, quant, page, group, Sq, causal):
+    """K8 over a shuffled page pool: GQA groups 1, 4 and 8, ragged rows, a
+    hole, a page shared by two rows, an empty row (0), causal chunks of 7,
+    8 and 64 queries at per-row offsets, pages of 32 and 256 slots, bf16
+    and int8 pages; one launch a call, a rerun bit-equal."""
     from gritlm_tpu_torch.models.transformer import quantize_kv
     from gritlm_tpu_torch.ops import paged_attention
 
-    gen = torch.Generator(device=cuda).manual_seed(6)
-    L, B, H, Hkv, page, maxp = 2, 4, 8, 2, 128, 4
+    gen = torch.Generator(device=cuda).manual_seed(6 + page + group + Sq)
+    L, B, Hkv, maxp = 2, 4, 2, 1024 // page
+    H = group * Hkv
     P = B * maxp + 2
     k = _randn(gen, L, P, page, Hkv * 128, device=cuda)
     v = _randn(gen, L, P, page, Hkv * 128, device=cuda)
@@ -408,16 +413,61 @@ def test_paged_decode_kernel(cuda, quant, Sq, causal):
     lens = torch.tensor([5, maxp * page, 131, 0], device=cuda)
     mask = (torch.arange(maxp * page, device=cuda)[None] < lens[:, None]).int()
     mask[1, 7:40] = 0  # a hole
+    mask[1, 300:333] = 0
     offs = (lens - Sq).clamp_min(0).to(torch.int32)
     q = _randn(gen, B, Sq, H, 128, device=cuda)
     kw = dict(layer=1, num_kv_heads=Hkv, causal=causal, offset=offs, **scales)
     before = paged_attention.paged_decode.launches
     got = paged_attention.paged_decode(q, k, v, pt, mask, **kw)
+    again = paged_attention.paged_decode(q, k, v, pt, mask, **kw)
     torch.cuda.synchronize()
     want = paged_attention.paged_decode_plain(q, k, v, pt, mask, **kw)
-    assert paged_attention.paged_decode.launches == before + 1
+    assert paged_attention.paged_decode.launches == before + 2
+    assert torch.isfinite(got).all()
     torch.testing.assert_close(got.float(), want.float(), atol=ATTN_ATOL, rtol=0)
+    assert torch.equal(got, again)  # the split merge in split order: bit-equal reruns
     assert torch.count_nonzero(got[3]) == 0
+
+
+@pytest.mark.parametrize("quant", [False, True])
+def test_paged_decode_matches_flash_decode(cuda, quant):
+    """K8 and K3 on the same logical cache (the pool gathered dense), the
+    serving step's call (Sq 1, mask-bounded): one kernel body, so the same
+    folds; within ATTN_ATOL of each other."""
+    from gritlm_tpu_torch.ops import paged_attention
+
+    gen = torch.Generator(device=cuda).manual_seed(21)
+    L, B, H, Hkv, page, maxp = 2, 8, 32, 8, 256, 16
+    P = B * maxp + 1
+    k = _randn(gen, L, P, page, Hkv * 128, device=cuda)
+    v = _randn(gen, L, P, page, Hkv * 128, device=cuda)
+    pt = (torch.randperm(P - 1, generator=torch.Generator().manual_seed(1))[:B * maxp] + 1)
+    pt = pt.view(B, maxp).to(torch.int32).to(cuda)
+    lens = torch.tensor([37, 1900, 256, 700, 1333, 3000, 1, 512], device=cuda)
+    mask = (torch.arange(maxp * page, device=cuda)[None] < lens[:, None]).int()
+    mask[1, 600:700] = 0
+    scales, dense_scales = {}, {}
+    if quant:
+        k_d = torch.stack([paged_attention.gather_pages(k, pt, i) for i in range(L)])
+        v_d = torch.stack([paged_attention.gather_pages(v, pt, i) for i in range(L)])
+        k_d, v_d, dense_scales = _int8_cache(k_d, v_d, Hkv)
+        # the same int8 values and scales, laid out as pages again
+        inv = torch.empty(P, dtype=torch.long, device=cuda)
+        inv[pt.long().reshape(-1)] = torch.arange(B * maxp, device=cuda)
+        inv[0] = 0
+        k = k_d.view(L, B * maxp, page, -1)[:, inv].contiguous()
+        v = v_d.view(L, B * maxp, page, -1)[:, inv].contiguous()
+        scales = {n: s.view(L, B, Hkv, maxp, page).transpose(2, 3).reshape(
+            L, B * maxp, Hkv, page)[:, inv].contiguous() for n, s in dense_scales.items()}
+    else:
+        k_d = torch.stack([paged_attention.gather_pages(k, pt, i) for i in range(L)])
+        v_d = torch.stack([paged_attention.gather_pages(v, pt, i) for i in range(L)])
+    q = _randn(gen, B, 1, H, 128, device=cuda)
+    got = paged_attention.paged_decode(q, k, v, pt, mask, layer=1, num_kv_heads=Hkv, **scales)
+    want = decode_attention.flash_decode(q, k_d, v_d, mask, causal=False, layer=1,
+                                         num_kv_heads=Hkv, **dense_scales)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want.float(), atol=ATTN_ATOL, rtol=0)
 
 
 def test_serving_engine_runs_its_kernels(cuda):
@@ -602,14 +652,17 @@ def _rel_err(got, want):
 @pytest.mark.parametrize("K,N", QUANT_SHAPES)
 def test_quant_matmul_kernel(cuda, bits, K, N):
     """K6 (w8a16) and K7 (w4a16) against their plain versions at the
-    Mistral-7B projections, at decode rows and (K6) prefill-chunk rows."""
+    Mistral-7B projections, at decode rows and prefill-chunk rows: K6 at M
+    1-17 (its rows kernel and the first row past it) and 64-512 (the staged
+    template), K7 at M 1-128; reruns bit-equal."""
     from gritlm_tpu_torch.ops import quant_matmul as qm
 
     gen = torch.Generator(device=cuda).manual_seed(K + N + bits)
     node = _quant_node(bits, K, N, gen, cuda)
     kernel, plain = ((qm.w8a16_matmul, qm.w8a16_matmul_plain) if bits == 8
                      else (qm.w4a16_matmul, qm.w4a16_matmul_plain))
-    rows = (1, 3, 8, 16) + ((256, 512) if bits == 8 else (2, 7, 9, 17, 64, 128))
+    rows = ((tuple(range(1, 18)) + (64, 128, 256, 512)) if bits == 8
+            else (1, 3, 8, 16, 2, 7, 9, 17, 64, 128))
     for M in rows:
         x = _randn(gen, M, K, device=cuda)
         before = kernel.launches
@@ -649,6 +702,25 @@ def test_w4a16_one_hot_rows_exact(cuda, K, N):
         got = qm.w4a16_matmul(x, node)
         torch.cuda.synchronize()
         assert torch.equal(got, qm.w4a16_matmul_plain(x, node)), M
+
+
+@pytest.mark.parametrize("K,N", QUANT_SHAPES + [(4096, 1040), (4112, 1040)])
+def test_w8a16_one_hot_rows_exact(cuda, K, N):
+    """K6 against its plain version bit for bit on one-hot x rows: each
+    output row is one int8 weight row times the per-channel scale, rounded
+    to bf16. This holds the register fragments' row and column maps, the
+    exact int8 -> bf16 conversion and the scale applied once at the end, in
+    every routed row range; N = 1040 leaves a partial column tile and
+    K = 4112 a short last stage."""
+    from gritlm_tpu_torch.ops import quant_matmul as qm
+
+    gen = torch.Generator(device=cuda).manual_seed(K + N + 8)
+    node = _quant_node(8, K, N, gen, cuda)
+    for M in (1, 2, 8, 9, 16, 17, 64, 512):
+        x = _one_hot_rows(M, K, cuda)
+        got = qm.w8a16_matmul(x, node)
+        torch.cuda.synchronize()
+        assert torch.equal(got, qm.w8a16_matmul_plain(x, node)), M
 
 
 @pytest.mark.parametrize("group", [16, 32, 64, 128])

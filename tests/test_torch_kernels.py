@@ -193,21 +193,6 @@ def test_cached_attention_dispatch_agrees():
     np.testing.assert_allclose(got.numpy(), want.numpy(), atol=ATOL)
 
 
-def test_decode_split_plan_covers_the_cache():
-    """The CUDA wrapper's split plan at the slice's shapes: whole 32-slot
-    tiles, every slot in exactly one split, and at least half the warp
-    target for 132 SMs (split lengths round up to whole tiles) unless every
-    split is already one tile."""
-    for B, Sq, Smax in [(4, 1, 2048), (4, 64, 2048), (2, 1, 128), (1, 1, 4096)]:
-        n_split, split_len, rows = decode_attention.split_plan(B, Sq, 32, 8, Smax, 132)
-        assert split_len % decode_attention.TILE == 0
-        assert (n_split - 1) * split_len < Smax <= n_split * split_len
-        assert rows % decode_attention.ROWS_PER_WARP == 0 and rows >= Sq * 4
-        warps = n_split * B * 8 * rows // decode_attention.ROWS_PER_WARP
-        max_splits = -(-Smax // decode_attention.TILE)
-        assert 2 * warps >= decode_attention.WARPS_PER_SM * 132 or n_split == max_splits
-
-
 # ---------------------------------------------------------------- K2
 
 

@@ -300,11 +300,13 @@ def test_routing_by_rows(monkeypatch, bits):
                                    (2, 4096, 32000), (256, 4096, 4096), (512, 4096, 14336),
                                    (3, 2048, 1024), (128, 7168, 4096)])
 def test_plan_covers_the_contracting_axis(M, K, N):
-    """The split plan: every stage in exactly one split, no empty split, at
-    most MAX_SPLITS, and no plan with fewer waves x stages a block."""
+    """The staged template's split plan: one block height (BM rows; decode
+    rows go to the rows kernel, `plan_w8`), every stage in exactly one
+    split, no empty split, at most MAX_SPLITS, and no plan with fewer waves
+    x stages a block."""
     stages = -(-K // qm.DK)
     bm, splits, kper = qm.plan(M, stages, N, 132)
-    assert bm == (16 if M <= 16 else 64)
+    assert bm == qm.BM
     assert 1 <= splits <= qm.MAX_SPLITS and (splits - 1) * kper < stages <= splits * kper
     tiles = -(-N // qm.BN) * -(-M // bm)
 
