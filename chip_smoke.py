@@ -11,14 +11,15 @@ over a 1M-row index; RAGEngine.build_index and answer_batch in all seven
 cache modes; the continuous-batching ServingEngine with dense, paged and
 int8 pools, and RAGEngine.serve; w8a16 and w4a16 quantized weights in
 generate and serving; GRIT training with LoRA, QLoRA, GradCache and full
-parameters through `python -m gritlm_tpu_torch.training.run`'s main), and
-times each kernel beside its bound, its plain version and one PyTorch
-library call.
+parameters through `python -m gritlm_tpu_torch.training.run`'s main; the
+embedding projection head in encode and in training), and times each
+kernel beside its bound, its plain version and one PyTorch library call.
 
 Phases (in the order 1-9, 11, 10), any failure exits non-zero:
   1. device and build: card name and power limit, nvcc's register and
      shared-memory report; for the redesigned kernels (K1, K4/K5, K9 on
-     wgmma; K3, K8, K6 and K7 on mma.sync) their registers and spill bytes
+     wgmma; K3, K8, K6 and K7 on mma.sync; K2 on bulk copies and clusters)
+     their registers and spill bytes
      (the wgmma kernels' dynamic shared memory too), failing on a spill or
      a serialised wgmma (each library's ptxas report is kept beside it in
      the build cache, so a cached build is checked too)
@@ -27,9 +28,15 @@ Phases (in the order 1-9, 11, 10), any failure exits non-zero:
      last segment; K3 at Sq 1 and 64, its int8 cache, and the serving
      decode chunk's call (B 8, Smax 4096, mask-bounded, ragged rows); K8
      at the serving shape, bf16 and int8, Sq 1 and a causal Sq 8 chunk, and
-     against K3 on the same logical cache laid out dense)
+     against K3 on the same logical cache laid out dense; K2 at B 8 S 512
+     mean and weightedmean and at K2_SHAPES: B 1 S 4096, B 64 S 128 with an
+     empty row, D 3584, rows that are views into wider ones; normalized and
+     not, every call rerun and required bit-equal)
   3. encode at full width (launch counts set to 0 before encode, read after
-     phase 4)
+     phase 4); then GritLM(projection=1024) on the same weights (counts set
+     to 0 before, read after): 16 sentences to [16, 1024] without K2, at
+     cosine >= COSINE_MIN to an fp32 rms_norm -> @ W + b -> pool ->
+     normalize of the same hidden state
   4. greedy generate at full width: prefill through K1 (bucket >= 128) and
      through K3 (bucket 64), generate from an encode(get_cache=True), and
      generate over the int8 KV cache
@@ -63,7 +70,11 @@ Phases (in the order 1-9, 11, 10), any failure exits non-zero:
      graph replays over enough cache layers that every read is cold, at Sq
      1 and 64, the int8 cache and the serving chunk's call, and K8 and SDPA
      the same way at its four phase-2 shapes; K3's and K8's device
-     operations a call counted, more than one failing), encode and
+     operations a call counted, more than one failing; K2 and its library
+     call by CUDA events around graph replays over copies of the hidden
+     state so that every read is cold, at B 8 S 512 mean (the table's row)
+     and weightedmean, B 1 S 4096 and B 64 S 128, its device operations a
+     call counted from a captured graph, more than one failing), encode and
      decode rates, and a profile (device time by kernel, idle share) of one
      encode and one short generate
  10. training at full width (after the inference model is freed):
@@ -87,7 +98,10 @@ Phases (in the order 1-9, 11, 10), any failure exits non-zero:
      kernel names; K1 with its LSE at both shapes by events beside SDPA's
      forward; 3 QLoRA steps (int8 base,
      make_lora_train_state(quantize=True)) at full depth: ms per step, peak
-     memory against LoRA's, finite losses
+     memory against LoRA's, finite losses; `training.run
+     --model_name_or_path <a depth-4 checkpoint> --projection 1024` with
+     full parameters, 3 steps: finite losses, the head moved from its draw,
+     and the export encodes to 1024 columns through from_pretrained
  11. quantized weights at full width (runs after phase 9, before phase 10
      frees the inference model; counts set to 0 before each run and read
      after): K6 (w8a16) and K7 (w4a16) against their plain versions at
@@ -244,7 +258,8 @@ PTXAS_KERNELS = (("K1", "flash_attention", "gritlm_flash_fwd_smem"),
                  ("K9", "scores_segmax", "gritlm_scores_segmax_smem"),
                  ("K3", "decode_attention", None),
                  ("K8", "paged_attention", None),
-                 ("K7, K6", "quant_matmul", None))
+                 ("K7, K6", "quant_matmul", None),
+                 ("K2", "fused_pool", None))
 
 
 def ptxas_report(_build, logs) -> None:
@@ -460,30 +475,14 @@ def main() -> int:
 
     k8_cases(dev, randn, cases)
 
-    Bp, D = 8, 4096
-    hidden = randn(Bp, S, D)
-    gamma = (1 + 0.1 * torch.randn(D, generator=gen, device=dev)).to(torch.bfloat16)
-    pmask = torch.ones((Bp, S), dtype=torch.int32, device=dev)
-    pmask[:, :12] = 0  # instruction prefix
-    pmask[1::2, 300:] = 0  # padding
-    rows = int(pmask.sum())
+    hidden, gamma, pmask = pool_case(dev, randn, 8, S, 4096)
     for method in ("mean", "weightedmean"):
         kw = dict(eps=1e-5, method=method)
-
-        def library(kw=kw):
-            x = F.rms_norm(hidden, (D,), weight=gamma, eps=1e-5).float()
-            w = pmask.float()
-            if kw["method"] == "weightedmean":
-                w = w * w.cumsum(1)
-            e = torch.einsum("bs,bsd->bd", w, x) / w.sum(1, keepdim=True)
-            return e / e.norm(dim=-1, keepdim=True)
-
         cases.append(("fused_norm_mean_pool", f"{method} B8 S512 D4096",
                       lambda kw=kw: fused_pool.fused_norm_mean_pool(hidden, gamma, pmask, **kw),
                       lambda kw=kw: fused_pool.fused_norm_mean_pool_plain(
                           hidden, gamma, pmask, **kw),
-                      library, 4.0 * rows * D, rows * D * 2 + nbytes(gamma, pmask)
-                      + Bp * D * 4, POOL_ATOL))
+                      None, 0.0, 0.0, POOL_ATOL))  # timed cold by k2_times
 
     max_err = {name: 0.0 for name in wrappers}
     for name, label, fk, fp, _, _, _, atol in cases:
@@ -543,6 +542,8 @@ def main() -> int:
         if err > K9_ATOL or m_err > K9_ATOL:
             fail(f"scores_segmax [{label}] disagrees with its plain version: {err}, {m_err}")
         max_err["scores_segmax"] = max(max_err["scores_segmax"], err, m_err)
+
+    k2_checks(dev, randn, max_err)
 
     q9, emb9 = unit_rows(256), unit_rows(65536 + 300)
     check_scores_segmax("Q256 N65536 n_docs 65000", q9, emb9[:65536], 65000)
@@ -628,6 +629,7 @@ def main() -> int:
     print(f"encode kernels vs plain versions: min cosine {float(cos.min()):.6f}")
     if cos.min() < COSINE_MIN:
         fail(f"encode through the kernels departs from the plain versions: {cos.tolist()}")
+    projection_phase(model, reset_counts, read_counts, path_launches)
 
     times = {}  # per kernel: (ms, plain_ms, library_ms, bound_ms, bound_by) at its path shape
 
@@ -648,9 +650,10 @@ def main() -> int:
     # ---------------------------------------------------------------- 9
     k3_times(dev, randn, times)
     k8_times(dev, randn, times)
+    k2_times(dev, randn, times)
     for name, label, fk, fp, fl, flops, byt, _ in cases:
-        if name in ("flash_decode", "paged_decode"):  # timed cold by k3_times, k8_times
-            continue
+        if name in ("flash_decode", "paged_decode", "fused_norm_mean_pool"):
+            continue  # timed cold by k3_times, k8_times, k2_times
         ms, call_ms = time_ms(fk)
         plain_ms, plain_call = time_ms(fp, reps=10)
         library_ms = library_call = None  # no single PyTorch call computes the int8 variant
@@ -1068,6 +1071,195 @@ def k8_times(dev, randn, times, B=8, H=32, Hkv=8, Dh=128) -> None:
                          "the dense layout")
         del kp, vp, scales, views
         torch.cuda.empty_cache()
+
+
+# K2's shapes beside the kernel table's (B 8, S 512, D 4096, mean and
+# weightedmean): one long row over the whole card, many short rows (one of
+# them empty), the Qwen2-7B width, rows that are views into wider ones
+K2_SHAPES = ((1, 4096, 4096, False), (64, 128, 4096, False), (8, 512, 3584, False),
+             (8, 512, 4096, True))
+
+
+def pool_case(dev, randn, B, S, D, strided=False, edges=False):
+    """(hidden, gamma, mask) of a K2 case: bf16 hidden [B, S, D] (a view
+    into [B, S, 2D] rows when strided), a 12-token instruction prefix
+    masked out of every row, every other row padded from 300 (from S * 3/5
+    when S < 512); with `edges`, row 2 one token and at B > 8 row 3 empty."""
+    import torch
+
+    base = randn(B, S, 2 * D if strided else D)
+    hidden = base[..., :D] if strided else base
+    gamma = (1 + 0.1 * randn(D).float()).to(torch.bfloat16)
+    mask = torch.ones((B, S), dtype=torch.int32, device=dev)
+    mask[:, :12] = 0  # instruction prefix
+    mask[1::2, min(300, S * 3 // 5):] = 0  # padding
+    if edges and B > 2:
+        mask[2] = 0
+        mask[2, S // 2] = 1
+    if edges and B > 8:
+        mask[3] = 0
+    return hidden, gamma, mask
+
+
+def pool_library(hidden, gamma, mask, method):
+    """The encode epilogue by PyTorch calls (F.rms_norm, then the masked
+    mean and the L2 normalize): the yardstick beside K2, never used by the
+    port."""
+    import torch
+    import torch.nn.functional as F
+
+    x = F.rms_norm(hidden, (hidden.shape[-1],), weight=gamma, eps=1e-5).float()
+    w = mask.float()
+    if method == "weightedmean":
+        w = w * w.cumsum(1)
+    e = torch.einsum("bs,bsd->bd", w, x) / w.sum(1, keepdim=True).clamp_min(1)
+    return e / e.norm(dim=-1, keepdim=True).clamp_min(1e-12)
+
+
+def k2_checks(dev, randn, max_err) -> None:
+    """K2 against its plain version within POOL_ATOL at K2_SHAPES, mean and
+    weightedmean, normalized and not; every call run twice and the two
+    required bit-equal; an empty mask row comes out zero."""
+    import torch
+
+    from gritlm_tpu_torch.ops import fused_pool as fp
+
+    for B, S, D, strided in K2_SHAPES:
+        hidden, gamma, mask = pool_case(dev, randn, B, S, D, strided, edges=True)
+        for method in ("mean", "weightedmean"):
+            for normalized in (True, False):
+                kw = dict(eps=1e-5, method=method, normalized=normalized)
+                got = fp.fused_norm_mean_pool(hidden, gamma, mask, **kw)
+                again = fp.fused_norm_mean_pool(hidden, gamma, mask, **kw)
+                torch.cuda.synchronize()
+                want = fp.fused_norm_mean_pool_plain(hidden, gamma, mask, **kw)
+                label = (f"{method} B{B} S{S} D{D}{' strided' if strided else ''}"
+                         f"{'' if normalized else ' unnormalized'}")
+                if got.shape != want.shape or not torch.isfinite(got).all():
+                    fail(f"fused_norm_mean_pool [{label}]: shape or non-finite output")
+                err = float((got - want).abs().max())
+                same = torch.equal(got, again)
+                empty = B <= 8 or torch.count_nonzero(got[3]) == 0
+                print(f"check fused_norm_mean_pool [{label}]: max_abs_err {err:.3e} (atol "
+                      f"{POOL_ATOL}); rerun bit-equal: {same}", flush=True)
+                if err > POOL_ATOL or not same or not empty:
+                    fail(f"fused_norm_mean_pool [{label}] disagrees with its plain version "
+                         f"({err}), a rerun differs ({not same}) or an empty row is not 0")
+                max_err["fused_norm_mean_pool"] = max(max_err["fused_norm_mean_pool"], err)
+        del hidden
+        torch.cuda.empty_cache()
+
+
+def k2_times(dev, randn, times) -> None:
+    """K2 and its library call (pool_library) by CUDA events around CUDA
+    graph replays, each call on its own copy of the hidden state
+    (cold_copies of it, so no call finds its rows in L2, as after a trunk
+    forward), at the kernel table's shape (B 8, S 512, D 4096, mean: the
+    table's row, with the plain version's time) and weightedmean, and at
+    B 1 S 4096 and B 64 S 128; the device operations of one call from a
+    captured CUDA graph (more than one fails), and the profiler's warm
+    reading over back-to-back calls beside."""
+    import torch
+
+    from gritlm_tpu_torch.ops import fused_pool as fp
+
+    for B, S, D, method in ((8, 512, 4096, "mean"), (8, 512, 4096, "weightedmean"),
+                            (1, 4096, 4096, "mean"), (64, 128, 4096, "mean")):
+        hidden, gamma, mask = pool_case(dev, randn, B, S, D)
+        rows = int(mask.sum())
+        bms, by = bound(4.0 * rows * D, rows * D * 2 + nbytes(gamma, mask) + B * D * 4)
+        n = cold_copies(nbytes(hidden))
+        copies = [hidden] + [randn(*hidden.shape) for _ in range(n - 1)]
+        kw = dict(eps=1e-5, method=method)
+        ms = graph_ms(lambda: [fp.fused_norm_mean_pool(h, gamma, mask, **kw)
+                               for h in copies]) / n
+        library_ms = graph_ms(lambda: [pool_library(h, gamma, mask, method)
+                                       for h in copies]) / n
+        n_kernels, n_ops = kernels_per_call(lambda: fp.fused_norm_mean_pool(hidden, gamma,
+                                                                            mask, **kw))
+        warm = time_ms(lambda: fp.fused_norm_mean_pool(hidden, gamma, mask, **kw))[0]
+        label = f"{method} B{B} S{S} D{D}, {rows} masked-in rows"
+        line = (f"time fused_norm_mean_pool [{label}]: device {ms:.4f} ms cold "
+                f"({bms / ms * 100:.1f}% of bound {bms:.4f} ms, {by}), library "
+                f"{library_ms:.4f} (F.rms_norm + masked mean + normalize, cold); CUDA graph "
+                f"replays over {n} copies of the hidden state; device kernels a call: "
+                f"{n_kernels} ({n_ops} device operations in its captured graph); "
+                f"torch.profiler over back-to-back calls (warm) {warm:.4f}")
+        if "fused_norm_mean_pool" not in times:  # the table's row
+            plain_ms = time_ms(lambda: fp.fused_norm_mean_pool_plain(hidden, gamma, mask, **kw),
+                               reps=10)[0]
+            times["fused_norm_mean_pool"] = (ms, plain_ms, library_ms, bms, by)
+            line += f"; plain {plain_ms:.4f}"
+        print(line, flush=True)
+        if n_ops > 1:
+            fail(f"fused_norm_mean_pool [{label}]: {n_ops} device operations a call, "
+                 "not one kernel")
+        del hidden, copies
+        torch.cuda.empty_cache()
+
+
+PROJECTION = 1024  # the head's width on the card (the JAX package takes any)
+
+
+def projection_phase(model, reset_counts, read_counts, path_launches) -> None:
+    """GritLM(projection=PROJECTION) on the model's weights (counts set to 0
+    before, read after): 16 sentences encode to [16, PROJECTION] without
+    K2 (the head projects every token before the pool), at cosine >=
+    COSINE_MIN to an fp32 rms_norm -> @ W + b -> mean pool -> normalize of
+    the same pre-norm hidden state on the card; host ms of the encode
+    beside the headless model's."""
+    import torch
+    import torch.nn.functional as F
+
+    from gritlm_tpu_torch import GritLM
+    from gritlm_tpu_torch.gritlm import _bucket
+    from gritlm_tpu_torch.models.transformer import forward
+
+    pm = GritLM(model.config, params=model.params, projection=PROJECTION, seed=0)
+    pm.encode(SENTENCES[:2])  # warm-up
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    emb = torch.from_numpy(pm.encode(SENTENCES))
+    torch.cuda.synchronize()
+    dt = time.time() - t0
+    counts = read_counts()
+    path_launches["projection encode"] = counts
+    t0 = time.time()
+    model.encode(SENTENCES)
+    torch.cuda.synchronize()
+    dt_plain = time.time() - t0
+    if tuple(emb.shape) != (16, PROJECTION) or not torch.isfinite(emb).all():
+        fail(f"projection encode: shape {tuple(emb.shape)} or non-finite values")
+    if counts["fused_norm_mean_pool"] != 0 or counts["flash_attention"] == 0:
+        fail(f"projection encode: launches {counts} (K2 must not run, K1 must)")
+    tok, cfg = pm.tokenizer, pm.config
+    enc = tok(SENTENCES, max_length=512)
+    ids, mask = enc["input_ids"], enc["attention_mask"]
+    pad = _bucket(ids.shape[1], pm.seq_buckets) - ids.shape[1]
+    ids = np.pad(ids, ((0, 0), (0, pad)), constant_values=tok.pad_token_id)
+    mask = np.pad(mask, ((0, 0), (0, pad)))
+    dev = pm.device
+    mask_t = torch.as_tensor(mask, device=dev)
+    with torch.inference_mode():
+        hidden, _, _ = forward(pm.params, cfg, torch.as_tensor(ids, device=dev),
+                               attention_mask=mask_t, causal=pm.embed_causal, final_norm=False)
+        x = hidden.float()
+        x = x * torch.rsqrt(x.pow(2).mean(-1, keepdim=True) + cfg.rms_norm_eps)
+        x = x * pm.params["final_ln"]["scale"].float()
+        y = x @ pm.projection["kernel"].float() + pm.projection["bias"].float()
+        w = mask_t.float()
+        ref = torch.einsum("bs,bsd->bd", w, y) / w.sum(1, keepdim=True)
+        ref = (ref / ref.norm(dim=-1, keepdim=True)).cpu()
+    cos = F.cosine_similarity(emb, ref, dim=-1)
+    print(f"projection encode [{PROJECTION}]: 16 sentences -> {tuple(emb.shape)} in "
+          f"{dt * 1e3:.1f} ms (host clock; without the head, through K2: "
+          f"{dt_plain * 1e3:.1f} ms); launches {counts}; min cosine to the fp32 "
+          f"rms_norm -> @W+b -> pool -> normalize of the same hidden state "
+          f"{float(cos.min()):.6f}", flush=True)
+    if cos.min() < COSINE_MIN:
+        fail(f"projection encode departs from its fp32 reference: {cos.tolist()}")
+    del pm
 
 
 def search_phase(dev, check_scores_segmax, unit_rows, reset_counts, read_counts,
@@ -2132,6 +2324,10 @@ def training_phase(dev, reset_counts, read_counts, path_launches, preset="mistra
         if not all(np.isfinite(losses)):
             fail(f"train [full parameters]: losses {losses}")
         del state, params
+        torch.cuda.empty_cache()
+
+        # ---- the projection head: run.main --projection, full parameters, depth 4
+        projection_training(dev, cfg4, work, argv)
         torch.cuda.synchronize()
         counts = read_counts()
     finally:
@@ -2141,6 +2337,54 @@ def training_phase(dev, reset_counts, read_counts, path_launches, preset="mistra
     if any(counts[n] == 0 for n in ("flash_attention", "flash_attention_bwd_dq",
                                     "flash_attention_bwd_dkv")):
         fail("training did not go through K1, K4 and K5")
+    torch.cuda.empty_cache()
+
+
+def projection_training(dev, cfg4, work: Path, lora_argv) -> None:
+    """`training.run --model_name_or_path <a depth-4 checkpoint of the
+    width> --projection PROJECTION`, full parameters, 3 steps on the phase's
+    data: finite losses, the head moved from its draw (init_projection at
+    the run's seed + 1), and the export reloads through
+    GritLM.from_pretrained and encodes to PROJECTION columns."""
+    import torch
+
+    from gritlm_tpu_torch import GritLM
+    from gritlm_tpu_torch.models.loader import load_checkpoint, save_checkpoint
+    from gritlm_tpu_torch.models.transformer import init_params, init_projection
+    from gritlm_tpu_torch.training import run
+
+    base = work / "base4"
+    save_checkpoint(str(base), cfg4, init_params(cfg4, 3, device=dev))
+    argv = [a for a in lora_argv if a != "--lora"]
+    i = argv.index("--model_preset")
+    argv[i:i + 2] = ["--model_name_or_path", str(base)]
+    for flag, value in (("--output_dir", str(work / "projection")), ("--save_steps", "0")):
+        argv[argv.index(flag) + 1] = value
+    argv += ["--projection", str(PROJECTION)]
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    r = run.main(argv)
+    t_run = time.time() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    seed = json.loads((work / "projection" / "run_args.json").read_text())["seed"]
+    start = init_projection(cfg4, PROJECTION, seed + 1, device=dev)
+    _, back = load_checkpoint(r["export"], device=dev)
+    head = back["projection"]["kernel"]
+    moved = float((head.float() - start["kernel"].float()).abs().max())
+    del back
+    pm = GritLM.from_pretrained(r["export"])
+    emb = pm.encode(SENTENCES[:4])
+    print(f"train [--projection {PROJECTION}, full parameters, {cfg4.num_hidden_layers} "
+          f"layers, run.main]: {r['steps']} steps in {t_run:.1f} s (model load and export "
+          f"included), final {r['final']}; peak {peak:.2f} GiB; the head moved by up to "
+          f"{moved:.3e}; the export encodes to {emb.shape}", flush=True)
+    if r["steps"] != 3 or not all(np.isfinite(v) for v in r["final"].values()):
+        fail(f"train [--projection]: {r}")
+    if tuple(head.shape) != (cfg4.hidden_size, PROJECTION) or moved == 0.0:
+        fail(f"train [--projection]: head {tuple(head.shape)} moved by {moved}")
+    if emb.shape != (4, PROJECTION) or not np.isfinite(emb).all():
+        fail(f"train [--projection]: the export encodes to {emb.shape}")
+    del pm, start
     torch.cuda.empty_cache()
 
 

@@ -91,6 +91,23 @@ __device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map
       : "memory");
 }
 
+// A 1-D bulk copy of `bytes` (a multiple of 16; both addresses 16-byte
+// aligned) from global memory into shared memory at `dst`; completion
+// counts `bar`'s transaction bytes down. No tensor map.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes,
+                                          uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(dst), "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// Order this thread's earlier shared-memory accesses (generic proxy) before
+// later bulk copies into the same bytes (async proxy).
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
 // ------------------------------------------------------------ setmaxnreg
 
 template <int N>

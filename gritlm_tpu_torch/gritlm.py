@@ -3,19 +3,20 @@ gritlm_tpu.gritlm).
 
 Modes unified/embedding/generative, the four pooling methods, instruction
 masking, embed_eos, KV-cache capture, encode_queries/encode_corpus and
-generate, w8a16 / w4a16 serving weights (`weight_quant=True|8|4`: the layer
-kernels and the LM head quantized by training/quant.py, read by the
-quantized matmuls K6 and K7), and `from_pretrained` (an HF checkpoint
+generate, an embedding projection head (`projection=P`, or the trained head
+a checkpoint carries), w8a16 / w4a16 serving weights (`weight_quant=True|8|4`:
+the layer kernels and the LM head quantized by training/quant.py, read by
+the quantized matmuls K6 and K7), and `from_pretrained` (an HF checkpoint
 directory with its tokenizer). Batches are padded to a small set of
 sequence buckets, as in the JAX package, so the same kernel shapes recur.
 
-Not ported yet (raise NotImplementedError): `mesh=`, `projection=` (and a
-checkpoint that carries a projection head), `speculative=True` and MoE
-configs.
+Not ported yet (raise NotImplementedError): `mesh=`, `speculative=True` and
+MoE configs.
 """
 
 from __future__ import annotations
 
+import warnings
 from typing import Dict, List, Optional, Sequence, Union
 
 import numpy as np
@@ -35,6 +36,7 @@ from gritlm_tpu_torch.models.transformer import (
     forward,
     init_cache,
     init_params,
+    init_projection,
     resolve_device,
 )
 from gritlm_tpu_torch.ops import fused_pool
@@ -57,10 +59,22 @@ def _normalize(emb: torch.Tensor) -> torch.Tensor:
     return emb / emb.norm(dim=-1, keepdim=True).clamp_min(1e-12)
 
 
+def _pool_head(hidden, pool_mask, projection: Optional[dict], pooling_method: str,
+               normalized: bool) -> torch.Tensor:
+    """The normed hidden state [B, S, D] -> embeddings: the projection head
+    on every token (in the hidden state's dtype), then pool (fp32) and the
+    L2 normalize, as the JAX package's encode steps do."""
+    if projection is not None:
+        hidden = hidden @ projection["kernel"] + projection["bias"]
+    emb = pool(hidden, pool_mask, pooling_method)
+    return _normalize(emb) if normalized else emb
+
+
 @torch.inference_mode()
 def _encode_step(params: dict, cfg: ModelConfig, input_ids, attention_mask, pool_mask, *,
-                 pooling_method: str, causal: bool, normalized: bool) -> torch.Tensor:
-    if pooling_method in ("mean", "weightedmean"):
+                 pooling_method: str, causal: bool, normalized: bool,
+                 projection: Optional[dict] = None) -> torch.Tensor:
+    if projection is None and pooling_method in ("mean", "weightedmean"):
         # fused epilogue (K2): final RMSNorm + masked mean + L2 normalize in
         # one pass over the residual stream
         hidden, _, _ = forward(params, cfg, input_ids, attention_mask=attention_mask,
@@ -71,20 +85,19 @@ def _encode_step(params: dict, cfg: ModelConfig, input_ids, attention_mask, pool
         )
     hidden, _, _ = forward(params, cfg, input_ids, attention_mask=attention_mask,
                            causal=causal)
-    emb = pool(hidden, pool_mask, pooling_method)
-    return _normalize(emb) if normalized else emb
+    return _pool_head(hidden, pool_mask, projection, pooling_method, normalized)
 
 
 @torch.inference_mode()
 def _encode_step_with_cache(params: dict, cfg: ModelConfig, input_ids, attention_mask,
                             pool_mask, *, pooling_method: str, causal: bool,
-                            normalized: bool, cache_len: int, quant: bool):
+                            normalized: bool, cache_len: int, quant: bool,
+                            projection: Optional[dict] = None):
     cache = init_cache(cfg, input_ids.shape[0], cache_len, device=input_ids.device,
                        quant=quant)
     hidden, cache, _ = forward(params, cfg, input_ids, attention_mask=attention_mask,
                                causal=causal, cache=cache)
-    emb = pool(hidden, pool_mask, pooling_method)
-    return (_normalize(emb) if normalized else emb), cache
+    return _pool_head(hidden, pool_mask, projection, pooling_method, normalized), cache
 
 
 class GritLM:
@@ -114,9 +127,8 @@ class GritLM:
             raise ValueError(f"Mixed attention not supported: {attn}. Use one of {ATTN_MODES}")
         if pooling_method not in POOLING_METHODS:
             raise NotImplementedError(f"Unknown pooling method: {pooling_method}")
-        for name, value in (("mesh", mesh), ("projection", projection)):
-            if value:
-                raise NotImplementedError(f"GritLM({name}=...) is not ported yet")
+        if mesh:
+            raise NotImplementedError("GritLM(mesh=...) is not ported yet")
         if config.is_moe:
             raise NotImplementedError("MoE configs are not ported yet")
         self.config = config
@@ -132,15 +144,28 @@ class GritLM:
         if params is None:
             params = init_params(config, seed, with_lm_head=(mode != "embedding"),
                                  device=self.device)
-        if "projection" in params:
-            raise NotImplementedError(
-                "a checkpoint with a projection head: the projection is not ported yet "
-                "(ROADMAP Queue 1 item 3)")
+        trained = None
+        if "projection" in params:  # a head shipped in the checkpoint
+            params = dict(params)  # the caller's tree keeps its head
+            trained = params.pop("projection")
         if weight_quant:
-            # the layer kernels and the LM head; the embedding stays dense
+            # the layer kernels and the LM head; the embedding and the
+            # projection head stay dense
             bits = 4 if weight_quant == 4 else 8
             params = quantize_for_serving(params, bits=bits)
         self.params = params
+        self.projection = None
+        if trained is not None:
+            if projection is None or trained["kernel"].shape[1] == projection:
+                self.projection = trained
+                projection = None  # the trained head wins over a matching request
+            else:
+                warnings.warn(
+                    f"checkpoint has a trained projection head (dim "
+                    f"{trained['kernel'].shape[1]}) but projection={projection} was "
+                    "requested: using a fresh random head")
+        if projection is not None:
+            self.projection = init_projection(config, projection, seed + 1, self.device)
 
     @classmethod
     def from_pretrained(cls, path: str, dtype=None, **kwargs) -> "GritLM":
@@ -191,7 +216,9 @@ class GritLM:
         if input_was_string:
             sentences = [sentences]
         if len(sentences) == 0:
-            return np.zeros((0, self.config.hidden_size), np.float32)
+            dim = (self.projection["kernel"].shape[1] if self.projection is not None
+                   else self.config.hidden_size)
+            return np.zeros((0, dim), np.float32)
         mask_instr = bool(instruction and not embed_instruction
                           and "mean" in self.pooling_method)
 
@@ -217,7 +244,7 @@ class GritLM:
                 pmask = pmask * (np.arange(ids.shape[1])[None, :] >= ilens[:, None]
                                  ).astype(pmask.dtype)
             kw = dict(pooling_method=self.pooling_method, causal=self.embed_causal,
-                      normalized=self.normalized)
+                      normalized=self.normalized, projection=self.projection)
             ids_t, mask_t, pmask_t = self._put(ids), self._put(mask), self._put(pmask)
             if get_cache:
                 if cache is not None:

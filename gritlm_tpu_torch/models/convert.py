@@ -74,11 +74,23 @@ def _quantized_shapes(node: dict, dense: tuple, name: str) -> None:
                              f"the config needs {np.dtype(dtype)} {shape}")
 
 
+def _projection_shapes(node: dict, D: int) -> None:
+    """Check an embedding projection head: {kernel [D, P], bias [P]}, any P."""
+    if not isinstance(node, dict) or set(node) != {"kernel", "bias"}:
+        raise ValueError(f"params_from_jax: projection has leaves "
+                         f"{sorted(node) if isinstance(node, dict) else type(node)}")
+    kernel, bias = np.shape(node["kernel"]), np.shape(node["bias"])
+    if len(kernel) != 2 or kernel[0] != D or bias != kernel[1:]:
+        raise ValueError(f"params_from_jax: projection kernel {kernel}, bias {bias}; "
+                         f"the config needs [{D}, P] and [P]")
+
+
 def params_from_jax(tree: dict, cfg: ModelConfig, device=None) -> dict:
     """The JAX param tree (numpy leaves) -> the port's param tree on
     `device`. Quantized leaves (training/quant.py layouts) carry over as
-    they are. Raises on a leaf the dense port does not know or a shape that
-    does not match `cfg`."""
+    they are, and so does an embedding projection head
+    (projection/{kernel [D, P], bias [P]}, any P). Raises on a leaf the
+    dense port does not know or a shape that does not match `cfg`."""
     if cfg.is_moe:
         raise NotImplementedError("MoE configs are not ported yet")
     device = resolve_device(device)
@@ -86,6 +98,9 @@ def params_from_jax(tree: dict, cfg: ModelConfig, device=None) -> dict:
 
     def walk(node, path):
         name = "/".join(path)
+        if path == ("projection",):
+            _projection_shapes(node, cfg.hidden_size)
+            return {k: _to_torch(v).to(device) for k, v in node.items()}
         if isinstance(node, dict) and ("q8" in node or "q4" in node) and path in shapes:
             _quantized_shapes(node, shapes[path], name)
             return {k: _to_torch(v).to(device) for k, v in node.items()}

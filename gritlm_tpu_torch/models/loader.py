@@ -10,8 +10,9 @@ has no `safetensors` package): an 8-byte little-endian header length, a
 JSON header mapping each name to its dtype, shape and `data_offsets`
 (padded with spaces to a multiple of 8 bytes), then the raw little-endian
 tensor bytes. Files written here load in `safetensors.numpy.load_file`.
-MoE (Mixtral) checkpoints raise NotImplementedError (ROADMAP Queue 1 item
-11).
+An embedding projection head travels as `projection.weight`/`.bias`.
+`add_lm_head` grafts a donor's LM head onto an embedding-only model. MoE
+(Mixtral) checkpoints raise NotImplementedError (ROADMAP Queue 1 item 11).
 """
 
 from __future__ import annotations
@@ -246,3 +247,12 @@ def save_checkpoint(path: str, cfg: ModelConfig, params: dict,
         hf_cfg["rope_scaling"] = rs
     with open(os.path.join(path, "config.json"), "w") as f:
         json.dump(hf_cfg, f, indent=2)
+
+
+def add_lm_head(params: dict, donor_params: dict) -> dict:
+    """Graft the LM head of a donor checkpoint's params onto an
+    embedding-only model's (reference scripts/add_lm_head.py). A new top
+    level; the leaves are shared, not copied."""
+    out = dict(params)
+    out["lm_head"] = donor_params["lm_head"]
+    return out

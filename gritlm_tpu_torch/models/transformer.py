@@ -123,6 +123,21 @@ def init_params(cfg: ModelConfig, seed: Union[int, torch.Generator] = 0,
     return params
 
 
+def init_projection(cfg: ModelConfig, dim: int, seed: int, device=None) -> dict:
+    """A fresh embedding projection head [D, dim], as the JAX package draws
+    it (gritlm.py, training/run.py): kernel uniform in +-sqrt(6 / (D + dim))
+    in fp32, then the model dtype; bias zero. Drawn on `device` from a
+    torch.Generator seeded with `seed` (the callers pass their seed + 1),
+    so the numbers differ from JAX's."""
+    device = resolve_device(device)
+    gen = torch.Generator(device=device).manual_seed(int(seed))
+    lim = (6.0 / (cfg.hidden_size + dim)) ** 0.5
+    kernel = torch.empty((cfg.hidden_size, dim), dtype=torch.float32, device=device)
+    kernel.uniform_(-lim, lim, generator=gen)
+    return {"kernel": kernel.to(cfg.torch_dtype),
+            "bias": torch.zeros((dim,), dtype=cfg.torch_dtype, device=device)}
+
+
 # ---------------------------------------------------------------------------
 # Building blocks
 

@@ -154,11 +154,11 @@ _counters: Dict[torch.device, torch.Tensor] = {}
 
 
 def counters(device: torch.device, n: int) -> torch.Tensor:
-    """The arrival counters of the kernels whose last block merges the
-    others' partial sums (K3, K7): int32, zero between launches (the merging
-    block resets its own), so one buffer on a device serves every launch as
-    long as launches do not overlap (the port launches on one stream);
-    grown on demand, at least 4096."""
+    """The arrival counters of the kernels whose last block (K3, K6, K7,
+    K8) or last cluster (K2) merges the others' partial sums: int32, zero
+    between launches (the merging block resets its own), so one buffer on a
+    device serves every launch as long as launches do not overlap (the port
+    launches on one stream); grown on demand, at least 4096."""
     buf = _counters.get(device)
     if buf is None or buf.numel() < n:
         buf = torch.zeros(max(n, 4096), dtype=torch.int32, device=device)

@@ -110,7 +110,9 @@ class EmbedRequest:
     (instr_len=0 embeds the instruction too). Embedding batches dispatch
     between decode chunks, one same-bucket group per scheduler step, through
     the port's own `gritlm._encode_step`, so pool embeddings are the offline
-    encoder's."""
+    encoder's without a projection head: the engine passes none, as the JAX
+    engine passes `has_projection=False`, so a model's head never applies
+    here."""
 
     input_ids: List[int]
     instr_len: int = 0

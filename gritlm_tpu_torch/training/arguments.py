@@ -103,7 +103,6 @@ class RunArguments:
             (self.mesh_stage > 1, "--mesh_stage > 1", 12),
             (self.mesh_data != 1 or self.mesh_fsdp not in (-1, 1) or self.mesh_model != 1
              or self.mesh_expert != 1, "a mesh of more than one device", 12),
-            (self.projection is not None, "--projection", 3),
             (self.moe_impl is not None, "--moe_impl", 11),
             (self.remat_policy is not None, f"--remat_policy {self.remat_policy}", 7),
         ]

@@ -181,7 +181,10 @@ def make_lora_train_state(
     `quantize`: QLoRA), and a TrainState whose `params` IS the LoRA tree (so
     the checkpoint manager and the run loop work unchanged). Returns
     (run_step, state, base, scale); run_step(state, batch) is train_step
-    with the base closed over (GradCache included)."""
+    with the base closed over (GradCache included). A projection head in
+    `base_params` is part of the frozen base, as in the JAX package (no
+    adapter targets it): encode_reps applies it, it takes no gradient, and
+    `merge` carries it into the export unchanged."""
     device = resolve_device(device)
     base = _frozen(base_params, device)
     if quantize:

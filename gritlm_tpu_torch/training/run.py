@@ -5,9 +5,12 @@ data, builds the unified dataset / collator / sampler, runs the train step
 (GradCache inside; full parameters, LoRA, or QLoRA over an int8 base), logs
 loss_emb / loss_gen, checkpoints with resume, and exports the final model as
 an HF-safetensors checkpoint (LoRA merged, the base dense). The model is an
-HF checkpoint with its tokenizer (`--model_name_or_path`) or a preset with
-random weights from `--seed`. It writes the JAX CLI's files: run_args.json,
-dataset_num_samples.json, metrics.jsonl, checkpoints/step_<n>/ and export/.
+HF checkpoint with its tokenizer (`--model_name_or_path`, with the
+embedding projection head it carries) or a preset with random weights from
+`--seed`; `--projection P` adds a fresh head of width P (trained with full
+parameters, frozen under LoRA, as in the JAX package). It writes the JAX
+CLI's files: run_args.json, dataset_num_samples.json, metrics.jsonl,
+checkpoints/step_<n>/ and export/.
 
 Example (toy run on the CPU, the kernels' plain versions):
   python -m gritlm_tpu_torch.training.run --train_data tests/toy_data \\
@@ -32,7 +35,11 @@ logger = logging.getLogger("gritlm_tpu_torch.train")
 def main(argv=None) -> dict:
     from gritlm_tpu_torch import config as cfgmod
     from gritlm_tpu_torch.models.loader import load_checkpoint, save_checkpoint
-    from gritlm_tpu_torch.models.transformer import init_params, resolve_device
+    from gritlm_tpu_torch.models.transformer import (
+        init_params,
+        init_projection,
+        resolve_device,
+    )
     from gritlm_tpu_torch.tokenizer import load_tokenizer
     from gritlm_tpu_torch.training.arguments import parse_args
     from gritlm_tpu_torch.training.checkpoint import CheckpointManager
@@ -60,10 +67,6 @@ def main(argv=None) -> dict:
         cfg, params = load_checkpoint(args.model_name_or_path,
                                       with_lm_head=(args.mode != "embedding"), dtype=args.dtype,
                                       device=device)
-        if "projection" in params:
-            raise NotImplementedError(
-                "a checkpoint with a projection head: the projection is not ported yet "
-                "(ROADMAP Queue 1 item 3)")
         tokenizer = load_tokenizer(args.model_name_or_path)
     else:
         cfg = getattr(cfgmod, args.model_preset)()
@@ -74,8 +77,13 @@ def main(argv=None) -> dict:
         params = init_params(cfg, args.seed, with_lm_head=(args.mode != "embedding"),
                              device=device)
         tokenizer = load_tokenizer(None)
-    logger.info("model: %s (%s) on %s", args.model_preset or args.model_name_or_path,
-                cfg.dtype, device)
+    if args.projection:
+        # a fresh embedding head (over a checkpoint's own): uniform in
+        # +-sqrt(6 / (D + P)), zero bias, from seed + 1, as the JAX CLI draws it
+        params["projection"] = init_projection(cfg, args.projection, args.seed + 1, device)
+    logger.info("model: %s (%s) on %s, projection=%s",
+                args.model_preset or args.model_name_or_path, cfg.dtype, device,
+                args.projection)
 
     # ---- data
     emb_sets, gen_sets = load_train_dirs(args.train_data)

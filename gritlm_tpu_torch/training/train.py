@@ -123,12 +123,15 @@ def _check_cfg(cfg: ModelConfig) -> None:
 
 def encode_reps(params, cfg: ModelConfig, tc: TrainConfig, feat: Dict[str, torch.Tensor]
                 ) -> torch.Tensor:
-    """features -> pooled (optionally normalized) fp32 reps [B, D];
-    instruction tokens are attended but not pooled (reference
-    gritlm/training/model.py:134-165). Pools with ops/pooling.pool, not the
-    fused K2 epilogue, as the JAX package's training does."""
-    if "projection" in params:
-        raise NotImplementedError("the projection head is not ported (ROADMAP Queue 1 item 3)")
+    """features -> pooled (optionally normalized) fp32 reps [B, D] (or
+    [B, P] with a projection head); instruction tokens are attended but not
+    pooled (reference gritlm/training/model.py:134-165). Pools with
+    ops/pooling.pool, not the fused K2 epilogue, as the JAX package's
+    training does. A head in `params` ({kernel [D, P], bias [P]}) applies to
+    the pooled rep, cast to the rep's dtype, before the normalize (reference
+    gritlm/training/model.py:147-148); inference projects every token before
+    pooling instead (gritlm._encode_step), and the port keeps both as the
+    JAX package has them."""
     hidden, _, _ = forward(params, cfg, feat["input_ids"], attention_mask=feat["attention_mask"],
                            causal=tc.embed_causal, remat=tc.remat,
                            remat_policy=tc.remat_policy)
@@ -136,6 +139,9 @@ def encode_reps(params, cfg: ModelConfig, tc: TrainConfig, feat: Dict[str, torch
     if "instruction_lens" in feat:
         pmask = mask_instruction(pmask, feat["instruction_lens"])
     reps = pool(hidden, pmask, tc.pooling_method)
+    if "projection" in params:
+        pr = params["projection"]
+        reps = reps @ pr["kernel"].to(reps.dtype) + pr["bias"].to(reps.dtype)
     if tc.normalized:
         reps = reps / reps.norm(dim=-1, keepdim=True).clamp_min(1e-12)
     return reps

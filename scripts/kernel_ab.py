@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
-"""The port's decode-path kernels timed against another checkout's, on one
-CUDA card, in turns: that checkout, this one, this one, that checkout.
+"""The port's decode-path kernels and K2 timed against another checkout's,
+on one CUDA card, in turns: that checkout, this one, this one, that checkout.
 
     mkdir -p build/parent && git archive <commit> | tar -x -C build/parent
-    python3 scripts/kernel_ab.py build/parent
+    python3 scripts/kernel_ab.py build/parent [--only decode,quant,chunk,pool]
 
 Each turn is its own process with its checkout's `gritlm_tpu_torch` first
 on sys.path, so each runs its own kernels and wrappers through the public
@@ -24,7 +24,12 @@ CUDA events around CUDA graph replays:
     at M 1, 16, 64, 128, 256 and 512, over weight copies kept out of L2;
   - the decode chunk of a full-width Mistral-7B ServingEngine (8 rows, 16
     steps) with a paged bf16 pool and a dense one: device ms a step by
-    torch.profiler (chip_smoke.profile_decode_chunk).
+    torch.profiler (chip_smoke.profile_decode_chunk);
+  - K2 (`fused_norm_mean_pool`) at chip_smoke's pool cases (B 8 S 512 mean
+    and weightedmean, B 1 S 4096, B 64 S 128, B 8 S 64; D 4096), cold (each
+    call on its own copy of the hidden state, cold_copies of them), with
+    the device operations a call.
+`--only` keeps the named groups (decode, quant, chunk, pool).
 In this checkout's turns also K6's two kernels forced on every row count
 (the rows kernel against the staged template at M 1-512, gate/up), the
 rows kernel's split counts at M 8 on each projection, and at M 8 a variant
@@ -55,21 +60,24 @@ PACK_PERMUTE = "  return __byte_perm(__float_as_uint(a), __float_as_uint(b), 0x7
 PACK_CVT = ('  uint32_t r;\n  asm("cvt.rn.bf16x2.f32 %0, %1, %2;\\n" : "=r"(r) : "f"(b), "f"(a));\n'
             "  return r;")
 VARIANT = HERE / "build" / "kernel_ab" / "quant_matmul_cvt.so"
-PTXAS_SOURCES = ("decode_attention", "paged_attention", "quant_matmul")
+PTXAS_SOURCES = ("decode_attention", "paged_attention", "quant_matmul", "fused_pool")
+GROUPS = ("decode", "quant", "chunk", "pool")
+POOL_CASES = ((8, 512, "mean"), (8, 512, "weightedmean"), (1, 4096, "mean"), (64, 128, "mean"),
+              (8, 64, "mean"))
 
 
 def emit(what: str, ms) -> None:
     print("ab " + json.dumps({"what": what, "ms": ms}), flush=True)
 
 
-def build(root: Path) -> None:
-    """Build root's kernels (and, for this checkout, K6's cvt variant into
-    VARIANT); print the decode kernels' ptxas lines."""
+def build(root: Path, groups=GROUPS) -> None:
+    """Build root's kernels (and, for this checkout when K6 is measured,
+    K6's cvt variant into VARIANT); print the measured kernels' ptxas lines."""
     sys.path.insert(0, str(root))
     from gritlm_tpu_torch.ops import _build
 
     logs = _build.build_all()
-    if root == HERE:
+    if root == HERE and "quant" in groups:
         src = (_build.CSRC / "quant_matmul.cu").read_text()
         if src.count(PACK_PERMUTE) != 1:
             raise SystemExit("kernel_ab: K6's byte-permute pack not found in quant_matmul.cu")
@@ -217,7 +225,30 @@ def chunk_times(cs, dev) -> None:
         torch.cuda.empty_cache()
 
 
-def turn(root: Path) -> None:
+def pool_times(cs, dev, gen) -> None:
+    """K2 at POOL_CASES, cold, with its device operations a call."""
+    import torch
+
+    from gritlm_tpu_torch.ops import fused_pool as fp
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+
+    for B, S, method in POOL_CASES:
+        hidden, gamma, mask = cs.pool_case(dev, randn, B, S, 4096)
+        copies = [hidden] + [randn(*hidden.shape)
+                             for _ in range(cs.cold_copies(cs.nbytes(hidden)) - 1)]
+        kw = dict(eps=1e-5, method=method)
+        label = f"K2 {method} B{B} S{S}"
+        emit(label, cs.graph_ms(lambda: [fp.fused_norm_mean_pool(h, gamma, mask, **kw)
+                                         for h in copies]) / len(copies))
+        emit(f"{label} device operations a call",
+             cs.kernels_per_call(lambda: fp.fused_norm_mean_pool(hidden, gamma, mask, **kw))[1])
+        del hidden, copies
+        torch.cuda.empty_cache()
+
+
+def turn(root: Path, groups=GROUPS) -> None:
     """One checkout's measurements (its package first on sys.path)."""
     sys.path.insert(0, str(root))
     import importlib.util
@@ -234,17 +265,30 @@ def turn(root: Path) -> None:
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device=dev).manual_seed(0)
-    decode_times(cs, dev, gen)
-    quant_times(cs, dev, gen)
-    chunk_times(cs, dev)
+    if "decode" in groups:
+        decode_times(cs, dev, gen)
+    if "quant" in groups:
+        quant_times(cs, dev, gen)
+    if "chunk" in groups:
+        chunk_times(cs, dev)
+    if "pool" in groups:
+        pool_times(cs, dev, gen)
 
 
 def main() -> int:
-    if len(sys.argv) == 3 and sys.argv[1] in ("--build", "--turn"):
-        root = Path(sys.argv[2]).resolve()
-        (build if sys.argv[1] == "--build" else turn)(root)
+    args = sys.argv[1:]
+    groups = GROUPS
+    if len(args) >= 2 and args[-2] == "--only":
+        groups = tuple(args[-1].split(","))
+        args = args[:-2]
+        if not set(groups) <= set(GROUPS):
+            print(__doc__, file=sys.stderr)
+            return 2
+    if len(args) == 2 and args[0] in ("--build", "--turn"):
+        root = Path(args[1]).resolve()
+        (build if args[0] == "--build" else turn)(root, groups)
         return 0
-    if len(sys.argv) != 2:
+    if len(args) != 1:
         print(__doc__, file=sys.stderr)
         return 2
     import torch
@@ -252,7 +296,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("kernel_ab: no CUDA device", file=sys.stderr)
         return 2
-    other = Path(sys.argv[1]).resolve()
+    other = Path(args[0]).resolve()
     if not (other / "gritlm_tpu_torch" / "__init__.py").exists():
         print(f"kernel_ab: no gritlm_tpu_torch in {other}", file=sys.stderr)
         return 2
@@ -261,12 +305,13 @@ def main() -> int:
                           timeout=60).stdout.strip()
     print(f"card {card}", flush=True)
     me = [sys.executable, str(Path(__file__).resolve())]
-    builds = [subprocess.Popen(me + ["--build", str(r)]) for r in (other, HERE)]
+    only = ["--only", ",".join(groups)]
+    builds = [subprocess.Popen(me + ["--build", str(r)] + only) for r in (other, HERE)]
     if any(p.wait() for p in builds):
         return 1
     results = {}  # (what, root) -> [ms]
     for root in (other, HERE, HERE, other):
-        out = subprocess.run(me + ["--turn", str(root)], stdout=subprocess.PIPE, text=True,
+        out = subprocess.run(me + ["--turn", str(root)] + only, stdout=subprocess.PIPE, text=True,
                              env=dict(os.environ, PYTHONUNBUFFERED="1"))
         for line in out.stdout.splitlines():
             print(line, flush=True)

@@ -1,5 +1,5 @@
-"""The launch plans of K3 (flash decode), K8 (paged decode), K6 (w8a16) and
-K7 (w4a16), as pure functions.
+"""The launch plans of K3 (flash decode), K8 (paged decode), K6 (w8a16), K7
+(w4a16) and K2 (the encode epilogue), as pure functions.
 
 They run here: the plans are Python, only the kernels they size need the
 card. K6's and K7's rows kernels (`plan_w8` at decode rows, `plan_w4`) cut
@@ -10,7 +10,9 @@ whole stages a split. K3's `decode_plan` picks the split count and
 warps' runs (the kernel finds the unit's first and last valid slot itself,
 by the scan this file mirrors in `_unit_tiles`); K8 plans with the same
 functions (`paged_plan`) and reads each 16-slot tile through one page-table
-entry.
+entry. K2's `pool_plan` gives each batch row C blocks in clusters of CL;
+the kernel splits the row's masked-in rows among them by rank, as
+`_pool_split` mirrors.
 """
 
 import numpy as np
@@ -18,6 +20,7 @@ import pytest
 import torch
 
 from gritlm_tpu_torch.ops import decode_attention as da
+from gritlm_tpu_torch.ops import fused_pool as fp
 from gritlm_tpu_torch.ops import quant_matmul as qm
 
 # Mistral-7B's projections (K, N), and a column count off the 128-column tiles
@@ -304,3 +307,96 @@ def test_paged_plan_takes_the_host_bound_of_one_offset():
                          quant=False)
     assert rows == da.decode_plan(4, 1, 32, 8, 4096, 132, causal=False)
     assert one[0] < rows[0]
+
+
+# ------------------------------------------------------------------ K2
+
+POOL_B = [1, 2, 3, 8, 64, 132, 264, 1000]
+POOL_S = [1, 3, 64, 128, 512, 700, 4096, 32768, 1 << 19]
+
+
+def _pool_fit(cl, balanced):
+    """Co-resident clusters of an H100 at the kernel's two blocks an SM
+    (cudaOccupancyMaxActiveClusters read on the card)."""
+    return {16: 14, 8: 30, 4: 62, 2: 132, 1: 264}[cl]
+
+
+@pytest.mark.parametrize("fit", [None, _pool_fit], ids=["no fit", "fit"])
+@pytest.mark.parametrize("sms", [132, 8])
+@pytest.mark.parametrize("B", POOL_B)
+def test_pool_plan_fills_the_card_and_bounds_the_list(B, sms, fit):
+    """Every row gets `need` clusters, enough that no block takes more than
+    MAX_LIST rows; about two blocks an SM over the batch (at least one an
+    SM where the rows allow it), no more than one wave of clusters where the
+    rows allow it; balanced only over a mask every block can read and with
+    clusters to apportion."""
+    for S in POOL_S:
+        K, CL, need, balanced = fp.pool_plan(B, S, sms, fit=fit)
+        assert CL in fp.CLUSTERS and need >= 1 and K >= B * need, (S, K, CL, need)
+        assert need * CL * fp.MAX_LIST >= S, (S, need, CL)
+        if K > B * need:
+            assert K * CL <= fp.BLOCKS_PER_SM * sms, (S, K, CL)
+            if fit is not None:
+                assert K <= fit(CL, balanced), (S, K, CL)
+        if balanced:
+            assert B > 1 and B * S <= fp.BALANCE_MAX and K > B * need
+        if B <= sms and S * B >= 2 * sms * fp.MIN_ROWS and fit is None:
+            assert K * CL >= sms, (S, K, CL)
+
+
+def test_pool_plan_at_the_encode_shapes():
+    """On 132 SMs with the H100's co-resident clusters: the kernel table's
+    B 8 S 512 as 30 clusters of 8 apportioned by the rows' counts; one row of
+    4096 over 30 clusters; B 64 S 128 in clusters of 2 (64 clusters of 4 do
+    not fit at once), 132 of them apportioned; B 8 S 64 one cluster of 8 a
+    row (finished in the cluster)."""
+    assert fp.pool_plan(8, 512, 132, fit=_pool_fit) == (30, 8, 1, True)
+    assert fp.pool_plan(1, 4096, 132, fit=_pool_fit) == (30, 8, 1, False)
+    assert fp.pool_plan(64, 128, 132, fit=_pool_fit) == (132, 2, 1, True)
+    assert fp.pool_plan(8, 64, 132, fit=_pool_fit) == (8, 8, 1, False)
+
+
+def _pool_rows(K: int, need: int, counts) -> list:
+    """The first cluster of each row, then K: the kernel's apportionment
+    (`first_cluster` in csrc/fused_pool.cu) for the rows' masked-in counts
+    (all zero: equal shares)."""
+    B, R = len(counts), int(sum(counts))
+    extra, firsts, P = K - B * need, [], 0
+    for b, n in enumerate(counts):
+        firsts.append(b * need + (extra * P // R if R else extra * b // B))
+        P += int(n)
+    return firsts + [K]
+
+
+def _pool_split(row_mask, C):
+    """The kernel's split of one row over its C blocks: block c takes the
+    masked-in positions of ranks [R c / C, R (c + 1) / C), rank = the mask
+    tokens before the position (its weightedmean weight is rank + 1)."""
+    pos = np.flatnonzero(row_mask)
+    R = len(pos)
+    return [pos[R * c // C: R * (c + 1) // C] for c in range(C)]
+
+
+@pytest.mark.parametrize("B,S", [(8, 512), (1, 4096), (64, 128), (3, 700), (8, 64), (5, 40)])
+def test_pool_split_takes_each_masked_row_once(B, S):
+    """The clusters tile [0, K) row by row, each row `need` or more; every
+    masked-in position in exactly one block's list, none masked out, at
+    most MAX_LIST a block, the shares even within a row, in position order
+    (each block's weights are consecutive ranks); apportioned by the
+    counts, no block of a full row takes twice the blocks' mean (plus one)."""
+    rng = np.random.default_rng(S)
+    K, CL, need, balanced = fp.pool_plan(B, S, 132, fit=_pool_fit)
+    masks = [rng.random(S) < rng.choice([0.0, 0.3, 0.9, 1.0]) for _ in range(B)]
+    counts = [int(m.sum()) for m in masks]
+    firsts = _pool_rows(K, need, counts if balanced else [0] * B)
+    assert firsts[0] == 0 and firsts[-1] == K
+    sizes = []
+    for b, mask in enumerate(masks):
+        assert firsts[b + 1] - firsts[b] >= need
+        parts = _pool_split(mask, (firsts[b + 1] - firsts[b]) * CL)
+        np.testing.assert_array_equal(np.concatenate(parts), np.flatnonzero(mask))
+        row = [len(p) for p in parts]
+        assert max(row) <= fp.MAX_LIST and max(row) - min(row) <= 1
+        sizes += row
+    if balanced:
+        assert max(sizes) <= 2 * sum(counts) / (K * CL) + 1, (max(sizes), sum(counts), K * CL)

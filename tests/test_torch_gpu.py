@@ -239,21 +239,45 @@ def test_flash_decode_kernel_groups_and_rows(cuda, group, Sq, window, quant):
     assert torch.count_nonzero(got[2]) == 0
 
 
+# (B, S, D, strided): a ragged batch, one long row over the whole card, many
+# short rows, the Qwen2-7B width (D 3584, no multiple of 256), rows that are
+# views into wider ones (a [B, S, 2D] buffer's first half), D 8192
+POOL_SHAPES = [(3, 700, 4096, False), (1, 4096, 4096, False), (64, 128, 4096, False),
+               (8, 512, 3584, False), (8, 300, 4096, True), (2, 1000, 8192, False),
+               (3, 40, 256, False)]
+
+
 @pytest.mark.parametrize("method", ["mean", "weightedmean"])
-def test_fused_pool_kernel(cuda, method):
-    gen = torch.Generator(device=cuda).manual_seed(3)
-    B, S, D = 3, 700, 4096
-    hidden = _randn(gen, B, S, D, device=cuda)
+@pytest.mark.parametrize("B,S,D,strided", POOL_SHAPES)
+def test_fused_pool_kernel(cuda, method, B, S, D, strided):
+    """K2 against its plain version: ragged masks (a masked prefix,
+    padding, one row of a single token, one empty row that must come out
+    zero), normalized and not, one launch a call, and a rerun bit-equal
+    (the merges sum in a fixed order)."""
+    gen = torch.Generator(device=cuda).manual_seed(B * S + D)
+    base = _randn(gen, B, S, 2 * D if strided else D, device=cuda)
+    hidden = base[..., :D] if strided else base
     gamma = (1 + 0.5 * torch.randn(D, generator=gen, device=cuda)).to(torch.bfloat16)
-    mask = torch.ones((B, S), dtype=torch.int32, device=cuda)
-    mask[0, :11] = 0
-    mask[1, 500:] = 0
-    mask[2] = 0
-    got = fused_pool.fused_norm_mean_pool(hidden, gamma, mask, eps=1e-5, method=method)
-    torch.cuda.synchronize()
-    want = fused_pool.fused_norm_mean_pool_plain(hidden, gamma, mask, eps=1e-5,
-                                                 method=method)
-    torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-3)
+    mask = (torch.rand((B, S), generator=gen, device=cuda) < 0.9).int()
+    mask[0, : S // 7] = 0
+    mask[0, S * 5 // 7:] = 0
+    if B > 1:
+        mask[1] = 0
+        mask[1, S // 2] = 1
+    if B > 2:
+        mask[2] = 0
+    for normalized in (True, False):
+        kw = dict(eps=1e-5, method=method, normalized=normalized)
+        before = fused_pool.fused_norm_mean_pool.launches
+        got = fused_pool.fused_norm_mean_pool(hidden, gamma, mask, **kw)
+        again = fused_pool.fused_norm_mean_pool(hidden, gamma, mask, **kw)
+        torch.cuda.synchronize()
+        assert fused_pool.fused_norm_mean_pool.launches == before + 2
+        want = fused_pool.fused_norm_mean_pool_plain(hidden, gamma, mask, **kw)
+        assert torch.equal(got, again)
+        torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-3)
+        if B > 2:
+            assert torch.count_nonzero(got[2]) == 0
 
 
 def _unit_rows(gen, n, d, device):

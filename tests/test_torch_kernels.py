@@ -208,13 +208,33 @@ def _pool_case(B=3, S=700, D=128, seed=0):
     return hidden, gamma, mask
 
 
+def _one_token_case():
+    """One pooled token a row, at the first, a middle and the last position
+    (S = 300, not a multiple of 128: the JAX kernel pads to 384)."""
+    hidden, gamma, _ = _pool_case(S=300, seed=1)
+    mask = np.zeros((3, 300), np.int32)
+    for row, pos in enumerate((0, 150, 299)):
+        mask[row, pos] = 1
+    return hidden, gamma, mask
+
+
+POOL_CASES = {
+    "S700": _pool_case,
+    "S333": lambda: _pool_case(S=333, seed=2),
+    "one-token": _one_token_case,
+}
+
+
+@pytest.mark.parametrize("case", sorted(POOL_CASES))
 @pytest.mark.parametrize("method", ["mean", "weightedmean"])
 @pytest.mark.parametrize("normalized", [True, False])
-def test_fused_pool_matches_jax(monkeypatch, method, normalized):
+def test_fused_pool_matches_jax(monkeypatch, method, normalized, case):
     """S = 700 spans two of the JAX kernel's 512-row blocks, so the running
-    token count of weightedmean crosses a block boundary."""
+    token count of weightedmean crosses a block boundary; S = 333 is no
+    multiple of 128 (one padded block); one pooled token a row is the
+    weight-1 edge of weightedmean."""
     monkeypatch.setattr(jax_fused_pool, "_FORCE_KERNEL", True)
-    hidden, gamma, mask = _pool_case()
+    hidden, gamma, mask = POOL_CASES[case]()
     want = jax_fused_pool.fused_norm_mean_pool(
         jnp.asarray(hidden), jnp.asarray(gamma), jnp.asarray(mask), eps=1e-5,
         method=method, normalized=normalized)

@@ -1,4 +1,6 @@
-"""The port's model slice against the JAX package on tiny_mistral.
+"""The port's model slice against the JAX package on tiny_mistral (forward
+and encode also on tiny_llama3, and on tiny_qwen2 with random QKV biases
+and a sliding window of 8).
 
 The JAX params from `gritlm_tpu.models.init_params` cross to the port as
 numpy (`params_from_jax`); token ids and masks are made with numpy. Both
@@ -9,11 +11,16 @@ differ by summation order, so 1e-4 (hidden, values of order 1) and 1e-5
 (unit-norm embeddings) hold; greedy tokens must be identical.
 """
 
+import dataclasses
+import functools
+
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from gritlm_tpu import config as jax_config
 from gritlm_tpu.config import tiny_mistral as jax_tiny_mistral
 from gritlm_tpu.generate import nucleus_filter as jax_nucleus_filter
 from gritlm_tpu.gritlm import GritLM as JaxGritLM
@@ -23,6 +30,7 @@ from gritlm_tpu.models.transformer import apply_rope as jax_apply_rope
 from gritlm_tpu.models.transformer import rms_norm as jax_rms_norm
 from gritlm_tpu.ops.pooling import pool as jax_pool
 from gritlm_tpu_torch import GritLM
+from gritlm_tpu_torch import config as port_config
 from gritlm_tpu_torch.config import tiny_mistral
 from gritlm_tpu_torch.generate import _sample, nucleus_filter
 from gritlm_tpu_torch.models import forward, params_from_jax
@@ -42,14 +50,33 @@ def _one_torch_thread():
     torch.set_num_threads(prev)
 
 
+FAMILIES = ["tiny_mistral", "tiny_llama3", "tiny_qwen2"]
+
+
+@functools.lru_cache(maxsize=None)
+def _family_pair(family: str):
+    """(JAX GritLM, port GritLM) on the same weights of a tiny dense preset.
+    Qwen2 gets nonzero random QKV biases (its init draws zeros) and a
+    sliding window of 8, so both reach the forward."""
+    jcfg, tcfg = getattr(jax_config, family)(), getattr(port_config, family)()
+    if family == "tiny_qwen2":
+        jcfg = dataclasses.replace(jcfg, sliding_window=8)
+        tcfg = dataclasses.replace(tcfg, sliding_window=8)
+    jparams = jax_init_params(jcfg, jax.random.PRNGKey(0))
+    if jcfg.attention_bias:
+        rng = np.random.default_rng(1)
+        attn = jparams["layers"]["attn"]
+        for name in ("bq", "bk", "bv"):
+            attn[name] = jnp.asarray(rng.normal(size=attn[name].shape).astype(np.float32) * 0.5)
+    np_params = jax.tree_util.tree_map(np.asarray, jparams)
+    tparams = params_from_jax(np_params, tcfg, device="cpu")
+    return (JaxGritLM(jcfg, params=jparams), GritLM(tcfg, params=tparams, device="cpu"))
+
+
 @pytest.fixture(scope="module")
 def pair():
     """(JAX GritLM, port GritLM) on the same tiny_mistral weights."""
-    jparams = jax_init_params(jax_tiny_mistral(), jax.random.PRNGKey(0))
-    np_params = jax.tree_util.tree_map(np.asarray, jparams)
-    tparams = params_from_jax(np_params, tiny_mistral(), device="cpu")
-    return (JaxGritLM(jax_tiny_mistral(), params=jparams),
-            GritLM(tiny_mistral(), params=tparams, device="cpu"))
+    return _family_pair("tiny_mistral")
 
 
 def _ids(seed=0, B=2, S=12):
@@ -60,9 +87,10 @@ def _ids(seed=0, B=2, S=12):
     return ids, mask
 
 
+@pytest.mark.parametrize("family", FAMILIES)
 @pytest.mark.parametrize("causal", [True, False])
-def test_forward_hidden_matches_jax(pair, causal):
-    jm, tm = pair
+def test_forward_hidden_matches_jax(family, causal):
+    jm, tm = _family_pair(family)
     ids, mask = _ids()
     want, _, _ = jax_forward(jm.params, jm.config, ids, attention_mask=mask, causal=causal)
     got, _, _ = forward(tm.params, tm.config, torch.from_numpy(ids),
@@ -70,9 +98,10 @@ def test_forward_hidden_matches_jax(pair, causal):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4)
 
 
+@pytest.mark.parametrize("family", FAMILIES)
 @pytest.mark.parametrize("instruction", ["", INSTRUCTION])
-def test_encode_matches_jax(pair, instruction):
-    jm, tm = pair
+def test_encode_matches_jax(family, instruction):
+    jm, tm = _family_pair(family)
     want = jm.encode(DOCS, instruction=instruction)
     got = tm.encode(DOCS, instruction=instruction)
     assert got.shape == want.shape == (2, 64)

@@ -196,7 +196,6 @@ NOT_PORTED = [
     (["--mesh_fsdp", "2"], "item 12"),
     (["--mesh_model", "2"], "item 12"),
     (["--mesh_expert", "2"], "item 12"),
-    (["--projection", "16"], "item 3"),
     (["--moe_impl", "dense"], "item 11"),
     (["--remat_policy", "dots"], "item 7"),
     (["--model_preset", "tiny_mixtral"], "item 11"),
@@ -226,7 +225,7 @@ def checkpoint(tmp_path_factory):
     return path
 
 
-@pytest.mark.parametrize("flag", ["--qlora", "--model_name_or_path"])
+@pytest.mark.parametrize("flag", ["--qlora", "--model_name_or_path", "--projection"])
 def test_ported_flag_runs(tmp_path, checkpoint, flag):
     """The flags the port runs since the quantized-weights slice.
     --qlora: LoRA over an int8 base; the merged export is dense (bf16
@@ -234,9 +233,34 @@ def test_ported_flag_runs(tmp_path, checkpoint, flag):
     both packages' loaders with equal values. --model_name_or_path: the
     checkpoint's weights and tokenizer; one step (its update has LR 0)
     exports the checkpoint's weights bit for bit, and the data were
-    filtered with the checkpoint's tokenizer."""
+    filtered with the checkpoint's tokenizer. --projection 16: a fresh
+    head drawn as init_projection(seed + 1) (a one-step run exports it as
+    drawn), trained with the full parameters (the second update moves it),
+    exported as
+    projection.weight/.bias that both loaders read, and a from_pretrained
+    of the export encodes to 16 columns."""
+    from gritlm_tpu_torch import GritLM
+    from gritlm_tpu_torch.config import tiny_mistral
+    from gritlm_tpu_torch.models.transformer import init_projection
     from gritlm_tpu_torch.tokenizer import load_tokenizer
 
+    if flag == "--projection":
+        r = main(_args(tmp_path / "run", 2, "--projection", "16"))
+        assert r["steps"] == 2 and all(np.isfinite(v) for v in r["final"].values())
+        run_args = json.loads((tmp_path / "run" / "run_args.json").read_text())
+        assert run_args["projection"] == 16
+        _, jp = jax_loader.load_checkpoint(r["export"])
+        _, pp = loader.load_checkpoint(r["export"], device="cpu")
+        _assert_same(pp, jp)
+        start = init_projection(tiny_mistral(), 16, run_args["seed"] + 1, device="cpu")
+        assert tuple(pp["projection"]["kernel"].shape) == (64, 16)
+        assert not torch.equal(pp["projection"]["kernel"], start["kernel"])
+        one = main(_args(tmp_path / "one", 1, "--projection", "16"))  # update 1 has LR 0
+        _, first = loader.load_checkpoint(one["export"], device="cpu")
+        assert torch.equal(first["projection"]["kernel"], start["kernel"])
+        emb = GritLM.from_pretrained(r["export"], device="cpu").encode(["a passage"])
+        assert emb.shape == (1, 16)
+        return
     if flag == "--qlora":
         r = main(_args(tmp_path / "run", 2, "--qlora", "--lora_r", "4"))
         assert r["steps"] == 2 and all(np.isfinite(v) for v in r["final"].values())
