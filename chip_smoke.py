@@ -9,13 +9,14 @@ port's paths through the kernels on a full-width Mistral-7B with random
 bf16 weights (GritLM.encode and greedy GritLM.generate; FlatIndex.search
 over a 1M-row index; RAGEngine.build_index and answer_batch in all seven
 cache modes; the continuous-batching ServingEngine with dense, paged and
-int8 pools, and RAGEngine.serve; w8a16 and w4a16 quantized weights in
-generate and serving; GRIT training with LoRA, QLoRA, GradCache and full
+int8 pools, and RAGEngine.serve; speculative decoding in generate and in
+dense and paged verify pools, and sampling pools; w8a16 and w4a16
+quantized weights in generate and serving; GRIT training with LoRA, QLoRA, GradCache and full
 parameters through `python -m gritlm_tpu_torch.training.run`'s main; the
 embedding projection head in encode and in training), and times each
 kernel beside its bound, its plain version and one PyTorch library call.
 
-Phases (in the order 1-9, 11, 10), any failure exits non-zero:
+Phases (in the order 1-7, 12, 8, 9, 11, 10), any failure exits non-zero:
   1. device and build: card name and power limit, nvcc's register and
      shared-memory report; for the redesigned kernels (K1, K4/K5, K9 on
      wgmma; K3, K8, K6 and K7 on mma.sync; K2 on bulk copies and clusters)
@@ -118,6 +119,29 @@ Phases (in the order 1-9, 11, 10), any failure exits non-zero:
      its staged template's rows), beside their bounds
      and torch.matmul of the dequantized weight, by CUDA graph replays over
      weight copies that keep each call's weight out of L2
+
+ 12. speculative decoding and serving sampling at full width (after phase
+     7): K3 with per-row offsets at the dense verify chunk's shape (B 8, Sq
+     8, Smax 4096, offsets SERVING_LENS - 8), bf16 and int8, against its
+     plain version and bit-equal to K8 on the same logical cache, timed
+     cold by CUDA graph replays beside SDPA with the same per-row causal
+     mask (the kernels line's "K3 verify" row, `flash_decode_verify`); then,
+     counts set to 0 before each run and read after: lockstep speculative
+     generate at B = 1 and 2 on prompts that quote a passage (64 tokens,
+     teacher-forced within TIE_TOL; verify steps, tokens a verify, ms per
+     token host and device beside plain greedy); phase 7's 24 requests and
+     4 doc-continuation requests (hist_ids = the document) through dense
+     and paged speculative pools (spec_k 7): completions, TIE_TOL, K3 with
+     per-row offsets (dense) or K8 (paged) in the verify chunks, tokens a
+     row's verify, device ms per verify step at B = 8, tokens/s beside
+     phase 7's, and a replay of the 24 on the dense pool with each one's
+     greedy continuation in its lookup corpus (the most a verify accepts);
+     the 24 requests mixed greedy / T 0.7 top_p 0.9 / T 1.0
+     top_k 50 through dense and paged sampling pools (both on prompt
+     buckets 256-2048, so they prefill alike): completions, greedy
+     rows within TIE_TOL, the sampled streams equal between the pools, and
+     the share of tokens 4 sampled requests run alone share with the pool's
+     (printed, not gated)
 
 Output: a `kernels` JSON line, the card line, then as the last line
 {"ok": true, "device": {...}}. Exits 2 with no result when there is no CUDA
@@ -366,9 +390,14 @@ def main() -> int:
     def reset_counts():
         for w in wrappers.values():
             w.launches = 0
+        decode_attention.flash_decode.row_offset_launches = 0
 
     def read_counts():
-        return {n: w.launches for n, w in wrappers.items()}
+        # K3's launches with per-row offsets (the dense verify chunk) are
+        # among flash_decode's and are also counted as the "K3 verify" row's
+        counts = {n: w.launches for n, w in wrappers.items()}
+        counts[K3_VERIFY] = decode_attention.flash_decode.row_offset_launches
+        return counts
 
     # ---------------------------------------------------------------- 2
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -641,8 +670,14 @@ def main() -> int:
     rag_eng = rag_phase(model, reset_counts, read_counts, path_launches)
 
     # ---------------------------------------------------------------- 7
-    dense_step = serving_phase(model, rag_eng, reset_counts, read_counts, path_launches)
+    dense_step, greedy_rates = serving_phase(model, rag_eng, reset_counts, read_counts,
+                                             path_launches)
     del rag_eng
+
+    # ---------------------------------------------------------------- 12
+    max_err[K3_VERIFY] = 0.0
+    spec_phase(model, randn, reset_counts, read_counts, path_launches, times, max_err,
+               greedy_rates)
 
     # ---------------------------------------------------------------- 8
     latency_phase(model)
@@ -729,7 +764,10 @@ def main() -> int:
     print(f"total {time.time() - t_start:.0f} s")
 
     print(f"launches by path: {json.dumps(path_launches)}")
-    launches = {n: sum(c[n] for c in path_launches.values()) for n in kernels}
+    # the "K3 verify" row: K3's launches with per-row offsets, its times at
+    # the dense verify chunk's shape (spec_phase)
+    kernels[K3_VERIFY] = kernels["flash_decode"]
+    launches = {n: sum(c.get(n, 0) for c in path_launches.values()) for n in kernels}
     rows_out = [{
         "name": name, "route": "cuda", "source": kernels[name][2],
         "replaces": kernels[name][3], "launches": launches[name],
@@ -750,6 +788,9 @@ def main() -> int:
 # valid slots of the 8 rows of a serving pool at the kernel checks and
 # times of K3 and K8 (ragged, one row of a single slot; row 1 with a hole)
 SERVING_LENS = (37, 1900, 256, 700, 1333, 3000, 1, 512)
+# the kernels line's name of K3 with per-row offsets (the speculative verify
+# chunk of a dense pool): its own row, K3's source
+K3_VERIFY = "flash_decode_verify"
 
 
 def serving_mask(dev, max_len: int = 4096):
@@ -1473,11 +1514,10 @@ def serving_workload(model, reset_counts, read_counts, total):
     import torch
 
     from gritlm_tpu_torch import serving
-    from gritlm_tpu_torch.models.transformer import forward, init_cache, logits_from_hidden
     from gritlm_tpu_torch.serving import EmbedRequest, Request
     from gritlm_tpu_torch.tokenizer import instruction_token_lens
 
-    cfg, tok, params, dev = model.config, model.tokenizer, model.params, model.device
+    cfg, tok = model.config, model.tokenizer
     V, eos = cfg.vocab_size, tok.eos_token_id
     rng = np.random.default_rng(0)
     specs = [(f"g{i}", rng.integers(3, V, size=int(n)).tolist(), int(m)) for i, (n, m) in
@@ -1488,32 +1528,34 @@ def serving_workload(model, reset_counts, read_counts, total):
                     int(ilens[i])) for i in range(8)]
     want_emb = torch.from_numpy(model.encode(SENTENCES[:8], instruction=INSTRUCTION))
 
-    decode_counts = {}  # launches inside decode chunks, per run
-    chunk_program = serving._decode_chunk_program
+    decode_counts = {}  # launches inside decode (or verify) chunks, per run
+    verify_emits = []  # the verify chunks' emitted counts [steps, B], per run
+    programs = {name: getattr(serving, name)
+                for name in ("_decode_chunk_program", "_spec_chunk_program")}
 
-    def counted_chunk(*args, **kw):
-        before = read_counts()
-        out = chunk_program(*args, **kw)
-        for n, c in read_counts().items():
-            decode_counts[n] = decode_counts.get(n, 0) + c - before[n]
-        return out
+    def counting(name):
+        def run(*args, **kw):
+            before = read_counts()
+            out = programs[name](*args, **kw)
+            for n, c in read_counts().items():
+                decode_counts[n] = decode_counts.get(n, 0) + c - before[n]
+            if name == "_spec_chunk_program":
+                verify_emits.append(out[1])
+            return out
+        return run
 
-    def teacher_deficits(ids, toks, quant):
-        """Teacher forcing through the kernels: one causal forward over
-        prompt + the engine's tokens (a cache of the pool's KV format); per
-        generated position, how far the engine's token sits below the
-        position's largest logit (bf16 logits, as the engine's argmax)."""
-        seq = list(ids) + list(toks)
-        x = torch.tensor([seq], dtype=torch.int32, device=dev)
-        cache = init_cache(cfg, 1, len(seq), device=dev, quant=quant)
-        hidden, _, _ = forward(params, cfg, x, causal=True, cache=cache)
-        logits = logits_from_hidden(params, cfg, hidden[:, len(ids) - 1:len(seq) - 1])[0]
-        logits = logits.float()
-        chosen = logits.gather(1, torch.tensor(toks, device=dev)[:, None])[:, 0]
-        return (logits.max(1).values - chosen).cpu()
+    counted = {name: counting(name) for name in programs}
 
-    def drive(label, eng, gen_specs, n_embeds, decode_kernels=()):
+    def drive(label, eng, gen_specs, n_embeds, decode_kernels=(), req_kw=None,
+              doc_specs=()):
+        """req_kw: per request id, Request keywords (sampling); doc_specs:
+        doc-continuation requests (rid, prompt ids, max new, doc entry, doc
+        ids), the doc ids as their lookup corpus (hist_ids). Returns
+        {"rate", "peak", "tokens", "verify"}: generated tokens/s, peak
+        reserved pages, the tokens by request, and (speculative pools) the
+        verify chunks' emitted counts [steps, B] on the host."""
         first_at, peak = {}, [0]
+        req_kw = req_kw or {}
 
         def on_token(rid, _tok):
             first_at.setdefault(rid, time.perf_counter())
@@ -1521,12 +1563,16 @@ def serving_workload(model, reset_counts, read_counts, total):
                 peak[0] = max(peak[0], eng.pool_pages - 1 - len(eng._free_pages))
 
         eng.on_token = on_token
-        reqs = [Request(input_ids=ids, max_new_tokens=m, request_id=rid)
+        reqs = [Request(input_ids=ids, max_new_tokens=m, request_id=rid, **req_kw.get(rid, {}))
                 for rid, ids, m in gen_specs]
+        reqs += [Request(input_ids=ids, max_new_tokens=m, request_id=rid, doc_cache=entry,
+                         hist_ids=doc) for rid, ids, m, entry, doc in doc_specs]
         reqs += [EmbedRequest(input_ids=ids, instr_len=il, request_id=rid)
                  for rid, ids, il in embed_specs[:n_embeds]]
         decode_counts.clear()
-        serving._decode_chunk_program = counted_chunk
+        verify_emits.clear()
+        for name in programs:
+            setattr(serving, name, counted[name])
         try:
             reset_counts()
             torch.cuda.synchronize()
@@ -1536,14 +1582,16 @@ def serving_workload(model, reset_counts, read_counts, total):
             wall = time.perf_counter() - t0
             counts = read_counts()
         finally:
-            serving._decode_chunk_program = chunk_program
+            for name, program in programs.items():
+                setattr(serving, name, program)
         for n, c in counts.items():
             total[n] = total.get(n, 0) + c
         embs = {e.request_id: e.embedding for e in eng.take_embeddings()}
         by_id = {c.request_id: c for c in done}
-        if sorted(by_id) != sorted(rid for rid, _, _ in gen_specs):
+        all_specs = list(gen_specs) + [(rid, ids, m) for rid, ids, m, _, _ in doc_specs]
+        if sorted(by_id) != sorted(rid for rid, _, _ in all_specs):
             fail(f"serving [{label}]: completions {sorted(by_id)}")
-        for rid, ids, m in gen_specs:
+        for rid, ids, m in all_specs:
             c = by_id[rid]
             t = c.token_ids
             ok = ((c.finish_reason == "length" and len(t) == m and eos not in t)
@@ -1553,7 +1601,7 @@ def serving_workload(model, reset_counts, read_counts, total):
                 fail(f"serving [{label}] {rid}: {len(t)} of {m} tokens, "
                      f"{c.finish_reason}, ids in [{min(t)}, {max(t)}]")
         n_tok = sum(len(c.token_ids) for c in done)
-        ttft = sorted(first_at[rid] - t0 for rid, _, _ in gen_specs)
+        ttft = sorted(first_at[rid] - t0 for rid, _, _ in all_specs)
         print(f"serving [{label}]: {len(done)} requests, {n_tok} tokens in {wall:.2f} s = "
               f"{n_tok / wall:.1f} generated tokens/s (host clock); time to first token p50 "
               f"{np.percentile(ttft, 50):.3f} s, p90 {np.percentile(ttft, 90):.3f} s; "
@@ -1576,18 +1624,46 @@ def serving_workload(model, reset_counts, read_counts, total):
                   f"{float(cos.min()):.6f}")
             if float(cos.min()) < 0.9999:
                 fail(f"serving [{label}]: pool embeddings depart from GritLM.encode")
-        deficits = torch.cat([teacher_deficits(ids, by_id[rid].token_ids, eng.kv_quant)
-                              for rid, ids, _ in gen_specs[:4]])
-        print(f"serving [{label}]: teacher forcing over {len(deficits)} tokens of 4 requests: "
-              f"largest deficit to the max logit {float(deficits.max()):.4f} (TIE_TOL "
-              f"{TIE_TOL}), engine token is the argmax at "
+        # teacher forcing over the first 4 greedy requests and every
+        # doc-continuation one (over document + prompt)
+        forced = [(ids, rid) for rid, ids, _ in gen_specs
+                  if req_kw.get(rid, {}).get("temperature", 0.0) == 0.0][:4]
+        forced += [(doc + ids, rid) for rid, ids, _, _, doc in doc_specs]
+        deficits = torch.cat([teacher_deficits(model, ids, by_id[rid].token_ids, eng.kv_quant)
+                              for ids, rid in forced])
+        print(f"serving [{label}]: teacher forcing over {len(deficits)} tokens of "
+              f"{len(forced)} greedy requests: largest deficit to the max logit "
+              f"{float(deficits.max()):.4f} (TIE_TOL {TIE_TOL}), engine token is the argmax at "
               f"{float((deficits == 0).float().mean()):.3f} of them", flush=True)
         if float(deficits.max()) > TIE_TOL:
             fail(f"serving [{label}]: an engine token is {float(deficits.max())} below its "
                  "position's max logit")
-        return n_tok / wall, peak[0]
+        verify = torch.cat(verify_emits).cpu() if verify_emits else None
+        return {"rate": n_tok / wall, "peak": peak[0], "verify": verify,
+                "tokens": {rid: c.token_ids for rid, c in by_id.items()}}
 
     return drive, specs
+
+
+def teacher_deficits(model, ids, toks, quant=False):
+    """Teacher forcing through the kernels: one causal forward over prompt +
+    the generated tokens (a cache of the given KV format); per generated
+    position, how far the token sits below the position's largest logit
+    (bf16 logits, as the engines' argmax)."""
+    import torch
+
+    from gritlm_tpu_torch.models.transformer import forward, init_cache, logits_from_hidden
+
+    cfg, params, dev = model.config, model.params, model.device
+    seq = list(ids) + list(toks)
+    x = torch.tensor([seq], dtype=torch.int32, device=dev)
+    with torch.inference_mode():
+        cache = init_cache(cfg, 1, len(seq), device=dev, quant=quant)
+        hidden, _, _ = forward(params, cfg, x, causal=True, cache=cache)
+        logits = logits_from_hidden(params, cfg, hidden[:, len(ids) - 1:len(seq) - 1])[0]
+    logits = logits.float()
+    chosen = logits.gather(1, torch.tensor(toks, device=dev)[:, None])[:, 0]
+    return (logits.max(1).values - chosen).cpu()
 
 
 def serving_phase(model, rag_eng, reset_counts, read_counts, path_launches):
@@ -1608,7 +1684,6 @@ def serving_phase(model, rag_eng, reset_counts, read_counts, path_launches):
     eos = tok.eos_token_id
     total = {}
     drive, specs = serving_workload(model, reset_counts, read_counts, total)
-    chunk_program = serving._decode_chunk_program
 
     kw = dict(max_batch=8, max_len=4096, chunk_size=16, eos_id=eos, pad_id=tok.pad_token_id,
               device=dev)
@@ -1616,23 +1691,25 @@ def serving_phase(model, rag_eng, reset_counts, read_counts, path_launches):
     rates = {}
     eng = ServingEngine(cfg, params, **kw)
     dense_bytes = nbytes(eng.carry.cache.k, eng.carry.cache.v)
-    rates["dense bf16"], _ = drive("dense bf16", eng, specs, 8)
-    dense_step = profile_decode_chunk("dense bf16", eng, chunk_program, specs)
+    rates["dense bf16"] = drive("dense bf16", eng, specs, 8)["rate"]
+    dense_step = profile_decode_chunk("dense bf16", eng, serving._decode_chunk_program, specs)
     del eng
     for label, quant in (("paged bf16", False), ("paged int8", True)):
         eng = ServingEngine(cfg, params, paged=True, page_size=256, kv_quant=quant, **kw)
-        rates[label], peak = drive(label, eng, specs, 8)
+        run = drive(label, eng, specs, 8)
+        rates[label], peak = run["rate"], run["peak"]
         page_bytes = 256 * L * KD * 2 * (1 if quant else 2) + (
             2 * L * cfg.num_key_value_heads * 256 * 2 if quant else 0)
         print(f"serving [{label}]: KV reserved at peak {peak} pages of 256 = "
               f"{peak * page_bytes / 2**30:.3f} GiB, against {dense_bytes / 2**30:.3f} GiB "
               f"for the dense pool (8 x 4096 slots, bf16)")
         if label == "paged bf16":
-            profile_decode_chunk(label, eng, chunk_program, specs)
+            profile_decode_chunk(label, eng, serving._decode_chunk_program, specs)
         del eng
     eng = ServingEngine(cfg, params, prefill_chunk=256, prompt_buckets=(256, 512, 1024, 2048),
                         **kw)
-    rates["dense chunked prefill 256"], _ = drive("dense prefill_chunk 256", eng, specs[:8], 0)
+    rates["dense chunked prefill 256"] = drive("dense prefill_chunk 256", eng, specs[:8],
+                                               0)["rate"]
     del eng
     torch.cuda.empty_cache()
 
@@ -1657,15 +1734,329 @@ def serving_phase(model, rag_eng, reset_counts, read_counts, path_launches):
     print(f"serving launches: {total}; generated tokens/s by pool: "
           + ", ".join(f"{k} {v:.1f}" for k, v in rates.items()))
     torch.cuda.empty_cache()
-    return dense_step
+    return dense_step, rates
+
+
+SPEC_K = 7  # the verify chunk is Sq = SPEC_K + 1 (the engines' default spec_k)
+
+
+def k3_verify(dev, randn, times, max_err, H=32, Hkv=8, Dh=128) -> None:
+    """K3 with per-row offsets at the dense verify chunk's shape: B 8, Sq 8,
+    Mistral-7B heads, a 4096-slot pool with the rows of SERVING_LENS (a
+    hole in row 1), causal with row b's query 0 at slot SERVING_LENS[b] - 8.
+    Checks, bf16 and int8 caches, against the plain version (ATTN_ATOL);
+    K3 against K8 on the same logical cache (the pool gathered dense),
+    bit-equal, bf16 and int8; then both caches timed cold by CUDA graph
+    replays (cold_decode_time: one device operation a call, or it fails)
+    beside SDPA over the sliced cache with the same per-row causal boolean
+    mask. The bf16 timing is the kernels line's "K3 verify" row."""
+    import torch
+
+    from gritlm_tpu_torch.models.transformer import quantize_kv
+    from gritlm_tpu_torch.ops import decode_attention as da
+    from gritlm_tpu_torch.ops import paged_attention as pa
+
+    B, Sq = 8, SPEC_K + 1
+
+    def as_int8(k_all, v_all):
+        L, _, S, _ = k_all.shape
+        k8, ks = quantize_kv(k_all.view(L * B, S, Hkv, Dh))
+        v8, vs = quantize_kv(v_all.view(L * B, S, Hkv, Dh))
+        return k8.view(L, B, S, -1), v8.view(L, B, S, -1), {
+            "k_scale": ks.view(L, B, S, Hkv).transpose(2, 3).contiguous(),
+            "v_scale": vs.view(L, B, S, Hkv).transpose(2, 3).contiguous()}
+
+    # checks against the plain version, and K3 against K8, on 2 layers
+    L = 2
+    pt, mask, (k_pages, v_pages), (k8p, v8p), pscales = paged_pool(dev, randn, L)
+    keep, offs = k8_keep(mask, Sq)
+    Smax = mask.shape[1]
+    q = randn(B, Sq, H, Dh)
+    dense = {False: (torch.stack([pa.gather_pages(k_pages, pt, i) for i in range(L)]),
+                     torch.stack([pa.gather_pages(v_pages, pt, i) for i in range(L)]), {}),
+             True: (torch.stack([pa.gather_pages(k8p, pt, i) for i in range(L)]),
+                    torch.stack([pa.gather_pages(v8p, pt, i) for i in range(L)]),
+                    {n: torch.stack([pa.gather_scales(sc, pt, i).transpose(1, 2)
+                                     for i in range(L)]).contiguous()
+                     for n, sc in pscales.items()})}
+    for quant in (False, True):
+        kd, vd, dsc = dense[quant]
+        kw = dict(causal=True, offset=offs, layer=1, num_kv_heads=Hkv, **dsc)
+        got = da.flash_decode(q, kd, vd, mask, **kw)
+        torch.cuda.synchronize()
+        err = float((got.float() - da.flash_decode_plain(q, kd, vd, mask, **kw).float())
+                    .abs().max())
+        kp, vp = (k8p, v8p) if quant else (k_pages, v_pages)
+        paged = pa.paged_decode(q, kp, vp, pt, mask, layer=1, num_kv_heads=Hkv, causal=True,
+                                offset=offs, **(pscales if quant else {}))
+        torch.cuda.synchronize()
+        equal = torch.equal(paged, got)
+        max_err[K3_VERIFY] = max(max_err[K3_VERIFY], err)
+        label = f"{'int8' if quant else 'bf16'} Sq{Sq} B8 Smax{Smax} per-row offsets"
+        print(f"check {K3_VERIFY} [{label}]: max_abs_err {err:.3e} (atol {ATTN_ATOL}); K8 on "
+              f"the same logical cache bit-equal {equal}", flush=True)
+        if err > ATTN_ATOL or not torch.isfinite(got).all():
+            fail(f"{K3_VERIFY} [{label}] disagrees with its plain version: {err}")
+        if not equal:
+            fail(f"{K3_VERIFY} [{label}]: K3 and K8 differ on the same logical cache")
+    del k_pages, v_pages, k8p, v8p, pscales, dense
+    torch.cuda.empty_cache()
+
+    # cold timings, bf16 (the table's row) and int8
+    slots = int(keep.any(1).sum())  # slots some query of the row sees: K/V to read
+    for quant in (False, True):
+        per_slot = Hkv * (Dh + 2) if quant else Hkv * Dh * 2
+        bms, by = bound(4.0 * int(keep.sum()) * H * Dh,
+                        slots * per_slot * 2 + nbytes(mask, offs) + 2 * B * Sq * H * Dh * 2)
+        L = cold_copies(slots * per_slot * 2)
+        k_all, v_all = randn(L, B, Smax, Hkv * Dh), randn(L, B, Smax, Hkv * Dh)
+        scales = {}
+        if quant:
+            k_all, v_all, scales = as_int8(k_all, v_all)
+        kw = dict(causal=True, offset=offs, num_kv_heads=Hkv, **scales)
+
+        def call(layer, k_all=k_all, v_all=v_all, kw=kw):
+            return da.flash_decode(q, k_all, v_all, mask, layer=layer, **kw)
+
+        def plain(layer, k_all=k_all, v_all=v_all, kw=kw):
+            return da.flash_decode_plain(q, k_all, v_all, mask, layer=layer, **kw)
+
+        views = None  # no single PyTorch call computes the int8 variant
+        if not quant:
+            hi = int(keep.any(1).any(0).nonzero().max()) + 1
+            views = [(k_all[layer, :, :hi].view(B, hi, Hkv, Dh).transpose(1, 2),
+                      v_all[layer, :, :hi].view(B, hi, Hkv, Dh).transpose(1, 2))
+                     for layer in range(L)]
+        cold_decode_time(K3_VERIFY, f"{'int8' if quant else 'bf16'} Sq{Sq} B8 Smax{Smax} "
+                         f"per-row offsets, {slots} slots seen", call, plain, L, q, keep, views,
+                         bms, by, times, "the sliced cache, per-row causal boolean mask")
+        del k_all, v_all, scales, views
+        torch.cuda.empty_cache()
+
+
+def spec_generate(model, total) -> None:
+    """Lockstep speculative generate (GritLM.generate_from_ids(speculative=
+    True), spec_k 7, ngram 3) at B = 1 and 2 on prompts that quote a passage,
+    64 new tokens: every token within TIE_TOL of its position's largest
+    logit (teacher forcing); the verify steps, tokens a verify forward, and
+    ms per token on the host and device clocks beside the plain greedy
+    generate on the same prompts. Launch counts of the speculative runs are
+    added to `total`."""
+    import torch
+
+    from gritlm_tpu_torch.ops import decode_attention
+
+    tok = model.tokenizer
+    passage = " ".join(SENTENCES[:6])
+    prompts = [f"<s><|user|>\nQuote this passage: {passage}\n<|assistant|>\n{SENTENCES[0]}",
+               f"<s><|user|>\nRepeat after me: {passage} {passage}\n<|assistant|>\n"
+               f"{SENTENCES[1]}"]
+    n = 64
+    for B in (1, 2):
+        enc = tok(prompts[:B])
+
+        def run(spec):
+            return model.generate_from_ids(enc["input_ids"], enc["attention_mask"],
+                                           max_new_tokens=n, speculative=spec)
+
+        before = decode_attention.flash_decode.launches
+        res = run(True)
+        torch.cuda.synchronize()
+        total["flash_decode"] = total.get("flash_decode", 0) + (
+            decode_attention.flash_decode.launches - before)
+        gaps = torch.cat([teacher_deficits(
+            model, enc["input_ids"][b, :int(enc["attention_mask"][b].sum())].tolist(),
+            res.tokens[b, :int(res.num_valid[b])].tolist()) for b in range(B)])
+        if float(gaps.max()) > TIE_TOL:
+            fail(f"speculative generate B={B}: a token is {float(gaps.max())} below its "
+                 "position's max logit")
+        clocks = {}
+        for spec in (False, True):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            run(spec)
+            torch.cuda.synchronize()
+            host = (time.perf_counter() - t) * 1e3
+            # device ms a token: two short profiler windows (1 and 17 new
+            # tokens), their difference over 16 tokens, so the prefill drops
+            # out and the traces stay small
+            short, full = (profile_window(
+                f"generate B={B} {m} tokens, speculative {spec}",
+                lambda spec=spec, m=m: model.generate_from_ids(
+                    enc["input_ids"], enc["attention_mask"], max_new_tokens=m,
+                    speculative=spec), top=0) for m in (1, 17))
+            device = None if short is None or full is None else (full[1] - short[1]) / 16
+            clocks[spec] = (host / n, device)
+        nv = res.num_valid.tolist()
+        steps = res.spec_steps
+        fmt = lambda v: "not measured" if v is None else f"{v:.2f}"  # noqa: E731
+        print(f"speculative generate [B={B}, {n} new tokens, prompt of "
+              f"{enc['input_ids'].shape[1]} tokens]: {nv} tokens in {steps} verify steps = "
+              f"{(sum(nv) - B) / max(steps, 1):.3f} tokens a verify forward "
+              f"({(sum(nv) - B) / max(steps, 1) / B:.3f} a row); teacher forcing: largest "
+              f"deficit {float(gaps.max()):.4f} (TIE_TOL {TIE_TOL}); ms per token host / device: "
+              f"speculative {fmt(clocks[True][0])} / {fmt(clocks[True][1])}, plain greedy "
+              f"{fmt(clocks[False][0])} / {fmt(clocks[False][1])}", flush=True)
+
+
+def doc_requests(model, n_docs=4, max_new=48):
+    """Doc-continuation requests for the speculative pools: each document
+    (the sentences, rotated, about 320 tokens) prefilled causally into a
+    doc-store entry (CPU tensors), a prompt asking to quote it, and the
+    document's tokens as the request's lookup corpus. Returns [(rid, prompt
+    ids, max new, entry, doc ids)]."""
+    import torch
+
+    from gritlm_tpu_torch.models.transformer import forward, init_cache
+
+    cfg, tok = model.config, model.tokenizer
+    prompt = tok._encode_one("\n<|user|>\nQuote the passage above.\n<|assistant|>\n", False)
+    out = []
+    for i in range(n_docs):
+        doc = tok._encode_one(" ".join(SENTENCES[i:] + SENTENCES[:i]), True)
+        with torch.inference_mode():
+            cache = init_cache(cfg, 1, len(doc), device=model.device)
+            forward(model.params, cfg, torch.tensor([doc], device=model.device), causal=True,
+                    cache=cache)
+        entry = (cache.k[:, 0].cpu(), cache.v[:, 0].cpu(), len(doc), None, None)
+        out.append((f"d{i}", list(prompt), max_new, entry, doc))
+    return out
+
+
+def tokens_a_verify(run) -> float:
+    """Tokens a row's verify emitted on average over a speculative run's
+    verify chunks (every active row emits at least one)."""
+    emits = run["verify"]
+    return float(emits.sum()) / max(int((emits > 0).sum()), 1)
+
+
+def run_steps(run) -> int:
+    """Verify steps a speculative run's chunks took."""
+    return int(run["verify"].shape[0])
+
+
+def spec_phase(model, randn, reset_counts, read_counts, path_launches, times, max_err,
+               greedy_rates) -> None:
+    """Phase 12, speculative decoding and serving sampling at full width:
+    K3 with per-row offsets (k3_verify); lockstep speculative generate
+    (spec_generate); the serving workload (phase 7's 24 requests) with 4
+    doc-continuation requests through speculative pools (spec_k 7, ngram 3),
+    dense and paged (counts set to 0 before each run, read after): every
+    request complete, tokens within TIE_TOL, tokens a verify, device ms per
+    verify step at B = 8, tokens/s beside phase 7's greedy pools; the 24
+    again on the dense pool with each one's own greedy continuation in its
+    lookup corpus (a replay: the most a verify can accept); and the 24
+    requests mixed greedy / T 0.7 top_p 0.9 / T 1.0 top_k 50 through a
+    sampling pool, dense and paged: every request complete, greedy rows
+    within TIE_TOL, the sampled streams equal between the two pools, and
+    (printed, not gated) the share of tokens 4 sampled requests run alone
+    share with themselves in the full pool."""
+    import torch
+
+    from gritlm_tpu_torch import serving
+    from gritlm_tpu_torch.serving import Request, ServingEngine
+
+    t_phase = time.time()
+    k3_verify(model.device, randn, times, max_err)
+    total = {}
+    print(f"phase 12: K3 verify {time.time() - t_phase:.0f} s", flush=True)
+    spec_generate(model, total)
+    print(f"phase 12: lockstep speculative generate, at {time.time() - t_phase:.0f} s",
+          flush=True)
+
+    cfg, tok, params, dev = model.config, model.tokenizer, model.params, model.device
+    drive, specs = serving_workload(model, reset_counts, read_counts, total)
+    kw = dict(max_batch=8, max_len=4096, chunk_size=16, eos_id=tok.eos_token_id,
+              pad_id=tok.pad_token_id, device=dev)
+    docs = doc_requests(model)
+    for paged in (False, True):
+        label = f"speculative {'paged' if paged else 'dense'}"
+        pool = dict(paged=True, page_size=256) if paged else {}
+        eng = ServingEngine(cfg, params, speculative=True, spec_k=SPEC_K, spec_ngram=3,
+                            **pool, **kw)
+        run = drive(label, eng, specs, 0, decode_kernels=() if paged else (K3_VERIFY,),
+                    doc_specs=docs)
+        step = profile_decode_chunk(label, eng, serving._spec_chunk_program, specs)
+        greedy = greedy_rates["paged bf16" if paged else "dense bf16"]
+        print(f"serving [{label}]: {tokens_a_verify(run):.3f} tokens a row's verify; verify "
+              f"step at B=8: " + ("not measured" if step is None else
+                                  f"{step[0]:.3f} device ms, {step[1]:.3f} host ms, idle share "
+                                  f"{step[2]:.3f}")
+              + f"; {run['rate']:.1f} generated tokens/s (host clock) against the greedy "
+              f"pool's {greedy:.1f} (phase 7)", flush=True)
+        del eng
+        if not paged:
+            # the same 24 requests again, each with its own greedy continuation
+            # (from the run above) after its prompt in its lookup corpus: the
+            # most a verify can accept, on the same pool and kernels
+            replay = {rid: dict(hist_ids=list(ids) + run["tokens"][rid]) for rid, ids, _ in specs}
+            eng = ServingEngine(cfg, params, speculative=True, spec_k=SPEC_K, spec_ngram=3, **kw)
+            rerun = drive("speculative dense, replay", eng, specs, 0,
+                          decode_kernels=(K3_VERIFY,), req_kw=replay)
+            same = sum(rerun["tokens"][rid] == run["tokens"][rid] for rid, _, _ in specs)
+            print(f"serving [speculative dense, replay]: {tokens_a_verify(rerun):.3f} tokens a "
+                  f"row's verify, {run_steps(rerun)} verify steps against {run_steps(run)}; "
+                  f"{rerun['rate']:.1f} generated tokens/s (host clock); {same} of {len(specs)} "
+                  "streams equal to the first run's", flush=True)
+            del eng
+
+    print(f"phase 12: speculative pools, at {time.time() - t_phase:.0f} s", flush=True)
+    req_kw = {}
+    for i, (rid, _, _) in enumerate(specs):  # greedy / T 0.7 top_p 0.9 / T 1.0 top_k 50
+        if i % 3 == 1:
+            req_kw[rid] = dict(temperature=0.7, top_p=0.9, seed=i)
+        elif i % 3 == 2:
+            req_kw[rid] = dict(temperature=1.0, top_k=50, seed=i)
+    # both pools on the paged pool's prompt buckets (multiples of its page),
+    # so they prefill the same groups at the same shapes: with K3 and K8
+    # bit-equal on the same logical cache, their logits are the same
+    streams, buckets = {}, (256, 512, 1024, 2048)
+    for paged in (False, True):
+        label = f"sampling {'paged' if paged else 'dense'}"
+        pool = dict(paged=True, page_size=256) if paged else {}
+        eng = ServingEngine(cfg, params, sampling=True, prompt_buckets=buckets, **pool, **kw)
+        run = drive(label, eng, specs, 0, req_kw=req_kw)
+        streams[paged] = run["tokens"]
+        if not paged:
+            step = profile_decode_chunk(label, eng, serving._decode_chunk_program, specs)
+            print(f"serving [{label}]: decode step at B=8 with the sampler: "
+                  + ("not measured" if step is None else
+                     f"{step[0]:.3f} device ms, {step[1]:.3f} host ms, idle share "
+                     f"{step[2]:.3f}") + f"; {run['rate']:.1f} generated tokens/s (host clock)",
+                  flush=True)
+        del eng
+    differ = sorted(rid for rid in streams[False] if streams[False][rid] != streams[True][rid])
+    print(f"phase 12: sampling pools, at {time.time() - t_phase:.0f} s", flush=True)
+    print(f"serving [sampling]: dense and paged pools give equal streams for "
+          f"{len(specs) - len(differ)} of {len(specs)} requests", flush=True)
+    if differ:
+        fail(f"serving [sampling]: dense and paged streams differ for {differ}")
+    same = tot = 0
+    for rid, ids, m in [sp for sp in specs if sp[0] in req_kw][:4]:
+        eng = ServingEngine(cfg, params, sampling=True, prompt_buckets=buckets, **kw)
+        (alone,) = eng.run([Request(input_ids=ids, max_new_tokens=m, request_id=rid,
+                                    **req_kw[rid])])
+        full = streams[False][rid]
+        same += sum(a == b for a, b in zip(alone.token_ids, full))
+        tot += max(len(alone.token_ids), len(full))
+        del eng
+    print(f"serving [sampling]: 4 sampled requests run alone share {same} of {tot} token "
+          f"positions ({same / max(tot, 1):.3f}) with themselves in the full pool (not gated: "
+          f"the B = 1 prefill's GEMMs may round otherwise)", flush=True)
+    path_launches["speculative and sampling"] = total
+    if total.get(K3_VERIFY, 0) == 0 or total.get("paged_decode", 0) == 0:
+        fail("the speculative pools did not go through K3 with per-row offsets and K8")
+    print(f"speculative and sampling launches: {total}; phase {time.time() - t_phase:.0f} s",
+          flush=True)
+    torch.cuda.empty_cache()
 
 
 def profile_decode_chunk(label, eng, chunk_program, specs):
-    """Device time of one 16-step decode chunk with all 8 slots active
-    (fresh requests of 64 new tokens on the engine's pool): returns (device
-    ms per step at B = 8, host ms per step, the chunk's idle share), or None
-    for an empty trace. The chunk runs outside the scheduler, so the engine
-    is spent afterwards."""
+    """Device time of one 16-step decode chunk (a speculative engine's: 16
+    verify steps) with all 8 slots active (fresh requests of 64 new tokens
+    on the engine's pool): returns (device ms per step at B = 8, host ms per
+    step, the chunk's idle share), or None for an empty trace. The chunk
+    runs outside the scheduler, so the engine is spent afterwards."""
     import torch
 
     from gritlm_tpu_torch.serving import Request
@@ -1676,8 +2067,10 @@ def profile_decode_chunk(label, eng, chunk_program, specs):
     torch.cuda.synchronize()
     if int(eng.carry.active.sum()) != 8:
         fail(f"profile [{label}]: {int(eng.carry.active.sum())} of 8 rows active")
+    kw = (dict(ngram=eng.spec_ngram, k=eng.spec_k) if eng.speculative
+          else dict(sample=eng.sampling))
     prof = profile_window(f"{label} decode chunk, B=8, 16 steps", lambda: chunk_program(
-        eng.params, eng.cfg, eng.carry, steps=16, eos_id=eng.eos_id, pad_id=eng.pad_id))
+        eng.params, eng.cfg, eng.carry, steps=16, eos_id=eng.eos_id, pad_id=eng.pad_id, **kw))
     if prof is None:
         return None
     wall_ms, busy_ms = prof

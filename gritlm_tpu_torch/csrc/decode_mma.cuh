@@ -467,7 +467,7 @@ __global__ void __launch_bounds__(WARPS * 32) flash_decode_kernel(Args a) {
   const int rg = unit % a.n_rg, kvh = (unit / a.n_rg) % a.Kv, b = unit / (a.n_rg * a.Kv);
   const int group = a.H / a.Kv, R = a.Sq * group;
   const int row0 = rg * ROWS, row1 = min(R, row0 + ROWS) - 1;
-  const int offset = PAGED && a.offsets != nullptr ? a.offsets[b] : a.offset;
+  const int offset = a.offsets != nullptr ? a.offsets[b] : a.offset;
   // the slots some row of the group can see
   const int hi = a.causal ? min(a.Smax, offset + row1 / group + 1) : a.Smax;
   const int lo = a.window > 0 ? max(0, offset + row0 / group - a.window + 1) : 0;

@@ -30,6 +30,9 @@ class GenerateResult:
     tokens: torch.Tensor  # [B, max_new_tokens] generated ids (pad after eos)
     num_valid: torch.Tensor  # [B] count of tokens up to and including eos
     cache: KVCache
+    # speculative decoding only: the verify steps taken (acceptance rate =
+    # (sum(num_valid) - B) / (B * spec_steps) proposals a step)
+    spec_steps: Optional[int] = None
 
 
 def _prompt_positions(prev_valid: torch.Tensor, step_mask: torch.Tensor) -> torch.Tensor:

@@ -10,8 +10,11 @@ the quantized matmuls K6 and K7), and `from_pretrained` (an HF checkpoint
 directory with its tokenizer). Batches are padded to a small set of
 sequence buckets, as in the JAX package, so the same kernel shapes recur.
 
-Not ported yet (raise NotImplementedError): `mesh=`, `speculative=True` and
-MoE configs.
+`generate(speculative=True)` decodes greedily with prompt-lookup
+speculation (spec_decode.py): the same tokens as plain greedy generate, up
+to k + 1 of them a forward.
+
+Not ported yet (raise NotImplementedError): `mesh=` and MoE configs.
 """
 
 from __future__ import annotations
@@ -41,6 +44,7 @@ from gritlm_tpu_torch.models.transformer import (
 )
 from gritlm_tpu_torch.ops import fused_pool
 from gritlm_tpu_torch.ops.pooling import POOLING_METHODS, pool
+from gritlm_tpu_torch.spec_decode import generate_speculative, spec_cache_extra
 from gritlm_tpu_torch.tokenizer import instruction_token_lens, load_tokenizer
 from gritlm_tpu_torch.training.quant import quantize_for_serving
 
@@ -287,11 +291,19 @@ class GritLM:
         top_p: float = 1.0,
         seed: int = 0,
         speculative: bool = False,
+        spec_ngram: int = 3,
+        spec_k: int = 7,
     ) -> GenerateResult:
         """Generate from token ids. A cache passed in is not modified (it is
-        copied into the cache this call writes)."""
-        if speculative:
-            raise NotImplementedError("speculative decoding is not ported yet")
+        copied into the cache this call writes). `speculative=True` is greedy
+        prompt-lookup decoding (spec_decode.generate_speculative): it takes
+        temperature 0 and min_new_tokens 0 only, and sizes the cache with
+        its verify slack."""
+        if speculative and (temperature != 0.0 or min_new_tokens > 0):
+            raise ValueError(
+                "speculative decoding is greedy-only (temperature=0.0, min_new_tokens=0); "
+                "rejected proposals are replaced by the model's own argmax, which has no "
+                "sampling analogue here")
         input_ids = np.asarray(input_ids)
         attention_mask = np.asarray(attention_mask)
         blen = _bucket(input_ids.shape[1], self.seq_buckets)
@@ -300,14 +312,21 @@ class GritLM:
             input_ids = np.pad(input_ids, ((0, 0), (0, padw)),
                                constant_values=self.tokenizer.pad_token_id)
             attention_mask = np.pad(attention_mask, ((0, 0), (0, padw)))
+        spec_extra = (spec_cache_extra(max_new_tokens, spec_k, input_ids.shape[0])
+                      if speculative else 0)
         if cache is None:
             cache = make_cache_for_prompt(self.config, input_ids.shape[0],
-                                          input_ids.shape[1], max_new_tokens,
+                                          input_ids.shape[1], max_new_tokens, extra=spec_extra,
                                           device=self.device, quant=self.kv_quant)
         else:
             padded = pad_cache_to(cache, align_cache_len(self.required_cache_len(
-                input_ids.shape[1], cache.length, max_new_tokens)))
+                input_ids.shape[1], cache.length, max_new_tokens) + spec_extra))
             cache = padded.clone() if padded is cache else padded
+        if speculative:
+            return generate_speculative(
+                self.params, self.config, self._put(input_ids), self._put(attention_mask),
+                cache, max_new_tokens=max_new_tokens, ngram=spec_ngram, k=spec_k,
+                eos_id=self.tokenizer.eos_token_id, pad_id=self.tokenizer.pad_token_id)
         gen = None
         if temperature != 0.0:
             gen = torch.Generator(device=self.device).manual_seed(seed)
@@ -332,6 +351,8 @@ class GritLM:
         add_special_tokens: bool = True,
         seed: int = 0,
         speculative: bool = False,
+        spec_ngram: int = 3,
+        spec_k: int = 7,
     ) -> Union[str, List[str]]:
         was_str = isinstance(prompts, str)
         if was_str:
@@ -342,7 +363,7 @@ class GritLM:
             enc["input_ids"], enc["attention_mask"], cache=cache,
             max_new_tokens=max_new_tokens, min_new_tokens=min_new_tokens,
             temperature=temperature, top_k=top_k, top_p=top_p, seed=seed,
-            speculative=speculative,
+            speculative=speculative, spec_ngram=spec_ngram, spec_k=spec_k,
         )
         toks = res.tokens.cpu().numpy()
         nv = res.num_valid.cpu().numpy()

@@ -19,8 +19,8 @@ with the layer axis stacked first, the same tree as the JAX package:
 The layer loop is a Python loop. With a cache, each layer writes its K/V
 into the cache tensors in place (the JAX package returns new arrays) and
 attends against the full cache buffer. With `row_offsets` (the serving
-decode step) every row appends at its own slot, into a dense `KVCache` or a
-paged `PagedKVCache`.
+decode step, and the speculative verify chunk) every row appends at its own
+slots, into a dense `KVCache` or a paged `PagedKVCache`.
 
 `forward` runs under autograd when its caller records (training); the
 inference entry points (generate, GritLM.encode, the serving programs) run
@@ -361,7 +361,7 @@ def _attention_block(
     k = _rotate(k, *rope)
 
     if layer_cache is not None and layer_cache[2] is not None:
-        out = _append_per_row(q, k, v, padding_mask, *layer_cache, Kv)
+        out = _append_per_row(q, k, v, padding_mask, *layer_cache, Kv, cfg.sliding_window)
     elif layer_cache is not None:
         cache, lidx, _ = layer_cache
         offset = cache.length
@@ -386,43 +386,62 @@ def _attention_block(
     return _mm(out.reshape(B, S, H * Dh), p["wo"])
 
 
-def _append_per_row(q, k, v, step_mask, cache, lidx: int, row_offsets, Kv: int):
-    """Serving decode step (S = 1): row b writes its K/V at its own logical
-    slot row_offsets[b], in place, and attends mask-bounded against its
-    valid slots (causal=False, offset 0, no sliding window: the row's mask
-    covers exactly what it has written, as in the JAX package)."""
-    B = q.shape[0]
-    rows = torch.arange(B, device=q.device)
+def _row_slots(row_offsets: torch.Tensor, S: int, max_len: int) -> torch.Tensor:
+    """[B, S] logical write slots row_offsets[b] + j, clamped to the pool's
+    last slot: only an inactive row's stale pointer reaches past it (an
+    active row's request was admitted with room for its verify chunk), and
+    its writes carry no mask bit."""
+    j = torch.arange(S, device=row_offsets.device)
+    return (row_offsets[:, None] + j[None, :]).clamp_max(max_len - 1)
+
+
+def _append_per_row(q, k, v, step_mask, cache, lidx: int, row_offsets, Kv: int,
+                    window: Optional[int]):
+    """Serving step: row b writes its S new K/V at its own logical slots
+    row_offsets[b] + j, in place. At S = 1 (the decode step) it attends
+    mask-bounded against its valid slots (causal=False, offset 0, no
+    sliding window: the row's mask covers exactly what it has written, as
+    in the JAX package). At S > 1 (the speculative verify chunk) every slot
+    of the chunk is mask-valid before attention, so query j of row b is
+    bounded causally at slot row_offsets[b] + j (K3 or K8 with per-row
+    offsets; the dense pool also applies the sliding window, as the JAX
+    package does)."""
+    B, S = q.shape[:2]
+    slots = _row_slots(row_offsets, S, cache.max_len)
     if cache.quantized:
         k2, ks = quantize_kv(k)
         v2, vs = quantize_kv(v)
-        news = ((k2[:, 0], ks[:, 0]), (v2[:, 0], vs[:, 0]))
+        news = ((k2, ks), (v2, vs))
     else:
-        news = ((k.reshape(B, -1).to(cache.k.dtype), None),
-                (v.reshape(B, -1).to(cache.v.dtype), None))
+        news = ((k.reshape(B, S, -1).to(cache.k.dtype), None),
+                (v.reshape(B, S, -1).to(cache.v.dtype), None))
     if isinstance(cache, PagedKVCache):
-        # logical slot s -> page page_table[b, s // page] at s % page.
-        # Inactive rows still write (the step is lockstep) but their table
-        # may name pages another request owns now: they write the scratch
-        # page 0 instead. Several inactive rows may write page 0 at the same
-        # offset; it is scratch that nothing reads as valid.
+        # logical slot s -> page page_table[b, s // page] at s % page (a
+        # chunk may straddle a page). Inactive rows still write (the step
+        # is lockstep) but their table may name pages another request owns
+        # now: they write the scratch page 0 instead. Several inactive rows
+        # may write page 0 at the same offset; it is scratch that nothing
+        # reads as valid.
         page = cache.page_size
-        pids = cache.page_table[rows, row_offsets // page].long()
+        pids = cache.page_table.gather(1, slots // page).long()
         if step_mask is not None:
-            pids = torch.where(step_mask[:, 0] > 0, pids, torch.zeros_like(pids))
-        idx = (pids, row_offsets % page)
+            pids = torch.where(step_mask > 0, pids, torch.zeros_like(pids))
+        idx = (pids, slots % page)
     else:
-        idx = (rows, row_offsets)
+        idx = (torch.arange(B, device=q.device)[:, None].expand(B, S), slots)
     for data, scale, (x_new, sc) in ((cache.k, cache.k_scale, news[0]),
                                      (cache.v, cache.v_scale, news[1])):
         data[lidx][idx] = x_new
         if sc is not None:  # slot-minor scales: [.., Kv, slots]
             scale[lidx][idx[0], :, idx[1]] = sc
+    causal = S > 1
     if isinstance(cache, PagedKVCache):
         return paged_decode(q, cache.k, cache.v, cache.page_table, cache.mask, layer=lidx,
-                            num_kv_heads=Kv, k_scale=cache.k_scale, v_scale=cache.v_scale)
-    return cached_attention(q, cache.k, cache.v, cache.mask, layer=lidx, offset=0,
-                            causal=False, sliding_window=None, num_kv_heads=Kv,
+                            num_kv_heads=Kv, k_scale=cache.k_scale, v_scale=cache.v_scale,
+                            causal=causal, offset=row_offsets if causal else 0)
+    return cached_attention(q, cache.k, cache.v, cache.mask, layer=lidx,
+                            offset=row_offsets if causal else 0, causal=causal,
+                            sliding_window=window if causal else None, num_kv_heads=Kv,
                             k_scale=cache.k_scale, v_scale=cache.v_scale)
 
 
@@ -476,12 +495,14 @@ def forward(
     the returned cache shares the tensors, with length advanced by S.
 
     With `row_offsets` [B] (the continuous-batching decode step of
-    serving.py) row b appends its token at its own slot row_offsets[b] of a
-    KVCache or PagedKVCache; `positions` (the RoPE positions) may differ from
-    the write slots, as for doc-continuation rows. The step mask is merged
-    into cache.mask with a max, so an inactive row never clears a bit, and
-    cache.length is left alone. Only S = 1 is ported: S > 1 is the
-    speculative verify chunk, which needs K3 with per-row causal offsets."""
+    serving.py) row b appends its S tokens at its own slots
+    row_offsets[b] + j of a KVCache or PagedKVCache; `positions` (the RoPE
+    positions) may differ from the write slots, as for doc-continuation
+    rows. The step mask is merged into cache.mask with a max, so an inactive
+    row never clears a bit, and cache.length is left alone. S > 1 is the
+    speculative verify chunk: causal attention inside the chunk at each
+    row's own offset (K3 or K8 with per-row offsets); the caller clears the
+    bits of rejected slots afterwards."""
     _check_dense(cfg)
     if remat_policy is not None:
         raise NotImplementedError(
@@ -496,10 +517,6 @@ def forward(
     if row_offsets is not None:
         if cache is None:
             raise ValueError("row_offsets needs a cache")
-        if S != 1:
-            raise NotImplementedError(
-                "forward(row_offsets=...) with S > 1 is the speculative verify chunk: it "
-                "needs K3 with per-row causal offsets, queued with the spec_decode slice")
     elif isinstance(cache, PagedKVCache):
         raise ValueError("PagedKVCache is decode-only: it needs row_offsets (serving "
                          "prefills run on dense row caches, copied into pages at admission)")
@@ -511,11 +528,10 @@ def forward(
             positions = (start + torch.arange(S, device=dev))[None, :].expand(B, S)
 
     if row_offsets is not None:
-        step = (attention_mask[:, 0] if attention_mask is not None
-                else torch.ones((B,), dtype=cache.mask.dtype, device=dev))
-        rows = torch.arange(B, device=dev)
-        cache.mask[rows, row_offsets] = torch.maximum(cache.mask[rows, row_offsets],
-                                                      step.to(cache.mask.dtype))
+        step = (attention_mask if attention_mask is not None
+                else torch.ones((B, S), dtype=cache.mask.dtype, device=dev))
+        idx = (torch.arange(B, device=dev)[:, None], _row_slots(row_offsets, S, cache.max_len))
+        cache.mask[idx] = torch.maximum(cache.mask[idx], step.to(cache.mask.dtype))
     elif cache is not None:
         offset = cache.length
         if offset + S > cache.max_len:

@@ -6,16 +6,17 @@ for every query length, and when autograd records (training) to
 backward (K4, K5); `cached_attention` goes to the flash decode kernel
 (K3) below 128 queries and to K1 on the cache layer's view above. The
 serving decode step calls `cached_attention` with S = 1, causal=False,
-offset 0 and no window (mask-bounded, per-row write slots); over a paged
-pool the transformer calls `paged_attention.paged_decode` (K8) instead, as
-the JAX package does. On CPU tensors each kernel wrapper runs its plain
+offset 0 and no window (mask-bounded, per-row write slots), and the
+speculative verify chunk with S = k + 1, causal, the window and a [B]
+tensor of per-row offsets (always K3); over a paged pool the transformer
+calls `paged_attention.paged_decode` (K8) instead, as the JAX package does. On CPU tensors each kernel wrapper runs its plain
 version. `mha_reference` is the independent einsum oracle the tests hold
 the kernels against.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Union
 
 import torch
 
@@ -31,15 +32,20 @@ def make_attention_bias(
     *,
     causal: bool,
     sliding_window: Optional[int] = None,
-    offset: int = 0,
+    offset: Union[int, torch.Tensor] = 0,
     dtype=torch.float32,
 ) -> Optional[torch.Tensor]:
     """Additive attention bias [B or 1, 1, Sq, Sk]; `offset` is the absolute
-    position of query row 0."""
+    position of query row 0, one int or a [B] tensor (each row its own,
+    the serving row offsets)."""
     biases = []
     device = padding_mask.device if padding_mask is not None else None
     if causal:
-        q_pos = (offset + torch.arange(q_len, device=device)[:, None])[None]
+        if isinstance(offset, torch.Tensor):  # [B] per-row offsets -> [B, Sq, 1]
+            q_pos = offset.to(device)[:, None, None] + torch.arange(q_len, device=device)[
+                None, :, None]
+        else:
+            q_pos = (offset + torch.arange(q_len, device=device)[:, None])[None]
         k_pos = torch.arange(kv_len, device=device)[None, None, :]
         keep = k_pos <= q_pos
         if sliding_window is not None:
@@ -112,7 +118,7 @@ def cached_attention(
     kv_mask: Optional[torch.Tensor],  # [B, Smax] slot validity
     *,
     layer: int,
-    offset: int,
+    offset: Union[int, torch.Tensor],  # one int, or [B] per-row offsets
     causal: bool,
     sliding_window: Optional[int] = None,
     num_kv_heads: Optional[int] = None,
@@ -120,12 +126,14 @@ def cached_attention(
     v_scale: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Attention against one layer of the full KV cache: the decode kernel
-    for few queries (it dequantizes an int8 cache itself), the flash kernel
-    on the layer's view otherwise (an int8 layer is dequantized first)."""
+    for few queries (it dequantizes an int8 cache itself) and for per-row
+    offsets (the speculative verify chunk; K1 takes one offset), the flash
+    kernel on the layer's view otherwise (an int8 layer is dequantized
+    first)."""
     B, Sq, H, Dh = q.shape
     L, _, Smax, KD = k_all.shape
     hkv = num_kv_heads if num_kv_heads is not None else KD // Dh
-    if Sq < 128:
+    if Sq < 128 or isinstance(offset, torch.Tensor):
         return decode_attention.flash_decode(
             q, k_all, v_all, kv_mask,
             causal=causal, sliding_window=sliding_window,

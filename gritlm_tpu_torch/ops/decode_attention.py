@@ -43,20 +43,22 @@ host-known slot range; `split_tiles` is the kernel's cut of a unit's tiles.
 K8 (`paged_attention.py`) plans with the same functions.
 
 Serving rows reach this kernel through the transformer's per-row path
-(`forward(row_offsets=...)`): the step is S = 1, each row writes its K/V at
-its own slot before attention, and the kernel runs mask-bounded (causal
-False, offset 0, no window), since a row's mask covers exactly the slots it
-has written.
+(`forward(row_offsets=...)`). At S = 1 each row writes its K/V at its own
+slot before attention, and the kernel runs mask-bounded (causal False,
+offset 0, no window), since a row's mask covers exactly the slots it has
+written. At S > 1 (the speculative verify chunk) `offset` is a [B] tensor:
+query j of row b sees slots <= offset[b] + j (and the window below it), the
+kernel reads `offsets[b]` itself, and the host plans over Smax, since it
+cannot bound the rows' causal ranges without reading them; each block
+trims its splits by the valid slots it finds, as K8 does.
 
-Differences from the TPU kernel: the `offset` is one Python int for all
-rows (the kernel body reads per-row offsets in K8's paged instance only;
-the per-row-offset variant for Sq > 1, the speculative verify chunk, is
-queued with the speculative slice). Dh must be 128.
+Differences from the TPU kernel: Dh must be 128. (The JAX kernel too takes
+`offset` as an int or a [B] array.)
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Union
 
 import torch
 
@@ -83,7 +85,8 @@ def dequantize_layer(x, scale, layer, hkv, dtype) -> torch.Tensor:
 def flash_decode_plain(q, k, v, padding_mask, *, causal, sliding_window=None, offset=0,
                        layer=0, num_kv_heads=None, k_scale=None,
                        v_scale=None) -> torch.Tensor:
-    """The plain PyTorch version of K3 (same arguments as flash_decode)."""
+    """The plain PyTorch version of K3 (same arguments as flash_decode; a
+    [B] `offset` makes the kept set [B, Sq, Smax])."""
     B, Sq, H, Dh = q.shape
     _, _, Smax, KD = k.shape
     hkv = num_kv_heads or KD // Dh
@@ -102,7 +105,7 @@ def _fn():
     fn = _build.load("decode_attention").gritlm_flash_decode
     if fn.argtypes is None:
         P, I32, F32 = _build.P, _build.I32, _build.F32
-        fn.argtypes = [P] * 10 + [I32] * 11 + [F32, P]
+        fn.argtypes = [P] * 11 + [I32] * 11 + [F32, P]
         fn.restype = I32
     return fn
 
@@ -171,19 +174,21 @@ def flash_decode(
     *,
     causal: bool,
     sliding_window: Optional[int] = None,
-    offset: int = 0,
+    offset: Union[int, torch.Tensor] = 0,  # position of query row 0: one int, or [B]
     layer: int = 0,
     num_kv_heads: Optional[int] = None,
     k_scale: Optional[torch.Tensor] = None,
     v_scale: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Attention of q against cache layer `layer`; with k_scale/v_scale
-    [L, B, Kv, Smax] the cache is int8. CPU tensors run the plain version;
+    [L, B, Kv, Smax] the cache is int8; `offset` one int for every row or a
+    [B] int tensor of per-row offsets. CPU tensors run the plain version;
     CUDA tensors run the kernel or raise. Returns [B, Sq, H, Dh]."""
     quant = k_scale is not None
     if quant != (v_scale is not None):
         raise ValueError("flash_decode: give both k_scale and v_scale, or neither")
-    if _build.plain_path(q, k, v, padding_mask, k_scale, v_scale):
+    off_t = offset if isinstance(offset, torch.Tensor) else None
+    if _build.plain_path(q, k, v, padding_mask, k_scale, v_scale, off_t):
         return flash_decode_plain(q, k, v, padding_mask, causal=causal,
                                   sliding_window=sliding_window, offset=offset,
                                   layer=layer, num_kv_heads=num_kv_heads,
@@ -205,16 +210,25 @@ def flash_decode(
         raise ValueError(f"flash_decode: cache k {tuple(k.shape)} v {tuple(v.shape)}, batch {B}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("flash_decode: q and the cache must be contiguous")
-    if not isinstance(offset, int) or not isinstance(layer, int) or not 0 <= layer < L:
-        raise ValueError("flash_decode: offset and layer must be Python ints, 0 <= layer < L")
+    if not isinstance(layer, int) or not 0 <= layer < L:
+        raise ValueError("flash_decode: layer must be a Python int, 0 <= layer < L")
+    if off_t is None and not isinstance(offset, int):
+        raise ValueError("flash_decode: offset must be a Python int or a [B] tensor")
+    if off_t is not None and tuple(off_t.shape) != (B,):
+        raise ValueError(f"flash_decode: offsets {tuple(off_t.shape)} != {(B,)}")
     if padding_mask is None:
         mask = None  # the kernel takes every slot as valid
     else:
         if tuple(padding_mask.shape) != (B, Smax):
             raise ValueError(f"flash_decode: mask {tuple(padding_mask.shape)} != {(B, Smax)}")
         mask = padding_mask.to(torch.int32).contiguous()
-    n_split, n_rg = decode_plan(B, Sq, H, hkv, Smax, _build.sm_count(q.device), causal=causal,
-                                offset=offset, window=sliding_window, quant=quant)
+    offsets = None if off_t is None else off_t.to(torch.int32).contiguous()
+    # per-row offsets: the host cannot bound the rows' ranges, so it plans
+    # over Smax (the kernel trims each unit's splits by its valid slots)
+    host = off_t is None
+    n_split, n_rg = decode_plan(B, Sq, H, hkv, Smax, _build.sm_count(q.device),
+                                causal=causal and host, offset=offset if host else 0,
+                                window=sliding_window if host else None, quant=quant)
     units = B * hkv * n_rg
     part_ml, part_o = partials(n_split, units, q.device)
     counters = _build.counters(q.device, units) if n_split > 1 else None
@@ -224,12 +238,15 @@ def flash_decode(
         return None if t is None else t.data_ptr()
 
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), ptr(k_scale), ptr(v_scale), ptr(mask),
-            ptr(part_ml), ptr(part_o), ptr(counters), out.data_ptr(), B, Sq, H, hkv, Smax,
-            layer, n_split, n_rg, int(causal), int(sliding_window or 0), offset, Dh ** -0.5,
-            _build.stream_of(q))
+            ptr(offsets), ptr(part_ml), ptr(part_o), ptr(counters), out.data_ptr(), B, Sq, H,
+            hkv, Smax, layer, n_split, n_rg, int(causal), int(sliding_window or 0),
+            offset if host else 0, Dh ** -0.5, _build.stream_of(q))
     _build.check(rc, "flash_decode")
     flash_decode.launches += 1
+    if not host:
+        flash_decode.row_offset_launches += 1
     return out
 
 
 flash_decode.launches = 0
+flash_decode.row_offset_launches = 0  # of them, launches with per-row offsets (verify chunks)

@@ -72,13 +72,16 @@ def keep_mask(
     *,
     causal: bool,
     sliding_window: Optional[int],
-    offset: int,
+    offset,  # int, or a [B] tensor
     device,
 ) -> torch.Tensor:
     """Boolean [B or 1, Sq, Sk]: which (query, key) pairs attend. The window
-    applies whenever it is given (callers drop it where it must not)."""
+    applies whenever it is given (callers drop it where it must not). A [B]
+    tensor `offset` gives each row its own position of query row 0."""
     keep = torch.ones((1, q_len, kv_len), dtype=torch.bool, device=device)
     if causal or sliding_window is not None:
+        if isinstance(offset, torch.Tensor):
+            offset = offset.to(device)[:, None, None]
         q_pos = offset + torch.arange(q_len, device=device)[:, None]
         k_pos = torch.arange(kv_len, device=device)[None, :]
         if causal:

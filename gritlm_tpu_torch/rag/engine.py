@@ -21,9 +21,12 @@ trimmed to each doc's valid prefix). While the whole store fits
 `doc_pool_bytes`, it is also stacked once into a device-resident pool
 `[L, N_docs, W_max, ...]`, and a call's doc caches are one `index_select`
 out of it; a larger store is copied to the device per call. `serve()`
-answers through the continuous-batching ServingEngine (greedy, dense or
-paged pool); `speculative=True` and sampling in `serve()` are not ported
-yet and raise.
+answers through the continuous-batching ServingEngine (dense or paged pool;
+greedy, sampled with `temperature > 0`, or speculative). With
+`speculative=True` the answer step decodes by greedy prompt lookup
+(spec_decode.py): in answer_batch through GritLM.generate_from_ids, in
+serve() through the speculative verify pool with each retrieved document's
+tokens as the request's lookup corpus (`Request.hist_ids`).
 """
 
 from __future__ import annotations
@@ -39,9 +42,10 @@ from typing import Any, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from gritlm_tpu_torch.generate import concat_caches
+from gritlm_tpu_torch.generate import align_cache_len, concat_caches
 from gritlm_tpu_torch.index.flat import FlatIndex
 from gritlm_tpu_torch.models.transformer import KVCache
+from gritlm_tpu_torch.spec_decode import spec_cache_extra
 from gritlm_tpu_torch.training.templates import gritlm_instruction
 
 logger = logging.getLogger(__name__)
@@ -119,15 +123,23 @@ class RAGEngine:
         min_new_tokens: int = 0,
         encode_max_length: int = 2048,
         speculative: bool = False,
+        spec_ngram: int = 3,
+        spec_k: int = 7,
         doc_pool_bytes: int = 2 * 2**30,
     ):
-        if speculative:
-            raise NotImplementedError("RAGEngine(speculative=True): spec_decode is not ported yet")
+        if speculative and min_new_tokens > 0:
+            raise ValueError("speculative decoding is greedy-only and does not support "
+                             "min_new_tokens (EOS suppression)")
         self.model = model
         self.index = index
         self.max_new_tokens = max_new_tokens
         self.min_new_tokens = min_new_tokens
         self.encode_max_length = encode_max_length
+        # prompt-lookup speculative decoding for the answer step (greedy;
+        # extractive answers quote the retrieved document)
+        self.speculative = speculative
+        self.spec_ngram = spec_ngram
+        self.spec_k = spec_k
         # per-doc device caches for the B == 1 path, LRU-bounded: each entry
         # pins a whole per-doc KV cache on the device
         self._doc_cache: "OrderedDict[Any, KVCache]" = OrderedDict()
@@ -350,7 +362,11 @@ class RAGEngine:
             raise ValueError("concat-mode prompts must be identical")
         enc = self.model.tokenizer([prompts[0] + ANSWER_PROMPT], add_special_tokens=False)
         plen = len(enc["input_ids"][0])
-        return self.model.required_cache_len(plen, int(a.length) + int(b.length), mnt)
+        total = self.model.required_cache_len(plen, int(a.length) + int(b.length), mnt)
+        if self.speculative:
+            total = align_cache_len(total + spec_cache_extra(mnt, self.spec_k,
+                                                             a.mask.shape[0]))
+        return total
 
     def precompute_doc_cache(self, doc_id: int, mode: "CacheMode") -> None:
         """Encode one passage with KV capture into the per-doc memo (the B == 1
@@ -475,7 +491,8 @@ class RAGEngine:
                            prompt_budget)
         res = self.model.generate_from_ids(
             enc["input_ids"], enc["attention_mask"], cache=kv_cache, max_new_tokens=mnt,
-            min_new_tokens=self.min_new_tokens,
+            min_new_tokens=self.min_new_tokens, speculative=self.speculative,
+            spec_ngram=self.spec_ngram, spec_k=self.spec_k,
         )
         toks = res.tokens.cpu().numpy()  # waits for the device
         nv = res.num_valid.cpu().numpy()
@@ -497,30 +514,36 @@ class RAGEngine:
         pool_max_len: int = 4096,
         prompt_buckets=(64, 128, 256, 512),
         temperature: float = 0.0,
+        top_k: int = 0,
+        top_p: float = 1.0,
+        seed: int = 0,
         speculative: bool = False,
+        spec_ngram: int = 3,
+        spec_k: int = 7,
         paged: bool = False,
         page_size: int = 256,
     ) -> List[RAGResult]:
-        """Continuous-batching RAG serving (greedy): retrieve per query, reuse
-        each document's precomputed KV cache from the host doc store, and
-        decode every answer through one ServingEngine slot pool (doc-cache
-        mode). Each request holds a slot at its own doc bucket and frees it
-        the moment its answer ends; greedy answers are those of
+        """Continuous-batching RAG serving: retrieve per query, reuse each
+        document's precomputed KV cache from the host doc store, and decode
+        every answer through one ServingEngine slot pool (doc-cache mode).
+        Each request holds a slot at its own doc bucket and frees it the
+        moment its answer ends; greedy answers are those of
         answer_batch(mode=DOC) up to the kernels' order of sums.
 
-        paged=True pins each unique retrieved document's cache into shared
-        pool pages once; queries on the same document read the same pages.
+        temperature > 0 samples each answer with its own generator (query i
+        uses seed + i): fixed by `seed` whatever the slot scheduling (see
+        serving.Request).
 
-        Not ported yet: temperature > 0 and speculative=True raise
-        NotImplementedError."""
+        speculative=True (greedy) runs the prompt-lookup verify pool with
+        each request's lookup corpus seeded by its retrieved passage's
+        tokens: extractive answers quote the document, so proposals come
+        from the text the answer copies, while the document's KV still comes
+        from the precomputed cache.
+
+        paged=True pins each unique retrieved document's cache into shared
+        pool pages once; queries on the same document read the same pages."""
         from gritlm_tpu_torch.serving import Request, ServingEngine
 
-        if temperature > 0.0:
-            raise NotImplementedError("RAGEngine.serve(temperature > 0): serving sampling "
-                                      "is not ported yet")
-        if speculative:
-            raise NotImplementedError("RAGEngine.serve(speculative=True): spec_decode is not "
-                                      "ported yet")
         t0 = time.perf_counter()
         mnt = max_new_tokens or self.max_new_tokens
         B = len(queries)
@@ -535,20 +558,28 @@ class RAGEngine:
 
         prompts = [CONT_AFTER_DOC_CACHE.format(query=q) + ANSWER_PROMPT for q in queries]
         enc = self.model.tokenizer(prompts, add_special_tokens=False)
+        hists = [None] * B
+        if speculative:
+            denc = self.model.tokenizer(
+                [_doc_string(self.index.passages[d]) for d in doc_ids], add_special_tokens=False)
+            hists = [[t for t, m in zip(denc["input_ids"][i], denc["attention_mask"][i]) if m]
+                     for i in range(B)]
         paged_kw: dict = {}
         if paged:
             # one shared page pool: every unique retrieved document pins
-            # once; per-slot private tails cover prompt + answer budget
+            # once; per-slot private tails cover prompt + answer budget (and
+            # the verify chunk's slack)
             uniq = sorted(set(doc_ids))
             prefix_pages = sum(-(-self._doc_store[(d, False)][2] // page_size) for d in uniq)
-            tail = max(prompt_buckets) + mnt
+            tail = max(prompt_buckets) + mnt + (spec_k if speculative else 0)
             paged_kw = dict(paged=True, page_size=page_size,
                             pool_pages=1 + prefix_pages + slots * -(-tail // page_size) + slots)
         eng = ServingEngine(
             self.model.config, self.model.params, max_batch=slots, max_len=pool_max_len,
             kv_quant=self.model.kv_quant, eos_id=self.model.tokenizer.eos_token_id,
             pad_id=self.model.tokenizer.pad_token_id, chunk_size=chunk_size,
-            prompt_buckets=prompt_buckets, device=self.device, **paged_kw,
+            prompt_buckets=prompt_buckets, sampling=temperature > 0.0, speculative=speculative,
+            spec_ngram=spec_ngram, spec_k=spec_k, device=self.device, **paged_kw,
         )
         if paged:
             for d in uniq:
@@ -558,7 +589,9 @@ class RAGEngine:
                                if m],
                     max_new_tokens=mnt, request_id=str(i),
                     **({"prefix": doc_ids[i]} if paged
-                       else {"doc_cache": self._doc_store[(doc_ids[i], False)]}))
+                       else {"doc_cache": self._doc_store[(doc_ids[i], False)]}),
+                    temperature=temperature, top_k=top_k, top_p=top_p, seed=seed + i,
+                    hist_ids=hists[i])
             for i in range(B)
         ])
         per_q = (time.perf_counter() - t0) / B

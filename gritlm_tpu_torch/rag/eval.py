@@ -14,9 +14,8 @@ Example (toy smoke on the CPU):
 
 A checkpoint directory (`--model_name_or_path`, HF safetensors with its
 tokenizer) or a preset with random weights (`--model_preset`); int8 serving
-weights with `--weight_quant`.
-
-Not ported yet (raises NotImplementedError): --speculative.
+weights with `--weight_quant`; greedy prompt-lookup speculative decoding
+of the answers with `--speculative` (it sets --min_new_tokens to 0).
 """
 
 from __future__ import annotations
@@ -33,7 +32,7 @@ def get_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=__doc__)
     # model
     p.add_argument("--model_name_or_path", default=None, type=str,
-                   help="HF-style checkpoint dir (not ported yet)")
+                   help="HF-style checkpoint dir")
     p.add_argument("--model_preset", default=None, type=str,
                    help="config preset w/ random init (tiny smoke runs)")
     p.add_argument("--pooling_method", default="mean", type=str)
@@ -91,9 +90,12 @@ def get_parser() -> argparse.ArgumentParser:
     p.add_argument("--weight_quant", action="store_true",
                    help="w8a16 serving: int8 weights + lm head")
     p.add_argument("--speculative", action="store_true",
-                   help="prompt-lookup speculative decoding (not ported yet)")
-    p.add_argument("--spec_k", type=int, default=7)
-    p.add_argument("--spec_ngram", type=int, default=3)
+                   help="prompt-lookup speculative decoding for the answer step "
+                        "(greedy-only; forces --min_new_tokens 0)")
+    p.add_argument("--spec_k", type=int, default=7,
+                   help="speculative lookahead tokens per verify step")
+    p.add_argument("--spec_ngram", type=int, default=3,
+                   help="trailing n-gram length for prompt lookup")
     return p
 
 
@@ -103,8 +105,6 @@ def _load_model(args):
     from gritlm_tpu_torch import GritLM
     from gritlm_tpu_torch import config as cfgmod
 
-    if args.speculative:
-        raise NotImplementedError("--speculative: not ported yet")
     kwargs = dict(mode="unified", pooling_method=args.pooling_method, attn=args.attn,
                   kv_quant=args.kv_quant, weight_quant=args.weight_quant, device=args.device)
     if args.model_name_or_path:
@@ -160,8 +160,9 @@ def main(argv=None) -> dict:
     else:
         encode_max_length = 2048
     engine = RAGEngine(model, max_new_tokens=args.max_new_tokens,
-                       min_new_tokens=args.min_new_tokens,
-                       encode_max_length=encode_max_length)
+                       min_new_tokens=0 if args.speculative else args.min_new_tokens,
+                       encode_max_length=encode_max_length, speculative=args.speculative,
+                       spec_ngram=args.spec_ngram, spec_k=args.spec_k)
 
     cache_docs = args.cache_docs or (args.cache is not None and "doc" in args.cache)
     if not args.no_retrieval:

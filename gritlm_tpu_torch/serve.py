@@ -1,13 +1,17 @@
 """Serving CLI: drive the continuous-batching engine (port of gritlm_tpu.serve).
 
-Dense or paged KV pools, int8 KV, chunked prefill, and unified pools that
-serve embedding requests beside generation, on one CUDA device (or the CPU
-with --device cpu, where the kernels run their plain versions).
+Dense or paged KV pools, int8 KV, chunked prefill, sampled requests, the
+prompt-lookup speculative verify pool (--speculative, greedy), and unified
+pools that serve embedding requests beside generation, on one CUDA device
+(or the CPU with --device cpu, where the kernels run their plain versions).
+The engine samples (ServingEngine(sampling=True)) when any request has a
+temperature above 0.
 
 Request file: one JSON object per line.
 
   {"id": "g0", "prompt": "<s><|user|>\\nHi\\n<|assistant|>\\n",
-   "max_new_tokens": 32, "temperature": 0.0, "priority": 0}
+   "max_new_tokens": 32, "temperature": 0.7, "top_k": 0, "top_p": 0.9,
+   "seed": 0, "priority": 0}
   {"id": "e0", "type": "embed", "text": "a passage to embed",
    "instruction": "<|user|>\\nRepresent this\\n<|embed|>\\n"}
 
@@ -24,9 +28,6 @@ Usage:
 A checkpoint directory (`--model_name_or_path`, HF safetensors with its
 tokenizer) or a preset with random weights (`--model_preset`); w8a16 or
 w4a16 weights with `--weight_quant` (or `--weight_quant 4`).
-
-Not ported yet (NotImplementedError): --speculative, and requests with
-temperature > 0.
 """
 
 from __future__ import annotations
@@ -69,7 +70,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--page_size", type=int, default=256)
     p.add_argument("--pool_pages", type=int, default=None)
     p.add_argument("--speculative", action="store_true",
-                   help="prompt-lookup speculative verify pool (not ported yet)")
+                   help="prompt-lookup speculative verify pool (greedy)")
     p.add_argument("--spec_k", type=int, default=7)
     p.add_argument("--spec_ngram", type=int, default=3)
     p.add_argument("--prefill_chunk", type=int, default=None,
@@ -90,8 +91,6 @@ def build_parser() -> argparse.ArgumentParser:
 def _load_model(args):
     from gritlm_tpu_torch import GritLM
 
-    if args.speculative:
-        raise NotImplementedError("--speculative is not ported yet")
     kwargs = dict(mode="unified", pooling_method=args.pooling_method, attn=args.attn,
                   kv_quant=args.kv_quant, weight_quant=args.weight_quant, device=args.device)
     if args.model_name_or_path:
@@ -133,13 +132,14 @@ def _to_requests(rows: List[dict], model, default_new: int):
                                     request_id=rid, priority=int(row.get("priority", 0)),
                                     adapter=row.get("adapter")))
         else:
-            if float(row.get("temperature", 0.0)) > 0.0:
-                raise NotImplementedError(
-                    f"request {rid}: temperature > 0 is not ported to serving yet")
             ids = model.tokenizer._encode_one(row["prompt"], add_special_tokens=False)
             out.append(Request(input_ids=list(ids),
                                max_new_tokens=int(row.get("max_new_tokens", default_new)),
-                               request_id=rid, priority=int(row.get("priority", 0)),
+                               request_id=rid, temperature=float(row.get("temperature", 0.0)),
+                               top_k=int(row.get("top_k", 0)),
+                               top_p=float(row.get("top_p", 1.0)),
+                               seed=int(row.get("seed", 0)),
+                               priority=int(row.get("priority", 0)),
                                adapter=row.get("adapter")))
     return out
 
@@ -153,6 +153,7 @@ def main(argv: Optional[List[str]] = None) -> dict:
     with open(args.requests) as f:
         rows = [json.loads(ln) for ln in f if ln.strip()]
     reqs = _to_requests(rows, model, args.max_new_tokens)
+    sampling = any(getattr(r, "temperature", 0.0) > 0.0 for r in reqs)
 
     on_token = None
     if args.stream:
@@ -165,7 +166,8 @@ def main(argv: Optional[List[str]] = None) -> dict:
         chunk_size=args.chunk_size,
         prompt_buckets=tuple(int(b) for b in args.prompt_buckets.split(",")),
         overlap=not args.no_overlap, paged=args.paged, page_size=args.page_size,
-        pool_pages=args.pool_pages, prefill_chunk=args.prefill_chunk,
+        pool_pages=args.pool_pages, sampling=sampling, speculative=args.speculative,
+        spec_k=args.spec_k, spec_ngram=args.spec_ngram, prefill_chunk=args.prefill_chunk,
         pooling_method=args.pooling_method, embed_causal=model.embed_causal,
         embed_batch=args.embed_batch, on_token=on_token, device=model.device,
     )

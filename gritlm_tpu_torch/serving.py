@@ -37,11 +37,25 @@ Design notes:
     page tables (their private tail starts page-aligned after the prefix,
     so shared pages are never written).
 
-Not ported, raising NotImplementedError: `sampling=True` and requests with
-temperature > 0 (serving sampling needs a schedule-invariant counter-based
-generator per request, queued), `speculative=True` (the verify chunk needs
-K3 with per-row offsets, queued with spec_decode), `adapters=` (per-request
-LoRA, with training) and `mesh=` (the parallel slice).
+  - `sampling=True` runs the sampling chunk: each request draws with its
+    own (temperature, top_k, top_p, seed). The draw for a request's n-th
+    generated token is a pure function of (seed, n, vocab index): Gumbel-max
+    over uniforms from threefry2x32 keyed by the seed at counter (n, vocab
+    index), in torch integer ops on the device (`_sample_rows`). So a
+    request's tokens do not depend on its slot, the chunk size, overlap or
+    its co-tenants (up to how the matmuls round at another batch size), and
+    the chunk stays free of host syncs. The JAX package folds a threefry
+    key per token; its bits are not reproduced here.
+  - `speculative=True` runs the prompt-lookup verify pool (greedy only):
+    each step proposes k tokens a row from the row's own history (its
+    prompt, `Request.hist_ids` before it, and what it generated), verifies
+    the k + 1 in one `forward(row_offsets=..., S=k+1)` (K3 with per-row
+    offsets on a dense pool, K8 on a paged one), and emits the accepted
+    prefix and the model's bonus token; a row's write slot advances by its
+    own accepted count, so rejected slots are overwritten by its next step.
+
+Not ported, raising NotImplementedError: `adapters=` (per-request LoRA,
+with training) and `mesh=` (the parallel slice).
 """
 
 from __future__ import annotations
@@ -63,6 +77,7 @@ from gritlm_tpu_torch.models.transformer import (
     logits_from_hidden,
     resolve_device,
 )
+from gritlm_tpu_torch.spec_decode import _accept, _lookup_proposals
 
 
 @dataclass
@@ -79,9 +94,13 @@ class Request:
     shared pages with `register_prefix(key, entry)`: N concurrent requests on
     one document read the same physical pages.
 
-    Only greedy, adapter-less requests are served: `temperature > 0` raises
-    NotImplementedError at submit, and an `adapter` ValueError (this pool
-    serves none), as in the JAX package's schema."""
+    Sampling (`temperature > 0`, the engine built with `sampling=True`):
+    the request's n-th generated token is drawn from a counter-based
+    generator keyed by `seed` at counter n, so its output is fixed by
+    `seed` whatever the scheduling; `top_k`/`top_p` filter per row (the
+    nucleus rule, ties kept together by value). temperature == 0 rows stay
+    exactly greedy. An `adapter` raises ValueError (this pool serves none),
+    as in the JAX package's schema."""
 
     input_ids: List[int]
     max_new_tokens: int = 16
@@ -89,6 +108,14 @@ class Request:
     doc_cache: Optional[tuple] = None
     prefix: Optional[object] = None
     temperature: float = 0.0
+    top_k: int = 0
+    top_p: float = 1.0
+    seed: int = 0
+    # speculative pools: lookup-corpus tokens before input_ids (a cached
+    # document's token ids for doc_cache/prefix rows: their KV comes from the
+    # cache, but their text is what extractive answers quote). Ignored by
+    # other pools.
+    hist_ids: Optional[List[int]] = None
     adapter: Optional[str] = None
     # admission priority: higher admits first; FIFO within a level
     priority: int = 0
@@ -183,52 +210,145 @@ def _bucket(n: int, buckets: Sequence[int]) -> int:
 
 
 @dataclass
+class _Samp:
+    """Per-row sampling state (greedy rows: temperature 0)."""
+    temps: torch.Tensor  # [R] float32
+    top_k: torch.Tensor  # [R] int64, 0 = off
+    top_p: torch.Tensor  # [R] float32, 1 = off
+    keys: torch.Tensor  # [R, 2] int64: the seed's two 32-bit words
+    n_gen: torch.Tensor  # [R] int64: the index of the row's next draw
+
+
+def _samp_init(rows: int, device) -> _Samp:
+    """Idle sampling state: greedy everywhere."""
+    return _Samp(temps=torch.zeros((rows,), dtype=torch.float32, device=device),
+                 top_k=torch.zeros((rows,), dtype=torch.long, device=device),
+                 top_p=torch.ones((rows,), dtype=torch.float32, device=device),
+                 keys=torch.zeros((rows, 2), dtype=torch.long, device=device),
+                 n_gen=torch.zeros((rows,), dtype=torch.long, device=device))
+
+
+def _seed_key(seed: int) -> tuple:
+    """A seed as the two 32-bit words of a threefry key (high, low)."""
+    seed = int(seed) & 0xFFFFFFFFFFFFFFFF
+    return seed >> 32, seed & 0xFFFFFFFF
+
+
+_M32 = 0xFFFFFFFF
+_THREEFRY_ROT = (13, 15, 26, 6, 17, 29, 16, 24)
+
+
+def threefry2x32(k0, k1, x0, x1):
+    """Threefry-2x32 with 20 rounds (Salmon et al., SC'11; the block
+    function JAX's default PRNG is built on), in int64 tensors holding
+    32-bit words: key (k0, k1), counter (x0, x1), broadcast together.
+    Returns the two output words."""
+    ks = (k0, k1, k0 ^ k1 ^ 0x1BD11BDA)
+    x0 = (x0 + ks[0]) & _M32
+    x1 = (x1 + ks[1]) & _M32
+    for i in range(20):
+        r = _THREEFRY_ROT[i % 8]
+        x0 = (x0 + x1) & _M32
+        x1 = ((x1 << r) & _M32) | (x1 >> (32 - r))
+        x1 = x1 ^ x0
+        if i % 4 == 3:
+            j = i // 4 + 1
+            x0 = (x0 + ks[j % 3]) & _M32
+            x1 = (x1 + ks[(j + 1) % 3] + j) & _M32
+    return x0, x1
+
+
+def _gumbel(keys: torch.Tensor, n_gen: torch.Tensor, V: int) -> torch.Tensor:
+    """[R, V] Gumbel noise: row r's draw number n_gen[r] at vocab index v is
+    -log(-log(u)), u from threefry2x32 keyed by the row's seed at counter
+    (n_gen[r], v); 24 bits of uniform, centred in their cell, so u is in
+    (0, 1)."""
+    v = torch.arange(V, device=keys.device)[None, :]
+    bits, _ = threefry2x32(keys[:, :1], keys[:, 1:], n_gen[:, None] & _M32, v)
+    u = ((bits >> 8).to(torch.float32) + 0.5) * (1.0 / (1 << 24))
+    return -torch.log(-torch.log(u))
+
+
+def _sample_rows(logits: torch.Tensor, samp: _Samp) -> torch.Tensor:
+    """Per-row sampling over [R, V] logits, each row with its own
+    temperature, top_k, top_p, seed and draw index. One descending sort
+    serves both filters: top-k keeps values >= the k-th, top-p values >=
+    the value at the nucleus cut-off rank (generate.nucleus_filter's rule,
+    ties kept together by value). Then Gumbel-max over the kept logits
+    divided by the temperature. Rows at temperature 0 take the argmax.
+    Returns [R] int32; no host sync."""
+    V = logits.shape[-1]
+    greedy = torch.argmax(logits, dim=-1).to(torch.int32)
+    lg = logits.float() / samp.temps.clamp_min(1e-6)[:, None]
+    svals = torch.sort(lg, dim=-1, descending=True).values
+    kk = torch.where(samp.top_k > 0, samp.top_k, V).clamp(1, V)
+    k_th = svals.gather(1, (kk - 1)[:, None])
+    cum = torch.cumsum(torch.softmax(svals, dim=-1), dim=-1)
+    cut = (cum < samp.top_p[:, None]).sum(dim=-1).clamp_max(V - 1)
+    p_th = svals.gather(1, cut[:, None])
+    filt = torch.where(lg >= torch.maximum(k_th, p_th), lg, float("-inf"))
+    sampled = torch.argmax(filt + _gumbel(samp.keys, samp.n_gen, V), dim=-1).to(torch.int32)
+    return torch.where(samp.temps > 0, sampled, greedy)
+
+
+@dataclass
 class _Carry:
     """The pool's decode state on the device. row_lens is each row's cache
     WRITE slot, row_pos its RoPE position: they differ for doc-continuation
     rows, whose document occupies slots [0, dbucket) but positions
-    [0, doc_len)."""
+    [0, doc_len). Speculative pools add each row's token history (the
+    prompt-lookup corpus) [B, max_len + 1] (the last column takes the
+    writes that fall past the end) and its length."""
     tok: torch.Tensor  # [B] int32 pending token
     cache: Union[KVCache, PagedKVCache]
     row_lens: torch.Tensor  # [B] int64
     row_pos: torch.Tensor  # [B] int64
     active: torch.Tensor  # [B] bool
     remaining: torch.Tensor  # [B] int32 token budget
+    samp: _Samp
+    history: Optional[torch.Tensor] = None  # [B, max_len + 1] int64
+    hist_len: Optional[torch.Tensor] = None  # [B] int64
 
 
 # ---------------------------------------------------------------------------
 # Programs: plain functions that update the carry in place.
 
 
-def _last_token(params, cfg, hidden: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-    """Greedy next token [rows] int32 off each row's last valid position."""
+def _last_token(params, cfg, hidden: torch.Tensor, mask: torch.Tensor,
+                samp: Optional[_Samp] = None) -> torch.Tensor:
+    """Next token [rows] int32 off each row's last valid position: greedy,
+    or drawn per row by `samp` (draw index 0 for a prefill)."""
     last = (mask.sum(dim=1) - 1).clamp_min(0).long()
     h_last = hidden[torch.arange(hidden.shape[0], device=hidden.device), last]
     logits = logits_from_hidden(params, cfg, h_last[:, None, :])[:, 0]
+    if samp is not None:
+        return _sample_rows(logits, samp)
     return torch.argmax(logits, dim=-1).to(torch.int32)
 
 
 @torch.inference_mode()
-def _prefill_program(params, cfg, ids, mask, *, quant: bool):
-    """[rows, bucket] right-padded prompts -> (row-batch KVCache, greedy
-    first token per row). Row caches are slot-dense (position == slot)."""
+def _prefill_program(params, cfg, ids, mask, samp: Optional[_Samp] = None, *, quant: bool):
+    """[rows, bucket] right-padded prompts -> (row-batch KVCache, first
+    token per row: greedy, or sampled at draw index 0 with `samp`). Row
+    caches are slot-dense (position == slot)."""
     cache = init_cache(cfg, ids.shape[0], ids.shape[1], device=ids.device, quant=quant)
-    return _prefill_chunk_program(params, cfg, cache, ids, mask)
+    return _prefill_chunk_program(params, cfg, cache, ids, mask, samp)
 
 
 @torch.inference_mode()
-def _prefill_chunk_program(params, cfg, cache: KVCache, ids, mask):
+def _prefill_chunk_program(params, cfg, cache: KVCache, ids, mask,
+                           samp: Optional[_Samp] = None):
     """One chunk of a chunked prefill: append `chunk` prompt tokens to one
     request's row cache (its write offset is cache.length, so chunks chain)
-    and return the greedy token off the chunk's last valid position (the
+    and return the next token off the chunk's last valid position (the
     final chunk's is the request's first generated token)."""
     hidden, cache, _ = forward(params, cfg, ids, attention_mask=mask, causal=True, cache=cache)
-    return cache, _last_token(params, cfg, hidden, mask)
+    return cache, _last_token(params, cfg, hidden, mask, samp)
 
 
 @torch.inference_mode()
 def _prefill_continue_program(params, cfg, doc_k, doc_v, doc_scales, doc_mask, doc_lens,
-                              ids, mask):
+                              ids, mask, samp: Optional[_Samp] = None):
     """Cache-continuation prefill: the documents' K/V occupy slots
     [0, dbucket) (each row valid to its own doc_len), the prompt prefills at
     slots [dbucket, dbucket + bucket) with RoPE positions continuing at
@@ -250,14 +370,18 @@ def _prefill_continue_program(params, cfg, doc_k, doc_v, doc_scales, doc_mask, d
     positions = doc_lens[:, None] + torch.arange(bucket, device=ids.device)[None, :]
     hidden, cache, _ = forward(params, cfg, ids, attention_mask=mask, causal=True,
                                positions=positions, cache=cache)
-    return cache, _last_token(params, cfg, hidden, mask)
+    return cache, _last_token(params, cfg, hidden, mask, samp)
 
 
 def _arm(carry: _Carry, firsts, row_idx: int, slot: int, write_len: int, pos0: int,
-         max_new: int, eos_id: int) -> None:
+         max_new: int, eos_id: int, req_samp: Optional[tuple] = None,
+         req_hist: Optional[tuple] = None) -> None:
     """Arm pool row `slot`: pending token = the prefill's first token, write
     slot `write_len`, RoPE position `pos0`, budget max_new - 1 (the first
-    token is already spent)."""
+    token is already spent); a sampling row's parameters `req_samp`
+    (temperature, top_k, top_p, seed key) with its draw index at 1 (the
+    prefill drew index 0); a speculative row's history `req_hist` (the
+    compact prompt [n] int64 on the device, n), then the first token."""
     first = firsts[row_idx]
     rem = max_new - 1
     carry.tok[slot] = first
@@ -265,11 +389,23 @@ def _arm(carry: _Carry, firsts, row_idx: int, slot: int, write_len: int, pos0: i
     carry.row_pos[slot] = pos0
     carry.active[slot] = (first != eos_id) & (rem > 0)
     carry.remaining[slot] = rem
+    if req_samp is not None:
+        temp, top_k, top_p, key = req_samp
+        sm = carry.samp
+        sm.temps[slot], sm.top_k[slot], sm.top_p[slot] = temp, top_k, top_p
+        sm.keys[slot, 0], sm.keys[slot, 1] = key
+        sm.n_gen[slot] = 1
+    if req_hist is not None:
+        row, hlen = req_hist
+        carry.history[slot, :hlen] = row
+        carry.history[slot, hlen] = first
+        carry.hist_len[slot] = hlen + 1
 
 
 @torch.inference_mode()
 def _insert_program(carry: _Carry, rows_cache: KVCache, firsts, row_idx: int, slot: int,
-                    write_len: int, pos0: int, max_new: int, *, eos_id: int) -> None:
+                    write_len: int, pos0: int, max_new: int, req_samp=None, req_hist=None,
+                    *, eos_id: int) -> None:
     """Copy prefilled row `row_idx` into pool slot `slot` (K/V and mask,
     zero-extended to the pool width) and arm the slot."""
     cache = carry.cache
@@ -281,7 +417,7 @@ def _insert_program(carry: _Carry, rows_cache: KVCache, firsts, row_idx: int, sl
         cache.v_scale[:, slot, :, :W] = rows_cache.v_scale[:, row_idx, :, :W]
     cache.mask[slot] = 0
     cache.mask[slot, :W] = rows_cache.mask[row_idx, :W]
-    _arm(carry, firsts, row_idx, slot, write_len, pos0, max_new, eos_id)
+    _arm(carry, firsts, row_idx, slot, write_len, pos0, max_new, eos_id, req_samp, req_hist)
 
 
 def _pages_of(x: torch.Tensor, row: int, first_page: int, n: int, page: int) -> torch.Tensor:
@@ -313,8 +449,9 @@ def _write_pages(cache: PagedKVCache, pids: torch.Tensor, k, v, ks=None, vs=None
 
 @torch.inference_mode()
 def _insert_paged_program(carry: _Carry, rows_cache: KVCache, firsts, row_idx: int, slot: int,
-                          table_row: np.ndarray, write_len: int, pos0: int, max_new: int, *,
-                          copy_from_page: int, eos_id: int) -> None:
+                          table_row: np.ndarray, write_len: int, pos0: int, max_new: int,
+                          req_samp=None, req_hist=None, *, copy_from_page: int,
+                          eos_id: int) -> None:
     """Paged insert: copy prefilled row `row_idx`'s pages from
     `copy_from_page` on into the pool pages `table_row` names (a prefix
     request's shared document pages are not written), install the row's
@@ -336,7 +473,7 @@ def _insert_paged_program(carry: _Carry, rows_cache: KVCache, firsts, row_idx: i
     cache.mask[slot] = 0
     cache.mask[slot, :W] = rows_cache.mask[row_idx, :W]
     cache.page_table[slot] = torch.as_tensor(table_row, dtype=torch.int32, device=dev)
-    _arm(carry, firsts, row_idx, slot, write_len, pos0, max_new, eos_id)
+    _arm(carry, firsts, row_idx, slot, write_len, pos0, max_new, eos_id, req_samp, req_hist)
 
 
 @torch.inference_mode()
@@ -369,9 +506,10 @@ def _deactivate_program(carry: _Carry, slot: int) -> None:
 
 @torch.inference_mode()
 def _decode_chunk_program(params, cfg, carry: _Carry, *, steps: int, eos_id: int,
-                          pad_id: int):
-    """`steps` pool-wide greedy decode iterations on the device. Each appends
-    every row's pending token at its own slot and picks the next; a row goes
+                          pad_id: int, sample: bool = False):
+    """`steps` pool-wide decode iterations on the device. Each appends every
+    row's pending token at its own slot and picks the next, greedily or
+    (`sample=True`) by each row's own sampling parameters; a row goes
     inactive the moment it emits EOS or spends its budget. Returns stacked
     (tokens, emitted) [steps, B]. No host sync inside."""
     B = carry.tok.shape[0]
@@ -385,10 +523,15 @@ def _decode_chunk_program(params, cfg, carry: _Carry, *, steps: int, eos_id: int
                                positions=carry.row_pos[:, None], cache=carry.cache,
                                row_offsets=carry.row_lens)
         logits = logits_from_hidden(params, cfg, hidden)[:, 0]
-        nxt = torch.argmax(logits, dim=-1).to(torch.int32)
+        if sample:
+            nxt = _sample_rows(logits, carry.samp)
+        else:
+            nxt = torch.argmax(logits, dim=-1).to(torch.int32)
         emitted[i] = active
         nxt = torch.where(active, nxt, torch.full_like(nxt, pad_id))
         adv = active.to(torch.int32)
+        if sample:
+            carry.samp.n_gen += adv
         carry.row_lens += adv
         carry.row_pos += adv
         carry.remaining -= adv
@@ -398,15 +541,70 @@ def _decode_chunk_program(params, cfg, carry: _Carry, *, steps: int, eos_id: int
     return toks, emitted
 
 
+@torch.inference_mode()
+def _spec_chunk_program(params, cfg, carry: _Carry, *, steps: int, ngram: int, k: int,
+                        eos_id: int, pad_id: int):
+    """`steps` speculative pool iterations on the device: each proposes k
+    tokens a row by prompt lookup over the row's own history, verifies all
+    k + 1 in one per-row-offset forward, and emits the accepted prefix and
+    the model's bonus token (spec_decode.py, at per-row frontiers: a row's
+    write slot advances by its own accepted count only, so its rejected
+    slots are overwritten by its next step: no holes, no slack beyond k a
+    request). Returns stacked (tokens [steps, B, k + 1], n_emit [steps, B]).
+    No host sync inside."""
+    B = carry.tok.shape[0]
+    dev = carry.tok.device
+    W = carry.history.shape[1] - 1  # the last column takes writes past the end
+    j = torch.arange(k + 1, device=dev)[None, :]
+    rows = torch.arange(B, device=dev)[:, None]
+    toks = torch.empty((steps, B, k + 1), dtype=torch.int32, device=dev)
+    n_emits = torch.empty((steps, B), dtype=torch.int32, device=dev)
+    cache = carry.cache
+    for i in range(steps):
+        tok, active = carry.tok.long(), carry.active
+        proposals = _lookup_proposals(carry.history[:, :W], carry.hist_len, ngram, k, pad_id)
+        chunk = torch.cat([tok[:, None], proposals], dim=1)
+        hidden, _, _ = forward(params, cfg, chunk, causal=True,
+                               attention_mask=active[:, None].to(torch.int32).expand(B, k + 1),
+                               positions=carry.row_pos[:, None] + j, cache=cache,
+                               row_offsets=carry.row_lens)
+        greedy = torch.argmax(logits_from_hidden(params, cfg, hidden), dim=-1)  # [B, k+1]
+        emit_tok, n_emit, n_slots, hit_eos = _accept(proposals, greedy, active,
+                                                     carry.remaining, eos_id)
+        # the rejected slots' bits are cleared (their K/V is overwritten by
+        # the row's next step)
+        win = (carry.row_lens[:, None] + j).clamp_max(cache.max_len - 1)
+        cache.mask[rows, win] = (j < n_slots[:, None]).to(cache.mask.dtype)
+
+        valid = j < n_emit[:, None]
+        carry.history.scatter_(1, torch.where(valid, carry.hist_len[:, None] + j, W).clamp_max(W),
+                               emit_tok)
+        carry.hist_len += n_emit
+        carry.tok = torch.where(n_emit > 0,
+                                emit_tok.gather(1, (n_emit - 1).clamp_min(0)[:, None])[:, 0],
+                                tok).to(torch.int32)
+        carry.row_lens += n_slots
+        carry.row_pos += n_slots
+        carry.remaining -= n_emit.to(carry.remaining.dtype)
+        carry.active = active & ~hit_eos & (carry.remaining > 0)
+        toks[i] = torch.where(valid, emit_tok, pad_id)
+        n_emits[i] = n_emit
+    return toks, n_emits
+
+
 class ServingEngine:
-    """Continuous-batching greedy decode over a fixed slot pool.
+    """Continuous-batching decode over a fixed slot pool.
 
     >>> eng = ServingEngine(cfg, params, max_batch=8, max_len=4096)
     >>> done = eng.run([Request(ids, max_new_tokens=64), ...])
 
-    Completions include the EOS token when one was emitted, as generate()'s
-    num_valid counts it. Runs on CUDA unless `device` says otherwise; the
-    params must live on that device."""
+    Greedy decoding by default. `sampling=True` runs the sampling chunk:
+    each request decodes with its own (temperature, top_k, top_p, seed),
+    schedule-invariant (see Request); greedy requests in a sampling pool
+    stay exactly greedy. `speculative=True` runs the greedy prompt-lookup
+    verify pool (`spec_ngram`, `spec_k`). Completions include the EOS token
+    when one was emitted, as generate()'s num_valid counts it. Runs on CUDA
+    unless `device` says otherwise; the params must live on that device."""
 
     def __init__(
         self,
@@ -428,6 +626,8 @@ class ServingEngine:
         pool_pages: Optional[int] = None,
         sampling: bool = False,
         speculative: bool = False,
+        spec_ngram: int = 3,
+        spec_k: int = 7,
         prefill_chunk: Optional[int] = None,
         adapters=None,
         on_token=None,  # streaming callback: on_token(request_id, token)
@@ -441,15 +641,14 @@ class ServingEngine:
         device=None,
     ):
         for name, value, slice_ in (
-                ("sampling", sampling, "serving sampling needs a schedule-invariant "
-                 "counter-based generator per request"),
-                ("speculative", speculative, "the verify chunk needs K3 with per-row "
-                 "offsets, queued with the spec_decode slice"),
                 ("adapters", adapters, "per-request LoRA comes with the training slice"),
                 ("mesh", mesh, "multi-device serving comes with the parallel slice")):
             if value:
                 raise NotImplementedError(f"ServingEngine({name}=...) is not ported yet: "
                                           f"{slice_}")
+        if speculative and sampling:
+            raise ValueError("speculative serving is greedy-only (it must be parity-exact "
+                             "with the greedy decode)")
         self.device = resolve_device(device)
         self.cfg = cfg
         self.params = params
@@ -459,6 +658,10 @@ class ServingEngine:
         self.pad_id = pad_id
         self.chunk_size = chunk_size
         self.adaptive_chunk = adaptive_chunk
+        self.sampling = sampling
+        self.speculative = speculative
+        self.spec_ngram = spec_ngram
+        self.spec_k = spec_k
         self.prefill_chunk = prefill_chunk
         self.on_token = on_token
         self.pooling_method = pooling_method
@@ -502,7 +705,12 @@ class ServingEngine:
             row_pos=torch.zeros((max_batch,), dtype=torch.long, device=dev),
             active=torch.zeros((max_batch,), dtype=torch.bool, device=dev),
             remaining=torch.zeros((max_batch,), dtype=torch.int32, device=dev),
+            samp=_samp_init(max_batch, dev),
         )
+        if speculative:
+            self.carry.history = torch.zeros((max_batch, max_len + 1), dtype=torch.long,
+                                             device=dev)
+            self.carry.hist_len = torch.zeros((max_batch,), dtype=torch.long, device=dev)
         self.slots: Dict[int, _Slot] = {}
         self.queue: List[Request] = []
         self.finished: List[Completion] = []
@@ -578,15 +786,47 @@ class ServingEngine:
         span = _bucket(len(req.input_ids), self.buckets) + req.max_new_tokens
         if req.doc_cache is not None:
             span += _bucket(req.doc_cache[2], self.buckets)
+        if self.speculative:
+            # a verify chunk writes up to spec_k slots past the last accepted
+            # token: those logical slots need real pages (an unmapped chunk
+            # would alias the scratch page 0)
+            span += self.spec_k
         return -(-span // self.page)
+
+    def _samp_rows(self, rs: Sequence[Request]) -> Optional[_Samp]:
+        """An admission batch's sampling state for its prefill (draw index
+        0 for every row); None in greedy pools."""
+        if not self.sampling:
+            return None
+        samp = _samp_init(len(rs), self.device)
+        samp.temps.copy_(torch.tensor([r.temperature for r in rs], dtype=torch.float32))
+        samp.top_k.copy_(torch.tensor([r.top_k for r in rs], dtype=torch.long))
+        samp.top_p.copy_(torch.tensor([r.top_p for r in rs], dtype=torch.float32))
+        samp.keys.copy_(torch.tensor([_seed_key(r.seed) for r in rs], dtype=torch.long))
+        return samp
+
+    def _arming(self, r: Request) -> dict:
+        """The insert programs' arguments that arm a row for request r
+        besides its prefill (None where the pool has no use for them): its
+        sampling parameters, and its compact prompt as its history
+        (speculative pools: the lookup corpus; generated tokens append on
+        the device)."""
+        req_samp = req_hist = None
+        if self.sampling:
+            req_samp = (float(r.temperature), int(r.top_k), float(r.top_p), _seed_key(r.seed))
+        if self.speculative:
+            seq = list(r.hist_ids or []) + list(r.input_ids)
+            # generated tokens append at hist_len: keep the corpus's tail
+            # when hist_ids would overflow the row (recent context matters most)
+            seq = seq[-(self.max_len - r.max_new_tokens):]
+            req_hist = (torch.tensor(seq, dtype=torch.long).to(self.device), len(seq))
+        return dict(req_samp=req_samp, req_hist=req_hist)
 
     # ---- submission ----------------------------------------------------
 
     def submit(self, req: Request) -> None:
-        if req.temperature > 0.0:
-            raise NotImplementedError(
-                "temperature > 0 is not ported to serving yet: it needs a schedule-invariant "
-                "counter-based generator per request")
+        if req.temperature > 0.0 and not self.sampling:
+            raise ValueError("temperature > 0 requires ServingEngine(sampling=True)")
         if req.adapter is not None:
             raise ValueError(f"unknown adapter {req.adapter!r} (this pool serves no adapters)")
         if req.prefix is not None:
@@ -602,6 +842,10 @@ class ServingEngine:
             need += _bucket(req.doc_cache[2], self.buckets)
         if req.prefix is not None:
             need += len(self.prefixes[req.prefix][0]) * self.page
+        if self.speculative:
+            # a verify chunk writes k + 1 slots at the row's write slot before
+            # acceptance masks them, so the last one reaches written + spec_k
+            need += self.spec_k
         if need > self.max_len:
             raise ValueError(
                 f"prompt {len(req.input_ids)} + max_new {req.max_new_tokens}"
@@ -736,13 +980,14 @@ class ServingEngine:
                 ids[j, :len(r.input_ids)] = r.input_ids
                 mask[j, :len(r.input_ids)] = 1
             ids_t, mask_t = self._put(ids), self._put(mask)
+            samp = self._samp_rows(rs)
             if kind == "fresh":
-                rowc, firsts = _prefill_program(self.params, self.cfg, ids_t, mask_t,
+                rowc, firsts = _prefill_program(self.params, self.cfg, ids_t, mask_t, samp,
                                                 quant=self.kv_quant)
             elif kind == "host":
-                rowc, firsts = self._prefill_continue(rs, ids_t, mask_t, dbucket)
+                rowc, firsts = self._prefill_continue(rs, ids_t, mask_t, dbucket, samp)
             else:
-                rowc, firsts = self._prefill_continue_prefix(rs, ids_t, mask_t, dbucket)
+                rowc, firsts = self._prefill_continue_prefix(rs, ids_t, mask_t, dbucket, samp)
             host_firsts = _HostCopy(firsts)
             for j, (r, pids) in enumerate(rps):
                 slot = free.pop(0)
@@ -753,12 +998,12 @@ class ServingEngine:
                     _insert_paged_program(
                         self.carry, rowc, firsts, j, slot, self._table_row(slot, pids,
                                                                            prefix_pids),
-                        write_len, pos0, r.max_new_tokens,
+                        write_len, pos0, r.max_new_tokens, **self._arming(r),
                         copy_from_page=dbucket // self.page if kind == "prefix" else 0,
                         eos_id=self.eos_id)
                 else:
                     _insert_program(self.carry, rowc, firsts, j, slot, write_len, pos0,
-                                    r.max_new_tokens, eos_id=self.eos_id)
+                                    r.max_new_tokens, **self._arming(r), eos_id=self.eos_id)
                 self.slots[slot] = _Slot(request=r, first_src=(host_firsts, j))
 
     def _advance_pending(self) -> None:
@@ -772,7 +1017,8 @@ class ServingEngine:
             ids[0, :len(seg)] = seg
             mask[0, :len(seg)] = 1
             p.cache, p.first = _prefill_chunk_program(self.params, self.cfg, p.cache,
-                                                      self._put(ids), self._put(mask))
+                                                      self._put(ids), self._put(mask),
+                                                      self._samp_rows([p.request]))
             p.filled += len(seg)
             if p.filled >= len(p.request.input_ids):
                 self._pending.remove(p)
@@ -784,13 +1030,13 @@ class ServingEngine:
         if self.paged:
             _insert_paged_program(self.carry, p.cache, p.first, 0, p.slot,
                                   self._table_row(p.slot, p.pids), n, n, r.max_new_tokens,
-                                  copy_from_page=0, eos_id=self.eos_id)
+                                  **self._arming(r), copy_from_page=0, eos_id=self.eos_id)
         else:
             _insert_program(self.carry, p.cache, p.first, 0, p.slot, n, n, r.max_new_tokens,
-                            eos_id=self.eos_id)
+                            **self._arming(r), eos_id=self.eos_id)
         self.slots[p.slot] = _Slot(request=r, first_src=(_HostCopy(p.first), 0))
 
-    def _prefill_continue_prefix(self, rs, ids, mask, dbucket):
+    def _prefill_continue_prefix(self, rs, ids, mask, dbucket, samp=None):
         """Gather the group's shared prefix pages on the device into the dense
         doc tensors the continuation prefill takes."""
         npg = dbucket // self.page
@@ -801,9 +1047,9 @@ class ServingEngine:
         dk, dv, sc = _gather_prefix_program(self.carry.cache, self._put(pt))
         doc_mask = (np.arange(dbucket)[None, :] < dl[:, None]).astype(np.int32)
         return _prefill_continue_program(self.params, self.cfg, dk, dv, sc,
-                                         self._put(doc_mask), self._put(dl), ids, mask)
+                                         self._put(doc_mask), self._put(dl), ids, mask, samp)
 
-    def _prefill_continue(self, rs, ids, mask, dbucket):
+    def _prefill_continue(self, rs, ids, mask, dbucket, samp=None):
         """Stack the group's host doc caches into [L, rows, dbucket, ...]
         device tensors and run the continuation prefill."""
         k0 = torch.as_tensor(rs[0].doc_cache[0])
@@ -829,7 +1075,8 @@ class ServingEngine:
                 scales[0][:, j, :, :w] = torch.as_tensor(ksj)[..., :w].to(self.device)
                 scales[1][:, j, :, :w] = torch.as_tensor(vsj)[..., :w].to(self.device)
         return _prefill_continue_program(self.params, self.cfg, doc_k, doc_v, scales,
-                                         self._put(doc_mask), self._put(doc_lens), ids, mask)
+                                         self._put(doc_mask), self._put(doc_lens), ids, mask,
+                                         samp)
 
     # ---- results ---------------------------------------------------------
 
@@ -905,7 +1152,17 @@ class ServingEngine:
         self._resolve_firsts()
         if chunk is None:
             return
-        toks, emitted = chunk.get()  # [steps, B]
+        toks, emitted = chunk.get()  # [steps, B]; speculative: [steps, B, k+1], n_emit
+        if self.speculative:
+            for i in list(self.slots):
+                for step in range(toks.shape[0]):
+                    for t in toks[step, i, :emitted[step, i]].tolist():
+                        self._emit(i, int(t))
+                        if i not in self.slots:
+                            break
+                    if i not in self.slots:
+                        break
+            return
         for i in list(self.slots):
             # rows the device already stopped have emitted=False, so stale
             # chunk data for a reused slot index masks itself
@@ -918,7 +1175,11 @@ class ServingEngine:
         """Decode steps for the next chunk: chunk_size, or with
         adaptive_chunk a power of two toward the earliest possible
         completion while requests wait (the host knows each row's remaining
-        budget exactly). 0 when every row is already fully dispatched."""
+        budget exactly). 0 when every row is already fully dispatched.
+        Speculative pools keep chunk_size: a verify step emits up to k + 1
+        tokens, so steps do not map onto the budget."""
+        if self.speculative:
+            return self.chunk_size
         rem = [s.request.max_new_tokens - 1 - s.dispatched for s in self.slots.values()]
         live = [r for r in rem if r > 0]
         if not live:
@@ -952,9 +1213,15 @@ class ServingEngine:
         cur = None
         steps = self._chunk_steps() if self.slots else 0
         if steps:
-            toks, emitted = _decode_chunk_program(self.params, self.cfg, self.carry,
-                                                  steps=steps, eos_id=self.eos_id,
-                                                  pad_id=self.pad_id)
+            if self.speculative:
+                toks, emitted = _spec_chunk_program(self.params, self.cfg, self.carry,
+                                                    steps=steps, ngram=self.spec_ngram,
+                                                    k=self.spec_k, eos_id=self.eos_id,
+                                                    pad_id=self.pad_id)
+            else:
+                toks, emitted = _decode_chunk_program(self.params, self.cfg, self.carry,
+                                                      steps=steps, eos_id=self.eos_id,
+                                                      pad_id=self.pad_id, sample=self.sampling)
             cur = _HostCopy(toks, emitted)
             self._steps += steps
             for s in self.slots.values():

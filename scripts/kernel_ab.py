@@ -19,7 +19,8 @@ CUDA events around CUDA graph replays:
     and int8 pages; Sq 1 and the causal Sq 8 chunk at per-row offsets),
     cold (each call on its own layer of a pool larger than L2), with the
     device operations a call;
-  - K3 at Sq 1 B 4 (1400 of 2048 slots) and at the serving shape, cold;
+  - K3 at Sq 1 B 4 (1400 of 2048 slots), bf16 and int8, and at the
+    serving shape, cold;
   - K6 and K7 at M 8 on Mistral-7B's five projections, and K6 at gate/up
     at M 1, 16, 64, 128, 256 and 512, over weight copies kept out of L2;
   - the decode chunk of a full-width Mistral-7B ServingEngine (8 rows, 16
@@ -98,7 +99,7 @@ def build(root: Path, groups=GROUPS) -> None:
 
 
 def decode_times(cs, dev, gen) -> None:
-    """K8 at the four K8_SHAPES and K3 at two shapes, cold."""
+    """K8 at the four K8_SHAPES and K3 at three shapes, cold."""
     import torch
 
     from gritlm_tpu_torch.ops import decode_attention as da
@@ -126,18 +127,30 @@ def decode_times(cs, dev, gen) -> None:
         del bf16_pages, int8_pages, kp, vp, scales
         torch.cuda.empty_cache()
 
+    from gritlm_tpu_torch.models.transformer import quantize_kv
+
     mask_d = (torch.arange(2048, device=dev) < 1500).int()[None].repeat(4, 1)
     mask_d[:, 600:700] = 0
-    for label, mask, causal, offset in (("K3 Sq1 B4 1400 valid", mask_d, True, 1499),
-                                        ("K3 serving B8", cs.serving_mask(dev), False, 0)):
+    for label, mask, causal, offset, quant in (
+            ("K3 Sq1 B4 1400 valid", mask_d, True, 1499, False),
+            ("K3 int8 Sq1 B4 1400 valid", mask_d, True, 1499, True),
+            ("K3 serving B8", cs.serving_mask(dev), False, 0, False)):
         Bq, Smax = mask.shape
-        L = cs.cold_copies(int(mask.sum()) * Hkv * Dh * 2 * 2)  # the valid slots' K and V
+        per_slot = Hkv * (Dh + 2) if quant else Hkv * Dh * 2
+        L = cs.cold_copies(int(mask.sum()) * per_slot * 2)  # the valid slots' K and V
         k_all, v_all = randn(L, Bq, Smax, Hkv * Dh), randn(L, Bq, Smax, Hkv * Dh)
+        scales = {}
+        if quant:
+            k8, ks = quantize_kv(k_all.view(L * Bq, Smax, Hkv, Dh))
+            v8, vs = quantize_kv(v_all.view(L * Bq, Smax, Hkv, Dh))
+            k_all, v_all = k8.view(L, Bq, Smax, -1), v8.view(L, Bq, Smax, -1)
+            scales = {"k_scale": ks.view(L, Bq, Smax, Hkv).transpose(2, 3).contiguous(),
+                      "v_scale": vs.view(L, Bq, Smax, Hkv).transpose(2, 3).contiguous()}
         q = randn(Bq, 1, H, Dh)
         emit(label, cs.graph_ms(lambda: [da.flash_decode(
-            q, k_all, v_all, mask, causal=causal, offset=offset, layer=i, num_kv_heads=Hkv)
-            for i in range(L)]) / L)
-        del k_all, v_all
+            q, k_all, v_all, mask, causal=causal, offset=offset, layer=i, num_kv_heads=Hkv,
+            **scales) for i in range(L)]) / L)
+        del k_all, v_all, scales
         torch.cuda.empty_cache()
 
 

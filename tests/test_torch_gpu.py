@@ -239,6 +239,130 @@ def test_flash_decode_kernel_groups_and_rows(cuda, group, Sq, window, quant):
     assert torch.count_nonzero(got[2]) == 0
 
 
+@pytest.mark.parametrize("quant", [False, True])
+@pytest.mark.parametrize("window", [None, 64])
+@pytest.mark.parametrize("Sq", [1, 8, 64])
+def test_flash_decode_kernel_per_row_offsets(cuda, Sq, window, quant):
+    """K3 with a [B] tensor of offsets (the speculative verify chunk): each
+    row's causal bound and window from its own offset, rows at offsets 0,
+    near the end and in between over holes, a row with no valid slot
+    (zeros); one launch a call, counted as a per-row-offset launch, bit-equal
+    reruns; each row equals its own call at an int offset."""
+    gen = torch.Generator(device=cuda).manual_seed(30 + Sq)
+    L, B, Smax, H, Hkv = 2, 5, 1024, 16, 4
+    k_all = _randn(gen, L, B, Smax, Hkv * 128, device=cuda)
+    v_all = _randn(gen, L, B, Smax, Hkv * 128, device=cuda)
+    scales = {}
+    if quant:
+        k_all, v_all, scales = _int8_cache(k_all, v_all, Hkv)
+    offs = torch.tensor([0, 1024 - Sq, 300, 777, 50], dtype=torch.int32, device=cuda)
+    mask = (torch.rand((B, Smax), generator=gen, device=cuda) > 0.2).int()
+    mask[4] = 0
+    q = _randn(gen, B, Sq, H, 128, device=cuda)
+    kw = dict(causal=True, layer=1, sliding_window=window, num_kv_heads=Hkv, **scales)
+    rows_before = decode_attention.flash_decode.row_offset_launches
+    got = _k3_against_plain(q, k_all, v_all, mask, offset=offs, **kw)
+    assert decode_attention.flash_decode.row_offset_launches == rows_before + 2
+    assert torch.count_nonzero(got[4]) == 0
+    for b in range(B):
+        row = {n: s[:, b:b + 1].contiguous() for n, s in scales.items()}
+        alone = decode_attention.flash_decode(
+            q[b:b + 1].contiguous(), k_all[:, b:b + 1].contiguous(),
+            v_all[:, b:b + 1].contiguous(), mask[b:b + 1].contiguous(), offset=int(offs[b]),
+            **{**kw, **row})
+        torch.testing.assert_close(alone.float(), got[b:b + 1].float(), atol=ATTN_ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("quant", [False, True])
+def test_flash_decode_per_row_offsets_bit_equal_to_paged(cuda, quant):
+    """K3 with per-row offsets and K8 at the causal Sq 8 verify chunk on the
+    same logical cache (the pool gathered dense): one kernel body and one
+    plan over the logical width, so bit-equal."""
+    from gritlm_tpu_torch.ops import paged_attention
+
+    gen = torch.Generator(device=cuda).manual_seed(22)
+    L, B, H, Hkv, page, maxp, Sq = 2, 8, 32, 8, 256, 16, 8
+    P = B * maxp + 1
+    k = _randn(gen, L, P, page, Hkv * 128, device=cuda)
+    v = _randn(gen, L, P, page, Hkv * 128, device=cuda)
+    pt = (torch.randperm(P - 1, generator=torch.Generator().manual_seed(2))[:B * maxp] + 1)
+    pt = pt.view(B, maxp).to(torch.int32).to(cuda)
+    lens = torch.tensor([37, 1900, 256, 700, 1333, 3000, 8, 512], device=cuda)
+    mask = (torch.arange(maxp * page, device=cuda)[None] < lens[:, None]).int()
+    mask[1, 600:700] = 0
+    offs = (lens - Sq).to(torch.int32)
+    k_d = torch.stack([paged_attention.gather_pages(k, pt, i) for i in range(L)])
+    v_d = torch.stack([paged_attention.gather_pages(v, pt, i) for i in range(L)])
+    scales, dense_scales = {}, {}
+    if quant:
+        k_d, v_d, dense_scales = _int8_cache(k_d, v_d, Hkv)
+        inv = torch.empty(P, dtype=torch.long, device=cuda)
+        inv[pt.long().reshape(-1)] = torch.arange(B * maxp, device=cuda)
+        inv[0] = 0
+        k = k_d.view(L, B * maxp, page, -1)[:, inv].contiguous()
+        v = v_d.view(L, B * maxp, page, -1)[:, inv].contiguous()
+        scales = {n: s.view(L, B, Hkv, maxp, page).transpose(2, 3).reshape(
+            L, B * maxp, Hkv, page)[:, inv].contiguous() for n, s in dense_scales.items()}
+    q = _randn(gen, B, Sq, H, 128, device=cuda)
+    got = paged_attention.paged_decode(q, k, v, pt, mask, layer=1, num_kv_heads=Hkv,
+                                       causal=True, offset=offs, **scales)
+    want = decode_attention.flash_decode(q, k_d, v_d, mask, causal=True, offset=offs, layer=1,
+                                         num_kv_heads=Hkv, **dense_scales)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    assert torch.equal(got, want)
+
+
+def test_speculative_and_sampling_serving_on_cuda(cuda):
+    """Speculative pools (dense: K3 with per-row offsets in the verify
+    chunks; paged: K8 at causal Sq k + 1) serve every request, each token
+    within TIE of its position's largest logit in one teacher-forced forward
+    (the LM head scaled so logits spread over a few units: bf16 routes that
+    sum attention in another order may flip only near ties); a sampling
+    pool's streams are equal between a dense and a paged pool and across
+    two runs."""
+    from gritlm_tpu_torch import GritLM
+    from gritlm_tpu_torch.models.transformer import forward, logits_from_hidden
+    from gritlm_tpu_torch.ops import paged_attention
+    from gritlm_tpu_torch.serving import Request, ServingEngine
+
+    TIE = 0.1
+    cfg = ModelConfig(vocab_size=512, hidden_size=256, intermediate_size=512,
+                      num_hidden_layers=2, num_attention_heads=2, num_key_value_heads=1)
+    m = GritLM(cfg)
+    m.params["lm_head"]["kernel"].mul_(4)
+    prompts = {str(n): [3 + (i * 7) % 11 for i in range(n)] for n in (5, 40, 70, 9, 130)}
+    kw = dict(max_batch=3, max_len=512, chunk_size=4, prompt_buckets=(128, 256), page_size=128)
+
+    def run(**extra):
+        reqs = [Request(input_ids=ids, max_new_tokens=12, request_id=rid,
+                        temperature=0.8 if extra.get("sampling") else 0.0, top_p=0.9,
+                        seed=len(ids)) for rid, ids in prompts.items()]
+        done = ServingEngine(cfg, m.params, **kw, **extra).run(reqs)
+        assert sorted(c.request_id for c in done) == sorted(prompts)
+        assert all(0 < len(c.token_ids) <= 12 for c in done)
+        return {c.request_id: c.token_ids for c in done}
+
+    for paged in (False, True):
+        before = (decode_attention.flash_decode.row_offset_launches,
+                  paged_attention.paged_decode.launches)
+        spec = run(speculative=True, spec_k=7, spec_ngram=2, paged=paged)
+        if paged:
+            assert paged_attention.paged_decode.launches > before[1]
+        else:
+            assert decode_attention.flash_decode.row_offset_launches > before[0]
+        for rid, toks in spec.items():
+            ids = prompts[rid]
+            x = torch.tensor([ids + toks], dtype=torch.int32, device=cuda)
+            with torch.inference_mode():
+                hidden, _, _ = forward(m.params, cfg, x, causal=True)
+                logits = logits_from_hidden(m.params, cfg, hidden)[0, len(ids) - 1:-1].float()
+            chosen = logits.gather(1, torch.tensor(toks, device=cuda)[:, None])[:, 0]
+            assert float((logits.max(1).values - chosen).max()) <= TIE, rid
+    sampled = run(sampling=True)
+    assert sampled == run(sampling=True, paged=True) == run(sampling=True)
+
+
 # (B, S, D, strided): a ragged batch, one long row over the whole card, many
 # short rows, the Qwen2-7B width (D 3584, no multiple of 256), rows that are
 # views into wider ones (a [B, S, 2D] buffer's first half), D 8192

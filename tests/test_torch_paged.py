@@ -289,8 +289,11 @@ def test_per_row_forward_limits(tiny):
     paged = init_paged_cache(cfg, 2, 16, 5, page=8, device="cpu")
     with pytest.raises(ValueError, match="decode-only"):
         forward(tparams, cfg, torch.zeros((2, 4), dtype=torch.int32), cache=paged)
-    with pytest.raises(NotImplementedError, match="speculative"):
-        forward(tparams, cfg, torch.zeros((2, 3), dtype=torch.int32), cache=paged,
-                row_offsets=torch.zeros(2, dtype=torch.int32))
+    # S > 1 (the speculative verify chunk) writes each row's S slots
+    paged.page_table[:] = torch.tensor([[1, 2], [3, 4]], dtype=torch.int32)
+    forward(tparams, cfg, torch.full((2, 3), 5, dtype=torch.int32), cache=paged,
+            row_offsets=torch.tensor([6, 0], dtype=torch.int32))
+    assert paged.mask[0, 6:9].tolist() == [1, 1, 1] and paged.mask[1, :3].tolist() == [1, 1, 1]
+    assert int(paged.mask.sum()) == 6
     with pytest.raises(ValueError, match="multiple"):
         init_paged_cache(cfg, 2, 20, 5, page=8, device="cpu")

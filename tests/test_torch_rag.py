@@ -400,13 +400,25 @@ def test_cli_matches_jax(tmp_path, form):
     assert got == want and len(got) == 1
 
 
-def test_not_ported_parts_raise(engines):
+def test_not_ported_parts_raise(engines, tmp_path):
+    """What raised before the speculative and sampling slice now runs:
+    serve(speculative=True) and serve(temperature > 0), RAGEngine(
+    speculative=True) (greedy-only: min_new_tokens raises ValueError), and
+    the CLI's --speculative."""
     _, te = engines
-    for kw in (dict(speculative=True), dict(temperature=0.7)):
-        with pytest.raises(NotImplementedError):
-            te.serve(["q"], **kw)
-    with pytest.raises(NotImplementedError):
-        RAGEngine(te.model, speculative=True)
-    with pytest.raises(NotImplementedError):
-        port_eval.main(["--model_preset", "tiny_mistral", "--device", "cpu", "--no_retrieval",
-                        "--speculative"])
+    kw = dict(max_new_tokens=3, slots=2, pool_max_len=512, prompt_buckets=(64, 128, 256))
+    plain = [r.answer for r in te.serve(["q"], **kw)]
+    assert [r.answer for r in te.serve(["q"], speculative=True, spec_k=3, **kw)] == plain
+    assert len(te.serve(["q"], temperature=0.7, **kw)) == 1
+    spec = RAGEngine(te.model, index=te.index, max_new_tokens=4, encode_max_length=64,
+                     speculative=True)
+    assert [r.answer for r in spec.answer_batch(QUERIES[:2])] == \
+           [r.answer for r in te.answer_batch(QUERIES[:2])]
+    with pytest.raises(ValueError, match="greedy-only"):
+        RAGEngine(te.model, speculative=True, min_new_tokens=1)
+    qa = tmp_path / "qa.jsonl"
+    qa.write_text(json.dumps({"question": QUERIES[0], "answers": ["4"]}) + "\n")
+    out = port_eval.main(["--model_preset", "tiny_mistral", "--device", "cpu",
+                          "--no_retrieval", "--speculative", "--max_new_tokens", "2",
+                          "--eval_data", str(qa), "--save_dir", str(tmp_path / "out")])
+    assert out is not None and len(list((tmp_path / "out").glob("*.json"))) == 1

@@ -287,13 +287,25 @@ def test_paged_admission_waits_for_pages_and_rejects_oversized(models):
 
 
 def test_not_ported_options_raise(models):
+    """adapters= and mesh= still raise NotImplementedError; sampling and
+    speculative pools build and serve (tests/test_torch_serving_sampling.py
+    holds their tokens), but not together, and a sampled request needs a
+    sampling pool."""
     _, tparams = models
-    for kw in (dict(sampling=True), dict(speculative=True), dict(adapters={"a": {}}),
-               dict(mesh=object())):
+    for kw in (dict(adapters={"a": {}}), dict(mesh=object())):
         with pytest.raises(NotImplementedError):
             _port(tparams, **kw)
-    with pytest.raises(NotImplementedError, match="temperature"):
+    with pytest.raises(ValueError, match="greedy-only"):
+        _port(tparams, sampling=True, speculative=True)
+    with pytest.raises(ValueError, match="sampling=True"):
         _port(tparams).submit(Request(input_ids=[3, 4], temperature=0.7))
+    specs = _specs([5, 7], seed=4)
+    (s1, s2) = (_tokens(_port(tparams, sampling=True).run(
+        _requests(specs, temperature=0.7, seed=3))) for _ in range(2))
+    assert s1 == s2 and all(len(t) >= 1 for t in s1.values())
+    spec = _port(tparams, max_len=48, speculative=True, spec_k=3)
+    assert _tokens(spec.run(_requests(specs))) == {rid: _oracle(tparams, ids, n)
+                                                   for rid, ids, n in specs}
 
 
 # ---------------------------------------------------------------- the CLI
@@ -333,9 +345,11 @@ def test_serve_cli_matches_jax(tmp_path):
     by_id = {r["id"]: r for r in got}
     assert len(by_id["e0"]["embedding"]) == 64
     assert len(by_id["g0"]["token_ids"]) <= 4 and len(by_id["g1"]["token_ids"]) <= 3
-    with pytest.raises(NotImplementedError):
-        from gritlm_tpu_torch.serve import main
-        main(common + ["--device", "cpu", "--out", str(tmp_path / "x.jsonl"), "--speculative"])
+    from gritlm_tpu_torch.serve import main  # --speculative serves the same requests
+    spec_summary = main(common + ["--device", "cpu", "--out", str(tmp_path / "x.jsonl"),
+                                  "--speculative"])
+    assert sorted(spec_summary) == sorted(want_summary)
+    assert sorted(r["id"] for r in _cli_lines(tmp_path / "x.jsonl")) == ["e0", "g0", "g1"]
 
 
 # ---------------------------------------------------------- RAGEngine.serve
@@ -364,6 +378,10 @@ def test_rag_serve_matches_jax(models):
         assert [r.passages for r in got] == [r.passages for r in want], paged
         for g, w in zip(got, want):
             np.testing.assert_allclose(g.scores, w.scores, atol=1e-5, rtol=0)
-    for bad in (dict(speculative=True), dict(temperature=0.5)):
-        with pytest.raises(NotImplementedError):
-            te.serve(QUERIES[:1], **bad)
+    # speculative serving gives the same answers; sampled serving answers
+    # every query, the same way twice
+    got = te.serve(QUERIES, speculative=True, spec_k=3, **kw)
+    assert [r.answer for r in got] == [r.answer for r in want]
+    sampled = [[r.answer for r in te.serve(QUERIES, temperature=0.5, seed=1, **kw)]
+               for _ in range(2)]
+    assert sampled[0] == sampled[1] and len(sampled[0]) == len(QUERIES)
