@@ -13,10 +13,13 @@ int8 pools, and RAGEngine.serve; speculative decoding in generate and in
 dense and paged verify pools, and sampling pools; w8a16 and w4a16
 quantized weights in generate and serving; GRIT training with LoRA, QLoRA, GradCache and full
 parameters through `python -m gritlm_tpu_torch.training.run`'s main; the
-embedding projection head in encode and in training), and times each
-kernel beside its bound, its plain version and one PyTorch library call.
+embedding projection head in encode and in training; then a Mixtral-8x7B
+of random bf16 weights at its published width, depth cut to 16, through
+encode, generate and the serving engine, and at depth 8 with int8
+weights), and times each kernel beside its bound, its plain version and
+one PyTorch library call.
 
-Phases (in the order 1-7, 12, 8, 9, 11, 10), any failure exits non-zero:
+Phases (in the order 1-7, 12, 8, 9, 11, 13, 10), any failure exits non-zero:
   1. device and build: card name and power limit, nvcc's register and
      shared-memory report; for the redesigned kernels (K1, K4/K5, K9 on
      wgmma; K3, K8, K6 and K7 on mma.sync; K2 on bulk copies and clusters)
@@ -142,6 +145,30 @@ Phases (in the order 1-7, 12, 8, 9, 11, 10), any failure exits non-zero:
      rows within TIE_TOL, the sampled streams equal between the pools, and
      the share of tokens 4 sampled requests run alone share with the pool's
      (printed, not gated)
+ 13. Mixtral MoE serving at Mixtral-8x7B width (after phase 11, with the
+     Mistral model freed; counts set to 0 before each run, summed after):
+     `mixtral_8x7b()` at depth MOE_DEPTH (16: 46.96 GB of bf16 weights;
+     32 layers would need 93.4 GB), random bf16 weights; encode of the 16
+     sentences with moe_impl "dense" and "dropless" (sentences/s), held
+     against each other and against the plain K1 + K2 path at cosine >=
+     COSINE_MIN with the routes of one run pinned in the other (`Routes`;
+     the cosine with each run's own routes and the routes that differ are
+     printed: with random bf16 weights a router's top two are often within
+     rounding of the third, and a flipped route moves a token far); greedy
+     generate at B 2, 32 tokens, teacher-forced within TIE_TOL with the
+     generate's routes pinned (with its own routes: printed, and a token
+     above TIE_TOL fails unless a route flipped at or before it); phase 7's
+     serving workload cut to 8 generation and 4 embedding requests on a
+     dense and a paged pool (page 256), its checks pinned to the routes
+     the engine took (`RouteBook`), the streams that differ between the
+     pools with the first differing token's deficit, one decode chunk per
+     moe_impl (dense, auto, dropless) under set_sync_debug_mode("error"),
+     the decode step (also with moe_impl "dropless") and the chunk's
+     device ms and idle share; RAGEngine in DOC mode over the 16
+     sentences' doc caches (self-retrieval of 4 queries); then
+     GritLM(weight_quant=8) at depth MOE_W8_DEPTH (8, quantized from a bf16
+     model of that depth) through greedy generate (16 tokens, TIE_TOL) and
+     its decode step. K1, K2, K3, K8 and K6 must each launch.
 
 Output: a `kernels` JSON line, the card line, then as the last line
 {"ok": true, "device": {...}}. Exits 2 with no result when there is no CUDA
@@ -754,10 +781,14 @@ def main() -> int:
                 max_err)
     print(f"total {time.time() - t_start:.0f} s")
 
-    # ---------------------------------------------------------------- 10
+    # ---------------------------------------------------------------- 13
     del model, qmodel, cache
     gc.collect()  # engines held in reference cycles (their on_token closures) keep their pools
     torch.cuda.empty_cache()
+    moe_phase(enc_long, reset_counts, read_counts, path_launches)
+    print(f"total {time.time() - t_start:.0f} s")
+
+    # ---------------------------------------------------------------- 10
     flash_bwd_checks(dev, randn, max_err)
     training_phase(dev, reset_counts, read_counts, path_launches)
     training_times(dev, randn, times)
@@ -1551,9 +1582,12 @@ def serving_workload(model, reset_counts, read_counts, total):
         """req_kw: per request id, Request keywords (sampling); doc_specs:
         doc-continuation requests (rid, prompt ids, max new, doc entry, doc
         ids), the doc ids as their lookup corpus (hist_ids). Returns
-        {"rate", "peak", "tokens", "verify"}: generated tokens/s, peak
-        reserved pages, the tokens by request, and (speculative pools) the
-        verify chunks' emitted counts [steps, B] on the host."""
+        {"rate", "peak", "tokens", "verify", "book"}: generated tokens/s,
+        peak reserved pages, the tokens by request, (speculative pools) the
+        verify chunks' emitted counts [steps, B] on the host, and (a MoE
+        model) the RouteBook of the run: its teacher forcing and embedding
+        checks pin the routes the engine took."""
+        import contextlib
         first_at, peak = {}, [0]
         req_kw = req_kw or {}
 
@@ -1573,11 +1607,13 @@ def serving_workload(model, reset_counts, read_counts, total):
         verify_emits.clear()
         for name in programs:
             setattr(serving, name, counted[name])
+        book = RouteBook(eng) if cfg.is_moe else None
         try:
             reset_counts()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            done = eng.run(reqs)
+            with book or contextlib.nullcontext():
+                done = eng.run(reqs)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             counts = read_counts()
@@ -1619,8 +1655,17 @@ def serving_workload(model, reset_counts, read_counts, total):
             if counts["fused_norm_mean_pool"] == 0:
                 fail(f"serving [{label}]: embeddings did not go through K2")
             got = torch.from_numpy(np.stack([embs[rid] for rid, _, _ in embed_specs[:n_embeds]]))
-            cos = torch.nn.functional.cosine_similarity(got, want_emb[:n_embeds], dim=-1)
-            print(f"serving [{label}]: pool embeddings against GritLM.encode: min cosine "
+            want = want_emb[:n_embeds]
+            if book is not None:  # GritLM.encode with the pool's routes
+                with book.pinning():
+                    want = torch.from_numpy(model.encode(SENTENCES[:n_embeds],
+                                                         instruction=INSTRUCTION))
+                own = torch.nn.functional.cosine_similarity(got, want_emb[:n_embeds], dim=-1)
+                print(f"serving [{label}]: pool embeddings against GritLM.encode with its own "
+                      f"routes: min cosine {float(own.min()):.6f}")
+            cos = torch.nn.functional.cosine_similarity(got, want, dim=-1)
+            print(f"serving [{label}]: pool embeddings against GritLM.encode"
+                  f"{' with the pool routes pinned' if book else ''}: min cosine "
                   f"{float(cos.min()):.6f}")
             if float(cos.min()) < 0.9999:
                 fail(f"serving [{label}]: pool embeddings depart from GritLM.encode")
@@ -1629,27 +1674,35 @@ def serving_workload(model, reset_counts, read_counts, total):
         forced = [(ids, rid) for rid, ids, _ in gen_specs
                   if req_kw.get(rid, {}).get("temperature", 0.0) == 0.0][:4]
         forced += [(doc + ids, rid) for rid, ids, _, _, doc in doc_specs]
-        deficits = torch.cat([teacher_deficits(model, ids, by_id[rid].token_ids, eng.kv_quant)
-                              for ids, rid in forced])
+        if book is not None:
+            deficits = book.check(label, model, [(ids, rid, by_id[rid].token_ids)
+                                                 for ids, rid in forced], eng.kv_quant)
+        else:
+            deficits = torch.cat([teacher_deficits(model, ids, by_id[rid].token_ids,
+                                                   eng.kv_quant) for ids, rid in forced])
         print(f"serving [{label}]: teacher forcing over {len(deficits)} tokens of "
-              f"{len(forced)} greedy requests: largest deficit to the max logit "
+              f"{len(forced)} greedy requests{' (the engine routes pinned)' if book else ''}: "
+              "largest deficit to the max logit "
               f"{float(deficits.max()):.4f} (TIE_TOL {TIE_TOL}), engine token is the argmax at "
               f"{float((deficits == 0).float().mean()):.3f} of them", flush=True)
         if float(deficits.max()) > TIE_TOL:
             fail(f"serving [{label}]: an engine token is {float(deficits.max())} below its "
                  "position's max logit")
         verify = torch.cat(verify_emits).cpu() if verify_emits else None
-        return {"rate": n_tok / wall, "peak": peak[0], "verify": verify,
+        return {"rate": n_tok / wall, "peak": peak[0], "verify": verify, "book": book,
                 "tokens": {rid: c.token_ids for rid, c in by_id.items()}}
 
     return drive, specs
 
 
-def teacher_deficits(model, ids, toks, quant=False):
+def teacher_deficits(model, ids, toks, quant=False, routes=None):
     """Teacher forcing through the kernels: one causal forward over prompt +
     the generated tokens (a cache of the given KV format); per generated
     position, how far the token sits below the position's largest logit
-    (bf16 logits, as the engines' argmax)."""
+    (bf16 logits, as the engines' argmax). `routes`: a Routes context the
+    forward runs in (a MoE trunk's routes recorded or pinned)."""
+    import contextlib
+
     import torch
 
     from gritlm_tpu_torch.models.transformer import forward, init_cache, logits_from_hidden
@@ -1657,7 +1710,7 @@ def teacher_deficits(model, ids, toks, quant=False):
     cfg, params, dev = model.config, model.params, model.device
     seq = list(ids) + list(toks)
     x = torch.tensor([seq], dtype=torch.int32, device=dev)
-    with torch.inference_mode():
+    with routes or contextlib.nullcontext(), torch.inference_mode():
         cache = init_cache(cfg, 1, len(seq), device=dev, quant=quant)
         hidden, _, _ = forward(params, cfg, x, causal=True, cache=cache)
         logits = logits_from_hidden(params, cfg, hidden[:, len(ids) - 1:len(seq) - 1])[0]
@@ -2441,6 +2494,482 @@ def quant_phase(model, enc, dense_step, reset_counts, read_counts, path_launches
     torch.cuda.empty_cache()
     print(f"quantized phase: {time.time() - t_phase:.0f} s", flush=True)
 
+
+
+# Mixtral-8x7B at its published width: 46.70 B parameters (93.4 GB in bf16)
+# at 32 layers do not fit the 80 GB card, so phase 13 cuts the depth: 16
+# layers in bf16 (23.48 B parameters, 46.96 GB), 8 for the w8 model (built
+# from a bf16 model of depth 8, so its peak stays near 35 GB).
+MOE_DEPTH = 16
+MOE_W8_DEPTH = 8
+
+
+class Routes:
+    """The MoE routers' expert choices, recorded and replayed: a stand-in
+    for models.transformer._router while `with` is open. mode "record"
+    appends each call's top-k indices [T, k] to `calls`; mode "pin" takes
+    each call's indices from `calls` in order (a -1 row keeps the call's
+    own choice) and its weights from the call's own probabilities. Pinning
+    the routes of one run in another holds the rest of the function
+    (attention, the expert products, the combine) to a tolerance: with
+    random bf16 weights a router's top two are often within rounding of the
+    third, and one flipped route moves a token's hidden state far."""
+
+    def __init__(self, mode: str, calls=None):
+        self.mode, self.calls = mode, [] if calls is None else calls
+
+    def __enter__(self):
+        import torch
+
+        from gritlm_tpu_torch.models import transformer
+
+        self._orig, pending = transformer._router, iter(self.calls)
+
+        def route(p, xt, cfg):
+            logits, probs, top_w, top_idx = self._orig(p, xt, cfg)
+            if self.mode == "record":
+                self.calls.append(top_idx)
+                return logits, probs, top_w, top_idx
+            idx = next(pending)
+            idx = torch.where(idx >= 0, idx, top_idx)
+            w = probs.gather(1, idx)
+            return logits, probs, w / w.sum(dim=-1, keepdim=True), idx
+
+        transformer._router = route
+        return self
+
+    def __exit__(self, *exc):
+        from gritlm_tpu_torch.models import transformer
+
+        transformer._router = self._orig
+
+
+class RouteBook:
+    """A serving engine's MoE routes by request and position, for teacher
+    forcing with the routes the engine took pinned. While `with` is open
+    the `forward` that serving.py and gritlm.py call is wrapped: a forward
+    over whole rows from slot 0 (a prefill, an embedding batch) files each
+    row's routes [L, n, k] under the row's valid token ids; a decode step
+    (`row_offsets`) files each active row's routes [L, k] under the request
+    the engine holds in that slot, at the row's position. Only device
+    copies are taken during the run; they are read when a check asks."""
+
+    def __init__(self, eng):
+        self.eng, self.rows, self.decode, self._raw = eng, {}, {}, []
+
+    def __enter__(self):
+        from gritlm_tpu_torch import gritlm, serving
+
+        self._orig = {mod: mod.forward for mod in (gritlm, serving)}
+        for mod, fwd in self._orig.items():
+            mod.forward = self._recording(fwd)
+        return self
+
+    def __exit__(self, *exc):
+        for mod, fwd in self._orig.items():
+            mod.forward = fwd
+
+    def _recording(self, fwd):
+        import torch
+
+        def run(params, cfg, input_ids, **kw):
+            with Routes("record") as rec:
+                out = fwd(params, cfg, input_ids, **kw)
+            B, S = input_ids.shape
+            routes = torch.stack(rec.calls).view(len(rec.calls), B, S, -1)
+            cache = kw.get("cache")
+            if kw.get("row_offsets") is not None:
+                slots = {s: st.request.request_id for s, st in self.eng.slots.items()}
+                self._raw.append(("step", slots, kw["positions"][:, 0].clone(),
+                                  kw["attention_mask"][:, 0].clone(), routes[:, :, 0]))
+            elif cache is None or cache.length == 0:
+                mask = kw.get("attention_mask")
+                self._raw.append(("rows", input_ids.clone(),
+                                  None if mask is None else mask.clone(), routes))
+            return out
+
+        return run
+
+    def _read(self):
+        for ev in self._raw:
+            if ev[0] == "rows":
+                _, ids, mask, routes = ev
+                ids = ids.cpu()
+                lens = [ids.shape[1]] * ids.shape[0] if mask is None else mask.sum(1).tolist()
+                for b, n in enumerate(lens):
+                    self.rows[tuple(ids[b, :int(n)].tolist())] = routes[:, b, :int(n)]
+            else:
+                _, slots, pos, active, routes = ev
+                pos, active = pos.cpu().tolist(), active.cpu().tolist()
+                for s, rid in slots.items():
+                    if active[s]:
+                        self.decode.setdefault(rid, {})[int(pos[s])] = routes[:, s]
+        self._raw = []
+
+    def table(self, rid, ids, toks):
+        """[L, n, k] routes of prompt `ids` + `toks` as the engine took them
+        (-1 where it filed none: the last token, never fed)."""
+        import torch
+
+        self._read()
+        prefill = self.rows[tuple(ids)]
+        L, P, k = prefill.shape
+        table = torch.full((L, P + len(toks), k), -1, dtype=torch.long, device=prefill.device)
+        table[:, :P] = prefill
+        for pos, r in self.decode.get(rid, {}).items():
+            if pos < table.shape[1]:
+                table[:, pos] = r
+        return table
+
+    def pinning(self):
+        """A context in which gritlm.forward runs each row with the routes
+        filed under its valid token ids (its own where none were)."""
+        import contextlib
+
+        import torch
+
+        from gritlm_tpu_torch import gritlm
+
+        self._read()
+        fwd = gritlm.forward
+
+        def run(params, cfg, input_ids, **kw):
+            B, S = input_ids.shape
+            L, k = cfg.num_hidden_layers, cfg.num_experts_per_tok
+            table = torch.full((L, B, S, k), -1, dtype=torch.long, device=input_ids.device)
+            ids, mask = input_ids.cpu(), kw.get("attention_mask")
+            lens = [S] * B if mask is None else mask.sum(1).tolist()
+            for b, n in enumerate(lens):
+                got = self.rows.get(tuple(ids[b, :int(n)].tolist()))
+                if got is not None:
+                    table[:, b, :int(n)] = got
+            with Routes("pin", list(table.view(L, B * S, k))):
+                return fwd(params, cfg, input_ids, **kw)
+
+        @contextlib.contextmanager
+        def patched():
+            gritlm.forward = run
+            try:
+                yield
+            finally:
+                gritlm.forward = fwd
+
+        return patched()
+
+    def check(self, label, model, forced, quant):
+        """pinned_teacher_forcing of the (prompt ids, request id, tokens) in
+        `forced` over the routes the engine took."""
+        return pinned_teacher_forcing(f"serving {label}", model, [
+            (ids, toks, self.table(rid, ids, toks)) for ids, rid, toks in forced], quant)
+
+
+def pinned_teacher_forcing(label, model, forced, quant=False):
+    """Teacher forcing (teacher_deficits) of each (prompt ids, tokens,
+    routes [L, n, k] the run took) in `forced`, with those routes pinned
+    (returned: the deficits the caller holds to TIE_TOL) and with the
+    forward's own routes: printed, with the sequences whose routes differ
+    from the run's at a generated position; there a token more than
+    TIE_TOL below the max fails unless a route flipped at or before it."""
+    import torch
+
+    pinned, own, unexplained, flipped = [], [], [], 0
+    for n_seq, (ids, toks, table) in enumerate(forced):
+        P, n = len(ids), len(ids) + len(toks)
+        if (table[:, :n - 1] < 0).any():
+            fail(f"[{label}]: sequence {n_seq}: the run's routes were not all recorded")
+        pinned.append(teacher_deficits(model, ids, toks, quant, Routes("pin", list(table))))
+        with Routes("record") as rec:
+            gaps = teacher_deficits(model, ids, toks, quant)
+        differ = torch.stack([(r.sort(-1).values != t.sort(-1).values).any(-1)
+                              for r, t in zip(rec.calls, table)]).any(0)
+        differ = differ[P - 1:n - 1].cpu()  # the positions that predict the tokens
+        flipped += int(differ.any())
+        before = differ.cumsum(0) > 0
+        unexplained += [(n_seq, j) for j in ((gaps > TIE_TOL) & ~before).nonzero().flatten()
+                        .tolist()]
+        own.append(gaps)
+    own = torch.cat(own)
+    print(f"[{label}]: teacher forcing with the forward's own routes: largest deficit "
+          f"{float(own.max()):.4f}, argmax at {float((own == 0).float().mean()):.3f}; "
+          f"{flipped} of {len(forced)} sequences route another way than the run at some "
+          "generated position", flush=True)
+    if unexplained:
+        fail(f"[{label}]: tokens {unexplained} (sequence, token) are more than TIE_TOL below "
+             "the max logit with no routing flip at or before them")
+    return torch.cat(pinned)
+
+
+def moe_generate_check(label, model, enc, n_new, counted):
+    """Greedy generate at B = 2 on a MoE trunk (launch counts summed by
+    `counted`), teacher-forced with its own routes pinned (the prefill's
+    over the prompt, decode step j's at the token it fed): each token
+    within TIE_TOL of its position's largest logit
+    (pinned_teacher_forcing)."""
+    import torch
+
+    ids, mask = enc["input_ids"], enc["attention_mask"]
+    B, L = ids.shape[0], model.config.num_hidden_layers
+    with Routes("record") as rec:
+        res, launched = counted(lambda: model.generate_from_ids(ids, mask,
+                                                                max_new_tokens=n_new))
+    prefill, decode = rec.calls[:L], rec.calls[L:]
+    if any(r.shape[0] != B for r in decode) or prefill[0].shape[0] % B:
+        fail(f"generate [{label}]: routes recorded at unexpected shapes")
+    t = res.tokens
+    if not ((t >= 0) & (t < model.config.vocab_size)).all():
+        fail(f"generate [{label}]: token ids out of range")
+    forced = []
+    for b in range(B):
+        P = int(mask[b].sum())
+        toks = t[b, :int(res.num_valid[b])].tolist()
+        table = torch.full((L, P + len(toks), prefill[0].shape[1]), -1, dtype=torch.long,
+                           device=model.device)
+        for layer in range(L):
+            table[layer, :P] = prefill[layer].view(B, -1, table.shape[2])[b, :P]
+            for j in range(1, len(toks)):  # decode step j fed token j - 1 at P + j - 1
+                table[layer, P + j - 1] = decode[(j - 1) * L + layer][b]
+        forced.append((ids[b, :P].tolist(), toks, table))
+    pinned = pinned_teacher_forcing(f"generate {label}", model, forced)
+    print(f"generate [{label}, B=2, {n_new} tokens]: launches {launched}; teacher forcing over "
+          f"{len(pinned)} tokens with the generate's routes pinned: largest deficit to the max "
+          f"logit {float(pinned.max()):.4f} (TIE_TOL {TIE_TOL}), argmax at "
+          f"{float((pinned == 0).float().mean()):.3f}; sample "
+          f"{model.tokenizer.decode(t[0].tolist())[:60]!r}", flush=True)
+    if float(pinned.max()) > TIE_TOL:
+        fail(f"generate [{label}]: a token is {float(pinned.max())} below its position's max "
+             "logit with the routes pinned")
+    return res
+
+
+def moe_phase(enc, reset_counts, read_counts, path_launches) -> None:
+    """Phase 13: Mixtral MoE serving at Mixtral-8x7B width (D 4096, F 14336,
+    8 experts top-2, 32/8 heads of 128, V 32000; random bf16 weights from a
+    seed), depth MOE_DEPTH (the earlier phases' model is freed first).
+    Launch counts are set to 0 before each main-path run and summed after:
+    encode with moe_impl "dense" (the preset's) and "dropless" on the same
+    weights (each other and the plain K1 + K2 path at cosine >= COSINE_MIN,
+    sentences/s); greedy generate at B = 2 (32 tokens; TIE_TOL, routing
+    flips, the decode step); the serving workload cut to 8 generation and 4
+    embedding requests on a dense and a paged pool (page 256): completions,
+    TIE_TOL, streams that differ between the pools with the first differing
+    position's deficits, one decode chunk per moe_impl under
+    torch.cuda.set_sync_debug_mode("error"), the chunk's device ms a step;
+    RAGEngine over the 16 sentences with doc caches, 4 queries in DOC mode
+    (each retrieving its own passage); then GritLM(weight_quant=8) at depth MOE_W8_DEPTH: greedy generate (16
+    tokens, TIE_TOL), its weight bytes and decode step. K1, K2, K3, K8 and K6
+    must each launch in these runs."""
+    import dataclasses
+
+    import torch
+    import torch.nn.functional as F
+
+    from gritlm_tpu_torch import GritLM, serving
+    from gritlm_tpu_torch.config import mixtral_8x7b
+    from gritlm_tpu_torch.models.transformer import count_params
+    from gritlm_tpu_torch.ops import flash_attention, fused_pool
+    from gritlm_tpu_torch.serving import ServingEngine
+    from gritlm_tpu_torch.training import quant
+
+    t_phase = time.time()
+    total = {}
+
+    def counted(fn):
+        reset_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        launched = read_counts()
+        for n, c in launched.items():
+            total[n] = total.get(n, 0) + c
+        return out, {n: c for n, c in launched.items() if c}
+
+    torch.cuda.reset_peak_memory_stats()
+    cfg = dataclasses.replace(mixtral_8x7b(), num_hidden_layers=MOE_DEPTH)
+    model = GritLM(cfg, seed=0)
+    torch.cuda.synchronize()
+    print(f"model [phase 13]: Mixtral-8x7B width at depth {MOE_DEPTH}, "
+          f"{count_params(model.params) / 1e9:.3f} B params, weights "
+          f"{quant.quantized_bytes(model.params) / 2**30:.2f} GiB, peak allocated "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, init "
+          f"{time.time() - t_phase:.1f} s", flush=True)
+
+    # ---- encode, dense and dropless, and the plain K1 + K2 path
+    def encode_all(m):
+        a = m.encode(SENTENCES[:8])
+        b = m.encode(SENTENCES[8:], instruction=INSTRUCTION)
+        return torch.cat([torch.from_numpy(a), torch.from_numpy(b)])
+
+    embs, routes = {}, {}
+    for impl in ("dense", "dropless"):
+        m = GritLM(dataclasses.replace(cfg, moe_impl=impl), params=model.params)
+        with Routes("record") as rec:
+            emb, launched = counted(lambda: encode_all(m))
+        embs[impl], routes[impl] = emb, rec.calls
+        torch.cuda.synchronize()
+        t0 = time.time()
+        encode_all(m)
+        torch.cuda.synchronize()
+        dt = time.time() - t0
+        if tuple(emb.shape) != (16, cfg.hidden_size) or not torch.isfinite(emb).all():
+            fail(f"encode [Mixtral {impl}]: shape {tuple(emb.shape)} or non-finite values")
+        if (emb.norm(dim=-1) - 1).abs().max() > 1e-3:
+            fail(f"encode [Mixtral {impl}]: embeddings are not unit vectors")
+        if not launched.get("flash_attention") or not launched.get("fused_norm_mean_pool"):
+            fail(f"encode [Mixtral {impl}] did not go through K1 and K2: {launched}")
+        print(f"encode [Mixtral {impl}]: 16 sentences in {dt * 1e3:.1f} ms = {16 / dt:.1f} "
+              f"sentences/s (host clock, second call); launches {launched}", flush=True)
+
+    def encode_pinned(impl, calls):
+        with Routes("pin", list(calls)):
+            return encode_all(GritLM(dataclasses.replace(cfg, moe_impl=impl),
+                                     params=model.params))
+
+    # the same routes (the dense kernel run's) through the other impl and
+    # through the plain K1 + K2 path; every figure with the routes each run
+    # takes by itself printed beside
+    pinned = {"dropless": encode_pinned("dropless", routes["dense"])}
+    plain = {(flash_attention, "flash_attention"): flash_attention.flash_attention_plain,
+             (fused_pool, "fused_norm_mean_pool"): fused_pool.fused_norm_mean_pool_plain}
+    kept = {key: getattr(*key) for key in plain}
+    for (mod, name), fn in plain.items():
+        setattr(mod, name, fn)
+    try:
+        for impl in ("dense", "dropless"):
+            pinned[f"{impl} plain"] = encode_pinned(impl, routes[impl])
+            with Routes("record") as rec:
+                embs[f"{impl} plain"] = encode_all(
+                    GritLM(dataclasses.replace(cfg, moe_impl=impl), params=model.params))
+            routes[f"{impl} plain"] = rec.calls
+    finally:
+        for (mod, name), fn in kept.items():
+            setattr(mod, name, fn)
+    for a, b in (("dense", "dropless"), ("dense", "dense plain"),
+                 ("dropless", "dropless plain")):
+        cos = float(F.cosine_similarity(embs[a], pinned[b], dim=-1).min())
+        own = float(F.cosine_similarity(embs[a], embs[b], dim=-1).min())
+        flipped = sum(int((x.sort(-1).values != y.sort(-1).values).any(-1).sum())
+                      for x, y in zip(routes[a], routes[b]))
+        n_routes = sum(x.shape[0] for x in routes[a])
+        print(f"encode [Mixtral]: {a} against {b}: min cosine {cos:.6f} with {a}'s routes "
+              f"pinned (COSINE_MIN {COSINE_MIN}); {own:.6f} with each run's own routes, "
+              f"{flipped} of {n_routes} token-layer routes differing", flush=True)
+        if cos < COSINE_MIN:
+            fail(f"encode [Mixtral]: {a} departs from {b} with the same routes (min cosine {cos})")
+    del m
+
+    # ---- greedy generate, B = 2
+    moe_generate_check("Mixtral bf16", model, enc, 32, counted)
+    step = decode_step("Mixtral bf16", model, enc)
+    # the same step with the dropless impl, which reads only the experts its
+    # two rows chose (moe_impl "auto" takes dense below 1024 tokens)
+    step_dropless = decode_step("Mixtral bf16 dropless", GritLM(
+        dataclasses.replace(cfg, moe_impl="dropless"), params=model.params), enc)
+
+    # ---- serving: 8 generation and 4 embedding requests, dense and paged
+    tok = model.tokenizer
+    drive, specs = serving_workload(model, reset_counts, read_counts, total)
+    kw = dict(max_batch=8, max_len=4096, chunk_size=16, eos_id=tok.eos_token_id,
+              pad_id=tok.pad_token_id, device=model.device)
+    runs, chunk_steps = {}, {}
+    for label, extra in (("Mixtral dense", {}), ("Mixtral paged", dict(paged=True, page_size=256))):
+        eng = ServingEngine(cfg, model.params, **kw, **extra)
+        runs[label] = drive(label, eng, specs[:8], 4)
+        chunk_steps[label] = profile_decode_chunk(label, eng, serving._decode_chunk_program,
+                                                  specs)
+        if not eng.paged:  # one more chunk per moe_impl, with any host sync raising
+            for impl in ("dense", "auto", "dropless"):
+                torch.cuda.synchronize()
+                torch.cuda.set_sync_debug_mode("error")
+                try:
+                    serving._decode_chunk_program(
+                        eng.params, dataclasses.replace(cfg, moe_impl=impl), eng.carry,
+                        steps=2, eos_id=eng.eos_id, pad_id=eng.pad_id)
+                except RuntimeError as e:
+                    fail(f"serving [Mixtral dense]: a host sync in the decode chunk under "
+                         f"moe_impl={impl}: {str(e).splitlines()[0][:200]}")
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+            torch.cuda.synchronize()
+            print("serving [Mixtral dense]: decode chunks under moe_impl dense, auto and "
+                  "dropless ran with set_sync_debug_mode('error'): no host sync", flush=True)
+        del eng
+    dense_toks, paged_toks = runs["Mixtral dense"]["tokens"], runs["Mixtral paged"]["tokens"]
+    ids_by = {rid: ids for rid, ids, _ in specs[:8]}
+    differ = [rid for rid in ids_by if dense_toks[rid] != paged_toks[rid]]
+    print(f"serving [Mixtral]: {len(differ)} of {len(ids_by)} greedy streams differ between "
+          "the dense and the paged pool", flush=True)
+    for rid in differ:
+        a, b = dense_toks[rid], paged_toks[rid]
+        j = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), min(len(a), len(b)))
+        gaps = [teacher_deficits(model, ids_by[rid], t, routes=Routes(
+                    "pin", list(runs[pool]["book"].table(rid, ids_by[rid], t))))[j]
+                if j < len(t) else float("nan")
+                for t, pool in ((a, "Mixtral dense"), (b, "Mixtral paged"))]
+        print(f"  {rid}: first differs at generated token {j}; deficit to the largest logit "
+              f"with the pool's routes pinned: dense {float(gaps[0]):.4f}, paged "
+              f"{float(gaps[1]):.4f} (TIE_TOL {TIE_TOL})", flush=True)
+        if max(float(g) for g in gaps) > TIE_TOL:
+            fail(f"serving [Mixtral]: {rid} departs between the pools by more than a near-tie")
+    for label, st in list(chunk_steps.items()) + [("generate B=2 (decode step)", step),
+                                                  ("generate B=2, dropless", step_dropless)]:
+        print(f"decode step [{label}]: " + (
+            "not measured" if st is None else
+            f"{st[0]:.3f} device ms, {st[1]:.3f} host ms, idle share {st[2]:.3f}"), flush=True)
+    # ---- RAGEngine: doc caches built through the MoE trunk, the DOC mode
+    from gritlm_tpu_torch.rag import CacheMode, RAGEngine
+
+    def rag_doc():
+        eng = RAGEngine(model, max_new_tokens=16, encode_max_length=512)
+        eng.build_index([{"text": t} for t in SENTENCES], batch_size=16, cache_docs=True)
+        return eng.answer_batch(SENTENCES[:4], mode=CacheMode.DOC)
+
+    res, launched = counted(rag_doc)
+    print(f"rag [Mixtral doc]: {res[0].seconds * 1e3:.1f} ms/query (batch 4, 16 new tokens, "
+          f"index and doc caches of the 16 sentences built first); launches {launched}; "
+          f"answer {res[0].answer!r}", flush=True)
+    if [r.passages[0]["text"] for r in res] != SENTENCES[:4]:
+        fail("rag [Mixtral doc]: a query did not retrieve its own passage")
+    if not launched.get("scores_segmax") or not launched.get("flash_decode"):
+        fail(f"rag [Mixtral doc]: search or decode skipped its kernel: {launched}")
+
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    del model, runs, drive  # drive holds the model
+    gc.collect()  # engines held in reference cycles (their on_token closures) keep their pools
+    torch.cuda.empty_cache()
+
+    # ---- w8 at depth MOE_W8_DEPTH, quantized from a bf16 model of that depth
+    t0 = time.time()
+    torch.cuda.reset_peak_memory_stats()
+    cfg8 = dataclasses.replace(mixtral_8x7b(), num_hidden_layers=MOE_W8_DEPTH)
+    base = GritLM(cfg8, seed=0)
+    bf16_bytes = quant.quantized_bytes(base.params)
+    m8 = GritLM(cfg8, params=base.params, weight_quant=8)
+    del base
+    gc.collect()
+    torch.cuda.empty_cache()
+    w8_bytes = quant.quantized_bytes(m8.params)
+    print(f"weights [Mixtral w8, depth {MOE_W8_DEPTH}]: {w8_bytes / 2**30:.2f} GiB against "
+          f"{bf16_bytes / 2**30:.2f} GiB bf16; built in {time.time() - t0:.1f} s, peak "
+          f"allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+    before = dict(total)
+    moe_generate_check("Mixtral w8", m8, enc, 16, counted)
+    if total.get("w8a16_matmul", 0) == before.get("w8a16_matmul", 0):
+        fail("generate [Mixtral w8]: decode did not go through K6")
+    step8 = decode_step("Mixtral w8", m8, enc)
+    print(f"decode step [Mixtral w8, B=2, depth {MOE_W8_DEPTH}]: " + (
+        "not measured" if step8 is None else
+        f"{step8[0]:.3f} device ms, {step8[1]:.3f} host ms, idle share {step8[2]:.3f}"),
+        flush=True)
+    del m8
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    path_launches["moe"] = total
+    missing = [n for n in ("flash_attention", "fused_norm_mean_pool", "flash_decode",
+                           "paged_decode", "w8a16_matmul") if not total.get(n)]
+    print(f"MoE launches: {total}; peak allocated at depth {MOE_DEPTH}: {peak:.2f} GiB; "
+          f"phase 13 {time.time() - t_phase:.0f} s", flush=True)
+    if missing:
+        fail(f"the MoE path never launched {missing}")
 
 def flash_bwd_checks(dev, randn, max_err, B=2, S=2048, H=32, Hkv=8, window=512) -> None:
     """K4 and K5 against the plain backward from the same saved LSE at

@@ -14,7 +14,9 @@ sequence buckets, as in the JAX package, so the same kernel shapes recur.
 speculation (spec_decode.py): the same tokens as plain greedy generate, up
 to k + 1 of them a forward.
 
-Not ported yet (raise NotImplementedError): `mesh=` and MoE configs.
+A Mixtral config runs the same paths (models/transformer `_moe_mlp`).
+
+Not ported yet (raises NotImplementedError): `mesh=`.
 """
 
 from __future__ import annotations
@@ -133,8 +135,6 @@ class GritLM:
             raise NotImplementedError(f"Unknown pooling method: {pooling_method}")
         if mesh:
             raise NotImplementedError("GritLM(mesh=...) is not ported yet")
-        if config.is_moe:
-            raise NotImplementedError("MoE configs are not ported yet")
         self.config = config
         self.device = resolve_device(device)
         self.mode = mode

@@ -22,10 +22,21 @@ from gritlm_tpu_torch.models.transformer import resolve_device
 
 
 def expected_shapes(cfg: ModelConfig) -> dict:
-    """Leaf path -> shape for a dense config's params."""
+    """Leaf path -> shape for a config's params (the MLP's or, for a
+    Mixtral config, the MoE's leaves)."""
     L, D, F = cfg.num_hidden_layers, cfg.hidden_size, cfg.intermediate_size
     H, Kv, Dh, V = (cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim_,
                     cfg.vocab_size)
+    if cfg.is_moe:
+        E = cfg.num_local_experts
+        mlp = {("layers", "moe", "router"): (L, D, E),
+               ("layers", "moe", "gate"): (L, E, D, F),
+               ("layers", "moe", "up"): (L, E, D, F),
+               ("layers", "moe", "down"): (L, E, F, D)}
+    else:
+        mlp = {("layers", "mlp", "gate"): (L, D, F),
+               ("layers", "mlp", "up"): (L, D, F),
+               ("layers", "mlp", "down"): (L, F, D)}
     return {
         ("embed", "embedding"): (V, D),
         ("layers", "ln1", "scale"): (L, D),
@@ -37,9 +48,7 @@ def expected_shapes(cfg: ModelConfig) -> dict:
         ("layers", "attn", "bq"): (L, H * Dh),
         ("layers", "attn", "bk"): (L, Kv * Dh),
         ("layers", "attn", "bv"): (L, Kv * Dh),
-        ("layers", "mlp", "gate"): (L, D, F),
-        ("layers", "mlp", "up"): (L, D, F),
-        ("layers", "mlp", "down"): (L, F, D),
+        **mlp,
         ("final_ln", "scale"): (D,),
         ("lm_head", "kernel"): (D, V),
     }
@@ -54,8 +63,9 @@ def _to_torch(arr: np.ndarray) -> torch.Tensor:
 
 def _quantized_shapes(node: dict, dense: tuple, name: str) -> None:
     """Check a quantized leaf against the dense [..., K, N] shape it stands
-    for: q8 int8 [..., K, N] with scale [..., 1, N]; q4 uint8 [..., K/2, N]
-    with scale [..., K/g, N], g dividing K."""
+    for ([L, K, N], or [L, E, K, N] for an expert stack): q8 int8 [..., K, N]
+    with scale [..., 1, N]; q4 uint8 [..., K/2, N] with scale [..., K/g, N],
+    g dividing K."""
     *lead, K, N = dense
     scale = tuple(np.shape(node["scale"]))
     if "q8" in node:
@@ -90,9 +100,7 @@ def params_from_jax(tree: dict, cfg: ModelConfig, device=None) -> dict:
     `device`. Quantized leaves (training/quant.py layouts) carry over as
     they are, and so does an embedding projection head
     (projection/{kernel [D, P], bias [P]}, any P). Raises on a leaf the
-    dense port does not know or a shape that does not match `cfg`."""
-    if cfg.is_moe:
-        raise NotImplementedError("MoE configs are not ported yet")
+    port does not know or a shape that does not match `cfg`."""
     device = resolve_device(device)
     shapes = expected_shapes(cfg)
 

@@ -1,6 +1,6 @@
 """HF-safetensors checkpoint bridge (port of gritlm_tpu.models.loader).
 
-`load_checkpoint` reads Mistral/Llama/Qwen2-family HF checkpoints into the
+`load_checkpoint` reads Mistral/Mixtral/Llama/Qwen2-family HF checkpoints into the
 port's stacked-layer param tree; `save_checkpoint` exports back to HF names,
 sharded and indexed as the JAX package does. HF stores Linear weights as
 [out, in]; the port's kernels are [in, out], so they transpose on the way.
@@ -11,8 +11,9 @@ JSON header mapping each name to its dtype, shape and `data_offsets`
 (padded with spaces to a multiple of 8 bytes), then the raw little-endian
 tensor bytes. Files written here load in `safetensors.numpy.load_file`.
 An embedding projection head travels as `projection.weight`/`.bias`.
-`add_lm_head` grafts a donor's LM head onto an embedding-only model. MoE
-(Mixtral) checkpoints raise NotImplementedError (ROADMAP Queue 1 item 11).
+A Mixtral layer's MoE travels as `block_sparse_moe.gate.weight` (the
+router) and `block_sparse_moe.experts.{e}.w1|w3|w2.weight` (gate, up,
+down). `add_lm_head` grafts a donor's LM head onto an embedding-only model.
 """
 
 from __future__ import annotations
@@ -97,8 +98,6 @@ def load_checkpoint(path: str, with_lm_head: bool = True, dtype: Optional[str] =
     (CUDA unless asked otherwise). `dtype` overrides the checkpoint dtype
     for both the config and the tensors."""
     cfg = ModelConfig.from_hf_config(os.path.join(path, "config.json"), dtype=dtype)
-    if cfg.is_moe:
-        raise NotImplementedError("MoE checkpoints are not ported (ROADMAP Queue 1 item 11)")
     device = resolve_device(device)
     tensors = _open_all_tensors(path)
     dt = cfg.torch_dtype
@@ -134,18 +133,39 @@ def load_checkpoint(path: str, with_lm_head: bool = True, dtype: Optional[str] =
         attn["bq"] = stack("layers.{i}.self_attn.q_proj.bias")
         attn["bk"] = stack("layers.{i}.self_attn.k_proj.bias")
         attn["bv"] = stack("layers.{i}.self_attn.v_proj.bias")
+    layers = {
+        "ln1": {"scale": stack("layers.{i}.input_layernorm.weight")},
+        "attn": attn,
+        "ln2": {"scale": stack("layers.{i}.post_attention_layernorm.weight")},
+    }
+    if cfg.is_moe:
+        E = cfg.num_local_experts
+
+        def stack_experts(w: str) -> torch.Tensor:
+            # [L, E, in, out], filled one expert matrix at a time
+            name = "layers.{i}.block_sparse_moe.experts.{e}." + w + ".weight"
+            out_dim, in_dim = tensors[maybe_prefix(name.format(i=0, e=0))].shape
+            out = torch.empty((L, E, in_dim, out_dim), dtype=dt, device=device)
+            for i in range(L):
+                for e in range(E):
+                    out[i, e] = on_device(tensors[maybe_prefix(name.format(i=i, e=e))], True)
+            return out
+
+        layers["moe"] = {
+            "router": stack("layers.{i}.block_sparse_moe.gate.weight", True),
+            "gate": stack_experts("w1"),  # HF w1 = gate [F, D]
+            "up": stack_experts("w3"),  # HF w3 = up [F, D]
+            "down": stack_experts("w2"),  # HF w2 = down [D, F]
+        }
+    else:
+        layers["mlp"] = {
+            "gate": stack("layers.{i}.mlp.gate_proj.weight", True),
+            "up": stack("layers.{i}.mlp.up_proj.weight", True),
+            "down": stack("layers.{i}.mlp.down_proj.weight", True),
+        }
     params = {
         "embed": {"embedding": get(maybe_prefix("embed_tokens.weight"))},
-        "layers": {
-            "ln1": {"scale": stack("layers.{i}.input_layernorm.weight")},
-            "attn": attn,
-            "ln2": {"scale": stack("layers.{i}.post_attention_layernorm.weight")},
-            "mlp": {
-                "gate": stack("layers.{i}.mlp.gate_proj.weight", True),
-                "up": stack("layers.{i}.mlp.up_proj.weight", True),
-                "down": stack("layers.{i}.mlp.down_proj.weight", True),
-            },
-        },
+        "layers": layers,
         "final_ln": {"scale": get(maybe_prefix("norm.weight"))},
     }
     if with_lm_head and not cfg.tie_word_embeddings and "lm_head.weight" in tensors:
@@ -161,8 +181,6 @@ def save_checkpoint(path: str, cfg: ModelConfig, params: dict,
     """Export to HF names in safetensors (the inverse of load_checkpoint),
     sharded at about 5 GB with an index, as the JAX package does. Tensors
     are copied to the CPU one at a time as they are written."""
-    if cfg.is_moe:
-        raise NotImplementedError("MoE checkpoints are not ported (ROADMAP Queue 1 item 11)")
     os.makedirs(path, exist_ok=True)
     flat: Dict[str, torch.Tensor] = {}
 
@@ -183,9 +201,18 @@ def save_checkpoint(path: str, cfg: ModelConfig, params: dict,
             put(f"{p}.self_attn.k_proj.bias", ls["attn"]["bk"][i])
             put(f"{p}.self_attn.v_proj.bias", ls["attn"]["bv"][i])
         put(f"{p}.post_attention_layernorm.weight", ls["ln2"]["scale"][i])
-        put(f"{p}.mlp.gate_proj.weight", ls["mlp"]["gate"][i], True)
-        put(f"{p}.mlp.up_proj.weight", ls["mlp"]["up"][i], True)
-        put(f"{p}.mlp.down_proj.weight", ls["mlp"]["down"][i], True)
+        if cfg.is_moe:
+            moe = ls["moe"]
+            put(f"{p}.block_sparse_moe.gate.weight", moe["router"][i], True)
+            for e in range(cfg.num_local_experts):
+                q = f"{p}.block_sparse_moe.experts.{e}"
+                put(f"{q}.w1.weight", moe["gate"][i, e], True)
+                put(f"{q}.w3.weight", moe["up"][i, e], True)
+                put(f"{q}.w2.weight", moe["down"][i, e], True)
+        else:
+            put(f"{p}.mlp.gate_proj.weight", ls["mlp"]["gate"][i], True)
+            put(f"{p}.mlp.up_proj.weight", ls["mlp"]["up"][i], True)
+            put(f"{p}.mlp.down_proj.weight", ls["mlp"]["down"][i], True)
     put("model.norm.weight", params["final_ln"]["scale"])
     if "lm_head" in params:
         put("lm_head.weight", params["lm_head"]["kernel"], True)
@@ -245,6 +272,10 @@ def save_checkpoint(path: str, cfg: ModelConfig, params: dict,
                       high_freq_factor=cfg.rope_high_freq_factor,
                       original_max_position_embeddings=cfg.rope_original_max_position)
         hf_cfg["rope_scaling"] = rs
+    if cfg.is_moe:
+        hf_cfg.update(num_local_experts=cfg.num_local_experts,
+                      num_experts_per_tok=cfg.num_experts_per_tok,
+                      router_aux_loss_coef=cfg.router_aux_loss_coef)
     with open(os.path.join(path, "config.json"), "w") as f:
         json.dump(hf_cfg, f, indent=2)
 

@@ -1,4 +1,4 @@
-"""Decoder-only transformer (Mistral family, dense) on PyTorch tensors.
+"""Decoder-only transformer (Mistral / Mixtral family) on PyTorch tensors.
 
 Port of gritlm_tpu.models.transformer. Params are a nested dict of tensors
 with the layer axis stacked first, the same tree as the JAX package:
@@ -10,7 +10,9 @@ with the layer axis stacked first, the same tree as the JAX package:
       "attn": {"wq": [L, D, H*Dh], "wk": [L, D, Kv*Dh], "wv": [L, D, Kv*Dh],
                "wo": [L, H*Dh, D]},            # + bq/bk/bv for Qwen2
       "ln2": {"scale": [L, D]},
-      "mlp": {"gate": [L, D, F], "up": [L, D, F], "down": [L, F, D]},
+      # dense: "mlp": {"gate": [L, D, F], "up": [L, D, F], "down": [L, F, D]}
+      # MoE:   "moe": {"router": [L, D, E], "gate": [L, E, D, F],
+      #                "up": [L, E, D, F], "down": [L, E, F, D]}
     },
     "final_ln": {"scale": [D]},
     "lm_head": {"kernel": [D, V]},             # optional
@@ -34,6 +36,15 @@ weights exists. A kernel leaf may also be quantized (training/quant.py):
 and `_w` dequantizes an int8 QLoRA base one layer at a time. Each layer's
 leaves are views of the stacked tensors (`_unstack`), so the kernels read a
 layer's weights in place.
+
+A Mixtral config (`cfg.is_moe`) replaces each layer's MLP with `_moe_mlp`:
+token-choice top-k routing over E experts, run by `cfg.moe_impl` as the
+JAX package runs it ("dense": every expert on every token; "dropless":
+the (token, choice) pairs sorted by expert through grouped matmuls;
+"gshard": capacity dispatch and combine; "auto": dense below
+MOE_AUTO_DENSE_MAX tokens, dropless from there). The expert stacks go
+through `_w` (a quantized stack is dequantized one layer at a time); K6 and
+K7 serve only the attention projections and the LM head.
 """
 
 from __future__ import annotations
@@ -66,11 +77,6 @@ def resolve_device(device=None) -> torch.device:
     return device
 
 
-def _check_dense(cfg: ModelConfig) -> None:
-    if cfg.is_moe:
-        raise NotImplementedError("MoE configs are not ported yet")
-
-
 # ---------------------------------------------------------------------------
 # Param init
 
@@ -80,7 +86,6 @@ def init_params(cfg: ModelConfig, seed: Union[int, torch.Generator] = 0,
     """Random init (normal, std 0.02) with the layer axis stacked, drawn on
     `device` from a seeded torch.Generator (the numbers differ from the JAX
     package's init; tests carry JAX params over with params_from_jax)."""
-    _check_dense(cfg)
     device = resolve_device(device)
     gen = seed
     if not isinstance(gen, torch.Generator):
@@ -92,7 +97,7 @@ def init_params(cfg: ModelConfig, seed: Union[int, torch.Generator] = 0,
 
     def norm(*shape):
         t = torch.empty(shape, dtype=dt, device=device)
-        for part in (t if len(shape) == 3 else [t]):  # one layer at a time
+        for part in (t if len(shape) >= 3 else [t]):  # one layer at a time
             part.normal_(0.0, 0.02, generator=gen)
         return t
 
@@ -108,14 +113,16 @@ def init_params(cfg: ModelConfig, seed: Union[int, torch.Generator] = 0,
     if cfg.attention_bias:
         for name, n in (("bq", H * Dh), ("bk", Kv * Dh), ("bv", Kv * Dh)):
             attn[name] = torch.zeros((L, n), dtype=dt, device=device)
+    layers = {"ln1": {"scale": ones(L, D)}, "attn": attn, "ln2": {"scale": ones(L, D)}}
+    if cfg.is_moe:
+        E = cfg.num_local_experts
+        layers["moe"] = {"router": norm(L, D, E), "gate": norm(L, E, D, Fd),
+                         "up": norm(L, E, D, Fd), "down": norm(L, E, Fd, D)}
+    else:
+        layers["mlp"] = {"gate": norm(L, D, Fd), "up": norm(L, D, Fd), "down": norm(L, Fd, D)}
     params = {
         "embed": {"embedding": norm(V, D)},
-        "layers": {
-            "ln1": {"scale": ones(L, D)},
-            "attn": attn,
-            "ln2": {"scale": ones(L, D)},
-            "mlp": {"gate": norm(L, D, Fd), "up": norm(L, D, Fd), "down": norm(L, Fd, D)},
-        },
+        "layers": layers,
         "final_ln": {"scale": ones(D)},
     }
     if with_lm_head and not cfg.tie_word_embeddings:
@@ -449,6 +456,113 @@ def _dense_mlp(p: dict, x: torch.Tensor) -> torch.Tensor:
     return _mm(F.silu(_mm(x, p["gate"])) * _mm(x, p["up"]), p["down"])
 
 
+def _router(p: dict, xt: torch.Tensor, cfg: ModelConfig):
+    """Mixtral token-choice routing on xt [T, D]: the router logits in the
+    activation dtype, then fp32; softmax, top-k, renormalized over the
+    chosen experts. Returns (logits, probs [T, E], weights, indices [T, k])."""
+    router_logits = (xt @ _w(p["router"], xt.dtype)).float()
+    probs = torch.softmax(router_logits, dim=-1)
+    top_w, top_idx = torch.topk(probs, cfg.num_experts_per_tok, dim=-1)
+    top_w = top_w / top_w.sum(dim=-1, keepdim=True)
+    return router_logits, probs, top_w, top_idx
+
+
+def _moe_mlp_dense(p: dict, x: torch.Tensor, cfg: ModelConfig):
+    """Every expert on every token, combined by the gate weights in the
+    activation dtype. Exact, E/k times the operations of the routed ones;
+    at decode rows every expert's weights are read anyway. Returns (out,
+    router_logits [T, E], dropped fraction 0)."""
+    B, S, D = x.shape
+    xt = x.reshape(B * S, D)
+    router_logits, probs, top_w, top_idx = _router(p, xt, cfg)
+    combine = torch.zeros_like(probs).scatter_(1, top_idx, top_w)  # [T, E]
+    h = xt @ _w(p["gate"], xt.dtype)  # [E, T, F]
+    u = xt @ _w(p["up"], xt.dtype)
+    y = (F.silu(h) * u) @ _w(p["down"], xt.dtype)  # [E, T, D]
+    out = torch.einsum("te,etd->td", combine.to(y.dtype), y)
+    return out.reshape(B, S, D), router_logits, x.new_zeros((), dtype=torch.float32)
+
+
+def _moe_mlp_gshard(p: dict, x: torch.Tensor, cfg: ModelConfig):
+    """GShard capacity dispatch: each token goes to its top-k experts up to
+    C = ceil(k T / E * capacity_factor) tokens an expert, choice-major (every
+    token's first choice before any second); an overflowing route is
+    dropped (its token's residual passes through). Dispatch and combine in
+    fp32; capacity_factor >= E/k is exact. Returns (out, router_logits,
+    the fraction of routes dropped). No expert mesh: one device holds all
+    experts."""
+    B, S, D = x.shape
+    T, E, k = B * S, cfg.num_local_experts, cfg.num_experts_per_tok
+    xt = x.reshape(T, D)
+    router_logits, probs, top_w, top_idx = _router(p, xt, cfg)
+    C = min(max(int(math.ceil(k * T / E * cfg.capacity_factor)), 1), T)
+
+    masks = F.one_hot(top_idx, E)  # [T, k, E]
+    mask_flat = masks.transpose(0, 1).reshape(k * T, E)
+    pos_flat = torch.cumsum(mask_flat, dim=0) * mask_flat - 1  # slot a route takes
+    pos = (pos_flat.reshape(k, T, E).transpose(0, 1) * masks).sum(-1)  # [T, k]
+    kept = (pos < C) & (pos >= 0)
+
+    slot = F.one_hot(torch.where(kept, pos, torch.full_like(pos, C)), C + 1)[..., :C]
+    dispatch = masks.float()[..., None] * slot.float()[:, :, None, :]  # [T, k, E, C]
+    combine = torch.einsum("tk,tkec->tec", top_w, dispatch)
+    dispatch = dispatch.sum(1)  # [T, E, C]
+    dropped_frac = (1.0 - kept.float().sum() / (T * k)).clamp_min(0.0)
+
+    xe = torch.einsum("td,tec->ecd", xt.float(), dispatch).to(x.dtype)  # [E, C, D]
+    h = xe @ _w(p["gate"], xe.dtype)
+    u = xe @ _w(p["up"], xe.dtype)
+    ye = (F.silu(h) * u) @ _w(p["down"], xe.dtype)  # [E, C, D]
+    out = torch.einsum("ecd,tec->td", ye.float(), combine)
+    return out.to(x.dtype).reshape(B, S, D), router_logits, dropped_frac
+
+
+def _moe_mlp_dropless(p: dict, x: torch.Tensor, cfg: ModelConfig):
+    """Dropless MoE: the T k (token, choice) pairs sorted by expert (a
+    stable sort, so tokens keep their order within an expert), three
+    grouped matmuls over the sorted rows (`torch._grouped_mm`, XLA's
+    `ragged_dot`: group ends from a device-side count, no host read), the
+    rows put back by the inverse permutation and combined in fp32. Every
+    route computes, at k / E of the dense impl's operations. Returns (out,
+    router_logits, dropped fraction 0)."""
+    B, S, D = x.shape
+    T, E, k = B * S, cfg.num_local_experts, cfg.num_experts_per_tok
+    xt = x.reshape(T, D)
+    router_logits, probs, top_w, top_idx = _router(p, xt, cfg)
+
+    flat_e = top_idx.reshape(-1)  # [T k] expert of each (token, choice)
+    order = torch.argsort(flat_e, stable=True)
+    xs = xt.index_select(0, order // k)  # [T k, D] rows grouped by expert
+    group_ends = torch.zeros(E, dtype=torch.int32, device=x.device).scatter_add_(
+        0, flat_e, torch.ones_like(flat_e, dtype=torch.int32)).cumsum(0, dtype=torch.int32)
+
+    h = torch._grouped_mm(xs, _w(p["gate"], xs.dtype), offs=group_ends)
+    u = torch._grouped_mm(xs, _w(p["up"], xs.dtype), offs=group_ends)
+    ys = torch._grouped_mm(F.silu(h) * u, _w(p["down"], xs.dtype), offs=group_ends)
+    inv = torch.empty_like(order).scatter_(0, order, torch.arange(T * k, device=x.device))
+    ys_tok = ys.index_select(0, inv).reshape(T, k, D)  # back to (token, choice) order
+    out = torch.einsum("tkd,tk->td", ys_tok.float(), top_w.float())
+    return out.to(x.dtype).reshape(B, S, D), router_logits, x.new_zeros((), dtype=torch.float32)
+
+
+# moe_impl="auto": below this many tokens (decode steps, short encodes) the
+# dense pass, at and above it dropless, as in the JAX package. The token
+# count is a shape, so the choice costs no host read.
+MOE_AUTO_DENSE_MAX = 1024
+
+
+def _moe_mlp(p: dict, x: torch.Tensor, cfg: ModelConfig):
+    """The MoE layer by `cfg.moe_impl` -> (out, router_logits, dropped)."""
+    impl = cfg.moe_impl
+    if impl == "auto":
+        impl = "dense" if x.shape[0] * x.shape[1] < MOE_AUTO_DENSE_MAX else "dropless"
+    if impl == "gshard":
+        return _moe_mlp_gshard(p, x, cfg)
+    if impl == "dropless":
+        return _moe_mlp_dropless(p, x, cfg)
+    return _moe_mlp_dense(p, x, cfg)
+
+
 # ---------------------------------------------------------------------------
 # Forward
 
@@ -502,8 +616,11 @@ def forward(
     row never clears a bit, and cache.length is left alone. S > 1 is the
     speculative verify chunk: causal attention inside the chunk at each
     row's own offset (K3 or K8 with per-row offsets); the caller clears the
-    bits of rejected slots afterwards."""
-    _check_dense(cfg)
+    bits of rejected slots afterwards.
+
+    A MoE trunk's router logits and dropped fraction stay out of `aux`:
+    they feed the JAX package's training losses, which wait for MoE
+    training (ROADMAP Queue 1 item 11)."""
     if remat_policy is not None:
         raise NotImplementedError(
             f"remat_policy={remat_policy!r}: only the full recompute (None) is ported; "
@@ -547,6 +664,8 @@ def forward(
         x = x + _attention_block(lp["attn"], h, rope, attention_mask, cfg,
                                  causal=causal, layer_cache=layer_cache)
         h = rms_norm(x, lp["ln2"]["scale"], cfg.rms_norm_eps)
+        if cfg.is_moe:
+            return x + _moe_mlp(lp["moe"], h, cfg)[0]
         return x + _dense_mlp(lp["mlp"], h)
 
     recompute = remat and cache is None and torch.is_grad_enabled()

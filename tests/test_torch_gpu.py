@@ -962,3 +962,120 @@ def test_quantized_gritlm_runs_its_kernels(cuda):
         logits = logits[len(prompt) - 1:len(prompt) - 1 + n]
         chosen = logits.gather(1, toks[:, None])[:, 0]
         assert float((logits.max(1).values - chosen).max()) <= 0.25
+
+
+# ------------------------------------------------------------ Mixtral MoE
+
+MOE_SENTS = ["Bitcoin is a decentralized digital currency.", "The cell's powerhouse.",
+             "A transformer layer applies attention and then a mixture of experts."]
+
+
+def _moe_model(impl="dense"):
+    """A 2-layer model at Mixtral-8x7B's widths but the experts' (D 4096,
+    32/8 heads of 128, 8 experts, top-2), with experts of width 256; random
+    bf16 weights."""
+    from gritlm_tpu_torch import GritLM
+
+    cfg = ModelConfig(vocab_size=512, intermediate_size=256, num_hidden_layers=2,
+                      num_local_experts=8, num_experts_per_tok=2, model_type="mixtral",
+                      moe_impl=impl)
+    return GritLM(cfg, seed=0)
+
+
+def _cosine_min(a, b) -> float:
+    a, b = torch.as_tensor(a).float(), torch.as_tensor(b).float()
+    return float(torch.nn.functional.cosine_similarity(a, b, dim=-1).min())
+
+
+def test_moe_dense_and_dropless_agree(cuda):
+    """The dense all-experts pass and the dropless grouped products
+    (torch._grouped_mm) on one MoE layer at the same input: the same router
+    logits, outputs within bf16 rounding of each other (dense combines in
+    bf16, dropless in fp32); encode embeddings through each at cosine >=
+    0.999."""
+    import dataclasses
+
+    from gritlm_tpu_torch import GritLM
+    from gritlm_tpu_torch.models import transformer as tr
+
+    m = _moe_model()
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    x = _randn(gen, 3, 70, 4096, device=cuda)
+    lp = {k: v[1] for k, v in m.params["layers"]["moe"].items()}
+    with torch.inference_mode():
+        dense, dropless = tr._moe_mlp_dense(lp, x, m.config), tr._moe_mlp_dropless(lp, x, m.config)
+    assert torch.equal(dense[1], dropless[1])
+    assert torch.isfinite(dropless[0]).all()
+    rel = (dense[0].float() - dropless[0].float()).norm() / dense[0].float().norm()
+    assert float(rel) < 1e-2, float(rel)
+    other = GritLM(dataclasses.replace(m.config, moe_impl="dropless"), params=m.params)
+    assert _cosine_min(m.encode(MOE_SENTS), other.encode(MOE_SENTS)) >= 0.999
+
+
+@pytest.mark.parametrize("impl", ["dense", "auto", "dropless"])
+def test_moe_serving_decode_chunk_has_no_host_sync(cuda, impl):
+    """One serving decode chunk over a MoE trunk queues without a host sync
+    (torch.cuda.set_sync_debug_mode("error") raises on one), through K3."""
+    from gritlm_tpu_torch import serving
+
+    m = _moe_model(impl)
+    eng = serving.ServingEngine(m.config, m.params, max_batch=3, max_len=256, chunk_size=4,
+                                prompt_buckets=(64,))
+    for n in (5, 40, 20):
+        eng.submit(serving.Request(input_ids=list(range(3, 3 + n)), max_new_tokens=32,
+                                   request_id=str(n)))
+    eng.step()  # admits all three and dispatches a first chunk
+    torch.cuda.synchronize()
+    before = decode_attention.flash_decode.launches
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        toks, emitted = serving._decode_chunk_program(eng.params, eng.cfg, eng.carry, steps=4,
+                                                      eos_id=eng.eos_id, pad_id=eng.pad_id)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert toks.shape == emitted.shape == (4, 3)
+    assert decode_attention.flash_decode.launches > before
+
+
+def test_moe_paths_run_their_kernels(cuda, monkeypatch):
+    """On a MoE trunk, encode goes through K1 and K2 and generate through
+    K3; K2's and K3's calls there (captured with their inputs) agree with
+    the plain versions, and encode through the plain K1 and K2 gives the
+    kernels' embeddings at cosine >= 0.999."""
+    m = _moe_model()
+    calls = {}
+
+    def capture(mod, name):
+        fn = getattr(mod, name)
+
+        def wrapper(*args, **kw):
+            if name not in calls:
+                calls[name] = ([a.clone() if torch.is_tensor(a) else a for a in args],
+                               {k: v.clone() if torch.is_tensor(v) else v for k, v in kw.items()})
+            return fn(*args, **kw)
+
+        # a kernel wrapper adds its launches to the function its module's
+        # name holds, so while this one stands in, the counts land here
+        wrapper.launches = wrapper.row_offset_launches = 0
+        monkeypatch.setattr(mod, name, wrapper)
+        return fn
+
+    k1 = flash_attention.flash_attention.launches
+    k2 = capture(fused_pool, "fused_norm_mean_pool")
+    k3 = capture(decode_attention, "flash_decode")
+    emb = m.encode(MOE_SENTS)
+    res = m.generate(["Hi", "Name a city."], max_new_tokens=6)
+    assert isinstance(res, list) and flash_attention.flash_attention.launches > k1
+    assert fused_pool.fused_norm_mean_pool.launches > 0
+    assert decode_attention.flash_decode.launches > 0
+    for name, kernel, plain, atol in (
+            ("fused_norm_mean_pool", k2, fused_pool.fused_norm_mean_pool_plain, 1e-4),
+            ("flash_decode", k3, decode_attention.flash_decode_plain, ATTN_ATOL)):
+        args, kw = calls[name]
+        got, want = kernel(*args, **kw), plain(*args, **kw)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=0)
+    monkeypatch.setattr(fused_pool, "fused_norm_mean_pool", fused_pool.fused_norm_mean_pool_plain)
+    monkeypatch.setattr(flash_attention, "flash_attention", flash_attention.flash_attention_plain)
+    assert _cosine_min(emb, m.encode(MOE_SENTS)) >= 0.999

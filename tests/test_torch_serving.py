@@ -352,6 +352,25 @@ def test_serve_cli_matches_jax(tmp_path):
     assert sorted(r["id"] for r in _cli_lines(tmp_path / "x.jsonl")) == ["e0", "g0", "g1"]
 
 
+def test_serve_cli_tiny_mixtral(tmp_path):
+    """`python -m gritlm_tpu_torch.serve --model_preset tiny_mixtral --device
+    cpu` answers a generation and an embedding request."""
+    reqs = tmp_path / "reqs.jsonl"
+    rows = [{"id": "g0", "prompt": "<s><|user|>\nHi\n<|assistant|>\n", "max_new_tokens": 4},
+            {"id": "e0", "type": "embed", "text": "a passage to embed"}]
+    reqs.write_text("".join(json.dumps(r) + "\n" for r in rows))
+    out = tmp_path / "done.jsonl"
+    proc = subprocess.run([sys.executable, "-m", "gritlm_tpu_torch.serve", "--model_preset",
+                           "tiny_mixtral", "--device", "cpu", "--requests", str(reqs), "--out",
+                           str(out), "--slots", "2", "--max_len", "128", "--prompt_buckets", "64"],
+                          cwd=ROOT, check=True, capture_output=True, text=True, timeout=300)
+    summary = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert (summary["requests"], summary["completions"], summary["embeddings"]) == (2, 1, 1)
+    by_id = {r["id"]: r for r in map(json.loads, out.read_text().splitlines())}
+    assert 1 <= len(by_id["g0"]["token_ids"]) <= 4
+    assert len(by_id["e0"]["embedding"]) == 64
+
+
 # ---------------------------------------------------------- RAGEngine.serve
 
 PASSAGES = [{"title": "geo", "text": f"fact number {i} about place {i}"} for i in range(6)]

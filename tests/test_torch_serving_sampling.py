@@ -272,17 +272,21 @@ def test_nucleus_kept_set_matches_jax():
 
 
 @pytest.mark.parametrize("fn", ["_decode_chunk_program", "_spec_chunk_program", "_sample_rows",
-                                "_gumbel", "threefry2x32", "_lookup_proposals", "_accept"])
+                                "_gumbel", "threefry2x32", "_lookup_proposals", "_accept",
+                                "_router", "_moe_mlp", "_moe_mlp_dense", "_moe_mlp_dropless",
+                                "_moe_mlp_gshard"])
 def test_chunk_programs_have_no_host_sync(fn):
-    """The decode and verify chunks (and what they call per step) never read
-    the device from the host: no .item(), .cpu(), .tolist() or .numpy(), so
-    a chunk queues its steps without waiting (and a CUDA graph could capture
-    it)."""
+    """The decode and verify chunks (and what they call per step, the MoE
+    layer of a Mixtral trunk too) never read the device from the host: no
+    .item(), .cpu(), .tolist() or .numpy(), so a chunk queues its steps
+    without waiting (and a CUDA graph could capture it)."""
     import inspect
 
     from gritlm_tpu_torch import spec_decode
+    from gritlm_tpu_torch.models import transformer
 
-    src = inspect.getsource(getattr(serving, fn, None) or getattr(spec_decode, fn))
+    mod = next(m for m in (serving, spec_decode, transformer) if hasattr(m, fn))
+    src = inspect.getsource(getattr(mod, fn))
     for call in (".item(", ".cpu(", ".tolist(", ".numpy("):
         assert call not in src, (fn, call)
 
