@@ -16,10 +16,11 @@ parameters through `python -m gritlm_tpu_torch.training.run`'s main; the
 embedding projection head in encode and in training; then a Mixtral-8x7B
 of random bf16 weights at its published width, depth cut to 16, through
 encode, generate and the serving engine, and at depth 8 with int8
-weights), and times each kernel beside its bound, its plain version and
-one PyTorch library call.
+weights; per-request LoRA adapters in the serving engine and the remat
+policies of LoRA training), and times each kernel beside its bound, its
+plain version and one PyTorch library call.
 
-Phases (in the order 1-7, 12, 8, 9, 11, 13, 10), any failure exits non-zero:
+Phases (in the order 1-7, 12, 14, 8, 9, 11, 13, 10), any failure exits non-zero:
   1. device and build: card name and power limit, nvcc's register and
      shared-memory report; for the redesigned kernels (K1, K4/K5, K9 on
      wgmma; K3, K8, K6 and K7 on mma.sync; K2 on bulk copies and clusters)
@@ -169,6 +170,29 @@ Phases (in the order 1-7, 12, 8, 9, 11, 13, 10), any failure exits non-zero:
      GritLM(weight_quant=8) at depth MOE_W8_DEPTH (8, quantized from a bf16
      model of that depth) through greedy generate (16 tokens, TIE_TOL) and
      its decode step. K1, K2, K3, K8 and K6 must each launch.
+ 14. per-request LoRA adapters and the remat policies at Mistral-7B width
+     (after phase 12; counts set to 0 before each run and read after):
+     four adapters (r 16, alpha 64 on q/k/v/o/gate/up/down, B nonzero:
+     draw_adapters) stacked onto the base; phase 7's 24 generation
+     requests on adapters round-robin over None, a, b, c, d and its 8
+     embedding requests (every second on an adapter) through dense, paged
+     (page 256) and speculative (spec_k 7) pools, 8 of them through a
+     chunked-prefill (256) pool: completions, every token teacher-forced
+     within ADAPTER_TIE_TOL through the pool's own math and (dense pool,
+     printed) over its adapter merged into the base, each targeted
+     projection of the adapter branch within ADAPTER_RTOL of the merged
+     weight's, pool embeddings at cosine >= COSINE_MIN to GritLM.encode,
+     each adapter moving some request off the base, K1, K2 and K3 or K8
+     launched; the int8 base with the four adapters (8 requests, K6 in the
+     decode chunks); the decode step at B = 8
+     with every row on its own adapter (eight adapters) against no
+     adapters (device and host ms, idle share), and one adapter decode
+     chunk, dense and paged, under set_sync_debug_mode("error"); then
+     phase 10's LoRA step at depth REMAT_DEPTH (8) under the remat
+     policies None, "dots" and "dots_no_batch" (3 steps each: ms a step,
+     peak GiB, losses and adapters against the full recompute's, K1
+     relaunched by the recompute) and `training.run --remat_policy dots`
+     (LoRA, depth 4, 2 steps)
 
 Output: a `kernels` JSON line, the card line, then as the last line
 {"ok": true, "device": {...}}. Exits 2 with no result when there is no CUDA
@@ -697,14 +721,21 @@ def main() -> int:
     rag_eng = rag_phase(model, reset_counts, read_counts, path_launches)
 
     # ---------------------------------------------------------------- 7
-    dense_step, greedy_rates = serving_phase(model, rag_eng, reset_counts, read_counts,
-                                             path_launches)
+    dense_step, greedy_rates, greedy_ttfts = serving_phase(model, rag_eng, reset_counts,
+                                                           read_counts, path_launches)
     del rag_eng
 
     # ---------------------------------------------------------------- 12
     max_err[K3_VERIFY] = 0.0
     spec_phase(model, randn, reset_counts, read_counts, path_launches, times, max_err,
                greedy_rates)
+
+    # ---------------------------------------------------------------- 14
+    t14 = time.time()
+    adapter_phase(model, reset_counts, read_counts, path_launches, greedy_rates, greedy_ttfts)
+    remat_phase(dev, reset_counts, read_counts, path_launches)
+    print(f"phase 14: {time.time() - t14:.0f} s; total {time.time() - t_start:.0f} s",
+          flush=True)
 
     # ---------------------------------------------------------------- 8
     latency_phase(model)
@@ -1578,18 +1609,23 @@ def serving_workload(model, reset_counts, read_counts, total):
     counted = {name: counting(name) for name in programs}
 
     def drive(label, eng, gen_specs, n_embeds, decode_kernels=(), req_kw=None,
-              doc_specs=()):
-        """req_kw: per request id, Request keywords (sampling); doc_specs:
-        doc-continuation requests (rid, prompt ids, max new, doc entry, doc
-        ids), the doc ids as their lookup corpus (hist_ids). Returns
-        {"rate", "peak", "tokens", "verify", "book"}: generated tokens/s,
-        peak reserved pages, the tokens by request, (speculative pools) the
+              doc_specs=(), embed_kw=None, check=True):
+        """req_kw: per request id, Request keywords (sampling, adapter);
+        embed_kw: per embedding request id, EmbedRequest keywords (adapter);
+        doc_specs: doc-continuation requests (rid, prompt ids, max new, doc
+        entry, doc ids), the doc ids as their lookup corpus (hist_ids).
+        check=False leaves out the checks against `model` (pool embeddings
+        against GritLM.encode, teacher forcing): the caller holds the
+        results to its own oracles (an adapter pool's). Returns {"rate",
+        "ttft50", "peak", "tokens", "embs", "verify", "book"}: generated
+        tokens/s, time to first token p50 (s), peak reserved pages, the
+        tokens and the pool embeddings by request, (speculative pools) the
         verify chunks' emitted counts [steps, B] on the host, and (a MoE
         model) the RouteBook of the run: its teacher forcing and embedding
         checks pin the routes the engine took."""
         import contextlib
         first_at, peak = {}, [0]
-        req_kw = req_kw or {}
+        req_kw, embed_kw = req_kw or {}, embed_kw or {}
 
         def on_token(rid, _tok):
             first_at.setdefault(rid, time.perf_counter())
@@ -1601,7 +1637,8 @@ def serving_workload(model, reset_counts, read_counts, total):
                 for rid, ids, m in gen_specs]
         reqs += [Request(input_ids=ids, max_new_tokens=m, request_id=rid, doc_cache=entry,
                          hist_ids=doc) for rid, ids, m, entry, doc in doc_specs]
-        reqs += [EmbedRequest(input_ids=ids, instr_len=il, request_id=rid)
+        reqs += [EmbedRequest(input_ids=ids, instr_len=il, request_id=rid,
+                              **embed_kw.get(rid, {}))
                  for rid, ids, il in embed_specs[:n_embeds]]
         decode_counts.clear()
         verify_emits.clear()
@@ -1651,9 +1688,14 @@ def serving_workload(model, reset_counts, read_counts, total):
         for name in decode_kernels:
             if decode_counts.get(name, 0) == 0:
                 fail(f"serving [{label}]: decode chunks never launched {name}")
+        if n_embeds and counts["fused_norm_mean_pool"] == 0:
+            fail(f"serving [{label}]: embeddings did not go through K2")
+        out = {"rate": n_tok / wall, "ttft50": float(np.percentile(ttft, 50)), "peak": peak[0],
+               "embs": embs, "verify": torch.cat(verify_emits).cpu() if verify_emits else None,
+               "book": book, "tokens": {rid: c.token_ids for rid, c in by_id.items()}}
+        if not check:
+            return out
         if n_embeds:
-            if counts["fused_norm_mean_pool"] == 0:
-                fail(f"serving [{label}]: embeddings did not go through K2")
             got = torch.from_numpy(np.stack([embs[rid] for rid, _, _ in embed_specs[:n_embeds]]))
             want = want_emb[:n_embeds]
             if book is not None:  # GritLM.encode with the pool's routes
@@ -1688,9 +1730,7 @@ def serving_workload(model, reset_counts, read_counts, total):
         if float(deficits.max()) > TIE_TOL:
             fail(f"serving [{label}]: an engine token is {float(deficits.max())} below its "
                  "position's max logit")
-        verify = torch.cat(verify_emits).cpu() if verify_emits else None
-        return {"rate": n_tok / wall, "peak": peak[0], "verify": verify, "book": book,
-                "tokens": {rid: c.token_ids for rid, c in by_id.items()}}
+        return out
 
     return drive, specs
 
@@ -1727,7 +1767,8 @@ def serving_phase(model, rag_eng, reset_counts, read_counts, path_launches):
     requests); then RAGEngine.serve of 4 queries, dense and paged, over the
     RAG phase's index. Launch counts are set to 0 before each run and read
     after it; their sum over the runs is the serving path's. Returns the
-    dense bf16 pool's decode step at B = 8 (profile_decode_chunk)."""
+    dense bf16 pool's decode step at B = 8 (profile_decode_chunk), and the
+    pools' generated tokens/s and TTFT p50 by pool."""
     import torch
 
     from gritlm_tpu_torch import serving
@@ -1741,16 +1782,17 @@ def serving_phase(model, rag_eng, reset_counts, read_counts, path_launches):
     kw = dict(max_batch=8, max_len=4096, chunk_size=16, eos_id=eos, pad_id=tok.pad_token_id,
               device=dev)
     L, KD = cfg.num_hidden_layers, cfg.num_key_value_heads * cfg.head_dim_
-    rates = {}
+    rates, ttfts = {}, {}
     eng = ServingEngine(cfg, params, **kw)
     dense_bytes = nbytes(eng.carry.cache.k, eng.carry.cache.v)
-    rates["dense bf16"] = drive("dense bf16", eng, specs, 8)["rate"]
+    run = drive("dense bf16", eng, specs, 8)
+    rates["dense bf16"], ttfts["dense bf16"] = run["rate"], run["ttft50"]
     dense_step = profile_decode_chunk("dense bf16", eng, serving._decode_chunk_program, specs)
     del eng
     for label, quant in (("paged bf16", False), ("paged int8", True)):
         eng = ServingEngine(cfg, params, paged=True, page_size=256, kv_quant=quant, **kw)
         run = drive(label, eng, specs, 8)
-        rates[label], peak = run["rate"], run["peak"]
+        rates[label], ttfts[label], peak = run["rate"], run["ttft50"], run["peak"]
         page_bytes = 256 * L * KD * 2 * (1 if quant else 2) + (
             2 * L * cfg.num_key_value_heads * 256 * 2 if quant else 0)
         print(f"serving [{label}]: KV reserved at peak {peak} pages of 256 = "
@@ -1761,8 +1803,9 @@ def serving_phase(model, rag_eng, reset_counts, read_counts, path_launches):
         del eng
     eng = ServingEngine(cfg, params, prefill_chunk=256, prompt_buckets=(256, 512, 1024, 2048),
                         **kw)
-    rates["dense chunked prefill 256"] = drive("dense prefill_chunk 256", eng, specs[:8],
-                                               0)["rate"]
+    run = drive("dense prefill_chunk 256", eng, specs[:8], 0)
+    rates["dense chunked prefill 256"] = run["rate"]
+    ttfts["dense chunked prefill 256"] = run["ttft50"]
     del eng
     torch.cuda.empty_cache()
 
@@ -1787,7 +1830,7 @@ def serving_phase(model, rag_eng, reset_counts, read_counts, path_launches):
     print(f"serving launches: {total}; generated tokens/s by pool: "
           + ", ".join(f"{k} {v:.1f}" for k, v in rates.items()))
     torch.cuda.empty_cache()
-    return dense_step, rates
+    return dense_step, rates, ttfts
 
 
 SPEC_K = 7  # the verify chunk is Sq = SPEC_K + 1 (the engines' default spec_k)
@@ -2104,33 +2147,500 @@ def spec_phase(model, randn, reset_counts, read_counts, path_launches, times, ma
     torch.cuda.empty_cache()
 
 
-def profile_decode_chunk(label, eng, chunk_program, specs):
-    """Device time of one 16-step decode chunk (a speculative engine's: 16
-    verify steps) with all 8 slots active (fresh requests of 64 new tokens
-    on the engine's pool): returns (device ms per step at B = 8, host ms per
-    step, the chunk's idle share), or None for an empty trace. The chunk
-    runs outside the scheduler, so the engine is spent afterwards."""
+def profile_decode_chunk(label, eng, chunk_program, specs, adapters=(None,) * 8, steps=16):
+    """Device time of one decode chunk of `steps` steps (a speculative
+    engine's: verify steps) with all 8 slots active (fresh requests of 64
+    new tokens on the engine's pool, row i on `adapters[i]`): returns
+    (device ms per step at B = 8, host ms per step, the chunk's idle share),
+    or None for an empty trace. The chunk runs outside the scheduler, so
+    the engine is spent afterwards."""
     import torch
 
     from gritlm_tpu_torch.serving import Request
 
-    for rid, ids, _ in specs[:8]:
-        eng.submit(Request(input_ids=ids[:200], max_new_tokens=64, request_id=f"p{rid}"))
+    for (rid, ids, _), a in zip(specs[:8], adapters):
+        eng.submit(Request(input_ids=ids[:200], max_new_tokens=64, request_id=f"p{rid}",
+                           adapter=a))
     eng.step()  # admits all eight and dispatches a first chunk
     torch.cuda.synchronize()
     if int(eng.carry.active.sum()) != 8:
         fail(f"profile [{label}]: {int(eng.carry.active.sum())} of 8 rows active")
     kw = (dict(ngram=eng.spec_ngram, k=eng.spec_k) if eng.speculative
           else dict(sample=eng.sampling))
-    prof = profile_window(f"{label} decode chunk, B=8, 16 steps", lambda: chunk_program(
-        eng.params, eng.cfg, eng.carry, steps=16, eos_id=eng.eos_id, pad_id=eng.pad_id, **kw))
+    prof = profile_window(f"{label} decode chunk, B=8, {steps} steps", lambda: chunk_program(
+        eng.params, eng.cfg, eng.carry, steps=steps, eos_id=eng.eos_id, pad_id=eng.pad_id,
+        **kw))
     if prof is None:
         return None
     wall_ms, busy_ms = prof
-    print(f"serving [{label}]: decode at B=8: {busy_ms / 16:.3f} device ms per step, "
-          f"{wall_ms / 16:.3f} ms per step (host clock), idle share "
+    print(f"serving [{label}]: decode at B=8: {busy_ms / steps:.3f} device ms per step, "
+          f"{wall_ms / steps:.3f} ms per step (host clock), idle share "
           f"{max(0.0, 1 - busy_ms / wall_ms):.3f}", flush=True)
-    return busy_ms / 16, wall_ms / 16, max(0.0, 1 - busy_ms / wall_ms)
+    return busy_ms / steps, wall_ms / steps, max(0.0, 1 - busy_ms / wall_ms)
+
+
+# Phase 14: per-request LoRA adapters at Mistral-7B width and the remat
+# policies. The adapters are drawn at the reference's LoRA settings (r 16,
+# alpha 64 on q/k/v/o/gate/up/down): A from init_lora's seeded draw (N(0,
+# 0.02)), B nonzero, N(0, ADAPTER_B_STD), from a generator seeded per
+# adapter, so that each adapter moves the model (init_lora's B = 0 would
+# not): with r 16 and scale 4 the delta's rows are about 16 * 4 * 0.02 *
+# ADAPTER_B_STD of a unit input, 13% of the base projection's (0.02 * 64).
+ADAPTERS = ("a", "b", "c", "d")
+ADAPTER_B_STD = 0.01
+LORA_R, LORA_ALPHA = 16, 64
+# The adapter branch's product (xW + (xA)B, the delta rounded to bf16 before
+# the add, as the JAX package's) against x W' with W' = bf16(W + AB), the
+# merged weight, and against the exact fp32 x (W + AB): relative Frobenius
+# error, the JAX package's bound for its bf16 matmul kernels (QUANT_RTOL).
+ADAPTER_RTOL = 5e-3
+# Teacher forcing of an adapter pool's tokens through the pool's own math
+# (the stacked params with the request's adapter id): the delta's rounding
+# and the add's are rounding stages the base path does not have, as the int8
+# cache is, so the int8 cache's tolerance. Against the merged weights the
+# deficits are printed: their weight rounding (every element of W' up to half
+# a bf16 step off W + AB) moves the logits of this random 32-layer model by
+# far more than the kernels' summation order does (PERF.md, PR 15).
+ADAPTER_TIE_TOL = INT8_KV_TIE_TOL
+# the remat policies' LoRA step: phase 10's batch at depth 8 (under "dots"
+# a layer keeps its seven projections' outputs, 43,008 bf16 values a token,
+# 2.2 GB at 25,600 tokens, and the lazy LoRA weight's fp32 A @ B, 0.87 GB:
+# about 98 GB at 32 layers, which the 80 GB card cannot hold)
+REMAT_DEPTH = 8
+REMAT_POLICIES = (None, "dots", "dots_no_batch")
+REMAT_RTOL = 1e-3  # the bound above which a policy's step departs from the full recompute's
+
+
+def draw_adapters(params, names, seed0=0):
+    """LoRA trees for `names` at r LORA_R, alpha LORA_ALPHA: A from
+    init_lora's draw seeded seed0 + i, B ~ N(0, ADAPTER_B_STD) from a
+    generator seeded 1000 + seed0 + i. Returns ({name: tree}, scale)."""
+    import torch
+
+    from gritlm_tpu_torch.training.lora import init_lora
+
+    out, scale = {}, None
+    for i, name in enumerate(names):
+        tree, scale = init_lora(params, seed0 + i, r=LORA_R, alpha=LORA_ALPHA)
+        dev = tree["layers"]["attn"]["wq"]["B"].device
+        gen = torch.Generator(device=dev).manual_seed(1000 + seed0 + i)
+        for group in tree["layers"].values():
+            for node in group.values():
+                node["B"].normal_(0.0, ADAPTER_B_STD, generator=gen)
+        out[name] = tree
+    return out, scale
+
+
+def stack_bytes(params) -> int:
+    """Bytes of the stacked adapter factors (As, Bs) in a served tree."""
+    if isinstance(params, dict):
+        own = sum(nbytes(params[k]) for k in ("As", "Bs") if k in params)
+        return own + sum(stack_bytes(v) for k, v in params.items()
+                         if k not in ("As", "Bs") and isinstance(v, dict))
+    return 0
+
+
+def adapter_projection_error(stacked, merged, tree, scale, slot, rows=8, seq=16) -> float:
+    """The adapter branch of `_mm` on the served (stacked) tree against the
+    merged weight's product, for every targeted leaf at the first and the
+    last layer: x [rows, seq, in] drawn from a seeded generator, every row
+    on adapter `slot`. Returns the largest relative Frobenius errors of the
+    branch against the merged weight's product and against the exact fp32
+    product x (W + scale A B); the merged weight's own against the exact one
+    is printed beside."""
+    import torch
+
+    from gritlm_tpu_torch.models.transformer import _mm
+
+    layers = stacked["layers"]
+    dev = layers["attn"]["wq"]["As"].device
+    gen = torch.Generator(device=dev).manual_seed(slot)
+    aid = torch.full((rows,), slot, device=dev)
+    worst, worst_exact = 0.0, [0.0, 0.0]
+    for group, names in (("attn", ("wq", "wk", "wv", "wo")), ("mlp", ("gate", "up", "down"))):
+        for name in names:
+            node, m = layers[group][name], merged["layers"][group][name]
+            ab = tree["layers"][group][name]
+            for i in (0, m.shape[0] - 1):
+                x = torch.randn((rows, seq, m.shape[1]), generator=gen, device=dev).to(m.dtype)
+                with torch.inference_mode():
+                    got = _mm(x, {"w": node["w"][i], "As": node["As"][i], "Bs": node["Bs"][i],
+                                  "aid": aid}).float()
+                    want = (x @ m[i]).float()
+                    exact = x.float() @ (node["w"][i].float()
+                                         + scale * (ab["A"][i].float() @ ab["B"][i].float()))
+                rel = float((got - want).norm() / want.norm())
+                worst = max(worst, rel)
+                worst_exact[0] = max(worst_exact[0], float((got - exact).norm() / exact.norm()))
+                worst_exact[1] = max(worst_exact[1], float((want - exact).norm() / exact.norm()))
+    print(f"adapters [projections, adapter slot {slot}]: the branch against x W' (W' the merged "
+          f"bf16 weight) up to {worst:.2e}; against the exact fp32 x (W + AB): the branch "
+          f"{worst_exact[0]:.2e}, x W' {worst_exact[1]:.2e}", flush=True)
+    return worst, worst_exact[0]
+
+
+def adapter_phase(model, reset_counts, read_counts, path_launches, greedy_rates,
+                  greedy_ttfts) -> None:
+    """Per-request LoRA serving at full width (counts set to 0 before each
+    pool and read after): four adapters "a"-"d" (draw_adapters); phase 7's
+    24 generation requests on adapters round-robin over None, a, b, c, d and
+    its 8 embedding requests, every second one on an adapter, through dense,
+    paged (page 256) and speculative (spec_k 7) pools, and the first 8
+    generation requests through a chunked-prefill (256) pool (phase 7's
+    cut, for time): every request complete; each generated token within
+    ADAPTER_TIE_TOL of its position's largest logit in a teacher-forced
+    forward through the pool's own math (the served tree with the
+    request's adapter id), and its deficit over the adapter merged into the
+    base printed for the dense pool (one merged copy at a time); the
+    adapter branch's product
+    against the merged weight's at every targeted leaf within ADAPTER_RTOL
+    (adapter_projection_error); each pool embedding at cosine >=
+    COSINE_MIN to GritLM.encode through the pool's math and on the merged
+    weights; each adapter moving some request off the base's
+    tokens (above TIE_TOL under the base); K1, K2 and K3 or K8 launched.
+    Then the int8 base (GritLM(weight_quant=8)'s params) with the four
+    adapters, a dense pool of 8 requests (K6 in its decode chunks),
+    teacher-forced the same way (against `merge`, which dequantizes the
+    base first: printed). Then the decode step at B = 8 with
+    every row on its own adapter (eight adapters) against the same pool with
+    none, and one adapter decode chunk, dense and paged, under
+    set_sync_debug_mode("error")."""
+    import types
+
+    import torch
+
+    from gritlm_tpu_torch import GritLM, serving
+    from gritlm_tpu_torch.models.transformer import count_params
+    from gritlm_tpu_torch.serving import ServingEngine
+    from gritlm_tpu_torch.models.transformer import forward, logits_from_hidden
+    from gritlm_tpu_torch.training.lora import merge, set_adapter_ids
+    from gritlm_tpu_torch.training.quant import dequantize_tree
+
+    t_phase = time.time()
+    gc.collect()  # the earlier phases' engines (reference cycles) and their pools
+    torch.cuda.empty_cache()
+    print(f"phase 14: {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated at its start",
+          flush=True)
+    cfg, tok, params, dev = model.config, model.tokenizer, model.params, model.device
+    total = {}
+    drive, specs = serving_workload(model, reset_counts, read_counts, total)
+    adapters, scale = draw_adapters(params, ADAPTERS)
+    n_ad = count_params(adapters["a"])
+    cycle = (None,) + ADAPTERS
+    gen_ad = {rid: cycle[i % len(cycle)] for i, (rid, _, _) in enumerate(specs)}
+    emb_ad = {f"e{i}": ADAPTERS[i // 2] if i % 2 else None for i in range(8)}
+    req_kw = {rid: {"adapter": a} for rid, a in gen_ad.items()}
+    embed_kw = {rid: {"adapter": a} for rid, a in emb_ad.items()}
+    kw = dict(max_batch=8, max_len=4096, chunk_size=16, eos_id=tok.eos_token_id,
+              pad_id=tok.pad_token_id, device=dev, adapters=adapters, lora_scale=scale)
+    # (label, engine keywords, generation requests, embedding requests): the
+    # chunked-prefill pool takes phase 7's cut (8 requests, no embeddings)
+    pools = (("dense", {}, 24, 8), ("paged", dict(paged=True, page_size=256), 24, 8),
+             ("chunked prefill 256", dict(prefill_chunk=256,
+                                          prompt_buckets=(256, 512, 1024, 2048)), 8, 0),
+             ("speculative", dict(speculative=True, spec_k=SPEC_K), 24, 8))
+    runs = {}
+    for label, extra, n_gen, n_emb in pools:
+        eng = ServingEngine(cfg, params, **kw, **extra)
+        if label == "dense":
+            stacked = eng.params  # the served tree: the base with the adapters stacked
+            print(f"adapters: {len(ADAPTERS)} of {n_ad:,} parameters ({n_ad * 2 / 1e6:.1f} MB "
+                  f"in bf16; r {LORA_R}, alpha {LORA_ALPHA}, B ~ N(0, {ADAPTER_B_STD})); the "
+                  f"stack with the zero slot {stack_bytes(stacked) / 1e6:.1f} MB", flush=True)
+        runs[label] = drive(f"adapters {label}", eng, specs[:n_gen], n_emb, req_kw=req_kw,
+                            embed_kw=embed_kw, check=False)
+        del eng
+        gc.collect()  # the engine's on_token closure holds it in a cycle with its pool
+    torch.cuda.empty_cache()
+    print(f"phase 14: four adapter pools, at {time.time() - t_phase:.0f} s", flush=True)
+
+    def own(tree, a, n):
+        """The pool's math for n rows on adapter a: the stacked tree with
+        their id grafted."""
+        ids = torch.full((n,), 0 if a is None else ADAPTERS.index(a) + 1, device=dev)
+        return set_adapter_ids(tree, ids, cfg.num_hidden_layers)
+
+    worst = worst_m = proj = 0.0
+    above_m = n_forced = n_merged = 0
+    cos_own = cos_m = 1.0
+    moved, own_by, merged_by, logit_gap = {}, {}, {}, {}
+    for a in cycle:
+        merged = params if a is None else merge(params, adapters[a], scale)
+        oracles = {"own": types.SimpleNamespace(config=cfg, params=own(stacked, a, 1), device=dev),
+                   "merged": types.SimpleNamespace(config=cfg, params=merged, device=dev)}
+        for label, run in runs.items():
+            # the merged weights' figures on the dense pool's tokens (printed)
+            d = {k: torch.cat([teacher_deficits(o, ids, run["tokens"][rid])
+                               for rid, ids, _ in specs if gen_ad[rid] == a
+                               and rid in run["tokens"]])
+                 for k, o in oracles.items() if k == "own" or label == "dense"}
+            worst = max(worst, float(d["own"].max()))
+            own_by[a] = max(own_by.get(a, 0.0), round(float(d["own"].max()), 4))
+            n_forced += len(d["own"])
+            if "merged" in d:
+                worst_m = max(worst_m, float(d["merged"].max()))
+                merged_by[a] = round(float(d["merged"].max()), 4)
+                above_m += int((d["merged"] > TIE_TOL).sum())
+                n_merged += len(d["merged"])
+            if float(d["own"].max()) > ADAPTER_TIE_TOL:
+                fail(f"adapters [{label}] adapter {a}: a pool token is {float(d['own'].max())} "
+                     "below its position's max logit under the pool's own math")
+        emb_ids = [i for i in range(8) if emb_ad[f"e{i}"] == a]
+        for k, tree in (("own", own(stacked, a, len(emb_ids))), ("merged", merged)):
+            enc = GritLM(cfg, params=tree, tokenizer=tok, embed_eos=model.embed_eos, device=dev)
+            want = torch.from_numpy(enc.encode([SENTENCES[i] for i in emb_ids],
+                                               instruction=INSTRUCTION))
+            for label, run in runs.items():
+                if not run["embs"]:
+                    continue
+                got = torch.from_numpy(np.stack([run["embs"][f"e{i}"] for i in emb_ids]))
+                cos = float(torch.nn.functional.cosine_similarity(got, want, dim=-1).min())
+                if k == "merged":
+                    cos_m = min(cos_m, cos)
+                else:
+                    cos_own = min(cos_own, cos)
+                if cos < COSINE_MIN:
+                    fail(f"adapters [{label}] adapter {a}: pool embedding at cosine {cos} to "
+                         f"GritLM.encode ({k} weights)")
+        if a is not None:
+            proj = max(proj, *adapter_projection_error(stacked, merged, adapters[a], scale,
+                                                       ADAPTERS.index(a) + 1))
+            # how far the merged weights' rounding moves this model's logits:
+            # one prompt's forward through both
+            ids = next(ids for rid, ids, _ in specs if gen_ad[rid] == a)
+            x = torch.tensor([ids], dtype=torch.int32, device=dev)
+            with torch.inference_mode():
+                lo, lm = (logits_from_hidden(o.params, cfg, forward(o.params, cfg, x)[0]).float()
+                          for o in (oracles["own"], oracles["merged"]))
+            logit_gap[a] = (round(float((lo - lm).abs().mean()), 4),
+                            round(float((lo - lm).abs().max()), 4), round(float(lm.std()), 4))
+            # the guard: the adapter moves some request off the base
+            moved[a] = sum(float(teacher_deficits(model, ids, runs["dense"]["tokens"][rid]).max())
+                           > TIE_TOL for rid, ids, _ in specs if gen_ad[rid] == a)
+        del merged, oracles, enc
+        torch.cuda.empty_cache()
+    print(f"adapters: teacher forcing over the {n_forced} tokens of the four pools: largest "
+          f"deficit through the pool's own math {worst:.4f} (ADAPTER_TIE_TOL {ADAPTER_TIE_TOL}); "
+          f"through the merged weights (the dense pool's {n_merged} tokens) {worst_m:.4f}, "
+          f"{above_m} above TIE_TOL {TIE_TOL} (printed, not gated); at "
+          f"{time.time() - t_phase:.0f} s; each projection of the adapter branch against the "
+          f"merged weight's and the exact fp32 product: relative error up to {proj:.2e} "
+          f"(ADAPTER_RTOL {ADAPTER_RTOL}); pool embeddings (3 pools x 8) against GritLM.encode: "
+          f"min cosine {cos_own:.6f} through the pool's math, {cos_m:.6f} on the merged weights "
+          f"(COSINE_MIN {COSINE_MIN}); requests each adapter moved off the base (a dense-pool "
+          f"token above TIE_TOL under the base): {moved}", flush=True)
+    print(f"adapters: largest deficit by adapter through the pool's own math {own_by}, through "
+          f"the merged weights (dense pool) {merged_by}; one prompt's logits through the pool's "
+          f"math against the merged weights (mean abs, max abs, the logits' std): {logit_gap}",
+          flush=True)
+    if proj > ADAPTER_RTOL:
+        fail(f"adapters: the adapter branch departs from the merged weights: {proj}")
+    if not all(moved.values()):
+        fail(f"adapters: an adapter changed no request's tokens against the base: {moved}")
+    print("adapters: generated tokens/s and TTFT p50 by pool (phase 7's pools without "
+          "adapters beside): " + "; ".join(
+              f"{label} {run['rate']:.1f} tok/s, {run['ttft50']:.3f} s" for label, run in
+              runs.items()) + " | phase 7: " + "; ".join(
+              f"{label} {greedy_rates[label]:.1f} tok/s, {greedy_ttfts[label]:.3f} s"
+              for label in greedy_rates), flush=True)
+    del stacked
+
+    # ---- the int8 base with the same adapters (K6 in the decode chunks)
+    wq = GritLM(cfg, params=params, tokenizer=tok, weight_quant=8, device=dev)
+    eng = ServingEngine(cfg, wq.params, **kw)
+    run = drive("adapters dense, int8 weights", eng, specs[:8], 0,
+                decode_kernels=("w8a16_matmul",), req_kw=req_kw, check=False)
+    stacked = eng.params
+    del eng
+    gc.collect()  # the engine's on_token closure holds it in a cycle with its pool
+    worst = worst_m = 0.0
+    for a in cycle:
+        merged = dequantize_tree(wq.params) if a is None else merge(wq.params, adapters[a],
+                                                                     scale)
+        for rid, ids, _ in specs[:8]:
+            if gen_ad[rid] == a:
+                toks = run["tokens"][rid]
+                worst = max(worst, float(teacher_deficits(types.SimpleNamespace(
+                    config=cfg, params=own(stacked, a, 1), device=dev), ids, toks).max()))
+                worst_m = max(worst_m, float(teacher_deficits(types.SimpleNamespace(
+                    config=cfg, params=merged, device=dev), ids, toks).max()))
+        del merged
+        torch.cuda.empty_cache()
+    print(f"adapters [int8 weights]: teacher forcing of 8 requests: largest deficit through the "
+          f"pool's own math (K6 and the adapters) {worst:.4f} (ADAPTER_TIE_TOL "
+          f"{ADAPTER_TIE_TOL}); against merge over the dequantized base {worst_m:.4f} (printed); "
+          f"at {time.time() - t_phase:.0f} s", flush=True)
+    if worst > ADAPTER_TIE_TOL:
+        fail(f"adapters [int8 weights]: a pool token is {worst} below its position's max logit")
+    del wq, stacked
+    path_launches["adapters"] = total
+    torch.cuda.empty_cache()
+
+    # ---- the decode step with every row on its own adapter, and no host sync
+    more, _ = draw_adapters(params, ("e", "f", "g", "h"), seed0=len(ADAPTERS))
+    eight = {**adapters, **more}
+    steps = {}
+    for label, extra in (("dense, 8 adapters", dict(adapters=eight)), ("dense, no adapters", {}),
+                         ("paged, 8 adapters", dict(adapters=eight, paged=True, page_size=256))):
+        eng = ServingEngine(cfg, params, **{**kw, "adapters": None, **extra})
+        # a 4-step window: with 16-step windows (an adapter step launches
+        # about 2,500 kernels, all traced) these three took 96 s of the phase
+        steps[label] = profile_decode_chunk(
+            label, eng, serving._decode_chunk_program, specs,
+            adapters=tuple(eight) if "adapters" in extra else (None,) * 8, steps=4)
+        if "adapters" in extra:
+            if sorted(eng.carry.aid.tolist()) != list(range(1, 9)):
+                fail(f"adapters [{label}]: pool rows on adapters {eng.carry.aid.tolist()}")
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                serving._decode_chunk_program(eng.params, eng.cfg, eng.carry, steps=4,
+                                              eos_id=eng.eos_id, pad_id=eng.pad_id)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            torch.cuda.synchronize()
+            print(f"adapters [{label}]: a decode chunk (4 steps, every row on its own adapter) "
+                  "ran with set_sync_debug_mode('error'): no host sync", flush=True)
+        del eng
+        gc.collect()  # the engine's on_token closure holds it in a cycle with its pool
+    print(f"phase 14: the decode steps, at {time.time() - t_phase:.0f} s", flush=True)
+    a8, b8 = steps["dense, 8 adapters"], steps["dense, no adapters"]
+    if a8 and b8:
+        print(f"adapters: decode step at B = 8, every row on its own adapter, against no "
+              f"adapters: device {a8[0]:.3f} / {b8[0]:.3f} ms ({a8[0] / b8[0]:.3f}x), host "
+              f"{a8[1]:.3f} / {b8[1]:.3f} ms ({a8[1] / b8[1]:.3f}x), idle share {a8[2]:.3f} / "
+              f"{b8[2]:.3f}", flush=True)
+    torch.cuda.empty_cache()
+    print(f"adapter launches: {total}; phase 14 adapters {time.time() - t_phase:.0f} s",
+          flush=True)
+
+
+def remat_phase(dev, reset_counts, read_counts, path_launches, preset="mistral_7b",
+                lengths=(256, 2048, 2048), depths=(REMAT_DEPTH, 4)) -> None:
+    """The remat policies on phase 10's LoRA step (its synthetic batch: 4 x
+    group 2 at query 256 / passage 2048 / generative 2048 tokens) at depth
+    REMAT_DEPTH (`depths`), counts set to 0 before and read after: 3 steps from the
+    same seed under each of REMAT_POLICIES, ms a step (median of steps 2-3)
+    and peak GiB, every step's loss and the adapters after step 3 against
+    the full recompute's (bit-equal expected: the recompute runs the same
+    kernels on the same inputs; the largest difference is printed and fails
+    above REMAT_RTOL), K1 launched twice for each K4 launch (the recompute
+    relaunches it under every policy); then `training.run
+    --model_name_or_path <a depth-4 checkpoint> --lora --remat_policy dots`,
+    2 steps with finite losses."""
+    import dataclasses
+    import shutil
+
+    import torch
+
+    from gritlm_tpu_torch import config as cfgmod
+    from gritlm_tpu_torch.models.loader import save_checkpoint
+    from gritlm_tpu_torch.models.transformer import init_params
+    from gritlm_tpu_torch.tokenizer import ByteTokenizer
+    from gritlm_tpu_torch.training import run as run_mod
+    from gritlm_tpu_torch.training.data import (
+        GritCollator,
+        GritDataset,
+        batch_iterator,
+        load_train_dirs,
+    )
+    from gritlm_tpu_torch.training.lora import make_lora_train_state
+    from gritlm_tpu_torch.training.train import TrainConfig, leaves
+
+    t_phase = time.time()
+    gc.collect()
+    torch.cuda.empty_cache()
+    work = ROOT / "build" / "chip_smoke_remat"
+    shutil.rmtree(work, ignore_errors=True)
+    synthetic_train_data(work / "data")
+    cfg = dataclasses.replace(getattr(cfgmod, preset)(), num_hidden_layers=depths[0])
+    qlen, plen, glen = lengths
+    reset_counts()
+    try:
+        emb, gen = load_train_dirs([str(work / "data")])
+        coll = GritCollator(ByteTokenizer(), query_max_len=qlen, passage_max_len=plen,
+                            generative_max_len=glen)
+        batch = next(batch_iterator(GritDataset(emb, gen, train_group_size=2, seed=0), coll, 4,
+                                    seed=0))
+        padded = sum(part["attention_mask"].size for part in batch.values())
+        base = init_params(cfg, 5, device=dev)
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        runs = {}
+        for policy in REMAT_POLICIES:
+            tc = TrainConfig(learning_rate=1e-4, total_steps=6, remat_policy=policy)
+            run_step, state, _, _ = make_lora_train_state(cfg, tc, base, seed=0, device=dev)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            before = read_counts()
+            losses, step_s = [], []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                state, m = run_step(state, batch)
+                losses.append(m.loss.detach().clone())
+                torch.cuda.synchronize()
+                step_s.append(time.perf_counter() - t0)
+            after = read_counts()
+            peak = torch.cuda.max_memory_allocated()
+            k1 = after["flash_attention"] - before["flash_attention"]
+            k4 = after["flash_attention_bwd_dq"] - before["flash_attention_bwd_dq"]
+            runs[policy] = (torch.stack(losses), [t.detach().clone() for t in leaves(state.params)])
+            print(f"remat [{policy}, LoRA, {depths[0]} layers, {padded} tokens a step]: losses "
+                  f"{', '.join(f'{float(x):.6f}' for x in losses)}; "
+                  f"{statistics.median(step_s[1:]) * 1e3:.1f} ms per step (median of steps 2-3, "
+                  f"host clock); peak {peak / 2**30:.2f} GiB ({(peak - held) / 2**30:.2f} above "
+                  f"the {held / 2**30:.2f} GiB held before); K1 {k1}, K4 {k4} launches",
+                  flush=True)
+            if k4 == 0 or k1 != 2 * k4:
+                fail(f"remat [{policy}]: K1 launched {k1} times for K4's {k4}: the recompute "
+                     "did not relaunch K1")
+            del state, run_step
+            torch.cuda.empty_cache()
+        ref_loss, ref_ad = runs[None]
+        for policy in REMAT_POLICIES[1:]:
+            loss, ad = runs[policy]
+            same = torch.equal(loss, ref_loss) and all(torch.equal(a, b)
+                                                       for a, b in zip(ad, ref_ad))
+            d_loss = float(((loss - ref_loss).abs() / ref_loss.abs()).max())
+            d_ad = max(float((a.float() - b.float()).abs().max()
+                             / b.float().abs().max().clamp_min(1e-30)) for a, b in zip(ad, ref_ad))
+            print(f"remat [{policy}] against the full recompute: bit-equal {same}; largest "
+                  f"relative difference: losses {d_loss:.3e}, adapters after step 3 "
+                  f"{d_ad:.3e} (bound {REMAT_RTOL})", flush=True)
+            if d_loss > REMAT_RTOL or d_ad > REMAT_RTOL:
+                fail(f"remat [{policy}]: departs from the full recompute")
+        del runs, base
+        torch.cuda.empty_cache()
+
+        # ---- the CLI: --remat_policy dots, LoRA, depth 4, 2 steps
+        cfg4 = dataclasses.replace(cfg, num_hidden_layers=depths[1])
+        save_checkpoint(str(work / "base4"), cfg4, init_params(cfg4, 6, device=dev))
+        t0 = time.time()
+        r = run_mod.main(["--train_data", str(work / "data"), "--model_name_or_path",
+                          str(work / "base4"), "--mode", "unified", "--lora",
+                          "--per_device_train_batch_size", "4", "--train_group_size", "2",
+                          "--max_steps", "2", "--save_steps", "0", "--logging_steps", "1",
+                          "--learning_rate", "1e-4", "--remat_policy", "dots",
+                          "--query_max_len", str(qlen), "--passage_max_len", str(plen),
+                          "--generative_max_len", str(glen),
+                          "--output_dir", str(work / "run"), "--device", dev.type])
+        print(f"remat [training.run --remat_policy dots, LoRA, {depths[1]} layers]: "
+              f"{r['steps']} steps in "
+              f"{time.time() - t0:.1f} s (model load and export included), final {r['final']}",
+              flush=True)
+        if r["steps"] != 2 or not all(np.isfinite(v) for v in r["final"].values()):
+            fail(f"remat [training.run --remat_policy dots]: {r}")
+        torch.cuda.synchronize()
+        counts = read_counts()
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    path_launches["remat"] = counts
+    print(f"remat launches: {counts}; phase 14 remat {time.time() - t_phase:.0f} s", flush=True)
+    if any(counts[n] == 0 for n in ("flash_attention", "flash_attention_bwd_dq",
+                                    "flash_attention_bwd_dkv")):
+        fail("remat: the policies' steps did not go through K1, K4 and K5")
+    torch.cuda.empty_cache()
 
 
 def latency_phase(model) -> None:

@@ -28,10 +28,14 @@ slots, into a dense `KVCache` or a paged `PagedKVCache`.
 inference entry points (generate, GritLM.encode, the serving programs) run
 it under `torch.inference_mode()` themselves. `remat=True` recomputes each
 layer in the backward pass (one `torch.utils.checkpoint` per layer, the
-JAX package's full-recompute `jax.checkpoint`). A kernel leaf may be a lazy
+JAX package's `jax.checkpoint`); `remat_policy` keeps the matrix products'
+outputs as the JAX package's named policies do (selective activation
+checkpointing, `remat_context`). A kernel leaf may be a lazy
 LoRA node `{"w", "A", "B"}` (training/lora.apply_lora_lazy): `_w` resolves
 it to W + A @ B one layer at a time, so no full effective copy of the
-weights exists. A kernel leaf may also be quantized (training/quant.py):
+weights exists. A serving leaf may stack several adapters
+(training/lora.stack_adapters): `_mm` adds each batch row's own adapter's
+delta. A kernel leaf may also be quantized (training/quant.py):
 `_mm` sends int8 and int4 serving leaves to the quantized matmuls (K6, K7)
 and `_w` dequantizes an int8 QLoRA base one layer at a time. Each layer's
 leaves are views of the stacked tensors (`_unstack`), so the kernels read a
@@ -50,12 +54,18 @@ K7 serve only the attention projections and the LM head.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Optional, Union
 
 import torch
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+    noop_context_fn,
+)
 
 from gritlm_tpu_torch.config import ModelConfig
 from gritlm_tpu_torch.ops import quant_matmul
@@ -170,7 +180,25 @@ def _mm(x: torch.Tensor, node) -> torch.Tensor:
     """x @ kernel leaf. Serving leaves take the quantized matmuls (int4 ->
     K7, int8 -> K6, each dequantizing at row counts above its kernel's);
     every other leaf (plain, lazy LoRA over a plain or int8 base) is resolved
-    by `_w`, one layer at a time."""
+    by `_w`, one layer at a time.
+
+    A stacked multi-adapter leaf {"w", "As" [n+1, in, r], "Bs" [n+1, r, out],
+    "aid" [B]} (training/lora.stack_adapters + set_adapter_ids) adds each
+    batch row's OWN adapter's delta to the shared base product: the row's
+    factors gathered by its id on the device, then two thin fp32 products
+    (x A) B, as the JAX package's einsums. The base product routes as any
+    leaf ("w" may be quantized)."""
+    if isinstance(node, dict) and "As" in node:
+        y = _mm(x, node["w"])
+        if "aid" not in node:
+            raise ValueError("stacked-adapter leaf reached _mm without adapter ids — call "
+                             "lora.set_adapter_ids(params, aid, L) first")
+        if x.dim() != 3:
+            raise NotImplementedError("multi-adapter leaves need [B, S, D] activations "
+                                      "(dense serving paths only)")
+        A = node["As"].index_select(0, node["aid"]).float()  # [B, in, r]
+        Bm = node["Bs"].index_select(0, node["aid"]).float()  # [B, r, out]
+        return y + torch.bmm(torch.bmm(x.float(), A), Bm).to(y.dtype)
     if isinstance(node, dict) and "q4" in node:
         return quant_matmul.w4a16_matmul(x, node)
     if isinstance(node, dict) and "q8" in node:
@@ -567,6 +595,38 @@ def _moe_mlp(p: dict, x: torch.Tensor, cfg: ModelConfig):
 # Forward
 
 
+# The matrix products a remat policy may keep, as the JAX package's
+# checkpoint policies name them: dots_with_no_batch_dims_saveable keeps the
+# products without a batch dimension (the projections: a [B, S, D] @ [D, O]
+# matmul lowers to `mm`; the lazy LoRA weight's A @ B), dots_saveable also
+# the batched ones (the plain attention's einsums lower to `bmm`). K1 is a
+# kernel launch, no product, so every policy recomputes it.
+_DOTS_NO_BATCH = frozenset(getattr(torch.ops.aten, n) for n in (
+    "mm", "addmm", "mv", "addmv", "dot", "vdot"))
+_DOTS = _DOTS_NO_BATCH | frozenset(getattr(torch.ops.aten, n) for n in ("bmm", "baddbmm"))
+REMAT_POLICIES = {None: None, "full": None, "dots": _DOTS, "dots_no_batch": _DOTS_NO_BATCH}
+
+
+def remat_context(policy: Optional[str]):
+    """The `context_fn` of torch.utils.checkpoint for a named remat policy
+    (None for the full recompute): selective activation checkpointing that
+    saves (MUST_SAVE) the outputs of the policy's matrix products and
+    recomputes (PREFER_RECOMPUTE) every other op. Raises ValueError for an
+    unknown name (the JAX package raises KeyError)."""
+    if policy not in REMAT_POLICIES:
+        raise ValueError(f"unknown remat_policy {policy!r}: one of "
+                         f"{', '.join(map(repr, REMAT_POLICIES))}")
+    saved = REMAT_POLICIES[policy]
+    if saved is None:
+        return noop_context_fn
+
+    def policy_fn(ctx, op, *args, **kwargs):
+        return (CheckpointPolicy.MUST_SAVE if op.overloadpacket in saved
+                else CheckpointPolicy.PREFER_RECOMPUTE)
+
+    return functools.partial(create_selective_checkpoint_contexts, policy_fn)
+
+
 def _unstack(tree: dict, n: int) -> list:
     """The stacked layer tree as n per-layer trees of views. One `unbind`
     per leaf, so under autograd each stacked parameter gets one gradient
@@ -598,8 +658,10 @@ def forward(
 
     `remat=True` (training, no cache) wraps each layer in one
     `torch.utils.checkpoint(..., use_reentrant=False)`: its activations are
-    recomputed in the backward pass. Only the full recompute is ported:
-    another `remat_policy` raises NotImplementedError.
+    recomputed in the backward pass. `remat_policy` picks what the layer
+    keeps instead of recomputing (`remat_context`): None / "full" nothing,
+    "dots" every matrix product's output, "dots_no_batch" the products
+    without a batch dimension.
 
     `final_norm=False` returns the raw residual stream, for callers that fuse
     the norm into their epilogue (ops/fused_pool on the encode path).
@@ -621,11 +683,7 @@ def forward(
     A MoE trunk's router logits and dropped fraction stay out of `aux`:
     they feed the JAX package's training losses, which wait for MoE
     training (ROADMAP Queue 1 item 11)."""
-    if remat_policy is not None:
-        raise NotImplementedError(
-            f"remat_policy={remat_policy!r}: only the full recompute (None) is ported; "
-            "the JAX package's saveable-dots policies have no torch.utils.checkpoint "
-            "counterpart yet")
+    context_fn = remat_context(remat_policy)
     B, S = input_ids.shape
     # F.embedding, not indexing: its backward sums each row's gradient in
     # fp32, where indexing's accumulates bf16 atomics
@@ -671,7 +729,7 @@ def forward(
     recompute = remat and cache is None and torch.is_grad_enabled()
     for i, lp in enumerate(_unstack(params["layers"], cfg.num_hidden_layers)):
         if recompute:
-            x = checkpoint(block, x, lp, use_reentrant=False)
+            x = checkpoint(block, x, lp, use_reentrant=False, context_fn=context_fn)
         else:
             x = block(x, lp, None if cache is None else (cache, i, row_offsets))
 

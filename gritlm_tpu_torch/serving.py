@@ -54,8 +54,19 @@ Design notes:
     prefix and the model's bonus token; a row's write slot advances by its
     own accepted count, so rejected slots are overwritten by its next step.
 
-Not ported, raising NotImplementedError: `adapters=` (per-request LoRA,
-with training) and `mesh=` (the parallel slice).
+  - `adapters={name: lora_tree}` serves per-request LoRA adapters (S-LoRA
+    style) over one copy of the base weights: the trees are stacked onto the
+    params once (training/lora.stack_adapters; slot 0 the zero adapter, so
+    requests without one get the base), each pool row's adapter id lives on
+    the device in the carry (`_Carry.aid`, set where a row is armed), and
+    every program grafts the ids of its rows into the stacked leaves
+    (`_with_adapters`): prefills and embeddings by their rows' ids, decode and
+    verify chunks by the carry's. A request continuing a registered prefix
+    reads the prefix's pages as they were written (by the base model, or
+    whatever wrote them) and runs its own prompt and decode under its
+    adapter, as in the JAX package.
+
+Not ported, raising NotImplementedError: `mesh=` (the parallel slice).
 """
 
 from __future__ import annotations
@@ -78,6 +89,7 @@ from gritlm_tpu_torch.models.transformer import (
     resolve_device,
 )
 from gritlm_tpu_torch.spec_decode import _accept, _lookup_proposals
+from gritlm_tpu_torch.training.lora import set_adapter_ids, stack_adapters
 
 
 @dataclass
@@ -99,8 +111,9 @@ class Request:
     generator keyed by `seed` at counter n, so its output is fixed by
     `seed` whatever the scheduling; `top_k`/`top_p` filter per row (the
     nucleus rule, ties kept together by value). temperature == 0 rows stay
-    exactly greedy. An `adapter` raises ValueError (this pool serves none),
-    as in the JAX package's schema."""
+    exactly greedy. `adapter` names one of the engine's LoRA adapters (None:
+    the base model); a name the engine does not serve raises ValueError in
+    `submit`."""
 
     input_ids: List[int]
     max_new_tokens: int = 16
@@ -298,7 +311,8 @@ class _Carry:
     rows, whose document occupies slots [0, dbucket) but positions
     [0, doc_len). Speculative pools add each row's token history (the
     prompt-lookup corpus) [B, max_len + 1] (the last column takes the
-    writes that fall past the end) and its length."""
+    writes that fall past the end) and its length. Adapter pools add each
+    row's adapter slot (0 = the base model)."""
     tok: torch.Tensor  # [B] int32 pending token
     cache: Union[KVCache, PagedKVCache]
     row_lens: torch.Tensor  # [B] int64
@@ -308,10 +322,19 @@ class _Carry:
     samp: _Samp
     history: Optional[torch.Tensor] = None  # [B, max_len + 1] int64
     hist_len: Optional[torch.Tensor] = None  # [B] int64
+    aid: Optional[torch.Tensor] = None  # [B] int64 adapter slots (adapter pools)
 
 
 # ---------------------------------------------------------------------------
 # Programs: plain functions that update the carry in place.
+
+
+def _with_adapters(params, cfg, aid: Optional[torch.Tensor]):
+    """Graft per-row adapter ids [rows] (on the device) into the stacked
+    multi-LoRA leaves; params as they are when the pool serves none."""
+    if aid is None:
+        return params
+    return set_adapter_ids(params, aid, cfg.num_hidden_layers)
 
 
 def _last_token(params, cfg, hidden: torch.Tensor, mask: torch.Tensor,
@@ -327,28 +350,32 @@ def _last_token(params, cfg, hidden: torch.Tensor, mask: torch.Tensor,
 
 
 @torch.inference_mode()
-def _prefill_program(params, cfg, ids, mask, samp: Optional[_Samp] = None, *, quant: bool):
+def _prefill_program(params, cfg, ids, mask, samp: Optional[_Samp] = None,
+                     aid: Optional[torch.Tensor] = None, *, quant: bool):
     """[rows, bucket] right-padded prompts -> (row-batch KVCache, first
     token per row: greedy, or sampled at draw index 0 with `samp`). Row
-    caches are slot-dense (position == slot)."""
+    caches are slot-dense (position == slot). `aid` [rows]: each row's
+    adapter slot (adapter pools)."""
     cache = init_cache(cfg, ids.shape[0], ids.shape[1], device=ids.device, quant=quant)
-    return _prefill_chunk_program(params, cfg, cache, ids, mask, samp)
+    return _prefill_chunk_program(params, cfg, cache, ids, mask, samp, aid)
 
 
 @torch.inference_mode()
 def _prefill_chunk_program(params, cfg, cache: KVCache, ids, mask,
-                           samp: Optional[_Samp] = None):
+                           samp: Optional[_Samp] = None, aid: Optional[torch.Tensor] = None):
     """One chunk of a chunked prefill: append `chunk` prompt tokens to one
     request's row cache (its write offset is cache.length, so chunks chain)
     and return the next token off the chunk's last valid position (the
     final chunk's is the request's first generated token)."""
+    params = _with_adapters(params, cfg, aid)
     hidden, cache, _ = forward(params, cfg, ids, attention_mask=mask, causal=True, cache=cache)
     return cache, _last_token(params, cfg, hidden, mask, samp)
 
 
 @torch.inference_mode()
 def _prefill_continue_program(params, cfg, doc_k, doc_v, doc_scales, doc_mask, doc_lens,
-                              ids, mask, samp: Optional[_Samp] = None):
+                              ids, mask, samp: Optional[_Samp] = None,
+                              aid: Optional[torch.Tensor] = None):
     """Cache-continuation prefill: the documents' K/V occupy slots
     [0, dbucket) (each row valid to its own doc_len), the prompt prefills at
     slots [dbucket, dbucket + bucket) with RoPE positions continuing at
@@ -368,6 +395,7 @@ def _prefill_continue_program(params, cfg, doc_k, doc_v, doc_scales, doc_mask, d
         v_scale=None if doc_scales is None else grow(doc_scales[1], 3),
     )
     positions = doc_lens[:, None] + torch.arange(bucket, device=ids.device)[None, :]
+    params = _with_adapters(params, cfg, aid)
     hidden, cache, _ = forward(params, cfg, ids, attention_mask=mask, causal=True,
                                positions=positions, cache=cache)
     return cache, _last_token(params, cfg, hidden, mask, samp)
@@ -375,13 +403,14 @@ def _prefill_continue_program(params, cfg, doc_k, doc_v, doc_scales, doc_mask, d
 
 def _arm(carry: _Carry, firsts, row_idx: int, slot: int, write_len: int, pos0: int,
          max_new: int, eos_id: int, req_samp: Optional[tuple] = None,
-         req_hist: Optional[tuple] = None) -> None:
+         req_hist: Optional[tuple] = None, req_aid: Optional[int] = None) -> None:
     """Arm pool row `slot`: pending token = the prefill's first token, write
     slot `write_len`, RoPE position `pos0`, budget max_new - 1 (the first
     token is already spent); a sampling row's parameters `req_samp`
     (temperature, top_k, top_p, seed key) with its draw index at 1 (the
     prefill drew index 0); a speculative row's history `req_hist` (the
-    compact prompt [n] int64 on the device, n), then the first token."""
+    compact prompt [n] int64 on the device, n), then the first token; an
+    adapter pool row's adapter slot `req_aid`."""
     first = firsts[row_idx]
     rem = max_new - 1
     carry.tok[slot] = first
@@ -400,12 +429,14 @@ def _arm(carry: _Carry, firsts, row_idx: int, slot: int, write_len: int, pos0: i
         carry.history[slot, :hlen] = row
         carry.history[slot, hlen] = first
         carry.hist_len[slot] = hlen + 1
+    if req_aid is not None:
+        carry.aid[slot] = req_aid
 
 
 @torch.inference_mode()
 def _insert_program(carry: _Carry, rows_cache: KVCache, firsts, row_idx: int, slot: int,
                     write_len: int, pos0: int, max_new: int, req_samp=None, req_hist=None,
-                    *, eos_id: int) -> None:
+                    req_aid=None, *, eos_id: int) -> None:
     """Copy prefilled row `row_idx` into pool slot `slot` (K/V and mask,
     zero-extended to the pool width) and arm the slot."""
     cache = carry.cache
@@ -417,7 +448,8 @@ def _insert_program(carry: _Carry, rows_cache: KVCache, firsts, row_idx: int, sl
         cache.v_scale[:, slot, :, :W] = rows_cache.v_scale[:, row_idx, :, :W]
     cache.mask[slot] = 0
     cache.mask[slot, :W] = rows_cache.mask[row_idx, :W]
-    _arm(carry, firsts, row_idx, slot, write_len, pos0, max_new, eos_id, req_samp, req_hist)
+    _arm(carry, firsts, row_idx, slot, write_len, pos0, max_new, eos_id, req_samp, req_hist,
+         req_aid)
 
 
 def _pages_of(x: torch.Tensor, row: int, first_page: int, n: int, page: int) -> torch.Tensor:
@@ -450,7 +482,7 @@ def _write_pages(cache: PagedKVCache, pids: torch.Tensor, k, v, ks=None, vs=None
 @torch.inference_mode()
 def _insert_paged_program(carry: _Carry, rows_cache: KVCache, firsts, row_idx: int, slot: int,
                           table_row: np.ndarray, write_len: int, pos0: int, max_new: int,
-                          req_samp=None, req_hist=None, *, copy_from_page: int,
+                          req_samp=None, req_hist=None, req_aid=None, *, copy_from_page: int,
                           eos_id: int) -> None:
     """Paged insert: copy prefilled row `row_idx`'s pages from
     `copy_from_page` on into the pool pages `table_row` names (a prefix
@@ -473,7 +505,8 @@ def _insert_paged_program(carry: _Carry, rows_cache: KVCache, firsts, row_idx: i
     cache.mask[slot] = 0
     cache.mask[slot, :W] = rows_cache.mask[row_idx, :W]
     cache.page_table[slot] = torch.as_tensor(table_row, dtype=torch.int32, device=dev)
-    _arm(carry, firsts, row_idx, slot, write_len, pos0, max_new, eos_id, req_samp, req_hist)
+    _arm(carry, firsts, row_idx, slot, write_len, pos0, max_new, eos_id, req_samp, req_hist,
+         req_aid)
 
 
 @torch.inference_mode()
@@ -512,6 +545,7 @@ def _decode_chunk_program(params, cfg, carry: _Carry, *, steps: int, eos_id: int
     (`sample=True`) by each row's own sampling parameters; a row goes
     inactive the moment it emits EOS or spends its budget. Returns stacked
     (tokens, emitted) [steps, B]. No host sync inside."""
+    params = _with_adapters(params, cfg, carry.aid)  # the rows' adapters, once a chunk
     B = carry.tok.shape[0]
     dev = carry.tok.device
     toks = torch.empty((steps, B), dtype=torch.int32, device=dev)
@@ -552,6 +586,7 @@ def _spec_chunk_program(params, cfg, carry: _Carry, *, steps: int, ngram: int, k
     slots are overwritten by its next step: no holes, no slack beyond k a
     request). Returns stacked (tokens [steps, B, k + 1], n_emit [steps, B]).
     No host sync inside."""
+    params = _with_adapters(params, cfg, carry.aid)
     B = carry.tok.shape[0]
     dev = carry.tok.device
     W = carry.history.shape[1] - 1  # the last column takes writes past the end
@@ -602,7 +637,10 @@ class ServingEngine:
     each request decodes with its own (temperature, top_k, top_p, seed),
     schedule-invariant (see Request); greedy requests in a sampling pool
     stay exactly greedy. `speculative=True` runs the greedy prompt-lookup
-    verify pool (`spec_ngram`, `spec_k`). Completions include the EOS token
+    verify pool (`spec_ngram`, `spec_k`). `adapters={name: lora_tree}` (the
+    trees of training/lora.init_lora's layout, one rank and target set, at
+    alpha/r = `lora_scale`) serves each request on its `Request.adapter`.
+    Completions include the EOS token
     when one was emitted, as generate()'s num_valid counts it. Runs on CUDA
     unless `device` says otherwise; the params must live on that device."""
 
@@ -629,7 +667,8 @@ class ServingEngine:
         spec_ngram: int = 3,
         spec_k: int = 7,
         prefill_chunk: Optional[int] = None,
-        adapters=None,
+        adapters=None,  # {name: lora_tree}: per-request LoRA serving
+        lora_scale: float = 4.0,  # alpha / r of the adapter trees
         on_token=None,  # streaming callback: on_token(request_id, token)
         # EmbedRequest: the embedding forward's config, as GritLM(mode=
         # "unified"): bidirectional attention, mean pooling, L2-normalized
@@ -640,17 +679,20 @@ class ServingEngine:
         on_embedding=None,  # streaming callback: on_embedding(id, vec)
         device=None,
     ):
-        for name, value, slice_ in (
-                ("adapters", adapters, "per-request LoRA comes with the training slice"),
-                ("mesh", mesh, "multi-device serving comes with the parallel slice")):
-            if value:
-                raise NotImplementedError(f"ServingEngine({name}=...) is not ported yet: "
-                                          f"{slice_}")
+        if mesh:
+            raise NotImplementedError("ServingEngine(mesh=...) is not ported yet: multi-device "
+                                      "serving comes with the parallel slice")
         if speculative and sampling:
             raise ValueError("speculative serving is greedy-only (it must be parity-exact "
                              "with the greedy decode)")
         self.device = resolve_device(device)
         self.cfg = cfg
+        self._adapter_idx: Dict[str, int] = {}
+        if adapters:
+            # stacked once: {"w", "As", "Bs"} leaves, slot i + 1 = adapter i
+            names = list(adapters)
+            self._adapter_idx = {n: i + 1 for i, n in enumerate(names)}
+            params = stack_adapters(params, [adapters[n] for n in names], lora_scale)
         self.params = params
         self.B = max_batch
         self.max_len = max_len
@@ -711,6 +753,8 @@ class ServingEngine:
             self.carry.history = torch.zeros((max_batch, max_len + 1), dtype=torch.long,
                                              device=dev)
             self.carry.hist_len = torch.zeros((max_batch,), dtype=torch.long, device=dev)
+        if self._adapter_idx:
+            self.carry.aid = torch.zeros((max_batch,), dtype=torch.long, device=dev)
         self.slots: Dict[int, _Slot] = {}
         self.queue: List[Request] = []
         self.finished: List[Completion] = []
@@ -805,13 +849,23 @@ class ServingEngine:
         samp.keys.copy_(torch.tensor([_seed_key(r.seed) for r in rs], dtype=torch.long))
         return samp
 
+    def _aid(self, adapters: Sequence[Optional[str]]) -> Optional[torch.Tensor]:
+        """Adapter slots [rows] on the device for rows on these adapters
+        (None: the base, slot 0); None when the pool serves no adapters, so
+        its programs run the plain params."""
+        if not self._adapter_idx:
+            return None
+        return self._put(np.array([self._adapter_idx.get(a, 0) for a in adapters], np.int64))
+
     def _arming(self, r: Request) -> dict:
         """The insert programs' arguments that arm a row for request r
         besides its prefill (None where the pool has no use for them): its
-        sampling parameters, and its compact prompt as its history
+        sampling parameters, its compact prompt as its history
         (speculative pools: the lookup corpus; generated tokens append on
-        the device)."""
-        req_samp = req_hist = None
+        the device), and its adapter slot (adapter pools)."""
+        req_samp = req_hist = req_aid = None
+        if self._adapter_idx:
+            req_aid = self._adapter_idx.get(r.adapter, 0)
         if self.sampling:
             req_samp = (float(r.temperature), int(r.top_k), float(r.top_p), _seed_key(r.seed))
         if self.speculative:
@@ -820,15 +874,19 @@ class ServingEngine:
             # when hist_ids would overflow the row (recent context matters most)
             seq = seq[-(self.max_len - r.max_new_tokens):]
             req_hist = (torch.tensor(seq, dtype=torch.long).to(self.device), len(seq))
-        return dict(req_samp=req_samp, req_hist=req_hist)
+        return dict(req_samp=req_samp, req_hist=req_hist, req_aid=req_aid)
+
+    def _check_adapter(self, name: Optional[str]) -> None:
+        if name is not None and name not in self._adapter_idx:
+            raise ValueError(f"unknown adapter {name!r} (build the engine with "
+                             "adapters={name: lora_tree, ...})")
 
     # ---- submission ----------------------------------------------------
 
     def submit(self, req: Request) -> None:
         if req.temperature > 0.0 and not self.sampling:
             raise ValueError("temperature > 0 requires ServingEngine(sampling=True)")
-        if req.adapter is not None:
-            raise ValueError(f"unknown adapter {req.adapter!r} (this pool serves no adapters)")
+        self._check_adapter(req.adapter)
         if req.prefix is not None:
             if not self.paged or req.prefix not in self.prefixes:
                 raise ValueError(f"unknown prefix {req.prefix!r} (register_prefix first)")
@@ -858,8 +916,7 @@ class ServingEngine:
         if len(req.input_ids) > self.buckets[-1]:
             raise ValueError(f"embed prompt {len(req.input_ids)} exceeds largest prompt "
                              f"bucket {self.buckets[-1]}")
-        if req.adapter is not None:
-            raise ValueError(f"unknown adapter {req.adapter!r} (this pool serves no adapters)")
+        self._check_adapter(req.adapter)
         self.embed_queue.append(req)
 
     # ---- embeddings ------------------------------------------------------
@@ -892,7 +949,10 @@ class ServingEngine:
             # instruction tokens are left out of mean pooling only
             start = r.instr_len if "mean" in self.pooling_method else 0
             pmask[i, start:ln] = 1
-        emb = _encode_step(self.params, self.cfg, self._put(ids), self._put(mask),
+        # each row through its own adapter (the trunk's [B, S, D] adapter
+        # branch serves the bidirectional forward too)
+        params = _with_adapters(self.params, self.cfg, self._aid([r.adapter for r in group]))
+        emb = _encode_step(params, self.cfg, self._put(ids), self._put(mask),
                            self._put(pmask), pooling_method=self.pooling_method,
                            causal=self.embed_causal, normalized=self.normalized)
         return _HostCopy(emb.float()), group
@@ -981,13 +1041,15 @@ class ServingEngine:
                 mask[j, :len(r.input_ids)] = 1
             ids_t, mask_t = self._put(ids), self._put(mask)
             samp = self._samp_rows(rs)
+            aid = self._aid([r.adapter for r in rs])
             if kind == "fresh":
-                rowc, firsts = _prefill_program(self.params, self.cfg, ids_t, mask_t, samp,
+                rowc, firsts = _prefill_program(self.params, self.cfg, ids_t, mask_t, samp, aid,
                                                 quant=self.kv_quant)
             elif kind == "host":
-                rowc, firsts = self._prefill_continue(rs, ids_t, mask_t, dbucket, samp)
+                rowc, firsts = self._prefill_continue(rs, ids_t, mask_t, dbucket, samp, aid)
             else:
-                rowc, firsts = self._prefill_continue_prefix(rs, ids_t, mask_t, dbucket, samp)
+                rowc, firsts = self._prefill_continue_prefix(rs, ids_t, mask_t, dbucket, samp,
+                                                             aid)
             host_firsts = _HostCopy(firsts)
             for j, (r, pids) in enumerate(rps):
                 slot = free.pop(0)
@@ -1018,7 +1080,8 @@ class ServingEngine:
             mask[0, :len(seg)] = 1
             p.cache, p.first = _prefill_chunk_program(self.params, self.cfg, p.cache,
                                                       self._put(ids), self._put(mask),
-                                                      self._samp_rows([p.request]))
+                                                      self._samp_rows([p.request]),
+                                                      self._aid([p.request.adapter]))
             p.filled += len(seg)
             if p.filled >= len(p.request.input_ids):
                 self._pending.remove(p)
@@ -1036,7 +1099,7 @@ class ServingEngine:
                             **self._arming(r), eos_id=self.eos_id)
         self.slots[p.slot] = _Slot(request=r, first_src=(_HostCopy(p.first), 0))
 
-    def _prefill_continue_prefix(self, rs, ids, mask, dbucket, samp=None):
+    def _prefill_continue_prefix(self, rs, ids, mask, dbucket, samp=None, aid=None):
         """Gather the group's shared prefix pages on the device into the dense
         doc tensors the continuation prefill takes."""
         npg = dbucket // self.page
@@ -1047,9 +1110,10 @@ class ServingEngine:
         dk, dv, sc = _gather_prefix_program(self.carry.cache, self._put(pt))
         doc_mask = (np.arange(dbucket)[None, :] < dl[:, None]).astype(np.int32)
         return _prefill_continue_program(self.params, self.cfg, dk, dv, sc,
-                                         self._put(doc_mask), self._put(dl), ids, mask, samp)
+                                         self._put(doc_mask), self._put(dl), ids, mask, samp,
+                                         aid)
 
-    def _prefill_continue(self, rs, ids, mask, dbucket, samp=None):
+    def _prefill_continue(self, rs, ids, mask, dbucket, samp=None, aid=None):
         """Stack the group's host doc caches into [L, rows, dbucket, ...]
         device tensors and run the continuation prefill."""
         k0 = torch.as_tensor(rs[0].doc_cache[0])
@@ -1076,7 +1140,7 @@ class ServingEngine:
                 scales[1][:, j, :, :w] = torch.as_tensor(vsj)[..., :w].to(self.device)
         return _prefill_continue_program(self.params, self.cfg, doc_k, doc_v, scales,
                                          self._put(doc_mask), self._put(doc_lens), ids, mask,
-                                         samp)
+                                         samp, aid)
 
     # ---- results ---------------------------------------------------------
 

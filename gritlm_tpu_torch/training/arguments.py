@@ -104,7 +104,6 @@ class RunArguments:
             (self.mesh_data != 1 or self.mesh_fsdp not in (-1, 1) or self.mesh_model != 1
              or self.mesh_expert != 1, "a mesh of more than one device", 12),
             (self.moe_impl is not None, "--moe_impl", 11),
-            (self.remat_policy is not None, f"--remat_policy {self.remat_policy}", 7),
         ]
         for bad, what, item in not_ported:
             if bad:

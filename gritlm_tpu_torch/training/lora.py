@@ -16,8 +16,11 @@ bf16, and the training forward dequantizes each layer's base in `_w`
 the JAX package does: it never reaches the w8a16 kernel K6, which has no
 backward. `merge` dequantizes the base first, so the export is dense.
 
-Not ported: `stack_adapters` / `set_adapter_ids` wait for per-request
-adapters in serving.
+Per-request adapters in serving (S-LoRA style): `stack_adapters` stacks N
+adapter trees onto the base as {"w", "As", "Bs"} leaves (slot 0 the zero
+adapter), and `set_adapter_ids` grafts each batch row's adapter id into
+them; models/transformer._mm then adds each row's own low-rank delta over
+the shared base product (serving.ServingEngine(adapters=...)).
 """
 
 from __future__ import annotations
@@ -142,6 +145,65 @@ def apply_lora(params: dict, lora: Dict, scale: float) -> dict:
 def merge(params: dict, lora: Dict, scale: float) -> dict:
     """Fold adapters into base weights (export path)."""
     return apply_lora(params, lora, scale)
+
+
+def stack_adapters(params: dict, adapters: Sequence[Dict], scale: float) -> dict:
+    """Multi-LoRA serving: stack N adapter trees onto the base params as
+    `{"w": base, "As": [L, n+1, in, r], "Bs": [L, n+1, r, out]}` leaves.
+    Slot 0 is the ZERO adapter (requests without an adapter get the plain
+    base with no branch), slot i+1 is adapters[i]; Bs are pre-scaled by
+    alpha/r (`scale`) and kept in the adapters' dtype. A quantized base node
+    ({"q8"|"q4", "scale"}) becomes its leaf's "w" unchanged. All adapters
+    must share targets and rank (one stacked shape per leaf)."""
+
+    def walk(p_node, l_nodes):
+        if not isinstance(p_node, dict) or "q8" in p_node or "q4" in p_node:
+            return p_node
+        out = {}
+        for k, v in p_node.items():
+            lns = [ln.get(k) if isinstance(ln, dict) else None for ln in l_nodes]
+            adapted = [isinstance(ln, dict) and "A" in ln for ln in lns]
+            if any(adapted) and not all(adapted):
+                raise ValueError(f"adapters disagree on target {k}: stacked serving needs "
+                                 "identical target sets")
+            if all(adapted) and lns:
+                shapes = {(tuple(ln["A"].shape), tuple(ln["B"].shape)) for ln in lns}
+                if len(shapes) != 1:
+                    raise ValueError(f"adapter shapes differ at {k}: {shapes} — stacked "
+                                     "serving needs one rank per leaf")
+                dt = lns[0]["B"].dtype
+                with torch.no_grad():
+                    As = torch.stack([torch.zeros_like(lns[0]["A"])]
+                                     + [ln["A"].detach() for ln in lns], dim=1)
+                    Bs = torch.stack([torch.zeros_like(lns[0]["B"])]
+                                     + [(ln["B"].detach().float() * scale).to(dt)
+                                        for ln in lns], dim=1)
+                out[k] = {"w": v, "As": As, "Bs": Bs}  # [L, n+1, ...]: L leads
+            elif isinstance(v, dict):
+                out[k] = walk(v, [ln or {} for ln in lns])
+            else:
+                out[k] = v
+        return out
+
+    return walk(params, list(adapters))
+
+
+def set_adapter_ids(params: dict, aid: torch.Tensor, num_layers: int) -> dict:
+    """Graft per-row adapter ids `aid` [B] (on the params' device) into
+    every stacked-adapter leaf as "aid" [L, B]: an expand view of the one
+    tensor, so each layer's slice (the trunk unbinds the layer axis) is
+    `aid` itself and nothing is copied. A pure tree restructure; a tree
+    without stacked leaves comes back unchanged."""
+    aid_l = aid[None, :].expand(num_layers, aid.shape[0])
+
+    def walk(node):
+        if not isinstance(node, dict):
+            return node
+        if "As" in node and "w" in node:
+            return {**node, "aid": aid_l}
+        return {k: walk(v) for k, v in node.items()}
+
+    return walk(params)
 
 
 def _frozen(params: dict, device=None) -> dict:

@@ -67,7 +67,8 @@ class TrainConfig:
     total_steps: int = 1000
     max_grad_norm: float = 1.0
     remat: bool = True
-    # only None (full recompute) is ported; forward raises on another policy
+    # what a checkpointed layer keeps: None / "full" (nothing), "dots",
+    # "dots_no_batch" (models/transformer.remat_context)
     remat_policy: Optional[str] = None
     # fuse the LM head into the next-token loss (vocab-chunked online
     # logsumexp): a memory feature for big-vocab logits, same semantics

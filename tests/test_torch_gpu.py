@@ -1079,3 +1079,135 @@ def test_moe_paths_run_their_kernels(cuda, monkeypatch):
     monkeypatch.setattr(fused_pool, "fused_norm_mean_pool", fused_pool.fused_norm_mean_pool_plain)
     monkeypatch.setattr(flash_attention, "flash_attention", flash_attention.flash_attention_plain)
     assert _cosine_min(emb, m.encode(MOE_SENTS)) >= 0.999
+
+
+def _adapter_model(cuda, n_adapters=3):
+    """A bf16 model of Dh 128 on the card (the LM head scaled so logits
+    spread over a few units) and LoRA adapters with nonzero B factors."""
+    from gritlm_tpu_torch import GritLM
+    from gritlm_tpu_torch.training.lora import init_lora
+
+    cfg = ModelConfig(vocab_size=512, hidden_size=256, intermediate_size=512,
+                      num_hidden_layers=2, num_attention_heads=2, num_key_value_heads=1)
+    m = GritLM(cfg, device=cuda)
+    m.params["lm_head"]["kernel"].mul_(4)
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    adapters = {}
+    for i in range(n_adapters):
+        tree, scale = init_lora(m.params, i, r=4, alpha=8)
+        for node in (v for layer in tree["layers"].values() for v in layer.values()):
+            node["B"].normal_(0.0, 0.05, generator=gen)
+        adapters[chr(ord("a") + i)] = tree
+    return m, adapters, scale
+
+
+@pytest.mark.parametrize("paged", [False, True])
+def test_adapter_pool_on_cuda(cuda, paged):
+    """Per-request adapters on the card (K1 prefills, K3 or K8 decode):
+    every request completes, each token within TIE of its position's
+    largest logit in one teacher-forced forward over its adapter merged into
+    the base (bf16: xW + (xA)B and x(W + AB) round differently, so only near
+    ties may flip; tests/test_torch_adapters.py holds the tokens exact in
+    float32), and each adapter moves some request off the base's tokens."""
+    from gritlm_tpu_torch.models.transformer import forward, logits_from_hidden
+    from gritlm_tpu_torch.ops import paged_attention
+    from gritlm_tpu_torch.serving import Request, ServingEngine
+    from gritlm_tpu_torch.training.lora import merge
+
+    TIE = 0.1
+    m, adapters, scale = _adapter_model(cuda)
+    names = [None, "a", "b", "c", "a", None, "b"]
+    prompts = {f"r{i}": [3 + (i * 7 + j * 5) % 101 for j in range(n)]
+               for i, n in enumerate((5, 40, 70, 9, 130, 17, 60))}
+    kw = dict(max_batch=3, max_len=512, chunk_size=4, prompt_buckets=(128, 256), paged=paged,
+              page_size=128, device=cuda)
+
+    def run(on, **extra):
+        done = ServingEngine(m.config, m.params, **kw, **extra).run(
+            [Request(input_ids=ids, max_new_tokens=12, request_id=rid, adapter=a)
+             for (rid, ids), a in zip(prompts.items(), on)])
+        assert sorted(c.request_id for c in done) == sorted(prompts)
+        assert all(0 < len(c.token_ids) <= 12 for c in done)
+        return {c.request_id: c.token_ids for c in done}
+
+    before = (decode_attention.flash_decode.launches, paged_attention.paged_decode.launches)
+    got = run(names, adapters=adapters, lora_scale=scale)
+    k3 = decode_attention.flash_decode.launches - before[0]
+    k8 = paged_attention.paged_decode.launches - before[1]
+    assert (k8 > 0 and k3 == 0) if paged else (k3 > 0 and k8 == 0)
+    merged = {None: m.params, **{n: merge(m.params, t, scale) for n, t in adapters.items()}}
+    for (rid, ids), a in zip(prompts.items(), names):
+        toks = got[rid]
+        x = torch.tensor([ids + toks], dtype=torch.int32, device=cuda)
+        with torch.inference_mode():
+            hidden, _, _ = forward(merged[a], m.config, x, causal=True)
+            logits = logits_from_hidden(merged[a], m.config, hidden)[0, len(ids) - 1:-1].float()
+        chosen = logits.gather(1, torch.tensor(toks, device=cuda)[:, None])[:, 0]
+        assert float((logits.max(1).values - chosen).max()) <= TIE, (rid, a)
+    base = run([None] * len(names))  # the same requests on the base model
+    for name in adapters:
+        assert any(got[rid] != base[rid] for rid, a in zip(prompts, names) if a == name), name
+
+
+@pytest.mark.parametrize("paged", [False, True])
+def test_adapter_decode_chunk_has_no_host_sync(cuda, paged):
+    """A decode chunk of an adapter pool, every row on another adapter,
+    queues without a host sync (set_sync_debug_mode("error") raises on
+    one): the rows' ids live on the device and index there."""
+    from gritlm_tpu_torch import serving
+
+    m, adapters, scale = _adapter_model(cuda)
+    eng = serving.ServingEngine(m.config, m.params, max_batch=3, max_len=256, chunk_size=4,
+                                prompt_buckets=(64,), paged=paged, page_size=64,
+                                adapters=adapters, lora_scale=scale, device=cuda)
+    for n, a in zip((5, 40, 20), adapters):
+        eng.submit(serving.Request(input_ids=list(range(3, 3 + n)), max_new_tokens=32,
+                                   request_id=str(n), adapter=a))
+    eng.step()  # admits all three and dispatches a first chunk
+    torch.cuda.synchronize()
+    assert eng.carry.aid.tolist() == [1, 2, 3]
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        toks, emitted = serving._decode_chunk_program(eng.params, eng.cfg, eng.carry, steps=4,
+                                                      eos_id=eng.eos_id, pad_id=eng.pad_id)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert toks.shape == emitted.shape == (4, 3) and bool(emitted.all())
+
+
+def test_lora_step_remat_policies_bit_equal(cuda):
+    """A LoRA train step on the card under each remat policy: losses and
+    adapters after two steps bit-equal to the full recompute's (the same
+    kernels on the same inputs), K1 relaunched by every policy's recompute
+    (two K1 launches for each K4 one)."""
+    from gritlm_tpu_torch.models.transformer import init_params
+    from gritlm_tpu_torch.tokenizer import ByteTokenizer
+    from gritlm_tpu_torch.training.data import GritCollator
+    from gritlm_tpu_torch.training.lora import make_lora_train_state
+    from gritlm_tpu_torch.training.train import TrainConfig, leaves
+
+    cfg = ModelConfig(vocab_size=512, hidden_size=256, intermediate_size=512,
+                      num_hidden_layers=2, num_attention_heads=2, num_key_value_heads=1)
+    coll = GritCollator(ByteTokenizer(), query_max_len=64, passage_max_len=128,
+                        generative_max_len=128)
+    batch = coll([(("find", f"query {i}"), [("find", f"passage {i}"), ("find", f"junk {i}")],
+                   [f"what is {i}?", f"it is {i}"]) for i in range(4)])
+    base = init_params(cfg, 0, device=cuda)
+    runs = {}
+    for policy in (None, "dots", "dots_no_batch"):
+        tc = TrainConfig(total_steps=4, warmup_ratio=0.25, learning_rate=1e-3,
+                         remat_policy=policy)
+        run_step, state, _, _ = make_lora_train_state(cfg, tc, base, r=4, alpha=8, device=cuda)
+        k1, k4 = flash_attention.flash_attention, flash_attention.flash_attention_bwd_dq
+        before = (k1.launches, k4.launches)
+        losses = []
+        for _ in range(2):
+            state, m = run_step(state, batch)
+            losses.append(m.loss)
+        n1, n4 = k1.launches - before[0], k4.launches - before[1]
+        assert n4 > 0 and n1 == 2 * n4, (policy, n1, n4)
+        runs[policy] = (torch.stack(losses), [t.detach().clone() for t in leaves(state.params)])
+    for policy in ("dots", "dots_no_batch"):
+        assert torch.equal(runs[policy][0], runs[None][0]), policy
+        assert all(torch.equal(a, b) for a, b in zip(runs[policy][1], runs[None][1])), policy

@@ -287,14 +287,14 @@ def test_paged_admission_waits_for_pages_and_rejects_oversized(models):
 
 
 def test_not_ported_options_raise(models):
-    """adapters= and mesh= still raise NotImplementedError; sampling and
-    speculative pools build and serve (tests/test_torch_serving_sampling.py
-    holds their tokens), but not together, and a sampled request needs a
-    sampling pool."""
+    """mesh= still raises NotImplementedError; sampling and speculative
+    pools build and serve (tests/test_torch_serving_sampling.py holds their
+    tokens), but not together, and a sampled request needs a sampling
+    pool. adapters= is ported (test_zero_adapter_pool_serves_base_tokens
+    here, tests/test_torch_adapters.py)."""
     _, tparams = models
-    for kw in (dict(adapters={"a": {}}), dict(mesh=object())):
-        with pytest.raises(NotImplementedError):
-            _port(tparams, **kw)
+    with pytest.raises(NotImplementedError, match="mesh"):
+        _port(tparams, mesh=object())
     with pytest.raises(ValueError, match="greedy-only"):
         _port(tparams, sampling=True, speculative=True)
     with pytest.raises(ValueError, match="sampling=True"):
@@ -404,3 +404,19 @@ def test_rag_serve_matches_jax(models):
     sampled = [[r.answer for r in te.serve(QUERIES, temperature=0.5, seed=1, **kw)]
                for _ in range(2)]
     assert sampled[0] == sampled[1] and len(sampled[0]) == len(QUERIES)
+
+
+def test_zero_adapter_pool_serves_base_tokens(models):
+    """ServingEngine(adapters=...) builds and serves: an adapter fresh from
+    init_lora (B = 0) leaves every request on the base model's tokens,
+    requests on it and on the base side by side (the adapters' own tokens:
+    tests/test_torch_adapters.py)."""
+    from gritlm_tpu_torch.training.lora import init_lora
+
+    _, tparams = models
+    zero, scale = init_lora(tparams, 5, r=4, alpha=8)
+    specs = _specs(LENS[:4], seed=6)
+    reqs = [Request(input_ids=list(ids), max_new_tokens=n, request_id=rid,
+                    adapter="z" if i % 2 else None) for i, (rid, ids, n) in enumerate(specs)]
+    done = _port(tparams, adapters={"z": zero}, lora_scale=scale).run(reqs)
+    assert _tokens(done) == {rid: _oracle(tparams, ids, n) for rid, ids, n in specs}

@@ -197,7 +197,6 @@ NOT_PORTED = [
     (["--mesh_model", "2"], "item 12"),
     (["--mesh_expert", "2"], "item 12"),
     (["--moe_impl", "dense"], "item 11"),
-    (["--remat_policy", "dots"], "item 7"),
     (["--model_preset", "tiny_mixtral"], "item 11"),
 ]
 
@@ -206,6 +205,25 @@ NOT_PORTED = [
 def test_not_ported_flag_raises(tmp_path, flags, item):
     with pytest.raises(NotImplementedError, match=item):
         main(_args(tmp_path / "run", 1, *flags))
+
+
+@pytest.fixture(scope="module")
+def two_steps(tmp_path_factory):
+    """Two CLI steps with the default full recompute."""
+    return main(_args(tmp_path_factory.mktemp("remat") / "run", 2))
+
+
+@pytest.mark.parametrize("policy", ["dots", "dots_no_batch"])
+def test_remat_policy_flag_runs(tmp_path, two_steps, policy):
+    """--remat_policy (ported with the remat policies): two steps with
+    finite losses, recorded in run_args.json, and the same losses as the
+    full recompute's (the policy changes what is kept, not what is
+    computed)."""
+    r = main(_args(tmp_path / "run", 2, "--remat_policy", policy))
+    assert r["steps"] == 2 and all(np.isfinite(v) for v in r["final"].values())
+    assert json.loads((tmp_path / "run" / "run_args.json").read_text())[
+        "remat_policy"] == policy
+    assert r["final"] == two_steps["final"]
 
 
 @pytest.fixture(scope="module")
