@@ -16,11 +16,13 @@ parameters through `python -m gritlm_tpu_torch.training.run`'s main; the
 embedding projection head in encode and in training; then a Mixtral-8x7B
 of random bf16 weights at its published width, depth cut to 16, through
 encode, generate and the serving engine, and at depth 8 with int8
-weights; per-request LoRA adapters in the serving engine and the remat
-policies of LoRA training), and times each kernel beside its bound, its
-plain version and one PyTorch library call.
+weights, and GRIT training on it (LoRA at depth 16, the load-balancing
+aux loss, gshard's capacity drops, `training.run --moe_impl
+--native_loader`); per-request LoRA adapters in the serving engine and the
+remat policies of LoRA training), and times each kernel beside its bound,
+its plain version and one PyTorch library call.
 
-Phases (in the order 1-7, 12, 14, 8, 9, 11, 13, 10), any failure exits non-zero:
+Phases (in the order 1-7, 12, 14, 8, 9, 11, 13, 15, 10), any failure exits non-zero:
   1. device and build: card name and power limit, nvcc's register and
      shared-memory report; for the redesigned kernels (K1, K4/K5, K9 on
      wgmma; K3, K8, K6 and K7 on mma.sync; K2 on bulk copies and clusters)
@@ -193,6 +195,24 @@ Phases (in the order 1-7, 12, 14, 8, 9, 11, 13, 10), any failure exits non-zero:
      peak GiB, losses and adapters against the full recompute's, K1
      relaunched by the recompute) and `training.run --remat_policy dots`
      (LoRA, depth 4, 2 steps)
+ 15. MoE GRIT training at Mixtral-8x7B width (after phase 13; counts set
+     to 0 before, read after): LoRA (r 16, alpha 64: wq/wk/wv/wo) at depth
+     MOE_DEPTH (16) on phase 10's batch (25,600 tokens a step),
+     moe_impl "auto" (dropless), 3 steps: ms a step, tokens/s, peak GiB
+     (a fourth step profiled: device time by kernel, idle share), and
+     loss_gen equal to the step's next-token loss plus coef x
+     load_balancing_loss recomputed in fp32 from the step's own router
+     logits (MOE_AUX_RTOL); at depth 2 with full parameters: the router's
+     gradient with the default aux coefficient minus with 0 against coef x
+     the aux loss's gradient (ROUTER_GRAD_RTOL), the expert stacks'
+     gradients nonzero under dense, dropless and gshard; gshard LoRA steps
+     on a 4 x 512 generative batch dropping routes at capacity 0.25 and
+     none at 4.0, one step traced through utils.profiling.trace (device
+     events required); one full-width layer's output and gradients under
+     the three impls (MOE_LAYER_RTOL); `training.run --model_name_or_path
+     <depth-2 checkpoint> --lora --moe_impl dropless --native_loader`, 2
+     steps; the native loader's host ms a batch beside the Python
+     pipeline's
 
 Output: a `kernels` JSON line, the card line, then as the last line
 {"ok": true, "device": {...}}. Exits 2 with no result when there is no CUDA
@@ -817,6 +837,10 @@ def main() -> int:
     gc.collect()  # engines held in reference cycles (their on_token closures) keep their pools
     torch.cuda.empty_cache()
     moe_phase(enc_long, reset_counts, read_counts, path_launches)
+    print(f"total {time.time() - t_start:.0f} s")
+
+    # ---------------------------------------------------------------- 15
+    moe_train_phase(dev, reset_counts, read_counts, path_launches)
     print(f"total {time.time() - t_start:.0f} s")
 
     # ---------------------------------------------------------------- 10
@@ -3480,6 +3504,313 @@ def moe_phase(enc, reset_counts, read_counts, path_launches) -> None:
           f"phase 13 {time.time() - t_phase:.0f} s", flush=True)
     if missing:
         fail(f"the MoE path never launched {missing}")
+
+# Phase 15: MoE GRIT training at Mixtral-8x7B width. The LoRA step runs at
+# phase 13's MOE_DEPTH (16 layers of random bf16 weights, 43.75 GiB: the
+# step adds 10.8 GiB at its peak on the 80 GB card); the router's gradient,
+# the expert stacks' gradients, the capacity drops and the CLI at depth 2.
+MOE_AUX_RTOL = 1e-5  # loss_gen against the CE plus the aux term recomputed in fp32
+# the router gradient's aux part, (coef default) - (coef 0) against coef x
+# the aux loss's own gradient: each of the three is an fp32 accumulation
+# rounded once to bf16 (the router is a bf16 leaf), and the first two also
+# carry the next-token loss's part, so the difference holds to a few bf16
+# steps of the whole gradient: 2^-7 of |g_default| + |g_0| (Frobenius)
+ROUTER_GRAD_RTOL = 2.0 ** -7
+MOE_LAYER_RTOL = 1e-2  # dense combines in bf16, dropless and gshard in fp32
+
+
+def moe_train_phase(dev, reset_counts, read_counts, path_launches, preset="mixtral_8x7b",
+                    lengths=(256, 2048, 2048), depths=(MOE_DEPTH, 2), gen_len=512,
+                    layer_tokens=(2, 512)) -> None:
+    """Phase 15: MoE GRIT training at Mixtral-8x7B width (after phase 13;
+    counts set to 0 before, read after). LoRA (r 16, alpha 64: wq/wk/wv/wo,
+    the 4-D expert stacks are no target) at depth depths[0] on phase 10's
+    batch (4 x group 2, query 256 / passage 2048 / generative 2048: 25,600
+    tokens a step), moe_impl "auto" (dropless: every forward has >= 1024
+    tokens), 3 steps: ms a step, tokens/s, peak GiB, finite losses (a
+    fourth step profiled by profile_window), and
+    loss_gen equal to the step's next-token loss plus coef x
+    load_balancing_loss recomputed in fp32 from the step's own router
+    logits (MOE_AUX_RTOL). Then at depth 2, full parameters, a generative
+    batch of 4 x gen_len: the router's gradient with the default
+    router_aux_coef minus with 0 against coef x the aux loss's own gradient
+    (ROUTER_GRAD_RTOL; the dense impl, whose backward is deterministic);
+    the expert stacks' gradients nonzero under dense, dropless and gshard;
+    a LoRA step under gshard at capacity 0.25 (moe_dropped_frac > 0) and
+    4.0 = E/k (exactly 0), one of them profiled through
+    utils.profiling.trace (device events in its Chrome trace); one full-
+    width layer under the three impls (output, input and expert gradients
+    within MOE_LAYER_RTOL of dense's); `training.run --model_name_or_path
+    <depth-2 checkpoint> --lora --moe_impl dropless --native_loader`, 2
+    steps (finite, moe_dropped_frac in metrics.jsonl); host ms a batch of
+    the native loader and of the Python pipeline (printed)."""
+    import dataclasses
+    import shutil
+
+    import torch
+
+    from gritlm_tpu_torch import config as cfgmod
+    from gritlm_tpu_torch.models import transformer as tr
+    from gritlm_tpu_torch.models.loader import save_checkpoint
+    from gritlm_tpu_torch.tokenizer import ByteTokenizer
+    from gritlm_tpu_torch.training import run as run_mod
+    from gritlm_tpu_torch.training import train
+    from gritlm_tpu_torch.training.data import (
+        GritCollator,
+        GritDataset,
+        batch_iterator,
+        load_train_dirs,
+    )
+    from gritlm_tpu_torch.training.lora import make_lora_train_state
+    from gritlm_tpu_torch.training.native_loader import NativeGritLoader
+    from gritlm_tpu_torch.utils import profiling
+
+    t_phase = time.time()
+    gc.collect()
+    torch.cuda.empty_cache()
+    work = ROOT / "build" / "chip_smoke_moe_train"
+    shutil.rmtree(work, ignore_errors=True)
+    data = work / "data"
+    synthetic_train_data(data)
+    full = getattr(cfgmod, preset)()
+    cfg = dataclasses.replace(full, num_hidden_layers=depths[0], moe_impl="auto")
+    qlen, plen, glen = lengths
+    emb, gen = load_train_dirs([str(data)])
+    coll = GritCollator(ByteTokenizer(), query_max_len=qlen, passage_max_len=plen,
+                        generative_max_len=glen)
+    batch = next(batch_iterator(GritDataset(emb, gen, train_group_size=2, seed=0), coll, 4,
+                                seed=0))
+    valid = sum(int(part["attention_mask"].sum()) for part in batch.values())
+    padded = sum(part["attention_mask"].size for part in batch.values())
+    gcoll = GritCollator(ByteTokenizer(), generative_max_len=gen_len)
+    gbatch = next(batch_iterator(GritDataset(emb, gen, mode="generative", seed=0), gcoll, 4,
+                                 seed=0))
+    gb = train.batch_to_device(gbatch, dev)["generative"]
+    reset_counts()
+    try:
+        # ---- the LoRA step at depth, with its aux term recomputed
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        base = tr.init_params(cfg, 0, device=dev)
+        tc = train.TrainConfig(learning_rate=1e-4, total_steps=6)
+        run_step, state, _, _ = make_lora_train_state(cfg, tc, base, r=16, alpha=64, seed=0,
+                                                      device=dev)
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        print(f"moe train [LoRA]: Mixtral-8x7B width at depth {depths[0]}, "
+              f"{tr.count_params(base) / 1e9:.3f} B params ({held / 2**30:.2f} GiB held), "
+              f"{tr.count_params(state.params) / 1e6:.1f} M trained; init "
+              f"{time.time() - t0:.1f} s", flush=True)
+        seen = []  # each generative forward's (next-token loss, router logits, mask)
+        next_token, balance = train.next_token_loss, train.load_balancing_loss
+
+        def record_ce(*a, **k):
+            out = next_token(*a, **k)
+            seen.append([out.detach().clone()])
+            return out
+
+        def record_aux(logits, c, mask):
+            seen[-1] += [logits.detach().clone(), mask.clone()]
+            return balance(logits, c, mask)
+
+        train.next_token_loss, train.load_balancing_loss = record_ce, record_aux
+        metrics, step_s = [], []
+        try:
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                state, m = run_step(state, batch)
+                metrics.append(m)
+                torch.cuda.synchronize()
+                step_s.append(time.perf_counter() - t0)
+        finally:
+            train.next_token_loss, train.load_balancing_loss = next_token, balance
+        peak = torch.cuda.max_memory_allocated()
+        med = statistics.median(step_s[1:])
+        coef = cfg.router_aux_loss_coef
+        errs = []
+        for m, (ce, logits, mask) in zip(metrics, seen):
+            aux = coef * tr.load_balancing_loss(logits.float(), cfg, mask)
+            errs.append(float((m.loss_gen - (ce + aux)).abs() / m.loss_gen.abs()))
+        print(f"moe train [LoRA, {depths[0]} layers, auto = dropless]: losses "
+              f"{', '.join(f'{float(m.loss):.4f}' for m in metrics)}, loss_gen "
+              f"{float(metrics[-1].loss_gen):.5f} of which aux {float(aux):.6f} (coef {coef}); "
+              f"loss_gen against CE + aux recomputed in fp32: {max(errs):.2e} relative (rtol "
+              f"{MOE_AUX_RTOL}); moe_dropped_frac {float(metrics[-1].moe_dropped_frac)}; "
+              f"{med * 1e3:.1f} ms per step (median of steps 2-3, host clock) = "
+              f"{padded / med:.0f} tokens/s ({valid / med:.0f} valid; {valid} valid of "
+              f"{padded} padded a step); peak {peak / 2**30:.2f} GiB ({(peak - held) / 2**30:.2f} "
+              f"above the weights)", flush=True)
+        if len(seen) != 3 or not all(
+                np.isfinite(float(x)) for m in metrics for x in (m.loss, m.loss_gen, m.grad_norm)):
+            fail(f"moe train [LoRA]: {len(seen)} generative forwards, metrics {metrics}")
+        if max(errs) > MOE_AUX_RTOL or not float(aux) > 0:
+            fail(f"moe train [LoRA]: loss_gen is not CE + coef x aux: {errs}")
+        if float(metrics[-1].moe_dropped_frac) != 0.0:
+            fail("moe train [LoRA]: the dropless impl dropped routes")
+        launched = read_counts()
+        if any(launched[n] == 0 for n in ("flash_attention", "flash_attention_bwd_dq",
+                                          "flash_attention_bwd_dkv")):
+            fail(f"moe train [LoRA]: the step skipped K1, K4 or K5: {launched}")
+        profile_window(f"MoE LoRA step, {depths[0]} layers", lambda: run_step(state, batch))
+        del state, run_step, base, seen, metrics, logits
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # ---- depth 2, full parameters: the router's gradient, the experts'
+        cfg2 = dataclasses.replace(full, num_hidden_layers=depths[1], moe_impl="dense")
+        params = train.trainable(tr.init_params(cfg2, 1, device=dev))
+        moe = params["layers"]["moe"]
+        t0 = time.time()
+
+        def grads(c, coef_, wrt):
+            tc_ = train.TrainConfig(router_aux_coef=coef_)
+            loss, _ = train.generative_loss(params, c, tc_, gb)
+            return torch.autograd.grad(loss, wrt)
+
+        (g_def,), (g_0,) = grads(cfg2, None, [moe["router"]]), grads(cfg2, 0.0, [moe["router"]])
+        _, _, aux = tr.forward(params, cfg2, gb["input_ids"], attention_mask=gb["attention_mask"],
+                               causal=True, remat=True, output_router_logits=True)
+        (g_aux,) = torch.autograd.grad(
+            tr.load_balancing_loss(aux["router_logits"], cfg2, gb["attention_mask"]),
+            [moe["router"]])
+        diff, want = g_def.float() - g_0.float(), coef * g_aux.float()
+        err = float((diff - want).norm())
+        tol = ROUTER_GRAD_RTOL * float(g_def.float().norm() + g_0.float().norm())
+        print(f"moe train [router gradient, depth {depths[1]}, full parameters, dense]: "
+              f"|g(coef {coef}) - g(0) - coef g_aux| {err:.3e} against |coef g_aux| "
+              f"{float(want.norm()):.3e}, |g(coef)| {float(g_def.float().norm()):.3e} "
+              f"(bound {tol:.3e}: 2^-7 of |g(coef)| + |g(0)|); relative to coef g_aux "
+              f"{err / float(want.norm()):.3e}", flush=True)
+        if not err <= tol or not float(want.norm()) > 2 * tol:
+            fail("moe train [router gradient]: the aux loss's gradient does not reach the "
+                 "router as coef x its own gradient")
+        del g_def, g_0, g_aux, diff, want, aux
+        for impl in ("dense", "dropless", "gshard"):
+            ge = grads(dataclasses.replace(cfg2, moe_impl=impl), None,
+                       [moe["gate"], moe["up"], moe["down"]])
+            mx = [float(g.float().abs().max()) for g in ge]
+            print(f"moe train [expert gradients, {impl}]: max |grad| gate/up/down "
+                  f"{', '.join(f'{x:.3e}' for x in mx)}", flush=True)
+            if not all(np.isfinite(x) and x > 0 for x in mx):
+                fail(f"moe train [expert gradients, {impl}]: {mx}")
+            del ge
+        print(f"moe train [gradients at depth {depths[1]}]: {time.time() - t0:.1f} s",
+              flush=True)
+
+        # ---- capacity drops under gshard (LoRA, generative-only), one step profiled
+        drops = {}
+        for cf in (0.25, full.num_local_experts / full.num_experts_per_tok):
+            cfg_g = dataclasses.replace(cfg2, moe_impl="gshard", capacity_factor=cf)
+            tc = train.TrainConfig(mode="generative", learning_rate=1e-4, total_steps=4)
+            run_step, state, _, _ = make_lora_train_state(cfg_g, tc, params, seed=0,
+                                                          device=dev)
+            state, m = run_step(state, gbatch)
+            drops[cf] = float(m.moe_dropped_frac)
+            if not np.isfinite(float(m.loss)):
+                fail(f"moe train [gshard, capacity {cf}]: loss {float(m.loss)}")
+        print(f"moe train [gshard, 4 x {gen_len} generative, depth {depths[1]}]: "
+              f"moe_dropped_frac {drops}", flush=True)
+        if not (drops[0.25] > 0 and drops[cf] == 0.0):
+            fail(f"moe train [gshard]: drops {drops} (want > 0 at 0.25, exactly 0 at {cf})")
+        for attempt in range(3):  # a trace now and then holds no device events (time_ms)
+            out = work / f"trace{attempt}"
+            with profiling.trace(str(out)):
+                with profiling.annotate("moe LoRA step"):
+                    state, m = run_step(state, gbatch)
+            events = json.loads((out / "trace.json").read_text())["traceEvents"]
+            kernels = [e for e in events if e.get("cat") == "kernel"]
+            if kernels:
+                break
+        busy = sum(e.get("dur", 0) for e in kernels) / 1e3
+        print(f"moe train [profiling.trace of one gshard LoRA step]: {len(kernels)} kernel "
+              f"events, {busy:.2f} device ms, trace {(out / 'trace.json').stat().st_size} bytes "
+              f"(attempt {attempt + 1})", flush=True)
+        if not kernels:
+            fail("moe train [profiling.trace]: no device events in three traces")
+        del state, run_step
+
+        # ---- one full-width layer under the three impls
+        gen_x = torch.Generator(device=dev).manual_seed(5)
+        lp = {k: v[0].detach() for k, v in moe.items()}
+        x = torch.randn((*layer_tokens, full.hidden_size), generator=gen_x,
+                        device=dev).to(torch.bfloat16)
+        w = torch.randn(x.shape, generator=gen_x, device=dev)
+        runs = {}
+        for impl, kw in (("dense", {}), ("dropless", {}), ("gshard", dict(
+                capacity_factor=full.num_local_experts / full.num_experts_per_tok))):
+            c = dataclasses.replace(cfg2, moe_impl=impl, **kw)
+            xi = x.clone().requires_grad_(True)
+            ex = {k: lp[k].clone().requires_grad_(True) for k in ("gate", "up", "down")}
+            y, logits, drop = tr._moe_mlp({**lp, **ex}, xi, c)
+            gs = torch.autograd.grad((y.float() * w).sum(), [xi, *ex.values()])
+            runs[impl] = (y.detach(), gs, logits.detach(), float(drop))
+            del xi, ex, y, gs
+        y0, g0, l0, _ = runs["dense"]
+        rels = {}
+        for impl in ("dropless", "gshard"):
+            y, gs, logits, drop = runs[impl]
+            if not torch.equal(logits, l0) or drop != 0.0:
+                fail(f"moe train [layer, {impl}]: router logits differ or routes dropped")
+            rels[impl] = [float((a.float() - b.float()).norm() / b.float().norm())
+                          for a, b in zip((y, *gs), (y0, *g0))]
+        print(f"moe train [one full-width layer, {layer_tokens[0]} x {layer_tokens[1]} tokens]: "
+              f"relative to dense (out, dx, dgate, dup, ddown): " + "; ".join(
+                  f"{k} {', '.join(f'{r:.2e}' for r in v)}" for k, v in rels.items())
+              + f" (rtol {MOE_LAYER_RTOL})", flush=True)
+        if any(r > MOE_LAYER_RTOL for v in rels.values() for r in v):
+            fail(f"moe train [layer]: the impls disagree: {rels}")
+        del runs, lp, x, w, y0, g0, moe
+
+        # ---- the CLI on a depth-2 checkpoint, with the native loader
+        t0 = time.time()
+        save_checkpoint(str(work / "ckpt"), cfg2, params)
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        r = run_mod.main(["--train_data", str(data), "--model_name_or_path", str(work / "ckpt"),
+                          "--mode", "unified", "--lora", "--moe_impl", "dropless",
+                          "--native_loader", "--per_device_train_batch_size", "4",
+                          "--train_group_size", "2", "--max_steps", "2", "--save_steps", "0",
+                          "--logging_steps", "1", "--learning_rate", "1e-4",
+                          "--query_max_len", str(qlen), "--passage_max_len", str(plen),
+                          "--generative_max_len", str(glen), "--output_dir", str(work / "run"),
+                          "--device", dev.type])
+        rows = [json.loads(line) for line in
+                (work / "run" / "metrics.jsonl").read_text().splitlines()]
+        print(f"moe train [training.run --lora --moe_impl dropless --native_loader, depth "
+              f"{depths[1]}]: {r['steps']} steps in {time.time() - t0:.1f} s (checkpoint write, "
+              f"load and export included), final {r['final']}", flush=True)
+        if r["steps"] != 2 or not all(np.isfinite(v) for v in r["final"].values()) or len(
+                rows) != 2 or not all("moe_dropped_frac" in row for row in rows):
+            fail(f"moe train [training.run]: {r}, metrics {rows}")
+
+        # ---- host ms a batch: the native loader against the Python pipeline
+        native = NativeGritLoader([str(data)], batch_size=4, train_group_size=2,
+                                  query_max_len=qlen, passage_max_len=plen,
+                                  generative_max_len=glen, seed=0)
+        t0 = time.perf_counter()
+        n_native = sum(1 for _ in native.epoch(0))
+        native_ms = (time.perf_counter() - t0) * 1e3 / max(n_native, 1)
+        native.close()
+        t0 = time.perf_counter()
+        n_py = sum(1 for _ in batch_iterator(GritDataset(emb, gen, train_group_size=2, seed=0),
+                                             coll, 4, seed=0))
+        py_ms = (time.perf_counter() - t0) * 1e3 / max(n_py, 1)
+        print(f"moe train [input pipeline, 4 x group 2 at {qlen}/{plen}/{glen}]: native "
+              f"loader {native_ms:.2f} host ms a batch ({n_native} batches), Python pipeline "
+              f"{py_ms:.2f} ({n_py} batches)", flush=True)
+        torch.cuda.synchronize()
+        counts = read_counts()
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    path_launches["moe_train"] = counts
+    print(f"moe train launches: {counts}; phase 15 {time.time() - t_phase:.0f} s", flush=True)
+    if any(counts[n] == 0 for n in ("flash_attention", "flash_attention_bwd_dq",
+                                    "flash_attention_bwd_dkv")):
+        fail("moe train: the phase did not go through K1, K4 and K5")
+    torch.cuda.empty_cache()
+
 
 def flash_bwd_checks(dev, randn, max_err, B=2, S=2048, H=32, Hkv=8, window=512) -> None:
     """K4 and K5 against the plain backward from the same saved LSE at

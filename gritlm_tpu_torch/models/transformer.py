@@ -573,6 +573,29 @@ def _moe_mlp_dropless(p: dict, x: torch.Tensor, cfg: ModelConfig):
     return out.to(x.dtype).reshape(B, S, D), router_logits, x.new_zeros((), dtype=torch.float32)
 
 
+def load_balancing_loss(router_logits: torch.Tensor, cfg: ModelConfig,
+                        padding_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Switch-style aux loss over all layers' router logits [L, T, E] (T =
+    B*S), with the padding correction of the reference
+    (scripts/modeling_mixtral_gritlm.py:80-153): fp32 softmax, the top-k
+    one-hot, and with `padding_mask` [B, S] the masked tokens left out of
+    both the routed fractions and the mean probabilities (the token count
+    clamped at 1). The JAX package's `load_balancing_loss`."""
+    L, T, E = router_logits.shape
+    probs = torch.softmax(router_logits.float(), dim=-1)
+    top_idx = torch.topk(probs, cfg.num_experts_per_tok, dim=-1).indices
+    expert_mask = F.one_hot(top_idx, E).float()  # [L, T, k, E]
+    if padding_mask is not None:
+        w = padding_mask.reshape(1, T, 1, 1).float()
+        denom = padding_mask.sum().float().clamp_min(1.0) * L
+        tokens_per_expert = (expert_mask * w).sum(dim=(0, 1, 2)) / denom
+        router_prob = (probs * w[:, :, 0, :]).sum(dim=(0, 1)) / denom
+    else:
+        tokens_per_expert = expert_mask.sum(dim=2).mean(dim=(0, 1))
+        router_prob = probs.mean(dim=(0, 1))
+    return (tokens_per_expert * router_prob).sum() * E
+
+
 # moe_impl="auto": below this many tokens (decode steps, short encodes) the
 # dense pass, at and above it dropless, as in the JAX package. The token
 # count is a shape, so the choice costs no host read.
@@ -653,6 +676,7 @@ def forward(
     final_norm: bool = True,
     remat: bool = False,
     remat_policy: Optional[str] = None,
+    output_router_logits: bool = False,
 ):
     """Run the trunk (no LM head). Returns (hidden [B,S,D], new_cache, aux).
 
@@ -680,9 +704,14 @@ def forward(
     row's own offset (K3 or K8 with per-row offsets); the caller clears the
     bits of rejected slots afterwards.
 
-    A MoE trunk's router logits and dropped fraction stay out of `aux`:
-    they feed the JAX package's training losses, which wait for MoE
-    training (ROADMAP Queue 1 item 11)."""
+    `output_router_logits=True` fills `aux` for the training losses, as
+    the JAX package does: "router_logits" [L, B*S, E] fp32, every layer's
+    router logits stacked (the load-balancing loss reads them), and
+    "moe_dropped_frac", the mean over layers of the fraction of routes that
+    overflowed a gshard capacity (0 for dense and dropless). They are
+    stacked only when asked (a dense trunk has none to give); a
+    checkpointed layer returns its logits with its output, so the aux
+    loss's gradient flows through the recompute."""
     context_fn = remat_context(remat_policy)
     B, S = input_ids.shape
     # F.embedding, not indexing: its backward sums each row's gradient in
@@ -723,22 +752,31 @@ def forward(
                                  causal=causal, layer_cache=layer_cache)
         h = rms_norm(x, lp["ln2"]["scale"], cfg.rms_norm_eps)
         if cfg.is_moe:
-            return x + _moe_mlp(lp["moe"], h, cfg)[0]
-        return x + _dense_mlp(lp["mlp"], h)
+            out, router_logits, dropped = _moe_mlp(lp["moe"], h, cfg)
+            return x + out, router_logits, dropped
+        return x + _dense_mlp(lp["mlp"], h), None, None
 
     recompute = remat and cache is None and torch.is_grad_enabled()
+    stats = []  # (router_logits [T, E], dropped) per layer, when asked
     for i, lp in enumerate(_unstack(params["layers"], cfg.num_hidden_layers)):
         if recompute:
-            x = checkpoint(block, x, lp, use_reentrant=False, context_fn=context_fn)
+            x, *layer_stats = checkpoint(block, x, lp, use_reentrant=False,
+                                         context_fn=context_fn)
         else:
-            x = block(x, lp, None if cache is None else (cache, i, row_offsets))
+            x, *layer_stats = block(x, lp, None if cache is None else (cache, i, row_offsets))
+        if output_router_logits and cfg.is_moe:
+            stats.append(layer_stats)
 
     new_cache = cache
     if cache is not None and row_offsets is None:
         new_cache = dataclasses.replace(cache, length=cache.length + S)
     if final_norm:
         x = rms_norm(x, params["final_ln"]["scale"], cfg.rms_norm_eps)
-    return x, new_cache, {}
+    aux = {}
+    if stats:
+        aux["router_logits"] = torch.stack([rl for rl, _ in stats])
+        aux["moe_dropped_frac"] = torch.stack([d for _, d in stats]).mean()
+    return x, new_cache, aux
 
 
 def lm_head_kernel(params: dict, cfg: ModelConfig, dtype) -> torch.Tensor:

@@ -95,20 +95,19 @@ class RunArguments:
     resume_from_checkpoint: Optional[str] = None  # path or "auto"
 
     def check_ported(self) -> None:
-        """Raise NotImplementedError, naming the ROADMAP Queue 1 item that
-        brings it, for every option the port does not run yet."""
+        """Raise NotImplementedError for every option the port does not run
+        yet: the mesh flags, which wait for the parallel slice (ROADMAP
+        Queue 1 item 12)."""
         not_ported = [
-            (self.native_loader, "--native_loader (the C++ input pipeline)", 13),
-            (self.seq_parallel, "--seq_parallel", 12),
-            (self.mesh_stage > 1, "--mesh_stage > 1", 12),
+            (self.seq_parallel, "--seq_parallel"),
+            (self.mesh_stage > 1, "--mesh_stage > 1"),
             (self.mesh_data != 1 or self.mesh_fsdp not in (-1, 1) or self.mesh_model != 1
-             or self.mesh_expert != 1, "a mesh of more than one device", 12),
-            (self.moe_impl is not None, "--moe_impl", 11),
+             or self.mesh_expert != 1, "a mesh of more than one device"),
         ]
-        for bad, what, item in not_ported:
+        for bad, what in not_ported:
             if bad:
                 raise NotImplementedError(
-                    f"{what} is not ported to gritlm_tpu_torch yet (ROADMAP Queue 1 item {item})")
+                    f"{what} is not ported to gritlm_tpu_torch yet (ROADMAP Queue 1 item 12)")
 
     def to_train_config(self, total_steps: int):
         from gritlm_tpu_torch.training.train import TrainConfig

@@ -45,7 +45,10 @@ DEFAULT_TARGETS = ("wq", "wk", "wv", "wo", "gate", "up", "down")
 
 def _target_leaves(params: dict, targets: Sequence[str]):
     """(path, leaf) for the targeted 3-D kernels [L, in, out], depth first;
-    an int8 base {"q8", "scale"} (QLoRA) gives its q8 tensor."""
+    an int8 base {"q8", "scale"} (QLoRA) gives its q8 tensor. On a MoE tree
+    the 4-D expert stacks [L, E, in, out] are not targeted (nor is the
+    router, whose name is no target), as in the JAX package: LoRA adapts
+    the attention projections there."""
     out = []
 
     def walk(node, path):
@@ -225,7 +228,7 @@ def lora_train_step_fns(base_params: dict, cfg, tc, scale: float):
         loss_gen = torch.zeros((), device=device)
         loss_emb = torch.zeros((), device=device)
         if "generative" in batch and tc.mode in ("unified", "generative"):
-            loss_gen = generative_loss(params, cfg, tc, batch["generative"])
+            loss_gen, _ = generative_loss(params, cfg, tc, batch["generative"])
         if "query" in batch and tc.mode in ("unified", "embedding"):
             q = encode_reps(params, cfg, tc, batch["query"])
             p = encode_reps(params, cfg, tc, batch["passage"])

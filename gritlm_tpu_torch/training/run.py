@@ -8,17 +8,23 @@ an HF-safetensors checkpoint (LoRA merged, the base dense). The model is an
 HF checkpoint with its tokenizer (`--model_name_or_path`, with the
 embedding projection head it carries) or a preset with random weights from
 `--seed`; `--projection P` adds a fresh head of width P (trained with full
-parameters, frozen under LoRA, as in the JAX package). It writes the JAX
-CLI's files: run_args.json, dataset_num_samples.json, metrics.jsonl,
-checkpoints/step_<n>/ and export/.
+parameters, frozen under LoRA, as in the JAX package). A Mixtral model
+(`--model_preset tiny_mixtral|mixtral_8x7b` or a Mixtral checkpoint) trains
+with the load-balancing aux loss, `--moe_impl dense|dropless|gshard|auto`
+overrides its MoE execution, and its metrics log carries moe_dropped_frac.
+`--native_loader` feeds the steps from the C++ input pipeline
+(training/native_loader.py) when the tokenizer is the byte tokenizer, and
+warns and keeps the Python pipeline otherwise, as the JAX CLI does. It
+writes the JAX CLI's files: run_args.json, dataset_num_samples.json,
+metrics.jsonl, checkpoints/step_<n>/ and export/.
 
 Example (toy run on the CPU, the kernels' plain versions):
   python -m gritlm_tpu_torch.training.run --train_data tests/toy_data \\
       --device cpu --model_preset tiny_mistral --mode unified \\
       --per_device_train_batch_size 2 --max_steps 8 --output_dir /tmp/run
 
-On the GPU drop `--device cpu` (default cuda). Options the port does not run
-yet raise NotImplementedError (RunArguments.check_ported).
+On the GPU drop `--device cpu` (default cuda). The mesh options, which the
+port does not run yet, raise NotImplementedError (RunArguments.check_ported).
 """
 
 from __future__ import annotations
@@ -40,7 +46,7 @@ def main(argv=None) -> dict:
         init_projection,
         resolve_device,
     )
-    from gritlm_tpu_torch.tokenizer import load_tokenizer
+    from gritlm_tpu_torch.tokenizer import ByteTokenizer, load_tokenizer
     from gritlm_tpu_torch.training.arguments import parse_args
     from gritlm_tpu_torch.training.checkpoint import CheckpointManager
     from gritlm_tpu_torch.training.data import (
@@ -67,13 +73,15 @@ def main(argv=None) -> dict:
         cfg, params = load_checkpoint(args.model_name_or_path,
                                       with_lm_head=(args.mode != "embedding"), dtype=args.dtype,
                                       device=device)
+        if args.moe_impl and cfg.is_moe:
+            cfg = dataclasses.replace(cfg, moe_impl=args.moe_impl)
         tokenizer = load_tokenizer(args.model_name_or_path)
     else:
         cfg = getattr(cfgmod, args.model_preset)()
         if args.dtype:
             cfg = dataclasses.replace(cfg, dtype=args.dtype)
-        if cfg.is_moe:
-            raise NotImplementedError("MoE training is not ported (ROADMAP Queue 1 item 11)")
+        if args.moe_impl and cfg.is_moe:
+            cfg = dataclasses.replace(cfg, moe_impl=args.moe_impl)
         params = init_params(cfg, args.seed, with_lm_head=(args.mode != "embedding"),
                              device=device)
         tokenizer = load_tokenizer(None)
@@ -81,9 +89,9 @@ def main(argv=None) -> dict:
         # a fresh embedding head (over a checkpoint's own): uniform in
         # +-sqrt(6 / (D + P)), zero bias, from seed + 1, as the JAX CLI draws it
         params["projection"] = init_projection(cfg, args.projection, args.seed + 1, device)
-    logger.info("model: %s (%s) on %s, projection=%s",
-                args.model_preset or args.model_name_or_path, cfg.dtype, device,
-                args.projection)
+    logger.info("model: %s (%s) on %s, moe=%s, projection=%s",
+                args.model_name_or_path or args.model_preset, cfg.dtype, device,
+                cfg.moe_impl if cfg.is_moe else False, args.projection)
 
     # ---- data
     emb_sets, gen_sets = load_train_dirs(args.train_data)
@@ -166,7 +174,28 @@ def main(argv=None) -> dict:
             logger.info("resumed from step %d (epoch %d, skipping %d batches)",
                         start_step, start_epoch, skip_batches)
 
+    native = None
+    if args.native_loader:
+        if not isinstance(tokenizer, ByteTokenizer):
+            logger.warning("native_loader supports the byte tokenizer only; falling back to "
+                           "the python pipeline")
+        else:
+            from gritlm_tpu_torch.training.native_loader import NativeGritLoader
+
+            native = NativeGritLoader(
+                args.train_data, batch_size=global_bs, train_group_size=args.train_group_size,
+                query_max_len=args.query_max_len, passage_max_len=args.passage_max_len,
+                generative_max_len=args.generative_max_len, seed=args.seed, take_nth=take_nth,
+            )
+            logger.info("native loader: %d emb / %d gen samples", native.n_emb, native.n_gen)
+
     def batches_for(epoch: int, skip: int = 0):
+        if native is not None:
+            it = native.epoch(epoch)
+            for _ in range(skip):  # draining the C++ loader's skipped batches is cheap
+                if next(it, None) is None:
+                    return iter(())
+            return it
         return batch_iterator(dataset, collator, global_bs, seed=args.seed, epoch=epoch,
                               skip=skip)
 
@@ -180,9 +209,11 @@ def main(argv=None) -> dict:
             break
         if epoch < start_epoch:
             # replay fully consumed epochs' dataset draws so GritDataset.rng
-            # reaches the uninterrupted run's state (collation is skipped)
-            for _ in batches_for(epoch, skip=10**9):
-                pass
+            # reaches the uninterrupted run's state (collation is skipped; the
+            # native loader reseeds each epoch)
+            if native is None:
+                for _ in batches_for(epoch, skip=10**9):
+                    pass
             continue
         bidx = skip_batches if epoch == start_epoch else 0
         for batch in batches_for(epoch, skip=bidx):
@@ -194,6 +225,8 @@ def main(argv=None) -> dict:
             bidx += 1
             last = {"loss": float(m.loss), "loss_emb": float(m.loss_emb),
                     "loss_gen": float(m.loss_gen), "grad_norm": float(m.grad_norm)}
+            if cfg.is_moe:  # the gshard capacity-overflow rate (0 = exact routing)
+                last["moe_dropped_frac"] = float(m.moe_dropped_frac)
             mlog.log(step, last)
             if args.save_steps and step % args.save_steps == 0:
                 ckpt.save(state, extra={"epoch": epoch, "batch_in_epoch": bidx})
@@ -215,6 +248,8 @@ def main(argv=None) -> dict:
     del export_params
     logger.info("final checkpoint step %d -> %s", step, export_dir)
     mlog.close()
+    if native is not None:
+        native.close()
     return {"steps": step, "final": last, "export": export_dir}
 
 

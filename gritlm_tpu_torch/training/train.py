@@ -10,11 +10,17 @@ step with GradCache (port of gritlm_tpu.training.train).
     replay is exact.
 
 The generative loss runs first, as in the JAX package (reference
-gradcache_trainer.py:549-551). The optimizer is the JAX package's optax
-chain: clip to `max_grad_norm` by the global norm, then AdamW(0.9, 0.999,
-eps 1e-8, weight_decay) under a schedule that rises linearly from 0 to
-`learning_rate` over the warmup and falls linearly to 0; the first update
-has LR 0 (optax counts from 0). Here that is `torch.optim.AdamW` with a
+gradcache_trainer.py:549-551). A Mixtral (MoE) config adds the
+load-balancing aux loss, `router_aux_coef` (default the config's
+`router_aux_loss_coef`) times models/transformer.load_balancing_loss of the
+generative forward's router logits, to the generative loss, and reports the
+fraction of routes a gshard capacity dropped (`StepMetrics.moe_dropped_frac`,
+averaged over the step's forwards as the JAX package averages it).
+
+The optimizer is the JAX package's optax chain: clip to `max_grad_norm`
+by the global norm, then AdamW(0.9, 0.999, eps 1e-8, weight_decay) under a
+schedule that rises linearly from 0 to `learning_rate` over the warmup and
+falls linearly to 0; the first update has LR 0 (optax counts from 0). Here that is `torch.optim.AdamW` with a
 `LambdaLR`, and the clip is done by hand so that it matches
 `optax.clip_by_global_norm`; its moments are kept in the parameters' dtype,
 like optax's.
@@ -28,13 +34,18 @@ to the model's params, training/lora.py).
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, List, NamedTuple, Optional
+from typing import Callable, Dict, List, NamedTuple, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
 from gritlm_tpu_torch.config import ModelConfig
-from gritlm_tpu_torch.models.transformer import forward, forward_lm, lm_head_kernel
+from gritlm_tpu_torch.models.transformer import (
+    forward,
+    forward_lm,
+    lm_head_kernel,
+    load_balancing_loss,
+)
 from gritlm_tpu_torch.ops.pooling import mask_instruction, pool
 from gritlm_tpu_torch.training.losses import (
     contrastive_loss,
@@ -73,6 +84,7 @@ class TrainConfig:
     # fuse the LM head into the next-token loss (vocab-chunked online
     # logsumexp): a memory feature for big-vocab logits, same semantics
     fused_ce: bool = False
+    router_aux_coef: Optional[float] = None  # None -> cfg.router_aux_loss_coef
 
     @property
     def embed_causal(self) -> bool:
@@ -95,6 +107,9 @@ class StepMetrics(NamedTuple):
     loss_emb: torch.Tensor
     loss_gen: torch.Tensor
     grad_norm: torch.Tensor
+    # the fraction of MoE routes a gshard capacity dropped this step (0 for
+    # dense models and exact routing); run.py logs it for a MoE config
+    moe_dropped_frac: Union[torch.Tensor, float] = 0.0
 
 
 def leaves(tree) -> List[torch.Tensor]:
@@ -112,18 +127,12 @@ def batch_to_device(batch: dict, device) -> dict:
             for k, v in batch.items()}
 
 
-def _check_cfg(cfg: ModelConfig) -> None:
-    if cfg.is_moe:
-        raise NotImplementedError("MoE training is not ported: it waits for the MoE slice "
-                                  "(ROADMAP Queue 1 item 11)")
-
-
 # ---------------------------------------------------------------------------
 # Encode / loss pieces
 
 
-def encode_reps(params, cfg: ModelConfig, tc: TrainConfig, feat: Dict[str, torch.Tensor]
-                ) -> torch.Tensor:
+def encode_reps(params, cfg: ModelConfig, tc: TrainConfig, feat: Dict[str, torch.Tensor],
+                return_drop: bool = False):
     """features -> pooled (optionally normalized) fp32 reps [B, D] (or
     [B, P] with a projection head); instruction tokens are attended but not
     pooled (reference gritlm/training/model.py:134-165). Pools with
@@ -132,10 +141,12 @@ def encode_reps(params, cfg: ModelConfig, tc: TrainConfig, feat: Dict[str, torch
     the pooled rep, cast to the rep's dtype, before the normalize (reference
     gritlm/training/model.py:147-148); inference projects every token before
     pooling instead (gritlm._encode_step), and the port keeps both as the
-    JAX package has them."""
-    hidden, _, _ = forward(params, cfg, feat["input_ids"], attention_mask=feat["attention_mask"],
-                           causal=tc.embed_causal, remat=tc.remat,
-                           remat_policy=tc.remat_policy)
+    JAX package has them. With `return_drop`, returns (reps, the MoE
+    dropped fraction of this forward; 0 for a dense model)."""
+    hidden, _, aux = forward(params, cfg, feat["input_ids"],
+                             attention_mask=feat["attention_mask"], causal=tc.embed_causal,
+                             remat=tc.remat, remat_policy=tc.remat_policy,
+                             output_router_logits=cfg.is_moe and return_drop)
     pmask = feat["attention_mask"]
     if "instruction_lens" in feat:
         pmask = mask_instruction(pmask, feat["instruction_lens"])
@@ -145,23 +156,41 @@ def encode_reps(params, cfg: ModelConfig, tc: TrainConfig, feat: Dict[str, torch
         reps = reps @ pr["kernel"].to(reps.dtype) + pr["bias"].to(reps.dtype)
     if tc.normalized:
         reps = reps / reps.norm(dim=-1, keepdim=True).clamp_min(1e-12)
+    if return_drop:
+        return reps, aux.get("moe_dropped_frac", _zero(reps.device))
     return reps
 
 
+def _zero(device) -> torch.Tensor:
+    return torch.zeros((), dtype=torch.float32, device=device)
+
+
 def generative_loss(params, cfg: ModelConfig, tc: TrainConfig,
-                    gen: Dict[str, torch.Tensor]) -> torch.Tensor:
-    """The next-token loss of a generative sub-batch (the JAX package also
-    returns an MoE drop fraction; the port trains dense models only)."""
+                    gen: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(the next-token loss of a generative sub-batch, the MoE dropped
+    fraction of its forward). For a MoE config the loss includes
+    coef * load_balancing_loss over the forward's router logits under the
+    sub-batch's attention mask (the aux loss is on the generative side only,
+    as in the JAX package); a dense model's fraction is 0."""
     kw = dict(attention_mask=gen["attention_mask"], causal=True, remat=tc.remat,
-              remat_policy=tc.remat_policy)
+              remat_policy=tc.remat_policy, output_router_logits=cfg.is_moe)
     if tc.fused_ce:
-        hidden, _, _ = forward(params, cfg, gen["input_ids"], **kw)
+        hidden, _, aux = forward(params, cfg, gen["input_ids"], **kw)
         loss = fused_next_token_loss(hidden, lm_head_kernel(params, cfg, hidden.dtype),
                                      gen["labels"], tc.loss_gen_type, tc.loss_gen_factor)
     else:
-        logits, _, _ = forward_lm(params, cfg, gen["input_ids"], **kw)
+        logits, _, aux = forward_lm(params, cfg, gen["input_ids"], **kw)
         loss = next_token_loss(logits, gen["labels"], tc.loss_gen_type, tc.loss_gen_factor)
-    return loss
+    if cfg.is_moe:
+        coef = tc.router_aux_coef if tc.router_aux_coef is not None else cfg.router_aux_loss_coef
+        loss = loss + coef * load_balancing_loss(aux["router_logits"], cfg,
+                                                 gen["attention_mask"])
+    return loss, aux.get("moe_dropped_frac", _zero(loss.device))
+
+
+def _router_aux_from_stats(*args, **kwargs):
+    raise NotImplementedError("_router_aux_from_stats (the pipeline and sequence-parallel "
+                              "trunks' aux loss) " + NOT_PORTED_MESH)
 
 
 # ---------------------------------------------------------------------------
@@ -179,21 +208,27 @@ def _chunks(feat: Dict[str, torch.Tensor], n: int) -> List[Dict[str, torch.Tenso
 def gradcache_emb_grads(
     params_fn: Callable[[], dict], cfg: ModelConfig, tc: TrainConfig,
     query: Dict[str, torch.Tensor], passage: Dict[str, torch.Tensor],
-) -> torch.Tensor:
+) -> Tuple[torch.Tensor, torch.Tensor]:
     """The contrastive loss over the whole query/passage batch with chunked
     activations: accumulates its parameter gradients into `.grad` of the
-    trained leaves and returns the loss (detached). `params_fn()` gives the
-    model's params; it is called per replayed chunk, so each chunk's graph
-    is its own (a LoRA tree is resolved anew per chunk)."""
+    trained leaves and returns (the loss, detached; the MoE dropped fraction
+    averaged over every query and passage chunk of the first stage, 0 for a
+    dense model). `params_fn()` gives the model's params; it is called per
+    replayed chunk, so each chunk's graph is its own (a LoRA tree is
+    resolved anew per chunk)."""
     n = tc.gc_chunks
     q_chunks, p_chunks = _chunks(query, n), _chunks(passage, n)
 
-    # stage 1: no-grad chunked encode
+    # stage 1: no-grad chunked encode, tracking the MoE drops (the replay's
+    # forwards repeat the same routes)
     with torch.no_grad():
         params = params_fn()
-        q_reps = torch.cat([encode_reps(params, cfg, tc, c) for c in q_chunks])
-        p_reps = torch.cat([encode_reps(params, cfg, tc, c) for c in p_chunks])
+        q_out = [encode_reps(params, cfg, tc, c, return_drop=True) for c in q_chunks]
+        p_out = [encode_reps(params, cfg, tc, c, return_drop=True) for c in p_chunks]
         del params
+        q_reps = torch.cat([r for r, _ in q_out])
+        p_reps = torch.cat([r for r, _ in p_out])
+        dropped = torch.stack([d for _, d in q_out + p_out]).mean()
 
     # stage 2: loss and its gradient with respect to the reps only
     q_reps.requires_grad_(True)
@@ -211,7 +246,7 @@ def gradcache_emb_grads(
         for feat, drep in zip(chunks, grads.chunk(n)):
             reps = encode_reps(params_fn(), cfg, tc, feat)
             (reps * drep).sum().backward()
-    return loss_emb.detach()
+    return loss_emb.detach(), dropped
 
 
 # ---------------------------------------------------------------------------
@@ -269,8 +304,10 @@ def train_step(
     """One step over a batch dict with optional 'query'/'passage'/
     'generative' sub-batches (numpy arrays or tensors). `params_fn` maps the
     trained tree to the model's params (identity when None). Returns
-    (state, StepMetrics), the state updated in place."""
-    _check_cfg(cfg)
+    (state, StepMetrics), the state updated in place. The MoE dropped
+    fraction is the mean over the step's forwards (the generative one and
+    the query and passage encodes, those of GradCache's first stage counted
+    as two), as the JAX package averages it."""
     trained = leaves(state.params)
     device = trained[0].device
     batch = batch_to_device(batch, device)
@@ -284,14 +321,16 @@ def train_step(
     for t in trained:
         t.grad = None
 
-    zero = torch.zeros((), dtype=torch.float32, device=device)
-    loss_gen, loss_emb = zero, zero
+    zero = _zero(device)
+    loss_gen, loss_emb, dropped = zero, zero, zero
+    n_fwd = 3.0 if has_gen else 2.0  # the mean's forwards when there is an emb side
     params = model_params()
     if has_gen:  # gen first (reference ordering, gradcache_trainer.py:549)
-        loss_gen = generative_loss(params, cfg, tc, batch["generative"])
+        loss_gen, dropped = generative_loss(params, cfg, tc, batch["generative"])
     if has_emb and not use_gc:
-        q = encode_reps(params, cfg, tc, batch["query"])
-        p = encode_reps(params, cfg, tc, batch["passage"])
+        q, dq = encode_reps(params, cfg, tc, batch["query"], return_drop=True)
+        p, dp = encode_reps(params, cfg, tc, batch["passage"], return_drop=True)
+        dropped = (dropped * (n_fwd - 2.0) + dq + dp) / n_fwd
         loss_emb = contrastive_loss(q if tc.q_grad else q.detach(),
                                     p if tc.p_grad else p.detach(), tc.temperature)
     loss = loss_gen + loss_emb
@@ -299,8 +338,10 @@ def train_step(
         loss.backward()
     del params
     if use_gc:
-        loss_emb = gradcache_emb_grads(model_params, cfg, tc, batch["query"], batch["passage"])
+        loss_emb, gc_drop = gradcache_emb_grads(model_params, cfg, tc, batch["query"],
+                                                batch["passage"])
         loss = loss + loss_emb
+        dropped = (dropped * (n_fwd - 2.0) + 2.0 * gc_drop) / n_fwd
 
     # optax updates every leaf: one without a gradient takes a zero one
     grads = []
@@ -317,7 +358,8 @@ def train_step(
     state.optimizer.step()
     state.scheduler.step()
     state.step += 1
-    return state, StepMetrics(loss.detach(), loss_emb.detach(), loss_gen.detach(), gnorm)
+    return state, StepMetrics(loss.detach(), loss_emb.detach(), loss_gen.detach(), gnorm,
+                              dropped.detach())
 
 
 def make_sharded_train_step(*args, **kwargs):

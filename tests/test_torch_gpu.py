@@ -12,6 +12,8 @@ P.V (K1) and outputs to bf16, where the plain versions keep fp32 until the
 last cast; attention outputs here are of order 0.1-1.
 """
 
+import dataclasses
+
 import pytest
 import torch
 
@@ -1211,3 +1213,101 @@ def test_lora_step_remat_policies_bit_equal(cuda):
     for policy in ("dots", "dots_no_batch"):
         assert torch.equal(runs[policy][0], runs[None][0]), policy
         assert all(torch.equal(a, b) for a, b in zip(runs[policy][1], runs[None][1])), policy
+
+
+def _moe_layer_impls(cuda, T=(2, 512)):
+    """One MoE layer at Mixtral-8x7B's full width (D 4096, F 14336, 8
+    experts top-2; random bf16 weights) under dense, dropless and gshard at
+    capacity E/k (exact): for each, (out, dx, the expert stacks' grads, the
+    router logits) of sum(out * w) for a fixed random w."""
+    from gritlm_tpu_torch.config import mixtral_8x7b
+    from gritlm_tpu_torch.models import transformer as tr
+
+    cfg = mixtral_8x7b()
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    E, D, Fd = cfg.num_local_experts, cfg.hidden_size, cfg.intermediate_size
+    lp = {"router": 0.02 * _randn(gen, D, E, device=cuda),
+          "gate": 0.02 * _randn(gen, E, D, Fd, device=cuda),
+          "up": 0.02 * _randn(gen, E, D, Fd, device=cuda),
+          "down": 0.02 * _randn(gen, E, Fd, D, device=cuda)}
+    x = _randn(gen, *T, D, device=cuda)
+    w = _randn(gen, *T, D, device=cuda).float()
+    out = {}
+    for impl, kw in (("dense", {}), ("dropless", {}),
+                     ("gshard", dict(capacity_factor=E / cfg.num_experts_per_tok))):
+        c = dataclasses.replace(cfg, moe_impl=impl, **kw)
+        xi = x.clone().requires_grad_(True)
+        experts = {k: lp[k].clone().requires_grad_(True) for k in ("gate", "up", "down")}
+        y, logits, drop = tr._moe_mlp({**lp, **experts}, xi, c)
+        grads = torch.autograd.grad((y.float() * w).sum(), [xi, *experts.values()])
+        assert float(drop) == 0.0
+        out[impl] = (y.detach(), grads, logits.detach())
+    return out
+
+
+def _rel(a, b) -> float:
+    return float((a.float() - b.float()).norm() / b.float().norm())
+
+
+def test_moe_layer_impls_agree_at_full_width(cuda):
+    """Dense, dropless and gshard (capacity E/k) on one full-width layer:
+    the same router logits (one _router call on the same input, so the
+    routes cannot differ), and the output, its input gradient and the
+    expert stacks' gradients within 1e-2 relative (Frobenius) of the dense
+    impl's: dense combines in bf16, the other two in fp32."""
+    runs = _moe_layer_impls(cuda)
+    y0, g0, l0 = runs["dense"]
+    for impl in ("dropless", "gshard"):
+        y, g, logits = runs[impl]
+        assert torch.equal(logits, l0), impl
+        assert torch.isfinite(y).all() and all(torch.isfinite(t).all() for t in g)
+        assert _rel(y, y0) < 1e-2, (impl, _rel(y, y0))
+        for name, a, b in zip(("x", "gate", "up", "down"), g, g0):
+            assert float(b.abs().max()) > 0, (impl, name)
+            assert _rel(a, b) < 1e-2, (impl, name, _rel(a, b))
+
+
+def test_moe_lora_step_runs_its_kernels(cuda):
+    """A LoRA step on a 2-layer Mixtral-shaped trunk (Dh 128, 8 experts
+    top-2, dropless: torch._grouped_mm forward and backward in bf16) with
+    remat: finite losses, the aux term in loss_gen, no drop, K1, K4 and K5
+    launched (K1 twice a layer: the recompute), the adapters moving."""
+    from gritlm_tpu_torch.models.transformer import init_params
+    from gritlm_tpu_torch.tokenizer import ByteTokenizer
+    from gritlm_tpu_torch.training import train
+    from gritlm_tpu_torch.training.data import GritCollator
+    from gritlm_tpu_torch.training.lora import make_lora_train_state
+
+    cfg = ModelConfig(vocab_size=512, hidden_size=256, intermediate_size=512,
+                      num_hidden_layers=2, num_attention_heads=2, num_key_value_heads=1,
+                      num_local_experts=8, num_experts_per_tok=2, model_type="mixtral",
+                      moe_impl="dropless")
+    coll = GritCollator(ByteTokenizer(), query_max_len=64, passage_max_len=128,
+                        generative_max_len=128)
+    batch = coll([(("find", f"query {i}"), [("find", f"passage {i}"), ("find", f"junk {i}")],
+                   [f"what is {i}?", f"it is {i}"]) for i in range(4)])
+    aux = []
+    lbl = train.load_balancing_loss
+
+    def recording(logits, c, mask):
+        out = lbl(logits, c, mask)
+        aux.append(float(out.detach()))
+        return out
+
+    tc = train.TrainConfig(total_steps=4, warmup_ratio=0.25, learning_rate=1e-3)
+    run_step, state, _, _ = make_lora_train_state(cfg, tc, init_params(cfg, 0, device=cuda),
+                                                  r=4, alpha=8, device=cuda)
+    wrappers = (flash_attention.flash_attention, flash_attention.flash_attention_bwd_dq,
+                flash_attention.flash_attention_bwd_dkv)
+    before = [f.launches for f in wrappers]
+    train.load_balancing_loss = recording
+    try:
+        for _ in range(2):
+            state, m = run_step(state, batch)
+    finally:
+        train.load_balancing_loss = lbl
+    assert all(torch.isfinite(x) for x in (m.loss, m.loss_emb, m.loss_gen, m.grad_norm))
+    assert len(aux) == 2 and aux[-1] > 0 and float(m.moe_dropped_frac) == 0.0
+    n = [f.launches - b for f, b in zip(wrappers, before)]
+    assert n[1] > 0 and n[1] == n[2] and n[0] >= 2 * n[1], n
+    assert float(state.params["layers"]["attn"]["wq"]["B"].detach().abs().max()) > 0

@@ -261,11 +261,20 @@ def test_schedule_matches_optax():
 
 
 def test_not_ported_steps_raise():
+    """The mesh, pipeline and sequence-parallel steps (and their trunks'
+    router aux) still raise, naming item 12; a MoE config, which raised
+    before MoE training was ported, takes a step (tests/test_torch_moe_train.py
+    holds it against the JAX package)."""
     for fn in (pt.make_sharded_train_step, pt.make_pipeline_train_step,
-               pt.make_seqpar_train_step):
+               pt.make_seqpar_train_step, pt._router_aux_from_stats):
         with pytest.raises(NotImplementedError, match="item 12"):
             fn(None, None, None)
     from gritlm_tpu_torch.config import tiny_mixtral
+    from gritlm_tpu_torch.models.transformer import init_params
 
-    with pytest.raises(NotImplementedError, match="item 11"):
-        pt.train_step(None, {}, tiny_mixtral(), pt.TrainConfig())
+    cfg = tiny_mixtral()
+    tc = pt.TrainConfig(remat=False, **OPT)
+    state = pt.init_train_state(init_params(cfg, 0, device="cpu"), tc)
+    state, m = pt.train_step(state, _batch(), cfg, tc)
+    assert state.step == 1 and np.isfinite(float(m.loss)) and float(m.loss_gen) > 0
+    assert float(m.moe_dropped_frac) == 0.0  # dense routing drops nothing

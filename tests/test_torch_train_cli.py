@@ -4,7 +4,8 @@ the same seed; `python -m gritlm_tpu_torch.training.run --device cpu`
 writes the JAX CLI's files with its schema; a resumed run ends bit-equal to
 an uninterrupted one; the HF export crosses between the two packages'
 loaders both ways with equal values; every option the port does not run
-raises NotImplementedError.
+(the mesh flags) raises NotImplementedError; the MoE and native-loader flags
+run.
 """
 
 import dataclasses
@@ -189,15 +190,12 @@ def test_safetensors_by_hand_round_trip(tmp_path):
 
 
 NOT_PORTED = [
-    (["--native_loader"], "item 13"),
     (["--seq_parallel"], "item 12"),
     (["--mesh_stage", "2"], "item 12"),
     (["--mesh_data", "2"], "item 12"),
     (["--mesh_fsdp", "2"], "item 12"),
     (["--mesh_model", "2"], "item 12"),
     (["--mesh_expert", "2"], "item 12"),
-    (["--moe_impl", "dense"], "item 11"),
-    (["--model_preset", "tiny_mixtral"], "item 11"),
 ]
 
 
@@ -211,6 +209,45 @@ def test_not_ported_flag_raises(tmp_path, flags, item):
 def two_steps(tmp_path_factory):
     """Two CLI steps with the default full recompute."""
     return main(_args(tmp_path_factory.mktemp("remat") / "run", 2))
+
+
+FLAG_RUNS = [["--native_loader"], ["--moe_impl", "dense"], ["--model_preset", "tiny_mixtral"],
+             ["--model_preset", "tiny_mixtral", "--moe_impl", "gshard", "--native_loader"]]
+
+
+@pytest.mark.parametrize("flags", FLAG_RUNS, ids=[" ".join(f) for f in FLAG_RUNS])
+def test_moe_and_native_loader_flags_run(tmp_path, two_steps, flags):
+    """The flags that raised until MoE training and the C++ input pipeline
+    were ported take two CLI steps: finite losses, the flags in
+    run_args.json, moe_dropped_frac in every metrics row of a Mixtral run
+    (and in none of a Mistral run). --moe_impl on a dense model is ignored,
+    as in the JAX CLI: the run equals the default one."""
+    r = main(_args(tmp_path / "run", 2, *flags))
+    assert r["steps"] == 2 and all(np.isfinite(v) for v in r["final"].values())
+    run_args = json.loads((tmp_path / "run" / "run_args.json").read_text())
+    rows = [json.loads(line) for line in
+            (tmp_path / "run" / "metrics.jsonl").read_text().splitlines()]
+    assert [row["step"] for row in rows] == [1, 2]
+    moe = "tiny_mixtral" in flags
+    assert all(("moe_dropped_frac" in row) == moe for row in rows)
+    assert run_args["native_loader"] == ("--native_loader" in flags)
+    if "--moe_impl" in flags:
+        assert run_args["moe_impl"] == flags[flags.index("--moe_impl") + 1]
+    if flags == ["--moe_impl", "dense"]:
+        assert r["final"] == two_steps["final"]
+    if moe and "--moe_impl" not in flags:  # the preset's dense routing drops nothing
+        assert all(row["moe_dropped_frac"] == 0.0 for row in rows)
+
+
+def test_native_loader_falls_back_for_an_hf_tokenizer(tmp_path, checkpoint, caplog):
+    """--native_loader covers the byte tokenizer only: with a checkpoint's
+    BPE tokenizer the CLI warns and trains from the Python pipeline, as the
+    JAX CLI does (the same step as without the flag)."""
+    flags = ["--model_name_or_path", str(checkpoint)]
+    with caplog.at_level("WARNING", logger="gritlm_tpu_torch.train"):
+        r = main(_args(tmp_path / "native", 1, *flags, "--native_loader"))
+    assert "falling back to the python pipeline" in caplog.text
+    assert r["final"] == main(_args(tmp_path / "python", 1, *flags))["final"]
 
 
 @pytest.mark.parametrize("policy", ["dots", "dots_no_batch"])
