@@ -19,10 +19,13 @@ encode, generate and the serving engine, and at depth 8 with int8
 weights, and GRIT training on it (LoRA at depth 16, the load-balancing
 aux loss, gshard's capacity drops, `training.run --moe_impl
 --native_loader`); per-request LoRA adapters in the serving engine and the
-remat policies of LoRA training), and times each kernel beside its bound,
-its plain version and one PyTorch library call.
+remat policies of LoRA training; then head dims 64 and 96 in flash
+attention, flash decode and paged decode, and Llama-3.2-1B at its
+published width and depth through encode, generate, the serving engine
+and RAG), and times each kernel beside its bound, its plain version and
+one PyTorch library call.
 
-Phases (in the order 1-7, 12, 14, 8, 9, 11, 13, 15, 10), any failure exits non-zero:
+Phases (in the order 1-7, 12, 14, 8, 9, 11, 16, 13, 15, 10), any failure exits non-zero:
   1. device and build: card name and power limit, nvcc's register and
      shared-memory report; for the redesigned kernels (K1, K4/K5, K9 on
      wgmma; K3, K8, K6 and K7 on mma.sync; K2 on bulk copies and clusters)
@@ -135,14 +138,15 @@ Phases (in the order 1-7, 12, 14, 8, 9, 11, 13, 15, 10), any failure exits non-z
      counts set to 0 before each run and read after: lockstep speculative
      generate at B = 1 and 2 on prompts that quote a passage (64 tokens,
      teacher-forced within TIE_TOL; verify steps, tokens a verify, ms per
-     token host and device beside plain greedy); phase 7's 24 requests and
+     token host and device beside plain greedy); phase 7's first 8
+     requests (its 8-request cut, for the time budget since phase 16) and
      4 doc-continuation requests (hist_ids = the document) through dense
      and paged speculative pools (spec_k 7): completions, TIE_TOL, K3 with
      per-row offsets (dense) or K8 (paged) in the verify chunks, tokens a
      row's verify, device ms per verify step at B = 8, tokens/s beside
-     phase 7's, and a replay of the 24 on the dense pool with each one's
+     phase 7's, and a replay of the 8 on the dense pool with each one's
      greedy continuation in its lookup corpus (the most a verify accepts);
-     the 24 requests mixed greedy / T 0.7 top_p 0.9 / T 1.0
+     the 8 requests mixed greedy / T 0.7 top_p 0.9 / T 1.0
      top_k 50 through dense and paged sampling pools (both on prompt
      buckets 256-2048, so they prefill alike): completions, greedy
      rows within TIE_TOL, the sampled streams equal between the pools, and
@@ -213,6 +217,25 @@ Phases (in the order 1-7, 12, 14, 8, 9, 11, 13, 15, 10), any failure exits non-z
      <depth-2 checkpoint> --lora --moe_impl dropless --native_loader`, 2
      steps; the native loader's host ms a batch beside the Python
      pipeline's
+ 16. head dims 64 and 96, and Llama-3.2-1B (after phase 11, with the
+     Mistral model freed): K1 (phase 2's three shapes with their LSE), K3
+     (Sq 1 and 64, int8, the serving call, the verify chunk with [B]
+     offsets bit-equal to K8) and K8 (bf16 and int8 pages of 256, Sq 1
+     and 8) against their plain versions at (Dh, H, Hkv) = (64, 32, 8),
+     (64, 14, 2) and (96, 16, 8); then LLAMA_32_1B (the published
+     config.json through ModelConfig.from_hf_config: D 2048, 16 layers,
+     32/8 heads, Dh 64, V 128256, tied embeddings, llama3 RoPE scaling),
+     random bf16 weights, counts set to 0 before each run and summed
+     after: encode of the 16 sentences at cosine >= COSINE_MIN to the
+     plain versions, sentences/s; greedy generate at B = 2 (32 tokens,
+     TIE_TOL), the decode step's device / host ms and idle share; phase
+     7's 24 + 8 requests on dense, paged and paged-int8 pools (TIE_TOL,
+     INT8_KV_TIE_TOL over int8 KV; pool embeddings at cosine >= 0.9999),
+     tokens/s and TTFT p50; RAG in the seven cache modes (rag_phase); K1,
+     K2, K3, K8 and K9 must each launch; the kernels line's [dh64] rows
+     timed at the Llama heads: K1 at B4 S512 and causal B8 S2048 with its
+     LSE, K3 at Sq 1 B4, Sq 64, int8, the B8 serving call and the verify
+     chunk, K8 at B8 page 256 (bf16, int8, Sq 1 and 8), each beside SDPA
 
 Output: a `kernels` JSON line, the card line, then as the last line
 {"ok": true, "device": {...}}. Exits 2 with no result when there is no CUDA
@@ -391,7 +414,7 @@ def main() -> int:
     from gritlm_tpu_torch import GritLM
     from gritlm_tpu_torch.config import mistral_7b
     from gritlm_tpu_torch.gritlm import _bucket
-    from gritlm_tpu_torch.models.transformer import count_params, quantize_kv
+    from gritlm_tpu_torch.models.transformer import count_params
     from gritlm_tpu_torch.ops import (
         _build,
         decode_attention,
@@ -401,7 +424,6 @@ def main() -> int:
         quant_matmul,
         scores_segmax,
     )
-    from gritlm_tpu_torch.ops.flash_attention import keep_mask
 
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -476,106 +498,13 @@ def main() -> int:
     def randn(*shape):
         return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
 
-    B, S, H, Hkv, Dh = 4, 512, 32, 8, 128
     cases = []  # (kernel, label, fn_kernel, fn_plain, fn_library, flops, bytes, atol)
-    lse_cases = []  # K1's LSE output: (label, fn_kernel, fn_plain)
-
-    def attn_case(label, q, k, v, mask, causal, window, offset):
-        keep = keep_mask(mask, q.shape[1], k.shape[1], causal=causal,
-                         sliding_window=window if causal else None, offset=offset,
-                         device=dev)
-        keep_b = keep.expand(q.shape[0], -1, -1)
-        flops = 4.0 * int(keep_b.sum()) * H * Dh
-        slots = int(keep_b.any(1).sum())  # keys some query sees: K/V bytes to read
-        byt = slots * Hkv * Dh * 2 * 2 + nbytes(q, q, mask)
-        kw = dict(causal=causal, sliding_window=window, offset=offset)
-        qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
-        am = keep[:, None]
-
-        def library():
-            return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=am, enable_gqa=True)
-
-        cases.append(("flash_attention", label,
-                      lambda: flash_attention.flash_attention(q, k, v, mask, **kw),
-                      lambda: flash_attention.flash_attention_plain(q, k, v, mask, **kw),
-                      library, flops, byt, ATTN_ATOL))
-        lse_cases.append((label, lambda: flash_attention.flash_attention(
-            q, k, v, mask, return_lse=True, **kw)[1], lambda: flash_attention.flash_attention_plain(
-            q, k, v, mask, return_lse=True, **kw)[1]))
-
-    mask = torch.ones((B, S), dtype=torch.int32, device=dev)
-    mask[3, 400:] = 0  # one row with a padded tail
-    q, k, v = randn(B, S, H, Dh), randn(B, S, Hkv, Dh), randn(B, S, Hkv, Dh)
-    attn_case("bidirectional B4 S512", q, k, v, mask, False, None, 0)
-    attn_case("causal window256 B4 S512", q, k, v, mask, True, 256, 0)
-    # prefill of 256 tokens at offset 512 over a layer view of a 1024-slot cache
-    Smax_p = 1024
-    k_all_p, v_all_p = randn(2, B, Smax_p, Hkv * Dh), randn(2, B, Smax_p, Hkv * Dh)
-    mask_p = (torch.arange(Smax_p, device=dev) < 768).int()[None].repeat(B, 1)
-    attn_case("causal offset512 Sq256 cache-view", randn(B, 256, H, Dh),
-              k_all_p[1].view(B, Smax_p, Hkv, Dh), v_all_p[1].view(B, Smax_p, Hkv, Dh),
-              mask_p, True, None, 512)
-
-    Smax, L = 2048, 2
-    k_all, v_all = randn(L, B, Smax, Hkv * Dh), randn(L, B, Smax, Hkv * Dh)
-    mask_d = (torch.arange(Smax, device=dev) < 1500).int()[None].repeat(B, 1)
-    mask_d[:, 600:700] = 0  # an interior hole (concatenated RAG caches)
-    for Sq in (1, 64):
-        qd = randn(B, Sq, H, Dh)
-        offset = 1500 - Sq
-        keep = keep_mask(mask_d, Sq, Smax, causal=True, sliding_window=None,
-                         offset=offset, device=dev)
-        slots = int((keep.any(1)).sum())  # valid slots the step must read, over rows
-        flops = 4.0 * int(keep.sum()) * H * Dh
-        byt = slots * Hkv * Dh * 2 * 2 + nbytes(qd, qd, mask_d)
-        hi = 1500
-        lk = k_all[1, :, :hi].view(B, hi, Hkv, Dh).transpose(1, 2)
-        lv = v_all[1, :, :hi].view(B, hi, Hkv, Dh).transpose(1, 2)
-        am = keep[:, None, :, :hi]
-        kw = dict(causal=True, offset=offset, layer=1)
-
-        def library(qd=qd, lk=lk, lv=lv, am=am):
-            return F.scaled_dot_product_attention(qd.transpose(1, 2), lk, lv, attn_mask=am,
-                                                  enable_gqa=True)
-
-        cases.append(("flash_decode", f"Sq{Sq} B4 Smax2048 1400 valid",
-                      lambda qd=qd, kw=kw: decode_attention.flash_decode(
-                          qd, k_all, v_all, mask_d, **kw),
-                      lambda qd=qd, kw=kw: decode_attention.flash_decode_plain(
-                          qd, k_all, v_all, mask_d, **kw),
-                      library, flops, byt, ATTN_ATOL))
-
-    # the int8 cache variant of K3 at the Sq = 1 decode shape
-    k8, ks = quantize_kv(k_all.view(L * B, Smax, Hkv, Dh))
-    v8, vs = quantize_kv(v_all.view(L * B, Smax, Hkv, Dh))
-    k8, v8 = k8.view(L, B, Smax, -1), v8.view(L, B, Smax, -1)
-    scales = {"k_scale": ks.view(L, B, Smax, Hkv).transpose(2, 3).contiguous(),
-              "v_scale": vs.view(L, B, Smax, Hkv).transpose(2, 3).contiguous()}
-    qd = randn(B, 1, H, Dh)
-    keep = keep_mask(mask_d, 1, Smax, causal=True, sliding_window=None, offset=1499,
-                     device=dev)
-    slots = int(keep.any(1).sum())
-    kw8 = dict(causal=True, offset=1499, layer=1, **scales)
-    cases.append(("flash_decode", "int8 cache Sq1 B4 Smax2048 1400 valid",
-                  lambda: decode_attention.flash_decode(qd, k8, v8, mask_d, **kw8),
-                  lambda: decode_attention.flash_decode_plain(qd, k8, v8, mask_d, **kw8),
-                  None, 4.0 * int(keep.sum()) * H * Dh,
-                  slots * Hkv * (Dh + 2) * 2 + nbytes(qd, qd, mask_d), ATTN_ATOL))
-
-    # K3 at the serving decode chunk's call: B 8, Smax 4096, mask-bounded
-    # (causal False, offset 0), the ragged rows of the serving phase's pools
-    mask_s = serving_mask(dev)
-    k_s, v_s = randn(2, 8, 4096, Hkv * Dh), randn(2, 8, 4096, Hkv * Dh)
-    qs = randn(8, 1, H, Dh)
-    kws = dict(causal=False, layer=1, num_kv_heads=Hkv)
-    cases.append(("flash_decode", "serving B8 Smax4096 mask-bounded",
-                  lambda: decode_attention.flash_decode(qs, k_s, v_s, mask_s, **kws),
-                  lambda: decode_attention.flash_decode_plain(qs, k_s, v_s, mask_s, **kws),
-                  None, 0.0, 0.0, ATTN_ATOL))
-
+    lse_cases = []  # K1's LSE output: (name, label, fn_kernel, fn_plain)
+    k1_cases(dev, randn, cases, lse_cases)
+    k3_cases(dev, randn, cases)
     k8_cases(dev, randn, cases)
 
-    hidden, gamma, pmask = pool_case(dev, randn, 8, S, 4096)
+    hidden, gamma, pmask = pool_case(dev, randn, 8, 512, 4096)
     for method in ("mean", "weightedmean"):
         kw = dict(eps=1e-5, method=method)
         cases.append(("fused_norm_mean_pool", f"{method} B8 S512 D4096",
@@ -585,27 +514,7 @@ def main() -> int:
                       None, 0.0, 0.0, POOL_ATOL))  # timed cold by k2_times
 
     max_err = {name: 0.0 for name in wrappers}
-    for name, label, fk, fp, _, _, _, atol in cases:
-        got = fk()
-        torch.cuda.synchronize()
-        want = fp()
-        if got.shape != want.shape or not torch.isfinite(got).all():
-            fail(f"{name} [{label}]: shape {tuple(got.shape)} or non-finite output")
-        err = float((got.float() - want.float()).abs().max())
-        max_err[name] = max(max_err[name], err)
-        print(f"check {name} [{label}]: max_abs_err {err:.3e} (atol {atol})", flush=True)
-        if err > atol:
-            fail(f"{name} [{label}] disagrees with its plain version: {err} > {atol}")
-    for label, fk, fp in lse_cases:
-        got = fk()
-        torch.cuda.synchronize()
-        want = fp()
-        err = float((got - want).abs().max())
-        max_err["flash_attention"] = max(max_err["flash_attention"], err)
-        print(f"check flash_attention LSE [{label}]: max_abs_err {err:.3e} (atol {LSE_ATOL})",
-              flush=True)
-        if got.shape != want.shape or not torch.isfinite(got).all() or err > LSE_ATOL:
-            fail(f"flash_attention [{label}]: LSE disagrees with its plain version: {err}")
+    check_cases(cases, lse_cases, max_err)
 
     def unit_rows(n, d=4096):
         x = torch.randn((n, d), generator=gen, device=dev)
@@ -832,10 +741,14 @@ def main() -> int:
                 max_err)
     print(f"total {time.time() - t_start:.0f} s")
 
-    # ---------------------------------------------------------------- 13
     del model, qmodel, cache
     gc.collect()  # engines held in reference cycles (their on_token closures) keep their pools
     torch.cuda.empty_cache()
+
+    # ---------------------------------------------------------------- 16
+    llama_phase(dev, randn, reset_counts, read_counts, path_launches, times, max_err, t_start)
+
+    # ---------------------------------------------------------------- 13
     moe_phase(enc_long, reset_counts, read_counts, path_launches)
     print(f"total {time.time() - t_start:.0f} s")
 
@@ -854,6 +767,10 @@ def main() -> int:
     # the dense verify chunk's shape (spec_phase)
     kernels[K3_VERIFY] = kernels["flash_decode"]
     launches = {n: sum(c.get(n, 0) for c in path_launches.values()) for n in kernels}
+    # the Dh-64 instances' rows: K1, K3 and K8 on phase 16's Llama-3.2-1B paths
+    for row, base in DH64_ROWS.items():
+        kernels[row] = kernels[base]
+        launches[row] = sum(path_launches[key].get(base, 0) for key in (LLAMA, f"{LLAMA} rag"))
     rows_out = [{
         "name": name, "route": "cuda", "source": kernels[name][2],
         "replaces": kernels[name][3], "launches": launches[name],
@@ -869,6 +786,156 @@ def main() -> int:
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def k1_cases(dev, randn, cases, lse_cases, H=32, Hkv=8, Dh=128, name="flash_attention") -> None:
+    """K1's phase-2 shapes at (H, Hkv, Dh), appended to `cases` (and its LSE
+    to `lse_cases`) under `name`: bidirectional B 4 S 512 with a padded
+    tail, causal with a 256 window, and a 256-token prefill at offset 512
+    over a layer view of a 1024-slot cache."""
+    import torch
+    import torch.nn.functional as F
+
+    from gritlm_tpu_torch.ops import flash_attention
+    from gritlm_tpu_torch.ops.flash_attention import keep_mask
+
+    B, S = 4, 512
+
+    def attn_case(label, q, k, v, mask, causal, window, offset):
+        keep = keep_mask(mask, q.shape[1], k.shape[1], causal=causal,
+                         sliding_window=window if causal else None, offset=offset,
+                         device=dev)
+        keep_b = keep.expand(q.shape[0], -1, -1)
+        flops = 4.0 * int(keep_b.sum()) * H * Dh
+        slots = int(keep_b.any(1).sum())  # keys some query sees: K/V bytes to read
+        byt = slots * Hkv * Dh * 2 * 2 + nbytes(q, q, mask)
+        kw = dict(causal=causal, sliding_window=window, offset=offset)
+        qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+        am = keep[:, None]
+
+        def library():
+            return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=am, enable_gqa=True)
+
+        cases.append((name, label,
+                      lambda: flash_attention.flash_attention(q, k, v, mask, **kw),
+                      lambda: flash_attention.flash_attention_plain(q, k, v, mask, **kw),
+                      library, flops, byt, ATTN_ATOL))
+        lse_cases.append((name, label, lambda: flash_attention.flash_attention(
+            q, k, v, mask, return_lse=True, **kw)[1], lambda: flash_attention.flash_attention_plain(
+            q, k, v, mask, return_lse=True, **kw)[1]))
+
+    mask = torch.ones((B, S), dtype=torch.int32, device=dev)
+    mask[3, 400:] = 0  # one row with a padded tail
+    q, k, v = randn(B, S, H, Dh), randn(B, S, Hkv, Dh), randn(B, S, Hkv, Dh)
+    attn_case("bidirectional B4 S512", q, k, v, mask, False, None, 0)
+    attn_case("causal window256 B4 S512", q, k, v, mask, True, 256, 0)
+    # prefill of 256 tokens at offset 512 over a layer view of a 1024-slot cache
+    Smax_p = 1024
+    k_all_p, v_all_p = randn(2, B, Smax_p, Hkv * Dh), randn(2, B, Smax_p, Hkv * Dh)
+    mask_p = (torch.arange(Smax_p, device=dev) < 768).int()[None].repeat(B, 1)
+    attn_case("causal offset512 Sq256 cache-view", randn(B, 256, H, Dh),
+              k_all_p[1].view(B, Smax_p, Hkv, Dh), v_all_p[1].view(B, Smax_p, Hkv, Dh),
+              mask_p, True, None, 512)
+
+
+def k3_cases(dev, randn, cases, H=32, Hkv=8, Dh=128, name="flash_decode") -> None:
+    """K3's phase-2 shapes at (H, Hkv, Dh), appended to `cases` under
+    `name`: Sq 1 and 64 over a B 4, 2048-slot cache with 1400 valid slots
+    (a hole), the int8 cache at Sq 1, and the serving decode chunk's call
+    (B 8, Smax 4096, mask-bounded, SERVING_LENS)."""
+    import torch
+    import torch.nn.functional as F
+
+    from gritlm_tpu_torch.models.transformer import quantize_kv
+    from gritlm_tpu_torch.ops import decode_attention
+    from gritlm_tpu_torch.ops.flash_attention import keep_mask
+
+    B, Smax, L = 4, 2048, 2
+    k_all, v_all = randn(L, B, Smax, Hkv * Dh), randn(L, B, Smax, Hkv * Dh)
+    mask_d = (torch.arange(Smax, device=dev) < 1500).int()[None].repeat(B, 1)
+    mask_d[:, 600:700] = 0  # an interior hole (concatenated RAG caches)
+    for Sq in (1, 64):
+        qd = randn(B, Sq, H, Dh)
+        offset = 1500 - Sq
+        keep = keep_mask(mask_d, Sq, Smax, causal=True, sliding_window=None,
+                         offset=offset, device=dev)
+        slots = int((keep.any(1)).sum())  # valid slots the step must read, over rows
+        flops = 4.0 * int(keep.sum()) * H * Dh
+        byt = slots * Hkv * Dh * 2 * 2 + nbytes(qd, qd, mask_d)
+        hi = 1500
+        lk = k_all[1, :, :hi].view(B, hi, Hkv, Dh).transpose(1, 2)
+        lv = v_all[1, :, :hi].view(B, hi, Hkv, Dh).transpose(1, 2)
+        am = keep[:, None, :, :hi]
+        kw = dict(causal=True, offset=offset, layer=1)
+
+        def library(qd=qd, lk=lk, lv=lv, am=am):
+            return F.scaled_dot_product_attention(qd.transpose(1, 2), lk, lv, attn_mask=am,
+                                                  enable_gqa=True)
+
+        cases.append((name, f"Sq{Sq} B4 Smax2048 1400 valid",
+                      lambda qd=qd, kw=kw: decode_attention.flash_decode(
+                          qd, k_all, v_all, mask_d, **kw),
+                      lambda qd=qd, kw=kw: decode_attention.flash_decode_plain(
+                          qd, k_all, v_all, mask_d, **kw),
+                      library, flops, byt, ATTN_ATOL))
+
+    # the int8 cache variant of K3 at the Sq = 1 decode shape
+    k8, ks = quantize_kv(k_all.view(L * B, Smax, Hkv, Dh))
+    v8, vs = quantize_kv(v_all.view(L * B, Smax, Hkv, Dh))
+    k8, v8 = k8.view(L, B, Smax, -1), v8.view(L, B, Smax, -1)
+    scales = {"k_scale": ks.view(L, B, Smax, Hkv).transpose(2, 3).contiguous(),
+              "v_scale": vs.view(L, B, Smax, Hkv).transpose(2, 3).contiguous()}
+    qd = randn(B, 1, H, Dh)
+    keep = keep_mask(mask_d, 1, Smax, causal=True, sliding_window=None, offset=1499,
+                     device=dev)
+    slots = int(keep.any(1).sum())
+    kw8 = dict(causal=True, offset=1499, layer=1, **scales)
+    cases.append((name, "int8 cache Sq1 B4 Smax2048 1400 valid",
+                  lambda: decode_attention.flash_decode(qd, k8, v8, mask_d, **kw8),
+                  lambda: decode_attention.flash_decode_plain(qd, k8, v8, mask_d, **kw8),
+                  None, 4.0 * int(keep.sum()) * H * Dh,
+                  slots * Hkv * (Dh + 2) * 2 + nbytes(qd, qd, mask_d), ATTN_ATOL))
+
+    # K3 at the serving decode chunk's call: B 8, Smax 4096, mask-bounded
+    # (causal False, offset 0), the ragged rows of the serving phase's pools
+    mask_s = serving_mask(dev)
+    k_s, v_s = randn(2, 8, 4096, Hkv * Dh), randn(2, 8, 4096, Hkv * Dh)
+    qs = randn(8, 1, H, Dh)
+    kws = dict(causal=False, layer=1, num_kv_heads=Hkv)
+    cases.append((name, "serving B8 Smax4096 mask-bounded",
+                  lambda: decode_attention.flash_decode(qs, k_s, v_s, mask_s, **kws),
+                  lambda: decode_attention.flash_decode_plain(qs, k_s, v_s, mask_s, **kws),
+                  None, 0.0, 0.0, ATTN_ATOL))
+
+
+def check_cases(cases, lse_cases, max_err) -> None:
+    """Each case's kernel against its plain version on the same inputs
+    (its atol), and K1's LSE (LSE_ATOL); the largest error of each kernel
+    name into max_err. Fails on a disagreement, a shape or a non-finite
+    output."""
+    import torch
+
+    for name, label, fk, fp, _, _, _, atol in cases:
+        got = fk()
+        torch.cuda.synchronize()
+        want = fp()
+        if got.shape != want.shape or not torch.isfinite(got).all():
+            fail(f"{name} [{label}]: shape {tuple(got.shape)} or non-finite output")
+        err = float((got.float() - want.float()).abs().max())
+        max_err[name] = max(max_err.get(name, 0.0), err)
+        print(f"check {name} [{label}]: max_abs_err {err:.3e} (atol {atol})", flush=True)
+        if err > atol:
+            fail(f"{name} [{label}] disagrees with its plain version: {err} > {atol}")
+    for name, label, fk, fp in lse_cases:
+        got = fk()
+        torch.cuda.synchronize()
+        want = fp()
+        err = float((got - want).abs().max())
+        max_err[name] = max(max_err.get(name, 0.0), err)
+        print(f"check {name} LSE [{label}]: max_abs_err {err:.3e} (atol {LSE_ATOL})",
+              flush=True)
+        if got.shape != want.shape or not torch.isfinite(got).all() or err > LSE_ATOL:
+            fail(f"{name} [{label}]: LSE disagrees with its plain version: {err}")
 
 
 # valid slots of the 8 rows of a serving pool at the kernel checks and
@@ -939,7 +1006,7 @@ def profiled_kernels_per_call(fn, calls: int = 10):
     return n / calls if n else None
 
 
-def k3_times(dev, randn, times, H=32, Hkv=8, Dh=128) -> None:
+def k3_times(dev, randn, times, H=32, Hkv=8, Dh=128, name="flash_decode") -> None:
     """K3 and SDPA by CUDA events around CUDA graph replays, each call on its
     own layer of a cache with enough layers (cold_copies) that no call finds
     its K/V in L2, as in a decode step: at the kernel table's shape (Sq 1,
@@ -993,7 +1060,7 @@ def k3_times(dev, randn, times, H=32, Hkv=8, Dh=128) -> None:
             views = [(k_all[layer, :, :hi].view(B, hi, Hkv, Dh).transpose(1, 2),
                       v_all[layer, :, :hi].view(B, hi, Hkv, Dh).transpose(1, 2))
                      for layer in range(L)]
-        cold_decode_time("flash_decode", label, call, plain, L, q, keep, views, bms, by, times,
+        cold_decode_time(name, label, call, plain, L, q, keep, views, bms, by, times,
                          "the sliced cache")
         del k_all, v_all, scales, views
         torch.cuda.empty_cache()
@@ -1091,7 +1158,7 @@ def k8_keep(mask, Sq):
     return keep & (torch.arange(Smax, device=mask.device)[None, None] <= pos[..., None]), offs
 
 
-def k8_cases(dev, randn, cases, B=8, H=32, Hkv=8, Dh=128) -> None:
+def k8_cases(dev, randn, cases, B=8, H=32, Hkv=8, Dh=128, name="paged_decode") -> None:
     """K8 at the serving shape (Mistral-7B heads, B 8, page 256, a 4096-slot
     logical width): ragged rows, a hole, a page shared by two rows, bf16 and
     int8 pages, Sq 1 and a causal Sq 8 chunk at per-row offsets; and K8
@@ -1103,7 +1170,7 @@ def k8_cases(dev, randn, cases, B=8, H=32, Hkv=8, Dh=128) -> None:
     from gritlm_tpu_torch.ops import decode_attention, paged_attention
 
     L = 2
-    pt, mask, (k_pages, v_pages), (k8, v8), scales = paged_pool(dev, randn, L)
+    pt, mask, (k_pages, v_pages), (k8, v8), scales = paged_pool(dev, randn, L, B, Hkv, Dh)
     max_len = mask.shape[1]
     slots = int(mask.sum())
     dense_k = paged_attention.gather_pages(k_pages, pt, 1).view(B, max_len, Hkv, Dh)
@@ -1127,7 +1194,7 @@ def k8_cases(dev, randn, cases, B=8, H=32, Hkv=8, Dh=128) -> None:
                     q.transpose(1, 2), dense_k.transpose(1, 2), dense_v.transpose(1, 2),
                     attn_mask=am, enable_gqa=True)
 
-        cases.append(("paged_decode",
+        cases.append((name,
                       f"{'int8' if quant else 'bf16'} Sq{Sq} B8 page256 {slots} valid slots",
                       lambda q=q, kp=kp, vp=vp, kw=kw: paged_attention.paged_decode(
                           q, kp, vp, pt, mask, **kw),
@@ -1145,14 +1212,14 @@ def k8_cases(dev, randn, cases, B=8, H=32, Hkv=8, Dh=128) -> None:
                                          num_kv_heads=Hkv)
     torch.cuda.synchronize()
     err = float((got.float() - want.float()).abs().max())
-    print(f"check paged_decode against flash_decode on the same logical cache (B8, "
+    print(f"check {name} against flash_decode on the same logical cache (B8, "
           f"{slots} valid slots): max_abs_err {err:.3e} (atol {ATTN_ATOL}), bit-equal "
           f"{torch.equal(got, want)}", flush=True)
     if err > ATTN_ATOL or not torch.isfinite(got).all():
         fail(f"K8 and K3 disagree on the same logical cache: {err}")
 
 
-def k8_times(dev, randn, times, B=8, H=32, Hkv=8, Dh=128) -> None:
+def k8_times(dev, randn, times, B=8, H=32, Hkv=8, Dh=128, name="paged_decode") -> None:
     """K8 and SDPA by CUDA events around CUDA graph replays at the four
     K8_SHAPES (bf16 and int8 pages, Sq 1 mask-bounded and the causal Sq 8
     chunk at per-row offsets), each call on its own layer of a pool with
@@ -1168,7 +1235,7 @@ def k8_times(dev, randn, times, B=8, H=32, Hkv=8, Dh=128) -> None:
     for Sq, quant in K8_SHAPES:
         per_slot = Hkv * (Dh + 2) if quant else Hkv * Dh * 2
         L = cold_copies(int(lens.sum()) * per_slot * 2)
-        pt, mask, bf16_pages, int8_pages, scales = paged_pool(dev, randn, L)
+        pt, mask, bf16_pages, int8_pages, scales = paged_pool(dev, randn, L, B, Hkv, Dh)
         kp, vp = int8_pages if quant else bf16_pages
         del bf16_pages, int8_pages
         keep, offs = k8_keep(mask, Sq)
@@ -1193,7 +1260,7 @@ def k8_times(dev, randn, times, B=8, H=32, Hkv=8, Dh=128) -> None:
                 dk, dv = (pa.gather_pages(x, pt, layer)[:, :hi].view(B, hi, Hkv, Dh)
                           .transpose(1, 2) for x in (kp, vp))
                 views.append((dk, dv))
-        cold_decode_time("paged_decode", f"{'int8' if quant else 'bf16'} Sq{Sq} B8 page256 "
+        cold_decode_time(name, f"{'int8' if quant else 'bf16'} Sq{Sq} B8 page256 "
                          f"{slots} slots seen", call, plain, L, q, keep, views, bms, by, times,
                          "the dense layout")
         del kp, vp, scales, views
@@ -1499,10 +1566,11 @@ def search_phase(dev, check_scores_segmax, unit_rows, reset_counts, read_counts,
     torch.cuda.empty_cache()
 
 
-def rag_phase(model, reset_counts, read_counts, path_launches):
+def rag_phase(model, reset_counts, read_counts, path_launches, key="rag"):
     """RAGEngine at full width over the 16 sentences: build_index with doc
     caches, self-retrieval at top-1, answer_batch in all seven cache modes,
-    and the device pool against the host store."""
+    and the device pool against the host store; the launch counts into
+    path_launches[key]."""
     import torch
 
     from gritlm_tpu_torch.rag import CacheMode, RAGEngine
@@ -1577,8 +1645,8 @@ def rag_phase(model, reset_counts, read_counts, path_launches):
         counts = read_counts()
     finally:
         del model.generate_from_ids
-    path_launches["rag"] = counts
-    print(f"rag launches: {counts}")
+    path_launches[key] = counts
+    print(f"{key} launches: {counts}")
     if any(counts[n] == 0 for n in ("flash_attention", "fused_norm_mean_pool", "flash_decode",
                                     "scores_segmax")):
         fail("rag did not go through every kernel of its path (K1, K2, K3, K9)")
@@ -1633,14 +1701,15 @@ def serving_workload(model, reset_counts, read_counts, total):
     counted = {name: counting(name) for name in programs}
 
     def drive(label, eng, gen_specs, n_embeds, decode_kernels=(), req_kw=None,
-              doc_specs=(), embed_kw=None, check=True):
+              doc_specs=(), embed_kw=None, check=True, tie_tol=TIE_TOL):
         """req_kw: per request id, Request keywords (sampling, adapter);
         embed_kw: per embedding request id, EmbedRequest keywords (adapter);
         doc_specs: doc-continuation requests (rid, prompt ids, max new, doc
         entry, doc ids), the doc ids as their lookup corpus (hist_ids).
         check=False leaves out the checks against `model` (pool embeddings
         against GritLM.encode, teacher forcing): the caller holds the
-        results to its own oracles (an adapter pool's). Returns {"rate",
+        results to its own oracles (an adapter pool's); tie_tol bounds the
+        teacher-forced deficits. Returns {"rate",
         "ttft50", "peak", "tokens", "embs", "verify", "book"}: generated
         tokens/s, time to first token p50 (s), peak reserved pages, the
         tokens and the pool embeddings by request, (speculative pools) the
@@ -1749,9 +1818,9 @@ def serving_workload(model, reset_counts, read_counts, total):
         print(f"serving [{label}]: teacher forcing over {len(deficits)} tokens of "
               f"{len(forced)} greedy requests{' (the engine routes pinned)' if book else ''}: "
               "largest deficit to the max logit "
-              f"{float(deficits.max()):.4f} (TIE_TOL {TIE_TOL}), engine token is the argmax at "
+              f"{float(deficits.max()):.4f} (tolerance {tie_tol}), engine token is the argmax at "
               f"{float((deficits == 0).float().mean()):.3f} of them", flush=True)
-        if float(deficits.max()) > TIE_TOL:
+        if float(deficits.max()) > tie_tol:
             fail(f"serving [{label}]: an engine token is {float(deficits.max())} below its "
                  "position's max logit")
         return out
@@ -1860,7 +1929,8 @@ def serving_phase(model, rag_eng, reset_counts, read_counts, path_launches):
 SPEC_K = 7  # the verify chunk is Sq = SPEC_K + 1 (the engines' default spec_k)
 
 
-def k3_verify(dev, randn, times, max_err, H=32, Hkv=8, Dh=128) -> None:
+def k3_verify(dev, randn, times, max_err, H=32, Hkv=8, Dh=128, name=K3_VERIFY,
+              timed=True) -> None:
     """K3 with per-row offsets at the dense verify chunk's shape: B 8, Sq 8,
     Mistral-7B heads, a 4096-slot pool with the rows of SERVING_LENS (a
     hole in row 1), causal with row b's query 0 at slot SERVING_LENS[b] - 8.
@@ -1869,7 +1939,9 @@ def k3_verify(dev, randn, times, max_err, H=32, Hkv=8, Dh=128) -> None:
     bit-equal, bf16 and int8; then both caches timed cold by CUDA graph
     replays (cold_decode_time: one device operation a call, or it fails)
     beside SDPA over the sliced cache with the same per-row causal boolean
-    mask. The bf16 timing is the kernels line's "K3 verify" row."""
+    mask. The bf16 timing is the kernels line's row `name` ("K3 verify"
+    by default) unless that row has its times; timed=False: the checks
+    only."""
     import torch
 
     from gritlm_tpu_torch.models.transformer import quantize_kv
@@ -1888,7 +1960,7 @@ def k3_verify(dev, randn, times, max_err, H=32, Hkv=8, Dh=128) -> None:
 
     # checks against the plain version, and K3 against K8, on 2 layers
     L = 2
-    pt, mask, (k_pages, v_pages), (k8p, v8p), pscales = paged_pool(dev, randn, L)
+    pt, mask, (k_pages, v_pages), (k8p, v8p), pscales = paged_pool(dev, randn, L, B, Hkv, Dh)
     keep, offs = k8_keep(mask, Sq)
     Smax = mask.shape[1]
     q = randn(B, Sq, H, Dh)
@@ -1911,16 +1983,18 @@ def k3_verify(dev, randn, times, max_err, H=32, Hkv=8, Dh=128) -> None:
                                 offset=offs, **(pscales if quant else {}))
         torch.cuda.synchronize()
         equal = torch.equal(paged, got)
-        max_err[K3_VERIFY] = max(max_err[K3_VERIFY], err)
+        max_err[name] = max(max_err.get(name, 0.0), err)
         label = f"{'int8' if quant else 'bf16'} Sq{Sq} B8 Smax{Smax} per-row offsets"
-        print(f"check {K3_VERIFY} [{label}]: max_abs_err {err:.3e} (atol {ATTN_ATOL}); K8 on "
+        print(f"check {name} [{label}]: max_abs_err {err:.3e} (atol {ATTN_ATOL}); K8 on "
               f"the same logical cache bit-equal {equal}", flush=True)
         if err > ATTN_ATOL or not torch.isfinite(got).all():
-            fail(f"{K3_VERIFY} [{label}] disagrees with its plain version: {err}")
+            fail(f"{name} [{label}] disagrees with its plain version: {err}")
         if not equal:
-            fail(f"{K3_VERIFY} [{label}]: K3 and K8 differ on the same logical cache")
+            fail(f"{name} [{label}]: K3 and K8 differ on the same logical cache")
     del k_pages, v_pages, k8p, v8p, pscales, dense
     torch.cuda.empty_cache()
+    if not timed:
+        return
 
     # cold timings, bf16 (the table's row) and int8
     slots = int(keep.any(1).sum())  # slots some query of the row sees: K/V to read
@@ -1947,7 +2021,7 @@ def k3_verify(dev, randn, times, max_err, H=32, Hkv=8, Dh=128) -> None:
             views = [(k_all[layer, :, :hi].view(B, hi, Hkv, Dh).transpose(1, 2),
                       v_all[layer, :, :hi].view(B, hi, Hkv, Dh).transpose(1, 2))
                      for layer in range(L)]
-        cold_decode_time(K3_VERIFY, f"{'int8' if quant else 'bf16'} Sq{Sq} B8 Smax{Smax} "
+        cold_decode_time(name, f"{'int8' if quant else 'bf16'} Sq{Sq} B8 Smax{Smax} "
                          f"per-row offsets, {slots} slots seen", call, plain, L, q, keep, views,
                          bms, by, times, "the sliced cache, per-row causal boolean mask")
         del k_all, v_all, scales, views
@@ -1997,15 +2071,16 @@ def spec_generate(model, total) -> None:
             run(spec)
             torch.cuda.synchronize()
             host = (time.perf_counter() - t) * 1e3
-            # device ms a token: two short profiler windows (1 and 17 new
-            # tokens), their difference over 16 tokens, so the prefill drops
-            # out and the traces stay small
+            # device ms a token: two short profiler windows (1 and 9 new
+            # tokens), their difference over 8 tokens, so the prefill drops
+            # out and the traces stay small (their processing on the host
+            # grows with the kernels traced)
             short, full = (profile_window(
                 f"generate B={B} {m} tokens, speculative {spec}",
                 lambda spec=spec, m=m: model.generate_from_ids(
                     enc["input_ids"], enc["attention_mask"], max_new_tokens=m,
-                    speculative=spec), top=0) for m in (1, 17))
-            device = None if short is None or full is None else (full[1] - short[1]) / 16
+                    speculative=spec), top=0) for m in (1, 9))
+            device = None if short is None or full is None else (full[1] - short[1]) / 8
             clocks[spec] = (host / n, device)
         nv = res.num_valid.tolist()
         steps = res.spec_steps
@@ -2059,13 +2134,14 @@ def spec_phase(model, randn, reset_counts, read_counts, path_launches, times, ma
                greedy_rates) -> None:
     """Phase 12, speculative decoding and serving sampling at full width:
     K3 with per-row offsets (k3_verify); lockstep speculative generate
-    (spec_generate); the serving workload (phase 7's 24 requests) with 4
-    doc-continuation requests through speculative pools (spec_k 7, ngram 3),
+    (spec_generate); the serving workload cut to its first 8 generation
+    requests (phase 7's 8-request cut) with 4 doc-continuation requests
+    through speculative pools (spec_k 7, ngram 3),
     dense and paged (counts set to 0 before each run, read after): every
     request complete, tokens within TIE_TOL, tokens a verify, device ms per
-    verify step at B = 8, tokens/s beside phase 7's greedy pools; the 24
+    verify step at B = 8, tokens/s beside phase 7's greedy pools; the 8
     again on the dense pool with each one's own greedy continuation in its
-    lookup corpus (a replay: the most a verify can accept); and the 24
+    lookup corpus (a replay: the most a verify can accept); and the 8
     requests mixed greedy / T 0.7 top_p 0.9 / T 1.0 top_k 50 through a
     sampling pool, dense and paged: every request complete, greedy rows
     within TIE_TOL, the sampled streams equal between the two pools, and
@@ -2086,6 +2162,7 @@ def spec_phase(model, randn, reset_counts, read_counts, path_launches, times, ma
 
     cfg, tok, params, dev = model.config, model.tokenizer, model.params, model.device
     drive, specs = serving_workload(model, reset_counts, read_counts, total)
+    specs = specs[:8]  # phase 7's 8-request cut: the script's time budget (phase 16)
     kw = dict(max_batch=8, max_len=4096, chunk_size=16, eos_id=tok.eos_token_id,
               pad_id=tok.pad_token_id, device=dev)
     docs = doc_requests(model)
@@ -2171,12 +2248,15 @@ def spec_phase(model, randn, reset_counts, read_counts, path_launches, times, ma
     torch.cuda.empty_cache()
 
 
-def profile_decode_chunk(label, eng, chunk_program, specs, adapters=(None,) * 8, steps=16):
+def profile_decode_chunk(label, eng, chunk_program, specs, adapters=(None,) * 8, steps=8):
     """Device time of one decode chunk of `steps` steps (a speculative
     engine's: verify steps) with all 8 slots active (fresh requests of 64
     new tokens on the engine's pool, row i on `adapters[i]`): returns
     (device ms per step at B = 8, host ms per step, the chunk's idle share),
-    or None for an empty trace. The chunk runs outside the scheduler, so
+    or None for an empty trace. The window's trace is processed on the host
+    in time that grows with its kernels (three 16-step adapter windows took
+    96 s), so the default is 8 steps (16 before the time budget of phase
+    16). The chunk runs outside the scheduler, so
     the engine is spent afterwards."""
     import torch
 
@@ -4303,6 +4383,240 @@ def training_times(dev, randn, times, H=32, Hkv=8,
               f"{ms / lib_f:.2f}x", flush=True)
         del q, k, v, do, qt, kt, vt, lib_out, out, lse, delta
         torch.cuda.empty_cache()
+
+
+# Phase 16: Llama-3.2-1B at its published width and depth, random bf16
+# weights: the values of meta-llama/Llama-3.2-1B's config.json
+# (https://huggingface.co/meta-llama/Llama-3.2-1B/blob/main/config.json).
+# Head dim 64, 32 query heads over 8 KV heads, tied embeddings, llama3 RoPE
+# scaling: 1.236 B parameters, 2.47 GB in bf16, 32 KiB of bf16 KV a token.
+LLAMA_32_1B = {
+    "model_type": "llama", "hidden_size": 2048, "intermediate_size": 8192,
+    "num_hidden_layers": 16, "num_attention_heads": 32, "num_key_value_heads": 8,
+    "head_dim": 64, "vocab_size": 128256, "max_position_embeddings": 131072,
+    "rope_theta": 500000.0, "rms_norm_eps": 1e-5, "tie_word_embeddings": True,
+    "rope_scaling": {"rope_type": "llama3", "factor": 32.0, "low_freq_factor": 1.0,
+                     "high_freq_factor": 4.0, "original_max_position_embeddings": 8192},
+    "torch_dtype": "bfloat16",
+}
+LLAMA = "llama-3.2-1b"  # its paths' key in the launch counts
+# K1, K3 and K8 checked at (Dh, H, Hkv): Llama-3.2-1B, the Qwen2-0.5B
+# geometry (group 7, Kv * Dh 128) and Dh 96 (K1 through its zero-pad to 128)
+HEAD_DIM_GEOMETRIES = ((64, 32, 8), (64, 14, 2), (96, 16, 8))
+# the kernels line's rows of the Dh-64 instances: name -> the wrapper's name
+DH64_ROWS = {"flash_attention[dh64]": "flash_attention", "flash_decode[dh64]": "flash_decode",
+             "paged_decode[dh64]": "paged_decode"}
+
+
+def head_dim_checks(dev, randn, max_err) -> None:
+    """K1, K3 and K8 against their plain versions at each of
+    HEAD_DIM_GEOMETRIES: K1's phase-2 shapes with their LSE (k1_cases), K3's
+    (k3_cases: Sq 1 and 64, the int8 cache, the serving call), the verify
+    chunk with [B] offsets, bf16 and int8, bit-equal to K8 (k3_verify), and
+    K8's serving shapes, bf16 and int8 pages of 256 slots, Sq 1 and the
+    causal Sq 8 chunk (k8_cases). Errors go to max_err under the kernel's
+    name with a [dh64] or [dh96] suffix."""
+    import torch
+
+    for Dh, H, Hkv in HEAD_DIM_GEOMETRIES:
+        suffix = f"[dh{Dh}]"
+        print(f"head dim {Dh}, H {H}, Hkv {Hkv}:", flush=True)
+        cases, lse_cases = [], []
+        k1_cases(dev, randn, cases, lse_cases, H, Hkv, Dh, name="flash_attention" + suffix)
+        k3_cases(dev, randn, cases, H, Hkv, Dh, name="flash_decode" + suffix)
+        k8_cases(dev, randn, cases, 8, H, Hkv, Dh, name="paged_decode" + suffix)
+        check_cases(cases, lse_cases, max_err)
+        del cases, lse_cases
+        k3_verify(dev, randn, None, max_err, H, Hkv, Dh, name="flash_decode" + suffix,
+                  timed=False)
+        torch.cuda.empty_cache()
+
+
+def k1_times(dev, randn, times, H=32, Hkv=8, Dh=64, name="flash_attention[dh64]") -> None:
+    """K1 at head dim Dh, the encode shape (bidirectional B 4 S 512, a padded
+    tail: the table's row) and the prefill shape with its LSE (causal B 8 S
+    2048), by CUDA events around replays of a graph of ten calls, beside
+    SDPA the same way and the bound; the plain version timed at the first
+    shape."""
+    import torch
+    import torch.nn.functional as F
+
+    from gritlm_tpu_torch.ops import flash_attention
+    from gritlm_tpu_torch.ops.flash_attention import keep_mask
+
+    for label, B, S, causal in (("bidirectional B4 S512", 4, 512, False),
+                                ("causal LSE B8 S2048", 8, 2048, True)):
+        q, k, v = randn(B, S, H, Dh), randn(B, S, Hkv, Dh), randn(B, S, Hkv, Dh)
+        mask = torch.ones((B, S), dtype=torch.int32, device=dev)
+        mask[-1, S * 3 // 4:] = 0
+        keep = keep_mask(mask, S, S, causal=causal, sliding_window=None, offset=0,
+                         device=dev).expand(B, S, S)
+        bms, by = bound(4.0 * int(keep.sum()) * H * Dh,
+                        int(keep.any(1).sum()) * Hkv * Dh * 2 * 2 + nbytes(q, q, mask)
+                        + (B * H * S * 4 if causal else 0))
+        qt, kt, vt, am = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), keep[:, None]
+
+        def call(q=q, k=k, v=v, mask=mask, causal=causal):
+            return flash_attention.flash_attention(q, k, v, mask, causal=causal,
+                                                   return_lse=causal)
+
+        def library(qt=qt, kt=kt, vt=vt, am=am):
+            return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=am, enable_gqa=True)
+
+        ms, library_ms = graph_ms(call, calls=10), graph_ms(library, calls=10)
+        rate, lib_rate = (4.0 * int(keep.sum()) * H * Dh / (t * 1e-3) / 1e12
+                          for t in (ms, library_ms))
+        line = (f"time {name} [{label}]: {ms:.4f} ms = {rate:.1f} TFLOP/s"
+                f"{peak_note(rate, PEAK_BF16_FLOPS / 1e12)} ({bms / ms * 100:.1f}% of bound "
+                f"{bms:.4f} ms, {by}); library (scaled_dot_product_attention) "
+                f"{library_ms:.4f} ms = {lib_rate:.1f} TFLOP/s"
+                f"{peak_note(lib_rate, PEAK_BF16_FLOPS / 1e12)} (CUDA graph replays)")
+        if peak_note(lib_rate, PEAK_BF16_FLOPS / 1e12):
+            library_ms = None  # an impossible reading stays out of the table
+        if name not in times:  # the table's row
+            plain_ms = time_ms(lambda: flash_attention.flash_attention_plain(
+                q, k, v, mask, causal=causal), reps=10)[0]
+            times[name] = (ms, plain_ms, library_ms, bms, by)
+            line += f"; plain {plain_ms:.4f}"
+        print(line, flush=True)
+        del q, k, v, qt, kt, vt, am, keep
+        torch.cuda.empty_cache()
+
+
+def llama_phase(dev, randn, reset_counts, read_counts, path_launches, times, max_err,
+                t_start) -> None:
+    """Phase 16: head dims 64 and 96 (head_dim_checks), then Llama-3.2-1B at
+    its published width and depth (LLAMA_32_1B through
+    ModelConfig.from_hf_config), random bf16 weights from seed 0, with the
+    launch counts set to 0 before each run and summed after: encode of the
+    16 sentences (K1 + K2) at cosine >= COSINE_MIN to the same model through
+    the plain versions, sentences/s; greedy generate at B = 2 (32 tokens),
+    every token within TIE_TOL by teacher forcing, the decode step's device
+    and host ms and idle share; phase 7's serving workload (24 generation
+    and 8 embedding requests) through dense, paged and paged-int8 pools
+    (INT8_KV_TIE_TOL over int8 KV), tokens/s and TTFT p50; RAGEngine over
+    the 16 passages in the seven cache modes (rag_phase). K1, K2, K3, K8
+    and K9 must each launch. Then the Dh-64 rows' times: K1 (k1_times), K3
+    (k3_times, and the verify chunk by k3_verify) and K8 (k8_times) at the
+    Llama-3.2-1B heads."""
+    import torch
+    import torch.nn.functional as F
+
+    from gritlm_tpu_torch import GritLM
+    from gritlm_tpu_torch.config import ModelConfig
+    from gritlm_tpu_torch.models.transformer import count_params
+    from gritlm_tpu_torch.ops import flash_attention, fused_pool
+    from gritlm_tpu_torch.serving import ServingEngine
+
+    t_phase = time.time()
+    head_dim_checks(dev, randn, max_err)
+    print(f"phase 16: head-dim checks {time.time() - t_phase:.0f} s", flush=True)
+    cfg = ModelConfig.from_hf_config(LLAMA_32_1B)
+    if cfg.dtype != "bfloat16" or cfg.rope_scaling_type != "llama3" or any(
+            getattr(cfg, key) != LLAMA_32_1B[key] for key in (
+                "hidden_size", "intermediate_size", "num_hidden_layers", "num_attention_heads",
+                "num_key_value_heads", "head_dim", "vocab_size", "tie_word_embeddings")):
+        fail(f"phase 16: the Llama-3.2-1B config reads as {cfg}")
+    t0 = time.time()
+    model = GritLM(cfg, seed=0)  # random bf16 weights drawn on the card
+    torch.cuda.synchronize()
+    print(f"model [phase 16]: Llama-3.2-1B width and depth, {count_params(model.params) / 1e9:.3f} "
+          f"B params, head dim {cfg.head_dim_}, init {time.time() - t0:.1f} s", flush=True)
+    total = {}
+
+    def counted(fn):
+        reset_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        for n, c in read_counts().items():
+            total[n] = total.get(n, 0) + c
+        return out
+
+    def encode_all():
+        a = model.encode(SENTENCES[:8])
+        b = model.encode(SENTENCES[8:], instruction=INSTRUCTION)
+        return torch.cat([torch.from_numpy(a), torch.from_numpy(b)])
+
+    emb = counted(encode_all)
+    if tuple(emb.shape) != (16, cfg.hidden_size) or not torch.isfinite(emb).all():
+        fail(f"encode [phase 16]: shape {tuple(emb.shape)} or non-finite values")
+    if float((emb.norm(dim=-1) - 1).abs().max()) > 1e-3:
+        fail("encode [phase 16]: embeddings are not unit vectors")
+    wrapped = ((flash_attention, "flash_attention"), (fused_pool, "fused_norm_mean_pool"))
+    saved = [getattr(mod, n) for mod, n in wrapped]
+    for mod, n in wrapped:  # the same model through the plain versions on the card
+        setattr(mod, n, getattr(mod, n + "_plain"))
+    try:
+        emb_plain = encode_all()
+    finally:
+        for (mod, n), fn in zip(wrapped, saved):
+            setattr(mod, n, fn)
+    cos = F.cosine_similarity(emb, emb_plain, dim=-1)
+    print(f"encode [phase 16] kernels vs plain versions: min cosine {float(cos.min()):.6f}",
+          flush=True)
+    if cos.min() < COSINE_MIN:
+        fail(f"encode [phase 16] through the kernels departs from the plain versions: "
+             f"{cos.tolist()}")
+    torch.cuda.synchronize()
+    t0 = time.time()
+    encode_all()
+    torch.cuda.synchronize()
+    dt = time.time() - t0
+    print(f"encode [phase 16]: 16 sentences in {dt * 1e3:.1f} ms = {16 / dt:.1f} sentences/s",
+          flush=True)
+
+    tok = model.tokenizer
+    enc = tok(["<s><|user|>\n" + SENTENCES[4] + " " + SENTENCES[7] + "\n<|assistant|>\n",
+               "<s><|user|>\nExplain: " + SENTENCES[2] + "\n<|assistant|>\n"])
+    res = counted(lambda: model.generate_from_ids(enc["input_ids"], enc["attention_mask"],
+                                                  max_new_tokens=32))
+    gaps = torch.cat([teacher_deficits(
+        model, enc["input_ids"][b, :int(enc["attention_mask"][b].sum())].tolist(),
+        res.tokens[b, :int(res.num_valid[b])].tolist()) for b in range(2)])
+    print(f"generate [phase 16]: B=2, {int(res.num_valid.sum())} tokens; teacher forcing: "
+          f"largest deficit {float(gaps.max()):.4f} (TIE_TOL {TIE_TOL}), the argmax at "
+          f"{float((gaps == 0).float().mean()):.3f} of them", flush=True)
+    if float(gaps.max()) > TIE_TOL:
+        fail(f"generate [phase 16]: a token is {float(gaps.max())} below its position's max logit")
+    decode_step(LLAMA, model, enc)
+
+    drive, specs = serving_workload(model, reset_counts, read_counts, total)
+    kw = dict(max_batch=8, max_len=4096, chunk_size=16, eos_id=tok.eos_token_id,
+              pad_id=tok.pad_token_id, device=dev)
+    rates = {}
+    for label, pool, tol in (("dense bf16", {}, TIE_TOL),
+                             ("paged bf16", dict(paged=True, page_size=256), TIE_TOL),
+                             ("paged int8", dict(paged=True, page_size=256, kv_quant=True),
+                              INT8_KV_TIE_TOL)):
+        eng = ServingEngine(cfg, model.params, **pool, **kw)
+        run = drive(f"{LLAMA} {label}", eng, specs, 8, tie_tol=tol)
+        rates[label] = (run["rate"], run["ttft50"])
+        del eng, run
+        gc.collect()
+    print(f"serving [phase 16]: generated tokens/s and TTFT p50 by pool: " + ", ".join(
+        f"{k} {r:.1f} tok/s, {t:.3f} s" for k, (r, t) in rates.items()), flush=True)
+    print(f"phase 16: model paths {time.time() - t_phase:.0f} s", flush=True)
+
+    rag_key = f"{LLAMA} rag"
+    rag_eng = rag_phase(model, reset_counts, read_counts, path_launches, key=rag_key)
+    del rag_eng
+    path_launches[LLAMA] = total
+    launched = {n: total.get(n, 0) + path_launches[rag_key].get(n, 0) for n in total}
+    print(f"{LLAMA} launches (encode, generate, serving, rag): {launched}", flush=True)
+    for n in ("flash_attention", "fused_norm_mean_pool", "flash_decode", "paged_decode",
+              "scores_segmax"):
+        if launched.get(n, 0) == 0:
+            fail(f"phase 16: {n} was never launched on the Llama-3.2-1B paths")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    k1_times(dev, randn, times)
+    k3_times(dev, randn, times, H=32, Hkv=8, Dh=64, name="flash_decode[dh64]")
+    k3_verify(dev, randn, times, max_err, H=32, Hkv=8, Dh=64, name="flash_decode[dh64]")
+    k8_times(dev, randn, times, H=32, Hkv=8, Dh=64, name="paged_decode[dh64]")
+    print(f"phase 16: {time.time() - t_phase:.0f} s; total {time.time() - t_start:.0f} s",
+          flush=True)
 
 
 def profile_window(label: str, fn, top: int = 10):

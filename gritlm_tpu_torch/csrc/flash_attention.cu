@@ -34,6 +34,13 @@
 //   [B, H, Sq]), which K4 and K5 (flash_attention_bwd.cu) rebuild P from; a
 //   row with l == 0 gets output 0 and lse NEG_INF.
 // No sum crosses blocks: the same inputs give the same bits.
+//
+// Two instances, by the head dim DH: 128, and 64 (Llama-3.2-1B, Qwen2-0.5B),
+// whose Q and ring tiles are one 64-column half instead of two, S = Q K^T 4
+// k-steps instead of 8, and O += P V an m64n64k16 wgmma (32 accumulators a
+// thread instead of 64), on the same schedule. The wrapper zero-pads any
+// other head dim below 128 to 128 (ops/flash_attention.py) and passes the
+// true Dh^-0.5 as `scale`.
 #include <utility>
 
 #include "common.cuh"
@@ -44,7 +51,6 @@ using gritlm::NEG_INF;
 
 namespace {
 
-constexpr int DH = 128;
 constexpr int WG = 128;                         // threads of a warpgroup
 constexpr int CONSUMERS = 2;                    // consumer warpgroups a block
 constexpr int NTHREADS = WG * (CONSUMERS + 1);  // and the producer's warpgroup
@@ -59,22 +65,31 @@ constexpr int MASK_WORDS = BK / 32;  // valid-key bits of a tile
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float NEG_INFINITY = -__builtin_huge_valf();
 
-// Shared memory, from a 1024-byte aligned base: Q (two 64-column halves of
-// the block's rows), the ring (a stage: K's two halves, then V's), each
-// stage's tile metadata (first key, valid-key bits) and the barriers.
+// Shared memory, from a 1024-byte aligned base: Q (the 64-column halves of
+// the block's rows: two at DH 128, one at 64), the ring (a stage: K's
+// halves, then V's), each stage's tile metadata (first key, valid-key bits)
+// and the barriers.
 constexpr uint32_t HALF_Q = BLOCK_ROWS * 128;
 constexpr uint32_t HALF_T = BK * 128;
-constexpr uint32_t Q_BYTES = 2 * HALF_Q;
-constexpr uint32_t STAGE_BYTES = 4 * HALF_T;
-constexpr uint32_t OFF_RING = Q_BYTES;
-constexpr uint32_t OFF_META = OFF_RING + STAGES * STAGE_BYTES;  // 8 ints a stage
-constexpr uint32_t OFF_BAR = OFF_META + STAGES * 32;
-constexpr uint32_t SMEM = OFF_BAR + (2 * STAGES + 1) * 8 + 1024;  // + alignment slack
-static_assert(SMEM <= 232448, "shared memory of one block");
+
+template <int DH>
+struct Layout {
+  static_assert(DH == 64 || DH == 128, "head dims 64 and 128");
+  static constexpr int HALVES = DH / 64;
+  static constexpr uint32_t Q_BYTES = HALVES * HALF_Q;
+  static constexpr uint32_t STAGE_BYTES = 2 * HALVES * HALF_T;
+  static constexpr uint32_t OFF_RING = Q_BYTES;
+  static constexpr uint32_t OFF_META = OFF_RING + STAGES * STAGE_BYTES;  // 8 ints a stage
+  static constexpr uint32_t OFF_BAR = OFF_META + STAGES * 32;
+  static constexpr uint32_t SMEM = OFF_BAR + (2 * STAGES + 1) * 8 + 1024;  // + alignment slack
+  static_assert(SMEM <= 232448, "shared memory of one block");
+};
 
 // tile x (0: K, 1: V) of stage s
+template <int DH>
 __device__ __forceinline__ uint32_t ring_tile(uint32_t base, int s, int x) {
-  return base + OFF_RING + s * STAGE_BYTES + x * 2 * HALF_T;
+  using C = Layout<DH>;
+  return base + C::OFF_RING + s * C::STAGE_BYTES + x * C::HALVES * HALF_T;
 }
 
 __device__ __forceinline__ uint64_t kmajor(uint32_t rows) {
@@ -84,8 +99,9 @@ __device__ __forceinline__ uint64_t mnmajor(uint32_t tile) {
   return sm90::desc_sw128(tile, HALF_T, 1024);
 }
 
-// S[64 x BK] = Q[64 x 128] K^T: 8 k-steps of 16 features, each 32 bytes
-// further along the row, the second 4 in the tiles' other halves.
+// S[64 x BK] = Q[64 x DH] K^T: DH / 16 k-steps of 16 features, each 32
+// bytes further along the row, the second 4 (DH 128) in the tiles' other
+// halves.
 template <int... KK>
 __device__ __forceinline__ void score_steps(float (&s)[BK / 2], uint64_t dq, uint64_t dk,
                                             std::integer_sequence<int, KK...>) {
@@ -94,7 +110,7 @@ __device__ __forceinline__ void score_steps(float (&s)[BK / 2], uint64_t dq, uin
    ...);
 }
 
-// O[64 x 128] += P[64 x BK] V[BK x 128]: k-steps of 16 keys, P as packed A
+// O[64 x DH] += P[64 x BK] V[BK x DH]: k-steps of 16 keys, P as packed A
 // fragments (four a k-step), V MN-major.
 template <int... KK>
 __device__ __forceinline__ void pv_steps(float (&o)[64], const uint32_t (&p)[BK / 4], uint64_t dv,
@@ -103,8 +119,16 @@ __device__ __forceinline__ void pv_steps(float (&o)[64], const uint32_t (&p)[BK 
                                                 p[4 * KK + 3], dv, 1),
    ...);
 }
+template <int... KK>
+__device__ __forceinline__ void pv_steps(float (&o)[32], const uint32_t (&p)[BK / 4], uint64_t dv,
+                                         std::integer_sequence<int, KK...>) {
+  (sm90::wgmma_m64n64k16_rs_tb<KK * 16 * 128>(o, p[4 * KK], p[4 * KK + 1], p[4 * KK + 2],
+                                               p[4 * KK + 3], dv, 1),
+   ...);
+}
 
-__device__ __forceinline__ void issue_pv(float (&o)[64], const uint32_t (&p)[BK / 4],
+template <int N>
+__device__ __forceinline__ void issue_pv(float (&o)[N], const uint32_t (&p)[BK / 4],
                                          uint32_t v_tile) {
   pv_steps(o, p, mnmajor(v_tile), std::make_integer_sequence<int, BK / 16>());
   sm90::wgmma_commit();
@@ -162,16 +186,18 @@ __device__ __forceinline__ void softmax_tile(float (&s)[BK / 2], float (&m)[2], 
 
 // One block per (128 query rows, query head, batch row), the q-tiles in
 // reverse order (a causal block with more keys starts first).
+template <int DH>
 __global__ void __launch_bounds__(NTHREADS, 1)
 flash_fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
                  const __grid_constant__ CUtensorMap tv, const int* __restrict__ mask,
                  bf16* __restrict__ out, float* __restrict__ lse, int Sq, int Sk, int H,
                  int group, long long m_sb, int causal, int window, int offset, float scale) {
+  using C = Layout<DH>;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = sm90::smem_u32(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;
-  int* meta = reinterpret_cast<int*>(smem_raw + (base - raw) + OFF_META);
-  const uint32_t full = base + OFF_BAR, empty = full + 8 * STAGES, res = empty + 8 * STAGES;
+  int* meta = reinterpret_cast<int*>(smem_raw + (base - raw) + C::OFF_META);
+  const uint32_t full = base + C::OFF_BAR, empty = full + 8 * STAGES, res = empty + 8 * STAGES;
 
   const int q0 = (gridDim.x - 1 - blockIdx.x) * BLOCK_ROWS;
   const int h = blockIdx.y, b = blockIdx.z, hk = h / group;
@@ -199,8 +225,8 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__
     if (tid < CONSUMERS * WG + 32) {  // one warp drives the ring
       const int lane = tid % 32;
       if (lane == 0) {
-        sm90::mbar_arrive_expect_tx(res, Q_BYTES);
-        for (int c = 0; c < 2; ++c)
+        sm90::mbar_arrive_expect_tx(res, C::Q_BYTES);
+        for (int c = 0; c < C::HALVES; ++c)
           sm90::tma_load_4d(base + c * HALF_Q, &tq, res, 64 * c, h, q0, b);
       }
       const int* mb = mask + b * m_sb;
@@ -230,10 +256,12 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__
 #pragma unroll
           for (int j = 0; j < MASK_WORDS; ++j) mt[1 + j] = (int)bits[j];
           const uint32_t fb = full + 8 * stage;
-          sm90::mbar_arrive_expect_tx(fb, STAGE_BYTES);
-          for (int c = 0; c < 2; ++c) {
-            sm90::tma_load_4d(ring_tile(base, stage, 0) + c * HALF_T, &tk, fb, 64 * c, hk, kt, b);
-            sm90::tma_load_4d(ring_tile(base, stage, 1) + c * HALF_T, &tv, fb, 64 * c, hk, kt, b);
+          sm90::mbar_arrive_expect_tx(fb, C::STAGE_BYTES);
+          for (int c = 0; c < C::HALVES; ++c) {
+            sm90::tma_load_4d(ring_tile<DH>(base, stage, 0) + c * HALF_T, &tk, fb, 64 * c, hk, kt,
+                              b);
+            sm90::tma_load_4d(ring_tile<DH>(base, stage, 1) + c * HALF_T, &tv, fb, 64 * c, hk, kt,
+                              b);
           }
         }
         __syncwarp();
@@ -261,9 +289,9 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__
     const float scale_log2 = scale * LOG2E;
     const uint64_t dq = kmajor(base + w * ROWS * 128);
 
-    float o[64];
+    float o[DH / 2];
 #pragma unroll
-    for (int i = 0; i < 64; ++i) o[i] = 0.f;
+    for (int i = 0; i < DH / 2; ++i) o[i] = 0.f;
     float m[2] = {NEG_INFINITY, NEG_INFINITY}, l[2] = {0.f, 0.f}, alpha[2];
     uint32_t p[BK / 4];  // P of stage `prev`, whose O += P V is not yet issued
     int prev = 0;  // set with p
@@ -284,7 +312,8 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__
     // softmax in place, picking the masked or the mask-free path
     const auto issue_s = [&](float (&s)[BK / 2]) {
       sm90::wgmma_fence();
-      score_steps(s, dq, kmajor(ring_tile(base, stage, 0)), std::make_integer_sequence<int, 8>());
+      score_steps(s, dq, kmajor(ring_tile<DH>(base, stage, 0)),
+                  std::make_integer_sequence<int, DH / 16>());
       sm90::wgmma_commit();
     };
     const auto softmax = [&](float (&s)[BK / 2], const int* mt) {
@@ -308,9 +337,9 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__
       // once the row maxima settle, most tiles move none of a warp's rows
       if (__any_sync(gritlm::FULL, alpha[0] != 1.f || alpha[1] != 1.f))
 #pragma unroll
-        for (int i = 0; i < 64; ++i) o[i] *= alpha[(i % 4) / 2];
+        for (int i = 0; i < DH / 2; ++i) o[i] *= alpha[(i % 4) / 2];
       sm90::wgmma_fence();
-      issue_pv(o, p, ring_tile(base, prev, 1));
+      issue_pv(o, p, ring_tile<DH>(base, prev, 1));
     };
     const auto release_prev = [&]() {
       sm90::wgmma_wait<0>();
@@ -392,7 +421,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__
       inv[ri] = l[ri] > 0.f ? 1.f / l[ri] : 0.f;
     }
 #pragma unroll
-    for (int i = 0; i < 64; i += 2) {
+    for (int i = 0; i < DH / 2; i += 2) {
       const int ri = (i % 4) / 2, r = row0 + 8 * ri;
       if (r < Sq) {
         bf16* dst = out + (((long long)b * Sq + r) * H + h) * DH + 8 * (i / 4) + c2;
@@ -410,34 +439,52 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__
   }
 }
 
-}  // namespace
-
-// Strides are in elements, as the tensors give them; the tensor maps take
-// them in bytes (the wrapper checks that they are multiples of 8).
-extern "C" int gritlm_flash_fwd(const void* q, const void* k, const void* v,
-                                const void* mask, void* out, void* lse, int B, int Sq,
-                                int Sk, int H, int Hkv, long long q_sb, long long q_ss,
-                                long long k_sb, long long k_ss, long long v_sb,
-                                long long v_ss, long long m_sb, int causal, int window,
-                                int offset, float scale, void* stream) {
+template <int DH>
+int launch(const void* q, const void* k, const void* v, const void* mask, void* out, void* lse,
+           int B, int Sq, int Sk, int H, int Hkv, long long q_sb, long long q_ss,
+           long long k_sb, long long k_ss, long long v_sb, long long v_ss, long long m_sb,
+           int causal, int window, int offset, float scale, cudaStream_t stream) {
+  constexpr int smem = (int)Layout<DH>::SMEM;
   static bool configured = false;
   if (!configured) {
-    cudaError_t e = cudaFuncSetAttribute(flash_fwd_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM);
+    cudaError_t e = cudaFuncSetAttribute(flash_fwd_kernel<DH>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return (int)e;
     configured = true;
   }
   CUtensorMap tq, tk, tv;
-  int rc = sm90::make_map_bshd(&tq, q, B, Sq, H, 2 * q_sb, 2 * q_ss, BLOCK_ROWS);
-  if (!rc) rc = sm90::make_map_bshd(&tk, k, B, Sk, Hkv, 2 * k_sb, 2 * k_ss, BK);
-  if (!rc) rc = sm90::make_map_bshd(&tv, v, B, Sk, Hkv, 2 * v_sb, 2 * v_ss, BK);
+  int rc = sm90::make_map_bshd(&tq, q, B, Sq, H, 2 * q_sb, 2 * q_ss, BLOCK_ROWS, DH);
+  if (!rc) rc = sm90::make_map_bshd(&tk, k, B, Sk, Hkv, 2 * k_sb, 2 * k_ss, BK, DH);
+  if (!rc) rc = sm90::make_map_bshd(&tv, v, B, Sk, Hkv, 2 * v_sb, 2 * v_ss, BK, DH);
   if (rc) return rc;
   dim3 grid((Sq + BLOCK_ROWS - 1) / BLOCK_ROWS, H, B);
-  flash_fwd_kernel<<<grid, NTHREADS, SMEM, (cudaStream_t)stream>>>(
+  flash_fwd_kernel<DH><<<grid, NTHREADS, smem, stream>>>(
       tq, tk, tv, (const int*)mask, (bf16*)out, (float*)lse, Sq, Sk, H, H / Hkv, m_sb, causal,
       window, offset, scale);
   return (int)cudaGetLastError();
 }
 
-// The dynamic shared memory a block of K1 takes, in bytes (for reports).
-extern "C" int gritlm_flash_fwd_smem() { return (int)SMEM; }
+}  // namespace
+
+// Strides are in elements, as the tensors give them; the tensor maps take
+// them in bytes (the wrapper checks that they are multiples of 8). Dh: 128
+// or 64 (another returns cudaErrorInvalidValue); `scale` is the softmax
+// scale, Dh^-0.5 of the model's head dim.
+extern "C" int gritlm_flash_fwd(const void* q, const void* k, const void* v,
+                                const void* mask, void* out, void* lse, int B, int Sq,
+                                int Sk, int H, int Hkv, int Dh, long long q_sb, long long q_ss,
+                                long long k_sb, long long k_ss, long long v_sb,
+                                long long v_ss, long long m_sb, int causal, int window,
+                                int offset, float scale, void* stream) {
+  if (Dh == 128)
+    return launch<128>(q, k, v, mask, out, lse, B, Sq, Sk, H, Hkv, q_sb, q_ss, k_sb, k_ss, v_sb,
+                       v_ss, m_sb, causal, window, offset, scale, (cudaStream_t)stream);
+  if (Dh == 64)
+    return launch<64>(q, k, v, mask, out, lse, B, Sq, Sk, H, Hkv, q_sb, q_ss, k_sb, k_ss, v_sb,
+                      v_ss, m_sb, causal, window, offset, scale, (cudaStream_t)stream);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The dynamic shared memory a block of K1 takes at Dh 128, in bytes (for
+// reports).
+extern "C" int gritlm_flash_fwd_smem() { return (int)Layout<128>::SMEM; }

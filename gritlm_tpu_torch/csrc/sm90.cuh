@@ -4,7 +4,8 @@
 // runtime's driver entry point (no -lcuda).
 //
 // Layout convention. A bf16 tile with rows of Dh = 128 is kept as two
-// 64-column halves, each written by one TMA box with 128-byte swizzle: row r
+// 64-column halves (Dh = 64: one), each written by one TMA box with 128-byte
+// swizzle: row r
 // of a half at byte r * 128, its 16-byte chunks permuted by r % 8 inside
 // each 1024-byte atom of 8 rows. Every half starts on a 1024-byte boundary.
 // wgmma reads such a half
@@ -286,6 +287,33 @@ __device__ __forceinline__ void wgmma_m64n128k16_rs_tb(float (&d)[64], uint32_t 
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(desc_b), "r"(scale_d), "n"(OFF_B >> 4));
 }
 
+// The same with N = 64: d[64 x 64] (+)= A[64 x 16] . B[16 x 64], 32
+// accumulators a thread, B (one 64-column half) MN-major.
+template <uint32_t OFF_B>
+__device__ __forceinline__ void wgmma_m64n64k16_rs_tb(float (&d)[32], uint32_t a0, uint32_t a1,
+                                                      uint32_t a2, uint32_t a3, uint64_t desc_b,
+                                                      int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n.reg .b64 db;\nsetp.ne.b32 p, %37, 0;\n"
+      "add.s64 db, %36, %38;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, db, p, 1, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(desc_b), "r"(scale_d), "n"(OFF_B >> 4));
+}
+
 // Two fp32 values as a bf16 pair (the first in the low half).
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
@@ -333,14 +361,14 @@ inline int make_map(CUtensorMap* map, const void* base, cuuint32_t rank, const c
   return r == CUDA_SUCCESS ? 0 : 10000 + (int)r;
 }
 
-// A rank-4 bf16 tensor map over [B, S, heads, 128] with dense head and
-// feature axes and byte strides sb, ss (multiples of 16): boxes of 64
-// features x 1 head x box_rows positions x 1 batch row; positions past S
+// A rank-4 bf16 tensor map over [B, S, heads, dh] (dh 128 or 64) with dense
+// head and feature axes and byte strides sb, ss (multiples of 16): boxes of
+// 64 features x 1 head x box_rows positions x 1 batch row; positions past S
 // read as zeros.
 inline int make_map_bshd(CUtensorMap* map, const void* base, int B, int S, int heads,
-                         long long sb_bytes, long long ss_bytes, int box_rows) {
-  const cuuint64_t dims[4] = {128, (cuuint64_t)heads, (cuuint64_t)S, (cuuint64_t)B};
-  const cuuint64_t strides[3] = {256, (cuuint64_t)ss_bytes, (cuuint64_t)sb_bytes};
+                         long long sb_bytes, long long ss_bytes, int box_rows, int dh = 128) {
+  const cuuint64_t dims[4] = {(cuuint64_t)dh, (cuuint64_t)heads, (cuuint64_t)S, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)dh * 2, (cuuint64_t)ss_bytes, (cuuint64_t)sb_bytes};
   const cuuint32_t box[4] = {64, 1, (cuuint32_t)box_rows, 1};
   return make_map(map, base, 4, dims, strides, box);
 }

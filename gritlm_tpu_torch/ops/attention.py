@@ -12,6 +12,11 @@ tensor of per-row offsets (always K3); over a paged pool the transformer
 calls `paged_attention.paged_decode` (K8) instead, as the JAX package does. On CPU tensors each kernel wrapper runs its plain
 version. `mha_reference` is the independent einsum oracle the tests hold
 the kernels against.
+
+Head dims: every path takes the call's Dh from q (the cache row is
+Kv * Dh). On CUDA tensors K3 and K8 run Dh 64, 96 and 128; K1 runs 64 and
+128 and zero-pads other multiples of 8 below 128 to 128; training
+(`FlashAttentionFn`) runs Dh 128 only and raises at any other.
 """
 
 from __future__ import annotations

@@ -52,8 +52,19 @@ kernel reads `offsets[b]` itself, and the host plans over Smax, since it
 cannot bound the rows' causal ranges without reading them; each block
 trims its splits by the valid slots it finds, as K8 does.
 
-Differences from the TPU kernel: Dh must be 128. (The JAX kernel too takes
-`offset` as an int or a [B] array.)
+Head dims: the kernel body is compiled for Dh 64, 96 and 128 (one instance
+each; any other Dh raises NotImplementedError on CUDA tensors). S^T takes
+Dh / 16 k-steps and O^T Dh / 16 M-tiles; a K/V row is Dh / 8 (bf16) or
+Dh / 16 (int8) 16-byte copies, in shared-memory rows padded by 16 bytes so
+the rows an ldmatrix reads fall in different banks; at Dh 96 the Q^T and K
+fragments take two 64-dim groups' layout for the first 64 dims and an
+8-dim-a-lane layout for the last 32. The split partials, the launch plan's
+blocks an SM (`blocks_per_sm`: the rings shrink with Dh) and the counters
+follow the call's Dh.
+
+Differences from the TPU kernel: any Kv (the JAX kernel needs
+(Kv*Dh) % 128 == 0, its lane alignment; the port's rows need only 16-byte
+copies). (The JAX kernel too takes `offset` as an int or a [B] array.)
 """
 
 from __future__ import annotations
@@ -63,15 +74,35 @@ from typing import Optional, Union
 import torch
 
 from gritlm_tpu_torch.ops import _build
-from gritlm_tpu_torch.ops.flash_attention import HEAD_DIM, attend_plain, keep_mask
+from gritlm_tpu_torch.ops.flash_attention import attend_plain, keep_mask
 
 # K3 and K8 (csrc/decode_mma.cuh)
+HEAD_DIMS = (64, 96, 128)  # the kernel body's instances
 SLOT_TILE = 16  # TK: slots a tile
 ROW_GROUP = 8  # ROWS: query rows a unit (a warp's MMA columns)
 DECODE_WARPS = 4  # warps a block, each on its own run of the block's tiles
-BLOCKS_PER_SM = {False: 2, True: 4}  # bf16 / int8 cache: 104 KB / 55 KB of rings a block
+RING_STAGES = 3  # STAGES: a warp's ring of tiles
 MIN_TILES_PER_WARP = 4  # MIN_TILES: a split's least tiles a warp
 MAX_SPLITS = 32
+SMEM_PER_SM = 232448  # bytes of shared memory an SM gives its blocks (H100)
+MAX_BLOCKS_PER_SM = 4  # 128 registers a thread: 4 blocks of 128 threads fill an SM
+
+
+def ring_bytes(head_dim: int, quant: bool) -> int:
+    """A block's rings in shared memory: 4 warps x 3 stages x (K and V) x
+    16 slot rows of Dh elements padded by 16 bytes (Tile<T, DH>::RING)."""
+    row = head_dim * (1 if quant else 2) + 16
+    return DECODE_WARPS * RING_STAGES * 2 * SLOT_TILE * row
+
+
+def blocks_per_sm(quant: bool, head_dim: int = 128) -> int:
+    """Blocks of K3/K8 an SM holds at once: as many as its shared memory
+    takes rings, at most MAX_BLOCKS_PER_SM."""
+    return min(MAX_BLOCKS_PER_SM, SMEM_PER_SM // ring_bytes(head_dim, quant))
+
+
+# Dh 128: bf16 / int8 cache, 104 KB / 55 KB of rings a block
+BLOCKS_PER_SM = {quant: blocks_per_sm(quant) for quant in (False, True)}
 
 
 def dequantize_layer(x, scale, layer, hkv, dtype) -> torch.Tensor:
@@ -105,7 +136,7 @@ def _fn():
     fn = _build.load("decode_attention").gritlm_flash_decode
     if fn.argtypes is None:
         P, I32, F32 = _build.P, _build.I32, _build.F32
-        fn.argtypes = [P] * 11 + [I32] * 11 + [F32, P]
+        fn.argtypes = [P] * 11 + [I32] * 12 + [F32, P]
         fn.restype = I32
     return fn
 
@@ -138,9 +169,10 @@ def used_splits(n_tiles: int, n_split: int) -> int:
 
 
 def decode_plan(B: int, Sq: int, H: int, Hkv: int, Smax: int, sms: int, *, causal: bool,
-                offset: int = 0, window: Optional[int] = None, quant: bool = False):
+                offset: int = 0, window: Optional[int] = None, quant: bool = False,
+                head_dim: int = 128):
     """(n_split, n_rg) of a K3 or K8 launch: n_rg groups of ROW_GROUP query rows a
-    (batch row, kv head), and as many splits as fill BLOCKS_PER_SM blocks an
+    (batch row, kv head), and as many splits as fill `blocks_per_sm` blocks an
     SM in one wave, but no more than give each warp MIN_TILES_PER_WARP of
     the tiles the host can bound (the causal bound, the window; Smax for a
     mask-bounded call, whose valid range only the kernel sees), and at most
@@ -150,19 +182,19 @@ def decode_plan(B: int, Sq: int, H: int, Hkv: int, Smax: int, sms: int, *, causa
     units = B * Hkv * n_rg
     lo, hi = slot_range(0, Sq - 1, Smax, causal=causal, offset=offset, window=window)
     tiles = _cdiv(hi, SLOT_TILE) - lo // SLOT_TILE if hi > lo else 0
-    n_split = min(BLOCKS_PER_SM[quant] * sms // units,
+    n_split = min(blocks_per_sm(quant, head_dim) * sms // units,
                   _cdiv(tiles, DECODE_WARPS * MIN_TILES_PER_WARP), MAX_SPLITS)
     return max(1, n_split), n_rg
 
 
-def partials(n_split: int, units: int, device):
+def partials(n_split: int, units: int, device, head_dim: int = 128):
     """The split partials a launch writes when n_split > 1: (max, sum)
     [n_split, units, ROW_GROUP, 2] and the unnormalised output rows
-    [n_split, units, ROW_GROUP, HEAD_DIM], fp32; None, None for one split."""
+    [n_split, units, ROW_GROUP, head_dim], fp32; None, None for one split."""
     if n_split == 1:
         return None, None
     return (torch.empty((n_split, units, ROW_GROUP, 2), dtype=torch.float32, device=device),
-            torch.empty((n_split, units, ROW_GROUP, HEAD_DIM), dtype=torch.float32,
+            torch.empty((n_split, units, ROW_GROUP, head_dim), dtype=torch.float32,
                         device=device))
 
 
@@ -204,7 +236,7 @@ def flash_decode(
             t.dtype == torch.bfloat16 and t.is_contiguous()
             and tuple(t.shape) == (L, B, hkv, Smax) for t in (k_scale, v_scale)):
         raise ValueError(f"flash_decode: scales must be contiguous bfloat16 {(L, B, hkv, Smax)}")
-    if Dh != HEAD_DIM or hkv * Dh != KD or H % hkv:
+    if Dh not in HEAD_DIMS or hkv * Dh != KD or H % hkv:
         raise NotImplementedError(f"flash_decode: q {tuple(q.shape)} over cache {tuple(k.shape)}")
     if k.shape != v.shape or Bk != B:
         raise ValueError(f"flash_decode: cache k {tuple(k.shape)} v {tuple(v.shape)}, batch {B}")
@@ -228,9 +260,10 @@ def flash_decode(
     host = off_t is None
     n_split, n_rg = decode_plan(B, Sq, H, hkv, Smax, _build.sm_count(q.device),
                                 causal=causal and host, offset=offset if host else 0,
-                                window=sliding_window if host else None, quant=quant)
+                                window=sliding_window if host else None, quant=quant,
+                                head_dim=Dh)
     units = B * hkv * n_rg
-    part_ml, part_o = partials(n_split, units, q.device)
+    part_ml, part_o = partials(n_split, units, q.device, Dh)
     counters = _build.counters(q.device, units) if n_split > 1 else None
     out = torch.empty_like(q)
 
@@ -239,7 +272,7 @@ def flash_decode(
 
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), ptr(k_scale), ptr(v_scale), ptr(mask),
             ptr(offsets), ptr(part_ml), ptr(part_o), ptr(counters), out.data_ptr(), B, Sq, H,
-            hkv, Smax, layer, n_split, n_rg, int(causal), int(sliding_window or 0),
+            hkv, Dh, Smax, layer, n_split, n_rg, int(causal), int(sliding_window or 0),
             offset if host else 0, Dh ** -0.5, _build.stream_of(q))
     _build.check(rc, "flash_decode")
     flash_decode.launches += 1

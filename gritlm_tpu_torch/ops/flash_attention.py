@@ -48,9 +48,23 @@ multiples of 8 elements) is exactly what TMA needs. `FlashAttentionFn`
 wires K1 with LSE, K4 and K5 into autograd; on CUDA tensors its backward
 launches K4 and K5 or raises.
 
+Head dims. K1 has two compiled instances, Dh 128 and Dh 64 (Llama-3.2-1B,
+Qwen2-0.5B): at 64 the Q and ring tiles are one 64-column half, S = Q K^T
+takes 4 k-steps and O += P V an m64n64k16 wgmma, on the Dh-128 schedule.
+Any other Dh below 128 that is a multiple of 8 (96: Phi-3-mini; 80:
+Phi-2) is zero-padded to 128 here, as the JAX wrapper pads to its
+128-lane multiple: q, k and v are copied into [.., 128] tensors (for a
+cache view, the whole layer's visible slots), the kernel runs at 128 with
+the true softmax scale Dh^-0.5 passed in (the JAX wrapper folds
+sqrt(128/Dh) into q instead), and the output's first Dh columns are copied
+out: three input copies and one output copy of the padded size a call.
+Dh above 128 raises NotImplementedError. K4 and K5 take Dh 128 only, so
+`FlashAttentionFn` raises NotImplementedError on CUDA tensors at any other
+Dh before its forward runs (training of Dh-64 models is ROADMAP Queue 2 A).
+
 Differences from the TPU kernel: any Sq runs the kernel (the TPU version
-needed Sq >= 128 and sent shorter queries to an einsum); Dh must be 128
-(64/96 raise NotImplementedError instead of being padded); bf16 only.
+needed Sq >= 128 and sent shorter queries to an einsum); the padded head
+dims take the true scale, not a scaled q; bf16 only.
 """
 
 from __future__ import annotations
@@ -62,7 +76,8 @@ import torch
 from gritlm_tpu_torch.ops import _build
 
 NEG_INF = -1e30
-HEAD_DIM = 128
+HEAD_DIM = 128  # K4/K5's head dim, and the width K1 pads other head dims to
+KERNEL_HEAD_DIMS = (64, 128)  # K1's compiled instances (csrc/flash_attention.cu)
 
 
 def keep_mask(
@@ -193,7 +208,7 @@ def _fn(name: str = "gritlm_flash_fwd", lib: str = "flash_attention"):
     if fn.argtypes is None:
         P, I32, I64, F32 = _build.P, _build.I32, _build.I64, _build.F32
         if name == "gritlm_flash_fwd":
-            fn.argtypes = [P] * 6 + [I32] * 5 + [I64] * 7 + [I32] * 3 + [F32, P]
+            fn.argtypes = [P] * 6 + [I32] * 6 + [I64] * 7 + [I32] * 3 + [F32, P]
         elif name == "gritlm_flash_bwd_dq":
             fn.argtypes = [P] * 8 + [I32] * 5 + [I64] * 9 + [I32] * 3 + [F32, P]
         else:  # gritlm_flash_bwd_dkv
@@ -202,17 +217,36 @@ def _fn(name: str = "gritlm_flash_fwd", lib: str = "flash_attention"):
     return fn
 
 
-def _check_bshd(t: torch.Tensor, name: str) -> None:
-    """[B, S, heads, 128] bf16 whose head and dim axes are dense (any batch
-    and sequence strides, 16-byte aligned), as the kernel reads it."""
+def _check_bshd(t: torch.Tensor, name: str, dims=(HEAD_DIM,)) -> None:
+    """[B, S, heads, Dh] bf16, Dh one of `dims`, whose head and dim axes are
+    dense (any batch and sequence strides, 16-byte aligned), as the kernel
+    reads it."""
     if t.dtype != torch.bfloat16:
         raise TypeError(f"flash_attention: {name} must be bfloat16, got {t.dtype}")
-    if t.dim() != 4 or t.shape[3] != HEAD_DIM:
+    if t.dim() != 4 or t.shape[3] not in dims:
         raise NotImplementedError(
-            f"flash_attention: {name} must be [B, S, heads, {HEAD_DIM}], got {tuple(t.shape)}")
-    if t.stride(3) != 1 or t.stride(2) != HEAD_DIM or t.stride(0) % 8 or t.stride(1) % 8 \
+            f"flash_attention: {name} must be [B, S, heads, Dh in {dims}], got {tuple(t.shape)}")
+    if t.stride(3) != 1 or t.stride(2) != t.shape[3] or t.stride(0) % 8 or t.stride(1) % 8 \
             or t.data_ptr() % 16:
         raise ValueError(f"flash_attention: {name} strides {t.stride()} not supported")
+
+
+def kernel_head_dim(Dh: int) -> int:
+    """The head dim K1 runs a call of head dim Dh at: Dh itself for a
+    compiled instance, else 128 (zero-padded; Dh < 128 and Dh % 8 == 0).
+    Raises NotImplementedError for any other Dh."""
+    if Dh in KERNEL_HEAD_DIMS:
+        return Dh
+    if Dh < HEAD_DIM and Dh % 8 == 0:
+        return HEAD_DIM
+    raise NotImplementedError(
+        f"flash_attention: head dim {Dh} (the kernel runs 64 and 128, and pads multiples of 8 "
+        f"below 128 to 128)")
+
+
+def _pad_heads(t: torch.Tensor, width: int) -> torch.Tensor:
+    """t [B, S, heads, Dh] zero-padded to [B, S, heads, width] (a copy)."""
+    return torch.nn.functional.pad(t, (0, width - t.shape[3]))
 
 
 def _kernel_mask(padding_mask, B: int, Sk: int, device) -> torch.Tensor:
@@ -223,9 +257,9 @@ def _kernel_mask(padding_mask, B: int, Sk: int, device) -> torch.Tensor:
     return padding_mask.to(torch.int32).contiguous()
 
 
-def _check_qkv(q, k, v, offset) -> None:
+def _check_qkv(q, k, v, offset, dims=(HEAD_DIM,)) -> None:
     for t, name in ((q, "q"), (k, "k"), (v, "v")):
-        _check_bshd(t, name)
+        _check_bshd(t, name, dims)
     if k.shape != v.shape or k.shape[0] != q.shape[0] or q.shape[2] % k.shape[2]:
         raise ValueError(f"flash_attention: shapes q {tuple(q.shape)} k {tuple(k.shape)} "
                          f"v {tuple(v.shape)}")
@@ -259,21 +293,28 @@ def flash_attention(
                                      sliding_window=sliding_window, offset=offset,
                                      return_lse=return_lse)
     fn = _fn()
-    B, Sq, H, _ = q.shape
+    B, Sq, H, Dh = q.shape
     _, Sk, Hkv, _ = k.shape
-    _check_qkv(q, k, v, offset)
+    Dk = kernel_head_dim(Dh)
+    if Dk != Dh:  # zero-padded heads: the same scores, the same first Dh output columns
+        if not (q.dtype == k.dtype == v.dtype == torch.bfloat16):
+            raise TypeError("flash_attention: q, k and v must be bfloat16")
+        q, k, v = (_pad_heads(t, Dk) for t in (q, k, v))
+    _check_qkv(q, k, v, offset, KERNEL_HEAD_DIMS)
     mask = _kernel_mask(padding_mask, B, Sk, q.device)
     # the window is part of the causal mask (bidirectional calls ignore it)
     window = sliding_window if (causal and sliding_window) else 0
-    out = torch.empty((B, Sq, H, HEAD_DIM), dtype=q.dtype, device=q.device)
+    out = torch.empty((B, Sq, H, Dk), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device) if return_lse else None
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(), out.data_ptr(),
             lse.data_ptr() if return_lse else None,
-            B, Sq, Sk, H, Hkv, q.stride(0), q.stride(1), k.stride(0), k.stride(1),
+            B, Sq, Sk, H, Hkv, Dk, q.stride(0), q.stride(1), k.stride(0), k.stride(1),
             v.stride(0), v.stride(1), mask.stride(0), int(causal), int(window), offset,
-            HEAD_DIM ** -0.5, _build.stream_of(q))
+            Dh ** -0.5, _build.stream_of(q))
     _build.check(rc, "flash_attention")
     flash_attention.launches += 1
+    if Dk != Dh:
+        out = out[..., :Dh].contiguous()
     return (out, lse) if return_lse else out
 
 
@@ -298,7 +339,7 @@ def _bwd_args(q, k, v, padding_mask, do, lse, delta, causal, sliding_window, off
             lse.data_ptr(), delta.data_ptr())
     tail = (B, Sq, Sk, H, k.shape[2], q.stride(0), q.stride(1), k.stride(0), k.stride(1),
             v.stride(0), v.stride(1), mask.stride(0), do.stride(0), do.stride(1),
-            int(causal), int(window), offset, HEAD_DIM ** -0.5, _build.stream_of(q))
+            int(causal), int(window), offset, q.shape[3] ** -0.5, _build.stream_of(q))
     return head, tail, mask
 
 
@@ -359,10 +400,16 @@ def flash_attention_bwd(q, k, v, padding_mask, out, lse, do, *, causal,
 class FlashAttentionFn(torch.autograd.Function):
     """Attention with the flash backward: the forward runs K1 with its LSE
     output and saves q, k, v, the mask, the output and the LSE; the backward
-    runs K4 and K5 (on CPU tensors, the plain versions of all three)."""
+    runs K4 and K5 (on CPU tensors, the plain versions of all three). K4 and
+    K5 take head dim 128 only: on CUDA tensors of another head dim it raises
+    NotImplementedError before the forward runs."""
 
     @staticmethod
     def forward(ctx, q, k, v, padding_mask, causal: bool, sliding_window, offset: int):
+        if q.device.type == "cuda" and q.shape[-1] != HEAD_DIM:
+            raise NotImplementedError(
+                f"FlashAttentionFn: head dim {q.shape[-1]}: the flash backward (K4, K5) takes "
+                f"head dim {HEAD_DIM} only; training at head dims 64 and 96 is ROADMAP Queue 2 A")
         out, lse = flash_attention(q, k, v, padding_mask, causal=causal,
                                    sliding_window=sliding_window, offset=offset,
                                    return_lse=True)

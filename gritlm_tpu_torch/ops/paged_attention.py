@@ -39,9 +39,13 @@ bound applies when `offset` is one int; per-row offsets are the kernel's
 to apply. On the same logical cache K8 and K3 run the same folds in the
 same order.
 
-Differences from the TPU kernel: Dh must be 128; `page` any multiple of 32
-(the JAX kernel takes 128, 256 and 512 and sends other geometries to a
-gather; here a CUDA tensor launches the kernel or raises).
+Head dims 64, 96 and 128, as K3 (the same kernel body's instances; any
+other Dh raises NotImplementedError on CUDA tensors).
+
+Differences from the TPU kernel: `page` any multiple of 32 and any Kv (the
+JAX kernel takes pages of 128, 256 and 512 and (Kv*Dh) % 128 == 0, and
+sends other geometries to a gather; here a CUDA tensor launches the kernel
+or raises).
 """
 
 from __future__ import annotations
@@ -51,8 +55,8 @@ from typing import Optional, Union
 import torch
 
 from gritlm_tpu_torch.ops import _build
-from gritlm_tpu_torch.ops.decode_attention import decode_plan, partials
-from gritlm_tpu_torch.ops.flash_attention import HEAD_DIM, attend_plain
+from gritlm_tpu_torch.ops.decode_attention import HEAD_DIMS, decode_plan, partials
+from gritlm_tpu_torch.ops.flash_attention import attend_plain
 
 PAGE_MULTIPLE = 32  # pages the kernel takes: a multiple of this many slots
 
@@ -100,21 +104,21 @@ def paged_decode_plain(q, k_pages, v_pages, page_table, mask, *, layer=0, num_kv
 
 
 def paged_plan(B: int, Sq: int, H: int, Hkv: int, Smax: int, sms: int, *, causal: bool,
-               offset, quant: bool):
+               offset, quant: bool, head_dim: int = 128):
     """(n_split, n_rg) of a K8 launch over a logical width of Smax slots:
     K3's `decode_plan`, bounded by the causal bound only when `offset` is
     one int for every row (a tensor of per-row offsets is the kernel's to
     apply; the host plans over Smax and the kernel trims its splits)."""
     host = causal and not isinstance(offset, torch.Tensor)
     return decode_plan(B, Sq, H, Hkv, Smax, sms, causal=host, offset=int(offset) if host else 0,
-                       quant=quant)
+                       quant=quant, head_dim=head_dim)
 
 
 def _fn():
     fn = _build.load("paged_attention").gritlm_paged_decode
     if fn.argtypes is None:
         P, I32, F32 = _build.P, _build.I32, _build.F32
-        fn.argtypes = [P] * 12 + [I32] * 12 + [F32, P]
+        fn.argtypes = [P] * 12 + [I32] * 13 + [F32, P]
         fn.restype = I32
     return fn
 
@@ -156,7 +160,7 @@ def paged_decode(
     if quant and not all(t.dtype == torch.bfloat16 and t.is_contiguous()
                          and tuple(t.shape) == (L, P, hkv, page) for t in (k_scale, v_scale)):
         raise ValueError(f"paged_decode: scales must be contiguous bfloat16 {(L, P, hkv, page)}")
-    if Dh != HEAD_DIM or hkv * Dh != KD or H % hkv:
+    if Dh not in HEAD_DIMS or hkv * Dh != KD or H % hkv:
         raise NotImplementedError(f"paged_decode: q {tuple(q.shape)} over pages "
                                   f"{tuple(k_pages.shape)}")
     if page % PAGE_MULTIPLE:
@@ -175,9 +179,9 @@ def paged_decode(
     mask = mask.to(torch.int32).contiguous()
     offsets = None if off_t is None else _row_offsets(off_t, B, q.device).contiguous()
     n_split, n_rg = paged_plan(B, Sq, H, hkv, maxp * page, _build.sm_count(q.device),
-                               causal=causal, offset=offset, quant=quant)
+                               causal=causal, offset=offset, quant=quant, head_dim=Dh)
     units = B * hkv * n_rg
-    part_ml, part_o = partials(n_split, units, q.device)
+    part_ml, part_o = partials(n_split, units, q.device, Dh)
     counters = _build.counters(q.device, units) if n_split > 1 else None
     out = torch.empty_like(q)
 
@@ -186,7 +190,7 @@ def paged_decode(
 
     rc = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), ptr(k_scale), ptr(v_scale),
             table.data_ptr(), mask.data_ptr(), ptr(offsets), ptr(part_ml), ptr(part_o),
-            ptr(counters), out.data_ptr(), B, Sq, H, hkv, P, page, maxp, layer, n_split, n_rg,
+            ptr(counters), out.data_ptr(), B, Sq, H, hkv, Dh, P, page, maxp, layer, n_split, n_rg,
             int(causal), 0 if off_t is not None else int(offset), Dh ** -0.5,
             _build.stream_of(q))
     _build.check(rc, "paged_decode")

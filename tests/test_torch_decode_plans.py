@@ -21,6 +21,7 @@ import torch
 
 from gritlm_tpu_torch.ops import decode_attention as da
 from gritlm_tpu_torch.ops import fused_pool as fp
+from gritlm_tpu_torch.ops import paged_attention as pa
 from gritlm_tpu_torch.ops import quant_matmul as qm
 
 # Mistral-7B's projections (K, N), and a column count off the 128-column tiles
@@ -147,6 +148,34 @@ DECODE_SHAPES = [
 
 
 @pytest.mark.parametrize("quant", [False, True])
+@pytest.mark.parametrize("head_dim", [64, 96, 128])
+@pytest.mark.parametrize("B,Sq,H,Hkv,Smax", [(4, 1, 32, 8, 2048), (8, 8, 14, 2, 4096),
+                                             (8, 1, 16, 8, 4096)])
+def test_decode_plan_at_head_dims(B, Sq, H, Hkv, Smax, head_dim, quant):
+    """The K3/K8 plan at head dims 64, 96 and 128: the blocks an SM holds
+    follow the rings' shared memory (4 warps x 3 stages x K and V x 16 rows
+    of Dh elements padded by 16 bytes), at most 4; Dh 128 keeps its 2 / 4
+    blocks (bf16 / int8); one wave or one split; the partials' rows are Dh
+    wide."""
+    ring = da.ring_bytes(head_dim, quant)
+    assert ring == 4 * 3 * 2 * 16 * (head_dim * (1 if quant else 2) + 16)
+    blocks = da.blocks_per_sm(quant, head_dim)
+    assert 1 <= blocks <= da.MAX_BLOCKS_PER_SM and blocks * ring <= da.SMEM_PER_SM
+    assert blocks == da.MAX_BLOCKS_PER_SM or (blocks + 1) * ring > da.SMEM_PER_SM
+    if head_dim == 128:
+        assert blocks == da.BLOCKS_PER_SM[quant] == (4 if quant else 2)
+    n_split, n_rg = da.decode_plan(B, Sq, H, Hkv, Smax, 132, causal=False, quant=quant,
+                                   head_dim=head_dim)
+    units = B * Hkv * n_rg
+    assert n_rg == -(-Sq * (H // Hkv) // da.ROW_GROUP)
+    assert n_split * units <= max(units, blocks * 132)
+    assert (n_split, n_rg) == pa.paged_plan(B, Sq, H, Hkv, Smax, 132, causal=False, offset=0,
+                                            quant=quant, head_dim=head_dim)
+    part_ml, part_o = da.partials(max(n_split, 2), units, "cpu", head_dim)
+    assert tuple(part_o.shape) == (max(n_split, 2), units, da.ROW_GROUP, head_dim)
+
+
+@pytest.mark.parametrize("quant", [False, True])
 @pytest.mark.parametrize("sms", [132, 8])
 @pytest.mark.parametrize("B,Sq,H,Hkv,Smax,causal,offset,window", DECODE_SHAPES)
 def test_decode_plan_covers_the_valid_slots(B, Sq, H, Hkv, Smax, causal, offset, window, sms,
@@ -252,8 +281,6 @@ def test_paged_plan_covers_the_visible_slots(Sq, page, causal, sms, quant):
     each 16-slot tile lies in one page, so the kernel's one page-table read
     a tile (page_table[b, 16 t // page], slot 16 t % page) addresses each of
     its slots where the plain version's gather finds it."""
-    from gritlm_tpu_torch.ops import paged_attention as pa
-
     B, H, Hkv, maxp = 6, 32, 8, 4096 // page
     Smax = maxp * page
     rng = np.random.default_rng(page + Sq)
@@ -299,8 +326,6 @@ def test_paged_plan_covers_the_visible_slots(Sq, page, causal, sms, quant):
 def test_paged_plan_takes_the_host_bound_of_one_offset():
     """One int offset for every row bounds the plan on the host as K3's
     does; a tensor of per-row offsets leaves the bound to the kernel."""
-    from gritlm_tpu_torch.ops import paged_attention as pa
-
     one = pa.paged_plan(4, 1, 32, 8, 4096, 132, causal=True, offset=15, quant=False)
     assert one == da.decode_plan(4, 1, 32, 8, 4096, 132, causal=True, offset=15)
     rows = pa.paged_plan(4, 1, 32, 8, 4096, 132, causal=True, offset=torch.tensor([15] * 4),

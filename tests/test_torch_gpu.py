@@ -164,13 +164,13 @@ def test_flash_decode_kernel(cuda, Sq, offset, window, quant):
     assert torch.count_nonzero(got[2]) == 0
 
 
-def _int8_cache(k_all, v_all, Hkv):
+def _int8_cache(k_all, v_all, Hkv, Dh=128):
     """The bf16 cache as int8 with slot-minor bf16 scales [L, B, Kv, Smax]."""
     from gritlm_tpu_torch.models.transformer import quantize_kv
 
     L, B, Smax, _ = k_all.shape
-    k8, ks = quantize_kv(k_all.view(L * B, Smax, Hkv, 128))
-    v8, vs = quantize_kv(v_all.view(L * B, Smax, Hkv, 128))
+    k8, ks = quantize_kv(k_all.view(L * B, Smax, Hkv, Dh))
+    v8, vs = quantize_kv(v_all.view(L * B, Smax, Hkv, Dh))
     return k8.view(L, B, Smax, -1), v8.view(L, B, Smax, -1), {
         "k_scale": ks.view(L, B, Smax, Hkv).transpose(2, 3).contiguous(),
         "v_scale": vs.view(L, B, Smax, Hkv).transpose(2, 3).contiguous()}
@@ -1311,3 +1311,197 @@ def test_moe_lora_step_runs_its_kernels(cuda):
     n = [f.launches - b for f, b in zip(wrappers, before)]
     assert n[1] > 0 and n[1] == n[2] and n[0] >= 2 * n[1], n
     assert float(state.params["layers"]["attn"]["wq"]["B"].detach().abs().max()) > 0
+
+
+# ------------------------------------------------------------ head dims 64 and 96
+
+# (Dh, H, Hkv): Llama-3.2-1B, the Qwen2-0.5B geometry (group 7, Kv * Dh 128),
+# and Dh 96 (K1 through the zero-pad to 128)
+HEAD_DIM_GEOMETRIES = [(64, 32, 8), (64, 14, 2), (96, 16, 8)]
+
+
+@pytest.mark.parametrize("causal,window,offset,Sq", [
+    (False, None, 0, 300), (True, 64, 0, 300), (True, None, 256, 77), (True, None, 0, 1),
+])
+@pytest.mark.parametrize("Dh,H,Hkv", HEAD_DIM_GEOMETRIES)
+def test_flash_attention_kernel_head_dims(cuda, Dh, H, Hkv, causal, window, offset, Sq):
+    """K1 at Dh 64 (its own instance) and 96 (zero-padded to 128 with the
+    true scale): output and LSE against the plain version, a rerun
+    bit-equal, one launch a call, a padded tail and an empty row."""
+    gen = torch.Generator(device=cuda).manual_seed(40 + Dh)
+    B, Sk = 3, 333
+    q = _randn(gen, B, Sq, H, Dh, device=cuda)
+    k = _randn(gen, B, Sk, Hkv, Dh, device=cuda)
+    v = _randn(gen, B, Sk, Hkv, Dh, device=cuda)
+    mask = torch.ones((B, Sk), dtype=torch.int32, device=cuda)
+    mask[1, 290:] = 0
+    mask[2] = 0
+    before = flash_attention.flash_attention.launches
+    out, lse = _k1_against_plain(q, k, v, mask, causal=causal, sliding_window=window,
+                                 offset=offset)
+    assert flash_attention.flash_attention.launches == before + 2
+    assert out.shape == q.shape and out.is_contiguous()
+    assert torch.count_nonzero(out[2]) == 0
+
+
+@pytest.mark.parametrize("Dh,H,Hkv", HEAD_DIM_GEOMETRIES)
+def test_flash_attention_kernel_head_dims_on_cache_view(cuda, Dh, H, Hkv):
+    """K1 over a cache layer's view (strided K/V) at an offset: prefill on
+    top of a cache."""
+    gen = torch.Generator(device=cuda).manual_seed(45)
+    k_all = _randn(gen, 2, 2, 640, Hkv * Dh, device=cuda)
+    v_all = _randn(gen, 2, 2, 640, Hkv * Dh, device=cuda)
+    q = _randn(gen, 2, 200, H, Dh, device=cuda)
+    mask = (torch.arange(640, device=cuda) < 520).int()[None].repeat(2, 1)
+    lk, lv = k_all[1].view(2, 640, Hkv, Dh), v_all[1].view(2, 640, Hkv, Dh)
+    _k1_against_plain(q, lk, lv, mask, causal=True, offset=320)
+
+
+@pytest.mark.parametrize("quant", [False, True])
+@pytest.mark.parametrize("Sq,per_row", [(1, False), (8, True), (64, False)])
+@pytest.mark.parametrize("Dh,H,Hkv", HEAD_DIM_GEOMETRIES)
+def test_flash_decode_kernel_head_dims(cuda, Dh, H, Hkv, Sq, per_row, quant):
+    """K3 at Dh 64 and 96: bf16 and int8 caches, one int offset or a [B]
+    tensor of per-row offsets (the verify chunk), holes, an empty row
+    (zeros), against the plain version; a rerun bit-equal."""
+    gen = torch.Generator(device=cuda).manual_seed(50 + Dh + Sq)
+    L, B, Smax = 2, 4, 2048
+    k_all = _randn(gen, L, B, Smax, Hkv * Dh, device=cuda)
+    v_all = _randn(gen, L, B, Smax, Hkv * Dh, device=cuda)
+    scales = {}
+    if quant:
+        k_all, v_all, scales = _int8_cache(k_all, v_all, Hkv, Dh)
+    mask = (torch.rand((B, Smax), generator=gen, device=cuda) > 0.2).int()
+    mask[3] = 0
+    if per_row:
+        offset = torch.tensor([5, 1500, 2048 - Sq, 700], dtype=torch.int32, device=cuda)
+    else:
+        offset = 1400 - Sq
+        mask[:, 1400:] = 0
+    q = _randn(gen, B, Sq, H, Dh, device=cuda)
+    got = _k3_against_plain(q, k_all, v_all, mask, causal=True, offset=offset, layer=1,
+                            num_kv_heads=Hkv, **scales)
+    assert torch.count_nonzero(got[3]) == 0
+
+
+@pytest.mark.parametrize("quant", [False, True])
+@pytest.mark.parametrize("Sq", [1, 8])
+@pytest.mark.parametrize("Dh,H,Hkv", HEAD_DIM_GEOMETRIES)
+def test_paged_decode_kernel_head_dims(cuda, Dh, H, Hkv, Sq, quant):
+    """K8 at Dh 64 and 96 over a shuffled pool of 256-slot pages, bf16 and
+    int8 pages, mask-bounded at Sq 1 and causal at per-row offsets at Sq 8:
+    against the plain version, and bit-equal to K3 on the same logical
+    cache laid out dense."""
+    from gritlm_tpu_torch.ops import paged_attention
+
+    gen = torch.Generator(device=cuda).manual_seed(60 + Dh + Sq)
+    L, B, page, maxp = 2, 8, 256, 16
+    P = B * maxp + 1
+    k_d = _randn(gen, L, B, maxp * page, Hkv * Dh, device=cuda)
+    v_d = _randn(gen, L, B, maxp * page, Hkv * Dh, device=cuda)
+    dense_scales = {}
+    if quant:
+        k_d, v_d, dense_scales = _int8_cache(k_d, v_d, Hkv, Dh)
+    pt = (torch.randperm(P - 1, generator=torch.Generator().manual_seed(3))[:B * maxp] + 1)
+    pt = pt.view(B, maxp).to(torch.int32).to(cuda)
+    inv = torch.zeros(P, dtype=torch.long, device=cuda)
+    inv[pt.long().reshape(-1)] = torch.arange(B * maxp, device=cuda)
+    k = k_d.view(L, B * maxp, page, -1)[:, inv].contiguous()
+    v = v_d.view(L, B * maxp, page, -1)[:, inv].contiguous()
+    scales = {n: s.view(L, B, Hkv, maxp, page).transpose(2, 3).reshape(
+        L, B * maxp, Hkv, page)[:, inv].contiguous() for n, s in dense_scales.items()}
+    lens = torch.tensor([37, 1900, 256, 700, 1333, 3000, 8, 512], device=cuda)
+    mask = (torch.arange(maxp * page, device=cuda)[None] < lens[:, None]).int()
+    mask[1, 600:700] = 0
+    kw = dict(layer=1, num_kv_heads=Hkv, causal=Sq > 1,
+              offset=(lens - Sq).to(torch.int32) if Sq > 1 else 0)
+    q = _randn(gen, B, Sq, H, Dh, device=cuda)
+    before = paged_attention.paged_decode.launches
+    got = paged_attention.paged_decode(q, k, v, pt, mask, **kw, **scales)
+    want_k3 = decode_attention.flash_decode(q, k_d, v_d, mask, **kw, **dense_scales)
+    torch.cuda.synchronize()
+    want = paged_attention.paged_decode_plain(q, k, v, pt, mask, **kw, **scales)
+    assert paged_attention.paged_decode.launches == before + 1
+    torch.testing.assert_close(got.float(), want.float(), atol=ATTN_ATOL, rtol=0)
+    assert torch.equal(got, want_k3)
+
+
+def test_head_dims_without_an_instance_raise(cuda):
+    """A CUDA tensor at a head dim no kernel takes raises (no plain or
+    library fallback): K1 at Dh 256, K3 and K8 at Dh 80; FlashAttentionFn at
+    Dh 64 raises before its forward launches K1."""
+    from gritlm_tpu_torch.ops import paged_attention
+
+    gen = torch.Generator(device=cuda).manual_seed(70)
+    q = _randn(gen, 1, 8, 4, 256, device=cuda)
+    k = _randn(gen, 1, 8, 2, 256, device=cuda)
+    with pytest.raises(NotImplementedError):
+        flash_attention.flash_attention(q, k, k, None, causal=True)
+    q80 = _randn(gen, 2, 1, 4, 80, device=cuda)
+    cache = _randn(gen, 1, 2, 256, 2 * 80, device=cuda)
+    with pytest.raises(NotImplementedError):
+        decode_attention.flash_decode(q80, cache, cache, None, causal=False)
+    pages = _randn(gen, 1, 3, 256, 2 * 80, device=cuda)
+    pt = torch.ones((2, 1), dtype=torch.int32, device=cuda)
+    mask = torch.ones((2, 256), dtype=torch.int32, device=cuda)
+    with pytest.raises(NotImplementedError):
+        paged_attention.paged_decode(q80, pages, pages, pt, mask)
+    q64 = _randn(gen, 1, 16, 4, 64, device=cuda).requires_grad_()
+    k64 = _randn(gen, 1, 16, 2, 64, device=cuda).requires_grad_()
+    before = flash_attention.flash_attention.launches
+    with pytest.raises(NotImplementedError, match="Queue 2 A"):
+        flash_attention.FlashAttentionFn.apply(q64, k64, k64, None, True, None, 0)
+    assert flash_attention.flash_attention.launches == before
+
+
+def test_llama_head_dim_64_serving_path_on_cuda(cuda):
+    """A narrow Llama-3.2-1B-shaped model (head dim 64, tied embeddings,
+    llama3 RoPE scaling) on the card: encode through K1 and K2 at cosine
+    >= 0.999 to the same model through the plain versions, greedy generate
+    through K3, and a dense and a paged serving pool through K3 and K8, every
+    request complete."""
+    from gritlm_tpu_torch import GritLM
+    from gritlm_tpu_torch.ops import fused_pool as fp
+    from gritlm_tpu_torch.ops import paged_attention
+    from gritlm_tpu_torch.serving import Request, ServingEngine
+
+    cfg = ModelConfig.from_hf_config(dict(
+        model_type="llama", hidden_size=256, intermediate_size=512, num_hidden_layers=2,
+        num_attention_heads=4, num_key_value_heads=2, head_dim=64, vocab_size=512,
+        max_position_embeddings=4096, rope_theta=500000.0, tie_word_embeddings=True,
+        rope_scaling=dict(rope_type="llama3", factor=32.0, low_freq_factor=1.0,
+                          high_freq_factor=4.0, original_max_position_embeddings=8192)),
+        dtype="bfloat16")
+    model = GritLM(cfg, seed=0, device=cuda)
+    docs = ["a b c d e f", "the cache of keys and values " * 30]
+    wrappers = (flash_attention.flash_attention, fp.fused_norm_mean_pool)
+    before = [w.launches for w in wrappers]
+    emb = torch.from_numpy(model.encode(docs))
+    assert all(w.launches > b for w, b in zip(wrappers, before))
+    saved = (flash_attention.flash_attention, fp.fused_norm_mean_pool)
+    flash_attention.flash_attention = flash_attention.flash_attention_plain
+    fp.fused_norm_mean_pool = fp.fused_norm_mean_pool_plain
+    try:
+        plain = torch.from_numpy(model.encode(docs))
+    finally:
+        flash_attention.flash_attention, fp.fused_norm_mean_pool = saved
+    assert float(torch.nn.functional.cosine_similarity(emb, plain, dim=-1).min()) >= 0.999
+    enc = model.tokenizer(["<s><|user|>\nHi\n<|assistant|>\n", docs[1]])
+    k3 = decode_attention.flash_decode.launches
+    res = model.generate_from_ids(enc["input_ids"], enc["attention_mask"], max_new_tokens=8)
+    assert decode_attention.flash_decode.launches > k3
+    assert ((res.tokens >= 0) & (res.tokens < 512)).all()
+    rng = torch.Generator().manual_seed(0)
+    specs = [(f"r{i}", torch.randint(3, 512, (n,), generator=rng).tolist())
+             for i, n in enumerate([5, 300, 40, 129])]
+    for paged in (False, True):
+        eng = ServingEngine(cfg, model.params, max_batch=2, max_len=1024, chunk_size=4,
+                            prompt_buckets=(64, 128, 256, 512), eos_id=-1, pad_id=0,
+                            device=cuda, **(dict(paged=True, page_size=256) if paged else {}))
+        kernel = paged_attention.paged_decode if paged else decode_attention.flash_decode
+        n = kernel.launches
+        done = eng.run([Request(input_ids=ids, max_new_tokens=6, request_id=rid)
+                        for rid, ids in specs])
+        assert sorted(c.request_id for c in done) == [rid for rid, _ in specs]
+        assert all(len(c.token_ids) == 6 for c in done)
+        assert kernel.launches > n

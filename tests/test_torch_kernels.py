@@ -9,6 +9,11 @@ kernels themselves are held against the same plain versions on the card
 
 Tolerances: both sides compute in float32 and differ only in the order of
 their sums, so 5e-5 absolute holds with room for values of order 1.
+
+Head dims: the attention tests run at Dh 64, 96 and 128 (HEAD_DIMS). The
+JAX flash kernel pads 64 and 96 to 128 lanes (folding the scale into q);
+its decode kernel needs (Kv * Dh) % 128 == 0, so at Dh 96 the decode cases
+take Kv = 4 (`_kv_for`).
 """
 
 import jax.numpy as jnp
@@ -31,6 +36,7 @@ from gritlm_tpu_torch.ops.attention import (
 )
 
 ATOL = 5e-5
+HEAD_DIMS = [64, 96, 128]
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -61,10 +67,11 @@ def _t(*arrays):
 # ---------------------------------------------------------------- K1
 
 
+@pytest.mark.parametrize("Dh", HEAD_DIMS)
 @pytest.mark.parametrize("causal", [False, True])
 @pytest.mark.parametrize("sw", [None, 64])
-def test_flash_attention_matches_jax(causal, sw):
-    q, k, v, mask = _attn_inputs()
+def test_flash_attention_matches_jax(causal, sw, Dh):
+    q, k, v, mask = _attn_inputs(Dh=Dh)
     want = jax_flash_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
                                jnp.asarray(mask), causal=causal, sliding_window=sw)
     got = flash_attention.flash_attention(*_t(q, k, v, mask), causal=causal,
@@ -72,9 +79,10 @@ def test_flash_attention_matches_jax(causal, sw):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL)
 
 
-def test_flash_attention_offset_matches_jax():
+@pytest.mark.parametrize("Dh", HEAD_DIMS)
+def test_flash_attention_offset_matches_jax(Dh):
     """Prefill on top of a cache: q row 0 sits at absolute slot 128."""
-    q, k, v, mask = _attn_inputs(Sq=128, Sk=384, pad_row=False)
+    q, k, v, mask = _attn_inputs(Sq=128, Sk=384, pad_row=False, Dh=Dh)
     want = jax_flash_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
                                jnp.asarray(mask), causal=True, offset=128)
     got = flash_attention.flash_attention(*_t(q, k, v, mask), causal=True, offset=128)
@@ -105,7 +113,15 @@ def test_flash_attention_fully_masked_rows_are_zero():
 # ---------------------------------------------------------------- K3
 
 
-def _decode_case(name):
+def _kv_for(Hkv, H, Dh):
+    """(Hkv, H) with (Hkv * Dh) % 128 == 0, as the JAX decode kernel needs:
+    Kv 4 (and the same group) at Dh 96."""
+    if (Hkv * Dh) % 128:
+        return 4, 4 * (H // Hkv)
+    return Hkv, H
+
+
+def _decode_case(name, Dh=128):
     rng = np.random.default_rng(sum(map(ord, name)))
     # (B, Sq, H, Hkv, Smax, L, layer, causal, window, offset)
     geo = {
@@ -116,9 +132,10 @@ def _decode_case(name):
         "bidirectional": (1, 3, 4, 4, 256, 1, 0, False, None, 0),
     }[name]
     B, Sq, H, Hkv, Smax, L, layer, causal, window, offset = geo
-    q = (rng.normal(size=(B, Sq, H, 128)) * 0.5).astype(np.float32)
-    k = (rng.normal(size=(L, B, Smax, Hkv * 128)) * 0.5).astype(np.float32)
-    v = (rng.normal(size=(L, B, Smax, Hkv * 128)) * 0.5).astype(np.float32)
+    Hkv, H = _kv_for(Hkv, H, Dh)
+    q = (rng.normal(size=(B, Sq, H, Dh)) * 0.5).astype(np.float32)
+    k = (rng.normal(size=(L, B, Smax, Hkv * Dh)) * 0.5).astype(np.float32)
+    v = (rng.normal(size=(L, B, Smax, Hkv * Dh)) * 0.5).astype(np.float32)
     if name == "holes":
         mask = (rng.uniform(size=(B, Smax)) > 0.4).astype(np.int32)
         mask[:, 300:] = 0
@@ -129,10 +146,11 @@ def _decode_case(name):
     return q, k, v, mask, kw
 
 
+@pytest.mark.parametrize("Dh", HEAD_DIMS)
 @pytest.mark.parametrize("name", ["single_token", "cached_prefill", "holes", "window",
                                   "bidirectional"])
-def test_flash_decode_matches_jax(name):
-    q, k, v, mask, kw = _decode_case(name)
+def test_flash_decode_matches_jax(name, Dh):
+    q, k, v, mask, kw = _decode_case(name, Dh)
     want = jax_flash_decode(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
                             jnp.asarray(mask), **kw)
     got = decode_attention.flash_decode(*_t(q, k, v, mask), **kw)
@@ -148,18 +166,19 @@ def test_quantize_kv_matches_jax():
     np.testing.assert_array_equal(ts.float().numpy(), np.asarray(js, np.float32))
 
 
+@pytest.mark.parametrize("Dh", HEAD_DIMS)
 @pytest.mark.parametrize("name", ["single_token", "cached_prefill", "holes"])
-def test_flash_decode_int8_matches_jax(name):
+def test_flash_decode_int8_matches_jax(name, Dh):
     """int8 cache with slot-minor bf16 scales, quantized as the write path
     does. Against the JAX kernel the tolerance is 5e-3, as the JAX package's
     own test holds its kernel to its dequantize-then-attend oracle: its
     kernel rounds P times the V scale to bf16. Against that oracle (same
     float32 math) it is ATOL."""
-    q, k, v, mask, kw = _decode_case(name)
+    q, k, v, mask, kw = _decode_case(name, Dh)
     L, B, Smax, KD = k.shape
-    hkv = KD // 128
-    k8, ks = jax_quantize_kv(jnp.asarray(k.reshape(L * B, Smax, hkv, 128)))
-    v8, vs = jax_quantize_kv(jnp.asarray(v.reshape(L * B, Smax, hkv, 128)))
+    hkv = KD // Dh
+    k8, ks = jax_quantize_kv(jnp.asarray(k.reshape(L * B, Smax, hkv, Dh)))
+    v8, vs = jax_quantize_kv(jnp.asarray(v.reshape(L * B, Smax, hkv, Dh)))
     k8 = np.asarray(k8).reshape(L, B, Smax, KD)
     v8 = np.asarray(v8).reshape(L, B, Smax, KD)
     ks_t = np.asarray(ks, np.float32).reshape(L, B, Smax, hkv).transpose(0, 1, 3, 2)
@@ -173,8 +192,8 @@ def test_flash_decode_int8_matches_jax(name):
     got = decode_attention.flash_decode(qt, k8t, v8t, mt, k_scale=kst, v_scale=vst, **kw)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=5e-3, rtol=5e-3)
     layer = kw["layer"]
-    kd = k8[layer].reshape(B, Smax, hkv, 128) * ks_t[layer].transpose(0, 2, 1)[..., None]
-    vd = v8[layer].reshape(B, Smax, hkv, 128) * vs_t[layer].transpose(0, 2, 1)[..., None]
+    kd = k8[layer].reshape(B, Smax, hkv, Dh) * ks_t[layer].transpose(0, 2, 1)[..., None]
+    vd = v8[layer].reshape(B, Smax, hkv, Dh) * vs_t[layer].transpose(0, 2, 1)[..., None]
     bias = jax_bias(jnp.asarray(mask), q.shape[1], Smax, causal=kw["causal"],
                     offset=kw["offset"])
     oracle = jax_mha(jnp.asarray(q), jnp.asarray(kd), jnp.asarray(vd), bias)
