@@ -22,10 +22,11 @@ aux loss, gshard's capacity drops, `training.run --moe_impl
 remat policies of LoRA training; then head dims 64 and 96 in flash
 attention, flash decode and paged decode, and Llama-3.2-1B at its
 published width and depth through encode, generate, the serving engine
-and RAG), and times each kernel beside its bound, its plain version and
-one PyTorch library call.
+and RAG; last, the flash backward at head dims 64 and 96 and GRIT training
+of Llama-3.2-1B at its published width and depth), and times each kernel
+beside its bound, its plain version and one PyTorch library call.
 
-Phases (in the order 1-7, 12, 14, 8, 9, 11, 16, 13, 15, 10), any failure exits non-zero:
+Phases (in the order 1-7, 12, 14, 8, 9, 11, 16, 13, 15, 10, 17), any failure exits non-zero:
   1. device and build: card name and power limit, nvcc's register and
      shared-memory report; for the redesigned kernels (K1, K4/K5, K9 on
      wgmma; K3, K8, K6 and K7 on mma.sync; K2 on bulk copies and clusters)
@@ -90,8 +91,9 @@ Phases (in the order 1-7, 12, 14, 8, 9, 11, 16, 13, 15, 10), any failure exits n
  10. training at full width (after the inference model is freed):
      K4 and K5 against the plain backward at B 2, S 2048, H 32, Hkv 8
      (causal with right padding, bidirectional with padding, causal with a
-     512 window, a fully masked row with exactly zero gradients) and
-     FlashAttentionFn against autograd through the plain forward; then,
+     512 window, a fully masked row with exactly zero gradients; the first
+     case rerun bit-equal) and FlashAttentionFn against autograd through
+     the plain forward; then,
      with the counts set to 0 before and read after: LoRA GRIT training at
      Mistral-7B width and full depth through training.run.main on
      synthetic JSONL filling the default lengths (query 256, passage 2048,
@@ -99,7 +101,8 @@ Phases (in the order 1-7, 12, 14, 8, 9, 11, 16, 13, 15, 10), any failure exits n
      a resumed run from it, the HF export read back equal by
      load_checkpoint); 6 LoRA steps on one batch (the loss falls); GradCache
      (gc_chunks 2 against 1 at depth 4: loss_emb and the gradients'
-     cosine); full-parameter training at depth 8 (peak memory); K4 and K5
+     cosine); full-parameter training at depth 4 (peak memory; phase 17
+     trains full parameters at full depth); K4 and K5
      timed at the passage shape (B 8, S 2048, bidirectional) and the
      generative shape (B 4, S 2048, causal) beside the backward of
      scaled_dot_product_attention, each by CUDA events around calls
@@ -236,6 +239,24 @@ Phases (in the order 1-7, 12, 14, 8, 9, 11, 16, 13, 15, 10), any failure exits n
      timed at the Llama heads: K1 at B4 S512 and causal B8 S2048 with its
      LSE, K3 at Sq 1 B4, Sq 64, int8, the B8 serving call and the verify
      chunk, K8 at B8 page 256 (bf16, int8, Sq 1 and 8), each beside SDPA
+ 17. head dims 64 and 96 in training, and Llama-3.2-1B GRIT training (after
+     phase 10, whose models are freed, and last): K4 and K5 (and K1's LSE)
+     against the plain backward at (Dh, H, Hkv) = (64, 32, 8), (64, 14, 2)
+     and (96, 16, 8), phase 10's four cases (Dh 96 through the zero pad to
+     128), and FlashAttentionFn against autograd through the plain forward;
+     then LLAMA_32_1B with random bf16 weights (seed 42) written as a
+     checkpoint, counts set to 0 before and read after: LoRA through
+     training.run.main --model_name_or_path on phase 10's synthetic JSONL
+     at the reference's lengths (query 256, passage 2048, generative 2048;
+     batch 4, group 2; 3 steps, a checkpoint at step 2, a resumed run, the
+     export read back equal and holding the JAX exporter's tensor names, no
+     lm_head), 6 LoRA steps on one batch (the loss falls), 2 of them with
+     the fused LM-head loss (--fused_ce; peak GiB), 3 QLoRA steps, 3
+     full-parameter steps at full depth (16 layers), each with ms a step,
+     valid tokens/s and peak GiB; K1, K4 and K5 must each launch (all at Dh
+     64); then K4 and K5 at Dh 64 timed as in phase 10 (the kernels line's
+     [dh64] backward rows), K1 at Dh 96 (B4 S512, H 16, Hkv 8, through the
+     pad) and the Dh-96 backward through the pad, each beside SDPA
 
 Output: a `kernels` JSON line, the card line, then as the last line
 {"ok": true, "device": {...}}. Exits 2 with no result when there is no CUDA
@@ -762,15 +783,20 @@ def main() -> int:
     training_times(dev, randn, times)
     print(f"total {time.time() - t_start:.0f} s")
 
+    # ---------------------------------------------------------------- 17
+    llama_train_phase(dev, randn, reset_counts, read_counts, path_launches, times, max_err)
+    print(f"total {time.time() - t_start:.0f} s")
+
     print(f"launches by path: {json.dumps(path_launches)}")
     # the "K3 verify" row: K3's launches with per-row offsets, its times at
     # the dense verify chunk's shape (spec_phase)
     kernels[K3_VERIFY] = kernels["flash_decode"]
     launches = {n: sum(c.get(n, 0) for c in path_launches.values()) for n in kernels}
-    # the Dh-64 instances' rows: K1, K3 and K8 on phase 16's Llama-3.2-1B paths
+    # the Dh-64 instances' rows: K1, K3 and K8 on phase 16's Llama-3.2-1B
+    # paths, K1, K4 and K5 on phase 17's
     for row, base in DH64_ROWS.items():
         kernels[row] = kernels[base]
-        launches[row] = sum(path_launches[key].get(base, 0) for key in (LLAMA, f"{LLAMA} rag"))
+        launches[row] = sum(path_launches[key].get(base, 0) for key in LLAMA_PATHS)
     rows_out = [{
         "name": name, "route": "cuda", "source": kernels[name][2],
         "replaces": kernels[name][3], "launches": launches[name],
@@ -2640,14 +2666,7 @@ def remat_phase(dev, reset_counts, read_counts, path_launches, preset="mistral_7
     from gritlm_tpu_torch import config as cfgmod
     from gritlm_tpu_torch.models.loader import save_checkpoint
     from gritlm_tpu_torch.models.transformer import init_params
-    from gritlm_tpu_torch.tokenizer import ByteTokenizer
     from gritlm_tpu_torch.training import run as run_mod
-    from gritlm_tpu_torch.training.data import (
-        GritCollator,
-        GritDataset,
-        batch_iterator,
-        load_train_dirs,
-    )
     from gritlm_tpu_torch.training.lora import make_lora_train_state
     from gritlm_tpu_torch.training.train import TrainConfig, leaves
 
@@ -2661,12 +2680,7 @@ def remat_phase(dev, reset_counts, read_counts, path_launches, preset="mistral_7
     qlen, plen, glen = lengths
     reset_counts()
     try:
-        emb, gen = load_train_dirs([str(work / "data")])
-        coll = GritCollator(ByteTokenizer(), query_max_len=qlen, passage_max_len=plen,
-                            generative_max_len=glen)
-        batch = next(batch_iterator(GritDataset(emb, gen, train_group_size=2, seed=0), coll, 4,
-                                    seed=0))
-        padded = sum(part["attention_mask"].size for part in batch.values())
+        batch, _, padded = first_batch(work, lengths)
         base = init_params(cfg, 5, device=dev)
         torch.cuda.synchronize()
         held = torch.cuda.memory_allocated()
@@ -3892,26 +3906,35 @@ def moe_train_phase(dev, reset_counts, read_counts, path_launches, preset="mixtr
     torch.cuda.empty_cache()
 
 
-def flash_bwd_checks(dev, randn, max_err, B=2, S=2048, H=32, Hkv=8, window=512) -> None:
+def flash_bwd_checks(dev, randn, max_err, B=2, S=2048, H=32, Hkv=8, Dh=128,
+                     window=512) -> None:
     """K4 and K5 against the plain backward from the same saved LSE at
-    B 2, S 2048, H 32, Hkv 8, Dh 128 (bf16): causal with right padding,
-    bidirectional with padding, causal with a 512 window, and a row whose
-    keys are all masked (its gradients exactly 0); K1's LSE against the
-    plain one; FlashAttentionFn against autograd through the plain forward."""
+    B 2, S 2048 (bf16; H 32, Hkv 8, Dh 128 unless given): causal with right
+    padding, bidirectional with padding, causal with a 512 window, and a
+    row whose keys are all masked (its gradients exactly 0); K1's LSE
+    against the plain one; FlashAttentionFn against autograd through the
+    plain forward. A head dim without an instance (96) runs the 128 ones
+    through flash_attention_bwd's zero pad. At Dh 128 the first case's K4
+    and K5 are rerun and required bit-equal. Errors go to max_err under the
+    kernels' names, with a [dh64] or [dh96] suffix below Dh 128."""
     import torch
 
     from gritlm_tpu_torch.ops import flash_attention as fa
 
-    Dh = 128
+    suffix = "" if Dh == 128 else f"[dh{Dh}]"
+    names = [n + suffix for n in ("flash_attention", "flash_attention_bwd_dq",
+                                  "flash_attention_bwd_dkv")]
+    geometry = f"B{B} S{S} H{H} Hkv{Hkv} Dh{Dh}"
     q, k, v, do = randn(B, S, H, Dh), randn(B, S, Hkv, Dh), randn(B, S, Hkv, Dh), randn(B, S, H, Dh)
     pad = torch.ones((B, S), dtype=torch.int32, device=dev)
     pad[1, S * 3 // 4:] = 0
     empty = pad.clone()
     empty[0] = 0
-    for label, mask, causal, window in (("causal, right padding", pad, True, None),
-                                        ("bidirectional, padding", pad, False, None),
-                                        (f"causal, window {window}", pad, True, window),
-                                        ("bidirectional, row 0 fully masked", empty, False, None)):
+    for i, (label, mask, causal, window) in enumerate((
+            ("causal, right padding", pad, True, None),
+            ("bidirectional, padding", pad, False, None),
+            (f"causal, window {window}", pad, True, window),
+            ("bidirectional, row 0 fully masked", empty, False, None))):
         kw = dict(causal=causal, sliding_window=window)
         out, lse = fa.flash_attention(q, k, v, mask, return_lse=True, **kw)
         got = fa.flash_attention_bwd(q, k, v, mask, out, lse, do, **kw)
@@ -3933,13 +3956,19 @@ def flash_bwd_checks(dev, randn, max_err, B=2, S=2048, H=32, Hkv=8, window=512) 
                      "not exactly 0")
         if lse_err > LSE_ATOL:
             fail(f"flash_attention [{label}] LSE disagrees with the plain version: {lse_err}")
-        max_err["flash_attention"] = max(max_err["flash_attention"], lse_err)
-        max_err["flash_attention_bwd_dq"] = max(max_err["flash_attention_bwd_dq"], errs[0])
-        max_err["flash_attention_bwd_dkv"] = max(max_err["flash_attention_bwd_dkv"], *errs[1:])
-        print(f"check flash backward [{label}, B{B} S{S}]: max_abs_err dq {errs[0]:.3e} "
+        for name, err in zip(names, (lse_err, errs[0], max(errs[1:]))):
+            max_err[name] = max(max_err.get(name, 0.0), err)
+        print(f"check flash backward [{label}, {geometry}]: max_abs_err dq {errs[0]:.3e} "
               f"(K4), dk {errs[1]:.3e} dv {errs[2]:.3e} (K5), lse {lse_err:.3e}; largest "
               f"gradients {', '.join(f'{float(w.float().abs().max()):.3f}' for w in want)} "
               f"(rtol {BWD_RTOL} of the largest, LSE atol {LSE_ATOL})", flush=True)
+        if Dh == 128 and i == 0:
+            again = fa.flash_attention_bwd(q, k, v, mask, out, lse, do, **kw)
+            torch.cuda.synchronize()
+            if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                fail(f"flash backward [{label}]: a rerun of K4 and K5 is not bit-equal")
+            print(f"check flash backward [{label}, {geometry}]: a rerun of K4 and K5 bit-equal",
+                  flush=True)
     leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
     out = fa.FlashAttentionFn.apply(*leaves, pad, True, None, 0)
     got = torch.autograd.grad(out, leaves, do)
@@ -3948,7 +3977,7 @@ def flash_bwd_checks(dev, randn, max_err, B=2, S=2048, H=32, Hkv=8, window=512) 
     errs = [float((g.float() - w.float()).abs().max()) for g, w in zip(got, want)]
     mags = [float(w.float().abs().max()) for w in want]
     print(f"check FlashAttentionFn against autograd through the plain forward [causal, "
-          f"right padding, B{B} S{S}]: max_abs_err dq {errs[0]:.3e} dk {errs[1]:.3e} dv "
+          f"right padding, {geometry}]: max_abs_err dq {errs[0]:.3e} dk {errs[1]:.3e} dv "
           f"{errs[2]:.3e} (rtol {BWD_RTOL} of {', '.join(f'{m:.3f}' for m in mags)})",
           flush=True)
     if any(e > BWD_RTOL * m for e, m in zip(errs, mags)):
@@ -3983,105 +4012,177 @@ def synthetic_train_data(path: Path, n: int = 16, seed: int = 0) -> None:
             f.write(json.dumps({"text": [text(200), text(2000)]}) + "\n")
 
 
-def training_phase(dev, reset_counts, read_counts, path_launches, preset="mistral_7b",
-                   lengths=(256, 2048, 2048), depths=(4, 8)) -> None:
-    """GRIT training at Mistral-7B width (counts set to 0 before, read
-    after): LoRA at full depth through training.run.main (3 steps, a
-    checkpoint at step 2, a run resumed from it, the export read back
-    equal); 6 LoRA steps on one batch; 3 QLoRA steps (the base in int8) on
-    the same batch; GradCache against the full batch at depth 4;
-    full-parameter training at depth 8."""
-    import dataclasses
-    import shutil
+def train_argv(work: Path, model, lengths, dev) -> list:
+    """training.run's arguments for a LoRA run on `work`/data with the
+    reference's batch (4 queries, group 2) at `lengths` (query, passage,
+    generative): 3 steps, a checkpoint at step 2; `model` is
+    ["--model_preset", name] or ["--model_name_or_path", dir]."""
+    qlen, plen, glen = lengths
+    return ["--train_data", str(work / "data"), *model, "--mode", "unified",
+            "--lora", "--per_device_train_batch_size", "4", "--train_group_size", "2",
+            "--query_max_len", str(qlen), "--passage_max_len", str(plen),
+            "--generative_max_len", str(glen), "--max_steps", "3", "--save_steps", "2",
+            "--logging_steps", "1", "--learning_rate", "1e-4", "--output_dir",
+            str(work / "run"), "--device", dev.type]
 
+
+def lora_run_checks(dev, cfg, argv, base_fn, label: str) -> dict:
+    """training.run.main with `argv` (train_argv): 3 steps with a checkpoint
+    at step 2, finite losses; a run resumed from step 2 ends at step 3 with
+    the same losses (rtol 1e-3); the export (<output_dir>/export) read back
+    by load_checkpoint equal to merge(base_fn(), the saved step-3 adapters)
+    with the run's config. Returns the base params (base_fn's, built after
+    the runs have freed their models)."""
     import torch
 
-    from gritlm_tpu_torch import config as cfgmod
     from gritlm_tpu_torch.models.loader import load_checkpoint
-    from gritlm_tpu_torch.models.transformer import count_params, init_params
-    from gritlm_tpu_torch.tokenizer import ByteTokenizer
     from gritlm_tpu_torch.training import run
+    from gritlm_tpu_torch.training.lora import merge
+    from gritlm_tpu_torch.training.train import leaves
+
+    out = Path(argv[argv.index("--output_dir") + 1])
+    t0 = time.time()
+    r1 = run.main(argv)
+    t_run = time.time() - t0
+    steps = sorted(os.listdir(out / "checkpoints"))
+    print(f"train [{label}, run.main, LoRA, {cfg.num_hidden_layers} layers]: {r1['steps']} "
+          f"steps in {t_run:.1f} s (model init, export included), final {r1['final']}; "
+          f"checkpoints {steps}", flush=True)
+    if r1["steps"] != 3 or "step_2" not in steps or not all(
+            np.isfinite(v) for v in r1["final"].values()):
+        fail(f"train [{label}, run.main]: {r1}, checkpoints {steps}")
+    t0 = time.time()
+    r2 = run.main(argv + ["--resume_from_checkpoint", str(out / "checkpoints" / "step_2")])
+    print(f"train [{label}, run.main resumed from step_2]: to step {r2['steps']} in "
+          f"{time.time() - t0:.1f} s, final {r2['final']}", flush=True)
+    if r2["steps"] != 3:
+        fail(f"train [{label}, resume]: ended at step {r2['steps']}")
+    for key in ("loss", "loss_emb", "loss_gen"):
+        a, b = r1["final"][key], r2["final"][key]
+        if abs(a - b) > 1e-3 * max(abs(a), 1e-6):
+            fail(f"train [{label}, resume]: step 3 {key} {b} after resuming, {a} uninterrupted")
+    # the export against the merge of the base and the saved adapters
+    t0 = time.time()
+    saved = torch.load(out / "checkpoints" / "step_3" / "state" / "train_state.pt",
+                       map_location=dev, weights_only=True)
+    base = base_fn()
+    merged = merge(base, saved["params"], 64 / 16)
+    cfg_back, back = load_checkpoint(r2["export"], device=dev)
+    n_export = sum(os.path.getsize(f) for f in Path(r2["export"]).iterdir())
+    same = all(torch.equal(a, b) for a, b in zip(leaves(merged), leaves(back)))
+    print(f"train [{label}, export]: {n_export / 2**30:.2f} GiB of safetensors read back in "
+          f"{time.time() - t0:.1f} s (with the base and the merge); equal to the merged "
+          f"weights: {same}", flush=True)
+    if not same or cfg_back != cfg or len(leaves(back)) != len(leaves(merged)):
+        fail(f"train [{label}, export]: load_checkpoint does not read back the merged weights")
+    del merged, back, saved
+    torch.cuda.empty_cache()
+    return base
+
+
+def first_batch(work: Path, lengths):
+    """The first batch (4 queries, group 2) of the synthetic data under
+    `work`/data at `lengths`, with its valid and padded token counts."""
+    from gritlm_tpu_torch.tokenizer import ByteTokenizer
     from gritlm_tpu_torch.training.data import (
         GritCollator,
         GritDataset,
         batch_iterator,
         load_train_dirs,
     )
-    from gritlm_tpu_torch.training.lora import make_lora_train_state, merge
+
+    qlen, plen, glen = lengths
+    emb, gen = load_train_dirs([str(work / "data")])
+    coll = GritCollator(ByteTokenizer(), query_max_len=qlen, passage_max_len=plen,
+                        generative_max_len=glen)
+    batch = next(batch_iterator(GritDataset(emb, gen, train_group_size=2, seed=0), coll, 4,
+                                seed=0))
+    valid = sum(int(part["attention_mask"].sum()) for part in batch.values())
+    padded = sum(part["attention_mask"].size for part in batch.values())
+    return batch, valid, padded
+
+
+def timed_steps(run_step, state, batch, n: int):
+    """n steps of run_step on one batch: (state, losses, median host s a
+    step over steps 2..n, peak GiB allocated since the first)."""
+    import torch
+
+    torch.cuda.reset_peak_memory_stats()
+    losses, step_s = [], []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = run_step(state, batch)
+        losses.append(float(m.loss))
+        step_s.append(time.perf_counter() - t0)
+    return (state, losses, statistics.median(step_s[1:]),
+            torch.cuda.max_memory_allocated() / 2**30)
+
+
+def full_parameter_steps(dev, cfg, batch, valid: int) -> None:
+    """3 full-parameter train steps of `cfg` (random weights, seed 2) on one
+    batch: finite losses; ms a step (median of steps 2-3), valid tokens/s
+    and the peak GiB the params, their state and the steps took."""
+    import torch
+
+    from gritlm_tpu_torch.models.transformer import count_params, init_params
+    from gritlm_tpu_torch.training.train import TrainConfig, init_train_state, train_step
+
+    torch.cuda.synchronize()
+    base_mem = torch.cuda.memory_allocated()
+    params = init_params(cfg, 2, device=dev)
+    n_params = count_params(params)
+    tc = TrainConfig(total_steps=3)
+    state = init_train_state(params, tc)
+    del params
+    state, losses, med, peak = timed_steps(lambda st, b: train_step(st, b, cfg, tc), state,
+                                           batch, 3)
+    peak -= base_mem / 2**30
+    print(f"train [full parameters, {cfg.num_hidden_layers} layers]: losses "
+          f"{', '.join(f'{x:.4f}' for x in losses)}; {med * 1e3:.1f} ms per step (median of "
+          f"steps 2-3, host clock) = {valid / med:.0f} valid tokens/s; {n_params / 1e9:.3f} B "
+          f"parameters, peak {peak:.2f} GiB (params, grads and two AdamW moments in bf16 "
+          f"{4 * 2 * n_params / 2**30:.2f} GiB, the rest activations and transients)",
+          flush=True)
+    if not all(np.isfinite(losses)):
+        fail(f"train [full parameters, {cfg.num_hidden_layers} layers]: losses {losses}")
+    del state
+    torch.cuda.empty_cache()
+
+
+def training_phase(dev, reset_counts, read_counts, path_launches, preset="mistral_7b",
+                   lengths=(256, 2048, 2048), depth=4) -> None:
+    """GRIT training at Mistral-7B width (counts set to 0 before, read
+    after): LoRA at full depth through training.run.main (3 steps, a
+    checkpoint at step 2, a run resumed from it, the export read back
+    equal); 6 LoRA steps on one batch; 3 QLoRA steps (the base in int8) on
+    the same batch; GradCache against the full batch and full-parameter
+    training at depth 4 (for the script's time limit: phase 17 trains full
+    parameters at full depth, on Llama-3.2-1B)."""
+    import dataclasses
+    import shutil
+
+    import torch
+
+    from gritlm_tpu_torch import config as cfgmod
+    from gritlm_tpu_torch.models.transformer import count_params, init_params
+    from gritlm_tpu_torch.training.lora import make_lora_train_state
     from gritlm_tpu_torch.training.train import TrainConfig, init_train_state, leaves, train_step
 
     work = ROOT / "build" / "chip_smoke_train"
     shutil.rmtree(work, ignore_errors=True)
     synthetic_train_data(work / "data")
     cfg = getattr(cfgmod, preset)()
-    out = work / "run"
-    qlen, plen, glen = lengths
-    argv = ["--train_data", str(work / "data"), "--model_preset", preset, "--mode", "unified",
-            "--lora", "--per_device_train_batch_size", "4", "--train_group_size", "2",
-            "--query_max_len", str(qlen), "--passage_max_len", str(plen),
-            "--generative_max_len", str(glen), "--max_steps", "3", "--save_steps", "2",
-            "--logging_steps", "1", "--learning_rate", "1e-4", "--output_dir", str(out),
-            "--device", dev.type]
+    argv = train_argv(work, ["--model_preset", preset], lengths, dev)
     reset_counts()
     try:
-        t0 = time.time()
-        r1 = run.main(argv)
-        t_run = time.time() - t0
-        steps = sorted(os.listdir(out / "checkpoints"))
-        print(f"train [run.main, LoRA, {cfg.num_hidden_layers} layers]: {r1['steps']} steps "
-              f"in {t_run:.1f} s "
-              f"(model init, export included), final {r1['final']}; checkpoints {steps}",
-              flush=True)
-        if r1["steps"] != 3 or "step_2" not in steps or not all(
-                np.isfinite(v) for v in r1["final"].values()):
-            fail(f"train [run.main]: {r1}, checkpoints {steps}")
-        t0 = time.time()
-        r2 = run.main(argv + ["--resume_from_checkpoint", str(out / "checkpoints" / "step_2")])
-        print(f"train [run.main resumed from step_2]: to step {r2['steps']} in "
-              f"{time.time() - t0:.1f} s, final {r2['final']}", flush=True)
-        if r2["steps"] != 3:
-            fail(f"train [resume]: ended at step {r2['steps']}")
-        for key in ("loss", "loss_emb", "loss_gen"):
-            a, b = r1["final"][key], r2["final"][key]
-            if abs(a - b) > 1e-3 * max(abs(a), 1e-6):
-                fail(f"train [resume]: step 3 {key} {b} after resuming, {a} uninterrupted")
-        # the export against the merge of the seeded base and the saved adapters
-        t0 = time.time()
-        base = init_params(cfg, 42, device=dev)
-        saved = torch.load(out / "checkpoints" / "step_3" / "state" / "train_state.pt",
-                           map_location=dev, weights_only=True)
-        merged = merge(base, saved["params"], 64 / 16)
-        cfg_back, back = load_checkpoint(r2["export"], device=dev)
-        n_export = sum(os.path.getsize(f) for f in Path(r2["export"]).iterdir())
-        same = all(torch.equal(a, b) for a, b in zip(leaves(merged), leaves(back)))
-        print(f"train [export]: {n_export / 2**30:.2f} GiB of safetensors read back in "
-              f"{time.time() - t0:.1f} s (with the seeded base and the merge); equal to the "
-              f"merged weights: {same}", flush=True)
-        if not same or cfg_back != cfg or len(leaves(back)) != len(leaves(merged)):
-            fail("train [export]: load_checkpoint does not read back the merged weights")
-        del merged, back, saved
+        base = lora_run_checks(dev, cfg, argv, lambda: init_params(cfg, 42, device=dev), preset)
 
         # ---- it learns: 6 LoRA steps on one fixed batch at lr 1e-4
-        tok = ByteTokenizer()
-        emb, gen = load_train_dirs([str(work / "data")])
-        coll = GritCollator(tok, query_max_len=qlen, passage_max_len=plen,
-                            generative_max_len=glen)
-        batch = next(batch_iterator(GritDataset(emb, gen, train_group_size=2, seed=0), coll, 4,
-                                    seed=0))
-        valid = sum(int(part["attention_mask"].sum()) for part in batch.values())
-        padded = sum(part["attention_mask"].size for part in batch.values())
+        batch, valid, padded = first_batch(work, lengths)
         tc = TrainConfig(learning_rate=1e-4, total_steps=6)
         run_step, state, _, _ = make_lora_train_state(cfg, tc, base, seed=0, device=dev)
-        torch.cuda.reset_peak_memory_stats()
-        losses, step_s = [], []
-        for _ in range(6):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            state, m = run_step(state, batch)
-            losses.append(float(m.loss))
-            step_s.append(time.perf_counter() - t0)
-        peak = torch.cuda.max_memory_allocated() / 2**30
-        med = statistics.median(step_s[1:])
+        state, losses, med, peak = timed_steps(run_step, state, batch, 6)
         print(f"train [LoRA, {cfg.num_hidden_layers} layers, one batch, lr 1e-4]: losses "
               f"{', '.join(f'{x:.4f}' for x in losses)}; {med * 1e3:.1f} ms per step "
               f"(median of steps 2-6, host clock) = {valid / med:.0f} valid tokens/s, "
@@ -4099,16 +4200,7 @@ def training_phase(dev, reset_counts, read_counts, path_launches, preset="mistra
                                                       quantize=True)
         del base
         torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
-        losses, step_s = [], []
-        for _ in range(3):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            state, m = run_step(state, batch)
-            losses.append(float(m.loss))
-            step_s.append(time.perf_counter() - t0)
-        peak_q = torch.cuda.max_memory_allocated() / 2**30
-        med = statistics.median(step_s[1:])
+        state, losses, med, peak_q = timed_steps(run_step, state, batch, 3)
         print(f"train [QLoRA, int8 base, {cfg.num_hidden_layers} layers, one batch]: losses "
               f"{', '.join(f'{x:.4f}' for x in losses)}; {med * 1e3:.1f} ms per step (median "
               f"of steps 2-3, host clock) = {valid / med:.0f} valid tokens/s; peak "
@@ -4119,7 +4211,7 @@ def training_phase(dev, reset_counts, read_counts, path_launches, preset="mistra
         torch.cuda.empty_cache()
 
         # ---- GradCache against the full batch, depth 4, full parameters
-        cfg4 = dataclasses.replace(cfg, num_hidden_layers=depths[0])
+        cfg4 = dataclasses.replace(cfg, num_hidden_layers=depth)
         params = init_params(cfg4, 1, device=dev)
         runs = []
         for gc in (1, 2):
@@ -4135,7 +4227,7 @@ def training_phase(dev, reset_counts, read_counts, path_launches, preset="mistra
         leaf_cos = [float((a * b).sum() / (a.norm() * b.norm())) for a, b in zip(g1, g2)]
         worst = int(np.argmin(leaf_cos))
         le1, le2 = float(m1.loss_emb), float(m2.loss_emb)
-        print(f"train [GradCache, {depths[0]} layers]: loss_emb {le2:.5f} with gc_chunks 2, "
+        print(f"train [GradCache, {depth} layers]: loss_emb {le2:.5f} with gc_chunks 2, "
               f"{le1:.5f} with 1; gradient cosine {cos:.6f} (min {COSINE_MIN}), per "
               f"parameter from {leaf_cos[worst]:.6f} (leaf {worst} of {len(leaf_cos)}, "
               f"shape {tuple(g1[worst].shape)}); loss_gen {float(m2.loss_gen):.5f} / "
@@ -4145,29 +4237,8 @@ def training_phase(dev, reset_counts, read_counts, path_launches, preset="mistra
         del runs, g1, g2, grads, state, params
         torch.cuda.empty_cache()
 
-        # ---- full-parameter training, depth 8
-        cfg8 = dataclasses.replace(cfg, num_hidden_layers=depths[1])
-        torch.cuda.reset_peak_memory_stats()
-        base_mem = torch.cuda.memory_allocated()
-        params = init_params(cfg8, 2, device=dev)
-        n_params = count_params(params)
-        tc = TrainConfig(total_steps=3)
-        state = init_train_state(params, tc)
-        losses = []
-        for _ in range(3):
-            state, m = train_step(state, batch, cfg8, tc)
-            losses.append(float(m.loss))
-        torch.cuda.synchronize()
-        peak = (torch.cuda.max_memory_allocated() - base_mem) / 2**30
-        print(f"train [full parameters, {depths[1]} layers]: losses "
-              f"{', '.join(f'{x:.4f}' for x in losses)}; {n_params / 1e9:.3f} B parameters, "
-              f"peak {peak:.2f} GiB (params, grads and two AdamW moments in bf16 "
-              f"{4 * 2 * n_params / 2**30:.2f} GiB, the rest activations and transients)",
-              flush=True)
-        if not all(np.isfinite(losses)):
-            fail(f"train [full parameters]: losses {losses}")
-        del state, params
-        torch.cuda.empty_cache()
+        # ---- full-parameter training, depth 4
+        full_parameter_steps(dev, cfg4, batch, valid)
 
         # ---- the projection head: run.main --projection, full parameters, depth 4
         projection_training(dev, cfg4, work, argv)
@@ -4270,11 +4341,12 @@ def kernel_names(fn, top: int = 6) -> str:
                      for e in events[:top])
 
 
-def training_times(dev, randn, times, H=32, Hkv=8,
+def training_times(dev, randn, times, H=32, Hkv=8, Dh=128,
                    shapes=((8, 2048, False), (4, 2048, True))) -> None:
     """K1 with its LSE, K4 and K5 at the passage shape (B 8, S 2048, 32/8
     heads, bidirectional, no padding) and at the generative shape (B 4,
-    S 2048, causal), beside their bounds and the backward of
+    S 2048, causal), at head dim Dh (a compiled instance: 128 or 64; the
+    rows' names take a [dh64] suffix at 64), beside their bounds and the backward of
     scaled_dot_product_attention on the same inputs (one library call that
     computes dq, dk and dv together; `is_causal` for the causal row). Each
     time is taken two ways: CUDA events around calls launched back to back
@@ -4290,9 +4362,9 @@ def training_times(dev, randn, times, H=32, Hkv=8,
     from gritlm_tpu_torch.ops import flash_attention as fa
     from gritlm_tpu_torch.ops.flash_attention import keep_mask
 
-    Dh = 128
+    suffix, tag = ("", "") if Dh == 128 else (f"[dh{Dh}]", f" Dh{Dh}")
     for B, S, causal in shapes:
-        label = f"B{B} S{S} {'causal' if causal else 'bidirectional'}"
+        label = f"B{B} S{S} {'causal' if causal else 'bidirectional'}{tag}"
         q, k, v, do = (randn(B, S, H, Dh), randn(B, S, Hkv, Dh), randn(B, S, Hkv, Dh),
                        randn(B, S, H, Dh))
         mask = torch.ones((B, S), dtype=torch.int32, device=dev)
@@ -4327,11 +4399,11 @@ def training_times(dev, randn, times, H=32, Hkv=8,
               f"{kernel_names(library)}", flush=True)
         lib_ms = None if bad_ev else lib_ev  # an impossible reading stays out of the table
         rows = {
-            "flash_attention_bwd_dq": (
+            "flash_attention_bwd_dq" + suffix: (
                 lambda: fa.flash_attention_bwd_dq(q, k, v, mask, do, lse, delta, **kw),
                 lambda: fa.flash_attention_bwd_dq_plain(q, k, v, mask, do, lse, delta, **kw),
                 3, ins + nbytes(q)),
-            "flash_attention_bwd_dkv": (
+            "flash_attention_bwd_dkv" + suffix: (
                 lambda: fa.flash_attention_bwd_dkv(q, k, v, mask, do, lse, delta, **kw),
                 lambda: fa.flash_attention_bwd_dkv_plain(q, k, v, mask, do, lse, delta, **kw),
                 4, ins + nbytes(k, v)),
@@ -4399,13 +4471,21 @@ LLAMA_32_1B = {
                      "high_freq_factor": 4.0, "original_max_position_embeddings": 8192},
     "torch_dtype": "bfloat16",
 }
-LLAMA = "llama-3.2-1b"  # its paths' key in the launch counts
-# K1, K3 and K8 checked at (Dh, H, Hkv): Llama-3.2-1B, the Qwen2-0.5B
-# geometry (group 7, Kv * Dh 128) and Dh 96 (K1 through its zero-pad to 128)
+LLAMA = "llama-3.2-1b"  # its paths' keys in the launch counts: serving (16) ...
+LLAMA_PATHS = (LLAMA, f"{LLAMA} rag", f"{LLAMA} training")  # ... RAG (16), training (17)
+# phase 17's LoRA loss with the fused LM head against the unfused one: fp32
+# logits from the bf16 hidden state and head against logits rounded to bf16
+FUSED_CE_RTOL = 1e-2
+# K1, K3, K8 (phase 16) and K4, K5 (phase 17) checked at (Dh, H, Hkv):
+# Llama-3.2-1B, the Qwen2-0.5B geometry (group 7, Kv * Dh 128) and Dh 96
+# (K1, K4 and K5 through their zero-pad to 128)
 HEAD_DIM_GEOMETRIES = ((64, 32, 8), (64, 14, 2), (96, 16, 8))
-# the kernels line's rows of the Dh-64 instances: name -> the wrapper's name
+# the kernels line's rows of the Dh-64 instances: name -> the wrapper's
+# name; their launches are the wrapper's on the Llama-3.2-1B paths
 DH64_ROWS = {"flash_attention[dh64]": "flash_attention", "flash_decode[dh64]": "flash_decode",
-             "paged_decode[dh64]": "paged_decode"}
+             "paged_decode[dh64]": "paged_decode",
+             "flash_attention_bwd_dq[dh64]": "flash_attention_bwd_dq",
+             "flash_attention_bwd_dkv[dh64]": "flash_attention_bwd_dkv"}
 
 
 def head_dim_checks(dev, randn, max_err) -> None:
@@ -4617,6 +4697,185 @@ def llama_phase(dev, randn, reset_counts, read_counts, path_launches, times, max
     k8_times(dev, randn, times, H=32, Hkv=8, Dh=64, name="paged_decode[dh64]")
     print(f"phase 16: {time.time() - t_phase:.0f} s; total {time.time() - t_start:.0f} s",
           flush=True)
+
+
+def hf_keys(cfg) -> set:
+    """The tensor names an HF export of a dense (not MoE) config holds, as
+    the JAX package's exporter (gritlm_tpu/models/loader.py save_checkpoint)
+    writes them: no lm_head.weight when the embeddings are tied."""
+    keys = {"model.embed_tokens.weight", "model.norm.weight"}
+    for i in range(cfg.num_hidden_layers):
+        p = f"model.layers.{i}"
+        keys |= {f"{p}.input_layernorm.weight", f"{p}.post_attention_layernorm.weight"}
+        keys |= {f"{p}.self_attn.{x}_proj.weight" for x in "qkvo"}
+        keys |= {f"{p}.mlp.{x}_proj.weight" for x in ("gate", "up", "down")}
+        if cfg.attention_bias:
+            keys |= {f"{p}.self_attn.{x}_proj.bias" for x in "qkv"}
+    if not cfg.tie_word_embeddings:
+        keys.add("lm_head.weight")
+    return keys
+
+
+def safetensors_keys(path: Path) -> set:
+    """The tensor names of every safetensors file under `path`, from their
+    headers alone."""
+    import struct
+
+    keys = set()
+    for f in sorted(path.glob("*.safetensors")):
+        with open(f, "rb") as fh:
+            (n,) = struct.unpack("<Q", fh.read(8))
+            keys |= set(json.loads(fh.read(n))) - {"__metadata__"}
+    return keys
+
+
+def bwd_dh96_times(dev, randn, B=8, S=2048, H=16, Hkv=8, Dh=96) -> None:
+    """The backward at Dh 96 (flash_attention_bwd: q, k, v and dO zero-padded
+    to 128, K4 and K5 at 128 with scale 96^-0.5, the gradients sliced back)
+    at the passage shape (B 8, S 2048, bidirectional, H 16, Hkv 8), by CUDA
+    events around calls launched back to back, beside the bound of the same
+    work at Dh 96 (7 products of 2 x pairs x H x 96 operations) and the
+    backward of scaled_dot_product_attention at Dh 96; the kernels alone on
+    inputs padded beforehand."""
+    import torch
+    import torch.nn.functional as F
+
+    from gritlm_tpu_torch.ops import flash_attention as fa
+
+    q, k, v, do = randn(B, S, H, Dh), randn(B, S, Hkv, Dh), randn(B, S, Hkv, Dh), randn(B, S, H, Dh)
+    mask = torch.ones((B, S), dtype=torch.int32, device=dev)
+    out, lse = fa.flash_attention(q, k, v, mask, causal=False, return_lse=True)
+    delta = fa.attention_delta(out, do)
+    ms = event_ms(lambda: fa.flash_attention_bwd(q, k, v, mask, out, lse, do, causal=False))
+    padded = [F.pad(t, (0, 128 - Dh)) for t in (q, k, v, do)]
+    kw = dict(causal=False, scale=Dh ** -0.5)
+    ms_kernels = event_ms(lambda: (fa.flash_attention_bwd_dq(*padded[:3], mask, padded[3], lse,
+                                                             delta, **kw),
+                                   fa.flash_attention_bwd_dkv(*padded[:3], mask, padded[3], lse,
+                                                              delta, **kw)))
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True) for x in (q, k, v))
+    lib_out = F.scaled_dot_product_attention(qt, kt, vt, enable_gqa=True)
+    lib_ms = event_ms(lambda: torch.autograd.grad(lib_out, (qt, kt, vt), do.transpose(1, 2),
+                                                  retain_graph=True))
+    flops = 7 * 2.0 * B * S * S * H * Dh
+    bms, by = bound(flops, nbytes(q, k, v, do, lse, delta, mask, q, k, v))
+    print(f"time flash_attention_bwd [dh96, B{B} S{S} bidirectional H{H} Hkv{Hkv}]: "
+          f"{ms:.4f} ms with the pads and slices, {ms_kernels:.4f} ms K4 + K5 at width 128 "
+          f"({bms / ms * 100:.1f}% of the Dh-96 bound {bms:.4f} ms, {by}); library "
+          f"(scaled_dot_product_attention backward, Dh 96) {lib_ms:.4f} ms (events)", flush=True)
+    del q, k, v, do, out, lse, delta, padded, qt, kt, vt, lib_out
+    torch.cuda.empty_cache()
+
+
+def llama_train_phase(dev, randn, reset_counts, read_counts, path_launches, times, max_err,
+                      lengths=(256, 2048, 2048)) -> None:
+    """Phase 17: GRIT training of Llama-3.2-1B at its published width and
+    depth (LLAMA_32_1B: head dim 64, tied embeddings), random bf16 weights
+    from seed 42 written as a checkpoint. First K4 and K5 (and K1's LSE)
+    against the plain backward at HEAD_DIM_GEOMETRIES (flash_bwd_checks).
+    Then, with the counts set to 0 before and read after: LoRA through
+    training.run.main --model_name_or_path on phase 10's synthetic JSONL at
+    the reference's lengths (3 steps, a checkpoint at step 2, a resumed
+    run, the export read back equal and holding the JAX exporter's tensor
+    names: no lm_head); 6 LoRA steps on one batch (the loss falls); 2 of
+    them again with the fused LM-head loss (losses within FUSED_CE_RTOL);
+    3 QLoRA steps; 3 full-parameter steps at full depth; for each ms a
+    step, valid tokens/s and peak GiB. K1, K4 and K5 must each launch (all
+    at Dh 64). Then the [dh64] rows of K4 and K5 (training_times at Dh 64),
+    K1 [dh96] (k1_times) and the padded Dh-96 backward (bwd_dh96_times)."""
+    import dataclasses
+    import shutil
+
+    import torch
+
+    from gritlm_tpu_torch.config import ModelConfig
+    from gritlm_tpu_torch.models.loader import load_checkpoint, save_checkpoint
+    from gritlm_tpu_torch.models.transformer import count_params, init_params
+    from gritlm_tpu_torch.training.lora import make_lora_train_state
+    from gritlm_tpu_torch.training.train import TrainConfig
+
+    t_phase = time.time()
+    for Dh, H, Hkv in HEAD_DIM_GEOMETRIES:
+        flash_bwd_checks(dev, randn, max_err, H=H, Hkv=Hkv, Dh=Dh)
+    print(f"phase 17: backward checks {time.time() - t_phase:.0f} s", flush=True)
+    cfg = ModelConfig.from_hf_config(LLAMA_32_1B)
+    work = ROOT / "build" / "chip_smoke_llama_train"
+    shutil.rmtree(work, ignore_errors=True)
+    synthetic_train_data(work / "data")
+    base_dir = work / "base"
+    save_checkpoint(str(base_dir), cfg, init_params(cfg, 42, device=dev))
+    torch.cuda.empty_cache()
+    argv = train_argv(work, ["--model_name_or_path", str(base_dir)], lengths, dev)
+    reset_counts()
+    try:
+        base = lora_run_checks(dev, cfg, argv, lambda: load_checkpoint(str(base_dir),
+                                                                       device=dev)[1], LLAMA)
+        keys, want = safetensors_keys(work / "run" / "export"), hf_keys(cfg)
+        print(f"train [{LLAMA}, export]: {len(keys)} tensors, the JAX exporter's names: "
+              f"{keys == want} (lm_head.weight: {'lm_head.weight' in keys})", flush=True)
+        if keys != want:
+            fail(f"train [{LLAMA}, export]: tensor names differ from the JAX exporter's: "
+                 f"{sorted(keys ^ want)[:8]}")
+        print(f"model [phase 17]: Llama-3.2-1B width and depth, {count_params(base) / 1e9:.3f} B "
+              f"params, head dim {cfg.head_dim_}, tied embeddings", flush=True)
+
+        batch, valid, padded = first_batch(work, lengths)
+        tc = TrainConfig(learning_rate=1e-4, total_steps=6)
+        run_step, state, _, _ = make_lora_train_state(cfg, tc, base, seed=0, device=dev)
+        state, losses, med, peak = timed_steps(run_step, state, batch, 6)
+        print(f"train [{LLAMA}, LoRA, one batch, lr 1e-4]: losses "
+              f"{', '.join(f'{x:.4f}' for x in losses)}; {med * 1e3:.1f} ms per step (median "
+              f"of steps 2-6, host clock) = {valid / med:.0f} valid tokens/s ({valid} valid of "
+              f"{padded} padded tokens a step); peak {peak:.2f} GiB; "
+              f"{count_params(state.params) / 1e6:.1f} M trained parameters", flush=True)
+        if not all(np.isfinite(losses)) or losses[-1] >= losses[0]:
+            fail(f"train [{LLAMA}, learns]: losses {losses}")
+        del state, run_step
+        torch.cuda.empty_cache()
+
+        # the same steps with the fused LM-head loss (--fused_ce; the
+        # reference's default, as above, takes the [8192 x 128256] logits whole)
+        tc_f = dataclasses.replace(tc, fused_ce=True)
+        run_step, state, _, _ = make_lora_train_state(cfg, tc_f, base, seed=0, device=dev)
+        state, losses_f, med_f, peak_f = timed_steps(run_step, state, batch, 2)
+        print(f"train [{LLAMA}, LoRA, fused_ce]: losses {', '.join(f'{x:.4f}' for x in losses_f)} "
+              f"(unfused {losses[0]:.4f}, {losses[1]:.4f}); {med_f * 1e3:.1f} ms for step 2 "
+              f"= {valid / med_f:.0f} valid tokens/s; peak {peak_f:.2f} GiB against the "
+              f"unfused loss's {peak:.2f} GiB", flush=True)
+        if any(abs(a - b) > FUSED_CE_RTOL * abs(b) for a, b in zip(losses_f, losses)):
+            fail(f"train [{LLAMA}, fused_ce]: losses {losses_f} against {losses[:2]}")
+        del state, run_step
+        torch.cuda.empty_cache()
+
+        run_step, state, _, _ = make_lora_train_state(cfg, tc, base, seed=0, device=dev,
+                                                      quantize=True)
+        del base
+        torch.cuda.empty_cache()
+        state, losses, med, peak_q = timed_steps(run_step, state, batch, 3)
+        print(f"train [{LLAMA}, QLoRA, int8 base, one batch]: losses "
+              f"{', '.join(f'{x:.4f}' for x in losses)}; {med * 1e3:.1f} ms per step (median "
+              f"of steps 2-3, host clock) = {valid / med:.0f} valid tokens/s; peak "
+              f"{peak_q:.2f} GiB against LoRA's {peak:.2f} GiB", flush=True)
+        if not all(np.isfinite(losses)):
+            fail(f"train [{LLAMA}, QLoRA]: losses {losses}")
+        del state, run_step
+        torch.cuda.empty_cache()
+
+        full_parameter_steps(dev, cfg, batch, valid)
+        torch.cuda.synchronize()
+        counts = read_counts()
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    path_launches[LLAMA_PATHS[2]] = counts
+    print(f"{LLAMA} training launches: {counts}; phase 17 training "
+          f"{time.time() - t_phase:.0f} s", flush=True)
+    if any(counts[n] == 0 for n in ("flash_attention", "flash_attention_bwd_dq",
+                                    "flash_attention_bwd_dkv")):
+        fail("phase 17: Llama-3.2-1B training did not go through K1, K4 and K5")
+    training_times(dev, randn, times, Dh=64)
+    k1_times(dev, randn, times, H=16, Hkv=8, Dh=96, name="flash_attention[dh96]")
+    bwd_dh96_times(dev, randn)
+    print(f"phase 17: {time.time() - t_phase:.0f} s", flush=True)
 
 
 def profile_window(label: str, fn, top: int = 10):

@@ -37,6 +37,14 @@
 // skipped by the warpgroup they miss; interior tiles take a path with no
 // per-element mask. A row whose keys are all masked has lse == NEG_INF and
 // gets zero gradients: every P and dS is selected, never multiplied, to 0.
+//
+// Two instances of each kernel, by the head dim DH: 128, and 64 (Llama-3.2-1B,
+// Qwen2-0.5B), on the same schedule. At 64 every resident and ring tile is
+// one 64-column half instead of two, S (S^T) and dP (dP^T) take 4 k-steps
+// instead of 8, and the gradient updates are m64n64k16 register-A wgmmas
+// (32 accumulators a thread for each gradient instead of 64). The wrapper
+// zero-pads any other head dim below 128 to 128 (ops/flash_attention.py)
+// and passes the true Dh^-0.5 as `scale`, as it does for K1.
 #include <utility>
 
 #include "common.cuh"
@@ -46,7 +54,6 @@ using gritlm::bf16;
 
 namespace {
 
-constexpr int DH = 128;
 constexpr int WG = 128;                      // threads of a warpgroup
 constexpr int CONSUMERS = 2;                 // consumer warpgroups a block
 constexpr int NTHREADS = WG * (CONSUMERS + 1);  // K4; K5 has no producer
@@ -63,29 +70,40 @@ constexpr float LOG2E = 1.4426950408889634f;
 // Shared memory, from a 1024-byte aligned base: the resident tiles, the
 // ring, then small per-stage data (K4's tile metadata, K5's release
 // counts), the key mask (K5) and the barriers.
-// A 64-column half of a tile is rows x 128 bytes (see sm90.cuh).
+// A 64-column half of a tile is rows x 128 bytes (see sm90.cuh); a tile of
+// DH columns is DH / 64 halves.
 constexpr uint32_t HALF_T = TILE * 128;          // half of a 64-row ring tile
 constexpr uint32_t HALF_R = BLOCK_ROWS * 128;    // half of a resident tile
-constexpr uint32_t RES_BYTES = 4 * HALF_R;       // two resident tiles
-constexpr uint32_t STAGE_BYTES = 4 * HALF_T;     // two ring tiles
-constexpr uint32_t OFF_RING = RES_BYTES;
-constexpr uint32_t OFF_STATS = OFF_RING + STAGES * STAGE_BYTES;  // 512 bytes a stage
-constexpr uint32_t OFF_MASK = OFF_STATS + STAGES * 128 * 4;
-constexpr uint32_t OFF_BAR = OFF_MASK + BLOCK_ROWS * 4;
-constexpr uint32_t SMEM = OFF_BAR + (2 * STAGES + 1) * 8 + 1024;  // + alignment slack
-static_assert(SMEM <= 232448, "shared memory of one block");
+
+template <int DH>
+struct Layout {
+  static_assert(DH == 64 || DH == 128, "head dims 64 and 128");
+  static constexpr int HALVES = DH / 64;
+  static constexpr uint32_t RES_BYTES = 2 * HALVES * HALF_R;    // two resident tiles
+  static constexpr uint32_t STAGE_BYTES = 2 * HALVES * HALF_T;  // two ring tiles
+  static constexpr uint32_t OFF_RING = RES_BYTES;
+  static constexpr uint32_t OFF_STATS = OFF_RING + STAGES * STAGE_BYTES;  // 512 bytes a stage
+  static constexpr uint32_t OFF_MASK = OFF_STATS + STAGES * 128 * 4;
+  static constexpr uint32_t OFF_BAR = OFF_MASK + BLOCK_ROWS * 4;
+  static constexpr uint32_t SMEM = OFF_BAR + (2 * STAGES + 1) * 8 + 1024;  // + alignment slack
+  static_assert(SMEM <= 232448, "shared memory of one block");
+};
 
 // byte address of half c of resident tile x / of ring tile x in stage s
+template <int DH>
 __device__ __forceinline__ uint32_t res_half(uint32_t base, int x, int c) {
-  return base + (2 * x + c) * HALF_R;
+  return base + (Layout<DH>::HALVES * x + c) * HALF_R;
 }
+template <int DH>
 __device__ __forceinline__ uint32_t ring_half(uint32_t base, int s, int x, int c) {
-  return base + OFF_RING + s * STAGE_BYTES + (2 * x + c) * HALF_T;
+  using C = Layout<DH>;
+  return base + C::OFF_RING + s * C::STAGE_BYTES + (C::HALVES * x + c) * HALF_T;
 }
 
 // Descriptors of a tile's first k-step: K-major (the reduction runs along
-// the 128 features of a row) and MN-major (it runs down the rows); the
-// k-steps' offsets are compile-time (sm90.cuh).
+// the DH features of a row) and MN-major (it runs down the rows; LBO, the
+// step to the second 64-column half, is unused at DH 64); the k-steps'
+// offsets are compile-time (sm90.cuh).
 __device__ __forceinline__ uint64_t kmajor(uint32_t rows) {
   return sm90::desc_sw128(rows, 16, 1024);
 }
@@ -112,9 +130,9 @@ __device__ __forceinline__ void init_ring(uint32_t full, uint32_t empty, uint32_
   sm90::mbar_fence_init();
 }
 
-// One 64 x N product reduced over the 128 features (N = 2 x the
-// accumulators a thread holds): 8 k-steps of 16, each 32 bytes further
-// along the row, the second 4 in the tile's other half.
+// One 64 x N product reduced over the DH features (N = 2 x the
+// accumulators a thread holds): DH / 16 k-steps of 16, each 32 bytes
+// further along the row, the second 4 (DH 128) in the tile's other half.
 template <uint32_t A_HALF, uint32_t A_OFF, uint32_t B_OFF, int NREG, int... KK>
 __device__ __forceinline__ void feature_steps(float (&d)[NREG], uint64_t da, uint64_t db,
                                               std::integer_sequence<int, KK...>) {
@@ -130,17 +148,18 @@ __device__ __forceinline__ void feature_steps(float (&d)[NREG], uint64_t da, uin
 
 // S (or S^T) and dP (or dP^T) of one warpgroup, 64 x N each: `a` is the
 // warpgroup's first row of the first resident tile (the second lies
-// 2 HALF_R on), the ring tile of S starts B_OFF bytes past `b` (dP's lies
-// 2 HALF_T further). Leaves two groups in flight: S first.
-template <uint32_t B_OFF, int NREG>
+// DH / 64 HALF_R on), the ring tile of S starts B_OFF bytes past `b` (dP's
+// lies DH / 64 HALF_T further). Leaves two groups in flight: S first.
+template <int DH, uint32_t B_OFF, int NREG>
 __device__ __forceinline__ void issue_scores(float (&s)[NREG], float (&dp)[NREG], uint32_t a,
                                              uint32_t b) {
+  constexpr uint32_t HALVES = Layout<DH>::HALVES;
   const uint64_t da = kmajor(a), db = kmajor(b);
   constexpr auto steps = std::make_integer_sequence<int, DH / 16>();
   sm90::wgmma_fence();
   feature_steps<HALF_R, 0, B_OFF>(s, da, db, steps);
   sm90::wgmma_commit();
-  feature_steps<HALF_R, 2 * HALF_R, B_OFF + 2 * HALF_T>(dp, da, db, steps);
+  feature_steps<HALF_R, HALVES * HALF_R, B_OFF + HALVES * HALF_T>(dp, da, db, steps);
   sm90::wgmma_commit();
 }
 
@@ -152,10 +171,11 @@ __device__ __forceinline__ void pack_a(uint32_t (&a)[NA], const float (&x)[2 * N
   for (int i = 0; i < NA; ++i) a[i] = sm90::pack_bf16(x[2 * i], x[2 * i + 1]);
 }
 
-// acc[64 x 128] += X[64 x K] . tile[K x 128], X as packed A fragments (K =
+// acc[64 x DH] += X[64 x K] . tile[K x DH], X as packed A fragments (K =
 // 4 x their count), the tile MN-major in the ring TILE_OFF bytes past
-// `tile_desc`'s: k-steps of 16 rows. Issued, not waited for; the caller
-// fences the fragments and issues wgmma_fence first.
+// `tile_desc`'s: k-steps of 16 rows (DH = 2 x the accumulators a thread
+// holds: m64n128k16 at 128, m64n64k16 at 64). Issued, not waited for; the
+// caller fences the fragments and issues wgmma_fence first.
 template <uint32_t TILE_OFF, int NA, int... KK>
 __device__ __forceinline__ void row_steps(float (&acc)[64], const uint32_t (&a)[NA],
                                           uint64_t tile_desc, std::integer_sequence<int, KK...>) {
@@ -164,19 +184,28 @@ __device__ __forceinline__ void row_steps(float (&acc)[64], const uint32_t (&a)[
                                                           tile_desc, 1),
    ...);
 }
-template <uint32_t TILE_OFF, int NA>
-__device__ __forceinline__ void issue_update(float (&acc)[64], const uint32_t (&a)[NA],
+template <uint32_t TILE_OFF, int NA, int... KK>
+__device__ __forceinline__ void row_steps(float (&acc)[32], const uint32_t (&a)[NA],
+                                          uint64_t tile_desc, std::integer_sequence<int, KK...>) {
+  (sm90::wgmma_m64n64k16_rs_tb<TILE_OFF + KK * 16 * 128>(acc, a[4 * KK], a[4 * KK + 1],
+                                                         a[4 * KK + 2], a[4 * KK + 3],
+                                                         tile_desc, 1),
+   ...);
+}
+template <uint32_t TILE_OFF, int NACC, int NA>
+__device__ __forceinline__ void issue_update(float (&acc)[NACC], const uint32_t (&a)[NA],
                                              uint64_t tile_desc) {
   row_steps<TILE_OFF>(acc, a, tile_desc, std::make_integer_sequence<int, NA / 4>());
 }
 
-// Write a warpgroup's 64 x 128 fp32 accumulator as bf16 rows: row r of the
-// thread (r0 or r0 + 8) goes to out + row_off(r) when valid.
-template <typename RowOff>
-__device__ __forceinline__ void store_rows(bf16* out, const float (&acc)[64], int r0, int n_rows,
-                                           int lane, RowOff row_off) {
+// Write a warpgroup's 64 x DH fp32 accumulator (NACC = DH / 2 a thread) as
+// bf16 rows: row r of the thread (r0 or r0 + 8) goes to out + row_off(r)
+// when valid.
+template <int NACC, typename RowOff>
+__device__ __forceinline__ void store_rows(bf16* out, const float (&acc)[NACC], int r0,
+                                           int n_rows, int lane, RowOff row_off) {
 #pragma unroll
-  for (int i = 0; i < 64; i += 2) {
+  for (int i = 0; i < NACC; i += 2) {
     const int r = r0 + 8 * ((i % 4) / 2);
     if (r < n_rows) {
       const int col = 8 * (i / 4) + 2 * (lane % 4);
@@ -189,13 +218,13 @@ __device__ __forceinline__ void store_rows(bf16* out, const float (&acc)[64], in
 
 // One ring tile (64 keys from kt) for one warpgroup: P and dS of its 64
 // rows (row0 and row0 + 8 for this thread), then dQ += dS K.
-template <bool EDGE>
-__device__ __forceinline__ void dq_tile(float (&dq)[64], uint32_t a_q, uint32_t k_tile,
+template <int DH, bool EDGE>
+__device__ __forceinline__ void dq_tile(float (&dq)[DH / 2], uint32_t a_q, uint32_t k_tile,
                                         const float (&lse2)[2], const float (&dl)[2], int row0,
                                         int kt, unsigned lo, unsigned hi, int lane, float scale,
                                         const Keep& keep) {
   float s[32], dp[32];
-  issue_scores<0>(s, dp, a_q, k_tile);
+  issue_scores<DH, 0>(s, dp, a_q, k_tile);
   const float scale_log2 = scale * LOG2E;
   const int c2 = 2 * (lane % 4);
   sm90::wgmma_wait<1>();
@@ -235,6 +264,7 @@ __device__ __forceinline__ void dq_tile(float (&dq)[64], uint32_t a_q, uint32_t 
 // One block per (128 query rows, query head, batch row). Ring tiles: K and
 // V of 64 keys, with the tile's first key and valid-key bits (keys at or
 // past kend count as invalid: causal masks them anyway).
+template <int DH>
 __global__ void __launch_bounds__(NTHREADS, 1)
 flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
                     const __grid_constant__ CUtensorMap tv,
@@ -242,11 +272,12 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constan
                     const float* __restrict__ lse, const float* __restrict__ delta,
                     bf16* __restrict__ dq, int Sq, int Sk, int H, int group, long long m_sb,
                     int causal, int window, int offset, float scale) {
+  using C = Layout<DH>;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = sm90::smem_u32(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;
-  int* meta = reinterpret_cast<int*>(smem_raw + (base - raw) + OFF_STATS);
-  const uint32_t full = base + OFF_BAR, empty = full + 8 * STAGES, res = empty + 8 * STAGES;
+  int* meta = reinterpret_cast<int*>(smem_raw + (base - raw) + C::OFF_STATS);
+  const uint32_t full = base + C::OFF_BAR, empty = full + 8 * STAGES, res = empty + 8 * STAGES;
 
   const int q0 = blockIdx.x * BLOCK_ROWS;
   const int h = blockIdx.y, b = blockIdx.z, hk = h / group;
@@ -266,10 +297,10 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constan
     if (tid < CONSUMERS * WG + 32) {  // one warp drives the ring
       const int lane = tid % 32;
       if (lane == 0) {
-        sm90::mbar_arrive_expect_tx(res, RES_BYTES);
-        for (int c = 0; c < 2; ++c) {
-          sm90::tma_load_4d(res_half(base, 0, c), &tq, res, 64 * c, h, q0, b);
-          sm90::tma_load_4d(res_half(base, 1, c), &tdo, res, 64 * c, h, q0, b);
+        sm90::mbar_arrive_expect_tx(res, C::RES_BYTES);
+        for (int c = 0; c < C::HALVES; ++c) {
+          sm90::tma_load_4d(res_half<DH>(base, 0, c), &tq, res, 64 * c, h, q0, b);
+          sm90::tma_load_4d(res_half<DH>(base, 1, c), &tdo, res, 64 * c, h, q0, b);
         }
       }
       const int* mb = mask + b * m_sb;
@@ -292,10 +323,10 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constan
           m[1] = (int)lo;
           m[2] = (int)hi;
           const uint32_t fb = full + 8 * stage;
-          sm90::mbar_arrive_expect_tx(fb, STAGE_BYTES);
-          for (int c = 0; c < 2; ++c) {
-            sm90::tma_load_4d(ring_half(base, stage, 0, c), &tk, fb, 64 * c, hk, kt, b);
-            sm90::tma_load_4d(ring_half(base, stage, 1, c), &tv, fb, 64 * c, hk, kt, b);
+          sm90::mbar_arrive_expect_tx(fb, C::STAGE_BYTES);
+          for (int c = 0; c < C::HALVES; ++c) {
+            sm90::tma_load_4d(ring_half<DH>(base, stage, 0, c), &tk, fb, 64 * c, hk, kt, b);
+            sm90::tma_load_4d(ring_half<DH>(base, stage, 1, c), &tv, fb, 64 * c, hk, kt, b);
           }
         }
         __syncwarp();
@@ -328,11 +359,11 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constan
       dl[ri] = r < Sq ? delta[rows + r] : 0.f;
     }
     const Keep keep{Sq, causal, window, offset};
-    const uint32_t a_q = res_half(base, 0, 0) + w * TILE * 128;
+    const uint32_t a_q = res_half<DH>(base, 0, 0) + w * TILE * 128;
 
-    float acc[64];
+    float acc[DH / 2];
 #pragma unroll
-    for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+    for (int i = 0; i < DH / 2; ++i) acc[i] = 0.f;
     sm90::mbar_wait(res, 0);
     int stage = 0;
     uint32_t phase = 0;
@@ -348,11 +379,11 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constan
         const bool edge = (lo & hi) != gritlm::FULL || qw0 + TILE > Sq ||
                           (causal && kt + TILE - 1 > offset + qw0) ||
                           (window > 0 && kt <= offset + qw0 + TILE - 1 - window);
-        const uint32_t k_tile = ring_half(base, stage, 0, 0);
+        const uint32_t k_tile = ring_half<DH>(base, stage, 0, 0);
         if (edge)
-          dq_tile<true>(acc, a_q, k_tile, lse2, dl, row0, kt, lo, hi, lane, scale, keep);
+          dq_tile<DH, true>(acc, a_q, k_tile, lse2, dl, row0, kt, lo, hi, lane, scale, keep);
         else
-          dq_tile<false>(acc, a_q, k_tile, lse2, dl, row0, kt, lo, hi, lane, scale, keep);
+          dq_tile<DH, false>(acc, a_q, k_tile, lse2, dl, row0, kt, lo, hi, lane, scale, keep);
       }
       sm90::mbar_arrive(empty + 8 * stage);
       if (++stage == STAGES) {
@@ -399,12 +430,12 @@ __device__ __forceinline__ void dsoft_t(float (&dp)[16], const float (&p)[16],
 // Half H (query rows q0 + 32 H .. + 31) of a ring tile for one warpgroup:
 // P^T and dS^T of its 64 keys against those 32 rows, then dV += P^T dO and
 // dK += dS^T Q, issued and left in flight. Halves keep P^T and dP^T at 16
-// accumulators a thread beside the 128 of dK and dV, and let half 1's S^T
+// accumulators a thread beside the DH of dK and dV, and let half 1's S^T
 // and dP^T overlap half 0's updates. `lrow`/`drow` are the head's lse and
 // delta rows: the thread loads the 16 values it needs first, so the loads
 // run under the products.
-template <int H>
-__device__ __forceinline__ void dkv_half(float (&dk)[64], float (&dv)[64], uint32_t a_k,
+template <int DH, int H>
+__device__ __forceinline__ void dkv_half(float (&dk)[DH / 2], float (&dv)[DH / 2], uint32_t a_k,
                                          uint32_t q_tile, const float* lrow, const float* drow,
                                          const int (&key)[2], const bool (&kval)[2], int q0,
                                          int lane, float scale, const Keep& keep, bool edge) {
@@ -419,7 +450,7 @@ __device__ __forceinline__ void dkv_half(float (&dk)[64], float (&dv)[64], uint3
     dl[k] = q < keep.Sq ? __ldg(drow + q) : 0.f;
   }
   float s[16], dp[16];
-  issue_scores<ROWS>(s, dp, a_k, q_tile);
+  issue_scores<DH, ROWS>(s, dp, a_k, q_tile);
   sm90::wgmma_wait<1>();  // S^T (and the other half's updates)
   sm90::fence_regs(s);
   if (edge)
@@ -439,31 +470,33 @@ __device__ __forceinline__ void dkv_half(float (&dk)[64], float (&dv)[64], uint3
   sm90::fence_regs(da);
   sm90::wgmma_fence();
   const uint64_t ring = mnmajor(q_tile);
-  issue_update<2 * HALF_T + ROWS>(dv, pa, ring);  // dV += P^T dO
-  issue_update<ROWS>(dk, da, ring);               // dK += dS^T Q
+  issue_update<Layout<DH>::HALVES * HALF_T + ROWS>(dv, pa, ring);  // dV += P^T dO
+  issue_update<ROWS>(dk, da, ring);                                 // dK += dS^T Q
   sm90::wgmma_commit();
 }
 
 // Both halves of a ring tile, then their updates settled.
-__device__ __forceinline__ void dkv_tile(float (&dk)[64], float (&dv)[64], uint32_t a_k,
+template <int DH>
+__device__ __forceinline__ void dkv_tile(float (&dk)[DH / 2], float (&dv)[DH / 2], uint32_t a_k,
                                          uint32_t q_tile, const float* lrow, const float* drow,
                                          const int (&key)[2], const bool (&kval)[2], int q0,
                                          int lane, float scale, const Keep& keep, bool edge) {
-  dkv_half<0>(dk, dv, a_k, q_tile, lrow, drow, key, kval, q0, lane, scale, keep, edge);
-  dkv_half<1>(dk, dv, a_k, q_tile, lrow, drow, key, kval, q0, lane, scale, keep, edge);
+  dkv_half<DH, 0>(dk, dv, a_k, q_tile, lrow, drow, key, kval, q0, lane, scale, keep, edge);
+  dkv_half<DH, 1>(dk, dv, a_k, q_tile, lrow, drow, key, kval, q0, lane, scale, keep, edge);
   sm90::wgmma_wait<0>();
   sm90::fence_regs(dv);
   sm90::fence_regs(dk);
 }
 
 // One block per (128 keys, kv head, batch row): the two consumer warpgroups
-// and no producer warp. The dK and dV accumulators (128 a thread) with the
-// products' need more registers than ptxas gave a consumer region after
-// setmaxnreg (it spilled and serialised every wgmma with 232 granted), while
-// a 256-thread block has 255 a thread by itself. Thread 0 loads the first
+// and no producer warp. The dK and dV accumulators (128 a thread at DH 128)
+// with the products' need more registers than ptxas gave a consumer region
+// after setmaxnreg (it spilled and serialised every wgmma with 232 granted),
+// while a 256-thread block has 255 a thread by itself. Thread 0 loads the first
 // STAGES tiles; after that the warpgroup that releases a stage last refills
 // it. The sequence: the GQA group's query heads x their visible q-tiles,
 // tile i in stage i % STAGES.
+template <int DH>
 __global__ void __launch_bounds__(WG * CONSUMERS, 1)
 flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
                      const __grid_constant__ CUtensorMap tv,
@@ -472,12 +505,14 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tq, const __grid_consta
                      bf16* __restrict__ dk, bf16* __restrict__ dv, int Sq, int Sk, int H,
                      int Hkv, int group, long long m_sb, int causal, int window, int offset,
                      float scale) {
+  using C = Layout<DH>;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = sm90::smem_u32(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;
-  int* smask = reinterpret_cast<int*>(smem_raw + (base - raw) + OFF_MASK);
-  int* released = reinterpret_cast<int*>(smem_raw + (base - raw) + OFF_STATS);  // a stage's count
-  const uint32_t full = base + OFF_BAR, empty = full + 8 * STAGES, res = empty + 8 * STAGES;
+  int* smask = reinterpret_cast<int*>(smem_raw + (base - raw) + C::OFF_MASK);
+  // a stage's release count
+  int* released = reinterpret_cast<int*>(smem_raw + (base - raw) + C::OFF_STATS);
+  const uint32_t full = base + C::OFF_BAR, empty = full + 8 * STAGES, res = empty + 8 * STAGES;
 
   const int k0 = blockIdx.x * BLOCK_ROWS;
   const int hk = blockIdx.y, b = blockIdx.z;
@@ -517,17 +552,17 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tq, const __grid_consta
     const int s = i % STAGES, h = hk * group + i / per_head;
     const int q0 = qfirst + (i % per_head) * TILE;
     const uint32_t fb = full + 8 * s;
-    sm90::mbar_arrive_expect_tx(fb, STAGE_BYTES);
-    for (int c = 0; c < 2; ++c) {
-      sm90::tma_load_4d(ring_half(base, s, 0, c), &tq, fb, 64 * c, h, q0, b);
-      sm90::tma_load_4d(ring_half(base, s, 1, c), &tdo, fb, 64 * c, h, q0, b);
+    sm90::mbar_arrive_expect_tx(fb, C::STAGE_BYTES);
+    for (int c = 0; c < C::HALVES; ++c) {
+      sm90::tma_load_4d(ring_half<DH>(base, s, 0, c), &tq, fb, 64 * c, h, q0, b);
+      sm90::tma_load_4d(ring_half<DH>(base, s, 1, c), &tdo, fb, 64 * c, h, q0, b);
     }
   };
   if (tid == 0 && n > 0) {
-    sm90::mbar_arrive_expect_tx(res, RES_BYTES);
-    for (int c = 0; c < 2; ++c) {
-      sm90::tma_load_4d(res_half(base, 0, c), &tk, res, 64 * c, hk, k0, b);
-      sm90::tma_load_4d(res_half(base, 1, c), &tv, res, 64 * c, hk, k0, b);
+    sm90::mbar_arrive_expect_tx(res, C::RES_BYTES);
+    for (int c = 0; c < C::HALVES; ++c) {
+      sm90::tma_load_4d(res_half<DH>(base, 0, c), &tk, res, 64 * c, hk, k0, b);
+      sm90::tma_load_4d(res_half<DH>(base, 1, c), &tv, res, 64 * c, hk, k0, b);
     }
     for (int i = 0; i < min(n, STAGES); ++i) issue(i);
   }
@@ -540,11 +575,11 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tq, const __grid_consta
   const bool kval[2] = {smask[w * TILE + r_lo] != 0, smask[w * TILE + r_lo + 8] != 0};
   const bool any_w = (any_bits >> w) & 1u, all_w = (all_bits >> w) & 1u;
   const Keep keep{Sq, causal, window, offset};
-  const uint32_t a_k = res_half(base, 0, 0) + w * TILE * 128;
+  const uint32_t a_k = res_half<DH>(base, 0, 0) + w * TILE * 128;
 
-  float dka[64], dva[64];
+  float dka[DH / 2], dva[DH / 2];
 #pragma unroll
-  for (int i = 0; i < 64; ++i) dka[i] = dva[i] = 0.f;
+  for (int i = 0; i < DH / 2; ++i) dka[i] = dva[i] = 0.f;
   if (n > 0) {
     sm90::mbar_wait(res, 0);
     for (int i = 0; i < n; ++i) {
@@ -558,13 +593,13 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tq, const __grid_consta
         const bool edge = !all_w || q0 + TILE > Sq || (causal && kw0 + TILE - 1 > offset + q0) ||
                           (window > 0 && kw0 <= offset + q0 + TILE - 1 - window);
         const long long row = ((long long)b * H + hk * group + g) * Sq;
-        const uint32_t q_tile = ring_half(base, stage, 0, 0);
+        const uint32_t q_tile = ring_half<DH>(base, stage, 0, 0);
         if (edge)  // two copies of the tile code: interior tiles carry no mask
-          dkv_tile(dka, dva, a_k, q_tile, lse + row, delta + row, key, kval, q0, lane, scale,
-                   keep, true);
+          dkv_tile<DH>(dka, dva, a_k, q_tile, lse + row, delta + row, key, kval, q0, lane,
+                       scale, keep, true);
         else
-          dkv_tile(dka, dva, a_k, q_tile, lse + row, delta + row, key, kval, q0, lane, scale,
-                   keep, false);
+          dkv_tile<DH>(dka, dva, a_k, q_tile, lse + row, delta + row, key, kval, q0, lane,
+                       scale, keep, false);
       }
       // release: after wgmma.wait_group the warpgroup's reads of the stage
       // are done and all four warps have waited for it (a wgmma needs all
@@ -585,62 +620,102 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tq, const __grid_consta
   store_rows(dv, dva, key[0], Sk, lane, row_off);
 }
 
+// Each instance sets its shared-memory limit once, at its first launch.
 template <typename K>
-int configure(K kernel, bool* done) {
+int configure(K kernel, uint32_t smem, bool* done) {
   if (*done) return 0;
   cudaError_t e =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM);
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
   *done = true;
   return 0;
 }
 
-}  // namespace
-
-// Strides are in elements, as the tensors give them; the tensor maps take
-// them in bytes (the wrapper checks that they are multiples of 8).
-extern "C" int gritlm_flash_bwd_dq(const void* q, const void* k, const void* v,
-                                   const void* mask, const void* dout, const void* lse,
-                                   const void* delta, void* dq, int B, int Sq, int Sk, int H,
-                                   int Hkv, long long q_sb, long long q_ss, long long k_sb,
-                                   long long k_ss, long long v_sb, long long v_ss,
-                                   long long m_sb, long long do_sb, long long do_ss,
-                                   int causal, int window, int offset, float scale,
-                                   void* stream) {
+template <int DH>
+int launch_dq(const void* q, const void* k, const void* v, const void* mask, const void* dout,
+              const void* lse, const void* delta, void* dq, int B, int Sq, int Sk, int H,
+              int Hkv, long long q_sb, long long q_ss, long long k_sb, long long k_ss,
+              long long v_sb, long long v_ss, long long m_sb, long long do_sb, long long do_ss,
+              int causal, int window, int offset, float scale, cudaStream_t stream) {
+  constexpr uint32_t smem = Layout<DH>::SMEM;
   static bool configured = false;
-  int rc = configure(flash_bwd_dq_kernel, &configured);
+  int rc = configure(flash_bwd_dq_kernel<DH>, smem, &configured);
   CUtensorMap tq, tk, tv, tdo;
-  if (!rc) rc = sm90::make_map_bshd(&tq, q, B, Sq, H, 2 * q_sb, 2 * q_ss, BLOCK_ROWS);
-  if (!rc) rc = sm90::make_map_bshd(&tdo, dout, B, Sq, H, 2 * do_sb, 2 * do_ss, BLOCK_ROWS);
-  if (!rc) rc = sm90::make_map_bshd(&tk, k, B, Sk, Hkv, 2 * k_sb, 2 * k_ss, TILE);
-  if (!rc) rc = sm90::make_map_bshd(&tv, v, B, Sk, Hkv, 2 * v_sb, 2 * v_ss, TILE);
+  if (!rc) rc = sm90::make_map_bshd(&tq, q, B, Sq, H, 2 * q_sb, 2 * q_ss, BLOCK_ROWS, DH);
+  if (!rc) rc = sm90::make_map_bshd(&tdo, dout, B, Sq, H, 2 * do_sb, 2 * do_ss, BLOCK_ROWS, DH);
+  if (!rc) rc = sm90::make_map_bshd(&tk, k, B, Sk, Hkv, 2 * k_sb, 2 * k_ss, TILE, DH);
+  if (!rc) rc = sm90::make_map_bshd(&tv, v, B, Sk, Hkv, 2 * v_sb, 2 * v_ss, TILE, DH);
   if (rc) return rc;
   dim3 grid((Sq + BLOCK_ROWS - 1) / BLOCK_ROWS, H, B);
-  flash_bwd_dq_kernel<<<grid, NTHREADS, SMEM, (cudaStream_t)stream>>>(
+  flash_bwd_dq_kernel<DH><<<grid, NTHREADS, smem, stream>>>(
       tq, tk, tv, tdo, (const int*)mask, (const float*)lse, (const float*)delta, (bf16*)dq, Sq,
       Sk, H, H / Hkv, m_sb, causal, window, offset, scale);
   return (int)cudaGetLastError();
 }
 
-extern "C" int gritlm_flash_bwd_dkv(const void* q, const void* k, const void* v,
-                                    const void* mask, const void* dout, const void* lse,
-                                    const void* delta, void* dk, void* dv, int B, int Sq,
-                                    int Sk, int H, int Hkv, long long q_sb, long long q_ss,
-                                    long long k_sb, long long k_ss, long long v_sb,
-                                    long long v_ss, long long m_sb, long long do_sb,
-                                    long long do_ss, int causal, int window, int offset,
-                                    float scale, void* stream) {
+template <int DH>
+int launch_dkv(const void* q, const void* k, const void* v, const void* mask, const void* dout,
+               const void* lse, const void* delta, void* dk, void* dv, int B, int Sq, int Sk,
+               int H, int Hkv, long long q_sb, long long q_ss, long long k_sb, long long k_ss,
+               long long v_sb, long long v_ss, long long m_sb, long long do_sb,
+               long long do_ss, int causal, int window, int offset, float scale,
+               cudaStream_t stream) {
+  constexpr uint32_t smem = Layout<DH>::SMEM;
   static bool configured = false;
-  int rc = configure(flash_bwd_dkv_kernel, &configured);
+  int rc = configure(flash_bwd_dkv_kernel<DH>, smem, &configured);
   CUtensorMap tq, tk, tv, tdo;
-  if (!rc) rc = sm90::make_map_bshd(&tq, q, B, Sq, H, 2 * q_sb, 2 * q_ss, TILE);
-  if (!rc) rc = sm90::make_map_bshd(&tdo, dout, B, Sq, H, 2 * do_sb, 2 * do_ss, TILE);
-  if (!rc) rc = sm90::make_map_bshd(&tk, k, B, Sk, Hkv, 2 * k_sb, 2 * k_ss, BLOCK_ROWS);
-  if (!rc) rc = sm90::make_map_bshd(&tv, v, B, Sk, Hkv, 2 * v_sb, 2 * v_ss, BLOCK_ROWS);
+  if (!rc) rc = sm90::make_map_bshd(&tq, q, B, Sq, H, 2 * q_sb, 2 * q_ss, TILE, DH);
+  if (!rc) rc = sm90::make_map_bshd(&tdo, dout, B, Sq, H, 2 * do_sb, 2 * do_ss, TILE, DH);
+  if (!rc) rc = sm90::make_map_bshd(&tk, k, B, Sk, Hkv, 2 * k_sb, 2 * k_ss, BLOCK_ROWS, DH);
+  if (!rc) rc = sm90::make_map_bshd(&tv, v, B, Sk, Hkv, 2 * v_sb, 2 * v_ss, BLOCK_ROWS, DH);
   if (rc) return rc;
   dim3 grid((Sk + BLOCK_ROWS - 1) / BLOCK_ROWS, Hkv, B);
-  flash_bwd_dkv_kernel<<<grid, WG * CONSUMERS, SMEM, (cudaStream_t)stream>>>(
+  flash_bwd_dkv_kernel<DH><<<grid, WG * CONSUMERS, smem, stream>>>(
       tq, tk, tv, tdo, (const int*)mask, (const float*)lse, (const float*)delta, (bf16*)dk,
       (bf16*)dv, Sq, Sk, H, Hkv, H / Hkv, m_sb, causal, window, offset, scale);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// Strides are in elements, as the tensors give them; the tensor maps take
+// them in bytes (the wrapper checks that they are multiples of 8). Dh: 128
+// or 64 (another returns cudaErrorInvalidValue); `scale` is the softmax
+// scale the forward used, Dh^-0.5 of the model's head dim.
+extern "C" int gritlm_flash_bwd_dq(const void* q, const void* k, const void* v,
+                                   const void* mask, const void* dout, const void* lse,
+                                   const void* delta, void* dq, int B, int Sq, int Sk, int H,
+                                   int Hkv, int Dh, long long q_sb, long long q_ss,
+                                   long long k_sb, long long k_ss, long long v_sb,
+                                   long long v_ss, long long m_sb, long long do_sb,
+                                   long long do_ss, int causal, int window, int offset,
+                                   float scale, void* stream) {
+  if (Dh == 128)
+    return launch_dq<128>(q, k, v, mask, dout, lse, delta, dq, B, Sq, Sk, H, Hkv, q_sb, q_ss,
+                          k_sb, k_ss, v_sb, v_ss, m_sb, do_sb, do_ss, causal, window, offset,
+                          scale, (cudaStream_t)stream);
+  if (Dh == 64)
+    return launch_dq<64>(q, k, v, mask, dout, lse, delta, dq, B, Sq, Sk, H, Hkv, q_sb, q_ss,
+                         k_sb, k_ss, v_sb, v_ss, m_sb, do_sb, do_ss, causal, window, offset,
+                         scale, (cudaStream_t)stream);
+  return (int)cudaErrorInvalidValue;
+}
+
+extern "C" int gritlm_flash_bwd_dkv(const void* q, const void* k, const void* v,
+                                    const void* mask, const void* dout, const void* lse,
+                                    const void* delta, void* dk, void* dv, int B, int Sq,
+                                    int Sk, int H, int Hkv, int Dh, long long q_sb,
+                                    long long q_ss, long long k_sb, long long k_ss,
+                                    long long v_sb, long long v_ss, long long m_sb,
+                                    long long do_sb, long long do_ss, int causal, int window,
+                                    int offset, float scale, void* stream) {
+  if (Dh == 128)
+    return launch_dkv<128>(q, k, v, mask, dout, lse, delta, dk, dv, B, Sq, Sk, H, Hkv, q_sb,
+                           q_ss, k_sb, k_ss, v_sb, v_ss, m_sb, do_sb, do_ss, causal, window,
+                           offset, scale, (cudaStream_t)stream);
+  if (Dh == 64)
+    return launch_dkv<64>(q, k, v, mask, dout, lse, delta, dk, dv, B, Sq, Sk, H, Hkv, q_sb,
+                          q_ss, k_sb, k_ss, v_sb, v_ss, m_sb, do_sb, do_ss, causal, window,
+                          offset, scale, (cudaStream_t)stream);
+  return (int)cudaErrorInvalidValue;
 }

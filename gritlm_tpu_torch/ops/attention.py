@@ -14,9 +14,10 @@ version. `mha_reference` is the independent einsum oracle the tests hold
 the kernels against.
 
 Head dims: every path takes the call's Dh from q (the cache row is
-Kv * Dh). On CUDA tensors K3 and K8 run Dh 64, 96 and 128; K1 runs 64 and
-128 and zero-pads other multiples of 8 below 128 to 128; training
-(`FlashAttentionFn`) runs Dh 128 only and raises at any other.
+Kv * Dh). On CUDA tensors K3 and K8 run Dh 64, 96 and 128; K1, and in
+training (`FlashAttentionFn`) K1 with K4 and K5, run 64 and 128 and
+zero-pad other multiples of 8 below 128 to 128, with the true Dh^-0.5 as
+the softmax scale; a head dim above 128 raises NotImplementedError.
 """
 
 from __future__ import annotations

@@ -48,19 +48,25 @@ multiples of 8 elements) is exactly what TMA needs. `FlashAttentionFn`
 wires K1 with LSE, K4 and K5 into autograd; on CUDA tensors its backward
 launches K4 and K5 or raises.
 
-Head dims. K1 has two compiled instances, Dh 128 and Dh 64 (Llama-3.2-1B,
-Qwen2-0.5B): at 64 the Q and ring tiles are one 64-column half, S = Q K^T
-takes 4 k-steps and O += P V an m64n64k16 wgmma, on the Dh-128 schedule.
-Any other Dh below 128 that is a multiple of 8 (96: Phi-3-mini; 80:
-Phi-2) is zero-padded to 128 here, as the JAX wrapper pads to its
-128-lane multiple: q, k and v are copied into [.., 128] tensors (for a
-cache view, the whole layer's visible slots), the kernel runs at 128 with
+Head dims. K1, K4 and K5 each have two compiled instances, Dh 128 and
+Dh 64 (Llama-3.2-1B, Qwen2-0.5B), on the Dh-128 schedule: at 64 every
+resident and ring tile is one 64-column half, the products reduced over
+the head dim (S = Q K^T, dP = dO V^T) take 4 k-steps, and the products
+whose output columns are the head dim (O += P V, dQ += dS K, dK += dS^T
+Q, dV += P^T dO) are m64n64k16 wgmmas. Any other Dh below 128 that is a
+multiple of 8 (96: Phi-3-mini; 80: Phi-2) is zero-padded to 128 here, as
+the JAX wrapper pads to its 128-lane multiple: the kernels run at 128 with
 the true softmax scale Dh^-0.5 passed in (the JAX wrapper folds
-sqrt(128/Dh) into q instead), and the output's first Dh columns are copied
-out: three input copies and one output copy of the padded size a call.
-Dh above 128 raises NotImplementedError. K4 and K5 take Dh 128 only, so
-`FlashAttentionFn` raises NotImplementedError on CUDA tensors at any other
-Dh before its forward runs (training of Dh-64 models is ROADMAP Queue 2 A).
+sqrt(128/Dh) into q instead). `flash_attention` copies q, k and v into
+[.., 128] tensors (for a cache view, the whole layer's visible slots) and
+copies the output's first Dh columns out: three input copies and one
+output copy of the padded size a call. Under autograd `FlashAttentionFn`
+saves the unpadded q, k, v and output, so a padded head dim keeps no more
+activation memory than a native one, and `flash_attention_bwd` pads again:
+q, k, v and dO are copied into [.., 128] tensors, K4 and K5 run at 128 with
+the same Dh^-0.5, and dq, dk and dv are their first Dh columns (delta =
+rowsum(dO * O) is taken at Dh: zero columns add nothing to it). Dh above
+128 raises NotImplementedError, in training too.
 
 Differences from the TPU kernel: any Sq runs the kernel (the TPU version
 needed Sq >= 128 and sent shorter queries to an einsum); the padded head
@@ -76,8 +82,10 @@ import torch
 from gritlm_tpu_torch.ops import _build
 
 NEG_INF = -1e30
-HEAD_DIM = 128  # K4/K5's head dim, and the width K1 pads other head dims to
-KERNEL_HEAD_DIMS = (64, 128)  # K1's compiled instances (csrc/flash_attention.cu)
+HEAD_DIM = 128  # the width the kernels pad other head dims to
+# K1's, K4's and K5's compiled instances (csrc/flash_attention.cu,
+# csrc/flash_attention_bwd.cu)
+KERNEL_HEAD_DIMS = (64, 128)
 
 
 def keep_mask(
@@ -108,12 +116,12 @@ def keep_mask(
     return keep
 
 
-def _scores_plain(q, k, keep) -> torch.Tensor:
+def _scores_plain(q, k, keep, scale: float) -> torch.Tensor:
     """Scaled fp32 scores [B, Hkv, G, Sq, Sk], NEG_INF where not kept."""
     B, Sq, H, Dh = q.shape
     Hkv = k.shape[2]
     qg = q.float().reshape(B, Sq, Hkv, H // Hkv, Dh)
-    s = torch.einsum("bqhgd,bkhd->bhgqk", qg, k.float()) * Dh ** -0.5
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qg, k.float()) * scale
     return s.masked_fill(~keep[:, None, None], NEG_INF)
 
 
@@ -123,7 +131,7 @@ def attend_plain(q, k, v, keep, return_lse: bool = False):
     return_lse also the rows' log-sum-exp [B, H, Sq] (NEG_INF for a row with
     no kept key), as K1 writes it."""
     B, Sq, H, Dh = q.shape
-    s = _scores_plain(q, k, keep)
+    s = _scores_plain(q, k, keep, Dh ** -0.5)
     m = s.amax(-1, keepdim=True)
     p = torch.exp(s - m) * keep[:, None, None]
     l = p.sum(-1, keepdim=True)
@@ -148,40 +156,42 @@ def flash_attention_plain(q, k, v, padding_mask, *, causal, sliding_window=None,
 
 
 def _bwd_plain_parts(q, k, v, padding_mask, do, lse, delta, *, causal, sliding_window,
-                     offset):
+                     offset, scale=None):
     """P and dS [B, Hkv, G, Sq, Sk] fp32, rebuilt from the saved LSE under
-    the forward's keep mask (selected, never multiplied, to 0 elsewhere)."""
+    the forward's keep mask (selected, never multiplied, to 0 elsewhere),
+    at the forward's softmax scale (default Dh^-0.5)."""
     B, Sq, H, Dh = q.shape
     Hkv = k.shape[2]
+    if scale is None:
+        scale = Dh ** -0.5
     if not causal:
         sliding_window = None
     keep = keep_mask(padding_mask, Sq, k.shape[1], causal=causal,
                      sliding_window=sliding_window, offset=offset, device=q.device)
     keep = keep[:, None, None]
     rows = (B, Hkv, H // Hkv, Sq, 1)
-    s = _scores_plain(q, k, keep[:, 0, 0])
+    s = _scores_plain(q, k, keep[:, 0, 0], scale)
     p = torch.where(keep, torch.exp(s - lse.float().reshape(rows)), 0.0)
     dog = do.float().reshape(B, Sq, Hkv, H // Hkv, Dh)
     dp = torch.einsum("bqhgd,bkhd->bhgqk", dog, v.float())
-    ds = torch.where(keep, p * (dp - delta.float().reshape(rows)) * Dh ** -0.5, 0.0)
+    ds = torch.where(keep, p * (dp - delta.float().reshape(rows)) * scale, 0.0)
     return p, ds, dog
 
 
 def flash_attention_bwd_dq_plain(q, k, v, padding_mask, do, lse, delta, *, causal,
-                                 sliding_window=None, offset=0) -> torch.Tensor:
+                                 sliding_window=None, offset=0, scale=None) -> torch.Tensor:
     """The plain PyTorch version of K4: dQ = dS K, [B, Sq, H, Dh] in q's dtype."""
     _, ds, _ = _bwd_plain_parts(q, k, v, padding_mask, do, lse, delta, causal=causal,
-                                sliding_window=sliding_window, offset=offset)
+                                sliding_window=sliding_window, offset=offset, scale=scale)
     return torch.einsum("bhgqk,bkhd->bqhgd", ds, k.float()).reshape(q.shape).to(q.dtype)
 
 
 def flash_attention_bwd_dkv_plain(q, k, v, padding_mask, do, lse, delta, *, causal,
-                                  sliding_window=None, offset=0):
+                                  sliding_window=None, offset=0, scale=None):
     """The plain PyTorch version of K5: (dK = dS^T Q, dV = P^T dO), each
     [B, Sk, Hkv, Dh] in k's dtype, summed over each GQA group."""
-    B, Sq, H, Dh = q.shape
     p, ds, dog = _bwd_plain_parts(q, k, v, padding_mask, do, lse, delta, causal=causal,
-                                  sliding_window=sliding_window, offset=offset)
+                                  sliding_window=sliding_window, offset=offset, scale=scale)
     qg = q.float().reshape(dog.shape)
     dk = torch.einsum("bhgqk,bqhgd->bkhd", ds, qg)
     dv = torch.einsum("bhgqk,bqhgd->bkhd", p, dog)
@@ -210,37 +220,37 @@ def _fn(name: str = "gritlm_flash_fwd", lib: str = "flash_attention"):
         if name == "gritlm_flash_fwd":
             fn.argtypes = [P] * 6 + [I32] * 6 + [I64] * 7 + [I32] * 3 + [F32, P]
         elif name == "gritlm_flash_bwd_dq":
-            fn.argtypes = [P] * 8 + [I32] * 5 + [I64] * 9 + [I32] * 3 + [F32, P]
+            fn.argtypes = [P] * 8 + [I32] * 6 + [I64] * 9 + [I32] * 3 + [F32, P]
         else:  # gritlm_flash_bwd_dkv
-            fn.argtypes = [P] * 9 + [I32] * 5 + [I64] * 9 + [I32] * 3 + [F32, P]
+            fn.argtypes = [P] * 9 + [I32] * 6 + [I64] * 9 + [I32] * 3 + [F32, P]
         fn.restype = I32
     return fn
 
 
-def _check_bshd(t: torch.Tensor, name: str, dims=(HEAD_DIM,)) -> None:
-    """[B, S, heads, Dh] bf16, Dh one of `dims`, whose head and dim axes are
-    dense (any batch and sequence strides, 16-byte aligned), as the kernel
-    reads it."""
+def _check_bshd(t: torch.Tensor, name: str) -> None:
+    """[B, S, heads, Dh] bf16, Dh one of KERNEL_HEAD_DIMS, whose head and
+    dim axes are dense (any batch and sequence strides, 16-byte aligned), as
+    the kernels read it."""
     if t.dtype != torch.bfloat16:
         raise TypeError(f"flash_attention: {name} must be bfloat16, got {t.dtype}")
-    if t.dim() != 4 or t.shape[3] not in dims:
-        raise NotImplementedError(
-            f"flash_attention: {name} must be [B, S, heads, Dh in {dims}], got {tuple(t.shape)}")
+    if t.dim() != 4 or t.shape[3] not in KERNEL_HEAD_DIMS:
+        raise NotImplementedError(f"flash_attention: {name} must be [B, S, heads, Dh in "
+                                  f"{KERNEL_HEAD_DIMS}], got {tuple(t.shape)}")
     if t.stride(3) != 1 or t.stride(2) != t.shape[3] or t.stride(0) % 8 or t.stride(1) % 8 \
             or t.data_ptr() % 16:
         raise ValueError(f"flash_attention: {name} strides {t.stride()} not supported")
 
 
 def kernel_head_dim(Dh: int) -> int:
-    """The head dim K1 runs a call of head dim Dh at: Dh itself for a
-    compiled instance, else 128 (zero-padded; Dh < 128 and Dh % 8 == 0).
-    Raises NotImplementedError for any other Dh."""
+    """The head dim K1, K4 and K5 run a call of head dim Dh at: Dh itself
+    for a compiled instance, else 128 (zero-padded; Dh < 128 and Dh % 8 ==
+    0). Raises NotImplementedError for any other Dh."""
     if Dh in KERNEL_HEAD_DIMS:
         return Dh
     if Dh < HEAD_DIM and Dh % 8 == 0:
         return HEAD_DIM
     raise NotImplementedError(
-        f"flash_attention: head dim {Dh} (the kernel runs 64 and 128, and pads multiples of 8 "
+        f"flash_attention: head dim {Dh} (the kernels run 64 and 128, and pad multiples of 8 "
         f"below 128 to 128)")
 
 
@@ -257,9 +267,9 @@ def _kernel_mask(padding_mask, B: int, Sk: int, device) -> torch.Tensor:
     return padding_mask.to(torch.int32).contiguous()
 
 
-def _check_qkv(q, k, v, offset, dims=(HEAD_DIM,)) -> None:
+def _check_qkv(q, k, v, offset) -> None:
     for t, name in ((q, "q"), (k, "k"), (v, "v")):
-        _check_bshd(t, name, dims)
+        _check_bshd(t, name)
     if k.shape != v.shape or k.shape[0] != q.shape[0] or q.shape[2] % k.shape[2]:
         raise ValueError(f"flash_attention: shapes q {tuple(q.shape)} k {tuple(k.shape)} "
                          f"v {tuple(v.shape)}")
@@ -300,7 +310,7 @@ def flash_attention(
         if not (q.dtype == k.dtype == v.dtype == torch.bfloat16):
             raise TypeError("flash_attention: q, k and v must be bfloat16")
         q, k, v = (_pad_heads(t, Dk) for t in (q, k, v))
-    _check_qkv(q, k, v, offset, KERNEL_HEAD_DIMS)
+    _check_qkv(q, k, v, offset)
     mask = _kernel_mask(padding_mask, B, Sk, q.device)
     # the window is part of the causal mask (bidirectional calls ignore it)
     window = sliding_window if (causal and sliding_window) else 0
@@ -321,11 +331,11 @@ def flash_attention(
 flash_attention.launches = 0
 
 
-def _bwd_args(q, k, v, padding_mask, do, lse, delta, causal, sliding_window, offset):
+def _bwd_args(q, k, v, padding_mask, do, lse, delta, causal, sliding_window, offset, scale):
     """Checks and the shared leading arguments of K4 and K5, and the int32
     mask whose pointer they hold (the caller keeps it alive through the
-    launch)."""
-    B, Sq, H, _ = q.shape
+    launch). `scale` is the forward's softmax scale (None: Dh^-0.5)."""
+    B, Sq, H, Dh = q.shape
     Sk = k.shape[1]
     _check_qkv(q, k, v, offset)
     _check_bshd(do, "do")
@@ -337,23 +347,25 @@ def _bwd_args(q, k, v, padding_mask, do, lse, delta, causal, sliding_window, off
     window = sliding_window if (causal and sliding_window) else 0
     head = (q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(), do.data_ptr(),
             lse.data_ptr(), delta.data_ptr())
-    tail = (B, Sq, Sk, H, k.shape[2], q.stride(0), q.stride(1), k.stride(0), k.stride(1),
+    tail = (B, Sq, Sk, H, k.shape[2], Dh, q.stride(0), q.stride(1), k.stride(0), k.stride(1),
             v.stride(0), v.stride(1), mask.stride(0), do.stride(0), do.stride(1),
-            int(causal), int(window), offset, q.shape[3] ** -0.5, _build.stream_of(q))
+            int(causal), int(window), offset, Dh ** -0.5 if scale is None else scale,
+            _build.stream_of(q))
     return head, tail, mask
 
 
 def flash_attention_bwd_dq(q, k, v, padding_mask, do, lse, delta, *, causal,
-                           sliding_window=None, offset=0) -> torch.Tensor:
-    """K4: dQ [B, Sq, H, Dh] from the saved LSE and delta [B, H, Sq]. CPU
-    tensors run the plain version; CUDA tensors run the kernel or raise."""
+                           sliding_window=None, offset=0, scale=None) -> torch.Tensor:
+    """K4: dQ [B, Sq, H, Dh] from the saved LSE and delta [B, H, Sq], at the
+    forward's softmax scale (None: Dh^-0.5). CPU tensors run the plain
+    version; CUDA tensors run the kernel (Dh 64 or 128) or raise."""
     if _build.plain_path(q, k, v, padding_mask, do, lse, delta):
         return flash_attention_bwd_dq_plain(q, k, v, padding_mask, do, lse, delta,
                                             causal=causal, sliding_window=sliding_window,
-                                            offset=offset)
+                                            offset=offset, scale=scale)
     fn = _fn("gritlm_flash_bwd_dq", "flash_attention_bwd")
     head, tail, _mask = _bwd_args(q, k, v, padding_mask, do, lse, delta, causal,
-                                  sliding_window, offset)
+                                  sliding_window, offset, scale)
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     _build.check(fn(*head, dq.data_ptr(), *tail), "flash_attention_bwd_dq")
     flash_attention_bwd_dq.launches += 1
@@ -364,16 +376,17 @@ flash_attention_bwd_dq.launches = 0
 
 
 def flash_attention_bwd_dkv(q, k, v, padding_mask, do, lse, delta, *, causal,
-                            sliding_window=None, offset=0):
-    """K5: (dK, dV), each [B, Sk, Hkv, Dh], summed over each GQA group. CPU
-    tensors run the plain version; CUDA tensors run the kernel or raise."""
+                            sliding_window=None, offset=0, scale=None):
+    """K5: (dK, dV), each [B, Sk, Hkv, Dh], summed over each GQA group, at
+    the forward's softmax scale (None: Dh^-0.5). CPU tensors run the plain
+    version; CUDA tensors run the kernel (Dh 64 or 128) or raise."""
     if _build.plain_path(q, k, v, padding_mask, do, lse, delta):
         return flash_attention_bwd_dkv_plain(q, k, v, padding_mask, do, lse, delta,
                                              causal=causal, sliding_window=sliding_window,
-                                             offset=offset)
+                                             offset=offset, scale=scale)
     fn = _fn("gritlm_flash_bwd_dkv", "flash_attention_bwd")
     head, tail, _mask = _bwd_args(q, k, v, padding_mask, do, lse, delta, causal,
-                                  sliding_window, offset)
+                                  sliding_window, offset, scale)
     dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
     dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
     _build.check(fn(*head, dk.data_ptr(), dv.data_ptr(), *tail), "flash_attention_bwd_dkv")
@@ -387,29 +400,36 @@ flash_attention_bwd_dkv.launches = 0
 def flash_attention_bwd(q, k, v, padding_mask, out, lse, do, *, causal,
                         sliding_window=None, offset=0):
     """The backward from the forward's saved output and LSE: delta by torch
-    ops, then K4 and K5 (their plain versions on CPU tensors). Returns
-    (dq, dk, dv) in the inputs' dtypes."""
-    kw = dict(causal=causal, sliding_window=sliding_window, offset=offset)
+    ops, then K4 and K5 (their plain versions on CPU tensors). On CUDA
+    tensors of a head dim without an instance, q, k, v and dO are
+    zero-padded to the kernels' width and the gradients sliced back, with
+    the scale of the true head dim. Returns (dq, dk, dv) in the inputs'
+    dtypes."""
+    Dh = q.shape[3]
+    kw = dict(causal=causal, sliding_window=sliding_window, offset=offset, scale=Dh ** -0.5)
     do = do.contiguous()
     delta = attention_delta(out, do)
+    Dk = Dh if _build.plain_path(q, k, v, padding_mask, do) else kernel_head_dim(Dh)
+    if Dk != Dh:
+        q, k, v, do = (_pad_heads(t, Dk) for t in (q, k, v, do))
     dq = flash_attention_bwd_dq(q, k, v, padding_mask, do, lse, delta, **kw)
     dk, dv = flash_attention_bwd_dkv(q, k, v, padding_mask, do, lse, delta, **kw)
+    if Dk != Dh:
+        dq, dk, dv = (g[..., :Dh] for g in (dq, dk, dv))
     return dq, dk, dv
 
 
 class FlashAttentionFn(torch.autograd.Function):
     """Attention with the flash backward: the forward runs K1 with its LSE
-    output and saves q, k, v, the mask, the output and the LSE; the backward
-    runs K4 and K5 (on CPU tensors, the plain versions of all three). K4 and
-    K5 take head dim 128 only: on CUDA tensors of another head dim it raises
-    NotImplementedError before the forward runs."""
+    output and saves q, k, v, the mask, the output and the LSE (unpadded);
+    the backward runs K4 and K5 (on CPU tensors, the plain versions of all
+    three). Head dims 64 and 128 run their own instances, other multiples
+    of 8 below 128 the 128 ones through the zero pad (forward and backward
+    each pad their own copies); a head dim above 128 raises
+    NotImplementedError."""
 
     @staticmethod
     def forward(ctx, q, k, v, padding_mask, causal: bool, sliding_window, offset: int):
-        if q.device.type == "cuda" and q.shape[-1] != HEAD_DIM:
-            raise NotImplementedError(
-                f"FlashAttentionFn: head dim {q.shape[-1]}: the flash backward (K4, K5) takes "
-                f"head dim {HEAD_DIM} only; training at head dims 64 and 96 is ROADMAP Queue 2 A")
         out, lse = flash_attention(q, k, v, padding_mask, causal=causal,
                                    sliding_window=sliding_window, offset=offset,
                                    return_lse=True)

@@ -1429,7 +1429,7 @@ def test_paged_decode_kernel_head_dims(cuda, Dh, H, Hkv, Sq, quant):
 def test_head_dims_without_an_instance_raise(cuda):
     """A CUDA tensor at a head dim no kernel takes raises (no plain or
     library fallback): K1 at Dh 256, K3 and K8 at Dh 80; FlashAttentionFn at
-    Dh 64 raises before its forward launches K1."""
+    Dh 256 raises before its forward launches K1."""
     from gritlm_tpu_torch.ops import paged_attention
 
     gen = torch.Generator(device=cuda).manual_seed(70)
@@ -1446,12 +1446,117 @@ def test_head_dims_without_an_instance_raise(cuda):
     mask = torch.ones((2, 256), dtype=torch.int32, device=cuda)
     with pytest.raises(NotImplementedError):
         paged_attention.paged_decode(q80, pages, pages, pt, mask)
-    q64 = _randn(gen, 1, 16, 4, 64, device=cuda).requires_grad_()
-    k64 = _randn(gen, 1, 16, 2, 64, device=cuda).requires_grad_()
+    q.requires_grad_()
     before = flash_attention.flash_attention.launches
-    with pytest.raises(NotImplementedError, match="Queue 2 A"):
-        flash_attention.FlashAttentionFn.apply(q64, k64, k64, None, True, None, 0)
+    with pytest.raises(NotImplementedError):
+        flash_attention.FlashAttentionFn.apply(q, k, k, None, True, None, 0)
     assert flash_attention.flash_attention.launches == before
+
+
+@pytest.mark.parametrize("causal,window,offset,Sq,Sk,empty_row", [
+    (True, None, 0, 300, 300, False), (False, None, 0, 300, 300, True),
+    (True, 64, 0, 300, 300, False), (True, None, 100, 200, 333, False)])
+@pytest.mark.parametrize("Dh,H,Hkv", HEAD_DIM_GEOMETRIES)
+def test_flash_backward_kernels_head_dims(cuda, Dh, H, Hkv, causal, window, offset, Sq, Sk,
+                                          empty_row):
+    """K4 and K5 at Dh 64 (their own instances) and 96 (flash_attention_bwd
+    zero-pads q, k, v and dO to 128 and passes the scale 96^-0.5) against
+    the plain backward from the same saved LSE, one launch each; a padded
+    tail, a window, an offset; a row with no valid key gets exactly zero
+    gradients; a rerun bit-equal. Tolerance: 2% of the largest gradient, as
+    test_flash_backward_kernels."""
+    gen = torch.Generator(device=cuda).manual_seed(80 + Dh)
+    B = 2
+    q = _randn(gen, B, Sq, H, Dh, device=cuda)
+    k, v = _randn(gen, B, Sk, Hkv, Dh, device=cuda), _randn(gen, B, Sk, Hkv, Dh, device=cuda)
+    do = _randn(gen, B, Sq, H, Dh, device=cuda)
+    mask = torch.ones((B, Sk), dtype=torch.int32, device=cuda)
+    mask[1, Sk - 40:] = 0
+    if empty_row:
+        mask[0] = 0
+    kw = dict(causal=causal, sliding_window=window, offset=offset)
+    out, lse = flash_attention.flash_attention(q, k, v, mask, return_lse=True, **kw)
+    before = (flash_attention.flash_attention_bwd_dq.launches,
+              flash_attention.flash_attention_bwd_dkv.launches)
+    got = flash_attention.flash_attention_bwd(q, k, v, mask, out, lse, do, **kw)
+    again = flash_attention.flash_attention_bwd(q, k, v, mask, out, lse, do, **kw)
+    torch.cuda.synchronize()
+    assert (flash_attention.flash_attention_bwd_dq.launches,
+            flash_attention.flash_attention_bwd_dkv.launches) == (before[0] + 2, before[1] + 2)
+    want = flash_attention.flash_attention_bwd_plain(q, k, v, mask, out, lse, do, **kw)
+    for g, w, a in zip(got, want, again):
+        assert g.shape == w.shape and g.dtype == w.dtype and torch.isfinite(g).all()
+        tol = 2e-2 * float(w.float().abs().max())
+        torch.testing.assert_close(g.float(), w.float(), atol=tol, rtol=0)
+        assert torch.equal(g, a)
+        if empty_row:
+            assert float(g[0].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("Dh,H,Hkv", HEAD_DIM_GEOMETRIES)
+def test_flash_attention_fn_head_dims_on_cuda(cuda, Dh, H, Hkv):
+    """Training attention at Dh 64 and 96: multi_head_attention under grad
+    goes through FlashAttentionFn (K1 with LSE, K4, K5, one launch each),
+    its gradients follow autograd through the plain forward (2% of the
+    largest) and have the inputs' shapes."""
+    from gritlm_tpu_torch.ops.attention import multi_head_attention
+
+    gen = torch.Generator(device=cuda).manual_seed(90 + Dh)
+    q, k, v = (x.requires_grad_(True) for x in (_randn(gen, 2, 256, H, Dh, device=cuda),
+                                                 _randn(gen, 2, 256, Hkv, Dh, device=cuda),
+                                                 _randn(gen, 2, 256, Hkv, Dh, device=cuda)))
+    mask = torch.ones((2, 256), dtype=torch.int32, device=cuda)
+    mask[0, 200:] = 0
+    w = _randn(gen, 2, 256, H, Dh, device=cuda).float()
+    wrappers = (flash_attention.flash_attention, flash_attention.flash_attention_bwd_dq,
+                flash_attention.flash_attention_bwd_dkv)
+    before = [f.launches for f in wrappers]
+    out = multi_head_attention(q, k, v, mask, causal=True)
+    got = torch.autograd.grad((out.float() * w).sum(), (q, k, v))
+    assert [f.launches - b for f, b in zip(wrappers, before)] == [1, 1, 1]
+    ref = flash_attention.flash_attention_plain(q, k, v, mask, causal=True)
+    want = torch.autograd.grad((ref.float() * w).sum(), (q, k, v))
+    for g, r, x in zip(got, want, (q, k, v)):
+        assert g.shape == x.shape
+        torch.testing.assert_close(g.float(), r.float(), rtol=0,
+                                   atol=2e-2 * float(r.float().abs().max()))
+
+
+@pytest.mark.parametrize("head_dim", [64, 96])
+def test_llama_lora_step_on_cuda(cuda, head_dim):
+    """A narrow Llama-3.2-1B-shaped model (tied embeddings, llama3 RoPE) at
+    head dims 64 and 96: two LoRA steps on the card with finite losses,
+    attention forward and backward through K1, K4 and K5 (K1 twice a layer
+    with remat), and the adapters move from step 2 on."""
+    from gritlm_tpu_torch.models.transformer import init_params
+    from gritlm_tpu_torch.tokenizer import ByteTokenizer
+    from gritlm_tpu_torch.training.data import GritCollator
+    from gritlm_tpu_torch.training.lora import make_lora_train_state
+    from gritlm_tpu_torch.training.train import TrainConfig
+
+    cfg = ModelConfig.from_hf_config(dict(
+        model_type="llama", hidden_size=256, intermediate_size=512, num_hidden_layers=2,
+        num_attention_heads=4, num_key_value_heads=2, head_dim=head_dim, vocab_size=512,
+        max_position_embeddings=4096, rope_theta=500000.0, tie_word_embeddings=True,
+        rope_scaling=dict(rope_type="llama3", factor=32.0, low_freq_factor=1.0,
+                          high_freq_factor=4.0, original_max_position_embeddings=8192)),
+        dtype="bfloat16")
+    coll = GritCollator(ByteTokenizer(), query_max_len=64, passage_max_len=128,
+                        generative_max_len=128)
+    batch = coll([(("find", f"query {i}"), [("find", f"passage {i}"), ("find", f"junk {i}")],
+                   [f"what is {i}?", f"it is {i}"]) for i in range(4)])
+    tc = TrainConfig(total_steps=4, warmup_ratio=0.25, learning_rate=1e-3)
+    run_step, state, _, _ = make_lora_train_state(cfg, tc, init_params(cfg, 0, device=cuda),
+                                                  r=4, alpha=8, device=cuda)
+    wrappers = (flash_attention.flash_attention, flash_attention.flash_attention_bwd_dq,
+                flash_attention.flash_attention_bwd_dkv)
+    before = [f.launches for f in wrappers]
+    for _ in range(2):
+        state, m = run_step(state, batch)
+    assert all(torch.isfinite(x) for x in (m.loss, m.loss_emb, m.loss_gen, m.grad_norm))
+    n = [f.launches - b for f, b in zip(wrappers, before)]
+    assert n[1] > 0 and n[1] == n[2] and n[0] >= 2 * n[1]
+    assert float(state.params["layers"]["attn"]["wq"]["B"].detach().abs().max()) > 0
 
 
 def test_llama_head_dim_64_serving_path_on_cuda(cuda):

@@ -18,14 +18,14 @@ einsum paths, as its own tests run them. Tolerances: embeddings 1e-5, as
 tests/test_torch_model.py holds the Mistral ones (float32 sums in another
 order); greedy tokens, served tokens and RAG answers equal.
 
-Also: `FlashAttentionFn` trains at head dim 64 on the CPU, its gradients
-within 1e-4 of `jax.grad` through the JAX flash kernel (interpret mode),
-as tests/test_flash.py holds the JAX side against its reference, and
-raises on CUDA tensors below head dim 128; K1's head-dim rule.
+Also: `FlashAttentionFn` trains at head dims 64 and 96 on the CPU, its
+gradients within 1e-4 of `jax.grad` through the JAX flash kernel
+(interpret mode), as tests/test_flash.py holds the JAX side against its
+reference; the kernels' head-dim rule. The train steps at these head dims
+and the arguments the kernels get are in tests/test_torch_headdim_train.py.
 """
 
 import functools
-from unittest import mock
 
 import jax
 import jax.numpy as jnp
@@ -187,13 +187,16 @@ def test_rag_doc_mode_matches_jax(head_dim):
     assert [r.answer for r in got] == [r.answer for r in want]
 
 
-@pytest.mark.parametrize("causal", [False, True])
-def test_flash_attention_fn_trains_at_head_dim_64(causal):
-    """FlashAttentionFn on CPU tensors at head dim 64 (its plain forward and
-    backward): the gradients of sum(out^2) within GRAD_ATOL of jax.grad
-    through the JAX flash kernel, which pads 64 to 128 lanes."""
+@pytest.mark.parametrize("head_dim,causal", [
+    pytest.param(64, False, id="False"), pytest.param(64, True, id="True"),
+    pytest.param(96, False, id="96-False"), pytest.param(96, True, id="96-True")])
+def test_flash_attention_fn_trains_at_head_dim_64(head_dim, causal):
+    """FlashAttentionFn on CPU tensors at head dims 64 and 96 (its plain
+    forward and backward): the gradients of sum(out^2) within GRAD_ATOL of
+    jax.grad through the JAX flash kernel, which pads 64 and 96 to 128
+    lanes."""
     rng = np.random.default_rng(11)
-    B, S, H, Hkv, Dh = 2, 128, 4, 2, 64
+    B, S, H, Hkv, Dh = 2, 128, 4, 2, head_dim
     q, k, v = (rng.normal(size=(B, S, h, Dh)).astype(np.float32) for h in (H, Hkv, Hkv))
     mask = np.ones((B, S), np.int32)
     mask[1, 100:] = 0
@@ -213,23 +216,12 @@ def test_flash_attention_fn_trains_at_head_dim_64(causal):
 @pytest.mark.parametrize("Dh,want", [(64, 64), (128, 128), (96, 128), (80, 128), (32, 128),
                                      (256, None), (100, None)])
 def test_k1_head_dims(Dh, want):
-    """K1 runs head dims 64 and 128 as compiled instances, zero-pads other
-    multiples of 8 below 128 to 128, and raises for any other head dim."""
+    """K1, K4 and K5 run head dims 64 and 128 as compiled instances,
+    zero-pad other multiples of 8 below 128 to 128, and raise for any other
+    head dim."""
     if want is None:
         with pytest.raises(NotImplementedError):
             flash_attention.kernel_head_dim(Dh)
     else:
         assert flash_attention.kernel_head_dim(Dh) == want
 
-
-def test_flash_attention_fn_raises_on_cuda_below_head_dim_128(monkeypatch):
-    """On a CUDA tensor of head dim 64 FlashAttentionFn raises (K4 and K5
-    take 128 only) before its forward reaches K1; no card needed: the
-    tensor is a stand-in that reports a CUDA device."""
-    q = mock.MagicMock(spec=torch.Tensor)
-    q.device = torch.device("cuda", 0)
-    q.shape = torch.Size((1, 16, 4, 64))
-    monkeypatch.setattr(flash_attention, "flash_attention",
-                        mock.Mock(side_effect=AssertionError("forward launched")))
-    with pytest.raises(NotImplementedError, match="Queue 2 A"):
-        FlashAttentionFn.forward(mock.Mock(), q, q, q, None, True, None, 0)
