@@ -22,11 +22,14 @@ aux loss, gshard's capacity drops, `training.run --moe_impl
 remat policies of LoRA training; then head dims 64 and 96 in flash
 attention, flash decode and paged decode, and Llama-3.2-1B at its
 published width and depth through encode, generate, the serving engine
-and RAG; last, the flash backward at head dims 64 and 96 and GRIT training
-of Llama-3.2-1B at its published width and depth), and times each kernel
-beside its bound, its plain version and one PyTorch library call.
+and RAG; the flash backward at head dims 64 and 96 and GRIT training of
+Llama-3.2-1B at its published width and depth; the evaluation path: the
+MTEB CLI with the generative reranker over an fp32 index, the generative
+benchmarks, hard-negative mining and the checkpoint tools), and times each
+kernel beside its bound, its plain version and one PyTorch library call.
 
-Phases (in the order 1-7, 12, 14, 8, 9, 11, 16, 13, 15, 10, 17), any failure exits non-zero:
+Phases (in the order 1-7, 12, 14, 8, 9, 11, 18's eval leg, 16, 13, 15, 10,
+17, 18's tools leg), any failure exits non-zero:
   1. device and build: card name and power limit, nvcc's register and
      shared-memory report; for the redesigned kernels (K1, K4/K5, K9 on
      wgmma; K3, K8, K6 and K7 on mma.sync; K2 on bulk copies and clusters)
@@ -36,7 +39,8 @@ Phases (in the order 1-7, 12, 14, 8, 9, 11, 16, 13, 15, 10, 17), any failure exi
      the build cache, so a cached build is checked too)
   2. each kernel against its plain version on the card (K1 and its LSE at
      three shapes; K9 at three shapes: a masked tail, Q = 3, a partial
-     last segment; K3 at Sq 1 and 64, its int8 cache, and the serving
+     last segment, and K9 [f32] at the same three within K9_F32_ATOL, each
+     rerun bit-equal; K3 at Sq 1 and 64, its int8 cache, and the serving
      decode chunk's call (B 8, Smax 4096, mask-bounded, ragged rows); K8
      at the serving shape, bf16 and int8, Sq 1 and a causal Sq 8 chunk, and
      against K3 on the same logical cache laid out dense; K2 at B 8 S 512
@@ -85,7 +89,9 @@ Phases (in the order 1-7, 12, 14, 8, 9, 11, 16, 13, 15, 10, 17), any failure exi
      call by CUDA events around graph replays over copies of the hidden
      state so that every read is cold, at B 8 S 512 mean (the table's row)
      and weightedmean, B 1 S 4096 and B 64 S 128, its device operations a
-     call counted from a captured graph, more than one failing), encode and
+     call counted from a captured graph, more than one failing; K9 [f32] at
+     Q 256 against 2^18 fp32 rows of 4096 beside torch.mm in fp32 with TF32
+     off, its bound from the card's SM count and clock), encode and
      decode rates, and a profile (device time by kernel, idle share) of one
      encode and one short generate
  10. training at full width (after the inference model is freed):
@@ -256,7 +262,24 @@ Phases (in the order 1-7, 12, 14, 8, 9, 11, 16, 13, 15, 10, 17), any failure exi
      valid tokens/s and peak GiB; K1, K4 and K5 must each launch (all at Dh
      64); then K4 and K5 at Dh 64 timed as in phase 10 (the kernels line's
      [dh64] backward rows), K1 at Dh 96 (B4 S512, H 16, Hkv 8, through the
-     pad) and the Dh-96 backward through the pad, each beside SDPA
+     pad) and the Dh-96 backward through the pad, each beside SDPA; the
+     full-parameter state is saved as a training checkpoint for phase 18
+ 18. the evaluation path. Its eval leg runs after phase 11, once the
+     Mistral-7B inference model is freed (eval_phase): at Mistral-7B width
+     with random bf16 weights (seed 0), `python -m gritlm_tpu_torch.eval.mteb`'s
+     main on a planted BEIR task (1,024 docs, 128 queries, 64 of them each
+     its relevant doc's own text) with the reranker at top 10, through K1,
+     K2 and K9 [f32] alone (the retrieval eval's fp32 index), planted
+     dense recall@1 = 1, the search ids against a plain fp32 top-k, the
+     reranked head above its tail, then eval.aggregate; the generative
+     benchmarks (multiple choice batched against sequential,
+     score_continuations against a plain log-softmax, GSM8K and QA
+     generation through K1 and K3), hard-negative mining through K9's bf16
+     kernel and data_prep.validate_file; rates of each. Its tools leg runs
+     after phase 17, on phase 17's Llama-3.2-1B export and full-parameter
+     checkpoint (tools_phase): verify-checkpoint on the card through K1,
+     K2 and K9 [f32], shard, strip-prefix and export-hf, each read back
+     and checked
 
 Output: a `kernels` JSON line, the card line, then as the last line
 {"ok": true, "device": {...}}. Exits 2 with no result when there is no CUDA
@@ -288,6 +311,10 @@ LSE_ATOL = 1e-3  # fp32 log-sum-exp of the same bf16 scores, summed in another o
 GC_LOSS_RTOL = 1e-2  # GradCache: the same bf16 forwards in chunks of half the batch
 POOL_ATOL = 1e-4  # fp32 sums of the same bf16 inputs in another order
 K9_ATOL = 1e-3  # fp32 sums of the same bf16 products in another order, unit vectors
+# K9 [f32]: exact fp32 products summed in another order (the kernel's FMA
+# chain against cuBLAS' fp32 product, TF32 off) on unit vectors of width 4096
+K9_F32_ATOL = 1e-5
+K9_F32 = "scores_segmax[f32]"  # the kernels line's row of K9's fp32 kernel
 COSINE_MIN = 0.999
 # Teacher forcing of the serving runs: an engine token may sit this far below
 # its position's largest bf16 logit in one lockstep forward over the same
@@ -390,15 +417,35 @@ def peak_note(rate: float, peak: float) -> str:
     return "" if rate <= peak else " INVALID: above the card's peak"
 
 
-# The redesigned kernels and their sources: ptxas must give them no spills
-# and (the wgmma kernels) no serialised wgmma (phase 1).
-PTXAS_KERNELS = (("K1", "flash_attention", "gritlm_flash_fwd_smem"),
-                 ("K4, K5", "flash_attention_bwd", None),
-                 ("K9", "scores_segmax", "gritlm_scores_segmax_smem"),
-                 ("K3", "decode_attention", None),
-                 ("K8", "paged_attention", None),
-                 ("K7, K6", "quant_matmul", None),
-                 ("K2", "fused_pool", None))
+# The redesigned kernels, their sources and (where a source holds more than
+# one) the entry functions' names: ptxas must give them no spills and (the
+# wgmma kernels) no serialised wgmma (phase 1).
+PTXAS_KERNELS = (("K1", "flash_attention", "gritlm_flash_fwd_smem", None),
+                 ("K4, K5", "flash_attention_bwd", None, None),
+                 ("K9", "scores_segmax", "gritlm_scores_segmax_smem", "scores_segmax_kernel"),
+                 ("K9 [f32]", "scores_segmax", "gritlm_scores_segmax_f32_smem",
+                  "scores_segmax_f32_kernel"),
+                 ("K3", "decode_attention", None, None),
+                 ("K8", "paged_attention", None, None),
+                 ("K7, K6", "quant_matmul", None, None),
+                 ("K2", "fused_pool", None, None))
+
+
+def entry_report(log: str, entry) -> str:
+    """The lines of a ptxas report that belong to the entry functions whose
+    names hold `entry` (the whole report for None)."""
+    import re
+
+    if entry is None:
+        return log
+    out, keep = [], False
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            keep = entry in m.group(1)
+        if keep:
+            out.append(line)
+    return "\n".join(out)
 
 
 def ptxas_report(_build, logs) -> None:
@@ -407,8 +454,10 @@ def ptxas_report(_build, logs) -> None:
     or a serialised wgmma."""
     import re
 
-    for label, source, smem_fn in PTXAS_KERNELS:
-        log = logs[source]
+    for label, source, smem_fn, entry in PTXAS_KERNELS:
+        log = entry_report(logs[source], entry)
+        if not log:
+            fail(f"{label}: no ptxas report of {entry} in {source}.cu")
         regs = re.findall(r"Used (\d+) registers", log)
         spills = [int(n) for n in re.findall(r"(\d+) bytes spill (?:stores|loads)", log)]
         smem = ""
@@ -416,7 +465,7 @@ def ptxas_report(_build, logs) -> None:
             smem = f", {getattr(_build.load(source), smem_fn)()} bytes of dynamic shared memory"
         print(f"  {label} ({source}.cu): ptxas registers {'/'.join(regs)} at launch, "
               f"{max(spills, default=0)} spill bytes{smem}", flush=True)
-        if any(spills) or "serialized" in log:
+        if any(spills) or "serialized" in logs[source]:
             fail(f"{label}: ptxas spilled registers or serialised a wgmma ({source}.cu)")
 
 
@@ -505,12 +554,15 @@ def main() -> int:
         for w in wrappers.values():
             w.launches = 0
         decode_attention.flash_decode.row_offset_launches = 0
+        scores_segmax.scores_segmax.f32_launches = 0
 
     def read_counts():
         # K3's launches with per-row offsets (the dense verify chunk) are
-        # among flash_decode's and are also counted as the "K3 verify" row's
+        # among flash_decode's and are also counted as the "K3 verify" row's;
+        # K9's fp32 kernel counts apart from its bf16 one
         counts = {n: w.launches for n, w in wrappers.items()}
         counts[K3_VERIFY] = decode_attention.flash_decode.row_offset_launches
+        counts[K9_F32] = scores_segmax.scores_segmax.f32_launches
         return counts
 
     # ---------------------------------------------------------------- 2
@@ -537,16 +589,25 @@ def main() -> int:
     max_err = {name: 0.0 for name in wrappers}
     check_cases(cases, lse_cases, max_err)
 
-    def unit_rows(n, d=4096):
+    def unit_rows(n, d=4096, dtype=torch.bfloat16):
         x = torch.randn((n, d), generator=gen, device=dev)
-        return (x / x.norm(dim=-1, keepdim=True)).to(torch.bfloat16)
+        return (x / x.norm(dim=-1, keepdim=True)).to(dtype)
 
-    def check_scores_segmax(label, q, emb, n_docs):
-        """K9 against its plain version: scores within K9_ATOL where real,
+    def check_scores_segmax(label, q, emb, n_docs, key="scores_segmax", atol=K9_ATOL,
+                            rerun=False):
+        """K9 against its plain version: scores within `atol` where real,
         -inf where masked; each segment maximum exactly the largest of the
-        kernel's own scores in its segment, and within K9_ATOL of the plain
-        maximum where the same column wins."""
+        kernel's own scores in its segment, and within `atol` of the plain
+        maximum where the same column wins; with `rerun`, a second call
+        bit-equal to the first. `key` is the kernels line's row (K9_F32 for
+        fp32 inputs)."""
         got_s, got_m = scores_segmax.scores_segmax(q, emb, n_docs)
+        if rerun:
+            again_s, again_m = scores_segmax.scores_segmax(q, emb, n_docs)
+            torch.cuda.synchronize()
+            if not (torch.equal(got_s, again_s) and torch.equal(got_m, again_m)):
+                fail(f"{key} [{label}]: a rerun is not bit-equal")
+            del again_s, again_m
         torch.cuda.synchronize()
         want_s, want_m = scores_segmax.scores_segmax_plain(q, emb, n_docs)
         Q, N = got_s.shape
@@ -566,12 +627,12 @@ def main() -> int:
             fail(f"scores_segmax [{label}]: masked segments differ")
         same = (own.argmax(-1) == plain.argmax(-1)).T & fin
         m_err = float((got_m - want_m)[same].abs().max()) if same.any() else 0.0
-        print(f"check scores_segmax [{label}]: max_abs_err scores {err:.3e}, segment maxima "
+        print(f"check {key} [{label}]: max_abs_err scores {err:.3e}, segment maxima "
               f"{m_err:.3e} where the same column wins ({float(same.sum() / fin.sum()):.4f} "
-              f"of segments) (atol {K9_ATOL})", flush=True)
-        if err > K9_ATOL or m_err > K9_ATOL:
-            fail(f"scores_segmax [{label}] disagrees with its plain version: {err}, {m_err}")
-        max_err["scores_segmax"] = max(max_err["scores_segmax"], err, m_err)
+              f"of segments) (atol {atol}){'; rerun bit-equal' if rerun else ''}", flush=True)
+        if err > atol or m_err > atol:
+            fail(f"{key} [{label}] disagrees with its plain version: {err}, {m_err}")
+        max_err[key] = max(max_err.get(key, 0.0), err, m_err)
 
     k2_checks(dev, randn, max_err)
 
@@ -579,6 +640,13 @@ def main() -> int:
     check_scores_segmax("Q256 N65536 n_docs 65000", q9, emb9[:65536], 65000)
     check_scores_segmax("Q3 N65536", q9[:3], emb9[:65536], 65536)
     check_scores_segmax("Q256 N65836 partial last segment", q9, emb9, 65536 + 250)
+    del q9, emb9
+    # K9 [f32] (the retrieval eval's fp32 index) at the same three shapes
+    q9, emb9 = unit_rows(256, dtype=torch.float32), unit_rows(65536 + 300, dtype=torch.float32)
+    kw9 = dict(key=K9_F32, atol=K9_F32_ATOL, rerun=True)
+    check_scores_segmax("Q256 N65536 n_docs 65000", q9, emb9[:65536], 65000, **kw9)
+    check_scores_segmax("Q3 N65536", q9[:3], emb9[:65536], 65536, **kw9)
+    check_scores_segmax("Q256 N65836 partial last segment", q9, emb9, 65536 + 250, **kw9)
     del q9, emb9
 
     # ---------------------------------------------------------------- 3
@@ -694,6 +762,7 @@ def main() -> int:
     k3_times(dev, randn, times)
     k8_times(dev, randn, times)
     k2_times(dev, randn, times)
+    k9_f32_times(dev, times)
     for name, label, fk, fp, fl, flops, byt, _ in cases:
         if name in ("flash_decode", "paged_decode", "fused_norm_mean_pool"):
             continue  # timed cold by k3_times, k8_times, k2_times
@@ -766,6 +835,10 @@ def main() -> int:
     gc.collect()  # engines held in reference cycles (their on_token closures) keep their pools
     torch.cuda.empty_cache()
 
+    # ---------------------------------------------------------------- 18 (eval)
+    eval_phase(dev, reset_counts, read_counts, path_launches)
+    print(f"total {time.time() - t_start:.0f} s")
+
     # ---------------------------------------------------------------- 16
     llama_phase(dev, randn, reset_counts, read_counts, path_launches, times, max_err, t_start)
 
@@ -783,14 +856,25 @@ def main() -> int:
     training_times(dev, randn, times)
     print(f"total {time.time() - t_start:.0f} s")
 
-    # ---------------------------------------------------------------- 17
-    llama_train_phase(dev, randn, reset_counts, read_counts, path_launches, times, max_err)
+    # ---------------------------------------------------------------- 17, 18 (tools)
+    llama_work = ROOT / "build" / "chip_smoke_llama_train"
+    try:
+        llama_train_phase(dev, randn, reset_counts, read_counts, path_launches, times, max_err,
+                          llama_work)
+        tools_phase(dev, llama_work, reset_counts, read_counts, path_launches)
+    finally:
+        import shutil
+
+        shutil.rmtree(llama_work, ignore_errors=True)
     print(f"total {time.time() - t_start:.0f} s")
 
     print(f"launches by path: {json.dumps(path_launches)}")
     # the "K3 verify" row: K3's launches with per-row offsets, its times at
     # the dense verify chunk's shape (spec_phase)
     kernels[K3_VERIFY] = kernels["flash_decode"]
+    # the "K9 [f32]" row: K9's fp32 kernel (the retrieval eval's index) in
+    # the same source, replacing the same Pallas kernel on an fp32 corpus
+    kernels[K9_F32] = kernels["scores_segmax"]
     launches = {n: sum(c.get(n, 0) for c in path_launches.values()) for n in kernels}
     # the Dh-64 instances' rows: K1, K3 and K8 on phase 16's Llama-3.2-1B
     # paths, K1, K4 and K5 on phase 17's
@@ -4119,13 +4203,16 @@ def timed_steps(run_step, state, batch, n: int):
             torch.cuda.max_memory_allocated() / 2**30)
 
 
-def full_parameter_steps(dev, cfg, batch, valid: int) -> None:
+def full_parameter_steps(dev, cfg, batch, valid: int, ckpt_dir=None) -> None:
     """3 full-parameter train steps of `cfg` (random weights, seed 2) on one
     batch: finite losses; ms a step (median of steps 2-3), valid tokens/s
-    and the peak GiB the params, their state and the steps took."""
+    and the peak GiB the params, their state and the steps took. With
+    `ckpt_dir`, the state after the steps is saved there as a training
+    checkpoint (training/checkpoint.CheckpointManager: step_3/state)."""
     import torch
 
     from gritlm_tpu_torch.models.transformer import count_params, init_params
+    from gritlm_tpu_torch.training.checkpoint import CheckpointManager
     from gritlm_tpu_torch.training.train import TrainConfig, init_train_state, train_step
 
     torch.cuda.synchronize()
@@ -4146,6 +4233,11 @@ def full_parameter_steps(dev, cfg, batch, valid: int) -> None:
           flush=True)
     if not all(np.isfinite(losses)):
         fail(f"train [full parameters, {cfg.num_hidden_layers} layers]: losses {losses}")
+    if ckpt_dir is not None:
+        t0 = time.time()
+        path = CheckpointManager(str(ckpt_dir)).save(state)
+        print(f"train [full parameters]: state saved to {Path(path).name} in "
+              f"{time.time() - t0:.1f} s", flush=True)
     del state
     torch.cuda.empty_cache()
 
@@ -4768,7 +4860,7 @@ def bwd_dh96_times(dev, randn, B=8, S=2048, H=16, Hkv=8, Dh=96) -> None:
 
 
 def llama_train_phase(dev, randn, reset_counts, read_counts, path_launches, times, max_err,
-                      lengths=(256, 2048, 2048)) -> None:
+                      work: Path, lengths=(256, 2048, 2048)) -> None:
     """Phase 17: GRIT training of Llama-3.2-1B at its published width and
     depth (LLAMA_32_1B: head dim 64, tied embeddings), random bf16 weights
     from seed 42 written as a checkpoint. First K4 and K5 (and K1's LSE)
@@ -4779,10 +4871,13 @@ def llama_train_phase(dev, randn, reset_counts, read_counts, path_launches, time
     run, the export read back equal and holding the JAX exporter's tensor
     names: no lm_head); 6 LoRA steps on one batch (the loss falls); 2 of
     them again with the fused LM-head loss (losses within FUSED_CE_RTOL);
-    3 QLoRA steps; 3 full-parameter steps at full depth; for each ms a
-    step, valid tokens/s and peak GiB. K1, K4 and K5 must each launch (all
-    at Dh 64). Then the [dh64] rows of K4 and K5 (training_times at Dh 64),
-    K1 [dh96] (k1_times) and the padded Dh-96 backward (bwd_dh96_times)."""
+    3 QLoRA steps; 3 full-parameter steps at full depth, their state saved
+    as a training checkpoint (`work`/full); for each ms a step, valid
+    tokens/s and peak GiB. K1, K4 and K5 must each launch (all at Dh 64).
+    Then the [dh64] rows of K4 and K5 (training_times at Dh 64), K1 [dh96]
+    (k1_times) and the padded Dh-96 backward (bwd_dh96_times). `work` is
+    left for phase 18's tools leg (the export under `work`/run/export, the
+    checkpoint under `work`/full); the caller removes it."""
     import dataclasses
     import shutil
 
@@ -4799,7 +4894,6 @@ def llama_train_phase(dev, randn, reset_counts, read_counts, path_launches, time
         flash_bwd_checks(dev, randn, max_err, H=H, Hkv=Hkv, Dh=Dh)
     print(f"phase 17: backward checks {time.time() - t_phase:.0f} s", flush=True)
     cfg = ModelConfig.from_hf_config(LLAMA_32_1B)
-    work = ROOT / "build" / "chip_smoke_llama_train"
     shutil.rmtree(work, ignore_errors=True)
     synthetic_train_data(work / "data")
     base_dir = work / "base"
@@ -4807,65 +4901,62 @@ def llama_train_phase(dev, randn, reset_counts, read_counts, path_launches, time
     torch.cuda.empty_cache()
     argv = train_argv(work, ["--model_name_or_path", str(base_dir)], lengths, dev)
     reset_counts()
-    try:
-        base = lora_run_checks(dev, cfg, argv, lambda: load_checkpoint(str(base_dir),
-                                                                       device=dev)[1], LLAMA)
-        keys, want = safetensors_keys(work / "run" / "export"), hf_keys(cfg)
-        print(f"train [{LLAMA}, export]: {len(keys)} tensors, the JAX exporter's names: "
-              f"{keys == want} (lm_head.weight: {'lm_head.weight' in keys})", flush=True)
-        if keys != want:
-            fail(f"train [{LLAMA}, export]: tensor names differ from the JAX exporter's: "
-                 f"{sorted(keys ^ want)[:8]}")
-        print(f"model [phase 17]: Llama-3.2-1B width and depth, {count_params(base) / 1e9:.3f} B "
-              f"params, head dim {cfg.head_dim_}, tied embeddings", flush=True)
+    base = lora_run_checks(dev, cfg, argv, lambda: load_checkpoint(str(base_dir),
+                                                                   device=dev)[1], LLAMA)
+    keys, want = safetensors_keys(work / "run" / "export"), hf_keys(cfg)
+    print(f"train [{LLAMA}, export]: {len(keys)} tensors, the JAX exporter's names: "
+          f"{keys == want} (lm_head.weight: {'lm_head.weight' in keys})", flush=True)
+    if keys != want:
+        fail(f"train [{LLAMA}, export]: tensor names differ from the JAX exporter's: "
+             f"{sorted(keys ^ want)[:8]}")
+    print(f"model [phase 17]: Llama-3.2-1B width and depth, {count_params(base) / 1e9:.3f} B "
+          f"params, head dim {cfg.head_dim_}, tied embeddings", flush=True)
 
-        batch, valid, padded = first_batch(work, lengths)
-        tc = TrainConfig(learning_rate=1e-4, total_steps=6)
-        run_step, state, _, _ = make_lora_train_state(cfg, tc, base, seed=0, device=dev)
-        state, losses, med, peak = timed_steps(run_step, state, batch, 6)
-        print(f"train [{LLAMA}, LoRA, one batch, lr 1e-4]: losses "
-              f"{', '.join(f'{x:.4f}' for x in losses)}; {med * 1e3:.1f} ms per step (median "
-              f"of steps 2-6, host clock) = {valid / med:.0f} valid tokens/s ({valid} valid of "
-              f"{padded} padded tokens a step); peak {peak:.2f} GiB; "
-              f"{count_params(state.params) / 1e6:.1f} M trained parameters", flush=True)
-        if not all(np.isfinite(losses)) or losses[-1] >= losses[0]:
-            fail(f"train [{LLAMA}, learns]: losses {losses}")
-        del state, run_step
-        torch.cuda.empty_cache()
+    batch, valid, padded = first_batch(work, lengths)
+    tc = TrainConfig(learning_rate=1e-4, total_steps=6)
+    run_step, state, _, _ = make_lora_train_state(cfg, tc, base, seed=0, device=dev)
+    state, losses, med, peak = timed_steps(run_step, state, batch, 6)
+    print(f"train [{LLAMA}, LoRA, one batch, lr 1e-4]: losses "
+          f"{', '.join(f'{x:.4f}' for x in losses)}; {med * 1e3:.1f} ms per step (median "
+          f"of steps 2-6, host clock) = {valid / med:.0f} valid tokens/s ({valid} valid of "
+          f"{padded} padded tokens a step); peak {peak:.2f} GiB; "
+          f"{count_params(state.params) / 1e6:.1f} M trained parameters", flush=True)
+    if not all(np.isfinite(losses)) or losses[-1] >= losses[0]:
+        fail(f"train [{LLAMA}, learns]: losses {losses}")
+    del state, run_step
+    torch.cuda.empty_cache()
 
-        # the same steps with the fused LM-head loss (--fused_ce; the
-        # reference's default, as above, takes the [8192 x 128256] logits whole)
-        tc_f = dataclasses.replace(tc, fused_ce=True)
-        run_step, state, _, _ = make_lora_train_state(cfg, tc_f, base, seed=0, device=dev)
-        state, losses_f, med_f, peak_f = timed_steps(run_step, state, batch, 2)
-        print(f"train [{LLAMA}, LoRA, fused_ce]: losses {', '.join(f'{x:.4f}' for x in losses_f)} "
-              f"(unfused {losses[0]:.4f}, {losses[1]:.4f}); {med_f * 1e3:.1f} ms for step 2 "
-              f"= {valid / med_f:.0f} valid tokens/s; peak {peak_f:.2f} GiB against the "
-              f"unfused loss's {peak:.2f} GiB", flush=True)
-        if any(abs(a - b) > FUSED_CE_RTOL * abs(b) for a, b in zip(losses_f, losses)):
-            fail(f"train [{LLAMA}, fused_ce]: losses {losses_f} against {losses[:2]}")
-        del state, run_step
-        torch.cuda.empty_cache()
+    # the same steps with the fused LM-head loss (--fused_ce; the
+    # reference's default, as above, takes the [8192 x 128256] logits whole)
+    tc_f = dataclasses.replace(tc, fused_ce=True)
+    run_step, state, _, _ = make_lora_train_state(cfg, tc_f, base, seed=0, device=dev)
+    state, losses_f, med_f, peak_f = timed_steps(run_step, state, batch, 2)
+    print(f"train [{LLAMA}, LoRA, fused_ce]: losses {', '.join(f'{x:.4f}' for x in losses_f)} "
+          f"(unfused {losses[0]:.4f}, {losses[1]:.4f}); {med_f * 1e3:.1f} ms for step 2 "
+          f"= {valid / med_f:.0f} valid tokens/s; peak {peak_f:.2f} GiB against the "
+          f"unfused loss's {peak:.2f} GiB", flush=True)
+    if any(abs(a - b) > FUSED_CE_RTOL * abs(b) for a, b in zip(losses_f, losses)):
+        fail(f"train [{LLAMA}, fused_ce]: losses {losses_f} against {losses[:2]}")
+    del state, run_step
+    torch.cuda.empty_cache()
 
-        run_step, state, _, _ = make_lora_train_state(cfg, tc, base, seed=0, device=dev,
-                                                      quantize=True)
-        del base
-        torch.cuda.empty_cache()
-        state, losses, med, peak_q = timed_steps(run_step, state, batch, 3)
-        print(f"train [{LLAMA}, QLoRA, int8 base, one batch]: losses "
-              f"{', '.join(f'{x:.4f}' for x in losses)}; {med * 1e3:.1f} ms per step (median "
-              f"of steps 2-3, host clock) = {valid / med:.0f} valid tokens/s; peak "
-              f"{peak_q:.2f} GiB against LoRA's {peak:.2f} GiB", flush=True)
-        if not all(np.isfinite(losses)):
-            fail(f"train [{LLAMA}, QLoRA]: losses {losses}")
-        del state, run_step
-        torch.cuda.empty_cache()
+    run_step, state, _, _ = make_lora_train_state(cfg, tc, base, seed=0, device=dev,
+                                                  quantize=True)
+    del base
+    torch.cuda.empty_cache()
+    state, losses, med, peak_q = timed_steps(run_step, state, batch, 3)
+    print(f"train [{LLAMA}, QLoRA, int8 base, one batch]: losses "
+          f"{', '.join(f'{x:.4f}' for x in losses)}; {med * 1e3:.1f} ms per step (median "
+          f"of steps 2-3, host clock) = {valid / med:.0f} valid tokens/s; peak "
+          f"{peak_q:.2f} GiB against LoRA's {peak:.2f} GiB", flush=True)
+    if not all(np.isfinite(losses)):
+        fail(f"train [{LLAMA}, QLoRA]: losses {losses}")
+    del state, run_step
+    torch.cuda.empty_cache()
 
-        full_parameter_steps(dev, cfg, batch, valid)
-        torch.cuda.synchronize()
-        counts = read_counts()
-    finally:
-        shutil.rmtree(work, ignore_errors=True)
+    full_parameter_steps(dev, cfg, batch, valid, ckpt_dir=work / "full")
+    torch.cuda.synchronize()
+    counts = read_counts()
     path_launches[LLAMA_PATHS[2]] = counts
     print(f"{LLAMA} training launches: {counts}; phase 17 training "
           f"{time.time() - t_phase:.0f} s", flush=True)
@@ -4876,6 +4967,566 @@ def llama_train_phase(dev, randn, reset_counts, read_counts, path_launches, time
     k1_times(dev, randn, times, H=16, Hkv=8, Dh=96, name="flash_attention[dh96]")
     bwd_dh96_times(dev, randn)
     print(f"phase 17: {time.time() - t_phase:.0f} s", flush=True)
+
+
+def k9_f32_times(dev, times, Q=256, N=2**18, D=4096) -> None:
+    """K9 [f32] at the retrieval eval's search shape: a 256-query block
+    against an fp32 corpus of 2^18 rows of 4096 (4.3 GB; TREC-COVID's
+    171,332 docs rounded up to a power of two), every row real, unit rows.
+    CUDA events around calls launched back to back: the kernel, its plain
+    version and the library (torch.mm in fp32 with TF32 off, masked_fill,
+    amax). The bound is the larger of the bytes (corpus and queries read
+    once, scores and segment maxima written once) over PEAK_BYTES and the
+    products over this card's fp32 FMA rate: its SM count (device
+    properties) x 128 fp32 lanes x 2 x its maximum SM clock
+    (nvidia-smi clocks.max.sm)."""
+    import torch
+
+    from gritlm_tpu_torch.ops import scores_segmax
+
+    gen = torch.Generator(device=dev).manual_seed(9)
+
+    def unit(n):
+        x = torch.randn((n, D), generator=gen, device=dev)
+        return x / x.norm(dim=-1, keepdim=True)
+
+    q = unit(Q)
+    emb = torch.empty((N, D), device=dev)
+    for a in range(0, N, 65536):
+        emb[a:a + 65536] = unit(min(65536, N - a))
+    nd = N
+    masked = (torch.arange(N, device=dev) >= nd)[None]
+
+    def library():
+        s = torch.mm(q, emb.t()).masked_fill(masked, float("-inf"))
+        return s, s.view(Q, -1, 128).amax(-1)
+
+    ms = event_ms(lambda: scores_segmax.scores_segmax(q, emb, nd), reps=10)
+    plain_ms = event_ms(lambda: scores_segmax.scores_segmax_plain(q, emb, nd), reps=3, warmup=1)
+    library_ms = event_ms(library, reps=10)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    clock_mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.split()[0])
+    peak = sms * 128 * 2 * clock_mhz * 1e6
+    flops = 2.0 * Q * nd * D
+    byt = nd * D * 4 + Q * D * 4 + Q * N * 4 + -(-N // 128) * Q * 4
+    t_ops, t_bytes = flops / peak * 1e3, byt / PEAK_BYTES * 1e3
+    bms, by = (t_ops, "operations") if t_ops > t_bytes else (t_bytes, "bytes")
+    rate, lib_rate = flops / (ms * 1e-3) / 1e12, flops / (library_ms * 1e-3) / 1e12
+    print(f"time {K9_F32} [Q{Q} N{N} D{D} fp32, {nd} docs] by events: {ms:.4f} ms = "
+          f"{rate:.1f} TFLOP/s{peak_note(rate, peak / 1e12)} ({bms / ms * 100:.1f}% of bound "
+          f"{bms:.4f} ms, {by}: fp32 FMA peak {peak / 1e12:.1f} TFLOP/s from {sms} SMs at "
+          f"{clock_mhz:.0f} MHz, bytes {t_bytes:.4f} ms); plain {plain_ms:.4f}; library "
+          f"(torch.mm fp32, TF32 off, + masked_fill + amax) {library_ms:.4f} ms = "
+          f"{lib_rate:.1f} TFLOP/s{peak_note(lib_rate, peak / 1e12)}", flush=True)
+    if peak_note(lib_rate, peak / 1e12):
+        library_ms = None  # an impossible reading stays out of the table
+    times[K9_F32] = (ms, plain_ms, library_ms, bms, by)
+    del q, emb, masked
+    torch.cuda.empty_cache()
+
+
+EVAL_TASK = "SyntheticPlanted"  # phase 18's BEIR-layout task
+EVAL_DOCS, EVAL_QUERIES, EVAL_PLANTED = 1024, 128, 64
+EVAL_RERANK = 10  # --rerank_top_k
+# The search ids of phase 18 against a plain fp32 top-k over q @ emb^T: an id
+# may differ only where the two scores tie within K9 [f32]'s tolerance. The
+# kernel's FMA chain and cuBLAS sum the same 4096 fp32 products in another
+# order; on these scores (normalized embeddings of one random model, all
+# near 1) that moves a score by about 1e-6 (the first chip run: values
+# 2.4e-6 apart, two ids swapped 1.85e-6 apart), so a closer pair's order
+# is decided by rounding
+EVAL_TIE = K9_F32_ATOL
+# Log-likelihoods of the same pairs in two batchings (batched against one
+# example at a time), and score_continuations against a plain log-softmax
+# of the logits of the same batched forward
+MC_ATOL = 1e-3
+# score_continuations against a plain log-softmax of one forward a pair: a
+# forward of another shape takes other cuBLAS GEMMs, and with random bf16
+# weights at full depth their rounding moves a sum of log-probabilities by
+# up to one bf16 step of its magnitude (a chip run: 0.605 of -226.4, the
+# same pair padded to another width agreeing to 1e-5), so the bound is
+# relative: 2^-8 of the sum
+LL_SHAPE_RTOL = 2.0 ** -8
+
+
+def eval_words() -> list:
+    return sorted(set(" ".join(SENTENCES).lower().replace(",", "").replace(".", "").split()))
+
+
+def random_text(rng, words, lo: int, hi: int) -> str:
+    """Random words of the vocabulary, cut to lo-hi bytes (the byte
+    tokenizer's tokens)."""
+    n = int(rng.integers(lo, hi + 1))
+    out = []
+    while sum(len(w) + 1 for w in out) <= n:
+        out.append(words[int(rng.integers(len(words)))])
+    return " ".join(out)[:n].strip()
+
+
+def planted_task(path: Path, seed: int = 0) -> list:
+    """A BEIR-layout task under `path` (corpus.jsonl, queries.jsonl,
+    qrels.tsv): EVAL_DOCS docs (a title of 2-4 words and 150-300 bytes of
+    text), EVAL_QUERIES queries with one relevant doc each. The first
+    EVAL_PLANTED are planted: each is its relevant doc's text exactly as
+    encode_corpus joins title and text; the rest are 16-48-byte random
+    queries. Returns the planted query ids."""
+    rng = np.random.default_rng(seed)
+    words = eval_words()
+    docs, seen = [], set()
+    while len(docs) < EVAL_DOCS:
+        title = " ".join(words[int(i)] for i in rng.integers(len(words), size=rng.integers(2, 5)))
+        text = random_text(rng, words, 150, 300)
+        if title + " " + text not in seen:
+            seen.add(title + " " + text)
+            docs.append({"_id": f"d{len(docs)}", "title": title, "text": text})
+    rel = rng.permutation(EVAL_DOCS)[:EVAL_QUERIES]
+    queries = []
+    for i in range(EVAL_QUERIES):
+        d = docs[int(rel[i])]
+        text = (d["title"] + " " + d["text"] if i < EVAL_PLANTED
+                else random_text(rng, words, 16, 48))
+        queries.append({"_id": f"q{i}", "text": text})
+    path.mkdir(parents=True, exist_ok=True)
+    with open(path / "corpus.jsonl", "w") as f:
+        f.writelines(json.dumps(d) + "\n" for d in docs)
+    with open(path / "queries.jsonl", "w") as f:
+        f.writelines(json.dumps(q) + "\n" for q in queries)
+    with open(path / "qrels.tsv", "w") as f:
+        f.write("query-id\tcorpus-id\tscore\n")
+        f.writelines(f"q{i}\td{int(rel[i])}\t1\n" for i in range(EVAL_QUERIES))
+    return [f"q{i}" for i in range(EVAL_PLANTED)]
+
+
+def wrap_attr(stack, obj, name: str, make):
+    """Replace obj.name by make(original) until `stack` closes."""
+    orig = getattr(obj, name)
+    setattr(obj, name, make(orig))
+    stack.callback(setattr, obj, name, orig)
+
+
+def synced_timer(log: dict, key: str):
+    """A wrapper factory that times each call (synchronized before and
+    after) into log[key]."""
+    import torch
+
+    def make(orig):
+        def call(*a, **kw):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = orig(*a, **kw)
+            torch.cuda.synchronize()
+            log.setdefault(key, []).append(time.perf_counter() - t)
+            return out
+        return call
+    return make
+
+
+def mteb_leg(dev, work: Path, reset_counts, read_counts, path_launches) -> None:
+    """Phase 18's MTEB leg: `eval.mteb.main` (--model_preset mistral_7b
+    --no_instruction --rerank_top_k 10 --device cuda) on the planted task,
+    then `eval.aggregate.main` over its output folder. Checks and figures
+    in eval_phase's docstring."""
+    import contextlib
+
+    import torch
+
+    from gritlm_tpu_torch import GritLM
+    from gritlm_tpu_torch.config import mistral_7b
+    from gritlm_tpu_torch.eval import aggregate, retrieval
+    from gritlm_tpu_torch.eval import mteb as mteb_cli
+    from gritlm_tpu_torch.eval.rerank import GenerativeReranker
+    from gritlm_tpu_torch.index import FlatIndex
+
+    planted = planted_task(work / "data" / EVAL_TASK)
+    results_dir = work / "results" / "mistral_7b"
+    cache_dir = work / "rerank_cache"
+    argv = ["--model_preset", "mistral_7b", "--local_data_dir", str(work / "data"),
+            "--task_names", EVAL_TASK, "--no_instruction", "--rerank_top_k", str(EVAL_RERANK),
+            "--top_k", str(2 * EVAL_RERANK),  # a tail below the reranked head
+            "--device", "cuda", "--output_folder", str(results_dir),
+            "--rerank_cache_dir", str(cache_dir)]
+    metric_calls, searches, walls = [], [], {}
+
+    def record_metrics(orig):
+        def call(results, qrels, k_values=(1, 3, 5, 10, 100)):
+            metric_calls.append((results, qrels))
+            return orig(results, qrels, k_values)
+        return call
+
+    def record_search(orig):
+        def call(self, queries, k, mode=None):
+            out = orig(self, queries, k, mode)
+            searches.append((self, queries, k, out))
+            return out
+        return call
+
+    reset_counts()
+    t0 = time.time()
+    with contextlib.ExitStack() as stack:
+        wrap_attr(stack, retrieval, "retrieval_metrics", record_metrics)
+        wrap_attr(stack, FlatIndex, "search", record_search)
+        wrap_attr(stack, GritLM, "encode_corpus", synced_timer(walls, "docs"))
+        wrap_attr(stack, GritLM, "encode_queries", synced_timer(walls, "queries"))
+        wrap_attr(stack, GenerativeReranker, "rerank", synced_timer(walls, "rerank"))
+        mteb_cli.main(argv)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    path_launches["eval (mteb)"] = counts
+    cli_s = time.time() - t0
+    gc.collect()  # the CLI's model
+    torch.cuda.empty_cache()
+    L = mistral_7b().num_hidden_layers
+    rerank_k1 = counts["flash_attention"] - L * counts["fused_norm_mean_pool"]
+    print(f"eval [mteb CLI, {EVAL_DOCS} docs, {EVAL_QUERIES} queries, rerank top "
+          f"{EVAL_RERANK}]: {cli_s:.1f} s (model init included); launches {counts}; K1 in the "
+          f"rerank forwards {rerank_k1} (K1 less {L} a K2 launch of encode)", flush=True)
+    if (counts["flash_attention"] == 0 or counts["fused_norm_mean_pool"] == 0
+            or counts[K9_F32] == 0 or counts["scores_segmax"] != 0):
+        fail("eval [mteb]: encode and search did not go through K1, K2 and K9 [f32] alone")
+    if rerank_k1 != L * EVAL_QUERIES:  # one forward of 10 prompts a query
+        fail(f"eval [mteb]: {rerank_k1} K1 launches in the rerank forwards, expected "
+             f"{L * EVAL_QUERIES}")
+    out_path = results_dir / f"{EVAL_TASK}.json"
+    if not out_path.exists():
+        fail(f"eval [mteb]: {out_path.name} was not written")
+    written = json.loads(out_path.read_text())["metrics"]
+    if "ndcg_at_10" not in written or "rerank_ndcg_at_10" not in written:
+        fail(f"eval [mteb]: the task JSON lacks the dense or the reranked metrics: "
+             f"{sorted(written)[:6]}")
+    if len(metric_calls) != 2 or len(searches) != 1:
+        fail(f"eval [mteb]: {len(metric_calls)} metric calls and {len(searches)} searches")
+
+    (dense, qrels), (reranked, _) = metric_calls
+    sub = {q: qrels[q] for q in planted}
+    m_dense = retrieval.retrieval_metrics({q: dense[q] for q in planted}, sub, (1, 10))
+    m_rr = retrieval.retrieval_metrics({q: reranked[q] for q in planted}, sub, (1, 10))
+    print(f"eval [mteb, all {EVAL_QUERIES} queries]: dense ndcg@10 {written['ndcg_at_10']}, "
+          f"recall@1 {written['recall_at_1']}; reranked ndcg@10 {written['rerank_ndcg_at_10']}, "
+          f"recall@1 {written['rerank_recall_at_1']}", flush=True)
+    print(f"eval [mteb, {len(planted)} planted queries]: dense recall@1 {m_dense['recall_at_1']}, "
+          f"ndcg@10 {m_dense['ndcg_at_10']}; reranked recall@1 {m_rr['recall_at_1']}, ndcg@10 "
+          f"{m_rr['ndcg_at_10']}, recall@10 {m_rr['recall_at_10']} (random weights: the "
+          f"yes-logit carries no relevance, so the reranked head's order is not gated)",
+          flush=True)
+    if m_dense["recall_at_1"] != 1.0 or m_dense["ndcg_at_10"] < 0.99:
+        fail(f"eval [mteb]: planted dense metrics {m_dense}")
+    if m_rr["recall_at_10"] != 1.0:
+        fail(f"eval [mteb]: a planted doc left the reranked head: {m_rr}")
+    for qid, scores in reranked.items():
+        head = [d for d, _ in sorted(dense[qid].items(), key=lambda x: -x[1])[:EVAL_RERANK]]
+        tail = [s for d, s in scores.items() if d not in head]
+        yes = json.loads((cache_dir / EVAL_TASK / f"{qid}.json").read_text())
+        if tail and min(scores[d] for d in head) <= max(tail):
+            fail(f"eval [mteb]: query {qid}'s reranked head is not above its tail")
+        if max(head, key=lambda d: scores[d]) != max(head, key=lambda d: yes[d]):
+            fail(f"eval [mteb]: query {qid}'s reranked first is not its largest yes-logit")
+
+    index, q, k, (got_s, got_i) = searches[0]
+    emb = index.embeddings[:index.n_docs]
+    plain = q.float() @ emb.T
+    want_s, want_i = torch.topk(plain, k, dim=1)
+    got_i_t = torch.from_numpy(got_i).long().to(dev)
+    at_got = plain.gather(1, got_i_t)
+    differ = got_i_t != want_i
+    tie_gap = float((at_got - want_s)[differ].abs().max()) if differ.any() else 0.0
+    val_err = float((torch.from_numpy(got_s).to(dev) - want_s).abs().max())
+    print(f"eval [search, fp32 index of {index.n_docs} x {index.dim}]: ids against a plain "
+          f"fp32 top-{k}: {int(differ.sum())} of {differ.numel()} differ, largest score gap "
+          f"there {tie_gap:.2e} (ties within {EVAL_TIE}); values max abs err {val_err:.2e}",
+          flush=True)
+    if tie_gap > EVAL_TIE or val_err > K9_F32_ATOL:
+        fail("eval [search]: FlatIndex.search departs from a plain fp32 top-k")
+    q256 = torch.cat([q, q]).contiguous()
+    block = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        index.search(q256, k=k)
+        block.append(time.perf_counter() - t)
+    n_prompts = sum(min(EVAL_RERANK, len(r)) for r in dense.values())
+    print(f"eval [rates]: {EVAL_DOCS / sum(walls['docs']):.1f} docs/s and "
+          f"{EVAL_QUERIES / sum(walls['queries']):.1f} queries/s encoded (batch 64); a "
+          f"256-query block searched at fp32 in {statistics.median(block) * 1e3:.3f} ms (host "
+          f"clock, median of 5); {n_prompts / sum(walls['rerank']):.1f} rerank prompts/s "
+          f"({n_prompts} prompts)", flush=True)
+    del searches, index, q, q256, emb, plain
+    torch.cuda.empty_cache()
+    aggregate.main([str(work / "results")])
+    print(f"eval [aggregate]: MTEB-format scores in {results_dir.name}: "
+          f"{aggregate.collect_scores(str(results_dir))} (the offline CLI writes "
+          f"{{task, metrics}}, which holds no MTEB split)", flush=True)
+
+
+def generative_leg(dev, work: Path, reset_counts, read_counts, path_launches) -> None:
+    """Phase 18's generative leg on GritLM(mistral_7b(), mode="unified")
+    (the CLI's weights: seed 0). Checks and figures in eval_phase's
+    docstring."""
+    import contextlib
+
+    import torch
+    import torch.nn.functional as F
+
+    from gritlm_tpu_torch import GritLM
+    from gritlm_tpu_torch.config import mistral_7b
+    from gritlm_tpu_torch.data_prep import mine_hard_negatives, validate_file
+    from gritlm_tpu_torch.eval import generative
+    from gritlm_tpu_torch.models.transformer import forward_lm
+
+    rng = np.random.default_rng(1)
+    words = eval_words()
+    gm = GritLM(mistral_7b(), mode="unified")
+    tok = gm.tokenizer
+
+    # multiple choice, batched (32 pairs a forward) against one example at a time
+    items = [{"question": random_text(rng, words, 60, 120) + "?",
+              "choices": [random_text(rng, words, 8, 24) for _ in range(4)],
+              "answer": int(rng.integers(4))} for _ in range(32)]
+    captured = {}
+
+    def capture(key):
+        def make(orig):
+            def call(*a, **kw):
+                out = orig(*a, **kw)
+                captured.setdefault(key, []).append(out)
+                return out
+            return call
+        return make
+
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    with contextlib.ExitStack() as stack:
+        wrap_attr(stack, generative, "_loglikelihood_batch", capture("batched"))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        acc_b = generative.eval_multiple_choice(gm, items, batch_size=32)
+        torch.cuda.synchronize()
+        t_mc = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    with contextlib.ExitStack() as stack:
+        wrap_attr(stack, generative, "_loglikelihood_batch", capture("sequential"))
+        acc_s = generative.eval_multiple_choice(gm, items, batch_size=4)
+    sb, ss = np.concatenate(captured["batched"]), np.concatenate(captured["sequential"])
+    mc_err = float(np.abs(sb - ss).max())
+    print(f"eval [multiple choice, 32 items x 4 choices]: accuracy {acc_b['accuracy']:.1f} "
+          f"batched, {acc_s['accuracy']:.1f} one item a forward; log-likelihoods max abs diff "
+          f"{mc_err:.2e} (atol {MC_ATOL}); {len(sb) / t_mc:.1f} log-likelihood pairs/s (batch "
+          f"32, host clock); peak {peak:.2f} GiB", flush=True)
+    if not np.isfinite(sb).all() or mc_err > MC_ATOL or acc_b != acc_s:
+        fail("eval [multiple choice]: batched and sequential scoring disagree")
+
+    ctx = generative.format_chat([items[0]["question"]])
+    options = [" " + c for c in items[0]["choices"]]
+    got = np.asarray(generative.score_continuations(gm, ctx, options))
+    n_ctx = len(tok._encode_one(ctx, add_special_tokens=True))
+
+    def plain_scores(texts):
+        """Sum of the continuations' log-softmax over one forward of `texts`."""
+        enc = tok(texts, max_length=1024)
+        ids = torch.as_tensor(enc["input_ids"], device=dev).long()
+        mask = torch.as_tensor(enc["attention_mask"], device=dev)
+        with torch.inference_mode():
+            logp = F.log_softmax(forward_lm(gm.params, gm.config, ids, attention_mask=mask,
+                                            causal=True)[0].float(), dim=-1)
+        out = []
+        for r in range(len(texts)):
+            n = int(mask[r].sum())
+            picked = logp[r, :n - 1].gather(1, ids[r, 1:n, None])[:, 0]
+            out.append(float(picked[n_ctx - 1:].sum()))
+        return np.asarray(out)
+
+    same = plain_scores([ctx + o for o in options])  # the same batch: the same forward
+    apart = np.concatenate([plain_scores([ctx + o]) for o in options])  # one forward a pair
+    sc_err = float(np.abs(got - same).max())
+    rel = float((np.abs(got - apart) / np.abs(apart)).max())
+    print(f"eval [score_continuations, 4 options]: {np.round(got, 4).tolist()}; max abs diff "
+          f"{sc_err:.2e} against a plain log-softmax of the same forward (atol {MC_ATOL}); "
+          f"against one forward a pair max abs diff {float(np.abs(got - apart).max()):.3e}, "
+          f"relative {rel:.2e} (rtol {LL_SHAPE_RTOL:.2e})", flush=True)
+    if sc_err > MC_ATOL or rel > LL_SHAPE_RTOL:
+        fail("eval [score_continuations]: departs from the plain log-softmax")
+    counts_ll = read_counts()
+
+    # greedy generation: GSM8K-style and QA, batch 4
+    gsm = [{"question": random_text(rng, words, 40, 100) + "?", "answer": str(int(rng.integers(100)))}
+           for _ in range(8)]
+    qa = [{"question": random_text(rng, words, 20, 60) + "?",
+           "answers": [random_text(rng, words, 4, 12)]} for _ in range(8)]
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    r_gsm = generative.eval_gsm8k(gm, gsm, max_new_tokens=64, batch_size=4)
+    r_qa = generative.eval_qa_generation(gm, qa, batch_size=4)
+    torch.cuda.synchronize()
+    t_gen = time.perf_counter() - t0
+    counts = read_counts()
+    row_steps = 8 * 64 + 8 * 32
+    print(f"eval [generation]: gsm8k exact_match {r_gsm['exact_match']:.1f} (n {r_gsm['n']}), qa "
+          f"{ {k: round(v, 2) for k, v in r_qa.items()} }; {row_steps / t_gen:.1f} generated "
+          f"tokens/s (rows x max_new_tokens over the host clock, batch 4); launches {counts}",
+          flush=True)
+    if (r_gsm["n"] != 8 or len(r_gsm["predictions"]) != 8 or r_qa["n"] != 8
+            or counts["flash_attention"] == 0 or counts["flash_decode"] == 0):
+        fail("eval [generation]: gsm8k/qa did not run 8 items each through K1 and K3")
+    path_launches["eval (generative)"] = {n: counts_ll.get(n, 0) + counts.get(n, 0)
+                                          for n in counts}
+
+    # hard-negative mining over a bf16 index (K9's bf16 kernel)
+    rows = [{"query": random_text(rng, words, 16, 48),
+             "pos": [f"{i} " + random_text(rng, words, 150, 300)], "neg": []} for i in range(256)]
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mined = mine_hard_negatives(gm, rows, k=7)
+    torch.cuda.synchronize()
+    t_mine = time.perf_counter() - t0
+    counts = read_counts()
+    path_launches["eval (mining)"] = counts
+    own = sum(any(n in r["pos"] for n in m["neg"]) for r, m in zip(rows, mined))
+    short = sum(len(m["neg"]) != 7 for m in mined)
+    print(f"eval [mining, 256 rows, k 7]: {t_mine:.1f} s; rows with an own positive among "
+          f"their negatives {own}, rows short of 7 {short}; K9 bf16 launches "
+          f"{counts['scores_segmax']}, fp32 {counts[K9_F32]}", flush=True)
+    if own or short or counts["scores_segmax"] == 0 or counts[K9_F32] != 0:
+        fail("eval [mining]: own positives mined, rows short, or not through K9's bf16 kernel")
+    del gm
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    synthetic_train_data(work / "train")  # phase 10's synthetic JSONL
+    for name in ("emb.jsonl", "gen.jsonl"):
+        v = validate_file(str(work / "train" / name))
+        print(f"eval [data_prep.validate_file {name}]: {v['kind']}, {v['rows']} rows, "
+              f"errors {v['errors']}", flush=True)
+        if not v["valid"]:
+            fail(f"eval [data_prep]: phase 10's {name} does not validate")
+
+
+def eval_phase(dev, reset_counts, read_counts, path_launches) -> None:
+    """Phase 18's eval leg at Mistral-7B width (random bf16 weights, seed 0),
+    counts set to 0 before each run and read after. mteb_leg:
+    `eval.mteb.main` on a planted BEIR task (planted_task: 1,024 docs, 128
+    queries, 64 of them planted) with the generative reranker (top 10):
+    the task JSON written; on the planted queries dense recall@1 = 1 and
+    ndcg@10 >= 0.99, and the planted doc still in the reranked head
+    (recall@10 = 1; the reranked recall@1 is printed: a random model's
+    yes-logit carries no relevance); every query's reranked head above its
+    tail and led by its largest yes-logit (the reranker's cache files);
+    K1, K2 and K9 [f32] launched, K9's bf16 kernel not, and K1 launched
+    L times a query in the rerank forwards; the search's ids equal a plain
+    fp32 top-k over q @ emb^T up to ties within EVAL_TIE; docs/s and
+    queries/s encoded, ms a 256-query block search at fp32, rerank
+    prompts/s; then `eval.aggregate.main` over the output folder.
+    generative_leg, on GritLM(mistral_7b(), mode="unified"):
+    eval_multiple_choice on 32 four-choice items batched (32 pairs a
+    forward) against one item a forward, log-likelihoods within MC_ATOL
+    (log-likelihood pairs/s, peak GiB); score_continuations against a
+    plain log-softmax of the same batched forward (MC_ATOL) and of one
+    forward_lm a pair (LL_SHAPE_RTOL); eval_gsm8k (8
+    items, 64 new tokens, batch 4) and eval_qa_generation (8 items) through
+    K1 and K3 (generated tokens/s); mine_hard_negatives on 256 rows (k 7):
+    no row gets its own positive, through K9's bf16 kernel; and
+    data_prep.validate_file on phase 10's synthetic JSONL."""
+    import shutil
+
+    t_phase = time.time()
+    work = ROOT / "build" / "chip_smoke_eval"
+    shutil.rmtree(work, ignore_errors=True)
+    try:
+        mteb_leg(dev, work, reset_counts, read_counts, path_launches)
+        generative_leg(dev, work, reset_counts, read_counts, path_launches)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    print(f"phase 18 (eval): {time.time() - t_phase:.0f} s", flush=True)
+
+
+# verify-checkpoint's transformers leg on a bf16 checkpoint: the oracle runs
+# the checkpoint's bf16 weights in fp32, the port runs them in bf16, so every
+# layer rounds its activations to bf16 (2^-8 relative) and 16 residual layers
+# of random weights add that up (the first chip run: 0.0256 causal, 0.0250
+# bidirectional). The tool's default, 2e-3, is for an fp32 load (--fp32),
+# which K1 does not take on the card.
+BF16_PARITY_TOL = 0.05
+
+
+def tools_phase(dev, work: Path, reset_counts, read_counts, path_launches) -> None:
+    """Phase 18's tools leg on phase 17's Llama-3.2-1B run under `work`
+    (full width and depth): `tools verify-checkpoint --device cuda` on its
+    export (ok; the transformers oracle, where the machine has it, within
+    BF16_PARITY_TOL; the fixture cosines finite in [-1, 1] and printed; K1,
+    K2 and K9 [f32] launched, counts set to 0 before and read after);
+    `shard --max_shard_gb 1` read back equal by
+    load_checkpoint; `strip-prefix` with the keys expected; `export-hf` on
+    the full-parameter checkpoint read back equal to that state's
+    params."""
+    import torch
+
+    from gritlm_tpu_torch import tools
+    from gritlm_tpu_torch.models.loader import load_checkpoint
+    from gritlm_tpu_torch.training.checkpoint import STATE_FILE
+
+    def same_tree(a, b, path="") -> bool:
+        if isinstance(a, dict) or isinstance(b, dict):
+            return (isinstance(a, dict) and isinstance(b, dict) and set(a) == set(b)
+                    and all(same_tree(a[k], b[k], f"{path}/{k}") for k in a))
+        return a.dtype == b.dtype and torch.equal(a, b)
+
+    t_phase = time.time()
+    export = work / "run" / "export"
+    verdict = work / "verdict.json"
+    reset_counts()
+    try:
+        tools.main(["verify-checkpoint", "--model", str(export), "--device", "cuda",
+                    "--parity_tol", str(BF16_PARITY_TOL), "--out", str(verdict)])
+    except SystemExit as e:
+        fail(f"tools [verify-checkpoint]: exited {e.code}")
+    torch.cuda.synchronize()
+    counts = read_counts()
+    path_launches["tools"] = counts
+    v = json.loads(verdict.read_text())
+    sims = v["cosine_fixture"]["sims"]
+    print(f"tools [verify-checkpoint, {LLAMA} export]: ok {v['ok']}, load {v['load']}, "
+          f"torch_parity {v['torch_parity']}, fixture cosines {sims} (random weights: "
+          f"matches_gritlm7b {v['cosine_fixture']['matches_gritlm7b']}), retrieval smoke "
+          f"{v['retrieval_smoke']}; launches {counts}", flush=True)
+    if not v["ok"] or not all(np.isfinite(sims)) or max(abs(x) for x in sims) > 1.0:
+        fail(f"tools [verify-checkpoint]: verdict {v}")
+    if counts["flash_attention"] == 0 or counts["fused_norm_mean_pool"] == 0 \
+            or counts[K9_F32] == 0:
+        fail("tools [verify-checkpoint]: did not go through K1, K2 and K9 [f32]")
+
+    _, want = load_checkpoint(str(export), device=dev)
+    tools.main(["shard", "--model", str(export), "--out", str(work / "sharded"),
+                "--max_shard_gb", "1"])
+    n_files = len(list((work / "sharded").glob("*.safetensors")))
+    _, got = load_checkpoint(str(work / "sharded"), device=dev)
+    same = same_tree(got, want)
+    print(f"tools [shard --max_shard_gb 1]: {n_files} files, read back equal: {same}", flush=True)
+    if n_files < 2 or not (work / "sharded" / "model.safetensors.index.json").exists() or not same:
+        fail("tools [shard]: not sharded or not read back equal")
+    del got, want
+
+    tools.main(["strip-prefix", "--model", str(export), "--out", str(work / "stripped")])
+    keys = safetensors_keys(work / "stripped")
+    expect = {k[len("model."):] if k.startswith("model.") else k
+              for k in safetensors_keys(export)}
+    print(f"tools [strip-prefix model.]: {len(keys)} keys as expected: {keys == expect}",
+          flush=True)
+    if keys != expect:
+        fail(f"tools [strip-prefix]: keys {sorted(keys ^ expect)[:6]}")
+
+    ckpt = work / "full" / "step_3"
+    tools.main(["export-hf", "--checkpoint", str(ckpt), "--config", str(export / "config.json"),
+                "--out", str(work / "exported")])
+    state = torch.load(ckpt / "state" / STATE_FILE, map_location="cpu", weights_only=True,
+                       mmap=True)["params"]
+    _, back = load_checkpoint(str(work / "exported"), device="cpu")
+    same = same_tree(back, state)
+    print(f"tools [export-hf {ckpt.name}]: read back equal to the "
+          f"state's params: {same}; phase 18 (tools) {time.time() - t_phase:.0f} s", flush=True)
+    if not same:
+        fail("tools [export-hf]: the export does not read back the checkpoint's params")
 
 
 def profile_window(label: str, fn, top: int = 10):

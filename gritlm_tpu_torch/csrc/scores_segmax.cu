@@ -28,6 +28,10 @@
 //   n_docs load nothing and write -inf.
 // A query row tile (64 rows) wholly past Q issues no product, so Q = 4 (the
 // RAG path) costs the corpus read and one wgmma row tile.
+//
+// An fp32 corpus (the retrieval eval's index) goes to a second kernel,
+// `f32::scores_segmax_f32_kernel` below: exact fp32 FMAs on the SIMT pipes,
+// with the same outputs.
 #include "common.cuh"
 #include "sm90.cuh"
 
@@ -194,6 +198,135 @@ scores_segmax_kernel(const __grid_constant__ CUtensorMap tq,
   }
 }
 
+// ------------------------------------------------------------------ fp32
+// K9 on an fp32 corpus, as the JAX retrieval eval builds its index
+// (gritlm_tpu/eval/retrieval.py: FlatIndex(..., dtype=np.float32)); the
+// Pallas kernel then takes fp32 operands with fp32 sums. Same function and
+// outputs as the bf16 kernel above. The products are exact fp32 FMAs:
+// single-pass TF32 tensor cores round each operand to a 10-bit mantissa and
+// compute another function. So this kernel is bound by the fp32 FMA rate
+// (2 x 132 SMs x 128 lanes x the clock, about 67 TFLOP/s at 1.98 GHz), far
+// above the bytes (a 256-query block against 2^18 rows of 4096: 8.2 ms of
+// FMAs, 1.4 ms of reads). Its design keeps the FMA pipes fed from shared
+// memory:
+// - a block owns 64 query rows x one 128-column segment; 256 threads, each
+//   an 8 x 4 register tile of sums (rows 8 w .. 8 w + 7 of warp w, columns
+//   lane + 32 j), so a warp holds whole rows of the segment;
+// - 16-byte cp.async copies stage 32-deep slices of the query rows and the
+//   corpus tile through two shared-memory buffers (rows padded to 36
+//   floats: a warp's reads of 32 corpus rows hit every bank once per 8
+//   lanes, and its reads of a query row are one broadcast);
+// - the blocks that share a corpus tile have neighbouring indices, so the
+//   corpus is read from device memory about once per query block;
+// - the epilogue masks columns >= n_docs to -inf, writes the scores (a warp
+//   writes 128 contiguous bytes a row and column group) and reduces each
+//   row's segment maximum by warp shuffles, so the scores are never read
+//   back. Tiles wholly at or past n_docs load nothing and write -inf.
+namespace f32 {
+
+constexpr int ROWS = 64;       // query rows of a block
+constexpr int KD = 32;         // depth of a stage
+constexpr int LD = KD + 4;     // row stride in shared memory, in floats
+constexpr int THREADS = 256;
+constexpr int TR = 8, TC = 4;  // a thread's rows and columns
+static_assert(THREADS / 32 * TR == ROWS && 32 * TC == SEG, "thread tiles cover the block");
+constexpr int Q_FLOATS = ROWS * LD;
+constexpr int STAGE_FLOATS = (ROWS + SEG) * LD;
+constexpr uint32_t SMEM = 2 * STAGE_FLOATS * sizeof(float);
+
+__device__ __forceinline__ void commit() { asm volatile("cp.async.commit_group;\n" ::); }
+
+__device__ __forceinline__ void wait_prev() { asm volatile("cp.async.wait_group 1;\n" ::); }
+
+// Rows [r0, r0 + rows) of x [n, D], depth [k0, k0 + KD), into dst (stride
+// LD); rows past n and depth past D are zero-filled.
+template <int ROWS_>
+__device__ __forceinline__ void stage_rows(float* dst, const float* __restrict__ x, int r0,
+                                           int n, int D, int k0, int tid) {
+#pragma unroll
+  for (int i = 0; i < ROWS_ * (KD / 4) / THREADS; ++i) {
+    const int c = tid + i * THREADS;
+    const int r = c / (KD / 4), kk = c % (KD / 4) * 4;
+    const bool in = r0 + r < n && k0 + kk < D;
+    gritlm::cp_async16(dst + r * LD + kk, in ? x + (long long)(r0 + r) * D + k0 + kk : x,
+                       in ? 16 : 0);
+  }
+}
+
+__global__ void __launch_bounds__(THREADS, 2)
+scores_segmax_f32_kernel(const float* __restrict__ q, const float* __restrict__ emb,
+                         float* __restrict__ scores, float* __restrict__ segmax, int Q, int N,
+                         int D, int n_docs, int n_qb) {
+  extern __shared__ __align__(16) float sm[];
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int qb = blockIdx.x % n_qb, seg = blockIdx.x / n_qb;  // query block fastest
+  const int r0 = qb * ROWS, n0 = seg * SEG;
+  const float neg_inf = __int_as_float(0xff800000);
+  if (n0 >= n_docs) {  // every column masked: -inf, nothing loaded
+    for (int i = tid; i < ROWS * SEG; i += THREADS) {
+      const int row = r0 + i / SEG, col = n0 + i % SEG;
+      if (row < Q && col < N) scores[(long long)row * N + col] = neg_inf;
+    }
+    if (tid < ROWS && r0 + tid < Q) segmax[(long long)seg * Q + r0 + tid] = neg_inf;
+    return;
+  }
+  float acc[TR][TC];
+#pragma unroll
+  for (int i = 0; i < TR; ++i)
+#pragma unroll
+    for (int j = 0; j < TC; ++j) acc[i][j] = 0.f;
+  const int nk = (D + KD - 1) / KD;
+  stage_rows<ROWS>(sm, q, r0, Q, D, 0, tid);
+  stage_rows<SEG>(sm + Q_FLOATS, emb, n0, N, D, 0, tid);
+  commit();
+  for (int c = 0; c < nk; ++c) {
+    if (c + 1 < nk) {  // the next slice into the other buffer
+      float* nxt = sm + ((c + 1) & 1) * STAGE_FLOATS;
+      stage_rows<ROWS>(nxt, q, r0, Q, D, (c + 1) * KD, tid);
+      stage_rows<SEG>(nxt + Q_FLOATS, emb, n0, N, D, (c + 1) * KD, tid);
+    }
+    commit();  // an empty group on the last slice keeps the count
+    wait_prev();
+    __syncthreads();
+    const float* sq = sm + (c & 1) * STAGE_FLOATS + warp * TR * LD;
+    const float* se = sm + (c & 1) * STAGE_FLOATS + Q_FLOATS + lane * LD;
+#pragma unroll
+    for (int k = 0; k < KD; k += 4) {
+      float4 b[TC];
+#pragma unroll
+      for (int j = 0; j < TC; ++j) b[j] = *reinterpret_cast<const float4*>(se + j * 32 * LD + k);
+#pragma unroll
+      for (int i = 0; i < TR; ++i) {
+        const float4 a = *reinterpret_cast<const float4*>(sq + i * LD + k);
+#pragma unroll
+        for (int j = 0; j < TC; ++j) {
+          acc[i][j] = fmaf(a.x, b[j].x, acc[i][j]);
+          acc[i][j] = fmaf(a.y, b[j].y, acc[i][j]);
+          acc[i][j] = fmaf(a.z, b[j].z, acc[i][j]);
+          acc[i][j] = fmaf(a.w, b[j].w, acc[i][j]);
+        }
+      }
+    }
+    __syncthreads();  // the buffer is read before the next slice's copy overwrites it
+  }
+#pragma unroll
+  for (int i = 0; i < TR; ++i) {
+    const int row = r0 + warp * TR + i;
+    float mx = neg_inf;
+#pragma unroll
+    for (int j = 0; j < TC; ++j) {
+      const int col = n0 + lane + 32 * j;
+      const float v = col < n_docs ? acc[i][j] : neg_inf;
+      mx = fmaxf(mx, v);
+      if (row < Q && col < N) scores[(long long)row * N + col] = v;
+    }
+    mx = gritlm::warp_max(mx);
+    if (lane == i && row < Q) segmax[(long long)seg * Q + row] = mx;
+  }
+}
+
+}  // namespace f32
+
 }  // namespace
 
 extern "C" int gritlm_scores_segmax(const void* q, const void* emb, void* scores,
@@ -232,3 +365,30 @@ extern "C" int gritlm_scores_segmax(const void* q, const void* emb, void* scores
 
 // The dynamic shared memory a block of K9 takes, in bytes (for reports).
 extern "C" int gritlm_scores_segmax_smem() { return (int)SMEM; }
+
+// K9 on fp32 operands: the same arguments and outputs as
+// gritlm_scores_segmax, for q [Q, D] and emb [N, D] in fp32 (D % 4 == 0,
+// 16-byte aligned rows).
+extern "C" int gritlm_scores_segmax_f32(const void* q, const void* emb, void* scores,
+                                        void* segmax, int Q, int N, int D, int n_docs,
+                                        void* stream) {
+  static bool configured = false;
+  if (!configured) {
+    cudaError_t e = cudaFuncSetAttribute(f32::scores_segmax_f32_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)f32::SMEM);
+    if (e != cudaSuccess) return (int)e;
+    configured = true;
+  }
+  const int n_qb = (Q + f32::ROWS - 1) / f32::ROWS;
+  const long long blocks = ((long long)N + SEG - 1) / SEG * n_qb;
+  if (blocks == 0) return 0;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  f32::scores_segmax_f32_kernel<<<(unsigned)blocks, f32::THREADS, f32::SMEM,
+                                  (cudaStream_t)stream>>>(
+      (const float*)q, (const float*)emb, (float*)scores, (float*)segmax, Q, N, D, n_docs, n_qb);
+  return (int)cudaGetLastError();
+}
+
+// The dynamic shared memory a block of the fp32 kernel takes, in bytes.
+extern "C" int gritlm_scores_segmax_f32_smem() { return (int)f32::SMEM; }

@@ -3,7 +3,8 @@ for Hopper.
 
 Replaces the Pallas kernel `kernel` of `FlatIndex._pallas_scores_segmax`
 in `gritlm_tpu/index/flat.py`. Same function: one sweep over the corpus
-`emb [N, D]` against a query block `q [Q, D]` (both bf16) computes the
+`emb [N, D]` against a query block `q [Q, D]` (both bf16, or both fp32 as
+the retrieval eval's index is) computes the
 scores `q . emb^T` with fp32 accumulation, sets every column >= `n_docs` to
 -inf (not the attention kernels' finite -1e30: a masked column must lose to
 every real score), and emits the fp32 scores `[Q, N]` together with the
@@ -26,6 +27,17 @@ is persistent (one block an SM walking the tiles). The epilogue masks,
 writes the scores and reduces each row's segment maximum straight from the
 accumulators, so the scores are never read back. Q > 256 makes several
 query blocks; tiles wholly past n_docs load nothing.
+
+fp32 operands go to a second kernel in the same source
+(`gritlm_scores_segmax_f32`): exact fp32 FMAs with fp32 sums, as the
+Pallas kernel computes on an fp32 corpus (single-pass TF32 tensor cores
+would round each operand to a 10-bit mantissa). It is bound by the fp32
+FMA rate (about 67 TFLOP/s on an H100 SXM at 1.98 GHz): a block owns 64
+query rows x one 128-column segment, each thread an 8 x 4 tile of sums fed
+from shared memory, 32-deep slices of both operands staged by cp.async
+through two buffers, and the same masked epilogue with the segment maxima
+reduced by warp shuffles. Its launches count in `f32_launches`, the bf16
+kernel's in `launches`.
 """
 
 from __future__ import annotations
@@ -41,8 +53,10 @@ PLAIN_CHUNK_ROWS = 65536  # corpus rows per fp32 product in the plain version
 
 def scores_segmax_plain(q: torch.Tensor, emb: torch.Tensor, n_docs: int):
     """The plain PyTorch version of K9 (same arguments and results as
-    scores_segmax). It walks the corpus in row chunks, so its fp32 copy of
-    the corpus stays bounded."""
+    scores_segmax) for both kernels: it computes in fp32, so fp32 inputs
+    are taken as they are (exact fp32 products and sums, as the fp32
+    kernel's). It walks the corpus in row chunks, so its fp32 copy of the
+    corpus stays bounded."""
     Q, N = q.shape[0], emb.shape[0]
     qf = q.float()
     scores = torch.empty((Q, N), dtype=torch.float32, device=q.device)
@@ -55,8 +69,13 @@ def scores_segmax_plain(q: torch.Tensor, emb: torch.Tensor, n_docs: int):
     return scores, segmax
 
 
-def _fn():
-    fn = _build.load("scores_segmax").gritlm_scores_segmax
+# dtype of both operands -> (C entry, the D multiple of its 16-byte rows)
+_ENTRIES = {torch.bfloat16: ("gritlm_scores_segmax", 8),
+            torch.float32: ("gritlm_scores_segmax_f32", 4)}
+
+
+def _bound(fn):
+    """fn with its ctypes argument types set (both entries take the same)."""
     if fn.argtypes is None:
         P, I32 = _build.P, _build.I32
         fn.argtypes = [P] * 4 + [I32] * 4 + [P]
@@ -67,16 +86,20 @@ def _fn():
 def scores_segmax(q: torch.Tensor, emb: torch.Tensor, n_docs: int):
     """(scores [Q, N] fp32, segmax [ceil(N/128), Q] fp32) of the query block
     q [Q, D] against the corpus emb [N, D]; columns >= n_docs score -inf.
-    CPU tensors run the plain version; CUDA tensors run the kernel or
-    raise."""
+    CPU tensors run the plain version; CUDA tensors run the kernel of their
+    dtype (both bf16, or both fp32) or raise."""
     if _build.plain_path(q, emb):
         return scores_segmax_plain(q, emb, n_docs)
-    fn = _fn()
-    if q.dtype != torch.bfloat16 or emb.dtype != torch.bfloat16:
-        raise TypeError(f"scores_segmax: q {q.dtype} and emb {emb.dtype} must be bfloat16")
-    if q.dim() != 2 or emb.dim() != 2 or q.shape[1] != emb.shape[1] or q.shape[1] % 8:
+    lib = _build.load("scores_segmax")
+    if q.dtype != emb.dtype or q.dtype not in _ENTRIES:
+        raise TypeError(f"scores_segmax: q {q.dtype} and emb {emb.dtype} must be both "
+                        "bfloat16 or both float32")
+    entry, d_mult = _ENTRIES[q.dtype]
+    fn = _bound(getattr(lib, entry))
+    if q.dim() != 2 or emb.dim() != 2 or q.shape[1] != emb.shape[1] or q.shape[1] % d_mult:
         raise NotImplementedError(
-            f"scores_segmax: q {tuple(q.shape)}, emb {tuple(emb.shape)} (same D, D % 8 == 0)")
+            f"scores_segmax: q {tuple(q.shape)}, emb {tuple(emb.shape)} (same D, "
+            f"D % {d_mult} == 0 for {q.dtype})")
     if not (q.is_contiguous() and emb.is_contiguous()) or q.data_ptr() % 16 \
             or emb.data_ptr() % 16:
         raise ValueError("scores_segmax: q and emb must be contiguous and 16-byte aligned")
@@ -88,8 +111,12 @@ def scores_segmax(q: torch.Tensor, emb: torch.Tensor, n_docs: int):
     rc = fn(q.data_ptr(), emb.data_ptr(), scores.data_ptr(), segmax.data_ptr(), Q, N, D,
             max(0, min(int(n_docs), N)), _build.stream_of(q))
     _build.check(rc, "scores_segmax")
-    scores_segmax.launches += 1
+    if q.dtype == torch.float32:
+        scores_segmax.f32_launches += 1
+    else:
+        scores_segmax.launches += 1
     return scores, segmax
 
 
 scores_segmax.launches = 0
+scores_segmax.f32_launches = 0

@@ -464,6 +464,112 @@ def test_scores_segmax_kernel_edges(cuda, Q, N, n_docs):
     torch.testing.assert_close(got_m[finite], want_m[finite], atol=1e-3, rtol=0)
 
 
+# K9 [f32] at chip_smoke's phase-2 shapes, plus a depth that is not a
+# multiple of the 32-deep stage and a query block past 64 rows
+@pytest.mark.parametrize("Q,N,D,n_docs", [(256, 65536, 4096, 65000), (3, 65536, 4096, 65536),
+                                          (256, 65536 + 300, 4096, 65536 + 250),
+                                          (65, 1000, 100, 990)])
+def test_scores_segmax_f32_kernel(cuda, Q, N, D, n_docs):
+    """Exact fp32 products summed in another order: 1e-5 absolute on unit
+    vectors; an exact -inf tail; each segment maximum the largest of the
+    kernel's own scores in its segment; a rerun bit-equal; the fp32 kernel
+    counted in f32_launches, not in the bf16 kernel's launches."""
+    from gritlm_tpu_torch.ops import scores_segmax as k9
+
+    gen = torch.Generator(device=cuda).manual_seed(6)
+
+    def unit(n):
+        x = torch.randn((n, D), generator=gen, device=cuda)
+        return x / x.norm(dim=-1, keepdim=True)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q, emb = unit(Q), unit(N)
+    before = (k9.scores_segmax.launches, k9.scores_segmax.f32_launches)
+    got_s, got_m = k9.scores_segmax(q, emb, n_docs)
+    again_s, again_m = k9.scores_segmax(q, emb, n_docs)
+    torch.cuda.synchronize()
+    want_s, want_m = k9.scores_segmax_plain(q, emb, n_docs)
+    assert (k9.scores_segmax.launches, k9.scores_segmax.f32_launches) == (before[0],
+                                                                          before[1] + 2)
+    assert torch.equal(got_s, again_s) and torch.equal(got_m, again_m)
+    assert torch.isneginf(got_s[:, n_docs:]).all()
+    torch.testing.assert_close(got_s[:, :n_docs], want_s[:, :n_docs], atol=1e-5, rtol=0)
+    ns = -(-N // 128)
+    own = torch.nn.functional.pad(got_s, (0, ns * 128 - N), value=float("-inf"))
+    assert torch.equal(got_m, own.view(Q, ns, 128).amax(-1).T)
+    finite = torch.isfinite(want_m)
+    assert torch.equal(finite, torch.isfinite(got_m))
+    torch.testing.assert_close(got_m[finite], want_m[finite], atol=1e-5, rtol=0)
+
+
+def test_scores_segmax_rejects_on_cuda(cuda):
+    """Mixed or fp16 operands raise TypeError; an fp32 depth off 16-byte
+    rows raises NotImplementedError."""
+    from gritlm_tpu_torch.ops import scores_segmax as k9
+
+    q32, e32 = torch.zeros((4, 64), device=cuda), torch.zeros((300, 64), device=cuda)
+    for q, e in ((q32, e32.bfloat16()), (q32.half(), e32.half())):
+        with pytest.raises(TypeError):
+            k9.scores_segmax(q, e, 300)
+    with pytest.raises(NotImplementedError):
+        k9.scores_segmax(q32[:, :62], e32[:, :62].contiguous(), 300)
+
+
+def _narrow_model(**kw):
+    from gritlm_tpu_torch import GritLM
+
+    cfg = ModelConfig(vocab_size=512, hidden_size=256, intermediate_size=512,
+                      num_hidden_layers=2, num_attention_heads=2, num_key_value_heads=1)
+    return GritLM(cfg, **kw)
+
+
+def test_evaluate_retrieval_on_cuda(cuda):
+    """The retrieval eval on the card: an fp32 index searched by K9 [f32]
+    (the bf16 kernel not launched), self-retrieval of planted queries, the
+    reranker's forward through K1 and its head above the tail."""
+    from gritlm_tpu_torch.eval.rerank import GenerativeReranker
+    from gritlm_tpu_torch.eval.retrieval import evaluate_retrieval
+    from gritlm_tpu_torch.ops import scores_segmax as k9
+
+    m = _narrow_model()
+    corpus = {f"d{i}": {"title": f"t{i}", "text": f"passage {i} " + "word " * (2 + 3 * i)}
+              for i in range(40)}
+    queries = {f"q{i}": corpus[f"d{i}"]["title"] + " " + corpus[f"d{i}"]["text"]
+               for i in range(8)}
+    qrels = {f"q{i}": {f"d{i}": 1} for i in range(8)}
+    before = (k9.scores_segmax.launches, k9.scores_segmax.f32_launches,
+              flash_attention.flash_attention.launches, fused_pool.fused_norm_mean_pool.launches)
+    metrics = evaluate_retrieval(m, corpus, queries, qrels, max_length=128, top_k=10,
+                                 k_values=(1, 10),
+                                 reranker=GenerativeReranker(m, max_length=256), rerank_depth=4)
+    after = (k9.scores_segmax.launches, k9.scores_segmax.f32_launches,
+             flash_attention.flash_attention.launches, fused_pool.fused_norm_mean_pool.launches)
+    assert after[0] == before[0] and after[1] > before[1]
+    assert after[2] > before[2] and after[3] > before[3]
+    assert metrics["recall_at_1"] == 1.0 and metrics["rerank_recall_at_10"] == 1.0
+
+
+def test_verify_checkpoint_on_cuda(cuda, tmp_path, capsys):
+    """verify-checkpoint on a narrow bf16 checkpoint on the card: a verdict
+    whose transformers leg (where installed) is within the bf16 tolerance
+    chip_smoke uses, fixture cosines in [-1, 1], the retrieval smoke run."""
+    import json
+
+    from gritlm_tpu_torch import tools
+    from gritlm_tpu_torch.models.loader import save_checkpoint
+
+    m = _narrow_model()
+    cfg = dataclasses.replace(m.config, dtype="bfloat16")
+    save_checkpoint(str(tmp_path), cfg, m.params)
+    before = fused_pool.fused_norm_mean_pool.launches
+    tools.main(["verify-checkpoint", "--model", str(tmp_path), "--parity_tol", "0.05"])
+    v = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert v["ok"] and v["load"]["ok"] and v["load"]["dtype"] == "bfloat16"
+    assert all(-1.0 <= x <= 1.0 for x in v["cosine_fixture"]["sims"])
+    assert v["retrieval_smoke"]["n_docs"] == 18
+    assert fused_pool.fused_norm_mean_pool.launches > before
+
+
 @pytest.mark.parametrize("n_docs,Q,k", [(70000, 256, 100), (300, 3, 5)])
 def test_flat_index_search_on_cuda(cuda, n_docs, Q, k):
     """FlatIndex.search on the card goes through K9 and returns the values
