@@ -14,9 +14,9 @@ dense and paged verify pools, and sampling pools; w8a16 and w4a16
 quantized weights in generate and serving; GRIT training with LoRA, QLoRA, GradCache and full
 parameters through `python -m gritlm_tpu_torch.training.run`'s main; the
 embedding projection head in encode and in training; then a Mixtral-8x7B
-of random bf16 weights at its published width, depth cut to 16, through
+of random bf16 weights at its published width, depth cut to 8, through
 encode, generate and the serving engine, and at depth 8 with int8
-weights, and GRIT training on it (LoRA at depth 16, the load-balancing
+weights, and GRIT training on it (LoRA at depth 8, the load-balancing
 aux loss, gshard's capacity drops, `training.run --moe_impl
 --native_loader`); per-request LoRA adapters in the serving engine and the
 remat policies of LoRA training; then head dims 64 and 96 in flash
@@ -25,18 +25,30 @@ published width and depth through encode, generate, the serving engine
 and RAG; the flash backward at head dims 64 and 96 and GRIT training of
 Llama-3.2-1B at its published width and depth; the evaluation path: the
 MTEB CLI with the generative reranker over an fp32 index, the generative
-benchmarks, hard-negative mining and the checkpoint tools), and times each
-kernel beside its bound, its plain version and one PyTorch library call.
+benchmarks, hard-negative mining and the checkpoint tools; the fp32 forms
+of K1, K2, K3 and K8 and GritLM at fp32 activations at Mistral-7B width),
+and times each kernel beside its bound, its plain version and one PyTorch
+library call.
 
-Phases (in the order 1-7, 12, 14, 8, 9, 11, 18's eval leg, 16, 13, 15, 10,
-17, 18's tools leg), any failure exits non-zero:
+Cuts for the 1200 s limit (each path still driven; printed figures at the
+cut size): phases 13 and 15 run Mixtral at MOE_DEPTH 8 layers (16 before
+phase 19 was added), phase 14's remat policies at REMAT_DEPTH 4 (8
+before), phase 14's adapter pools and phase 12's pools phase 7's
+8-request cut (phase 14's took its 24 before phase 19), phase 12's
+lockstep speculative generate 32 tokens (64 before), phase 10's LoRA
+steps on one batch 4 (6 before), the decode chunks' profiler windows 8
+steps.
+
+Phases (in the order 1-7, 12, 14, 8, 9, 11, 18's eval leg, 19, 16, 13, 15,
+10, 17, 18's tools leg), any failure exits non-zero:
   1. device and build: card name and power limit, nvcc's register and
      shared-memory report; for the redesigned kernels (K1, K4/K5, K9 on
      wgmma; K3, K8, K6 and K7 on mma.sync; K2 on bulk copies and clusters)
      their registers and spill bytes
      (the wgmma kernels' dynamic shared memory too), failing on a spill or
      a serialised wgmma (each library's ptxas report is kept beside it in
-     the build cache, so a cached build is checked too)
+     the build cache, so a cached build is checked too); the fp32 forms of
+     K1, K2, K3 and K8 apart from the bf16 ones, a spill failing
   2. each kernel against its plain version on the card (K1 and its LSE at
      three shapes; K9 at three shapes: a masked tail, Q = 3, a partial
      last segment, and K9 [f32] at the same three within K9_F32_ATOL, each
@@ -46,7 +58,14 @@ Phases (in the order 1-7, 12, 14, 8, 9, 11, 18's eval leg, 16, 13, 15, 10,
      against K3 on the same logical cache laid out dense; K2 at B 8 S 512
      mean and weightedmean and at K2_SHAPES: B 1 S 4096, B 64 S 128 with an
      empty row, D 3584, rows that are views into wider ones; normalized and
-     not, every call rerun and required bit-equal)
+     not, every call rerun and required bit-equal); the fp32 forms within
+     F32_ATOL, every call rerun bit-equal (f32_cases, f32_checks): K1 [f32]
+     at the three K1 shapes with its LSE at Dh 128, 64 and 96 (padded) and
+     a row with every key masked (0, LSE NEG_INF), K2 [f32] at B 8 S 512
+     and K2_SHAPES, K3 [f32] at K3's four shapes and the verify chunk (Sq
+     8, [B] offsets, fp32 and int8 caches, bit-equal to K8 [f32]), K8
+     [f32] at K8_SHAPES on pages of 32 and 256 slots, bit-equal to K3
+     [f32] on the same logical cache
   3. encode at full width (launch counts set to 0 before encode, read after
      phase 4); then GritLM(projection=1024) on the same weights (counts set
      to 0 before, read after): 16 sentences to [16, 1024] without K2, at
@@ -91,7 +110,11 @@ Phases (in the order 1-7, 12, 14, 8, 9, 11, 18's eval leg, 16, 13, 15, 10,
      and weightedmean, B 1 S 4096 and B 64 S 128, its device operations a
      call counted from a captured graph, more than one failing; K9 [f32] at
      Q 256 against 2^18 fp32 rows of 4096 beside torch.mm in fp32 with TF32
-     off, its bound from the card's SM count and clock), encode and
+     off, its bound from the card's SM count and clock; the fp32 forms as
+     their bf16 forms (f32_times: K3 [f32] at k3_times' shapes and the
+     verify chunk, K8 [f32] at Sq 1 and 8 and over int8 pages, K2 [f32] at
+     B 8 S 512, K1 [f32] at B 4 S 512 beside SDPA at fp32, whose backend is
+     printed), each bound at the fp32 FMA rate), encode and
      decode rates, and a profile (device time by kernel, idle share) of one
      encode and one short generate
  10. training at full width (after the inference model is freed):
@@ -105,7 +128,7 @@ Phases (in the order 1-7, 12, 14, 8, 9, 11, 18's eval leg, 16, 13, 15, 10,
      synthetic JSONL filling the default lengths (query 256, passage 2048,
      generative 2048; batch 4, group 2; 3 steps, a checkpoint at step 2,
      a resumed run from it, the HF export read back equal by
-     load_checkpoint); 6 LoRA steps on one batch (the loss falls); GradCache
+     load_checkpoint); 4 LoRA steps on one batch (the loss falls); GradCache
      (gc_chunks 2 against 1 at depth 4: loss_emb and the gradients'
      cosine); full-parameter training at depth 4 (peak memory; phase 17
      trains full parameters at full depth); K4 and K5
@@ -145,7 +168,7 @@ Phases (in the order 1-7, 12, 14, 8, 9, 11, 18's eval leg, 16, 13, 15, 10,
      cold by CUDA graph replays beside SDPA with the same per-row causal
      mask (the kernels line's "K3 verify" row, `flash_decode_verify`); then,
      counts set to 0 before each run and read after: lockstep speculative
-     generate at B = 1 and 2 on prompts that quote a passage (64 tokens,
+     generate at B = 1 and 2 on prompts that quote a passage (32 tokens,
      teacher-forced within TIE_TOL; verify steps, tokens a verify, ms per
      token host and device beside plain greedy); phase 7's first 8
      requests (its 8-request cut, for the time budget since phase 16) and
@@ -163,8 +186,8 @@ Phases (in the order 1-7, 12, 14, 8, 9, 11, 18's eval leg, 16, 13, 15, 10,
      (printed, not gated)
  13. Mixtral MoE serving at Mixtral-8x7B width (after phase 11, with the
      Mistral model freed; counts set to 0 before each run, summed after):
-     `mixtral_8x7b()` at depth MOE_DEPTH (16: 46.96 GB of bf16 weights;
-     32 layers would need 93.4 GB), random bf16 weights; encode of the 16
+     `mixtral_8x7b()` at depth MOE_DEPTH (8; 32 layers would need 93.4 GB
+     of bf16 weights), random bf16 weights; encode of the 16
      sentences with moe_impl "dense" and "dropless" (sentences/s), held
      against each other and against the plain K1 + K2 path at cosine >=
      COSINE_MIN with the routes of one run pinned in the other (`Routes`;
@@ -188,11 +211,11 @@ Phases (in the order 1-7, 12, 14, 8, 9, 11, 18's eval leg, 16, 13, 15, 10,
  14. per-request LoRA adapters and the remat policies at Mistral-7B width
      (after phase 12; counts set to 0 before each run and read after):
      four adapters (r 16, alpha 64 on q/k/v/o/gate/up/down, B nonzero:
-     draw_adapters) stacked onto the base; phase 7's 24 generation
-     requests on adapters round-robin over None, a, b, c, d and its 8
-     embedding requests (every second on an adapter) through dense, paged
-     (page 256) and speculative (spec_k 7) pools, 8 of them through a
-     chunked-prefill (256) pool: completions, every token teacher-forced
+     draw_adapters) stacked onto the base; phase 7's 8-request cut on
+     adapters round-robin over None, a, b, c, d and its 8 embedding
+     requests (every second on an adapter) through dense, paged (page 256),
+     speculative (spec_k 7) and chunked-prefill (256) pools: completions,
+     every token teacher-forced
      within ADAPTER_TIE_TOL through the pool's own math and (dense pool,
      printed) over its adapter merged into the base, each targeted
      projection of the adapter branch within ADAPTER_RTOL of the merged
@@ -203,14 +226,14 @@ Phases (in the order 1-7, 12, 14, 8, 9, 11, 18's eval leg, 16, 13, 15, 10,
      with every row on its own adapter (eight adapters) against no
      adapters (device and host ms, idle share), and one adapter decode
      chunk, dense and paged, under set_sync_debug_mode("error"); then
-     phase 10's LoRA step at depth REMAT_DEPTH (8) under the remat
+     phase 10's LoRA step at depth REMAT_DEPTH (4) under the remat
      policies None, "dots" and "dots_no_batch" (3 steps each: ms a step,
      peak GiB, losses and adapters against the full recompute's, K1
      relaunched by the recompute) and `training.run --remat_policy dots`
      (LoRA, depth 4, 2 steps)
  15. MoE GRIT training at Mixtral-8x7B width (after phase 13; counts set
      to 0 before, read after): LoRA (r 16, alpha 64: wq/wk/wv/wo) at depth
-     MOE_DEPTH (16) on phase 10's batch (25,600 tokens a step),
+     MOE_DEPTH (8) on phase 10's batch (25,600 tokens a step),
      moe_impl "auto" (dropless), 3 steps: ms a step, tokens/s, peak GiB
      (a fourth step profiled: device time by kernel, idle share), and
      loss_gen equal to the step's next-token loss plus coef x
@@ -277,9 +300,17 @@ Phases (in the order 1-7, 12, 14, 8, 9, 11, 18's eval leg, 16, 13, 15, 10,
      generation through K1 and K3), hard-negative mining through K9's bf16
      kernel and data_prep.validate_file; rates of each. Its tools leg runs
      after phase 17, on phase 17's Llama-3.2-1B export and full-parameter
-     checkpoint (tools_phase): verify-checkpoint on the card through K1,
-     K2 and K9 [f32], shard, strip-prefix and export-hf, each read back
-     and checked
+     checkpoint (tools_phase): verify-checkpoint --fp32 on the card at its
+     default --parity_tol (2e-3) through K1 [f32], K2 [f32] and K9 [f32],
+     shard, strip-prefix and export-hf, each read back and checked
+ 19. GritLM at fp32 activations (after phase 18's eval leg, the bf16
+     Mistral model freed; f32_phase): the same fp32 model at full width and
+     depth 2 on the card against the CPU (plain versions; embeddings and
+     logits within F32_EXACT_RTOL), then `mistral_7b()` at fp32 from seed 0
+     (27 GiB) through encode (sentences/s, the cosine to phase 3's bf16
+     embeddings printed), greedy generate at B 2 (TIE_TOL), the decode
+     step, and phase 7's 8-request cut through dense, paged, int8-KV and
+     speculative pools; only fp32 forms of K1, K2, K3 and K8 may launch
 
 Output: a `kernels` JSON line, the card line, then as the last line
 {"ok": true, "device": {...}}. Exits 2 with no result when there is no CUDA
@@ -315,6 +346,14 @@ K9_ATOL = 1e-3  # fp32 sums of the same bf16 products in another order, unit vec
 # chain against cuBLAS' fp32 product, TF32 off) on unit vectors of width 4096
 K9_F32_ATOL = 1e-5
 K9_F32 = "scores_segmax[f32]"  # the kernels line's row of K9's fp32 kernel
+# The fp32 forms of K1, K2, K3 and K8: fp32 products summed in fp32 in
+# another order than the plain version's fp32 einsums (TF32 off), exp2 the
+# hardware's approximation (2^-22 relative); at unit-scale inputs a score
+# moves by about sqrt(Dh) x 2^-24 and an output, pooled row or LSE by less
+# than 1e-6 (the first chip run: at most 1.9e-06), so 1e-5 holds with room.
+F32_ATOL = 1e-5
+F32 = "[f32]"  # the suffix of a kernel's fp32 form in the counts and the kernels line
+F32_KERNELS = ("flash_attention", "fused_norm_mean_pool", "flash_decode", "paged_decode")
 COSINE_MIN = 0.999
 # Teacher forcing of the serving runs: an engine token may sit this far below
 # its position's largest bf16 logit in one lockstep forward over the same
@@ -402,13 +441,59 @@ def time_ms(fn, reps: int = 25, warmup: int = 3):
     return call_ms, call_ms
 
 
-def bound(flops: float, nbytes: float):
-    t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+def bound(flops: float, nbytes: float, peak: float = PEAK_BF16_FLOPS):
+    """(ms, what bounds it): the larger of the operations over `peak` (bf16
+    by default) and the bytes over PEAK_BYTES."""
+    t_ops, t_bytes = flops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops > t_bytes else (t_bytes, "bytes")
+
+
+_f32_peak = []
+
+
+def f32_peak() -> float:
+    """This card's fp32 FMA rate in FLOP/s: its SM count (device properties)
+    x 128 fp32 lanes x 2 x its maximum SM clock (nvidia-smi clocks.max.sm),
+    the bound of the fp32 forms' and K9 [f32]'s operations."""
+    import torch
+
+    if not _f32_peak:
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        clock_mhz = float(subprocess.run(
+            ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+            capture_output=True, text=True, check=True, timeout=60).stdout.split()[0])
+        _f32_peak.append(sms * 128 * 2 * clock_mhz * 1e6)
+        print(f"fp32 FMA peak {_f32_peak[0] / 1e12:.1f} TFLOP/s from {sms} SMs at "
+              f"{clock_mhz:.0f} MHz", flush=True)
+    return _f32_peak[0]
+
+
+def peak_of(name: str) -> float:
+    """The operations peak of a kernels line row: fp32 FMA for the fp32
+    forms, bf16 tensor cores for the rest."""
+    return f32_peak() if name.endswith(F32) else PEAK_BF16_FLOPS
+
+
+def dt_label(t) -> str:
+    """'bf16' or 'fp32', by a tensor's dtype (the labels of the checks)."""
+    return "fp32" if t.element_size() == 4 else "bf16"
 
 
 def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def sdpa_backend(q, k, v, mask) -> str:
+    """The backend scaled_dot_product_attention picks for these inputs
+    (torch._fused_sdp_choice), by name."""
+    import torch
+    from torch.nn.attention import SDPBackend
+
+    try:
+        return SDPBackend(torch._fused_sdp_choice(q, k, v, attn_mask=mask,
+                                                  enable_gqa=True)).name
+    except (AttributeError, RuntimeError, TypeError, ValueError) as e:
+        return f"not known ({type(e).__name__}: {e})"
 
 
 def peak_note(rate: float, peak: float) -> str:
@@ -420,15 +505,20 @@ def peak_note(rate: float, peak: float) -> str:
 # The redesigned kernels, their sources and (where a source holds more than
 # one) the entry functions' names: ptxas must give them no spills and (the
 # wgmma kernels) no serialised wgmma (phase 1).
-PTXAS_KERNELS = (("K1", "flash_attention", "gritlm_flash_fwd_smem", None),
+PTXAS_KERNELS = (("K1", "flash_attention", "gritlm_flash_fwd_smem", "flash_fwd_kernel"),
+                 ("K1 [f32]", "flash_attention", "gritlm_flash_fwd_f32_smem",
+                  "flash_fwd_f32_kernel"),
                  ("K4, K5", "flash_attention_bwd", None, None),
                  ("K9", "scores_segmax", "gritlm_scores_segmax_smem", "scores_segmax_kernel"),
                  ("K9 [f32]", "scores_segmax", "gritlm_scores_segmax_f32_smem",
                   "scores_segmax_f32_kernel"),
-                 ("K3", "decode_attention", None, None),
-                 ("K8", "paged_attention", None, None),
+                 ("K3", "decode_attention", None, "flash_decode_kernel"),
+                 ("K3 [f32]", "decode_attention", None, "flash_decode_f32_kernel"),
+                 ("K8", "paged_attention", None, "flash_decode_kernel"),
+                 ("K8 [f32]", "paged_attention", None, "flash_decode_f32_kernel"),
                  ("K7, K6", "quant_matmul", None, None),
-                 ("K2", "fused_pool", None, None))
+                 ("K2", "fused_pool", None, "pool_kernel"),
+                 ("K2 [f32]", "fused_pool", None, "pool_f32_kernel"))
 
 
 def entry_report(log: str, entry) -> str:
@@ -553,6 +643,8 @@ def main() -> int:
     def reset_counts():
         for w in wrappers.values():
             w.launches = 0
+        for n in F32_KERNELS:
+            wrappers[n].f32_launches = 0
         decode_attention.flash_decode.row_offset_launches = 0
         scores_segmax.scores_segmax.f32_launches = 0
 
@@ -563,6 +655,8 @@ def main() -> int:
         counts = {n: w.launches for n, w in wrappers.items()}
         counts[K3_VERIFY] = decode_attention.flash_decode.row_offset_launches
         counts[K9_F32] = scores_segmax.scores_segmax.f32_launches
+        for n in F32_KERNELS:  # the fp32 forms of K1, K2, K3 and K8 count apart
+            counts[n + F32] = wrappers[n].f32_launches
         return counts
 
     # ---------------------------------------------------------------- 2
@@ -586,8 +680,17 @@ def main() -> int:
                           hidden, gamma, pmask, **kw),
                       None, 0.0, 0.0, POOL_ATOL))  # timed cold by k2_times
 
+    # the fp32 forms of K1, K2, K3 and K8 (phase 2's shapes on fp32 inputs)
+    gen32 = torch.Generator(device=dev).manual_seed(32)
+
+    def randf(*shape):
+        return torch.randn(shape, generator=gen32, device=dev)
+
+    f32_cases(dev, randf, cases, lse_cases)
+
     max_err = {name: 0.0 for name in wrappers}
     check_cases(cases, lse_cases, max_err)
+    f32_checks(dev, randf, max_err)
 
     def unit_rows(n, d=4096, dtype=torch.bfloat16):
         x = torch.randn((n, d), generator=gen, device=dev)
@@ -763,9 +866,12 @@ def main() -> int:
     k8_times(dev, randn, times)
     k2_times(dev, randn, times)
     k9_f32_times(dev, times)
+    f32_times(dev, randf, times)
     for name, label, fk, fp, fl, flops, byt, _ in cases:
-        if name in ("flash_decode", "paged_decode", "fused_norm_mean_pool"):
+        if name.removesuffix(F32) in ("flash_decode", "paged_decode", "fused_norm_mean_pool"):
             continue  # timed cold by k3_times, k8_times, k2_times
+        if name.endswith(F32) and name in times:
+            continue  # an fp32 form is timed at its first case, its row
         ms, call_ms = time_ms(fk)
         plain_ms, plain_call = time_ms(fp, reps=10)
         library_ms = library_call = None  # no single PyTorch call computes the int8 variant
@@ -774,14 +880,15 @@ def main() -> int:
                 library_ms, library_call = time_ms(fl)
             except (TypeError, RuntimeError) as e:  # yardstick only; never used by the port
                 print(f"  library call for {name} [{label}] failed: {e}")
-        bms, by = bound(flops, byt)
+        peak = peak_of(name)
+        bms, by = bound(flops, byt, peak)
         print(f"time {name} [{label}]: device {ms:.4f} ms ({bms / ms * 100:.1f}% of bound "
               f"{bms:.4f} ms, {by}), plain {plain_ms:.4f}, library "
               f"{library_ms if library_ms is None else round(library_ms, 4)}; per call "
               f"(events): kernel {call_ms:.4f}, plain {plain_call:.4f}, library "
               f"{library_call if library_call is None else round(library_call, 4)}",
               flush=True)
-        if name == "flash_attention":
+        if name.removesuffix(F32) == "flash_attention":
             # K1 and SDPA by CUDA events around replays of a captured call (the
             # table's figures: at these shapes the wrapper's host time exceeds the
             # kernel's, so calls launched back to back time the host), beside
@@ -789,12 +896,14 @@ def main() -> int:
             ms, library_ms = graph_ms(fk, calls=10), graph_ms(fl, calls=10)
             rate, lib_rate = flops / (ms * 1e-3) / 1e12, flops / (library_ms * 1e-3) / 1e12
             print(f"time {name} [{label}] by events: {ms:.4f} ms = {rate:.1f} TFLOP/s"
-                  f"{peak_note(rate, PEAK_BF16_FLOPS / 1e12)} ({bms / ms * 100:.1f}% of bound); "
+                  f"{peak_note(rate, peak / 1e12)} ({bms / ms * 100:.1f}% of bound); "
                   f"library (scaled_dot_product_attention) {library_ms:.4f} ms = "
-                  f"{lib_rate:.1f} TFLOP/s{peak_note(lib_rate, PEAK_BF16_FLOPS / 1e12)} (CUDA "
+                  f"{lib_rate:.1f} TFLOP/s{peak_note(lib_rate, peak / 1e12)} (CUDA "
                   f"graph replays); back to back: kernel {event_ms(fk):.4f}, library "
                   f"{event_ms(fl):.4f}", flush=True)
-            if peak_note(lib_rate, PEAK_BF16_FLOPS / 1e12):
+            if name.endswith(F32):  # which SDPA backend took the fp32 call
+                print(f"  SDPA backend at fp32: {sdpa_backend(*fl.args)}", flush=True)
+            if peak_note(lib_rate, peak / 1e12):
                 library_ms = None  # an impossible reading stays out of the table
         times.setdefault(name, (ms, plain_ms, library_ms, bms, by))
 
@@ -839,6 +948,10 @@ def main() -> int:
     eval_phase(dev, reset_counts, read_counts, path_launches)
     print(f"total {time.time() - t_start:.0f} s")
 
+    # ---------------------------------------------------------------- 19
+    f32_phase(dev, emb, enc_long, reset_counts, read_counts, path_launches)
+    print(f"total {time.time() - t_start:.0f} s")
+
     # ---------------------------------------------------------------- 16
     llama_phase(dev, randn, reset_counts, read_counts, path_launches, times, max_err, t_start)
 
@@ -875,6 +988,10 @@ def main() -> int:
     # the "K9 [f32]" row: K9's fp32 kernel (the retrieval eval's index) in
     # the same source, replacing the same Pallas kernel on an fp32 corpus
     kernels[K9_F32] = kernels["scores_segmax"]
+    # the fp32 forms of K1, K2, K3 and K8: kernels of their own in the same
+    # sources, replacing the same Pallas kernels on fp32 inputs
+    for n in F32_KERNELS:
+        kernels[n + F32] = kernels[n]
     launches = {n: sum(c.get(n, 0) for c in path_launches.values()) for n in kernels}
     # the Dh-64 instances' rows: K1, K3 and K8 on phase 16's Llama-3.2-1B
     # paths, K1, K4 and K5 on phase 17's
@@ -898,11 +1015,13 @@ def main() -> int:
     return 0
 
 
-def k1_cases(dev, randn, cases, lse_cases, H=32, Hkv=8, Dh=128, name="flash_attention") -> None:
+def k1_cases(dev, randn, cases, lse_cases, H=32, Hkv=8, Dh=128, name="flash_attention",
+             atol=ATTN_ATOL) -> None:
     """K1's phase-2 shapes at (H, Hkv, Dh), appended to `cases` (and its LSE
-    to `lse_cases`) under `name`: bidirectional B 4 S 512 with a padded
-    tail, causal with a 256 window, and a 256-token prefill at offset 512
-    over a layer view of a 1024-slot cache."""
+    to `lse_cases`) under `name`, held to `atol`: bidirectional B 4 S 512
+    with a padded tail, causal with a 256 window, and a 256-token prefill at
+    offset 512 over a layer view of a 1024-slot cache. `randn` gives the
+    dtype (bf16, or fp32 for K1's fp32 form)."""
     import torch
     import torch.nn.functional as F
 
@@ -912,13 +1031,14 @@ def k1_cases(dev, randn, cases, lse_cases, H=32, Hkv=8, Dh=128, name="flash_atte
     B, S = 4, 512
 
     def attn_case(label, q, k, v, mask, causal, window, offset):
+        label = label if Dh == 128 else f"{label} Dh{Dh}"
         keep = keep_mask(mask, q.shape[1], k.shape[1], causal=causal,
                          sliding_window=window if causal else None, offset=offset,
                          device=dev)
         keep_b = keep.expand(q.shape[0], -1, -1)
         flops = 4.0 * int(keep_b.sum()) * H * Dh
         slots = int(keep_b.any(1).sum())  # keys some query sees: K/V bytes to read
-        byt = slots * Hkv * Dh * 2 * 2 + nbytes(q, q, mask)
+        byt = slots * Hkv * Dh * 2 * q.element_size() + nbytes(q, q, mask)
         kw = dict(causal=causal, sliding_window=window, offset=offset)
         qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
         am = keep[:, None]
@@ -926,10 +1046,11 @@ def k1_cases(dev, randn, cases, lse_cases, H=32, Hkv=8, Dh=128, name="flash_atte
         def library():
             return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=am, enable_gqa=True)
 
+        library.args = (qt, kt, vt, am)  # for sdpa_backend
         cases.append((name, label,
                       lambda: flash_attention.flash_attention(q, k, v, mask, **kw),
                       lambda: flash_attention.flash_attention_plain(q, k, v, mask, **kw),
-                      library, flops, byt, ATTN_ATOL))
+                      library, flops, byt, atol))
         lse_cases.append((name, label, lambda: flash_attention.flash_attention(
             q, k, v, mask, return_lse=True, **kw)[1], lambda: flash_attention.flash_attention_plain(
             q, k, v, mask, return_lse=True, **kw)[1]))
@@ -948,11 +1069,13 @@ def k1_cases(dev, randn, cases, lse_cases, H=32, Hkv=8, Dh=128, name="flash_atte
               mask_p, True, None, 512)
 
 
-def k3_cases(dev, randn, cases, H=32, Hkv=8, Dh=128, name="flash_decode") -> None:
+def k3_cases(dev, randn, cases, H=32, Hkv=8, Dh=128, name="flash_decode",
+             atol=ATTN_ATOL) -> None:
     """K3's phase-2 shapes at (H, Hkv, Dh), appended to `cases` under
-    `name`: Sq 1 and 64 over a B 4, 2048-slot cache with 1400 valid slots
-    (a hole), the int8 cache at Sq 1, and the serving decode chunk's call
-    (B 8, Smax 4096, mask-bounded, SERVING_LENS)."""
+    `name`, held to `atol`: Sq 1 and 64 over a B 4, 2048-slot cache with
+    1400 valid slots (a hole), the int8 cache at Sq 1, and the serving
+    decode chunk's call (B 8, Smax 4096, mask-bounded, SERVING_LENS).
+    `randn` gives q's dtype (bf16, or fp32 for K3's fp32 form)."""
     import torch
     import torch.nn.functional as F
 
@@ -971,7 +1094,7 @@ def k3_cases(dev, randn, cases, H=32, Hkv=8, Dh=128, name="flash_decode") -> Non
                          offset=offset, device=dev)
         slots = int((keep.any(1)).sum())  # valid slots the step must read, over rows
         flops = 4.0 * int(keep.sum()) * H * Dh
-        byt = slots * Hkv * Dh * 2 * 2 + nbytes(qd, qd, mask_d)
+        byt = slots * Hkv * Dh * 2 * qd.element_size() + nbytes(qd, qd, mask_d)
         hi = 1500
         lk = k_all[1, :, :hi].view(B, hi, Hkv, Dh).transpose(1, 2)
         lv = v_all[1, :, :hi].view(B, hi, Hkv, Dh).transpose(1, 2)
@@ -987,7 +1110,7 @@ def k3_cases(dev, randn, cases, H=32, Hkv=8, Dh=128, name="flash_decode") -> Non
                           qd, k_all, v_all, mask_d, **kw),
                       lambda qd=qd, kw=kw: decode_attention.flash_decode_plain(
                           qd, k_all, v_all, mask_d, **kw),
-                      library, flops, byt, ATTN_ATOL))
+                      library, flops, byt, atol))
 
     # the int8 cache variant of K3 at the Sq = 1 decode shape
     k8, ks = quantize_kv(k_all.view(L * B, Smax, Hkv, Dh))
@@ -1004,7 +1127,7 @@ def k3_cases(dev, randn, cases, H=32, Hkv=8, Dh=128, name="flash_decode") -> Non
                   lambda: decode_attention.flash_decode(qd, k8, v8, mask_d, **kw8),
                   lambda: decode_attention.flash_decode_plain(qd, k8, v8, mask_d, **kw8),
                   None, 4.0 * int(keep.sum()) * H * Dh,
-                  slots * Hkv * (Dh + 2) * 2 + nbytes(qd, qd, mask_d), ATTN_ATOL))
+                  slots * Hkv * (Dh + 2) * 2 + nbytes(qd, qd, mask_d), atol))
 
     # K3 at the serving decode chunk's call: B 8, Smax 4096, mask-bounded
     # (causal False, offset 0), the ragged rows of the serving phase's pools
@@ -1015,19 +1138,21 @@ def k3_cases(dev, randn, cases, H=32, Hkv=8, Dh=128, name="flash_decode") -> Non
     cases.append((name, "serving B8 Smax4096 mask-bounded",
                   lambda: decode_attention.flash_decode(qs, k_s, v_s, mask_s, **kws),
                   lambda: decode_attention.flash_decode_plain(qs, k_s, v_s, mask_s, **kws),
-                  None, 0.0, 0.0, ATTN_ATOL))
+                  None, 0.0, 0.0, atol))
 
 
 def check_cases(cases, lse_cases, max_err) -> None:
     """Each case's kernel against its plain version on the same inputs
-    (its atol), and K1's LSE (LSE_ATOL); the largest error of each kernel
-    name into max_err. Fails on a disagreement, a shape or a non-finite
-    output."""
+    (its atol), and K1's LSE (LSE_ATOL; F32_ATOL for the fp32 form); the
+    largest error of each kernel name into max_err; an fp32 form's rerun
+    bit-equal. Fails on a disagreement, a shape or a non-finite output."""
     import torch
 
     for name, label, fk, fp, _, _, _, atol in cases:
         got = fk()
         torch.cuda.synchronize()
+        if name.endswith(F32) and not torch.equal(got, fk()):
+            fail(f"{name} [{label}]: a rerun is not bit-equal")
         want = fp()
         if got.shape != want.shape or not torch.isfinite(got).all():
             fail(f"{name} [{label}]: shape {tuple(got.shape)} or non-finite output")
@@ -1042,9 +1167,9 @@ def check_cases(cases, lse_cases, max_err) -> None:
         want = fp()
         err = float((got - want).abs().max())
         max_err[name] = max(max_err.get(name, 0.0), err)
-        print(f"check {name} LSE [{label}]: max_abs_err {err:.3e} (atol {LSE_ATOL})",
-              flush=True)
-        if got.shape != want.shape or not torch.isfinite(got).all() or err > LSE_ATOL:
+        atol = F32_ATOL if name.endswith(F32) else LSE_ATOL
+        print(f"check {name} LSE [{label}]: max_abs_err {err:.3e} (atol {atol})", flush=True)
+        if got.shape != want.shape or not torch.isfinite(got).all() or err > atol:
             fail(f"{name} [{label}]: LSE disagrees with its plain version: {err}")
 
 
@@ -1116,7 +1241,8 @@ def profiled_kernels_per_call(fn, calls: int = 10):
     return n / calls if n else None
 
 
-def k3_times(dev, randn, times, H=32, Hkv=8, Dh=128, name="flash_decode") -> None:
+def k3_times(dev, randn, times, H=32, Hkv=8, Dh=128, name="flash_decode",
+             atol=ATTN_ATOL) -> None:
     """K3 and SDPA by CUDA events around CUDA graph replays, each call on its
     own layer of a cache with enough layers (cold_copies) that no call finds
     its K/V in L2, as in a decode step: at the kernel table's shape (Sq 1,
@@ -1125,7 +1251,8 @@ def k3_times(dev, randn, times, H=32, Hkv=8, Dh=128, name="flash_decode") -> Non
     (B 8, Smax 4096, mask-bounded, SERVING_LENS); SDPA over the slice up to
     the longest row with the boolean mask. A CUDA graph capture of one call
     counts its device operations, a profiler window of ten calls its
-    kernels: more than one a call fails."""
+    kernels: more than one a call fails. `randn` gives the dtype (fp32: the
+    fp32 form, its bound at the fp32 FMA rate)."""
     import torch
 
     from gritlm_tpu_torch.models.transformer import quantize_kv
@@ -1143,9 +1270,11 @@ def k3_times(dev, randn, times, H=32, Hkv=8, Dh=128, name="flash_decode") -> Non
         keep = keep_mask(mask, Sq, Smax, causal=causal, sliding_window=None, offset=offset,
                          device=dev).expand(B, Sq, Smax)
         slots = int(keep.any(1).sum())  # slots some query of the row sees: K/V to read
-        per_slot = Hkv * (Dh + 2) if quant else Hkv * Dh * 2  # int8: a bf16 scale a head
+        es = randn(1).element_size()
+        per_slot = Hkv * (Dh + 2) if quant else Hkv * Dh * es  # int8: a bf16 scale a head
         bms, by = bound(4.0 * int(keep.sum()) * H * Dh,
-                        slots * per_slot * 2 + nbytes(mask) + 2 * B * Sq * H * Dh * 2)
+                        slots * per_slot * 2 + nbytes(mask) + 2 * B * Sq * H * Dh * es,
+                        peak_of(name))
         L = cold_copies(slots * per_slot * 2)
         k_all, v_all = randn(L, B, Smax, Hkv * Dh), randn(L, B, Smax, Hkv * Dh)
         scales = {}
@@ -1171,13 +1300,13 @@ def k3_times(dev, randn, times, H=32, Hkv=8, Dh=128, name="flash_decode") -> Non
                       v_all[layer, :, :hi].view(B, hi, Hkv, Dh).transpose(1, 2))
                      for layer in range(L)]
         cold_decode_time(name, label, call, plain, L, q, keep, views, bms, by, times,
-                         "the sliced cache")
+                         "the sliced cache", atol)
         del k_all, v_all, scales, views
         torch.cuda.empty_cache()
 
 
 def cold_decode_time(name, label, call, plain, L, q, keep, views, bms, by, times,
-                     library_on) -> None:
+                     library_on, atol=ATTN_ATOL) -> None:
     """A decode kernel (K3, K8) at one shape: call(layer) against
     plain(layer) at the last layer, then its device ms by CUDA graph replays
     of one call on each of L layers (cold, L from cold_copies), SDPA the
@@ -1192,7 +1321,7 @@ def cold_decode_time(name, label, call, plain, L, q, keep, views, bms, by, times
     got = call(L - 1)
     torch.cuda.synchronize()
     err = float((got.float() - plain(L - 1).float()).abs().max())
-    if err > ATTN_ATOL or not torch.isfinite(got).all():
+    if err > atol or not torch.isfinite(got).all():
         fail(f"{name} [{label}, {L} layers] disagrees with its plain version: {err}")
     ms = graph_ms(lambda: [call(layer) for layer in range(L)]) / L
     library_ms = None
@@ -1268,21 +1397,26 @@ def k8_keep(mask, Sq):
     return keep & (torch.arange(Smax, device=mask.device)[None, None] <= pos[..., None]), offs
 
 
-def k8_cases(dev, randn, cases, B=8, H=32, Hkv=8, Dh=128, name="paged_decode") -> None:
+def k8_cases(dev, randn, cases, B=8, H=32, Hkv=8, Dh=128, name="paged_decode",
+             atol=ATTN_ATOL, page=256) -> None:
     """K8 at the serving shape (Mistral-7B heads, B 8, page 256, a 4096-slot
     logical width): ragged rows, a hole, a page shared by two rows, bf16 and
     int8 pages, Sq 1 and a causal Sq 8 chunk at per-row offsets; and K8
     against K3 on the same logical cache laid out dense and paged (whether
-    the two are bit-equal is printed: they run the same kernel body)."""
+    the two are bit-equal is printed: they run the same kernel body).
+    `randn` gives the dtype: fp32 runs the fp32 forms, held to `atol` and
+    required bit-equal to K3's fp32 form; `page` the pool's page size."""
     import torch
     import torch.nn.functional as F
 
     from gritlm_tpu_torch.ops import decode_attention, paged_attention
 
     L = 2
-    pt, mask, (k_pages, v_pages), (k8, v8), scales = paged_pool(dev, randn, L, B, Hkv, Dh)
+    pt, mask, (k_pages, v_pages), (k8, v8), scales = paged_pool(dev, randn, L, B, Hkv, Dh,
+                                                                page=page)
     max_len = mask.shape[1]
     slots = int(mask.sum())
+    dt = dt_label(k_pages)
     dense_k = paged_attention.gather_pages(k_pages, pt, 1).view(B, max_len, Hkv, Dh)
     dense_v = paged_attention.gather_pages(v_pages, pt, 1).view(B, max_len, Hkv, Dh)
     for Sq, quant in K8_SHAPES:
@@ -1293,7 +1427,7 @@ def k8_cases(dev, randn, cases, B=8, H=32, Hkv=8, Dh=128, name="paged_decode") -
         kp, vp = (k8, v8) if quant else (k_pages, v_pages)
         # bytes: each valid slot's K and V rows (int8: 1 byte a value plus a
         # bf16 scale per head), q in, out, mask and page table
-        per_slot = Hkv * (Dh + 2) if quant else Hkv * Dh * 2
+        per_slot = Hkv * (Dh + 2) if quant else Hkv * Dh * k_pages.element_size()
         byt = slots * per_slot * 2 + nbytes(q, q, mask, pt)
         library = None
         if not quant:
@@ -1305,12 +1439,12 @@ def k8_cases(dev, randn, cases, B=8, H=32, Hkv=8, Dh=128, name="paged_decode") -
                     attn_mask=am, enable_gqa=True)
 
         cases.append((name,
-                      f"{'int8' if quant else 'bf16'} Sq{Sq} B8 page256 {slots} valid slots",
+                      f"{'int8' if quant else dt} Sq{Sq} B8 page{page} {slots} valid slots",
                       lambda q=q, kp=kp, vp=vp, kw=kw: paged_attention.paged_decode(
                           q, kp, vp, pt, mask, **kw),
                       lambda q=q, kp=kp, vp=vp, kw=kw: paged_attention.paged_decode_plain(
                           q, kp, vp, pt, mask, **kw),
-                      library, 4.0 * int(keep.sum()) * H * Dh, byt, ATTN_ATOL))
+                      library, 4.0 * int(keep.sum()) * H * Dh, byt, atol))
 
     # K8 against K3 on the same logical cache, dense and paged
     q = randn(B, 1, H, Dh)
@@ -1322,28 +1456,33 @@ def k8_cases(dev, randn, cases, B=8, H=32, Hkv=8, Dh=128, name="paged_decode") -
                                          num_kv_heads=Hkv)
     torch.cuda.synchronize()
     err = float((got.float() - want.float()).abs().max())
-    print(f"check {name} against flash_decode on the same logical cache (B8, "
-          f"{slots} valid slots): max_abs_err {err:.3e} (atol {ATTN_ATOL}), bit-equal "
-          f"{torch.equal(got, want)}", flush=True)
-    if err > ATTN_ATOL or not torch.isfinite(got).all():
-        fail(f"K8 and K3 disagree on the same logical cache: {err}")
+    equal = torch.equal(got, want)
+    print(f"check {name} against flash_decode on the same logical cache (B8, page {page}, "
+          f"{slots} valid slots): max_abs_err {err:.3e} (atol {atol}), bit-equal "
+          f"{equal}", flush=True)
+    if err > atol or not torch.isfinite(got).all() or (name.endswith(F32) and not equal):
+        fail(f"K8 and K3 disagree on the same logical cache: {err}, bit-equal {equal}")
 
 
-def k8_times(dev, randn, times, B=8, H=32, Hkv=8, Dh=128, name="paged_decode") -> None:
+def k8_times(dev, randn, times, B=8, H=32, Hkv=8, Dh=128, name="paged_decode",
+             atol=ATTN_ATOL, shapes=K8_SHAPES) -> None:
     """K8 and SDPA by CUDA events around CUDA graph replays at the four
     K8_SHAPES (bf16 and int8 pages, Sq 1 mask-bounded and the causal Sq 8
     chunk at per-row offsets), each call on its own layer of a pool with
     enough layers (cold_copies) that no call finds its K/V in L2, as in a
     serving step; SDPA (bf16 only) over the same K/V laid out dense, sliced
     to the longest row, with the boolean mask. Device operations a call
-    counted: more than one fails (cold_decode_time)."""
+    counted: more than one fails (cold_decode_time). `randn` gives the
+    dtype (fp32: the fp32 form at `shapes`, its bound at the fp32 FMA
+    rate)."""
     import torch
 
     from gritlm_tpu_torch.ops import paged_attention as pa
 
     lens = torch.tensor(SERVING_LENS)
-    for Sq, quant in K8_SHAPES:
-        per_slot = Hkv * (Dh + 2) if quant else Hkv * Dh * 2
+    es = randn(1).element_size()
+    for Sq, quant in shapes:
+        per_slot = Hkv * (Dh + 2) if quant else Hkv * Dh * es
         L = cold_copies(int(lens.sum()) * per_slot * 2)
         pt, mask, bf16_pages, int8_pages, scales = paged_pool(dev, randn, L, B, Hkv, Dh)
         kp, vp = int8_pages if quant else bf16_pages
@@ -1352,7 +1491,8 @@ def k8_times(dev, randn, times, B=8, H=32, Hkv=8, Dh=128, name="paged_decode") -
         slots = int(keep.any(1).sum())  # slots some query of the row sees: K/V to read
         q = randn(B, Sq, H, Dh)
         bms, by = bound(4.0 * int(keep.sum()) * H * Dh,
-                        slots * per_slot * 2 + nbytes(mask, pt) + 2 * B * Sq * H * Dh * 2)
+                        slots * per_slot * 2 + nbytes(mask, pt) + 2 * B * Sq * H * Dh * es,
+                        peak_of(name))
         kw = dict(num_kv_heads=Hkv, causal=Sq > 1, offset=0 if offs is None else offs,
                   **(scales if quant else {}))
 
@@ -1370,9 +1510,9 @@ def k8_times(dev, randn, times, B=8, H=32, Hkv=8, Dh=128, name="paged_decode") -
                 dk, dv = (pa.gather_pages(x, pt, layer)[:, :hi].view(B, hi, Hkv, Dh)
                           .transpose(1, 2) for x in (kp, vp))
                 views.append((dk, dv))
-        cold_decode_time(name, f"{'int8' if quant else 'bf16'} Sq{Sq} B8 page256 "
+        cold_decode_time(name, f"{'int8' if quant else dt_label(q)} Sq{Sq} B8 page256 "
                          f"{slots} slots seen", call, plain, L, q, keep, views, bms, by, times,
-                         "the dense layout")
+                         "the dense layout", atol)
         del kp, vp, scales, views
         torch.cuda.empty_cache()
 
@@ -1385,7 +1525,7 @@ K2_SHAPES = ((1, 4096, 4096, False), (64, 128, 4096, False), (8, 512, 3584, Fals
 
 
 def pool_case(dev, randn, B, S, D, strided=False, edges=False):
-    """(hidden, gamma, mask) of a K2 case: bf16 hidden [B, S, D] (a view
+    """(hidden, gamma, mask) of a K2 case: hidden [B, S, D] in randn's dtype (a view
     into [B, S, 2D] rows when strided), a 12-token instruction prefix
     masked out of every row, every other row padded from 300 (from S * 3/5
     when S < 512); with `edges`, row 2 one token and at B > 8 row 3 empty."""
@@ -1393,7 +1533,7 @@ def pool_case(dev, randn, B, S, D, strided=False, edges=False):
 
     base = randn(B, S, 2 * D if strided else D)
     hidden = base[..., :D] if strided else base
-    gamma = (1 + 0.1 * randn(D).float()).to(torch.bfloat16)
+    gamma = (1 + 0.1 * randn(D).float()).to(hidden.dtype)
     mask = torch.ones((B, S), dtype=torch.int32, device=dev)
     mask[:, :12] = 0  # instruction prefix
     mask[1::2, min(300, S * 3 // 5):] = 0  # padding
@@ -1420,10 +1560,11 @@ def pool_library(hidden, gamma, mask, method):
     return e / e.norm(dim=-1, keepdim=True).clamp_min(1e-12)
 
 
-def k2_checks(dev, randn, max_err) -> None:
-    """K2 against its plain version within POOL_ATOL at K2_SHAPES, mean and
+def k2_checks(dev, randn, max_err, name="fused_norm_mean_pool", atol=POOL_ATOL) -> None:
+    """K2 against its plain version within `atol` at K2_SHAPES, mean and
     weightedmean, normalized and not; every call run twice and the two
-    required bit-equal; an empty mask row comes out zero."""
+    required bit-equal; an empty mask row comes out zero. `randn` gives the
+    dtype (fp32: the fp32 form, row `name`)."""
     import torch
 
     from gritlm_tpu_torch.ops import fused_pool as fp
@@ -1440,21 +1581,25 @@ def k2_checks(dev, randn, max_err) -> None:
                 label = (f"{method} B{B} S{S} D{D}{' strided' if strided else ''}"
                          f"{'' if normalized else ' unnormalized'}")
                 if got.shape != want.shape or not torch.isfinite(got).all():
-                    fail(f"fused_norm_mean_pool [{label}]: shape or non-finite output")
+                    fail(f"{name} [{label}]: shape or non-finite output")
                 err = float((got - want).abs().max())
                 same = torch.equal(got, again)
                 empty = B <= 8 or torch.count_nonzero(got[3]) == 0
-                print(f"check fused_norm_mean_pool [{label}]: max_abs_err {err:.3e} (atol "
-                      f"{POOL_ATOL}); rerun bit-equal: {same}", flush=True)
-                if err > POOL_ATOL or not same or not empty:
-                    fail(f"fused_norm_mean_pool [{label}] disagrees with its plain version "
-                         f"({err}), a rerun differs ({not same}) or an empty row is not 0")
-                max_err["fused_norm_mean_pool"] = max(max_err["fused_norm_mean_pool"], err)
+                print(f"check {name} [{label}]: max_abs_err {err:.3e} (atol {atol}); rerun "
+                      f"bit-equal: {same}", flush=True)
+                if err > atol or not same or not empty:
+                    fail(f"{name} [{label}] disagrees with its plain version ({err}), a rerun "
+                         f"differs ({not same}) or an empty row is not 0")
+                max_err[name] = max(max_err.get(name, 0.0), err)
         del hidden
         torch.cuda.empty_cache()
 
 
-def k2_times(dev, randn, times) -> None:
+K2_TIMES = ((8, 512, 4096, "mean"), (8, 512, 4096, "weightedmean"), (1, 4096, 4096, "mean"),
+            (64, 128, 4096, "mean"))
+
+
+def k2_times(dev, randn, times, name="fused_norm_mean_pool", shapes=K2_TIMES) -> None:
     """K2 and its library call (pool_library) by CUDA events around CUDA
     graph replays, each call on its own copy of the hidden state
     (cold_copies of it, so no call finds its rows in L2, as after a trunk
@@ -1462,16 +1607,18 @@ def k2_times(dev, randn, times) -> None:
     table's row, with the plain version's time) and weightedmean, and at
     B 1 S 4096 and B 64 S 128; the device operations of one call from a
     captured CUDA graph (more than one fails), and the profiler's warm
-    reading over back-to-back calls beside."""
+    reading over back-to-back calls beside. `randn` gives the dtype (fp32:
+    the fp32 form at `shapes`, row `name`, its bound at the fp32 FMA
+    rate)."""
     import torch
 
     from gritlm_tpu_torch.ops import fused_pool as fp
 
-    for B, S, D, method in ((8, 512, 4096, "mean"), (8, 512, 4096, "weightedmean"),
-                            (1, 4096, 4096, "mean"), (64, 128, 4096, "mean")):
+    for B, S, D, method in shapes:
         hidden, gamma, mask = pool_case(dev, randn, B, S, D)
         rows = int(mask.sum())
-        bms, by = bound(4.0 * rows * D, rows * D * 2 + nbytes(gamma, mask) + B * D * 4)
+        bms, by = bound(4.0 * rows * D, rows * D * hidden.element_size() + nbytes(gamma, mask)
+                        + B * D * 4, peak_of(name))
         n = cold_copies(nbytes(hidden))
         copies = [hidden] + [randn(*hidden.shape) for _ in range(n - 1)]
         kw = dict(eps=1e-5, method=method)
@@ -1482,22 +1629,21 @@ def k2_times(dev, randn, times) -> None:
         n_kernels, n_ops = kernels_per_call(lambda: fp.fused_norm_mean_pool(hidden, gamma,
                                                                             mask, **kw))
         warm = time_ms(lambda: fp.fused_norm_mean_pool(hidden, gamma, mask, **kw))[0]
-        label = f"{method} B{B} S{S} D{D}, {rows} masked-in rows"
-        line = (f"time fused_norm_mean_pool [{label}]: device {ms:.4f} ms cold "
+        label = f"{method} B{B} S{S} D{D} {dt_label(hidden)}, {rows} masked-in rows"
+        line = (f"time {name} [{label}]: device {ms:.4f} ms cold "
                 f"({bms / ms * 100:.1f}% of bound {bms:.4f} ms, {by}), library "
                 f"{library_ms:.4f} (F.rms_norm + masked mean + normalize, cold); CUDA graph "
                 f"replays over {n} copies of the hidden state; device kernels a call: "
                 f"{n_kernels} ({n_ops} device operations in its captured graph); "
                 f"torch.profiler over back-to-back calls (warm) {warm:.4f}")
-        if "fused_norm_mean_pool" not in times:  # the table's row
+        if name not in times:  # the table's row
             plain_ms = time_ms(lambda: fp.fused_norm_mean_pool_plain(hidden, gamma, mask, **kw),
                                reps=10)[0]
-            times["fused_norm_mean_pool"] = (ms, plain_ms, library_ms, bms, by)
+            times[name] = (ms, plain_ms, library_ms, bms, by)
             line += f"; plain {plain_ms:.4f}"
         print(line, flush=True)
         if n_ops > 1:
-            fail(f"fused_norm_mean_pool [{label}]: {n_ops} device operations a call, "
-                 "not one kernel")
+            fail(f"{name} [{label}]: {n_ops} device operations a call, not one kernel")
         del hidden, copies
         torch.cuda.empty_cache()
 
@@ -1765,7 +1911,7 @@ def rag_phase(model, reset_counts, read_counts, path_launches, key="rag"):
     return eng
 
 
-def serving_workload(model, reset_counts, read_counts, total):
+def serving_workload(model, reset_counts, read_counts, total, f32=False):
     """The serving workload of `model` (whose params the engines are given):
     24 generation requests (seeded prompts of 32-1900 tokens, 8-64 new
     tokens) and 8 embedding requests. Returns (drive, specs); drive(label,
@@ -1774,7 +1920,8 @@ def serving_workload(model, reset_counts, read_counts, total):
     before and added to `total` after, checks every completion, the pool
     embeddings against GritLM.encode, K3/K8 (and `decode_kernels`) inside
     the decode chunks and a teacher-forced forward, and returns (generated
-    tokens/s, peak reserved pages)."""
+    tokens/s, peak reserved pages). f32: an fp32 model, whose launches are
+    the fp32 forms' counts (F32 names)."""
     import torch
 
     from gritlm_tpu_torch import serving
@@ -1883,15 +2030,17 @@ def serving_workload(model, reset_counts, read_counts, total):
               f"{np.percentile(ttft, 50):.3f} s, p90 {np.percentile(ttft, 90):.3f} s; "
               f"{eng._steps} decode steps; launches {counts}; in decode chunks "
               f"{dict(decode_counts)}", flush=True)
-        if counts["flash_attention"] == 0:
+        sfx = F32 if f32 else ""
+        if counts["flash_attention" + sfx] == 0:
             fail(f"serving [{label}]: prefills did not go through K1")
-        k3, k8 = decode_counts.get("flash_decode", 0), decode_counts.get("paged_decode", 0)
+        k3 = decode_counts.get("flash_decode" + sfx, 0)
+        k8 = decode_counts.get("paged_decode" + sfx, 0)
         if (eng.paged and (k8 == 0 or k3 != 0)) or (not eng.paged and (k3 == 0 or k8 != 0)):
             fail(f"serving [{label}]: decode chunks launched K3 {k3} and K8 {k8} times")
         for name in decode_kernels:
             if decode_counts.get(name, 0) == 0:
                 fail(f"serving [{label}]: decode chunks never launched {name}")
-        if n_embeds and counts["fused_norm_mean_pool"] == 0:
+        if n_embeds and counts["fused_norm_mean_pool" + sfx] == 0:
             fail(f"serving [{label}]: embeddings did not go through K2")
         out = {"rate": n_tok / wall, "ttft50": float(np.percentile(ttft, 50)), "peak": peak[0],
                "embs": embs, "verify": torch.cat(verify_emits).cpu() if verify_emits else None,
@@ -2040,7 +2189,7 @@ SPEC_K = 7  # the verify chunk is Sq = SPEC_K + 1 (the engines' default spec_k)
 
 
 def k3_verify(dev, randn, times, max_err, H=32, Hkv=8, Dh=128, name=K3_VERIFY,
-              timed=True) -> None:
+              timed=True, atol=ATTN_ATOL) -> None:
     """K3 with per-row offsets at the dense verify chunk's shape: B 8, Sq 8,
     Mistral-7B heads, a 4096-slot pool with the rows of SERVING_LENS (a
     hole in row 1), causal with row b's query 0 at slot SERVING_LENS[b] - 8.
@@ -2051,7 +2200,8 @@ def k3_verify(dev, randn, times, max_err, H=32, Hkv=8, Dh=128, name=K3_VERIFY,
     beside SDPA over the sliced cache with the same per-row causal boolean
     mask. The bf16 timing is the kernels line's row `name` ("K3 verify"
     by default) unless that row has its times; timed=False: the checks
-    only."""
+    only. `randn` gives the dtype (fp32: the fp32 forms over fp32 and int8
+    caches, held to `atol`, the bound at the fp32 FMA rate)."""
     import torch
 
     from gritlm_tpu_torch.models.transformer import quantize_kv
@@ -2086,6 +2236,8 @@ def k3_verify(dev, randn, times, max_err, H=32, Hkv=8, Dh=128, name=K3_VERIFY,
         kw = dict(causal=True, offset=offs, layer=1, num_kv_heads=Hkv, **dsc)
         got = da.flash_decode(q, kd, vd, mask, **kw)
         torch.cuda.synchronize()
+        if name.endswith(F32) and not torch.equal(got, da.flash_decode(q, kd, vd, mask, **kw)):
+            fail(f"{name} [Sq{Sq} per-row offsets]: a rerun is not bit-equal")
         err = float((got.float() - da.flash_decode_plain(q, kd, vd, mask, **kw).float())
                     .abs().max())
         kp, vp = (k8p, v8p) if quant else (k_pages, v_pages)
@@ -2094,10 +2246,10 @@ def k3_verify(dev, randn, times, max_err, H=32, Hkv=8, Dh=128, name=K3_VERIFY,
         torch.cuda.synchronize()
         equal = torch.equal(paged, got)
         max_err[name] = max(max_err.get(name, 0.0), err)
-        label = f"{'int8' if quant else 'bf16'} Sq{Sq} B8 Smax{Smax} per-row offsets"
-        print(f"check {name} [{label}]: max_abs_err {err:.3e} (atol {ATTN_ATOL}); K8 on "
+        label = f"{'int8' if quant else dt_label(q)} Sq{Sq} B8 Smax{Smax} per-row offsets"
+        print(f"check {name} [{label}]: max_abs_err {err:.3e} (atol {atol}); K8 on "
               f"the same logical cache bit-equal {equal}", flush=True)
-        if err > ATTN_ATOL or not torch.isfinite(got).all():
+        if err > atol or not torch.isfinite(got).all():
             fail(f"{name} [{label}] disagrees with its plain version: {err}")
         if not equal:
             fail(f"{name} [{label}]: K3 and K8 differ on the same logical cache")
@@ -2108,10 +2260,12 @@ def k3_verify(dev, randn, times, max_err, H=32, Hkv=8, Dh=128, name=K3_VERIFY,
 
     # cold timings, bf16 (the table's row) and int8
     slots = int(keep.any(1).sum())  # slots some query of the row sees: K/V to read
+    es = q.element_size()
     for quant in (False, True):
-        per_slot = Hkv * (Dh + 2) if quant else Hkv * Dh * 2
+        per_slot = Hkv * (Dh + 2) if quant else Hkv * Dh * es
         bms, by = bound(4.0 * int(keep.sum()) * H * Dh,
-                        slots * per_slot * 2 + nbytes(mask, offs) + 2 * B * Sq * H * Dh * 2)
+                        slots * per_slot * 2 + nbytes(mask, offs) + 2 * B * Sq * H * Dh * es,
+                        peak_of(name))
         L = cold_copies(slots * per_slot * 2)
         k_all, v_all = randn(L, B, Smax, Hkv * Dh), randn(L, B, Smax, Hkv * Dh)
         scales = {}
@@ -2131,9 +2285,9 @@ def k3_verify(dev, randn, times, max_err, H=32, Hkv=8, Dh=128, name=K3_VERIFY,
             views = [(k_all[layer, :, :hi].view(B, hi, Hkv, Dh).transpose(1, 2),
                       v_all[layer, :, :hi].view(B, hi, Hkv, Dh).transpose(1, 2))
                      for layer in range(L)]
-        cold_decode_time(name, f"{'int8' if quant else 'bf16'} Sq{Sq} B8 Smax{Smax} "
+        cold_decode_time(name, f"{'int8' if quant else dt_label(q)} Sq{Sq} B8 Smax{Smax} "
                          f"per-row offsets, {slots} slots seen", call, plain, L, q, keep, views,
-                         bms, by, times, "the sliced cache, per-row causal boolean mask")
+                         bms, by, times, "the sliced cache, per-row causal boolean mask", atol)
         del k_all, v_all, scales, views
         torch.cuda.empty_cache()
 
@@ -2141,7 +2295,8 @@ def k3_verify(dev, randn, times, max_err, H=32, Hkv=8, Dh=128, name=K3_VERIFY,
 def spec_generate(model, total) -> None:
     """Lockstep speculative generate (GritLM.generate_from_ids(speculative=
     True), spec_k 7, ngram 3) at B = 1 and 2 on prompts that quote a passage,
-    64 new tokens: every token within TIE_TOL of its position's largest
+    32 new tokens (64 before phase 19; the time limit): every token within
+    TIE_TOL of its position's largest
     logit (teacher forcing); the verify steps, tokens a verify forward, and
     ms per token on the host and device clocks beside the plain greedy
     generate on the same prompts. Launch counts of the speculative runs are
@@ -2155,7 +2310,7 @@ def spec_generate(model, total) -> None:
     prompts = [f"<s><|user|>\nQuote this passage: {passage}\n<|assistant|>\n{SENTENCES[0]}",
                f"<s><|user|>\nRepeat after me: {passage} {passage}\n<|assistant|>\n"
                f"{SENTENCES[1]}"]
-    n = 64
+    n = 32
     for B in (1, 2):
         enc = tok(prompts[:B])
 
@@ -2416,11 +2571,12 @@ ADAPTER_RTOL = 5e-3
 # a bf16 step off W + AB) moves the logits of this random 32-layer model by
 # far more than the kernels' summation order does (PERF.md, PR 15).
 ADAPTER_TIE_TOL = INT8_KV_TIE_TOL
-# the remat policies' LoRA step: phase 10's batch at depth 8 (under "dots"
+# the remat policies' LoRA step: phase 10's batch at depth 4 (under "dots"
 # a layer keeps its seven projections' outputs, 43,008 bf16 values a token,
 # 2.2 GB at 25,600 tokens, and the lazy LoRA weight's fp32 A @ B, 0.87 GB:
-# about 98 GB at 32 layers, which the 80 GB card cannot hold)
-REMAT_DEPTH = 8
+# about 98 GB at 32 layers, which the 80 GB card cannot hold; 8 layers fit,
+# 4 keep the script inside its time limit beside phase 19)
+REMAT_DEPTH = 4
 REMAT_POLICIES = (None, "dots", "dots_no_batch")
 REMAT_RTOL = 1e-3  # the bound above which a policy's step departs from the full recompute's
 
@@ -2497,11 +2653,11 @@ def adapter_phase(model, reset_counts, read_counts, path_launches, greedy_rates,
                   greedy_ttfts) -> None:
     """Per-request LoRA serving at full width (counts set to 0 before each
     pool and read after): four adapters "a"-"d" (draw_adapters); phase 7's
-    24 generation requests on adapters round-robin over None, a, b, c, d and
-    its 8 embedding requests, every second one on an adapter, through dense,
-    paged (page 256) and speculative (spec_k 7) pools, and the first 8
-    generation requests through a chunked-prefill (256) pool (phase 7's
-    cut, for time): every request complete; each generated token within
+    first 8 generation requests (its 8-request cut, for the time limit) on
+    adapters round-robin over None, a, b, c, d and its 8 embedding requests,
+    every second one on an adapter, through dense, paged (page 256) and
+    speculative (spec_k 7) pools, and the 8 through a chunked-prefill (256)
+    pool: every request complete; each generated token within
     ADAPTER_TIE_TOL of its position's largest logit in a teacher-forced
     forward through the pool's own math (the served tree with the
     request's adapter id), and its deficit over the adapter merged into the
@@ -2547,12 +2703,14 @@ def adapter_phase(model, reset_counts, read_counts, path_launches, greedy_rates,
     embed_kw = {rid: {"adapter": a} for rid, a in emb_ad.items()}
     kw = dict(max_batch=8, max_len=4096, chunk_size=16, eos_id=tok.eos_token_id,
               pad_id=tok.pad_token_id, device=dev, adapters=adapters, lora_scale=scale)
-    # (label, engine keywords, generation requests, embedding requests): the
-    # chunked-prefill pool takes phase 7's cut (8 requests, no embeddings)
-    pools = (("dense", {}, 24, 8), ("paged", dict(paged=True, page_size=256), 24, 8),
+    # (label, engine keywords, generation requests, embedding requests): every
+    # pool takes phase 7's cut (its first 8 generation requests: the script's
+    # time limit), the chunked-prefill pool no embeddings
+    specs = specs[:8]
+    pools = (("dense", {}, 8, 8), ("paged", dict(paged=True, page_size=256), 8, 8),
              ("chunked prefill 256", dict(prefill_chunk=256,
                                           prompt_buckets=(256, 512, 1024, 2048)), 8, 0),
-             ("speculative", dict(speculative=True, spec_k=SPEC_K), 24, 8))
+             ("speculative", dict(speculative=True, spec_k=SPEC_K), 8, 8))
     runs = {}
     for label, extra, n_gen, n_emb in pools:
         eng = ServingEngine(cfg, params, **kw, **extra)
@@ -3209,10 +3367,11 @@ def quant_phase(model, enc, dense_step, reset_counts, read_counts, path_launches
 
 
 # Mixtral-8x7B at its published width: 46.70 B parameters (93.4 GB in bf16)
-# at 32 layers do not fit the 80 GB card, so phase 13 cuts the depth: 16
-# layers in bf16 (23.48 B parameters, 46.96 GB), 8 for the w8 model (built
-# from a bf16 model of depth 8, so its peak stays near 35 GB).
-MOE_DEPTH = 16
+# at 32 layers do not fit the 80 GB card, so phases 13 and 15 cut the depth:
+# 8 layers in bf16 (16, 23.48 B parameters and 46.96 GB, fit the card; 8
+# keeps the script inside its time limit beside phase 19), 8 for the w8
+# model (built from a bf16 model of depth 8, so its peak stays near 35 GB).
+MOE_DEPTH = 8
 MOE_W8_DEPTH = 8
 
 
@@ -3684,8 +3843,8 @@ def moe_phase(enc, reset_counts, read_counts, path_launches) -> None:
         fail(f"the MoE path never launched {missing}")
 
 # Phase 15: MoE GRIT training at Mixtral-8x7B width. The LoRA step runs at
-# phase 13's MOE_DEPTH (16 layers of random bf16 weights, 43.75 GiB: the
-# step adds 10.8 GiB at its peak on the 80 GB card); the router's gradient,
+# phase 13's MOE_DEPTH (8 layers of random bf16 weights; at 16, 43.75 GiB,
+# the step added 10.8 GiB at its peak on the 80 GB card); the router's gradient,
 # the expert stacks' gradients, the capacity drops and the CLI at depth 2.
 MOE_AUX_RTOL = 1e-5  # loss_gen against the CE plus the aux term recomputed in fp32
 # the router gradient's aux part, (coef default) - (coef 0) against coef x
@@ -4247,7 +4406,7 @@ def training_phase(dev, reset_counts, read_counts, path_launches, preset="mistra
     """GRIT training at Mistral-7B width (counts set to 0 before, read
     after): LoRA at full depth through training.run.main (3 steps, a
     checkpoint at step 2, a run resumed from it, the export read back
-    equal); 6 LoRA steps on one batch; 3 QLoRA steps (the base in int8) on
+    equal); 4 LoRA steps on one batch; 3 QLoRA steps (the base in int8) on
     the same batch; GradCache against the full batch and full-parameter
     training at depth 4 (for the script's time limit: phase 17 trains full
     parameters at full depth, on Llama-3.2-1B)."""
@@ -4270,14 +4429,15 @@ def training_phase(dev, reset_counts, read_counts, path_launches, preset="mistra
     try:
         base = lora_run_checks(dev, cfg, argv, lambda: init_params(cfg, 42, device=dev), preset)
 
-        # ---- it learns: 6 LoRA steps on one fixed batch at lr 1e-4
+        # ---- it learns: 4 LoRA steps on one fixed batch at lr 1e-4 (6 before
+        # phase 19: the time limit)
         batch, valid, padded = first_batch(work, lengths)
-        tc = TrainConfig(learning_rate=1e-4, total_steps=6)
+        tc = TrainConfig(learning_rate=1e-4, total_steps=4)
         run_step, state, _, _ = make_lora_train_state(cfg, tc, base, seed=0, device=dev)
-        state, losses, med, peak = timed_steps(run_step, state, batch, 6)
+        state, losses, med, peak = timed_steps(run_step, state, batch, 4)
         print(f"train [LoRA, {cfg.num_hidden_layers} layers, one batch, lr 1e-4]: losses "
               f"{', '.join(f'{x:.4f}' for x in losses)}; {med * 1e3:.1f} ms per step "
-              f"(median of steps 2-6, host clock) = {valid / med:.0f} valid tokens/s, "
+              f"(median of steps 2-4, host clock) = {valid / med:.0f} valid tokens/s, "
               f"{padded / med:.0f} padded tokens/s ({valid} valid of {padded} padded tokens "
               f"a step); peak {peak:.2f} GiB; {count_params(state.params) / 1e6:.1f} M "
               "trained parameters", flush=True)
@@ -5004,11 +5164,7 @@ def k9_f32_times(dev, times, Q=256, N=2**18, D=4096) -> None:
     ms = event_ms(lambda: scores_segmax.scores_segmax(q, emb, nd), reps=10)
     plain_ms = event_ms(lambda: scores_segmax.scores_segmax_plain(q, emb, nd), reps=3, warmup=1)
     library_ms = event_ms(library, reps=10)
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    clock_mhz = float(subprocess.run(
-        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
-        capture_output=True, text=True, check=True, timeout=60).stdout.split()[0])
-    peak = sms * 128 * 2 * clock_mhz * 1e6
+    peak = f32_peak()
     flops = 2.0 * Q * nd * D
     byt = nd * D * 4 + Q * D * 4 + Q * N * 4 + -(-N // 128) * Q * 4
     t_ops, t_bytes = flops / peak * 1e3, byt / PEAK_BYTES * 1e3
@@ -5016,8 +5172,8 @@ def k9_f32_times(dev, times, Q=256, N=2**18, D=4096) -> None:
     rate, lib_rate = flops / (ms * 1e-3) / 1e12, flops / (library_ms * 1e-3) / 1e12
     print(f"time {K9_F32} [Q{Q} N{N} D{D} fp32, {nd} docs] by events: {ms:.4f} ms = "
           f"{rate:.1f} TFLOP/s{peak_note(rate, peak / 1e12)} ({bms / ms * 100:.1f}% of bound "
-          f"{bms:.4f} ms, {by}: fp32 FMA peak {peak / 1e12:.1f} TFLOP/s from {sms} SMs at "
-          f"{clock_mhz:.0f} MHz, bytes {t_bytes:.4f} ms); plain {plain_ms:.4f}; library "
+          f"{bms:.4f} ms, {by}: fp32 FMA peak {peak / 1e12:.1f} TFLOP/s, bytes "
+          f"{t_bytes:.4f} ms); plain {plain_ms:.4f}; library "
           f"(torch.mm fp32, TF32 off, + masked_fill + amax) {library_ms:.4f} ms = "
           f"{lib_rate:.1f} TFLOP/s{peak_note(lib_rate, peak / 1e12)}", flush=True)
     if peak_note(lib_rate, peak / 1e12):
@@ -5441,21 +5597,14 @@ def eval_phase(dev, reset_counts, read_counts, path_launches) -> None:
     print(f"phase 18 (eval): {time.time() - t_phase:.0f} s", flush=True)
 
 
-# verify-checkpoint's transformers leg on a bf16 checkpoint: the oracle runs
-# the checkpoint's bf16 weights in fp32, the port runs them in bf16, so every
-# layer rounds its activations to bf16 (2^-8 relative) and 16 residual layers
-# of random weights add that up (the first chip run: 0.0256 causal, 0.0250
-# bidirectional). The tool's default, 2e-3, is for an fp32 load (--fp32),
-# which K1 does not take on the card.
-BF16_PARITY_TOL = 0.05
-
-
 def tools_phase(dev, work: Path, reset_counts, read_counts, path_launches) -> None:
     """Phase 18's tools leg on phase 17's Llama-3.2-1B run under `work`
-    (full width and depth): `tools verify-checkpoint --device cuda` on its
-    export (ok; the transformers oracle, where the machine has it, within
-    BF16_PARITY_TOL; the fixture cosines finite in [-1, 1] and printed; K1,
-    K2 and K9 [f32] launched, counts set to 0 before and read after);
+    (full width and depth): `tools verify-checkpoint --device cuda --fp32`
+    on its export at the tool's default --parity_tol, 2e-3 (ok: loaded in
+    fp32; the transformers oracle, where the machine has it, within it; the
+    fixture cosines finite in [-1, 1] and printed; the fp32 forms of K1 and
+    K2 and K9 [f32] launched, and no bf16 K1 or K2, counts set to 0 before
+    and read after);
     `shard --max_shard_gb 1` read back equal by
     load_checkpoint; `strip-prefix` with the keys expected; `export-hf` on
     the full-parameter checkpoint read back equal to that state's
@@ -5477,8 +5626,8 @@ def tools_phase(dev, work: Path, reset_counts, read_counts, path_launches) -> No
     verdict = work / "verdict.json"
     reset_counts()
     try:
-        tools.main(["verify-checkpoint", "--model", str(export), "--device", "cuda",
-                    "--parity_tol", str(BF16_PARITY_TOL), "--out", str(verdict)])
+        tools.main(["verify-checkpoint", "--model", str(export), "--device", "cuda", "--fp32",
+                    "--out", str(verdict)])
     except SystemExit as e:
         fail(f"tools [verify-checkpoint]: exited {e.code}")
     torch.cuda.synchronize()
@@ -5490,11 +5639,13 @@ def tools_phase(dev, work: Path, reset_counts, read_counts, path_launches) -> No
           f"torch_parity {v['torch_parity']}, fixture cosines {sims} (random weights: "
           f"matches_gritlm7b {v['cosine_fixture']['matches_gritlm7b']}), retrieval smoke "
           f"{v['retrieval_smoke']}; launches {counts}", flush=True)
-    if not v["ok"] or not all(np.isfinite(sims)) or max(abs(x) for x in sims) > 1.0:
-        fail(f"tools [verify-checkpoint]: verdict {v}")
-    if counts["flash_attention"] == 0 or counts["fused_norm_mean_pool"] == 0 \
-            or counts[K9_F32] == 0:
-        fail("tools [verify-checkpoint]: did not go through K1, K2 and K9 [f32]")
+    if not v["ok"] or v["load"]["dtype"] != "float32" or not all(np.isfinite(sims)) \
+            or max(abs(x) for x in sims) > 1.0:
+        fail(f"tools [verify-checkpoint --fp32]: verdict {v}")
+    if counts["flash_attention" + F32] == 0 or counts["fused_norm_mean_pool" + F32] == 0 \
+            or counts[K9_F32] == 0 or counts["flash_attention"] or counts["fused_norm_mean_pool"]:
+        fail("tools [verify-checkpoint --fp32]: did not go through K1 [f32], K2 [f32] and "
+             "K9 [f32] alone")
 
     _, want = load_checkpoint(str(export), device=dev)
     tools.main(["shard", "--model", str(export), "--out", str(work / "sharded"),
@@ -5527,6 +5678,257 @@ def tools_phase(dev, work: Path, reset_counts, read_counts, path_launches) -> No
           f"state's params: {same}; phase 18 (tools) {time.time() - t_phase:.0f} s", flush=True)
     if not same:
         fail("tools [export-hf]: the export does not read back the checkpoint's params")
+
+
+def f32_cases(dev, randf, cases, lse_cases) -> None:
+    """The fp32 forms' phase-2 cases (names with F32), held to F32_ATOL and
+    rerun bit-equal by check_cases: K1 [f32] at phase 2's three shapes
+    (bidirectional, causal with a window, a prefill at an offset over a
+    cache view) with its LSE at Dh 128 (H 32, Hkv 8), 64 (32, 8) and 96 (16,
+    8: zero-padded to 128); K2 [f32] at B 8 S 512 mean and weightedmean; K3
+    [f32] at Sq 1 and 64, over an int8 cache, and at the serving call; K8
+    [f32] at K8_SHAPES on pools of pages of 32 and of 256 slots, required
+    bit-equal to K3 [f32] on the same logical cache."""
+    from gritlm_tpu_torch.ops import fused_pool
+
+    k1, k2 = "flash_attention" + F32, "fused_norm_mean_pool" + F32
+    for H, Hkv, Dh in ((32, 8, 128), (32, 8, 64), (16, 8, 96)):
+        k1_cases(dev, randf, cases, lse_cases, H=H, Hkv=Hkv, Dh=Dh, name=k1, atol=F32_ATOL)
+    hidden, gamma, pmask = pool_case(dev, randf, 8, 512, 4096)
+    for method in ("mean", "weightedmean"):
+        kw = dict(eps=1e-5, method=method)
+        cases.append((k2, f"{method} B8 S512 D4096",
+                      lambda kw=kw: fused_pool.fused_norm_mean_pool(hidden, gamma, pmask, **kw),
+                      lambda kw=kw: fused_pool.fused_norm_mean_pool_plain(
+                          hidden, gamma, pmask, **kw),
+                      None, 0.0, 0.0, F32_ATOL))  # timed cold by k2_times
+    k3_cases(dev, randf, cases, name="flash_decode" + F32, atol=F32_ATOL)
+    for page in (32, 256):
+        k8_cases(dev, randf, cases, name="paged_decode" + F32, atol=F32_ATOL, page=page)
+
+
+def f32_checks(dev, randf, max_err) -> None:
+    """The fp32 forms' checks beyond f32_cases: K1 [f32] with a row whose
+    keys are all masked (output 0, LSE NEG_INF) at Dh 64, 96 and 128; K2
+    [f32] at K2_SHAPES (an empty row, D 3584, strided rows; mean and
+    weightedmean, normalized and not, reruns bit-equal); K3 [f32] at the
+    verify chunk (Sq 8, [B] offsets) over an fp32 and an int8 cache,
+    bit-equal to K8 [f32] on the same logical cache."""
+    import torch
+
+    from gritlm_tpu_torch.ops import flash_attention as fa
+
+    name = "flash_attention" + F32
+    for H, Hkv, Dh in ((32, 8, 128), (32, 8, 64), (16, 8, 96)):
+        q, k, v = randf(2, 200, H, Dh), randf(2, 333, Hkv, Dh), randf(2, 333, Hkv, Dh)
+        mask = torch.ones((2, 333), dtype=torch.int32, device=dev)
+        mask[1] = 0
+        for causal in (False, True):
+            out, lse = fa.flash_attention(q, k, v, mask, causal=causal, offset=133 * causal,
+                                          return_lse=True)
+            torch.cuda.synchronize()
+            want, want_lse = fa.flash_attention_plain(q, k, v, mask, causal=causal,
+                                                      offset=133 * causal, return_lse=True)
+            err = max(float((out - want).abs().max()), float((lse - want_lse).abs().max()))
+            empty = bool(torch.count_nonzero(out[1]) == 0) and bool((lse[1] == fa.NEG_INF).all())
+            print(f"check {name} [a row with every key masked, Dh{Dh} "
+                  f"{'causal' if causal else 'bidirectional'}]: max_abs_err {err:.3e} (atol "
+                  f"{F32_ATOL}); the row 0 with LSE NEG_INF: {empty}", flush=True)
+            if err > F32_ATOL or not empty:
+                fail(f"{name}: a fully masked row ({err}, {empty})")
+            max_err[name] = max(max_err.get(name, 0.0), err)
+    k2_checks(dev, randf, max_err, name="fused_norm_mean_pool" + F32, atol=F32_ATOL)
+    k3_verify(dev, randf, {}, max_err, name="flash_decode" + F32, timed=False, atol=F32_ATOL)
+
+
+def f32_times(dev, randf, times) -> None:
+    """The fp32 forms of K2, K3 and K8 timed cold as their bf16 forms are,
+    each bound at the larger of its bytes and its operations at this
+    card's fp32 FMA rate (f32_peak): K3 [f32] at k3_times' four shapes
+    (the first the kernels line's row) and the verify chunk (fp32 and int8
+    caches), K8 [f32] at Sq 1 and 8 over fp32 pages and Sq 1 over int8
+    pages, K2 [f32] at B 8 S 512 D 4096 mean (the row) and weightedmean. K1
+    [f32] is timed in phase 9's loop at its first phase-2 case."""
+    t0 = time.time()
+    k3_times(dev, randf, times, name="flash_decode" + F32, atol=F32_ATOL)
+    k3_verify(dev, randf, times, {}, name="flash_decode" + F32, atol=F32_ATOL)
+    k8_times(dev, randf, times, name="paged_decode" + F32, atol=F32_ATOL,
+             shapes=((1, False), (8, False), (1, True)))
+    k2_times(dev, randf, times, name="fused_norm_mean_pool" + F32, shapes=K2_TIMES[:2])
+    print(f"fp32 forms timed in {time.time() - t0:.0f} s", flush=True)
+
+
+# Phase 19's exactness check: the same fp32 model at full width and depth 2
+# on the card (the kernels' fp32 forms, cuBLAS fp32 GEMMs, TF32 off) and on
+# the CPU (the plain versions, the CPU's GEMMs). Each side rounds every sum
+# to fp32 in its own order: about sqrt(K) x 2^-24 = 7e-6 of a value's scale
+# at the widest sum (K 14336, the MLP's down projection), some ten such
+# steps in series over two layers, the final norm and the LM head, so the
+# embeddings and the logits are held to 1e-4 of their largest magnitude.
+F32_EXACT_RTOL = 1e-4
+F32_EXACT_DEPTH = 2
+
+
+def to_device(tree, dev):
+    """A parameter tree with every tensor moved to `dev`."""
+    return {k: to_device(v, dev) if isinstance(v, dict) else v.to(dev) for k, v in tree.items()}
+
+
+def f32_phase(dev, emb_bf16, enc_long, reset_counts, read_counts, path_launches) -> None:
+    """Phase 19, GritLM at fp32 activations at Mistral-7B width (after
+    phase 18's eval leg, with the bf16 Mistral model freed; TF32 off). First
+    the exactness check at depth F32_EXACT_DEPTH, the card against the same
+    model on the CPU (F32_EXACT_RTOL); then at full depth, random fp32
+    weights from seed 0 (27 GiB), counts set to 0 before each run and summed
+    after: encode of the 16 sentences (sentences/s; the cosine to phase 3's
+    bf16 embeddings of the same seed printed, not gated); greedy generate at
+    B 2 (phase 4's long prompts, 32 tokens, each token within TIE_TOL of its
+    position's largest logit), the decode step's device / host ms and idle
+    share; phase 7's 8-request cut through a dense pool (with its 8
+    embedding requests), a paged pool (page 256), a paged int8-KV pool
+    (INT8_KV_TIE_TOL) and a dense speculative pool (spec_k 7), each request
+    complete and teacher-forced, tokens/s. The path must launch the fp32
+    forms of K1, K2, K3 and K8 and no bf16 K1, K2, K3 or K8. Prints the
+    weights' GiB and the peak GiB."""
+    import dataclasses
+
+    import torch
+    import torch.nn.functional as F
+
+    from gritlm_tpu_torch import GritLM, serving
+    from gritlm_tpu_torch.config import mistral_7b
+    from gritlm_tpu_torch.models.transformer import count_params, forward_lm
+    from gritlm_tpu_torch.serving import ServingEngine
+
+    t_phase = time.time()
+    if torch.backends.cuda.matmul.allow_tf32 or torch.backends.cudnn.allow_tf32:
+        fail("phase 19: TF32 is on; the fp32 path's products must be fp32")
+    cfg = dataclasses.replace(mistral_7b(), dtype="float32")
+    total = {}
+
+    def add(counts):
+        for n, c in counts.items():
+            total[n] = total.get(n, 0) + c
+
+    def encode_all(m):
+        a = m.encode(SENTENCES[:8])
+        b = m.encode(SENTENCES[8:], instruction=INSTRUCTION)
+        return torch.cat([torch.from_numpy(a), torch.from_numpy(b)])
+
+    # exactness: depth 2 on the card against the same model on the CPU
+    card = GritLM(dataclasses.replace(cfg, num_hidden_layers=F32_EXACT_DEPTH), seed=0)
+    host = GritLM(card.config, params=to_device(card.params, "cpu"), device="cpu")
+    ids = torch.from_numpy(np.asarray(enc_long["input_ids"])).long()
+    am = torch.from_numpy(np.asarray(enc_long["attention_mask"])).int()
+    reset_counts()
+    e_card = encode_all(card)
+    with torch.inference_mode():
+        l_card = forward_lm(card.params, card.config, ids.to(dev), attention_mask=am.to(dev),
+                            causal=True)[0].float().cpu()
+    torch.cuda.synchronize()
+    add(read_counts())
+    t0 = time.time()
+    e_host = encode_all(host)
+    with torch.inference_mode():
+        l_host = forward_lm(host.params, host.config, ids, attention_mask=am,
+                            causal=True)[0].float()
+    valid = am.bool()
+    e_err = float((e_card - e_host).abs().max()) / float(e_host.abs().max())
+    l_err = float((l_card - l_host)[valid].abs().max()) / float(l_host[valid].abs().max())
+    print(f"f32 [exactness, depth {F32_EXACT_DEPTH}, card against CPU ({time.time() - t0:.0f} s "
+          f"on the CPU)]: embeddings max |diff| / max |value| {e_err:.3e}, logits over "
+          f"{int(valid.sum())} positions {l_err:.3e} (rtol {F32_EXACT_RTOL}); min cosine "
+          f"{float(F.cosine_similarity(e_card, e_host, dim=-1).min()):.8f}", flush=True)
+    if not (e_err <= F32_EXACT_RTOL and l_err <= F32_EXACT_RTOL):
+        fail(f"f32: the card departs from the CPU at depth {F32_EXACT_DEPTH}: {e_err}, {l_err}")
+    del card, host
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # full width and depth
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    model = GritLM(cfg, seed=0)
+    torch.cuda.synchronize()
+    print(f"f32 model: Mistral-7B width and depth, {count_params(model.params) / 1e9:.3f} B "
+          f"params, {count_params(model.params) * 4 / 2**30:.2f} GiB of fp32 weights, init "
+          f"{time.time() - t0:.1f} s", flush=True)
+    reset_counts()
+    emb = encode_all(model)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    emb2 = encode_all(model)
+    torch.cuda.synchronize()
+    dt = time.time() - t0
+    add(read_counts())
+    cos = F.cosine_similarity(emb, emb_bf16, dim=-1)
+    print(f"f32 encode: 16 sentences in {dt * 1e3:.1f} ms = {16 / dt:.1f} sentences/s; rerun "
+          f"bit-equal {torch.equal(emb, emb2)}; cosine to phase 3's bf16 embeddings of the same "
+          f"seed: min {float(cos.min()):.4f}, mean {float(cos.mean()):.4f} (printed, not gated)",
+          flush=True)
+    if tuple(emb.shape) != (16, 4096) or not torch.isfinite(emb).all() \
+            or float((emb.norm(dim=-1) - 1).abs().max()) > 1e-5:
+        fail(f"f32 encode: shape {tuple(emb.shape)}, non-finite values or norms off 1")
+
+    reset_counts()
+    res = model.generate_from_ids(enc_long["input_ids"], enc_long["attention_mask"],
+                                  max_new_tokens=32)
+    torch.cuda.synchronize()
+    add(read_counts())
+    gaps = []
+    for b in range(res.tokens.shape[0]):
+        prompt = enc_long["input_ids"][b, :int(enc_long["attention_mask"][b].sum())].tolist()
+        toks = res.tokens[b, :int(res.num_valid[b])].tolist()
+        gaps.append(teacher_deficits(model, prompt, toks))
+    gaps = torch.cat(gaps)
+    print(f"f32 generate B=2, 32 tokens: teacher forcing over {len(gaps)} tokens: largest "
+          f"deficit to the max logit {float(gaps.max()):.4f} (tolerance {TIE_TOL}); sample "
+          f"{model.tokenizer.decode(res.tokens[0].tolist())!r}", flush=True)
+    if float(gaps.max()) > TIE_TOL:
+        fail(f"f32 generate: a token sits {float(gaps.max())} below its position's max logit")
+    reset_counts()
+    step = decode_step("fp32", model, enc_long)
+    add(read_counts())
+
+    drive, specs = serving_workload(model, reset_counts, read_counts, total, f32=True)
+    specs = specs[:8]  # phase 7's 8-request cut
+    tok = model.tokenizer
+    kw = dict(max_batch=8, max_len=4096, chunk_size=16, eos_id=tok.eos_token_id,
+              pad_id=tok.pad_token_id, device=dev)
+    rates = {}
+    pools = (("dense fp32", dict(), 8, TIE_TOL),
+             ("paged fp32", dict(paged=True, page_size=256), 0, TIE_TOL),
+             ("paged int8 KV, fp32", dict(paged=True, page_size=256, kv_quant=True), 0,
+              INT8_KV_TIE_TOL),
+             ("speculative dense fp32", dict(speculative=True, spec_k=SPEC_K, spec_ngram=3), 0,
+              TIE_TOL))
+    for label, extra, n_embeds, tie in pools:
+        eng = ServingEngine(model.config, model.params, **extra, **kw)
+        run = drive(label, eng, specs, n_embeds, tie_tol=tie)
+        rates[label] = run["rate"]
+        if label == "dense fp32":
+            chunk = profile_decode_chunk(label, eng, serving._decode_chunk_program, specs)
+            print(f"serving [{label}]: decode step at B=8 " + (
+                "not measured" if chunk is None else
+                f"{chunk[0]:.3f} device ms, {chunk[1]:.3f} host ms, idle share {chunk[2]:.3f}"),
+                flush=True)
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    path_launches["fp32"] = total
+    bf16 = {n: total.get(n, 0) for n in F32_KERNELS}
+    f32 = {n: total.get(n + F32, 0) for n in F32_KERNELS}
+    print(f"f32 path launches: fp32 forms {f32}, bf16 forms {bf16}; decode step at B=2 "
+          + ("not measured" if step is None else
+             f"{step[0]:.3f} device ms, {step[1]:.3f} host ms, idle share {step[2]:.3f}")
+          + "; generated tokens/s by pool: " + ", ".join(f"{k} {v:.1f}" for k, v in rates.items())
+          + f"; peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; phase 19 "
+          f"{time.time() - t_phase:.0f} s", flush=True)
+    if any(c == 0 for c in f32.values()) or any(bf16.values()):
+        fail("f32 path: a kernel's fp32 form never launched, or a bf16 form did")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def profile_window(label: str, fn, top: int = 10):

@@ -812,5 +812,374 @@ int launch_dh(const Args& a, int Dh, bool quant, cudaStream_t st) {
   }
 }
 
+
+// ---------------------------------------------------------------------------
+// The fp32 form of K3 and K8: fp32 q over an fp32 cache, or over an int8
+// cache with bf16 scales, with fp32 products summed in fp32 (what the Pallas
+// kernels compute on fp32 inputs). mma.m16n8k16, movmatrix and ldmatrix.trans
+// are 16-bit only, and one TF32 pass would round every operand to a 10-bit
+// mantissa, so the fold runs on the SIMT pipes; the rest of the body (the
+// mask scan, the split plan, the per-warp cp.async rings of 16-slot tiles,
+// the warp and split merges) is the bf16 form's. What bounds it: the bytes
+// of the valid K/V slots, now 4 a value (1 for int8); a tile's FMAs (2 x 16
+// x 8 x Dh a warp) cost less than its bytes at 128 FMA lanes an SM.
+// In a tile, lane = 16 hh + s: S^T's slot s for the query rows 4 hh .. + 3
+// (each score one FMA chain in depth order over the block's Q rows, staged
+// once in shared memory), and O's dims lane + 32 j of all 8 rows; P^T goes
+// from the one layout to the other through a warp-private [16][PT_LD] tile.
+// The arguments are Args with q and out pointing to fp32 rows.
+constexpr int PT_LD = 12;  // floats a slot row of a warp's P^T tile (8 rows + 4: distinct banks)
+
+// Dynamic shared memory of a block: the rings, the unit's query rows (fp32
+// [ROWS][DH]), a P^T tile a warp, then the tile bits of the slot range.
+template <typename T, int DH>
+struct F32Smem {
+  static constexpr int Q = WARPS * Tile<T, DH>::RING;
+  static constexpr int P = Q + ROWS * DH * (int)sizeof(float);
+  static constexpr int BITS = P + WARPS * TK * PT_LD * (int)sizeof(float);
+};
+
+template <typename T, int DH>
+inline int f32_smem_bytes(int Smax) {
+  return F32Smem<T, DH>::BITS + ((2 * ((Smax + TK - 1) / TK + 2) + 15) / 16) * 16;
+}
+
+// One warp's running state: O rows at dims lane + 32 j, and the (max, sum)
+// of the lane's score rows 4 hh + i (the sum over the lane's slot only).
+template <int DH>
+struct WarpF32 {
+  float o[ROWS][DH / 32];
+  float m[4], l[4];
+  int qpos[4];
+  bool valid[4];
+};
+
+// Four consecutive values of a K row (from dim d) as floats.
+__device__ __forceinline__ float4 load4(const float* p) { return *reinterpret_cast<const float4*>(p); }
+__device__ __forceinline__ float4 load4(const int8_t* p) {
+  const char4 c = *reinterpret_cast<const char4*>(p);
+  return make_float4((float)c.x, (float)c.y, (float)c.z, (float)c.w);
+}
+
+// Fold one tile (K rows at st, V rows at st + KV; slots k0 .. k0 + 15, live
+// bit j = slot k0 + j may hold a key) into the warp's state. qs: the unit's
+// query rows; pt: the warp's P^T tile; ks / vs: the int8 scales of the
+// lane's slot (1 for fp32); sl2: the softmax scale times log2(e).
+template <typename T, int DH>
+__device__ __forceinline__ void fold_tile_f32(WarpF32<DH>& w, const unsigned char* st,
+                                              const float* qs, float* pt, int k0, unsigned live,
+                                              float ks, float vs, int causal, int window,
+                                              float sl2, int lane) {
+  using Tl = Tile<T, DH>;
+  const int sl = lane & 15, hh = lane >> 4;
+  const T* krow = reinterpret_cast<const T*>(st + sl * Tl::LD);
+  const float* q4 = qs + 4 * hh * DH;
+  float acc[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll 8
+  for (int d = 0; d < DH; d += 4) {
+    const float4 kv = load4(krow + d);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float4 qv = *reinterpret_cast<const float4*>(q4 + i * DH + d);
+      acc[i] = fmaf(qv.x, kv.x, acc[i]);
+      acc[i] = fmaf(qv.y, kv.y, acc[i]);
+      acc[i] = fmaf(qv.z, kv.z, acc[i]);
+      acc[i] = fmaf(qv.w, kv.w, acc[i]);
+    }
+  }
+  const int slot = k0 + sl;
+  const bool live_s = (live >> sl) & 1u;
+  float p[4], alpha[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    bool kp = live_s && w.valid[i];
+    if (causal) kp = kp && slot <= w.qpos[i];
+    if (window > 0) kp = kp && slot > w.qpos[i] - window;
+    const float x = kp ? acc[i] * sl2 * ks : NEG_INF;
+    float mx = x;
+    mx = fmaxf(mx, __shfl_xor_sync(FULL, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(FULL, mx, 2));
+    mx = fmaxf(mx, __shfl_xor_sync(FULL, mx, 4));
+    mx = fmaxf(mx, __shfl_xor_sync(FULL, mx, 8));
+    const float m_new = fmaxf(w.m[i], mx);
+    alpha[i] = ex2(w.m[i] - m_new);
+    p[i] = kp ? ex2(x - m_new) : 0.f;  // never 2^0 for a masked slot
+    w.l[i] = w.l[i] * alpha[i] + p[i];
+    w.m[i] = m_new;
+  }
+  *reinterpret_cast<float4*>(pt + sl * PT_LD + 4 * hh) =
+      make_float4(p[0] * vs, p[1] * vs, p[2] * vs, p[3] * vs);
+  // every row's rescale, from the lanes that hold it (rows i: lane 0, 4 + i: lane 16)
+  float ar[ROWS];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    ar[i] = __shfl_sync(FULL, alpha[i], 0);
+    ar[4 + i] = __shfl_sync(FULL, alpha[i], 16);
+  }
+#pragma unroll
+  for (int r = 0; r < ROWS; ++r)
+#pragma unroll
+    for (int j = 0; j < DH / 32; ++j) w.o[r][j] *= ar[r];
+  __syncwarp();  // the P^T tile is written
+#pragma unroll 4
+  for (int t = 0; t < TK; ++t) {
+    const float4 pa = *reinterpret_cast<const float4*>(pt + t * PT_LD);
+    const float4 pb = *reinterpret_cast<const float4*>(pt + t * PT_LD + 4);
+    const float pr[ROWS] = {pa.x, pa.y, pa.z, pa.w, pb.x, pb.y, pb.z, pb.w};
+    const T* vt = reinterpret_cast<const T*>(st + Tl::KV + t * Tl::LD);
+#pragma unroll
+    for (int j = 0; j < DH / 32; ++j) {
+      const float vv = (float)vt[lane + 32 * j];
+#pragma unroll
+      for (int r = 0; r < ROWS; ++r) w.o[r][j] = fmaf(pr[r], vv, w.o[r][j]);
+    }
+  }
+}
+
+// The warp's state into `out` (its ring, once its copies have landed).
+template <int DH>
+__device__ __forceinline__ void store_warp_f32(const WarpF32<DH>& w, WarpOut<DH>& out, int lane) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    float l = w.l[i];
+    l += __shfl_xor_sync(FULL, l, 1);
+    l += __shfl_xor_sync(FULL, l, 2);
+    l += __shfl_xor_sync(FULL, l, 4);
+    l += __shfl_xor_sync(FULL, l, 8);
+    if ((lane & 15) == 0) out.ml[4 * (lane >> 4) + i] = make_float2(w.m[i], l);
+  }
+#pragma unroll
+  for (int r = 0; r < ROWS; ++r)
+#pragma unroll
+    for (int j = 0; j < DH / 32; ++j) out.o[r][lane + 32 * j] = w.o[r][j];
+}
+
+// The kernel: the bf16 form's body (flash_decode_kernel above) with the fp32
+// fold, the unit's query rows staged in shared memory and fp32 output.
+// The launch bound names 1 block an SM: without it ptxas held the fp32
+// instances at Dh 64 and 96 to 96 registers and spilled (H100, CUDA 12.8).
+template <typename T, bool PAGED, int DH>
+__global__ void __launch_bounds__(WARPS * 32, 1) flash_decode_f32_kernel(Args a) {
+  using Tl = Tile<T, DH>;
+  using Sm = F32Smem<T, DH>;
+  constexpr int DPT = Dims<DH>::DPT;
+  constexpr bool QUANT = sizeof(T) == 1;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int split = blockIdx.x % a.n_split, unit = blockIdx.x / a.n_split;
+  const int rg = unit % a.n_rg, kvh = (unit / a.n_rg) % a.Kv, b = unit / (a.n_rg * a.Kv);
+  const int group = a.H / a.Kv, R = a.Sq * group;
+  const int row0 = rg * ROWS, row1 = min(R, row0 + ROWS) - 1;
+  const int offset = a.offsets != nullptr ? a.offsets[b] : a.offset;
+  const float* q = reinterpret_cast<const float*>(a.q);
+  float* out = reinterpret_cast<float*>(a.out);
+  // the slots some row of the group can see
+  const int hi = a.causal ? min(a.Smax, offset + row1 / group + 1) : a.Smax;
+  const int lo = a.window > 0 ? max(0, offset + row0 / group - a.window + 1) : 0;
+  uint16_t* bits = reinterpret_cast<uint16_t*>(smem + Sm::BITS);
+  int first, last;
+  scan_mask(a.mask == nullptr ? nullptr : a.mask + (long long)b * a.Smax, lo, hi, bits, first,
+            last);
+  const int tbase = lo / TK;
+  const int T0 = last >= first ? first / TK : 0;
+  const int nt = last >= first ? last / TK + 1 - T0 : 0;  // the unit's tiles
+  const int n_used = used_splits(nt, a.n_split);
+  if (split >= n_used) return;  // a split the unit's valid range does not need
+  const int ta = T0 + part_begin(nt, split, n_used), tb = T0 + part_begin(nt, split + 1, n_used);
+  const int wa = ta + part_begin(tb - ta, warp, WARPS), wb = ta + part_begin(tb - ta, warp + 1, WARPS);
+
+  // the unit's query rows into shared memory (zeros past the last row)
+  float* qs = reinterpret_cast<float*>(smem + Sm::Q);
+  for (int i = tid; i < ROWS * DH / 4; i += WARPS * 32) {
+    const int r = i / (DH / 4), row = row0 + r, c = i % (DH / 4) * 4;
+    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (row <= row1)
+      x = *reinterpret_cast<const float4*>(
+          q + (((long long)b * a.Sq + row / group) * a.H + kvh * group + row % group) * DH + c);
+    *reinterpret_cast<float4*>(qs + r * DH + c) = x;
+  }
+  __syncthreads();
+
+  WarpF32<DH> w;
+  {
+    const int hh = lane >> 4;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = row0 + 4 * hh + i;
+      w.valid[i] = r <= row1;
+      w.qpos[i] = offset + r / group;
+      w.m[i] = NEG_INF;
+      w.l[i] = 0.f;
+    }
+#pragma unroll
+    for (int r = 0; r < ROWS; ++r)
+#pragma unroll
+      for (int j = 0; j < DH / 32; ++j) w.o[r][j] = 0.f;
+  }
+
+  const int KD = a.Kv * DH;
+  const T* kb = reinterpret_cast<const T*>(a.k) + kvh * DH;
+  const T* vb = reinterpret_cast<const T*>(a.v) + kvh * DH;
+  const long long row_base = ((long long)a.layer * a.B + b) * a.Smax;
+  const long long sc_base = (((long long)a.layer * a.B + b) * a.Kv + kvh) * a.Smax;
+  const int* pt_row = PAGED ? a.page_table + (long long)b * (a.Smax / a.page) : nullptr;
+  auto tile_row = [&](int tt, long long& sc) -> long long {
+    const int s0 = tt * TK;
+    if constexpr (PAGED) {
+      const int pi = s0 / a.page, in_page = s0 - pi * a.page;
+      const long long page0 = (long long)a.layer * a.P + min(max(__ldg(pt_row + pi), 0), a.P - 1);
+      sc = (page0 * a.Kv + kvh) * a.page + in_page;
+      return (page0 * a.page + in_page) * KD;
+    } else {
+      sc = sc_base + s0;
+      return (row_base + s0) * KD;
+    }
+  };
+  unsigned char* ring = smem + warp * Tl::RING;
+  float* ptile = reinterpret_cast<float*>(smem + Sm::P) + warp * TK * PT_LD;
+  const float sl2 = a.scale * LOG2E;
+  auto next_live = [&](int tt) {
+    while (tt < wb && bits[tt - tbase] == 0) ++tt;
+    return tt;
+  };
+  auto fetch_tile = [&](unsigned char* st, int tt) {
+    long long sc;
+    const long long row = tile_row(tt, sc);
+    copy_tile<T, DH>(st, kb + row, vb + row, KD, bits[tt - tbase], lane);
+  };
+
+  int fetch = next_live(wa);
+  int cur = fetch;
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (fetch < wb) {
+      fetch_tile(ring + s * Tl::STAGE, fetch);
+      fetch = next_live(fetch + 1);
+    }
+    cp_async_commit();
+  }
+  for (int i = 0; cur < wb; ++i) {
+    if (fetch < wb) {  // into the slot tile i - 1 left
+      fetch_tile(ring + ((i + STAGES - 1) % STAGES) * Tl::STAGE, fetch);
+      fetch = next_live(fetch + 1);
+    }
+    cp_async_commit();  // possibly empty: keeps "all but the newest STAGES-1" = tile i
+    float ks = 1.f, vs = 1.f;
+    if (QUANT) {  // the lane's slot's scales (K on the scores, V on P)
+      long long sc;
+      tile_row(cur, sc);
+      const bool in = cur * TK + (lane & 15) < a.Smax;
+      ks = in ? __bfloat162float(a.k_scale[sc + (lane & 15)]) : 0.f;
+      vs = in ? __bfloat162float(a.v_scale[sc + (lane & 15)]) : 0.f;
+    }
+    cp_async_wait<STAGES - 1>();
+    __syncwarp();  // the other lanes' copies are visible
+    fold_tile_f32<T, DH>(w, ring + (i % STAGES) * Tl::STAGE, qs, ptile, cur * TK,
+                         bits[cur - tbase], ks, vs, a.causal, a.window, sl2, lane);
+    __syncwarp();  // every lane has read the slot and the P^T tile before they are refilled
+    cur = next_live(cur + 1);
+  }
+  cp_async_wait_all();
+  __syncwarp();
+  store_warp_f32<DH>(w, *reinterpret_cast<WarpOut<DH>*>(ring), lane);
+  __syncthreads();
+
+  float M, L, o[DPT];
+  merge_warps<DH>(smem, Tl::RING, M, L, o);
+  const int r = tid >> 4, d0 = (tid & 15) * DPT, row = row0 + r;
+  const int units = gridDim.x / a.n_split;
+  float* dst = out + (((long long)b * a.Sq + row / group) * a.H + kvh * group + row % group) * DH + d0;
+  auto write_out = [&]() {
+    if (row > row1) return;
+    float y[DPT];
+#pragma unroll
+    for (int j = 0; j < DPT; ++j) y[j] = L > 0.f ? o[j] / L : 0.f;
+    store_f32<DPT>(dst, y);
+  };
+  if (n_used == 1) {
+    write_out();
+    return;
+  }
+  {  // every used split has tiles: it leaves its partial
+    const long long p = ((long long)split * units + unit) * ROWS + r;
+    if ((tid & 15) == 0) a.part_ml[p] = make_float2(M, L);
+    store_f32<DPT>(a.part_o + p * DH + d0, o);
+  }
+  __shared__ bool last_block;
+  __threadfence();  // the partials, visible to the block that merges them
+  __syncthreads();
+  if (tid == 0) {
+    last_block = atomicAdd(a.counters + unit, 1) == n_used - 1;
+    if (last_block) a.counters[unit] = 0;
+  }
+  __syncthreads();
+  if (!last_block) return;
+  __threadfence();
+  // the splits' partials merged in split order, 8 splits' loads in flight at once
+  M = NEG_INF;
+  L = 0.f;
+#pragma unroll
+  for (int j = 0; j < DPT; ++j) o[j] = 0.f;
+  for (int s0 = 0; s0 < n_used; s0 += 8) {
+    float2 ml[8];
+    float x[8][DPT];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int s = s0 + j;
+      ml[j] = make_float2(NEG_INF, 0.f);
+#pragma unroll
+      for (int i = 0; i < DPT; ++i) x[j][i] = 0.f;
+      if (s < n_used) {
+        const long long p = ((long long)s * units + unit) * ROWS + r;
+        ml[j] = __ldcg(a.part_ml + p);
+        load_f32_cg<DPT>(a.part_o + p * DH + d0, x[j]);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {  // an absent split: max NEG_INF, sum 0, output 0
+      const float m_new = fmaxf(M, ml[j].x);
+      const float alpha = ex2(M - m_new), e = ex2(ml[j].x - m_new);
+      L = L * alpha + ml[j].y * e;
+#pragma unroll
+      for (int i = 0; i < DPT; ++i) o[i] = o[i] * alpha + x[j][i] * e;
+      M = m_new;
+    }
+  }
+  write_out();
+}
+
+// Launch the fp32 form: B * Kv * n_rg units of n_split blocks on `st`.
+template <typename T, bool PAGED, int DH>
+int launch_f32(const Args& a, cudaStream_t st) {
+  static int configured = 0;  // dynamic shared memory allowed so far
+  const int smem = f32_smem_bytes<T, DH>(a.Smax);
+  if (smem > configured) {
+    cudaError_t e = cudaFuncSetAttribute(flash_decode_f32_kernel<T, PAGED, DH>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return (int)e;
+    configured = smem;
+  }
+  const int units = a.B * a.Kv * a.n_rg;
+  flash_decode_f32_kernel<T, PAGED, DH><<<units * a.n_split, WARPS * 32, smem, st>>>(a);
+  return (int)cudaGetLastError();
+}
+
+// The fp32 form's instance of the call's head dim and cache type (fp32, or
+// int8 with bf16 scales); cudaErrorInvalidValue for a head dim with none.
+template <bool PAGED>
+int launch_dh_f32(const Args& a, int Dh, bool quant, cudaStream_t st) {
+  switch (Dh) {
+    case 64:
+      return quant ? launch_f32<int8_t, PAGED, 64>(a, st) : launch_f32<float, PAGED, 64>(a, st);
+    case 96:
+      return quant ? launch_f32<int8_t, PAGED, 96>(a, st) : launch_f32<float, PAGED, 96>(a, st);
+    case 128:
+      return quant ? launch_f32<int8_t, PAGED, 128>(a, st)
+                   : launch_f32<float, PAGED, 128>(a, st);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace mma_decode
 }  // namespace gritlm

@@ -464,6 +464,241 @@ int launch(const void* q, const void* k, const void* v, const void* mask, void* 
   return (int)cudaGetLastError();
 }
 
+
+// K1 on fp32 q, k and v: the same function with fp32 products summed in fp32,
+// what the Pallas kernel computes on fp32 inputs. One TF32 tensor-core pass
+// would round every operand to a 10-bit mantissa, and the bf16 kernel's tiles
+// at 4 bytes (128 query rows, a 3-stage ring of 128-key tiles) would need
+// about 448 KB of shared memory, so the fp32 form is a kernel of its own, on
+// the SIMT pipes. What bounds it: the FMAs, 2 x 2 x Sq x Sk x Dh a head over
+// the visited pairs at 128 fp32 lanes an SM. The design:
+// - one block of 128 threads per (64 query rows, query head, batch row); Q
+//   stays in shared memory, K and V stream through two buffers of 32-key
+//   tiles by cp.async, the next tile's copy in flight during this tile;
+// - a warp owns 16 query rows and a thread 4 of them (rows 4 ty .. + 3 of
+//   its warp's): 4 keys of a tile in S = Q K^T (keys tx + 8 j) and Dh / 8
+//   columns in O += P V (32 c + 4 tx .. + 3), so a row's maximum, sum and
+//   rescale stay within the 8 threads of its row group; each score is one
+//   FMA chain in depth order;
+// - P passes from the S layout to the O layout through a warp-private P^T
+//   tile in shared memory (key rows of PT_LD floats, so a quarter warp's
+//   16-byte stores hit distinct banks);
+// - the online softmax runs in base 2 with scale x log2(e) folded in; a
+//   masked score is NEG_INF and its probability is selected as 0, never
+//   computed; the epilogue writes O / l and, with `lse`, (m + log2 l) ln 2.
+// Tiles above the causal bound and below the window are never visited. No
+// sum crosses threads in a data-dependent order: reruns are bit-equal.
+namespace f32 {
+
+constexpr int BQ = 64;      // query rows of a block
+constexpr int BK = 32;      // keys of a tile
+constexpr int THREADS = 128;
+constexpr int PT_LD = 20;   // floats a key row of a warp's P^T tile (16 rows + 4)
+constexpr float LN2 = 0.6931471805599453f;
+
+// Dynamic shared memory of a block, in floats: Q [BQ][LD], K and V two
+// buffers each of [BK][LD], then a P^T tile [BK][PT_LD] a warp.
+template <int DH>
+struct Smem {
+  static constexpr int LD = DH + 4;  // floats a row: a quarter warp's rows in distinct banks
+  static constexpr int Q = 0;
+  static constexpr int K = Q + BQ * LD;
+  static constexpr int V = K + 2 * BK * LD;
+  static constexpr int P = V + 2 * BK * LD;
+  static constexpr int FLOATS = P + THREADS / 32 * BK * PT_LD;
+  static constexpr uint32_t BYTES = FLOATS * sizeof(float);
+  static_assert(BQ * DH / 4 % THREADS == 0 && BK * DH / 4 % THREADS == 0, "whole copy rounds");
+};
+
+__device__ __forceinline__ void commit() { asm volatile("cp.async.commit_group;\n" ::); }
+
+__device__ __forceinline__ void wait_prev() { asm volatile("cp.async.wait_group 1;\n" ::); }
+
+// Rows [r0, r0 + N) of one head (row r at x + r * ss) into dst, LD floats a
+// row; rows at or past n are zero-filled.
+template <int DH, int N>
+__device__ __forceinline__ void stage(float* dst, const float* __restrict__ x, long long ss,
+                                      int r0, int n, int tid) {
+  constexpr int CH = DH / 4;  // 16-byte copies a row
+#pragma unroll
+  for (int i = 0; i < N * CH / THREADS; ++i) {
+    const int c = tid + i * THREADS, r = c / CH, kk = c % CH * 4;
+    const bool in = r0 + r < n;
+    gritlm::cp_async16(dst + r * Smem<DH>::LD + kk, in ? x + (r0 + r) * ss + kk : x,
+                       in ? 16 : 0);
+  }
+}
+
+template <int DH>
+__global__ void __launch_bounds__(THREADS)
+flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, const int* __restrict__ mask,
+                     float* __restrict__ out, float* __restrict__ lse, int Sq, int Sk, int H,
+                     int group, long long q_sb, long long q_ss, long long k_sb, long long k_ss,
+                     long long v_sb, long long v_ss, long long m_sb, int causal, int window,
+                     int offset, float scale) {
+  using L = Smem<DH>;
+  constexpr int NC = DH / 32;  // 4-column groups of a thread's output rows
+  extern __shared__ __align__(16) float sm[];
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, ty = lane / 8, tx = lane % 8;
+  const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
+  const int rw = 16 * warp + 4 * ty;  // the thread's first row in the block
+  const float* kh = k + b * k_sb + (long long)(h / group) * DH;
+  const float* vh = v + b * v_sb + (long long)(h / group) * DH;
+  const int* mrow = mask + b * m_sb;
+  // the keys some row of the block can see: the causal bound, the window
+  const int hi = causal ? min(Sk, offset + min(Sq, q0 + BQ)) : Sk;
+  const int lo = window > 0 ? max(0, offset + q0 - window + 1) : 0;
+  const int t0 = lo / BK, t1 = hi > lo ? (hi + BK - 1) / BK : t0;
+
+  float o[4][4 * NC], m[4], l[4];
+  int qpos[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    m[i] = NEG_INF;
+    l[i] = 0.f;
+    qpos[i] = offset + q0 + rw + i;
+#pragma unroll
+    for (int c = 0; c < 4 * NC; ++c) o[i][c] = 0.f;
+  }
+  stage<DH, BQ>(sm + L::Q, q + b * q_sb + (long long)h * DH, q_ss, q0, Sq, tid);
+  if (t0 < t1) {
+    stage<DH, BK>(sm + L::K, kh, k_ss, t0 * BK, Sk, tid);
+    stage<DH, BK>(sm + L::V, vh, v_ss, t0 * BK, Sk, tid);
+  }
+  commit();
+  const float sl2 = scale * LOG2E;
+  const float* qs = sm + L::Q + rw * L::LD;
+  float* pt = sm + L::P + warp * BK * PT_LD;
+  for (int t = t0; t < t1; ++t) {
+    const int buf = (t - t0) & 1;
+    if (t + 1 < t1) {  // the next tile into the other buffer
+      stage<DH, BK>(sm + L::K + (buf ^ 1) * BK * L::LD, kh, k_ss, (t + 1) * BK, Sk, tid);
+      stage<DH, BK>(sm + L::V + (buf ^ 1) * BK * L::LD, vh, v_ss, (t + 1) * BK, Sk, tid);
+    }
+    commit();  // an empty group on the last tile keeps the count
+    wait_prev();
+    __syncthreads();
+    const float* ks = sm + L::K + buf * BK * L::LD;
+    const float* vs = sm + L::V + buf * BK * L::LD;
+    float s[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
+#pragma unroll 4
+    for (int d = 0; d < DH; d += 4) {
+      float4 kv[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) kv[j] = *reinterpret_cast<const float4*>(ks + (tx + 8 * j) * L::LD + d);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float4 qv = *reinterpret_cast<const float4*>(qs + i * L::LD + d);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          s[i][j] = fmaf(qv.x, kv[j].x, s[i][j]);
+          s[i][j] = fmaf(qv.y, kv[j].y, s[i][j]);
+          s[i][j] = fmaf(qv.z, kv[j].z, s[i][j]);
+          s[i][j] = fmaf(qv.w, kv[j].w, s[i][j]);
+        }
+      }
+    }
+    bool kin[4];  // the key exists and its mask bit is set
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int key = t * BK + tx + 8 * j;
+      kin[j] = key < Sk && __ldg(mrow + min(key, Sk - 1)) != 0;
+    }
+    float p[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      bool keep[4];
+      float x[4], mx = NEG_INF;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int key = t * BK + tx + 8 * j;
+        keep[j] = kin[j] && (!causal || key <= qpos[i]) && (window <= 0 || key > qpos[i] - window);
+        x[j] = keep[j] ? s[i][j] * sl2 : NEG_INF;
+        mx = fmaxf(mx, x[j]);
+      }
+      mx = fmaxf(mx, __shfl_xor_sync(gritlm::FULL, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(gritlm::FULL, mx, 2));
+      mx = fmaxf(mx, __shfl_xor_sync(gritlm::FULL, mx, 4));
+      const float m_new = fmaxf(m[i], mx);
+      const float alpha = sm90::ex2(m[i] - m_new);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) p[i][j] = keep[j] ? sm90::ex2(x[j] - m_new) : 0.f;
+      l[i] = l[i] * alpha + ((p[i][0] + p[i][1]) + (p[i][2] + p[i][3]));
+      m[i] = m_new;
+#pragma unroll
+      for (int c = 0; c < 4 * NC; ++c) o[i][c] *= alpha;
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      *reinterpret_cast<float4*>(pt + (tx + 8 * j) * PT_LD + 4 * ty) =
+          make_float4(p[0][j], p[1][j], p[2][j], p[3][j]);
+    __syncwarp();
+#pragma unroll 4
+    for (int kk = 0; kk < BK; ++kk) {
+      const float4 pv = *reinterpret_cast<const float4*>(pt + kk * PT_LD + 4 * ty);
+      const float pr[4] = {pv.x, pv.y, pv.z, pv.w};
+#pragma unroll
+      for (int c = 0; c < NC; ++c) {
+        const float4 vv = *reinterpret_cast<const float4*>(vs + kk * L::LD + 32 * c + 4 * tx);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          o[i][4 * c] = fmaf(pr[i], vv.x, o[i][4 * c]);
+          o[i][4 * c + 1] = fmaf(pr[i], vv.y, o[i][4 * c + 1]);
+          o[i][4 * c + 2] = fmaf(pr[i], vv.z, o[i][4 * c + 2]);
+          o[i][4 * c + 3] = fmaf(pr[i], vv.w, o[i][4 * c + 3]);
+        }
+      }
+    }
+    __syncthreads();  // K, V and P^T read before the next copies and stores
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    l[i] += __shfl_xor_sync(gritlm::FULL, l[i], 1);
+    l[i] += __shfl_xor_sync(gritlm::FULL, l[i], 2);
+    l[i] += __shfl_xor_sync(gritlm::FULL, l[i], 4);
+    const int row = q0 + rw + i;
+    if (row >= Sq) continue;
+    const float inv = l[i] > 0.f ? 1.f / l[i] : 0.f;
+    float* dst = out + (((long long)b * Sq + row) * H + h) * DH + 4 * tx;
+#pragma unroll
+    for (int c = 0; c < NC; ++c)
+      *reinterpret_cast<float4*>(dst + 32 * c) =
+          make_float4(o[i][4 * c] * inv, o[i][4 * c + 1] * inv, o[i][4 * c + 2] * inv,
+                      o[i][4 * c + 3] * inv);
+    if (lse != nullptr && tx == 0)
+      lse[((long long)b * H + h) * Sq + row] = l[i] > 0.f ? (m[i] + log2f(l[i])) * LN2 : NEG_INF;
+  }
+}
+
+template <int DH>
+int launch_f32(const void* q, const void* k, const void* v, const void* mask, void* out,
+               void* lse, int B, int Sq, int Sk, int H, int Hkv, long long q_sb, long long q_ss,
+               long long k_sb, long long k_ss, long long v_sb, long long v_ss, long long m_sb,
+               int causal, int window, int offset, float scale, cudaStream_t stream) {
+  constexpr int smem = (int)Smem<DH>::BYTES;
+  static bool configured = false;
+  if (!configured) {
+    cudaError_t e = cudaFuncSetAttribute(flash_fwd_f32_kernel<DH>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return (int)e;
+    configured = true;
+  }
+  if (Sq == 0 || Sk == 0 || B == 0) return 0;
+  dim3 grid((Sq + BQ - 1) / BQ, H, B);
+  flash_fwd_f32_kernel<DH><<<grid, THREADS, smem, stream>>>(
+      (const float*)q, (const float*)k, (const float*)v, (const int*)mask, (float*)out,
+      (float*)lse, Sq, Sk, H, H / Hkv, q_sb, q_ss, k_sb, k_ss, v_sb, v_ss, m_sb, causal, window,
+      offset, scale);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace f32
+
 }  // namespace
 
 // Strides are in elements, as the tensors give them; the tensor maps take
@@ -488,3 +723,26 @@ extern "C" int gritlm_flash_fwd(const void* q, const void* k, const void* v,
 // The dynamic shared memory a block of K1 takes at Dh 128, in bytes (for
 // reports).
 extern "C" int gritlm_flash_fwd_smem() { return (int)Layout<128>::SMEM; }
+
+// K1 on fp32 q, k, v (out fp32): the same arguments as gritlm_flash_fwd;
+// strides in elements, multiples of 4 (16-byte rows). Dh: 128 or 64.
+extern "C" int gritlm_flash_fwd_f32(const void* q, const void* k, const void* v,
+                                    const void* mask, void* out, void* lse, int B, int Sq,
+                                    int Sk, int H, int Hkv, int Dh, long long q_sb,
+                                    long long q_ss, long long k_sb, long long k_ss,
+                                    long long v_sb, long long v_ss, long long m_sb, int causal,
+                                    int window, int offset, float scale, void* stream) {
+  if (Dh == 128)
+    return f32::launch_f32<128>(q, k, v, mask, out, lse, B, Sq, Sk, H, Hkv, q_sb, q_ss, k_sb,
+                                k_ss, v_sb, v_ss, m_sb, causal, window, offset, scale,
+                                (cudaStream_t)stream);
+  if (Dh == 64)
+    return f32::launch_f32<64>(q, k, v, mask, out, lse, B, Sq, Sk, H, Hkv, q_sb, q_ss, k_sb,
+                               k_ss, v_sb, v_ss, m_sb, causal, window, offset, scale,
+                               (cudaStream_t)stream);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The dynamic shared memory a block of the fp32 form takes at Dh 128, in
+// bytes (for reports).
+extern "C" int gritlm_flash_fwd_f32_smem() { return (int)f32::Smem<128>::BYTES; }

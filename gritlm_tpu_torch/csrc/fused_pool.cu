@@ -521,6 +521,164 @@ int dispatch(const Args* a, int B, int S, int D, int K, int CL, int need, int ba
   }
 }
 
+
+// K2 on fp32 hidden and gamma: the same function on rows of twice the bytes.
+// The bf16 design's ring (stages = RING_BYTES / (2 D)), vectors of 8 bf16
+// and its D limit assume 2-byte elements, so the fp32 form is a simpler
+// kernel of its own. What bounds it: bytes, one read of the masked-in fp32
+// rows. One launch a call:
+// - B x n_split blocks of 256 threads (ops/fused_pool.f32_pool_plan):
+//   block `split` of row b takes the positions [S split / n, S (split + 1)
+//   / n) and reads only its masked-in rows, each as float4s (a thread's
+//   D / 1024 vectors in registers); a row's sum of squares is a block sum
+//   in a fixed order, and its weight x 1 / sqrt(mean(x^2) + eps) scales the
+//   row into the thread's fp32 accumulators;
+// - weightedmean's weight is the row's running count of mask tokens: a
+//   block first counts its row's mask before its first position;
+// - each block writes its partial [D]; the row's last block to arrive (a
+//   counter a batch row in _build.counters, which it resets) sums the
+//   partials in split order, applies gamma and the denominator (n, or
+//   n (n + 1) / 2 for n masked-in positions) and L2-normalizes. No float
+//   atomics: reruns are bit-equal. An empty row gives zeros.
+namespace f32 {
+
+constexpr int THREADS = 256;
+constexpr int NW = THREADS / 32;
+constexpr int MAX_VECS = 8;  // float4s a thread: D <= THREADS * 4 * MAX_VECS = 8192
+
+// The block's sum of x, the same in every thread, summed in warp order.
+// red: NW floats; a caller alternates two arrays, so one barrier a call.
+template <typename X>
+__device__ __forceinline__ X block_total(X x, X* red) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(gritlm::FULL, x, o);
+  if (threadIdx.x % 32 == 0) red[threadIdx.x / 32] = x;
+  __syncthreads();
+  X t = 0;
+#pragma unroll
+  for (int i = 0; i < NW; ++i) t += red[i];
+  return t;
+}
+
+// The masked-in positions of mrow in [a, z).
+__device__ __forceinline__ int count_mask(const int* __restrict__ mrow, int a, int z, int* red) {
+  int n = 0;
+  for (int i = a + (int)threadIdx.x; i < z; i += THREADS) n += __ldg(mrow + i) != 0;
+  return block_total(n, red);
+}
+
+__device__ __forceinline__ void fma4(float4& acc, float w, const float4& x) {
+  acc.x = fmaf(w, x.x, acc.x);
+  acc.y = fmaf(w, x.y, acc.y);
+  acc.z = fmaf(w, x.z, acc.z);
+  acc.w = fmaf(w, x.w, acc.w);
+}
+
+template <int VECS>
+__global__ void __launch_bounds__(THREADS)
+pool_f32_kernel(const float* __restrict__ hidden, const float* __restrict__ gamma,
+                const int* __restrict__ mask, float* __restrict__ part, int* counters,
+                float* __restrict__ out, int S, int D, int n_split, long long h_sb,
+                long long h_ss, long long m_sb, int weighted, int normalized, float eps) {
+  __shared__ float red[2][NW];
+  __shared__ int ired[2][NW];
+  __shared__ bool last;
+  const int tid = threadIdx.x, b = blockIdx.x / n_split, split = blockIdx.x % n_split;
+  const int s0 = (int)((long long)S * split / n_split);
+  const int s1 = (int)((long long)S * (split + 1) / n_split);
+  const int nv = D / 4;
+  const int* mrow = mask + b * m_sb;
+  const float* hrow = hidden + b * h_sb;
+  int rank = weighted ? count_mask(mrow, 0, s0, ired[0]) : 0;
+  float4 acc[VECS];
+#pragma unroll
+  for (int j = 0; j < VECS; ++j) acc[j] = make_float4(0.f, 0.f, 0.f, 0.f);
+  int parity = 0;
+  for (int s = s0; s < s1; ++s) {
+    if (__ldg(mrow + s) == 0) continue;  // the same for every thread of the block
+    ++rank;
+    const float4* row = reinterpret_cast<const float4*>(hrow + s * h_ss);
+    float4 x[VECS];
+    float ss = 0.f;
+#pragma unroll
+    for (int j = 0; j < VECS; ++j) {
+      const int vi = tid + THREADS * j;
+      x[j] = vi < nv ? __ldg(row + vi) : make_float4(0.f, 0.f, 0.f, 0.f);
+      ss = fmaf(x[j].x, x[j].x, ss);
+      ss = fmaf(x[j].y, x[j].y, ss);
+      ss = fmaf(x[j].z, x[j].z, ss);
+      ss = fmaf(x[j].w, x[j].w, ss);
+    }
+    ss = block_total(ss, red[parity]);
+    parity ^= 1;
+    const float w = (weighted ? (float)rank : 1.f) / sqrtf(ss / (float)D + eps);
+#pragma unroll
+    for (int j = 0; j < VECS; ++j) fma4(acc[j], w, x[j]);
+  }
+  float4* mine = reinterpret_cast<float4*>(part + ((long long)b * n_split + split) * D);
+#pragma unroll
+  for (int j = 0; j < VECS; ++j)
+    if (tid + THREADS * j < nv) mine[tid + THREADS * j] = acc[j];
+  __threadfence();  // the partial, visible to the block that merges the row
+  __syncthreads();
+  if (tid == 0) {
+    last = atomicAdd(counters + b, 1) == n_split - 1;
+    if (last) counters[b] = 0;
+  }
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  // the row's partials in split order
+  float4 e[VECS];
+#pragma unroll
+  for (int j = 0; j < VECS; ++j) e[j] = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int sp = 0; sp < n_split; ++sp) {
+    const float4* src = reinterpret_cast<const float4*>(part + ((long long)b * n_split + sp) * D);
+#pragma unroll
+    for (int j = 0; j < VECS; ++j) {
+      if (tid + THREADS * j < nv) {
+        const float4 y = __ldcg(src + tid + THREADS * j);
+        e[j].x += y.x; e[j].y += y.y; e[j].z += y.z; e[j].w += y.w;
+      }
+    }
+  }
+  const int n = count_mask(mrow, 0, S, ired[1]);
+  float denom = weighted ? (float)((double)n * (n + 1) / 2) : (float)n;
+  denom = denom > 0.f ? denom : 1.f;
+  float ss = 0.f;
+#pragma unroll
+  for (int j = 0; j < VECS; ++j) {
+    const int vi = tid + THREADS * j;
+    const float4 g = vi < nv ? __ldg(reinterpret_cast<const float4*>(gamma) + vi)
+                             : make_float4(0.f, 0.f, 0.f, 0.f);
+    e[j] = make_float4(e[j].x * g.x / denom, e[j].y * g.y / denom, e[j].z * g.z / denom,
+                       e[j].w * g.w / denom);
+    ss = fmaf(e[j].x, e[j].x, ss);
+    ss = fmaf(e[j].y, e[j].y, ss);
+    ss = fmaf(e[j].z, e[j].z, ss);
+    ss = fmaf(e[j].w, e[j].w, ss);
+  }
+  const float nrm = normalized ? fmaxf(sqrtf(block_total(ss, red[parity])), 1e-12f) : 1.f;
+  float4* dst = reinterpret_cast<float4*>(out + (long long)b * D);
+#pragma unroll
+  for (int j = 0; j < VECS; ++j)
+    if (tid + THREADS * j < nv)
+      dst[tid + THREADS * j] = make_float4(e[j].x / nrm, e[j].y / nrm, e[j].z / nrm,
+                                           e[j].w / nrm);
+}
+
+template <int VECS>
+int run_f32(const float* hidden, const float* gamma, const int* mask, float* part, int* counters,
+            float* out, int B, int S, int D, int n_split, long long h_sb, long long h_ss,
+            long long m_sb, int weighted, int normalized, float eps, cudaStream_t st) {
+  pool_f32_kernel<VECS><<<B * n_split, THREADS, 0, st>>>(hidden, gamma, mask, part, counters,
+                                                         out, S, D, n_split, h_sb, h_ss, m_sb,
+                                                         weighted, normalized, eps);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace f32
+
 }  // namespace
 
 // One launch: K clusters of CL blocks over the B rows, each row `need`
@@ -545,4 +703,42 @@ extern "C" int gritlm_fused_pool(const void* hidden, const void* gamma, const vo
 // wave). Returns 0 or a CUDA error.
 extern "C" int gritlm_fused_pool_fit(int B, int S, int D, int CL, int balanced, int* fit) {
   return dispatch(nullptr, B, S, D, B, CL, 1, balanced, nullptr, fit);
+}
+
+// K2 on fp32 hidden [B, S, D] and gamma [D] (D % 4 == 0, D <= 8192, 16-byte
+// aligned rows): B x n_split blocks, block `split` of a row over the
+// positions [S split / n_split, S (split + 1) / n_split); part holds
+// B * n_split * D floats, counters B zeros. Strides in elements.
+extern "C" int gritlm_fused_pool_f32(const void* hidden, const void* gamma, const void* mask,
+                                     void* part, void* counters, void* out, int B, int S,
+                                     int D, int n_split, long long h_sb, long long h_ss,
+                                     long long m_sb, int weighted, int normalized, float eps,
+                                     void* stream) {
+  const int vecs = (D / 4 + f32::THREADS - 1) / f32::THREADS;
+  if (D % 4 || vecs < 1 || vecs > f32::MAX_VECS || n_split < 1 ||
+      (long long)B * n_split > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
+  if (B == 0) return 0;
+  const float* h = (const float*)hidden;
+  const float* g = (const float*)gamma;
+  const int* m = (const int*)mask;
+  float* p = (float*)part;
+  int* c = (int*)counters;
+  float* o = (float*)out;
+  const cudaStream_t st = (cudaStream_t)stream;
+#define GRITLM_POOL_F32(V) \
+  case V: return f32::run_f32<V>(h, g, m, p, c, o, B, S, D, n_split, h_sb, h_ss, m_sb, \
+                                 weighted, normalized, eps, st);
+  switch (vecs) {
+    GRITLM_POOL_F32(1)
+    GRITLM_POOL_F32(2)
+    GRITLM_POOL_F32(3)
+    GRITLM_POOL_F32(4)
+    GRITLM_POOL_F32(5)
+    GRITLM_POOL_F32(6)
+    GRITLM_POOL_F32(7)
+    default: return f32::run_f32<8>(h, g, m, p, c, o, B, S, D, n_split, h_sb, h_ss, m_sb,
+                                    weighted, normalized, eps, st);
+  }
+#undef GRITLM_POOL_F32
 }

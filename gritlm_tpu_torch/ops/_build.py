@@ -138,6 +138,22 @@ def plain_path(*tensors) -> bool:
     )
 
 
+# a kernel's forms by the dtype of its activations
+FORMS = {torch.bfloat16: "bf16", torch.float32: "f32"}
+
+
+def kernel_form(*tensors, what: str = "kernel") -> str:
+    """The form of a kernel a call's activations take: "bf16" when every
+    tensor given is bfloat16, "f32" when every one is float32 (None entries
+    are skipped). Any other dtype (float16) or a mix raises TypeError: an
+    fp32 call is never cast to bf16, nor a bf16 call widened."""
+    dtypes = {t.dtype for t in tensors if t is not None}
+    if len(dtypes) == 1 and next(iter(dtypes)) in FORMS:
+        return FORMS[next(iter(dtypes))]
+    raise TypeError(f"{what}: {sorted(str(d) for d in dtypes)}: the kernels take all bfloat16 "
+                    "or all float32")
+
+
 _sm_counts: Dict[int, int] = {}
 
 

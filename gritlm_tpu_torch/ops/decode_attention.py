@@ -62,6 +62,19 @@ fragments take two 64-dim groups' layout for the first 64 dims and an
 blocks an SM (`blocks_per_sm`: the rings shrink with Dh) and the counters
 follow the call's Dh.
 
+fp32 q runs the fp32 form (`gritlm_flash_decode_f32`, counted in
+`flash_decode.f32_launches`) over an fp32 cache, or over an int8 cache
+with bf16 scales: the same body (mask scan, plan, rings, merges) with an
+fp32 fold on the SIMT pipes, fp32 products summed in fp32 (the bf16
+fold's mma.m16n8k16, movmatrix and ldmatrix.trans take 16-bit operands
+only). A lane scores one slot of the tile against 4 query rows (the
+unit's rows staged once in shared memory) and accumulates 8 rows' output
+at Dh / 32 dims; P^T passes between the two layouts through a warp's
+shared tile. Its rings hold 4-byte rows, so a block takes about 205 KB at
+Dh 128 and the plan counts one block an SM (`block_bytes`, `f32=True`).
+Any other dtype (float16, or a cache of another dtype than q's) raises
+TypeError.
+
 Differences from the TPU kernel: any Kv (the JAX kernel needs
 (Kv*Dh) % 128 == 0, its lane alignment; the port's rows need only 16-byte
 copies). (The JAX kernel too takes `offset` as an int or a [B] array.)
@@ -88,21 +101,36 @@ SMEM_PER_SM = 232448  # bytes of shared memory an SM gives its blocks (H100)
 MAX_BLOCKS_PER_SM = 4  # 128 registers a thread: 4 blocks of 128 threads fill an SM
 
 
-def ring_bytes(head_dim: int, quant: bool) -> int:
+F32_PT_LD = 12  # PT_LD: floats a slot row of the fp32 form's per-warp P^T tile
+
+
+def ring_bytes(head_dim: int, quant: bool, f32: bool = False) -> int:
     """A block's rings in shared memory: 4 warps x 3 stages x (K and V) x
-    16 slot rows of Dh elements padded by 16 bytes (Tile<T, DH>::RING)."""
-    row = head_dim * (1 if quant else 2) + 16
+    16 slot rows of Dh elements padded by 16 bytes (Tile<T, DH>::RING): 2
+    bytes an element (bf16 cache), 1 (int8), 4 (the fp32 form's fp32
+    cache)."""
+    row = head_dim * (1 if quant else 4 if f32 else 2) + 16
     return DECODE_WARPS * RING_STAGES * 2 * SLOT_TILE * row
 
 
-def blocks_per_sm(quant: bool, head_dim: int = 128) -> int:
+def block_bytes(head_dim: int, quant: bool, f32: bool = False) -> int:
+    """A block's shared memory before its tile bits: the rings, and in the
+    fp32 form also the unit's fp32 query rows and a P^T tile a warp
+    (F32Smem in csrc/decode_mma.cuh)."""
+    extra = ROW_GROUP * head_dim * 4 + DECODE_WARPS * SLOT_TILE * F32_PT_LD * 4 if f32 else 0
+    return ring_bytes(head_dim, quant, f32) + extra
+
+
+def blocks_per_sm(quant: bool, head_dim: int = 128, f32: bool = False) -> int:
     """Blocks of K3/K8 an SM holds at once: as many as its shared memory
-    takes rings, at most MAX_BLOCKS_PER_SM."""
-    return min(MAX_BLOCKS_PER_SM, SMEM_PER_SM // ring_bytes(head_dim, quant))
+    takes, at most MAX_BLOCKS_PER_SM."""
+    return min(MAX_BLOCKS_PER_SM, SMEM_PER_SM // block_bytes(head_dim, quant, f32))
 
 
 # Dh 128: bf16 / int8 cache, 104 KB / 55 KB of rings a block
 BLOCKS_PER_SM = {quant: blocks_per_sm(quant) for quant in (False, True)}
+# the fp32 form at Dh 128: fp32 / int8 cache, 205 KB / 61 KB a block
+F32_BLOCKS_PER_SM = {quant: blocks_per_sm(quant, f32=True) for quant in (False, True)}
 
 
 def dequantize_layer(x, scale, layer, hkv, dtype) -> torch.Tensor:
@@ -132,8 +160,8 @@ def flash_decode_plain(q, k, v, padding_mask, *, causal, sliding_window=None, of
     return attend_plain(q, lk, lv, keep)
 
 
-def _fn():
-    fn = _build.load("decode_attention").gritlm_flash_decode
+def _fn(name: str = "gritlm_flash_decode"):
+    fn = getattr(_build.load("decode_attention"), name)
     if fn.argtypes is None:
         P, I32, F32 = _build.P, _build.I32, _build.F32
         fn.argtypes = [P] * 11 + [I32] * 12 + [F32, P]
@@ -170,19 +198,19 @@ def used_splits(n_tiles: int, n_split: int) -> int:
 
 def decode_plan(B: int, Sq: int, H: int, Hkv: int, Smax: int, sms: int, *, causal: bool,
                 offset: int = 0, window: Optional[int] = None, quant: bool = False,
-                head_dim: int = 128):
+                head_dim: int = 128, f32: bool = False):
     """(n_split, n_rg) of a K3 or K8 launch: n_rg groups of ROW_GROUP query rows a
     (batch row, kv head), and as many splits as fill `blocks_per_sm` blocks an
     SM in one wave, but no more than give each warp MIN_TILES_PER_WARP of
     the tiles the host can bound (the causal bound, the window; Smax for a
     mask-bounded call, whose valid range only the kernel sees), and at most
     MAX_SPLITS. The kernel uses `used_splits` of them a unit, by the valid
-    tiles it finds."""
+    tiles it finds. `f32`: the fp32 form's blocks an SM."""
     n_rg = _cdiv(Sq * (H // Hkv), ROW_GROUP)
     units = B * Hkv * n_rg
     lo, hi = slot_range(0, Sq - 1, Smax, causal=causal, offset=offset, window=window)
     tiles = _cdiv(hi, SLOT_TILE) - lo // SLOT_TILE if hi > lo else 0
-    n_split = min(blocks_per_sm(quant, head_dim) * sms // units,
+    n_split = min(blocks_per_sm(quant, head_dim, f32) * sms // units,
                   _cdiv(tiles, DECODE_WARPS * MIN_TILES_PER_WARP), MAX_SPLITS)
     return max(1, n_split), n_rg
 
@@ -225,13 +253,15 @@ def flash_decode(
                                   sliding_window=sliding_window, offset=offset,
                                   layer=layer, num_kv_heads=num_kv_heads,
                                   k_scale=k_scale, v_scale=v_scale)
-    fn = _fn()
+    # the library before any check of the tensors
+    fn = _fn("gritlm_flash_decode_f32" if q.dtype == torch.float32 else "gritlm_flash_decode")
+    f32 = _build.kernel_form(q, what="flash_decode") == "f32"
     B, Sq, H, Dh = q.shape
     L, Bk, Smax, KD = k.shape
     hkv = num_kv_heads or KD // Dh
-    cache_dtype = torch.int8 if quant else torch.bfloat16
-    if q.dtype != torch.bfloat16 or k.dtype != cache_dtype or v.dtype != cache_dtype:
-        raise TypeError(f"flash_decode: q must be bfloat16 and the cache {cache_dtype}")
+    cache_dtype = torch.int8 if quant else q.dtype
+    if k.dtype != cache_dtype or v.dtype != cache_dtype:
+        raise TypeError(f"flash_decode: under {q.dtype} q the cache must be {cache_dtype}")
     if quant and not all(
             t.dtype == torch.bfloat16 and t.is_contiguous()
             and tuple(t.shape) == (L, B, hkv, Smax) for t in (k_scale, v_scale)):
@@ -240,8 +270,8 @@ def flash_decode(
         raise NotImplementedError(f"flash_decode: q {tuple(q.shape)} over cache {tuple(k.shape)}")
     if k.shape != v.shape or Bk != B:
         raise ValueError(f"flash_decode: cache k {tuple(k.shape)} v {tuple(v.shape)}, batch {B}")
-    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
-        raise ValueError("flash_decode: q and the cache must be contiguous")
+    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()) or q.data_ptr() % 16:
+        raise ValueError("flash_decode: q and the cache must be contiguous, q 16-byte aligned")
     if not isinstance(layer, int) or not 0 <= layer < L:
         raise ValueError("flash_decode: layer must be a Python int, 0 <= layer < L")
     if off_t is None and not isinstance(offset, int):
@@ -261,7 +291,7 @@ def flash_decode(
     n_split, n_rg = decode_plan(B, Sq, H, hkv, Smax, _build.sm_count(q.device),
                                 causal=causal and host, offset=offset if host else 0,
                                 window=sliding_window if host else None, quant=quant,
-                                head_dim=Dh)
+                                head_dim=Dh, f32=f32)
     units = B * hkv * n_rg
     part_ml, part_o = partials(n_split, units, q.device, Dh)
     counters = _build.counters(q.device, units) if n_split > 1 else None
@@ -275,11 +305,15 @@ def flash_decode(
             hkv, Dh, Smax, layer, n_split, n_rg, int(causal), int(sliding_window or 0),
             offset if host else 0, Dh ** -0.5, _build.stream_of(q))
     _build.check(rc, "flash_decode")
-    flash_decode.launches += 1
-    if not host:
-        flash_decode.row_offset_launches += 1
+    if f32:
+        flash_decode.f32_launches += 1
+    else:
+        flash_decode.launches += 1
+        if not host:
+            flash_decode.row_offset_launches += 1
     return out
 
 
 flash_decode.launches = 0
 flash_decode.row_offset_launches = 0  # of them, launches with per-row offsets (verify chunks)
+flash_decode.f32_launches = 0  # launches of the fp32 form (any offsets)

@@ -68,9 +68,21 @@ the same Dh^-0.5, and dq, dk and dv are their first Dh columns (delta =
 rowsum(dO * O) is taken at Dh: zero columns add nothing to it). Dh above
 128 raises NotImplementedError, in training too.
 
+fp32 q, k and v run K1's fp32 form (`gritlm_flash_fwd_f32` in the same
+source, counted in `flash_attention.f32_launches`): fp32 products summed
+in fp32, as the Pallas kernel computes on fp32 inputs (one TF32 tensor-core
+pass would round the operands to 10 bits of mantissa), on the SIMT pipes:
+one block of 128 threads per 64 query rows, Q in shared memory, K and V in
+two cp.async buffers of 32-key tiles, each thread 4 rows x 4 keys of S and
+4 rows x Dh / 8 columns of O, P passed between the two layouts through a
+warp's shared tile. What bounds it: the FMAs (the fp32 lanes' rate). Head
+dims as the bf16 form (64, 128; others padded to 128), with its LSE.
+Any other dtype (float16, or a mix) raises TypeError. The backward (K4,
+K5) takes bf16 only; its fp32 form is ROADMAP Queue 2 E item 3.
+
 Differences from the TPU kernel: any Sq runs the kernel (the TPU version
 needed Sq >= 128 and sent shorter queries to an einsum); the padded head
-dims take the true scale, not a scaled q; bf16 only.
+dims take the true scale, not a scaled q.
 """
 
 from __future__ import annotations
@@ -217,7 +229,7 @@ def _fn(name: str = "gritlm_flash_fwd", lib: str = "flash_attention"):
     fn = getattr(_build.load(lib), name)
     if fn.argtypes is None:
         P, I32, I64, F32 = _build.P, _build.I32, _build.I64, _build.F32
-        if name == "gritlm_flash_fwd":
+        if name in ("gritlm_flash_fwd", "gritlm_flash_fwd_f32"):
             fn.argtypes = [P] * 6 + [I32] * 6 + [I64] * 7 + [I32] * 3 + [F32, P]
         elif name == "gritlm_flash_bwd_dq":
             fn.argtypes = [P] * 8 + [I32] * 6 + [I64] * 9 + [I32] * 3 + [F32, P]
@@ -227,16 +239,19 @@ def _fn(name: str = "gritlm_flash_fwd", lib: str = "flash_attention"):
     return fn
 
 
-def _check_bshd(t: torch.Tensor, name: str) -> None:
-    """[B, S, heads, Dh] bf16, Dh one of KERNEL_HEAD_DIMS, whose head and
-    dim axes are dense (any batch and sequence strides, 16-byte aligned), as
-    the kernels read it."""
-    if t.dtype != torch.bfloat16:
-        raise TypeError(f"flash_attention: {name} must be bfloat16, got {t.dtype}")
+def _check_bshd(t: torch.Tensor, name: str, dtype=torch.bfloat16) -> None:
+    """[B, S, heads, Dh] of `dtype`, Dh one of KERNEL_HEAD_DIMS, whose head
+    and dim axes are dense (any batch and sequence strides, 16-byte
+    aligned), as the kernels read it."""
+    if t.dtype != dtype:
+        raise TypeError(f"flash_attention: {name} must be {dtype}, got {t.dtype}")
     if t.dim() != 4 or t.shape[3] not in KERNEL_HEAD_DIMS:
         raise NotImplementedError(f"flash_attention: {name} must be [B, S, heads, Dh in "
                                   f"{KERNEL_HEAD_DIMS}], got {tuple(t.shape)}")
-    if t.stride(3) != 1 or t.stride(2) != t.shape[3] or t.stride(0) % 8 or t.stride(1) % 8 \
+    vec = 16 // t.element_size()  # elements a 16-byte row piece
+    # one head: its stride is never stepped (fp32 ops may leave it at S * Dh)
+    heads_dense = t.stride(2) == t.shape[3] or t.shape[2] == 1
+    if t.stride(3) != 1 or not heads_dense or t.stride(0) % vec or t.stride(1) % vec \
             or t.data_ptr() % 16:
         raise ValueError(f"flash_attention: {name} strides {t.stride()} not supported")
 
@@ -267,9 +282,9 @@ def _kernel_mask(padding_mask, B: int, Sk: int, device) -> torch.Tensor:
     return padding_mask.to(torch.int32).contiguous()
 
 
-def _check_qkv(q, k, v, offset) -> None:
+def _check_qkv(q, k, v, offset, dtype=torch.bfloat16) -> None:
     for t, name in ((q, "q"), (k, "k"), (v, "v")):
-        _check_bshd(t, name)
+        _check_bshd(t, name, dtype)
     if k.shape != v.shape or k.shape[0] != q.shape[0] or q.shape[2] % k.shape[2]:
         raise ValueError(f"flash_attention: shapes q {tuple(q.shape)} k {tuple(k.shape)} "
                          f"v {tuple(v.shape)}")
@@ -296,21 +311,23 @@ def flash_attention(
     return_lse: bool = False,
 ):
     """Attention forward. CPU tensors run the plain version; CUDA tensors run
-    the kernel or raise. Returns [B, Sq, H, Dh] in q's dtype, and with
-    return_lse also the rows' fp32 log-sum-exp [B, H, Sq]."""
+    the kernel of their dtype (all bf16, or all fp32) or raise. Returns
+    [B, Sq, H, Dh] in q's dtype, and with return_lse also the rows' fp32
+    log-sum-exp [B, H, Sq]."""
     if _build.plain_path(q, k, v, padding_mask):
         return flash_attention_plain(q, k, v, padding_mask, causal=causal,
                                      sliding_window=sliding_window, offset=offset,
                                      return_lse=return_lse)
-    fn = _fn()
+    # the library before any check of the tensors; q's dtype names the entry,
+    # kernel_form then holds k and v to it
+    fn = _fn("gritlm_flash_fwd_f32" if q.dtype == torch.float32 else "gritlm_flash_fwd")
+    f32 = _build.kernel_form(q, k, v, what="flash_attention") == "f32"
     B, Sq, H, Dh = q.shape
     _, Sk, Hkv, _ = k.shape
     Dk = kernel_head_dim(Dh)
     if Dk != Dh:  # zero-padded heads: the same scores, the same first Dh output columns
-        if not (q.dtype == k.dtype == v.dtype == torch.bfloat16):
-            raise TypeError("flash_attention: q, k and v must be bfloat16")
         q, k, v = (_pad_heads(t, Dk) for t in (q, k, v))
-    _check_qkv(q, k, v, offset)
+    _check_qkv(q, k, v, offset, q.dtype)
     mask = _kernel_mask(padding_mask, B, Sk, q.device)
     # the window is part of the causal mask (bidirectional calls ignore it)
     window = sliding_window if (causal and sliding_window) else 0
@@ -322,13 +339,17 @@ def flash_attention(
             v.stride(0), v.stride(1), mask.stride(0), int(causal), int(window), offset,
             Dh ** -0.5, _build.stream_of(q))
     _build.check(rc, "flash_attention")
-    flash_attention.launches += 1
+    if f32:
+        flash_attention.f32_launches += 1
+    else:
+        flash_attention.launches += 1
     if Dk != Dh:
         out = out[..., :Dh].contiguous()
     return (out, lse) if return_lse else out
 
 
 flash_attention.launches = 0
+flash_attention.f32_launches = 0  # launches of the fp32 form
 
 
 def _bwd_args(q, k, v, padding_mask, do, lse, delta, causal, sliding_window, offset, scale):
@@ -337,6 +358,9 @@ def _bwd_args(q, k, v, padding_mask, do, lse, delta, causal, sliding_window, off
     launch). `scale` is the forward's softmax scale (None: Dh^-0.5)."""
     B, Sq, H, Dh = q.shape
     Sk = k.shape[1]
+    if _build.kernel_form(q, k, v, do, what="flash_attention backward") != "bf16":
+        raise TypeError("flash_attention backward: the fp32 form of K4 and K5 is not ported "
+                        "yet (ROADMAP Queue 2 E item 3)")
     _check_qkv(q, k, v, offset)
     _check_bshd(do, "do")
     if do.shape != q.shape:

@@ -22,6 +22,17 @@ cluster merges its blocks' partials through distributed shared memory
 (and finishes the row there when it has the row alone), and the row's last
 block to arrive (`_build.counters`) merges the row's cluster partials in a
 fixed order, applies gamma and the denominator, and normalizes.
+
+fp32 hidden and gamma run K2's fp32 form (`gritlm_fused_pool_f32` in the
+same source, counted in `fused_norm_mean_pool.f32_launches`): the bf16
+ring's stage count and vector width assume 2-byte elements, so it is a
+simpler kernel of the same function, bound by the same bytes (twice as
+many). One launch of B x n_split blocks (`f32_pool_plan`): a block sums
+the masked-in rows of its equal share of a row's positions (each row's
+sum of squares a block sum in a fixed order) into fp32 partials, and the
+row's last block merges them in split order, applies gamma and the
+denominator and normalizes; no float atomics, so reruns are bit-equal.
+Any other dtype (float16, or a mix) raises TypeError.
 """
 
 from __future__ import annotations
@@ -39,6 +50,24 @@ BLOCKS_PER_SM = 2
 MIN_ROWS = 8  # positions a block at least: short rows get fewer blocks and partials
 CLUSTERS = (8, 4, 2, 1)  # cluster sizes, largest first
 BALANCE_MAX = 8192  # positions of the whole mask that every block reads to apportion
+# the fp32 form (csrc/fused_pool.cu, namespace f32)
+F32_THREADS = 256
+F32_MAX_DIM = 8192  # F32_THREADS * 4 * MAX_VECS: a thread's float4 columns in registers
+F32_BLOCKS_PER_SM = 4
+F32_MIN_ROWS = 8  # positions a block at least
+
+
+def f32_pool_plan(B: int, S: int, sms: int) -> int:
+    """n_split of the fp32 form: blocks a batch row, as many as fill about
+    F32_BLOCKS_PER_SM blocks an SM over the B rows, with at least
+    F32_MIN_ROWS positions a block."""
+    return max(1, min(-(-S // F32_MIN_ROWS), F32_BLOCKS_PER_SM * sms // max(B, 1)))
+
+
+def f32_split(S: int, split: int, n_split: int):
+    """[begin, end): the positions block `split` of a row takes (the
+    kernel's cut, S split / n_split)."""
+    return S * split // n_split, S * (split + 1) // n_split
 
 
 def pool_plan(B: int, S: int, sms: int, fit=None):
@@ -102,11 +131,14 @@ def fused_norm_mean_pool_plain(hidden, gamma, pool_mask, *, eps, method="mean",
     return emb
 
 
-def _fn():
-    fn = _build.load("fused_pool").gritlm_fused_pool
+def _fn(name: str = "gritlm_fused_pool"):
+    fn = getattr(_build.load("fused_pool"), name)
     if fn.argtypes is None:
         P, I32, I64, F32 = _build.P, _build.I32, _build.I64, _build.F32
-        fn.argtypes = [P] * 6 + [I32] * 7 + [I64] * 3 + [I32] * 2 + [F32, P]
+        if name == "gritlm_fused_pool":
+            fn.argtypes = [P] * 6 + [I32] * 7 + [I64] * 3 + [I32] * 2 + [F32, P]
+        else:  # gritlm_fused_pool_f32
+            fn.argtypes = [P] * 6 + [I32] * 4 + [I64] * 3 + [I32] * 2 + [F32, P]
         fn.restype = I32
     return fn
 
@@ -122,16 +154,19 @@ def fused_norm_mean_pool(
 ) -> torch.Tensor:
     """pool(rms_norm(hidden, gamma), pool_mask, method) (+ L2 normalize) in
     one pass over hidden. CPU tensors run the plain version; CUDA tensors
-    run the kernel or raise. Returns [B, D] float32."""
+    run the kernel of their dtype (both bf16, or both fp32) or raise.
+    Returns [B, D] float32."""
     if method not in ("mean", "weightedmean"):
         raise ValueError(f"fused_norm_mean_pool: method {method!r}")
     if _build.plain_path(hidden, gamma, pool_mask):
         return fused_norm_mean_pool_plain(hidden, gamma, pool_mask, eps=eps, method=method,
                                           normalized=normalized)
-    fn = _fn()
+    # the library before any check of the tensors
+    fn = _fn("gritlm_fused_pool_f32" if hidden.dtype == torch.float32 else "gritlm_fused_pool")
+    if _build.kernel_form(hidden, gamma, what="fused_norm_mean_pool") == "f32":
+        return _pool_f32(fn, hidden, gamma, pool_mask, eps=eps, method=method,
+                         normalized=normalized)
     B, S, D = hidden.shape
-    if hidden.dtype != torch.bfloat16 or gamma.dtype != torch.bfloat16:
-        raise TypeError("fused_norm_mean_pool: hidden and gamma must be bfloat16")
     if (D % 8 or D > MAX_DIM or S > MAX_SEQ or tuple(gamma.shape) != (D,)
             or tuple(pool_mask.shape) != (B, S)):
         raise NotImplementedError(
@@ -158,3 +193,33 @@ def fused_norm_mean_pool(
 
 
 fused_norm_mean_pool.launches = 0
+fused_norm_mean_pool.f32_launches = 0  # launches of the fp32 form
+
+
+def _pool_f32(fn, hidden, gamma, pool_mask, *, eps, method, normalized) -> torch.Tensor:
+    """K2's fp32 form (entry `fn`) on CUDA tensors (fp32 hidden and gamma)."""
+    B, S, D = hidden.shape
+    if (D % 4 or D > F32_MAX_DIM or S >= 2**31 or tuple(gamma.shape) != (D,)
+            or tuple(pool_mask.shape) != (B, S)):
+        raise NotImplementedError(
+            f"fused_norm_mean_pool: hidden {tuple(hidden.shape)}, gamma "
+            f"{tuple(gamma.shape)}, mask {tuple(pool_mask.shape)} (fp32: D % 4 == 0, "
+            f"D <= {F32_MAX_DIM})")
+    if hidden.stride(2) != 1 or hidden.stride(0) % 4 or hidden.stride(1) % 4 \
+            or hidden.data_ptr() % 16:
+        raise ValueError(f"fused_norm_mean_pool: hidden strides {hidden.stride()}")
+    gamma = gamma.contiguous()
+    if gamma.data_ptr() % 16:
+        raise ValueError("fused_norm_mean_pool: gamma must be 16-byte aligned")
+    mask = pool_mask.to(torch.int32).contiguous()
+    dev = hidden.device
+    n_split = f32_pool_plan(B, S, _build.sm_count(dev))
+    part = torch.empty((B * n_split, D), dtype=torch.float32, device=dev)
+    out = torch.empty((B, D), dtype=torch.float32, device=dev)
+    rc = fn(hidden.data_ptr(), gamma.data_ptr(), mask.data_ptr(), part.data_ptr(),
+            _build.counters(dev, B).data_ptr(), out.data_ptr(), B, S, D, n_split,
+            hidden.stride(0), hidden.stride(1), mask.stride(0), int(method == "weightedmean"),
+            int(normalized), eps, _build.stream_of(hidden))
+    _build.check(rc, "fused_norm_mean_pool")
+    fused_norm_mean_pool.f32_launches += 1
+    return out

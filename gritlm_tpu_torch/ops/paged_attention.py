@@ -42,6 +42,12 @@ same order.
 Head dims 64, 96 and 128, as K3 (the same kernel body's instances; any
 other Dh raises NotImplementedError on CUDA tensors).
 
+fp32 q runs K3's fp32 form with paged addressing
+(`gritlm_paged_decode_f32`, counted in `paged_decode.f32_launches`) over
+fp32 pages, or int8 pages with bf16 scales, planned by `paged_plan` with
+`f32=True`; on the same logical cache it runs the same folds in the same
+order as K3's fp32 form. Any other dtype raises TypeError.
+
 Differences from the TPU kernel: `page` any multiple of 32 and any Kv (the
 JAX kernel takes pages of 128, 256 and 512 and (Kv*Dh) % 128 == 0, and
 sends other geometries to a gather; here a CUDA tensor launches the kernel
@@ -104,18 +110,18 @@ def paged_decode_plain(q, k_pages, v_pages, page_table, mask, *, layer=0, num_kv
 
 
 def paged_plan(B: int, Sq: int, H: int, Hkv: int, Smax: int, sms: int, *, causal: bool,
-               offset, quant: bool, head_dim: int = 128):
+               offset, quant: bool, head_dim: int = 128, f32: bool = False):
     """(n_split, n_rg) of a K8 launch over a logical width of Smax slots:
     K3's `decode_plan`, bounded by the causal bound only when `offset` is
     one int for every row (a tensor of per-row offsets is the kernel's to
     apply; the host plans over Smax and the kernel trims its splits)."""
     host = causal and not isinstance(offset, torch.Tensor)
     return decode_plan(B, Sq, H, Hkv, Smax, sms, causal=host, offset=int(offset) if host else 0,
-                       quant=quant, head_dim=head_dim)
+                       quant=quant, head_dim=head_dim, f32=f32)
 
 
-def _fn():
-    fn = _build.load("paged_attention").gritlm_paged_decode
+def _fn(name: str = "gritlm_paged_decode"):
+    fn = getattr(_build.load("paged_attention"), name)
     if fn.argtypes is None:
         P, I32, F32 = _build.P, _build.I32, _build.F32
         fn.argtypes = [P] * 12 + [I32] * 13 + [F32, P]
@@ -149,14 +155,16 @@ def paged_decode(
         return paged_decode_plain(q, k_pages, v_pages, page_table, mask, layer=layer,
                                   num_kv_heads=num_kv_heads, k_scale=k_scale,
                                   v_scale=v_scale, causal=causal, offset=offset)
-    fn = _fn()
+    # the library before any check of the tensors
+    fn = _fn("gritlm_paged_decode_f32" if q.dtype == torch.float32 else "gritlm_paged_decode")
+    f32 = _build.kernel_form(q, what="paged_decode") == "f32"
     B, Sq, H, Dh = q.shape
     L, P, page, KD = k_pages.shape
     hkv = num_kv_heads or KD // Dh
     maxp = page_table.shape[1]
-    cache_dtype = torch.int8 if quant else torch.bfloat16
-    if q.dtype != torch.bfloat16 or k_pages.dtype != cache_dtype or v_pages.dtype != cache_dtype:
-        raise TypeError(f"paged_decode: q must be bfloat16 and the pages {cache_dtype}")
+    cache_dtype = torch.int8 if quant else q.dtype
+    if k_pages.dtype != cache_dtype or v_pages.dtype != cache_dtype:
+        raise TypeError(f"paged_decode: under {q.dtype} q the pages must be {cache_dtype}")
     if quant and not all(t.dtype == torch.bfloat16 and t.is_contiguous()
                          and tuple(t.shape) == (L, P, hkv, page) for t in (k_scale, v_scale)):
         raise ValueError(f"paged_decode: scales must be contiguous bfloat16 {(L, P, hkv, page)}")
@@ -168,8 +176,9 @@ def paged_decode(
             f"paged_decode: page {page} is not a multiple of {PAGE_MULTIPLE}")
     if k_pages.shape != v_pages.shape:
         raise ValueError(f"paged_decode: k {tuple(k_pages.shape)} v {tuple(v_pages.shape)}")
-    if not (q.is_contiguous() and k_pages.is_contiguous() and v_pages.is_contiguous()):
-        raise ValueError("paged_decode: q and the pages must be contiguous")
+    if not (q.is_contiguous() and k_pages.is_contiguous() and v_pages.is_contiguous()) \
+            or q.data_ptr() % 16:
+        raise ValueError("paged_decode: q and the pages must be contiguous, q 16-byte aligned")
     if tuple(page_table.shape) != (B, maxp) or tuple(mask.shape) != (B, maxp * page):
         raise ValueError(f"paged_decode: page table {tuple(page_table.shape)} and mask "
                          f"{tuple(mask.shape)} for B {B}, page {page}")
@@ -179,7 +188,8 @@ def paged_decode(
     mask = mask.to(torch.int32).contiguous()
     offsets = None if off_t is None else _row_offsets(off_t, B, q.device).contiguous()
     n_split, n_rg = paged_plan(B, Sq, H, hkv, maxp * page, _build.sm_count(q.device),
-                               causal=causal, offset=offset, quant=quant, head_dim=Dh)
+                               causal=causal, offset=offset, quant=quant, head_dim=Dh,
+                               f32=f32)
     units = B * hkv * n_rg
     part_ml, part_o = partials(n_split, units, q.device, Dh)
     counters = _build.counters(q.device, units) if n_split > 1 else None
@@ -194,8 +204,12 @@ def paged_decode(
             int(causal), 0 if off_t is not None else int(offset), Dh ** -0.5,
             _build.stream_of(q))
     _build.check(rc, "paged_decode")
-    paged_decode.launches += 1
+    if f32:
+        paged_decode.f32_launches += 1
+    else:
+        paged_decode.launches += 1
     return out
 
 
 paged_decode.launches = 0
+paged_decode.f32_launches = 0  # launches of the fp32 form

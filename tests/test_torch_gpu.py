@@ -13,6 +13,7 @@ last cast; attention outputs here are of order 0.1-1.
 """
 
 import dataclasses
+from pathlib import Path
 
 import pytest
 import torch
@@ -1716,3 +1717,335 @@ def test_llama_head_dim_64_serving_path_on_cuda(cuda):
         assert sorted(c.request_id for c in done) == [rid for rid, _ in specs]
         assert all(len(c.token_ids) == 6 for c in done)
         assert kernel.launches > n
+
+
+# ---------------------------------------------------------------- fp32 forms
+# K1, K2, K3 and K8 on fp32 activations against their plain versions (fp32
+# einsums and softmax on the card, TF32 off). Both sides take fp32 products
+# and sum them in fp32, in other orders, and the kernels' exp2 is the
+# hardware's approximation (2^-22 relative): at unit-scale inputs a score
+# moves by about sqrt(Dh) x 2^-24 and an output or LSE by less than 1e-6,
+# so F32_ATOL = 1e-5 (chip_smoke.F32_ATOL) holds with room.
+F32_ATOL = 1e-5
+
+
+@pytest.fixture
+def fp32_cuda(cuda):
+    """The card with fp32 matrix products in full fp32 for the plain
+    versions (TF32 off), restored after."""
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    yield cuda
+    torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+def _randf(gen, *shape, device):
+    return torch.randn(shape, generator=gen, device=device)
+
+
+def _f32_against_plain(wrapper, plain, *args, **kw):
+    """An fp32 form against its plain version: one fp32 launch a call and no
+    bf16 launch, a rerun bit-equal, within F32_ATOL; returns the kernel's
+    result (a tensor or a tuple)."""
+    before = (wrapper.f32_launches, wrapper.launches)
+    got = wrapper(*args, **kw)
+    again = wrapper(*args, **kw)
+    torch.cuda.synchronize()
+    assert (wrapper.f32_launches, wrapper.launches) == (before[0] + 2, before[1])
+    want = plain(*args, **kw)
+    got_t, again_t, want_t = ((x,) if torch.is_tensor(x) else x for x in (got, again, want))
+    for g, a, w in zip(got_t, again_t, want_t):
+        assert g.dtype == torch.float32 and torch.equal(g, a)
+        torch.testing.assert_close(g, w.float(), atol=F32_ATOL, rtol=0)
+    return got
+
+
+@pytest.mark.parametrize("Dh", [64, 96, 128])
+@pytest.mark.parametrize("causal,window,offset,Sq", [
+    (False, None, 0, 200), (True, None, 0, 200), (True, 64, 0, 200), (True, None, 128, 77),
+])
+def test_flash_attention_f32_kernel(fp32_cuda, Dh, causal, window, offset, Sq):
+    """K1 [f32] with its LSE at Dh 64, 128 and 96 (zero-padded to 128 at the
+    true scale): bidirectional, causal, a window, an offset; a padded row
+    and a row with no key (output 0, LSE NEG_INF)."""
+    gen = torch.Generator(device=fp32_cuda).manual_seed(40 + Dh)
+    B, Sk, H, Hkv = 3, 333, 8, 2
+    q = _randf(gen, B, Sq, H, Dh, device=fp32_cuda)
+    k = _randf(gen, B, Sk, Hkv, Dh, device=fp32_cuda)
+    v = _randf(gen, B, Sk, Hkv, Dh, device=fp32_cuda)
+    mask = torch.ones((B, Sk), dtype=torch.int32, device=fp32_cuda)
+    mask[1, 290:] = 0
+    mask[2] = 0
+    out, lse = _f32_against_plain(
+        flash_attention.flash_attention, flash_attention.flash_attention_plain, q, k, v, mask,
+        causal=causal, sliding_window=window, offset=offset, return_lse=True)
+    assert torch.count_nonzero(out[2]) == 0
+    assert bool((lse[2] == flash_attention.NEG_INF).all())
+
+
+@pytest.mark.parametrize("Sq,Sk", [(1, 64), (129, 2048), (512, 512)])
+def test_flash_attention_f32_kernel_shapes(fp32_cuda, Sq, Sk):
+    """K1 [f32] off the 64-row blocks and 32-key tiles, causal at the end of
+    the keys (a prefill over a cache) and bidirectional, GQA group 4."""
+    gen = torch.Generator(device=fp32_cuda).manual_seed(Sq + Sk)
+    B, H, Hkv = 2, 8, 2
+    q = _randf(gen, B, Sq, H, 128, device=fp32_cuda)
+    k = _randf(gen, B, Sk, Hkv, 128, device=fp32_cuda)
+    v = _randf(gen, B, Sk, Hkv, 128, device=fp32_cuda)
+    mask = torch.ones((B, Sk), dtype=torch.int32, device=fp32_cuda)
+    mask[1, Sk * 3 // 4:] = 0
+    for causal in (False, True):
+        _f32_against_plain(flash_attention.flash_attention, flash_attention.flash_attention_plain,
+                           q, k, v, mask, causal=causal, offset=Sk - Sq if causal else 0)
+
+
+def test_kernels_reject_other_dtypes(cuda):
+    """float16, and a mix of bf16 and fp32, raise TypeError on the card
+    before any launch, in all four wrappers (and the fp32 backward, not
+    ported yet)."""
+    from gritlm_tpu_torch.ops import paged_attention
+
+    x = torch.zeros((1, 64, 2, 128), device=cuda)
+    mask = torch.ones((1, 64), dtype=torch.int32, device=cuda)
+    for dt in ((torch.float16,) * 3, (torch.float32, torch.bfloat16, torch.bfloat16)):
+        with pytest.raises(TypeError):
+            flash_attention.flash_attention(*(x.to(d) for d in dt), mask, causal=False)
+    with pytest.raises(TypeError):
+        fused_pool.fused_norm_mean_pool(x[0].half(), x[0, 0, 0].half(), mask[:, :64], eps=1e-5)
+    with pytest.raises(TypeError):
+        fused_pool.fused_norm_mean_pool(x[0], x[0, 0, 0].bfloat16(), mask, eps=1e-5)
+    cache = torch.zeros((1, 1, 64, 256), device=cuda)
+    q = torch.zeros((1, 1, 2, 128), device=cuda)
+    for qd, cd in ((torch.float16, torch.float16), (torch.float32, torch.bfloat16)):
+        with pytest.raises(TypeError):
+            decode_attention.flash_decode(q.to(qd), cache.to(cd), cache.to(cd), mask,
+                                          causal=False)
+        with pytest.raises(TypeError):
+            paged_attention.paged_decode(q.to(qd), cache.to(cd), cache.to(cd),
+                                         torch.zeros((1, 2), dtype=torch.int32, device=cuda),
+                                         torch.ones((1, 64), dtype=torch.int32, device=cuda))
+    lse = torch.zeros((1, 2, 64), device=cuda)
+    with pytest.raises(TypeError):
+        flash_attention.flash_attention_bwd_dq(x, x, x, mask, x, lse, lse, causal=False)
+
+
+# (B, S, D, strided): a ragged batch with an empty row, a long row, many
+# short rows, D 3584, rows that are views into wider ones, D 8192
+F32_POOL_SHAPES = [(3, 700, 4096, False), (1, 4096, 4096, False), (64, 128, 4096, False),
+                   (8, 512, 3584, False), (8, 300, 4096, True), (2, 1000, 8192, False)]
+
+
+@pytest.mark.parametrize("method", ["mean", "weightedmean"])
+@pytest.mark.parametrize("B,S,D,strided", F32_POOL_SHAPES)
+def test_fused_pool_f32_kernel(fp32_cuda, method, B, S, D, strided):
+    """K2 [f32]: mean and weightedmean, normalized and not, a masked prefix
+    and tail, a one-token row, an empty row (zeros)."""
+    gen = torch.Generator(device=fp32_cuda).manual_seed(B * S + D + 1)
+    base = _randf(gen, B, S, 2 * D if strided else D, device=fp32_cuda)
+    hidden = base[..., :D] if strided else base
+    gamma = 1 + 0.5 * torch.randn(D, generator=gen, device=fp32_cuda)
+    mask = (torch.rand((B, S), generator=gen, device=fp32_cuda) < 0.9).int()
+    mask[0, : S // 7] = 0
+    mask[0, S * 5 // 7:] = 0
+    if B > 1:
+        mask[1] = 0
+        mask[1, S // 2] = 1
+    if B > 2:
+        mask[2] = 0
+    for normalized in (True, False):
+        got = _f32_against_plain(fused_pool.fused_norm_mean_pool,
+                                 fused_pool.fused_norm_mean_pool_plain, hidden, gamma, mask,
+                                 eps=1e-5, method=method, normalized=normalized)
+        if B > 2:
+            assert torch.count_nonzero(got[2]) == 0
+
+
+def _f32_cache(gen, L, B, Smax, Hkv, Dh, quant, device):
+    """An fp32 cache [L, B, Smax, Kv*Dh], or its int8 quantization with
+    slot-minor bf16 scales (as the write path quantizes it)."""
+    from gritlm_tpu_torch.models.transformer import quantize_kv
+
+    k = _randf(gen, L, B, Smax, Hkv * Dh, device=device)
+    v = _randf(gen, L, B, Smax, Hkv * Dh, device=device)
+    if not quant:
+        return k, v, {}
+    k8, ks = quantize_kv(k.view(L * B, Smax, Hkv, Dh))
+    v8, vs = quantize_kv(v.view(L * B, Smax, Hkv, Dh))
+    return k8.view(L, B, Smax, -1), v8.view(L, B, Smax, -1), {
+        "k_scale": ks.view(L, B, Smax, Hkv).transpose(2, 3).contiguous(),
+        "v_scale": vs.view(L, B, Smax, Hkv).transpose(2, 3).contiguous()}
+
+
+@pytest.mark.parametrize("quant", [False, True])
+@pytest.mark.parametrize("Dh", [64, 96, 128])
+@pytest.mark.parametrize("Sq,window", [(1, None), (7, None), (3, 64)])
+def test_flash_decode_f32_kernel(fp32_cuda, quant, Dh, Sq, window):
+    """K3 [f32] over an fp32 and an int8 cache: causal at an int offset,
+    holes, a window, an empty row (zeros)."""
+    gen = torch.Generator(device=fp32_cuda).manual_seed(50 + Dh + Sq)
+    L, B, Smax, H, Hkv, offset = 2, 3, 512, 8, 2, 290
+    k, v, scales = _f32_cache(gen, L, B, Smax, Hkv, Dh, quant, fp32_cuda)
+    q = _randf(gen, B, Sq, H, Dh, device=fp32_cuda)
+    mask = (torch.rand((B, Smax), generator=gen, device=fp32_cuda) > 0.3).int()
+    mask[:, offset + Sq:] = 0
+    mask[2] = 0
+    got = _f32_against_plain(decode_attention.flash_decode, decode_attention.flash_decode_plain,
+                             q, k, v, mask, causal=True, offset=offset, layer=1,
+                             sliding_window=window, num_kv_heads=Hkv, **scales)
+    assert torch.count_nonzero(got[2]) == 0
+
+
+@pytest.mark.parametrize("quant", [False, True])
+def test_flash_decode_f32_serving_and_verify(fp32_cuda, quant):
+    """K3 [f32] at the serving decode chunk's call (B 8, Smax 4096,
+    mask-bounded, ragged rows with holes, an empty row) and at the verify
+    chunk's (Sq 8, [B] offsets), bit-equal to K8 [f32] on the same logical
+    cache in both."""
+    from gritlm_tpu_torch.ops import paged_attention
+
+    gen = torch.Generator(device=fp32_cuda).manual_seed(60)
+    L, B, H, Hkv, page, maxp = 2, 8, 32, 8, 256, 16
+    Smax = page * maxp
+    k, v, scales = _f32_cache(gen, L, B, Smax, Hkv, 128, quant, fp32_cuda)
+    lens = torch.tensor([0, 1900, 256, 700, 1333, 3000, 9, 4096], device=fp32_cuda)
+    mask = (torch.arange(Smax, device=fp32_cuda)[None] < lens[:, None]).int()
+    mask[1, 600:700] = 0
+    mask[4, 16:1000] = 0
+    # the same cache as a shuffled page pool
+    P = B * maxp + 1
+    pt = (torch.randperm(P - 1, generator=torch.Generator().manual_seed(3))[:B * maxp] + 1)
+    pt = pt.view(B, maxp).to(torch.int32).to(fp32_cuda)
+    inv = torch.zeros(P, dtype=torch.long, device=fp32_cuda)
+    inv[pt.long().reshape(-1)] = torch.arange(B * maxp, device=fp32_cuda)
+    kp = k.view(L, B * maxp, page, -1)[:, inv].contiguous()
+    vp = v.view(L, B * maxp, page, -1)[:, inv].contiguous()
+    pscales = {n: s.view(L, B, Hkv, maxp, page).transpose(2, 3).reshape(
+        L, B * maxp, Hkv, page)[:, inv].contiguous() for n, s in scales.items()}
+    for Sq in (1, 8):
+        q = _randf(gen, B, Sq, H, 128, device=fp32_cuda)
+        kw = dict(causal=False) if Sq == 1 else dict(
+            causal=True, offset=(lens - Sq).clamp_min(0).to(torch.int32))
+        got = _f32_against_plain(decode_attention.flash_decode,
+                                 decode_attention.flash_decode_plain, q, k, v, mask, layer=1,
+                                 num_kv_heads=Hkv, **kw, **scales)
+        paged = _f32_against_plain(paged_attention.paged_decode,
+                                   paged_attention.paged_decode_plain, q, kp, vp, pt, mask,
+                                   layer=1, num_kv_heads=Hkv, **kw, **pscales)
+        assert torch.equal(got, paged)
+        assert torch.count_nonzero(got[0]) == 0
+
+
+@pytest.mark.parametrize("quant", [False, True])
+@pytest.mark.parametrize("page", [32, 256])
+@pytest.mark.parametrize("Sq,causal", [(1, False), (8, True)])
+def test_paged_decode_f32_kernel(fp32_cuda, quant, page, Sq, causal):
+    """K8 [f32] over a shuffled pool of fp32 or int8 pages: ragged rows, a
+    hole, a shared page, an empty row (0), per-row offsets at Sq 8."""
+    from gritlm_tpu_torch.models.transformer import quantize_kv
+    from gritlm_tpu_torch.ops import paged_attention
+
+    gen = torch.Generator(device=fp32_cuda).manual_seed(70 + page + Sq)
+    L, B, Hkv, H, maxp = 2, 4, 2, 8, 1024 // page
+    P = B * maxp + 2
+    k = _randf(gen, L, P, page, Hkv * 128, device=fp32_cuda)
+    v = _randf(gen, L, P, page, Hkv * 128, device=fp32_cuda)
+    scales = {}
+    if quant:
+        k8, ks = quantize_kv(k.view(L * P, page, Hkv, 128))
+        v8, vs = quantize_kv(v.view(L * P, page, Hkv, 128))
+        k, v = k8.view(L, P, page, -1), v8.view(L, P, page, -1)
+        scales = {"k_scale": ks.view(L, P, page, Hkv).transpose(2, 3).contiguous(),
+                  "v_scale": vs.view(L, P, page, Hkv).transpose(2, 3).contiguous()}
+    pt = (torch.randperm(P - 1, generator=torch.Generator().manual_seed(0))[:B * maxp] + 1)
+    pt = pt.view(B, maxp).to(torch.int32).to(fp32_cuda)
+    pt[2, 0] = pt[0, 0]
+    lens = torch.tensor([5, maxp * page, 131, 0], device=fp32_cuda)
+    mask = (torch.arange(maxp * page, device=fp32_cuda)[None] < lens[:, None]).int()
+    mask[1, 7:40] = 0
+    offs = (lens - Sq).clamp_min(0).to(torch.int32)
+    q = _randf(gen, B, Sq, H, 128, device=fp32_cuda)
+    got = _f32_against_plain(paged_attention.paged_decode, paged_attention.paged_decode_plain,
+                             q, k, v, pt, mask, layer=1, num_kv_heads=Hkv, causal=causal,
+                             offset=offs, **scales)
+    assert torch.count_nonzero(got[3]) == 0
+
+
+def test_bf16_forms_unchanged(cuda):
+    """The bf16 forms of K1, K2, K3 and K8 on fixed seeded inputs give the
+    bits they gave before the fp32 forms were added (the sha256 of each
+    output, taken on an NVIDIA H100 80GB HBM3 from the parent commit's
+    kernels by scripts/bf16_ab.py, which also compares the SASS)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "bf16_ab", str(Path(__file__).resolve().parents[1] / "scripts" / "bf16_ab.py"))
+    ab = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(ab)
+    assert ab.digests(cuda) == ab.BF16_DIGESTS
+
+
+def test_gritlm_f32_runs_its_fp32_kernels(fp32_cuda):
+    """GritLM at dtype float32 on the card: encode, generate (K1 prefill,
+    K3 decode) and dense, paged and int8-KV pools go through the fp32
+    forms only, and agree with the same model's plain versions."""
+    from gritlm_tpu_torch import GritLM
+    from gritlm_tpu_torch.ops import paged_attention
+    from gritlm_tpu_torch.serving import Request, ServingEngine
+
+    wrappers = (flash_attention.flash_attention, fused_pool.fused_norm_mean_pool,
+                decode_attention.flash_decode, paged_attention.paged_decode)
+    cfg = ModelConfig(vocab_size=512, hidden_size=256, intermediate_size=512,
+                      num_hidden_layers=2, num_attention_heads=2, num_key_value_heads=1,
+                      dtype="float32")
+    model = GritLM(cfg)
+    bf16_before = [w.launches for w in wrappers]
+    f32_before = [w.f32_launches for w in wrappers]
+    docs = ["a passage about bitcoin " * 9, "the mitochondria", "x " * 150]
+    emb = torch.from_numpy(model.encode(docs))
+    enc = model.tokenizer(["<s><|user|>\nHi\n<|assistant|>\n", docs[0]])
+    res = model.generate_from_ids(enc["input_ids"], enc["attention_mask"], max_new_tokens=8)
+    assert ((res.tokens >= 0) & (res.tokens < 512)).all()
+    rng = torch.Generator().manual_seed(0)
+    specs = [(f"r{i}", torch.randint(3, 512, (n,), generator=rng).tolist())
+             for i, n in enumerate([5, 300, 40])]
+    for extra in (dict(), dict(paged=True, page_size=256), dict(kv_quant=True)):
+        eng = ServingEngine(cfg, model.params, max_batch=2, max_len=1024, chunk_size=4,
+                            prompt_buckets=(64, 128, 256, 512), eos_id=-1, pad_id=0,
+                            device=fp32_cuda, **extra)
+        done = eng.run([Request(input_ids=ids, max_new_tokens=5, request_id=rid)
+                        for rid, ids in specs])
+        assert sorted(c.request_id for c in done) == [rid for rid, _ in specs]
+    assert [w.launches for w in wrappers] == bf16_before
+    assert all(w.f32_launches > b for w, b in zip(wrappers, f32_before))
+    saved = (flash_attention.flash_attention, fused_pool.fused_norm_mean_pool)
+    flash_attention.flash_attention = flash_attention.flash_attention_plain
+    fused_pool.fused_norm_mean_pool = fused_pool.fused_norm_mean_pool_plain
+    try:
+        plain = torch.from_numpy(model.encode(docs))
+    finally:
+        flash_attention.flash_attention, fused_pool.fused_norm_mean_pool = saved
+    torch.testing.assert_close(emb, plain, atol=F32_ATOL, rtol=0)
+
+
+def test_verify_checkpoint_fp32_on_cuda(fp32_cuda, tmp_path, capsys):
+    """verify-checkpoint --fp32 on the card at its default --parity_tol
+    (2e-3): the load in fp32, the transformers leg (where installed), K1
+    and K2's fp32 forms and K9 [f32] launched, no bf16 attention launch."""
+    import json
+
+    from gritlm_tpu_torch import tools
+    from gritlm_tpu_torch.models.loader import save_checkpoint
+    from gritlm_tpu_torch.ops import scores_segmax as k9
+
+    m = _narrow_model()
+    save_checkpoint(str(tmp_path), dataclasses.replace(m.config, dtype="bfloat16"), m.params)
+    before = (flash_attention.flash_attention.f32_launches,
+              fused_pool.fused_norm_mean_pool.f32_launches, k9.scores_segmax.f32_launches,
+              flash_attention.flash_attention.launches)
+    tools.main(["verify-checkpoint", "--model", str(tmp_path), "--fp32"])
+    v = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert v["ok"] and v["load"]["dtype"] == "float32"
+    after = (flash_attention.flash_attention.f32_launches,
+             fused_pool.fused_norm_mean_pool.f32_launches, k9.scores_segmax.f32_launches,
+             flash_attention.flash_attention.launches)
+    assert all(a > b for a, b in zip(after[:3], before[:3])) and after[3] == before[3]
