@@ -14,9 +14,9 @@ dense and paged verify pools, and sampling pools; w8a16 and w4a16
 quantized weights in generate and serving; GRIT training with LoRA, QLoRA, GradCache and full
 parameters through `python -m gritlm_tpu_torch.training.run`'s main; the
 embedding projection head in encode and in training; then a Mixtral-8x7B
-of random bf16 weights at its published width, depth cut to 8, through
-encode, generate and the serving engine, and at depth 8 with int8
-weights, and GRIT training on it (LoRA at depth 8, the load-balancing
+of random bf16 weights at its published width, depth cut to 4, through
+encode, generate and the serving engine, and at depth 4 with int8
+weights, and GRIT training on it (LoRA at depth 4, the load-balancing
 aux loss, gshard's capacity drops, `training.run --moe_impl
 --native_loader`); per-request LoRA adapters in the serving engine and the
 remat policies of LoRA training; then head dims 64 and 96 in flash
@@ -26,21 +26,25 @@ and RAG; the flash backward at head dims 64 and 96 and GRIT training of
 Llama-3.2-1B at its published width and depth; the evaluation path: the
 MTEB CLI with the generative reranker over an fp32 index, the generative
 benchmarks, hard-negative mining and the checkpoint tools; the fp32 forms
-of K1, K2, K3 and K8 and GritLM at fp32 activations at Mistral-7B width),
-and times each kernel beside its bound, its plain version and one PyTorch
-library call.
+of K1, K2, K3 and K8 and GritLM at fp32 activations at Mistral-7B width;
+the fp32 forms of K4 and K5, fp32 activations through K6 and K7, and GRIT
+training at fp32 through `training.run --dtype float32`), and times each
+kernel beside its bound, its plain version and one PyTorch library call.
 
 Cuts for the 1200 s limit (each path still driven; printed figures at the
-cut size): phases 13 and 15 run Mixtral at MOE_DEPTH 8 layers (16 before
-phase 19 was added), phase 14's remat policies at REMAT_DEPTH 4 (8
-before), phase 14's adapter pools and phase 12's pools phase 7's
-8-request cut (phase 14's took its 24 before phase 19), phase 12's
-lockstep speculative generate 32 tokens (64 before), phase 10's LoRA
-steps on one batch 4 (6 before), the decode chunks' profiler windows 8
-steps.
+cut size): phases 13 and 15 run Mixtral at MOE_DEPTH 4 layers (16 before
+phase 19 was added, 8 before phase 20), phase 14's remat policies at
+REMAT_DEPTH 2 (8 before phase 19, 4 before phase 20), phase 14's adapter
+pools and phase 12's pools phase 7's 8-request cut (phase 14's took its
+24 before phase 19), phase 12's lockstep speculative generate 16 tokens
+(64 before phase 19, 32 before phase 20), phase 10's LoRA steps on one
+batch 4 (6 before) and those and its QLoRA steps at TRAIN_BATCH_DEPTH 16
+layers (32 before phase 20), the decode chunks' profiler windows 8 steps,
+phase 10's LoRA CLI run at depth 4 (32 layers and a 13.5 GiB export before
+phase 20), phase 17's LoRA steps on one batch 4 (6 before phase 20).
 
 Phases (in the order 1-7, 12, 14, 8, 9, 11, 18's eval leg, 19, 16, 13, 15,
-10, 17, 18's tools leg), any failure exits non-zero:
+10, 17, 18's tools leg, 20), any failure exits non-zero:
   1. device and build: card name and power limit, nvcc's register and
      shared-memory report; for the redesigned kernels (K1, K4/K5, K9 on
      wgmma; K3, K8, K6 and K7 on mma.sync; K2 on bulk copies and clusters)
@@ -48,7 +52,7 @@ Phases (in the order 1-7, 12, 14, 8, 9, 11, 18's eval leg, 19, 16, 13, 15,
      (the wgmma kernels' dynamic shared memory too), failing on a spill or
      a serialised wgmma (each library's ptxas report is kept beside it in
      the build cache, so a cached build is checked too); the fp32 forms of
-     K1, K2, K3 and K8 apart from the bf16 ones, a spill failing
+     K1, K2, K3, K8, K4 and K5 apart from the bf16 ones, a spill failing
   2. each kernel against its plain version on the card (K1 and its LSE at
      three shapes; K9 at three shapes: a masked tail, Q = 3, a partial
      last segment, and K9 [f32] at the same three within K9_F32_ATOL, each
@@ -124,11 +128,12 @@ Phases (in the order 1-7, 12, 14, 8, 9, 11, 18's eval leg, 19, 16, 13, 15,
      case rerun bit-equal) and FlashAttentionFn against autograd through
      the plain forward; then,
      with the counts set to 0 before and read after: LoRA GRIT training at
-     Mistral-7B width and full depth through training.run.main on
-     synthetic JSONL filling the default lengths (query 256, passage 2048,
-     generative 2048; batch 4, group 2; 3 steps, a checkpoint at step 2,
-     a resumed run from it, the HF export read back equal by
-     load_checkpoint); 4 LoRA steps on one batch (the loss falls); GradCache
+     Mistral-7B width and depth 4 through training.run.main
+     --model_name_or_path on synthetic JSONL filling the default lengths
+     (query 256, passage 2048, generative 2048; batch 4, group 2; 3 steps,
+     a checkpoint at step 2, a resumed run from it, the HF export read back
+     equal by load_checkpoint); 4 LoRA steps on one batch at
+     TRAIN_BATCH_DEPTH 16 (the loss falls); GradCache
      (gc_chunks 2 against 1 at depth 4: loss_emb and the gradients'
      cosine); full-parameter training at depth 4 (peak memory; phase 17
      trains full parameters at full depth); K4 and K5
@@ -139,7 +144,7 @@ Phases (in the order 1-7, 12, 14, 8, 9, 11, 18's eval leg, 19, 16, 13, 15,
      TFLOP/s (a reading above the card's peak fails) and the library's
      kernel names; K1 with its LSE at both shapes by events beside SDPA's
      forward; 3 QLoRA steps (int8 base,
-     make_lora_train_state(quantize=True)) at full depth: ms per step, peak
+     make_lora_train_state(quantize=True)) at 16 layers: ms per step, peak
      memory against LoRA's, finite losses; `training.run
      --model_name_or_path <a depth-4 checkpoint> --projection 1024` with
      full parameters, 3 steps: finite losses, the head moved from its draw,
@@ -186,7 +191,7 @@ Phases (in the order 1-7, 12, 14, 8, 9, 11, 18's eval leg, 19, 16, 13, 15,
      (printed, not gated)
  13. Mixtral MoE serving at Mixtral-8x7B width (after phase 11, with the
      Mistral model freed; counts set to 0 before each run, summed after):
-     `mixtral_8x7b()` at depth MOE_DEPTH (8; 32 layers would need 93.4 GB
+     `mixtral_8x7b()` at depth MOE_DEPTH (4; 32 layers would need 93.4 GB
      of bf16 weights), random bf16 weights; encode of the 16
      sentences with moe_impl "dense" and "dropless" (sentences/s), held
      against each other and against the plain K1 + K2 path at cosine >=
@@ -205,7 +210,7 @@ Phases (in the order 1-7, 12, 14, 8, 9, 11, 18's eval leg, 19, 16, 13, 15,
      the decode step (also with moe_impl "dropless") and the chunk's
      device ms and idle share; RAGEngine in DOC mode over the 16
      sentences' doc caches (self-retrieval of 4 queries); then
-     GritLM(weight_quant=8) at depth MOE_W8_DEPTH (8, quantized from a bf16
+     GritLM(weight_quant=8) at depth MOE_W8_DEPTH (4, quantized from a bf16
      model of that depth) through greedy generate (16 tokens, TIE_TOL) and
      its decode step. K1, K2, K3, K8 and K6 must each launch.
  14. per-request LoRA adapters and the remat policies at Mistral-7B width
@@ -226,14 +231,14 @@ Phases (in the order 1-7, 12, 14, 8, 9, 11, 18's eval leg, 19, 16, 13, 15,
      with every row on its own adapter (eight adapters) against no
      adapters (device and host ms, idle share), and one adapter decode
      chunk, dense and paged, under set_sync_debug_mode("error"); then
-     phase 10's LoRA step at depth REMAT_DEPTH (4) under the remat
+     phase 10's LoRA step at depth REMAT_DEPTH (2) under the remat
      policies None, "dots" and "dots_no_batch" (3 steps each: ms a step,
      peak GiB, losses and adapters against the full recompute's, K1
      relaunched by the recompute) and `training.run --remat_policy dots`
      (LoRA, depth 4, 2 steps)
  15. MoE GRIT training at Mixtral-8x7B width (after phase 13; counts set
      to 0 before, read after): LoRA (r 16, alpha 64: wq/wk/wv/wo) at depth
-     MOE_DEPTH (8) on phase 10's batch (25,600 tokens a step),
+     MOE_DEPTH (4) on phase 10's batch (25,600 tokens a step),
      moe_impl "auto" (dropless), 3 steps: ms a step, tokens/s, peak GiB
      (a fourth step profiled: device time by kernel, idle share), and
      loss_gen equal to the step's next-token loss plus coef x
@@ -279,7 +284,7 @@ Phases (in the order 1-7, 12, 14, 8, 9, 11, 18's eval leg, 19, 16, 13, 15,
      at the reference's lengths (query 256, passage 2048, generative 2048;
      batch 4, group 2; 3 steps, a checkpoint at step 2, a resumed run, the
      export read back equal and holding the JAX exporter's tensor names, no
-     lm_head), 6 LoRA steps on one batch (the loss falls), 2 of them with
+     lm_head), 4 LoRA steps on one batch (the loss falls), 2 of them with
      the fused LM-head loss (--fused_ce; peak GiB), 3 QLoRA steps, 3
      full-parameter steps at full depth (16 layers), each with ms a step,
      valid tokens/s and peak GiB; K1, K4 and K5 must each launch (all at Dh
@@ -311,6 +316,21 @@ Phases (in the order 1-7, 12, 14, 8, 9, 11, 18's eval leg, 19, 16, 13, 15,
      embeddings printed), greedy generate at B 2 (TIE_TOL), the decode
      step, and phase 7's 8-request cut through dense, paged, int8-KV and
      speculative pools; only fp32 forms of K1, K2, K3 and K8 may launch
+ 20. GRIT training at fp32 (after phase 18's tools leg, last; TF32 off;
+     f32_train_phase): K4 [f32] and K5 [f32] against the plain backward at
+     B 8 S 2048 bidirectional and B 4 S 2048 causal (32/8 heads, Dh 128),
+     a window with right padding, a fully masked row, Dh 64 and 96
+     (BWD_F32_RTOL, reruns bit-equal), and timed beside SDPA's fp32
+     backward (its backend printed) at the same two shapes and at Dh 64;
+     fp32 activations through K6 and K7 at decode rows (Llama-3.2-1B width
+     and depth, w8 and w4, greedy generate held to the same model with x
+     cast to bf16 before the product); then, counts set to 0 before each
+     run and read after, `training.run --dtype float32` 3 steps on one
+     synthetic batch repeated (25,600 tokens a step): Llama-3.2-1B with
+     LoRA, QLoRA and full parameters, Mistral-7B width at depth 4 with LoRA
+     in GradCache chunks of 2 (held to an unchunked step); every loss finite
+     and falling, only the fp32 forms of K1, K4 and K5 launched; ms a step
+     and peak GiB
 
 Output: a `kernels` JSON line, the card line, then as the last line
 {"ok": true, "device": {...}}. Exits 2 with no result when there is no CUDA
@@ -353,7 +373,20 @@ K9_F32 = "scores_segmax[f32]"  # the kernels line's row of K9's fp32 kernel
 # than 1e-6 (the first chip run: at most 1.9e-06), so 1e-5 holds with room.
 F32_ATOL = 1e-5
 F32 = "[f32]"  # the suffix of a kernel's fp32 form in the counts and the kernels line
-F32_KERNELS = ("flash_attention", "fused_norm_mean_pool", "flash_decode", "paged_decode")
+F32_INFERENCE = ("flash_attention", "fused_norm_mean_pool", "flash_decode", "paged_decode")
+F32_TRAINING = ("flash_attention", "flash_attention_bwd_dq", "flash_attention_bwd_dkv")
+F32_KERNELS = F32_INFERENCE + F32_TRAINING[1:]
+# K4 [f32] and K5 [f32] against the plain backward on the same fp32 inputs
+# (TF32 off): both sum fp32 products in fp32 in other orders (a gradient
+# entry sums up to group x Sq = 8192 terms of P or dS times an input of
+# order 1), and the kernels' exp2 is the hardware's approximation (2^-22
+# relative): about sqrt(n) x 2^-24 = 5e-6 of the entries' scale at worst,
+# well under 1e-6 of the largest gradient in practice; 1e-5 of the largest
+# gradient holds with room (tests/test_torch_gpu.BWD_F32_RTOL)
+BWD_F32_RTOL = 1e-5
+# GradCache at fp32: loss_emb of the first step in two chunks against the
+# unchunked step from the same adapters (the same fp32 sums in other orders)
+GC_F32_RTOL = 1e-4
 COSINE_MIN = 0.999
 # Teacher forcing of the serving runs: an engine token may sit this far below
 # its position's largest bf16 logit in one lockstep forward over the same
@@ -508,7 +541,12 @@ def peak_note(rate: float, peak: float) -> str:
 PTXAS_KERNELS = (("K1", "flash_attention", "gritlm_flash_fwd_smem", "flash_fwd_kernel"),
                  ("K1 [f32]", "flash_attention", "gritlm_flash_fwd_f32_smem",
                   "flash_fwd_f32_kernel"),
-                 ("K4, K5", "flash_attention_bwd", None, None),
+                 ("K4", "flash_attention_bwd", None, "flash_bwd_dq_kernel"),
+                 ("K5", "flash_attention_bwd", None, "flash_bwd_dkv_kernel"),
+                 ("K4 [f32]", "flash_attention_bwd", "gritlm_flash_bwd_dq_f32_smem",
+                  "flash_bwd_dq_f32_kernel"),
+                 ("K5 [f32]", "flash_attention_bwd", "gritlm_flash_bwd_dkv_f32_smem",
+                  "flash_bwd_dkv_f32_kernel"),
                  ("K9", "scores_segmax", "gritlm_scores_segmax_smem", "scores_segmax_kernel"),
                  ("K9 [f32]", "scores_segmax", "gritlm_scores_segmax_f32_smem",
                   "scores_segmax_f32_kernel"),
@@ -655,7 +693,7 @@ def main() -> int:
         counts = {n: w.launches for n, w in wrappers.items()}
         counts[K3_VERIFY] = decode_attention.flash_decode.row_offset_launches
         counts[K9_F32] = scores_segmax.scores_segmax.f32_launches
-        for n in F32_KERNELS:  # the fp32 forms of K1, K2, K3 and K8 count apart
+        for n in F32_KERNELS:  # the fp32 forms of K1, K2, K3, K8, K4 and K5 count apart
             counts[n + F32] = wrappers[n].f32_launches
         return counts
 
@@ -981,6 +1019,10 @@ def main() -> int:
         shutil.rmtree(llama_work, ignore_errors=True)
     print(f"total {time.time() - t_start:.0f} s")
 
+    # ---------------------------------------------------------------- 20
+    f32_train_phase(dev, randf, reset_counts, read_counts, path_launches, times, max_err)
+    print(f"total {time.time() - t_start:.0f} s")
+
     print(f"launches by path: {json.dumps(path_launches)}")
     # the "K3 verify" row: K3's launches with per-row offsets, its times at
     # the dense verify chunk's shape (spec_phase)
@@ -988,8 +1030,8 @@ def main() -> int:
     # the "K9 [f32]" row: K9's fp32 kernel (the retrieval eval's index) in
     # the same source, replacing the same Pallas kernel on an fp32 corpus
     kernels[K9_F32] = kernels["scores_segmax"]
-    # the fp32 forms of K1, K2, K3 and K8: kernels of their own in the same
-    # sources, replacing the same Pallas kernels on fp32 inputs
+    # the fp32 forms of K1, K2, K3, K8, K4 and K5: kernels of their own in
+    # the same sources, replacing the same Pallas kernels on fp32 inputs
     for n in F32_KERNELS:
         kernels[n + F32] = kernels[n]
     launches = {n: sum(c.get(n, 0) for c in path_launches.values()) for n in kernels}
@@ -1314,7 +1356,9 @@ def cold_decode_time(name, label, call, plain, L, q, keep, views, bms, by, times
     library call) with keep's boolean mask sliced to hi, and the device
     operations of one call from a captured CUDA graph beside a profiler
     window's kernels: more than one a call fails. The first shape of a
-    kernel is its table row (with its plain version's time)."""
+    kernel is its table row (with its plain version's time by the
+    profiler); the other shapes' plain versions are timed by CUDA events
+    around calls launched back to back."""
     import torch
     import torch.nn.functional as F
 
@@ -1341,6 +1385,8 @@ def cold_decode_time(name, label, call, plain, L, q, keep, views, bms, by, times
         plain_ms = time_ms(lambda: plain(0), reps=10)[0]
         times[name] = (ms, plain_ms, library_ms, bms, by)
         line += f"; plain {plain_ms:.4f}"
+    else:  # the other shapes' plain versions by events around back-to-back calls
+        line += f"; plain {event_ms(lambda: plain(0), reps=5, warmup=1):.4f} (events)"
     print(line, flush=True)
     if n_ops > 1 or (profiled or 0) > 1:
         fail(f"{name} [{label}]: {n_ops} device operations a call (profiler: "
@@ -2295,7 +2341,8 @@ def k3_verify(dev, randn, times, max_err, H=32, Hkv=8, Dh=128, name=K3_VERIFY,
 def spec_generate(model, total) -> None:
     """Lockstep speculative generate (GritLM.generate_from_ids(speculative=
     True), spec_k 7, ngram 3) at B = 1 and 2 on prompts that quote a passage,
-    32 new tokens (64 before phase 19; the time limit): every token within
+    16 new tokens (64 before phase 19, 32 before phase 20; the time limit):
+    every token within
     TIE_TOL of its position's largest
     logit (teacher forcing); the verify steps, tokens a verify forward, and
     ms per token on the host and device clocks beside the plain greedy
@@ -2310,7 +2357,7 @@ def spec_generate(model, total) -> None:
     prompts = [f"<s><|user|>\nQuote this passage: {passage}\n<|assistant|>\n{SENTENCES[0]}",
                f"<s><|user|>\nRepeat after me: {passage} {passage}\n<|assistant|>\n"
                f"{SENTENCES[1]}"]
-    n = 32
+    n = 16
     for B in (1, 2):
         enc = tok(prompts[:B])
 
@@ -2575,8 +2622,8 @@ ADAPTER_TIE_TOL = INT8_KV_TIE_TOL
 # a layer keeps its seven projections' outputs, 43,008 bf16 values a token,
 # 2.2 GB at 25,600 tokens, and the lazy LoRA weight's fp32 A @ B, 0.87 GB:
 # about 98 GB at 32 layers, which the 80 GB card cannot hold; 8 layers fit,
-# 4 keep the script inside its time limit beside phase 19)
-REMAT_DEPTH = 4
+# 2 keep the script inside its time limit beside phases 19 and 20)
+REMAT_DEPTH = 2
 REMAT_POLICIES = (None, "dots", "dots_no_batch")
 REMAT_RTOL = 1e-3  # the bound above which a policy's step departs from the full recompute's
 
@@ -3368,11 +3415,11 @@ def quant_phase(model, enc, dense_step, reset_counts, read_counts, path_launches
 
 # Mixtral-8x7B at its published width: 46.70 B parameters (93.4 GB in bf16)
 # at 32 layers do not fit the 80 GB card, so phases 13 and 15 cut the depth:
-# 8 layers in bf16 (16, 23.48 B parameters and 46.96 GB, fit the card; 8
-# keeps the script inside its time limit beside phase 19), 8 for the w8
-# model (built from a bf16 model of depth 8, so its peak stays near 35 GB).
-MOE_DEPTH = 8
-MOE_W8_DEPTH = 8
+# 4 layers in bf16 (16, 23.48 B parameters and 46.96 GB, fit the card; 8
+# kept the script inside its time limit beside phase 19, 4 beside phase
+# 20), 4 for the w8 model (built from a bf16 model of that depth).
+MOE_DEPTH = 4
+MOE_W8_DEPTH = 4
 
 
 class Routes:
@@ -3843,7 +3890,7 @@ def moe_phase(enc, reset_counts, read_counts, path_launches) -> None:
         fail(f"the MoE path never launched {missing}")
 
 # Phase 15: MoE GRIT training at Mixtral-8x7B width. The LoRA step runs at
-# phase 13's MOE_DEPTH (8 layers of random bf16 weights; at 16, 43.75 GiB,
+# phase 13's MOE_DEPTH (4 layers of random bf16 weights; at 16, 43.75 GiB,
 # the step added 10.8 GiB at its peak on the 80 GB card); the router's gradient,
 # the expert stacks' gradients, the capacity drops and the CLI at depth 2.
 MOE_AUX_RTOL = 1e-5  # loss_gen against the CE plus the aux term recomputed in fp32
@@ -4229,10 +4276,11 @@ def flash_bwd_checks(dev, randn, max_err, B=2, S=2048, H=32, Hkv=8, Dh=128,
     torch.cuda.empty_cache()
 
 
-def synthetic_train_data(path: Path, n: int = 16, seed: int = 0) -> None:
+def synthetic_train_data(path: Path, n: int = 16, seed: int = 0, negatives: int = 2) -> None:
     """Embedding and generative JSONL whose texts fill the default training
     lengths with the byte tokenizer (query 256, passage 2048, generative
-    2048 tokens): seeded random words."""
+    2048 tokens): seeded random words; n samples of each, `negatives`
+    passages a query."""
     rng = np.random.default_rng(seed)
     words = " ".join(SENTENCES).lower().replace(",", "").replace(".", "").split()
 
@@ -4248,7 +4296,7 @@ def synthetic_train_data(path: Path, n: int = 16, seed: int = 0) -> None:
             passage = ["Represent the passage for retrieval", ""]
             row = {"query": ["Given a question, retrieve the passage that answers it", text(320)],
                    "pos": [[passage[0], text(2300)]],
-                   "neg": [[passage[0], text(2300)] for _ in range(2)]}
+                   "neg": [[passage[0], text(2300)] for _ in range(negatives)]}
             f.write(json.dumps(row) + "\n")
     with open(path / "gen.jsonl", "w") as f:
         for _ in range(n):
@@ -4401,21 +4449,29 @@ def full_parameter_steps(dev, cfg, batch, valid: int, ckpt_dir=None) -> None:
     torch.cuda.empty_cache()
 
 
+# phase 10's LoRA and QLoRA steps on one batch: Mistral-7B width at 16
+# layers (32 before phase 20; the time limit)
+TRAIN_BATCH_DEPTH = 16
+
+
 def training_phase(dev, reset_counts, read_counts, path_launches, preset="mistral_7b",
                    lengths=(256, 2048, 2048), depth=4) -> None:
     """GRIT training at Mistral-7B width (counts set to 0 before, read
-    after): LoRA at full depth through training.run.main (3 steps, a
-    checkpoint at step 2, a run resumed from it, the export read back
-    equal); 4 LoRA steps on one batch; 3 QLoRA steps (the base in int8) on
-    the same batch; GradCache against the full batch and full-parameter
-    training at depth 4 (for the script's time limit: phase 17 trains full
-    parameters at full depth, on Llama-3.2-1B)."""
+    after): LoRA at depth 4 through training.run.main --model_name_or_path
+    (3 steps, a checkpoint at step 2, a run resumed from it, the export read
+    back equal; 32 layers before phase 20, whose run wrote and read back a
+    13.5 GiB export); 4 LoRA steps on one batch and 3 QLoRA steps (the base
+    in int8) on the same batch at TRAIN_BATCH_DEPTH; GradCache against the full
+    batch and full-parameter training at depth 4 (for the script's time
+    limit: phase 17 trains full parameters at full depth, on
+    Llama-3.2-1B)."""
     import dataclasses
     import shutil
 
     import torch
 
     from gritlm_tpu_torch import config as cfgmod
+    from gritlm_tpu_torch.models.loader import load_checkpoint, save_checkpoint
     from gritlm_tpu_torch.models.transformer import count_params, init_params
     from gritlm_tpu_torch.training.lora import make_lora_train_state
     from gritlm_tpu_torch.training.train import TrainConfig, init_train_state, leaves, train_step
@@ -4424,10 +4480,20 @@ def training_phase(dev, reset_counts, read_counts, path_launches, preset="mistra
     shutil.rmtree(work, ignore_errors=True)
     synthetic_train_data(work / "data")
     cfg = getattr(cfgmod, preset)()
+    cfg4 = dataclasses.replace(cfg, num_hidden_layers=depth)
     argv = train_argv(work, ["--model_preset", preset], lengths, dev)
+    base4 = work / "cli_base"
+    save_checkpoint(str(base4), cfg4, init_params(cfg4, 42, device=dev))
+    torch.cuda.empty_cache()
+    cli_argv = train_argv(work, ["--model_name_or_path", str(base4)], lengths, dev)
     reset_counts()
     try:
-        base = lora_run_checks(dev, cfg, argv, lambda: init_params(cfg, 42, device=dev), preset)
+        lora_run_checks(dev, cfg4, cli_argv, lambda: load_checkpoint(str(base4), device=dev)[1],
+                        f"{preset}, depth {depth}")
+        shutil.rmtree(base4, ignore_errors=True)
+        cfg = dataclasses.replace(cfg, num_hidden_layers=min(cfg.num_hidden_layers,
+                                                             TRAIN_BATCH_DEPTH))
+        base = init_params(cfg, 42, device=dev)
 
         # ---- it learns: 4 LoRA steps on one fixed batch at lr 1e-4 (6 before
         # phase 19: the time limit)
@@ -4463,7 +4529,6 @@ def training_phase(dev, reset_counts, read_counts, path_launches, preset="mistra
         torch.cuda.empty_cache()
 
         # ---- GradCache against the full batch, depth 4, full parameters
-        cfg4 = dataclasses.replace(cfg, num_hidden_layers=depth)
         params = init_params(cfg4, 1, device=dev)
         runs = []
         for gc in (1, 2):
@@ -4594,20 +4659,24 @@ def kernel_names(fn, top: int = 6) -> str:
 
 
 def training_times(dev, randn, times, H=32, Hkv=8, Dh=128,
-                   shapes=((8, 2048, False), (4, 2048, True))) -> None:
+                   shapes=((8, 2048, False), (4, 2048, True)), f32=False) -> None:
     """K1 with its LSE, K4 and K5 at the passage shape (B 8, S 2048, 32/8
     heads, bidirectional, no padding) and at the generative shape (B 4,
     S 2048, causal), at head dim Dh (a compiled instance: 128 or 64; the
     rows' names take a [dh64] suffix at 64), beside their bounds and the backward of
     scaled_dot_product_attention on the same inputs (one library call that
-    computes dq, dk and dv together; `is_causal` for the causal row). Each
+    computes dq, dk and dv together; `is_causal` for the causal row). With
+    `f32` (randn then draws fp32), the fp32 forms (rows' names with F32),
+    bound at the card's fp32 FMA rate (f32_peak), beside SDPA at fp32 (TF32
+    off; its backend printed). Each
     time is taken two ways: CUDA events around calls launched back to back
-    (the figure kept) and torch.profiler's device sum. Operations count the
+    (the figure kept) and torch.profiler's device sum; the plain versions'
+    by the events alone (the profiler dropped most of their kernels once,
+    reading them below the kernels' own times). Operations count the
     (query, key) pairs the mask keeps: one product is 2 x pairs x heads x
     Dh; the library does 5 products, K4 3 and K5 4. A reading above the
     card's peak is impossible: it is marked invalid and the table's library
-    time is then null. The bidirectional row fills `times` (plain versions
-    timed there only)."""
+    time is then null. The bidirectional row fills `times`."""
     import torch
     import torch.nn.functional as F
 
@@ -4615,6 +4684,9 @@ def training_times(dev, randn, times, H=32, Hkv=8, Dh=128,
     from gritlm_tpu_torch.ops.flash_attention import keep_mask
 
     suffix, tag = ("", "") if Dh == 128 else (f"[dh{Dh}]", f" Dh{Dh}")
+    if f32:
+        suffix, tag = suffix + F32, tag + " fp32"
+    peak = f32_peak() if f32 else PEAK_BF16_FLOPS
     for B, S, causal in shapes:
         label = f"B{B} S{S} {'causal' if causal else 'bidirectional'}{tag}"
         q, k, v, do = (randn(B, S, H, Dh), randn(B, S, Hkv, Dh), randn(B, S, Hkv, Dh),
@@ -4630,10 +4702,12 @@ def training_times(dev, randn, times, H=32, Hkv=8, Dh=128,
 
         def tflops(n_products, ms):
             rate = n_products * product / (ms * 1e-3) / 1e12
-            return rate, ("" if rate <= PEAK_BF16_FLOPS / 1e12 else
-                          " INVALID: above the card's peak")
+            return rate, peak_note(rate, peak / 1e12)
 
         qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True) for x in (q, k, v))
+        if f32:
+            print(f"  SDPA backend at fp32 [{label}]: {sdpa_backend(qt, kt, vt, None)}",
+                  flush=True)
         lib_out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal, enable_gqa=True)
         dot = do.transpose(1, 2)
 
@@ -4665,13 +4739,12 @@ def training_times(dev, randn, times, H=32, Hkv=8, Dh=128,
             ms = event_ms(fk)
             prof_ms, _ = time_ms(fk, reps=10)
             pair_ms += ms
-            bms, by = bound(n_products * product, byt)
+            bms, by = bound(n_products * product, byt, peak)
             rate, bad = tflops(n_products, ms)
-            plain = ""
+            plain_ms = event_ms(fp, reps=2, warmup=1)
+            plain = f", plain {plain_ms:.4f}"
             if not causal:
-                plain_ms, _ = time_ms(fp, reps=2, warmup=1)
                 times[name] = (ms, plain_ms, lib_ms, bms, by)
-                plain = f", plain {plain_ms:.4f}"
             print(f"time {name} [{label}]: events {ms:.4f} ms = {rate:.1f} TFLOP/s{bad} "
                   f"({bms / ms * 100:.1f}% of bound {bms:.4f} ms, {by}); profiler "
                   f"{prof_ms:.4f} ms{plain}; library {lib_ev:.4f} (events)", flush=True)
@@ -4690,15 +4763,13 @@ def training_times(dev, randn, times, H=32, Hkv=8, Dh=128,
 
         lib_f = event_ms(lib_fwd)
         lib_f_prof, _ = time_ms(lib_fwd, reps=10)
-        bms, by = bound(2 * product, nbytes(q, k, v, mask, q) + B * H * S * 4)
+        bms, by = bound(2 * product, nbytes(q, k, v, mask, q) + B * H * S * 4, peak)
         rate, bad = tflops(2, ms)
         lib_rate, lib_bad = tflops(2, lib_f)
         prof_bad, lib_prof_bad = tflops(2, prof_ms)[1], tflops(2, lib_f_prof)[1]
-        plain = ""
-        if not causal:
-            plain_f, _ = time_ms(lambda: fa.flash_attention_plain(
-                q, k, v, mask, return_lse=True, **kw), reps=2, warmup=1)
-            plain = f"; plain {plain_f:.4f}"
+        plain_f = event_ms(lambda: fa.flash_attention_plain(
+            q, k, v, mask, return_lse=True, **kw), reps=2, warmup=1)
+        plain = f"; plain {plain_f:.4f}"
         print(f"time flash_attention with LSE [{label}]: events {ms:.4f} ms = {rate:.1f} "
               f"TFLOP/s{bad} ({bms / ms * 100:.1f}% of bound {bms:.4f} ms, {by}); profiler "
               f"{prof_ms:.4f} ms{prof_bad}; without LSE {ms0:.4f} (events){plain}; library "
@@ -4987,8 +5058,8 @@ def bwd_dh96_times(dev, randn, B=8, S=2048, H=16, Hkv=8, Dh=96) -> None:
     at the passage shape (B 8, S 2048, bidirectional, H 16, Hkv 8), by CUDA
     events around calls launched back to back, beside the bound of the same
     work at Dh 96 (7 products of 2 x pairs x H x 96 operations) and the
-    backward of scaled_dot_product_attention at Dh 96; the kernels alone on
-    inputs padded beforehand."""
+    backward of scaled_dot_product_attention at Dh 96 and the plain
+    backward; the kernels alone on inputs padded beforehand."""
     import torch
     import torch.nn.functional as F
 
@@ -5009,12 +5080,15 @@ def bwd_dh96_times(dev, randn, B=8, S=2048, H=16, Hkv=8, Dh=96) -> None:
     lib_out = F.scaled_dot_product_attention(qt, kt, vt, enable_gqa=True)
     lib_ms = event_ms(lambda: torch.autograd.grad(lib_out, (qt, kt, vt), do.transpose(1, 2),
                                                   retain_graph=True))
+    plain_ms = event_ms(lambda: fa.flash_attention_bwd_plain(q, k, v, mask, out, lse, do,
+                                                             causal=False), reps=2, warmup=1)
     flops = 7 * 2.0 * B * S * S * H * Dh
     bms, by = bound(flops, nbytes(q, k, v, do, lse, delta, mask, q, k, v))
     print(f"time flash_attention_bwd [dh96, B{B} S{S} bidirectional H{H} Hkv{Hkv}]: "
           f"{ms:.4f} ms with the pads and slices, {ms_kernels:.4f} ms K4 + K5 at width 128 "
           f"({bms / ms * 100:.1f}% of the Dh-96 bound {bms:.4f} ms, {by}); library "
-          f"(scaled_dot_product_attention backward, Dh 96) {lib_ms:.4f} ms (events)", flush=True)
+          f"(scaled_dot_product_attention backward, Dh 96) {lib_ms:.4f} ms; plain "
+          f"{plain_ms:.4f} (events)", flush=True)
     del q, k, v, do, out, lse, delta, padded, qt, kt, vt, lib_out
     torch.cuda.empty_cache()
 
@@ -5029,7 +5103,7 @@ def llama_train_phase(dev, randn, reset_counts, read_counts, path_launches, time
     training.run.main --model_name_or_path on phase 10's synthetic JSONL at
     the reference's lengths (3 steps, a checkpoint at step 2, a resumed
     run, the export read back equal and holding the JAX exporter's tensor
-    names: no lm_head); 6 LoRA steps on one batch (the loss falls); 2 of
+    names: no lm_head); 4 LoRA steps on one batch (the loss falls); 2 of
     them again with the fused LM-head loss (losses within FUSED_CE_RTOL);
     3 QLoRA steps; 3 full-parameter steps at full depth, their state saved
     as a training checkpoint (`work`/full); for each ms a step, valid
@@ -5073,12 +5147,12 @@ def llama_train_phase(dev, randn, reset_counts, read_counts, path_launches, time
           f"params, head dim {cfg.head_dim_}, tied embeddings", flush=True)
 
     batch, valid, padded = first_batch(work, lengths)
-    tc = TrainConfig(learning_rate=1e-4, total_steps=6)
+    tc = TrainConfig(learning_rate=1e-4, total_steps=4)
     run_step, state, _, _ = make_lora_train_state(cfg, tc, base, seed=0, device=dev)
-    state, losses, med, peak = timed_steps(run_step, state, batch, 6)
+    state, losses, med, peak = timed_steps(run_step, state, batch, 4)
     print(f"train [{LLAMA}, LoRA, one batch, lr 1e-4]: losses "
           f"{', '.join(f'{x:.4f}' for x in losses)}; {med * 1e3:.1f} ms per step (median "
-          f"of steps 2-6, host clock) = {valid / med:.0f} valid tokens/s ({valid} valid of "
+          f"of steps 2-4, host clock) = {valid / med:.0f} valid tokens/s ({valid} valid of "
           f"{padded} padded tokens a step); peak {peak:.2f} GiB; "
           f"{count_params(state.params) / 1e6:.1f} M trained parameters", flush=True)
     if not all(np.isfinite(losses)) or losses[-1] >= losses[0]:
@@ -5916,8 +5990,8 @@ def f32_phase(dev, emb_bf16, enc_long, reset_counts, read_counts, path_launches)
         gc.collect()
         torch.cuda.empty_cache()
     path_launches["fp32"] = total
-    bf16 = {n: total.get(n, 0) for n in F32_KERNELS}
-    f32 = {n: total.get(n + F32, 0) for n in F32_KERNELS}
+    bf16 = {n: total.get(n, 0) for n in F32_INFERENCE}
+    f32 = {n: total.get(n + F32, 0) for n in F32_INFERENCE}
     print(f"f32 path launches: fp32 forms {f32}, bf16 forms {bf16}; decode step at B=2 "
           + ("not measured" if step is None else
              f"{step[0]:.3f} device ms, {step[1]:.3f} host ms, idle share {step[2]:.3f}")
@@ -5929,6 +6003,276 @@ def f32_phase(dev, emb_bf16, enc_long, reset_counts, read_counts, path_launches)
     del model
     gc.collect()
     torch.cuda.empty_cache()
+
+
+# Phase 20's head dims and layouts for K4 [f32] and K5 [f32] against the
+# plain backward: (label, B, S, (Dh, H, Hkv), causal, window, mask), the
+# mask "full", "pad" (row 1's last quarter masked) or "empty" (and row 0
+# fully masked)
+F32_BWD_CASES = (
+    ("bidirectional", 8, 2048, (128, 32, 8), False, None, "full"),
+    ("causal", 4, 2048, (128, 32, 8), True, None, "full"),
+    ("causal, window 512, right padding", 2, 2048, (128, 32, 8), True, 512, "pad"),
+    ("bidirectional, row 0 fully masked", 2, 2048, (128, 32, 8), False, None, "empty"),
+    ("causal, right padding", 2, 2048, (64, 32, 8), True, None, "pad"),
+    ("bidirectional, padding", 2, 2048, (64, 14, 2), False, None, "pad"),
+    ("causal, row 0 fully masked", 2, 2048, (96, 16, 8), True, None, "empty"),
+)
+
+
+def f32_bwd_checks(dev, randf, max_err) -> None:
+    """K4 [f32] and K5 [f32] (through flash_attention_bwd) against the plain
+    backward from the same saved LSE (K1 [f32]'s) at F32_BWD_CASES: the
+    kernels line's shapes (B 8 S 2048 bidirectional, B 4 S 2048 causal at
+    32/8 heads, Dh 128), a window with right padding, a fully masked row
+    (exactly zero gradients), Dh 64 (its instances) and 96 (padded to 128);
+    each within BWD_F32_RTOL of the largest gradient, rerun bit-equal, one
+    fp32 launch each a call and no bf16 launch (TF32 off)."""
+    import torch
+
+    from gritlm_tpu_torch.ops import flash_attention as fa
+
+    if torch.backends.cuda.matmul.allow_tf32:
+        fail("K4/K5 [f32] checks: TF32 is on; the plain versions' products must be fp32")
+    wrappers = (fa.flash_attention_bwd_dq, fa.flash_attention_bwd_dkv)
+    names = ("flash_attention_bwd_dq" + F32, "flash_attention_bwd_dkv" + F32)
+    for label, B, S, (Dh, H, Hkv), causal, window, kind in F32_BWD_CASES:
+        geometry = f"B{B} S{S} H{H} Hkv{Hkv} Dh{Dh}"
+        q, k, v, do = (randf(B, S, H, Dh), randf(B, S, Hkv, Dh), randf(B, S, Hkv, Dh),
+                       randf(B, S, H, Dh))
+        mask = torch.ones((B, S), dtype=torch.int32, device=dev)
+        if kind != "full":
+            mask[1, S * 3 // 4:] = 0
+        if kind == "empty":
+            mask[0] = 0
+        kw = dict(causal=causal, sliding_window=window)
+        out, lse = fa.flash_attention(q, k, v, mask, return_lse=True, **kw)
+        before = [(w.f32_launches, w.launches) for w in wrappers]
+        got = fa.flash_attention_bwd(q, k, v, mask, out, lse, do, **kw)
+        again = fa.flash_attention_bwd(q, k, v, mask, out, lse, do, **kw)
+        torch.cuda.synchronize()
+        if [(w.f32_launches, w.launches) for w in wrappers] != [(f + 2, b) for f, b in before]:
+            fail(f"K4/K5 [f32] [{label}]: not one fp32 launch each a call")
+        want = fa.flash_attention_bwd_plain(q, k, v, mask, out, lse, do, **kw)
+        errs, mags = [], []
+        for name, g, w, a in zip(("dq", "dk", "dv"), got, want, again):
+            if g.shape != w.shape or g.dtype != torch.float32 or not torch.isfinite(g).all():
+                fail(f"K4/K5 [f32] [{label}] {name}: shape, dtype or non-finite values")
+            if not torch.equal(g, a):
+                fail(f"K4/K5 [f32] [{label}] {name}: a rerun is not bit-equal")
+            err, mag = float((g - w).abs().max()), float(w.abs().max())
+            errs.append(err)
+            mags.append(mag)
+            if err > BWD_F32_RTOL * mag:
+                fail(f"K4/K5 [f32] [{label}] {name} disagrees with the plain version: {err} > "
+                     f"{BWD_F32_RTOL} x {mag}")
+            if kind == "empty" and float(g[0].abs().max()) != 0.0:
+                fail(f"K4/K5 [f32] [{label}] {name}: the fully masked row's gradient is not 0")
+        for name, err in zip(names, (errs[0], max(errs[1:]))):
+            max_err[name] = max(max_err.get(name, 0.0), err)
+        print(f"check flash backward [f32, {label}, {geometry}]: max_abs_err dq {errs[0]:.3e} "
+              f"(K4 [f32]), dk {errs[1]:.3e} dv {errs[2]:.3e} (K5 [f32]) against largest "
+              f"gradients {', '.join(f'{m:.3f}' for m in mags)} (rtol {BWD_F32_RTOL}); rerun "
+              "bit-equal", flush=True)
+        del q, k, v, do, out, lse, got, again, want
+        torch.cuda.empty_cache()
+
+
+def f32_quant_leg(dev, reset_counts, read_counts, path_launches) -> None:
+    """fp32 activations through K6 and K7 at decode rows: Llama-3.2-1B
+    (LLAMA_32_1B at fp32, random weights from seed 0) with weight_quant 8
+    and 4, greedy generate at B 2 (phase 4's long prompts, 16 tokens; counts
+    set to 0 before, read after: K6 / K7 must launch); each generated token
+    held, teacher-forced, within TIE_TOL of its position's largest logit in
+    a forward of the same model whose quantized products take x cast to
+    bf16 before the plain product (the function the kernels compute on an
+    fp32 caller's x, as the JAX wrappers cast it)."""
+    import dataclasses
+
+    import torch
+
+    from gritlm_tpu_torch import GritLM
+    from gritlm_tpu_torch.config import ModelConfig
+    from gritlm_tpu_torch.models.transformer import init_params
+    from gritlm_tpu_torch.ops import quant_matmul as qm
+
+    cfg = dataclasses.replace(ModelConfig.from_hf_config(LLAMA_32_1B), dtype="float32")
+    params = init_params(cfg, 0, device=dev)
+    prompts = ["<s><|user|>\n" + SENTENCES[4] + " " + SENTENCES[7] + "\n<|assistant|>\n",
+               "<s><|user|>\nExplain: " + SENTENCES[2] + "\n<|assistant|>\n"]
+    kernels = {8: ("w8a16_matmul", qm.w8a16_matmul, qm.w8a16_matmul_plain),
+               4: ("w4a16_matmul", qm.w4a16_matmul, qm.w4a16_matmul_plain)}
+
+    def bf16_x(plain):
+        return lambda x, node: plain(x.to(torch.bfloat16), node).to(x.dtype)
+
+    for bits, (name, wrapper, plain) in kernels.items():
+        m = GritLM(cfg, params=params, weight_quant=bits, device=dev)
+        enc = m.tokenizer(prompts)
+        reset_counts()
+        res = m.generate_from_ids(enc["input_ids"], enc["attention_mask"], max_new_tokens=16)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        path_launches[f"fp32 w{bits} generate"] = counts
+        setattr(qm, name, bf16_x(plain))
+        try:
+            gaps = []
+            for b in range(enc["input_ids"].shape[0]):
+                ids = enc["input_ids"][b, :int(enc["attention_mask"][b].sum())].tolist()
+                toks = res.tokens[b, :int(res.num_valid[b])].tolist()
+                gaps.append(teacher_deficits(m, ids, toks))
+        finally:
+            setattr(qm, name, wrapper)
+        worst = float(torch.cat(gaps).max())
+        print(f"generate [fp32 w{bits}a16, {LLAMA}]: B=2, 16 tokens; {name} launches "
+              f"{counts[name]} on fp32 x; teacher forcing through x cast to bf16 before the "
+              f"plain product: largest deficit {worst:.4f} (TIE_TOL {TIE_TOL})", flush=True)
+        if counts[name] == 0:
+            fail(f"fp32 w{bits}: generate did not go through {name}")
+        if worst > TIE_TOL:
+            fail(f"fp32 w{bits}: a token departs from the bf16-x product's logits ({worst})")
+        del m, res
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def f32_train_leg(dev, work: Path, model_dir: Path, flags, key: str, path_launches,
+                  reset_counts, read_counts, lengths=(256, 2048, 2048)):
+    """`training.run --dtype float32 --model_name_or_path model_dir` with
+    `flags` (--lora, --qlora, none: full parameters, --gc_chunks) on
+    `work`/data (train_argv's batch and lengths; 3 steps, lr 1e-4, no
+    intermediate checkpoint; the final checkpoint and export are written
+    and removed after), counts set to 0 before and read after into
+    path_launches[key]: K1, K4 and K5 must launch their fp32 forms and no
+    bf16 form. Returns the steps' metrics rows (metrics.jsonl); prints
+    losses, ms a step (host clock between the rows of steps 2 and 3), valid
+    tokens/s and the peak GiB of the run (model load and export
+    included)."""
+    import shutil
+
+    import torch
+
+    from gritlm_tpu_torch.training import run
+
+    out = work / f"run_{len(path_launches)}"
+    argv = train_argv(work, ["--model_name_or_path", str(model_dir)], lengths, dev)
+    argv = [a for a in argv if a != "--lora"] + ["--dtype", "float32", *flags]
+    for flag, value in (("--save_steps", "0"), ("--output_dir", str(out))):
+        argv[argv.index(flag) + 1] = value
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.time()
+    r = run.main(argv)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    path_launches[key] = counts
+    t_run = time.time() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    rows = [json.loads(x) for x in (out / "metrics.jsonl").read_text().splitlines()]
+    shutil.rmtree(out, ignore_errors=True)
+    losses = [row["loss"] for row in rows]
+    step_s = rows[-1]["time"] - rows[-2]["time"]
+    f32 = {n: counts[n + F32] for n in F32_TRAINING}
+    bf16 = {n: counts[n] for n in F32_TRAINING}
+    print(f"train [{key}, run.main]: {r['steps']} steps in {t_run:.1f} s (model load, final "
+          f"checkpoint and export included); losses {', '.join(f'{x:.4f}' for x in losses)}; "
+          f"{step_s * 1e3:.1f} ms for step 3 (host clock between metrics rows) = "
+          f"{25600 / step_s:.0f} valid tokens/s; peak {peak:.2f} GiB; fp32 launches {f32}, "
+          f"bf16 {bf16}", flush=True)
+    if r["steps"] != 3 or len(rows) != 3 or not all(np.isfinite(losses)):
+        fail(f"train [{key}]: {r}, metrics {rows}")
+    if losses[-1] >= losses[0]:
+        fail(f"train [{key}]: the loss does not fall on the batch: {losses}")
+    if any(c == 0 for c in f32.values()) or any(bf16.values()):
+        fail(f"train [{key}]: K1, K4 or K5 did not launch its fp32 form, or a bf16 form ran")
+    return rows
+
+
+def f32_train_phase(dev, randf, reset_counts, read_counts, path_launches, times,
+                    max_err, lengths=(256, 2048, 2048)) -> None:
+    """Phase 20, GRIT training at fp32 (after phase 18's tools leg, every
+    earlier model freed; TF32 off): K4 [f32] and K5 [f32] against the plain
+    backward (f32_bwd_checks) and timed (training_times at fp32: B 8 S 2048
+    bidirectional, the kernels line's row, and B 4 S 2048 causal at Dh 128;
+    B 8 S 2048 bidirectional at Dh 64); fp32 activations through K6 and K7
+    at decode rows (f32_quant_leg); then `training.run --dtype float32`
+    (f32_train_leg) on one synthetic batch repeated (4 queries, group 2 with
+    one negative each, 4 generative texts: 25,600 valid tokens a step, so
+    every step sees the same batch; the first update's learning rate is 0,
+    so the loss falls from step 1 to step 3): Llama-3.2-1B at its published
+    width and depth (random fp32 weights from seed 42 written as a
+    checkpoint) with LoRA, QLoRA (int8 base) and full parameters, and
+    Mistral-7B width at depth 4 (fp32, seed 42) with LoRA in GradCache
+    chunks of 2 (step 1's loss_emb within GC_F32_RTOL of an unchunked step
+    from the same base and adapters on the same batch, taken in this
+    process). The unfused LM-head loss fits at fp32 and V 128256 (its
+    [8192 x 128256] fp32 logits), so no leg needs --fused_ce."""
+    import dataclasses
+    import shutil
+
+    import torch
+
+    from gritlm_tpu_torch.config import ModelConfig, mistral_7b
+    from gritlm_tpu_torch.models.loader import load_checkpoint, save_checkpoint
+    from gritlm_tpu_torch.models.transformer import init_params
+    from gritlm_tpu_torch.training.arguments import parse_args
+    from gritlm_tpu_torch.training.lora import make_lora_train_state
+
+    t_phase = time.time()
+    if torch.backends.cuda.matmul.allow_tf32 or torch.backends.cudnn.allow_tf32:
+        fail("phase 20: TF32 is on; the fp32 path's products must be fp32")
+    f32_bwd_checks(dev, randf, max_err)
+    training_times(dev, randf, times, f32=True)
+    training_times(dev, randf, times, Dh=64, shapes=((8, 2048, False),), f32=True)
+    print(f"phase 20: checks and timings {time.time() - t_phase:.0f} s", flush=True)
+    f32_quant_leg(dev, reset_counts, read_counts, path_launches)
+    print(f"phase 20: K6/K7 on fp32 x, at {time.time() - t_phase:.0f} s", flush=True)
+    work = ROOT / "build" / "chip_smoke_f32_train"
+    shutil.rmtree(work, ignore_errors=True)
+    try:
+        synthetic_train_data(work / "data", n=4, negatives=1)
+        models = {
+            LLAMA: dataclasses.replace(ModelConfig.from_hf_config(LLAMA_32_1B), dtype="float32"),
+            "mistral_7b depth 4": dataclasses.replace(mistral_7b(), num_hidden_layers=4,
+                                                      dtype="float32"),
+        }
+        for i, (name, cfg) in enumerate(models.items()):
+            save_checkpoint(str(work / f"model{i}"), cfg, init_params(cfg, 42, device=dev))
+            torch.cuda.empty_cache()
+        gc_flags = ["--lora", "--gc_chunks", "2"]
+        legs = ((LLAMA, 0, ["--lora"], "LoRA"), (LLAMA, 0, ["--qlora"], "QLoRA, int8 base"),
+                (LLAMA, 0, [], "full parameters"),
+                ("mistral_7b depth 4", 1, gc_flags, "LoRA, GradCache 2 chunks"))
+        rows = {}
+        for name, i, flags, kind in legs:
+            rows[name] = f32_train_leg(dev, work, work / f"model{i}", flags,
+                                       f"fp32 training {name} {kind}", path_launches,
+                                       reset_counts, read_counts, lengths)
+            torch.cuda.empty_cache()
+        # GradCache against the unchunked step: step 1 of the same run (the
+        # base from the checkpoint, the adapters from the run's seed) on the
+        # same batch in one chunk, in this process
+        argv = train_argv(work, ["--model_name_or_path", str(work / "model1")], lengths,
+                          dev) + ["--dtype", "float32", *gc_flags[1:]]
+        args = parse_args(argv)
+        tc = dataclasses.replace(args.to_train_config(3), gc_chunks=1)
+        cfg, base = load_checkpoint(str(work / "model1"), dtype="float32", device=dev)
+        run_step, state, _, _ = make_lora_train_state(cfg, tc, base, r=args.lora_r,
+                                                      alpha=args.lora_alpha, seed=args.seed,
+                                                      device=dev)
+        batch, _, _ = first_batch(work, lengths)
+        _, m = run_step(state, batch)
+        a, b = float(m.loss_emb), rows["mistral_7b depth 4"][0]["loss_emb"]
+        print(f"train [fp32 GradCache, mistral_7b depth 4]: step 1 loss_emb {b:.6f} in 2 "
+              f"chunks (run.main), {a:.6f} unchunked (rtol {GC_F32_RTOL})", flush=True)
+        if abs(a - b) > GC_F32_RTOL * abs(a):
+            fail(f"fp32 GradCache: loss_emb {b} against {a} unchunked")
+        del base, state, run_step
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    print(f"phase 20: {time.time() - t_phase:.0f} s", flush=True)
 
 
 def profile_window(label: str, fn, top: int = 10):

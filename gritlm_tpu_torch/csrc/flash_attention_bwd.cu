@@ -1,7 +1,8 @@
 // K4 and K5: the flash attention backward for Hopper (sm_90a), bf16 in, fp32
 // accumulation. They replace the Pallas `_bwd_dq_kernel` and
 // `_bwd_dkv_kernel` of gritlm_tpu/ops/flash_attention.py; the plain versions
-// are in gritlm_tpu_torch/ops/flash_attention.py.
+// are in gritlm_tpu_torch/ops/flash_attention.py. Their fp32 forms (fp32 in
+// and out, SIMT FMAs) are at the end of this file, namespace f32.
 //
 // Both kernels rebuild the probabilities from the forward's log-sum-exp,
 //   P = exp(S * scale - lse)   under the forward's keep mask, else 0
@@ -676,6 +677,405 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* mask, co
   return (int)cudaGetLastError();
 }
 
+// ------------------------------------------------------------ fp32 forms
+//
+// K4 and K5 on fp32 q, k, v and dO compute what the Pallas kernels compute
+// on fp32 inputs: fp32 products summed in fp32. wgmma takes fp32 operands
+// only as tf32 (10 bits of mantissa), so these forms run on the SIMT
+// pipes, as K1's fp32 form (flash_attention.cu, namespace f32) does. What
+// bounds them: the FMAs, 3 (K4) and 4 (K5) products of Sq x Sk x Dh a
+// head over the visited pairs at 128 fp32 lanes an SM. The design:
+// - a block of 128 threads keeps 64 rows of its own side in shared memory
+//   (K4: Q and dO of 64 query rows of one head; K5: K and V of 64 keys of
+//   one kv head) and streams the other side through two buffers of 32-row
+//   tiles by cp.async, the next tile's copy in flight during this tile;
+// - a warp owns 16 of the block's rows and a thread 4 of them (rows 16 w +
+//   4 ty .. + 3) against 4 rows of the streamed tile (tx + 8 j): S and dP
+//   (K4), S^T and dP^T (K5), each one FMA chain in head-dim order; P and
+//   dS from the saved LSE and delta, selected (never multiplied) to 0
+//   outside the forward's keep mask (K1's: padding, causal with `offset`,
+//   the window);
+// - the gradient update reads dS (and P) in the other layout, a thread's
+//   4 rows x Dh / 8 columns (32 c + 4 tx .. + 3), through a warp-private
+//   transposed tile in shared memory, as K1 [f32] passes P to O += P V:
+//   dQ += dS K (K4); dV += P^T dO and dK += dS^T Q (K5);
+// - K5 walks the GQA group's query heads x their visible q-tiles as one
+//   sequence, so the group's sum stays in the block. No sum crosses
+//   threads in a data-dependent order and nothing is atomic: reruns are
+//   bit-equal.
+// The tiles visited are K1 [f32]'s (K4) and their transpose (K5); the
+// same ranges are `f32_dq_key_tiles` / `f32_dkv_query_tiles` in
+// ops/flash_attention.py.
+namespace f32 {
+
+constexpr int ROWS = 64;     // K4: query rows a block; K5: keys a block
+constexpr int BT = 32;       // rows of a streamed tile (K4: keys; K5: query rows)
+constexpr int THREADS = 128;
+constexpr int PT_LD = 20;    // floats a row of a warp's transposed tile (16 rows + 4)
+
+// Dynamic shared memory of a block, in floats: the two resident tiles
+// [ROWS][LD], the two streamed tiles in two buffers [BT][LD] each, then NP
+// transposed tiles [BT][PT_LD] a warp (K4: dS; K5: P and dS).
+template <int DH, int NP>
+struct Smem {
+  static constexpr int LD = DH + 4;  // floats a row: a quarter warp's rows in distinct banks
+  static constexpr int RES = 0;
+  static constexpr int RING = RES + 2 * ROWS * LD;
+  static constexpr int PT = RING + 4 * BT * LD;
+  static constexpr int FLOATS = PT + NP * (THREADS / 32) * BT * PT_LD;
+  static constexpr uint32_t BYTES = FLOATS * sizeof(float);
+  static_assert(ROWS * DH / 4 % THREADS == 0 && BT * DH / 4 % THREADS == 0, "whole copy rounds");
+  static_assert(BYTES <= 232448, "shared memory of one block");
+  // resident tile x; streamed tile x of buffer s
+  __host__ __device__ static constexpr int res(int x) { return RES + x * ROWS * LD; }
+  __host__ __device__ static constexpr int ring(int s, int x) {
+    return RING + (2 * s + x) * BT * LD;
+  }
+};
+
+__device__ __forceinline__ void commit() { asm volatile("cp.async.commit_group;\n" ::); }
+
+__device__ __forceinline__ void wait_prev() { asm volatile("cp.async.wait_group 1;\n" ::); }
+
+// Rows [r0, r0 + N) of one head (row r at x + r * ss) into dst, LD floats a
+// row; rows at or past n are zero-filled.
+template <int DH, int N>
+__device__ __forceinline__ void stage(float* dst, const float* __restrict__ x, long long ss,
+                                      int r0, int n, int tid) {
+  constexpr int CH = DH / 4;  // 16-byte copies a row
+#pragma unroll
+  for (int i = 0; i < N * CH / THREADS; ++i) {
+    const int c = tid + i * THREADS, r = c / CH, kk = c % CH * 4;
+    const bool in = r0 + r < n;
+    gritlm::cp_async16(dst + r * (DH + 4) + kk, in ? x + (r0 + r) * ss + kk : x, in ? 16 : 0);
+  }
+}
+
+// d[i][j] = sum over the head dim of a[i] . b[8 j]: `a` is the thread's
+// first of 4 consecutive rows, `b` its first of 4 rows 8 apart (rows LD
+// floats apart in shared memory). UNROLL: steps of 4 features unrolled
+// (fewer keep fewer loads in flight, and so fewer registers).
+template <int DH, int UNROLL = 4>
+__device__ __forceinline__ void dots(float (&d)[4][4], const float* a, const float* b) {
+  constexpr int LD = DH + 4;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) d[i][j] = 0.f;
+#pragma unroll (UNROLL)
+  for (int e = 0; e < DH; e += 4) {
+    float4 bv[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) bv[j] = *reinterpret_cast<const float4*>(b + 8 * j * LD + e);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float4 av = *reinterpret_cast<const float4*>(a + i * LD + e);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        d[i][j] = fmaf(av.x, bv[j].x, d[i][j]);
+        d[i][j] = fmaf(av.y, bv[j].y, d[i][j]);
+        d[i][j] = fmaf(av.z, bv[j].z, d[i][j]);
+        d[i][j] = fmaf(av.w, bv[j].w, d[i][j]);
+      }
+    }
+  }
+}
+
+// x[i][j] (the thread's 4 rows x the tile rows tx + 8 j) into the warp's
+// transposed tile `pt`: tile row tx + 8 j, columns 4 ty .. + 3.
+__device__ __forceinline__ void put_t(float* pt, const float (&x)[4][4], int tx, int ty) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+    *reinterpret_cast<float4*>(pt + (tx + 8 * j) * PT_LD + 4 * ty) =
+        make_float4(x[0][j], x[1][j], x[2][j], x[3][j]);
+}
+
+// acc[i][4 c + e] += sum over the BT tile rows r of pt[r][4 ty + i] *
+// src[r][32 c + 4 tx + e]: `pt` and `src` already offset by 4 ty and 4 tx.
+// UNROLL: tile rows unrolled.
+template <int DH, int UNROLL = 4>
+__device__ __forceinline__ void update(float (&acc)[4][DH / 8], const float* pt,
+                                       const float* src) {
+  constexpr int LD = DH + 4;
+#pragma unroll (UNROLL)
+  for (int r = 0; r < BT; ++r) {
+    const float4 pv = *reinterpret_cast<const float4*>(pt + r * PT_LD);
+    const float pr[4] = {pv.x, pv.y, pv.z, pv.w};
+#pragma unroll
+    for (int c = 0; c < DH / 32; ++c) {
+      const float4 sv = *reinterpret_cast<const float4*>(src + r * LD + 32 * c);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        acc[i][4 * c] = fmaf(pr[i], sv.x, acc[i][4 * c]);
+        acc[i][4 * c + 1] = fmaf(pr[i], sv.y, acc[i][4 * c + 1]);
+        acc[i][4 * c + 2] = fmaf(pr[i], sv.z, acc[i][4 * c + 2]);
+        acc[i][4 * c + 3] = fmaf(pr[i], sv.w, acc[i][4 * c + 3]);
+      }
+    }
+  }
+}
+
+// The thread's 4 rows of an accumulator (rows `row0` + i, columns 32 c +
+// 4 tx ..) to out + row_off(row) where row < n_rows.
+template <int DH, typename RowOff>
+__device__ __forceinline__ void store_f32(float* out, const float (&acc)[4][DH / 8], int row0,
+                                          int n_rows, int tx, RowOff row_off) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    if (row0 + i >= n_rows) continue;
+    float* dst = out + row_off(row0 + i) + 4 * tx;
+#pragma unroll
+    for (int c = 0; c < DH / 32; ++c)
+      *reinterpret_cast<float4*>(dst + 32 * c) =
+          make_float4(acc[i][4 * c], acc[i][4 * c + 1], acc[i][4 * c + 2], acc[i][4 * c + 3]);
+  }
+}
+
+// K4 [f32]: one block per (64 query rows, query head, batch row), the key
+// tiles K1 [f32] visits for the same rows.
+template <int DH>
+__global__ void __launch_bounds__(THREADS)
+flash_bwd_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                        const float* __restrict__ v, const int* __restrict__ mask,
+                        const float* __restrict__ dout, const float* __restrict__ lse,
+                        const float* __restrict__ delta, float* __restrict__ dq, int Sq,
+                        int Sk, int H, int group, long long q_sb, long long q_ss,
+                        long long k_sb, long long k_ss, long long v_sb, long long v_ss,
+                        long long m_sb, long long do_sb, long long do_ss, int causal,
+                        int window, int offset, float scale) {
+  using L = Smem<DH, 1>;
+  extern __shared__ __align__(16) float sm[];
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, ty = lane / 8, tx = lane % 8;
+  const int q0 = blockIdx.x * ROWS, h = blockIdx.y, b = blockIdx.z;
+  const int rw = 16 * warp + 4 * ty;  // the thread's first row in the block
+  const float* kh = k + b * k_sb + (long long)(h / group) * DH;
+  const float* vh = v + b * v_sb + (long long)(h / group) * DH;
+  const int* mrow = mask + b * m_sb;
+  // the keys some row of the block can see: the causal bound, the window
+  const int hi = causal ? min(Sk, offset + min(Sq, q0 + ROWS)) : Sk;
+  const int lo = window > 0 ? max(0, offset + q0 - window + 1) : 0;
+  const int t0 = lo / BT, t1 = hi > lo ? (hi + BT - 1) / BT : t0;
+
+  const long long srow = ((long long)b * H + h) * Sq;
+  float lse2[4], dl[4], acc[4][DH / 8];
+  int qpos[4];
+  bool qin[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = q0 + rw + i;
+    qin[i] = row < Sq;
+    qpos[i] = offset + row;
+    lse2[i] = qin[i] ? lse[srow + row] * LOG2E : 0.f;
+    dl[i] = qin[i] ? delta[srow + row] : 0.f;
+#pragma unroll
+    for (int c = 0; c < DH / 8; ++c) acc[i][c] = 0.f;
+  }
+  stage<DH, ROWS>(sm + L::res(0), q + b * q_sb + (long long)h * DH, q_ss, q0, Sq, tid);
+  stage<DH, ROWS>(sm + L::res(1), dout + b * do_sb + (long long)h * DH, do_ss, q0, Sq, tid);
+  if (t0 < t1) {
+    stage<DH, BT>(sm + L::ring(0, 0), kh, k_ss, t0 * BT, Sk, tid);
+    stage<DH, BT>(sm + L::ring(0, 1), vh, v_ss, t0 * BT, Sk, tid);
+  }
+  commit();
+  const float sl2 = scale * LOG2E;
+  const float* qs = sm + L::res(0) + rw * L::LD;
+  const float* dos = sm + L::res(1) + rw * L::LD;
+  float* pt = sm + L::PT + warp * BT * PT_LD;
+  for (int t = t0; t < t1; ++t) {
+    const int buf = (t - t0) & 1;
+    if (t + 1 < t1) {  // the next tile into the other buffer
+      stage<DH, BT>(sm + L::ring(buf ^ 1, 0), kh, k_ss, (t + 1) * BT, Sk, tid);
+      stage<DH, BT>(sm + L::ring(buf ^ 1, 1), vh, v_ss, (t + 1) * BT, Sk, tid);
+    }
+    commit();  // an empty group on the last tile keeps the count
+    wait_prev();
+    __syncthreads();
+    const float* ks = sm + L::ring(buf, 0);
+    const float* vs = sm + L::ring(buf, 1);
+    float s[4][4], dp[4][4];
+    dots<DH>(s, qs, ks + tx * L::LD);
+    dots<DH>(dp, dos, vs + tx * L::LD);
+    bool kin[4];  // the key exists and its mask bit is set
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int key = t * BT + tx + 8 * j;
+      kin[j] = key < Sk && __ldg(mrow + min(key, Sk - 1)) != 0;
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int key = t * BT + tx + 8 * j;
+        const bool keep = qin[i] && kin[j] && (!causal || key <= qpos[i]) &&
+                          (window <= 0 || key > qpos[i] - window);
+        const float p = sm90::ex2(fmaf(s[i][j], sl2, -lse2[i]));
+        const float ds = p * (dp[i][j] - dl[i]) * scale;
+        s[i][j] = keep ? ds : 0.f;
+      }
+    put_t(pt, s, tx, ty);
+    __syncwarp();
+    update<DH>(acc, pt + 4 * ty, ks + 4 * tx);  // dQ += dS K
+    __syncthreads();  // K, V and dS read before the next copies and stores
+  }
+  store_f32<DH>(dq, acc, q0 + rw, Sq, tx,
+                [&](int r) { return (((long long)b * Sq + r) * H + h) * DH; });
+}
+
+// K5 [f32]: one block per (64 keys, kv head, batch row); the sequence of
+// streamed tiles is the GQA group's query heads x the q-tiles that can see
+// the block's keys (none when the block holds no valid key).
+template <int DH>
+__global__ void __launch_bounds__(THREADS)
+flash_bwd_dkv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                         const float* __restrict__ v, const int* __restrict__ mask,
+                         const float* __restrict__ dout, const float* __restrict__ lse,
+                         const float* __restrict__ delta, float* __restrict__ dk,
+                         float* __restrict__ dv, int Sq, int Sk, int H, int Hkv, int group,
+                         long long q_sb, long long q_ss, long long k_sb, long long k_ss,
+                         long long v_sb, long long v_ss, long long m_sb, long long do_sb,
+                         long long do_ss, int causal, int window, int offset, float scale) {
+  using L = Smem<DH, 2>;
+  extern __shared__ __align__(16) float sm[];
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, ty = lane / 8, tx = lane % 8;
+  const int k0 = blockIdx.x * ROWS, hk = blockIdx.y, b = blockIdx.z;
+  const int kw = 16 * warp + 4 * ty;  // the thread's first key in the block
+  int key[4];
+  bool kin[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    key[i] = k0 + kw + i;
+    kin[i] = key[i] < Sk && mask[b * m_sb + key[i]] != 0;
+  }
+  const bool any = __syncthreads_or(kin[0] || kin[1] || kin[2] || kin[3]);
+  // the q rows that can see the block's keys: causal rows at or after its
+  // first key, window rows before its last key + window
+  const int k_last = min(k0 + ROWS, Sk) - 1;
+  const int qbeg = causal ? max(0, k0 - offset) : 0;
+  const int qend = window > 0 ? min(Sq, k_last + window - offset) : Sq;
+  const int qfirst = qbeg / BT * BT;
+  const int per_head = qend > qfirst ? (qend - qfirst + BT - 1) / BT : 0;
+  const int n = any ? group * per_head : 0;
+
+  const auto issue = [&](int i, int buf) {  // tile i of the sequence into buffer buf
+    const int h = hk * group + i / per_head, qt = qfirst + (i % per_head) * BT;
+    stage<DH, BT>(sm + L::ring(buf, 0), q + b * q_sb + (long long)h * DH, q_ss, qt, Sq, tid);
+    stage<DH, BT>(sm + L::ring(buf, 1), dout + b * do_sb + (long long)h * DH, do_ss, qt, Sq,
+                  tid);
+  };
+  stage<DH, ROWS>(sm + L::res(0), k + b * k_sb + (long long)hk * DH, k_ss, k0, Sk, tid);
+  stage<DH, ROWS>(sm + L::res(1), v + b * v_sb + (long long)hk * DH, v_ss, k0, Sk, tid);
+  if (n > 0) issue(0, 0);
+  commit();
+
+  float dka[4][DH / 8], dva[4][DH / 8];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int c = 0; c < DH / 8; ++c) dka[i][c] = dva[i][c] = 0.f;
+  const float sl2 = scale * LOG2E;
+  const float* ks = sm + L::res(0) + kw * L::LD;
+  const float* vs = sm + L::res(1) + kw * L::LD;
+  float* pt_p = sm + L::PT + warp * BT * PT_LD;
+  float* pt_d = pt_p + (THREADS / 32) * BT * PT_LD;
+  for (int i = 0; i < n; ++i) {
+    const int buf = i & 1;
+    if (i + 1 < n) issue(i + 1, buf ^ 1);
+    commit();  // an empty group on the last tile keeps the count
+    const int h = hk * group + i / per_head, qt = qfirst + (i % per_head) * BT;
+    const long long srow = ((long long)b * H + h) * Sq;
+    float lse2[4], dl[4];  // of the tile rows tx + 8 j, loaded under the copy's wait
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int row = qt + tx + 8 * j;
+      lse2[j] = row < Sq ? __ldg(lse + srow + row) * LOG2E : 0.f;
+      dl[j] = row < Sq ? __ldg(delta + srow + row) : 0.f;
+    }
+    wait_prev();
+    __syncthreads();
+    const float* qs = sm + L::ring(buf, 0);
+    const float* dos = sm + L::ring(buf, 1);
+    // P^T, then dV += P^T dO, before dP^T: P is re-read from the warp's tile
+    // rather than held beside dP^T, and the score sums unroll 2 feature
+    // steps, not 4, so that K5 fits its registers beside its 2 x 4 x Dh / 8
+    // accumulators with no spill (at unroll 4 ptxas spilled at Dh 64 or
+    // 128; 2 was also the fastest of the unrolls measured)
+    float x[4][4];
+    dots<DH, 2>(x, ks, qs + tx * L::LD);  // S^T
+    uint32_t keep = 0;  // bit 4 a + j: (key a, tile row j) is kept
+#pragma unroll
+    for (int a = 0; a < 4; ++a)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int row = qt + tx + 8 * j, qp = offset + row;
+        const bool kept = kin[a] && row < Sq && (!causal || key[a] <= qp) &&
+                          (window <= 0 || key[a] > qp - window);
+        keep |= (uint32_t)kept << (4 * a + j);
+        x[a][j] = kept ? sm90::ex2(fmaf(x[a][j], sl2, -lse2[j])) : 0.f;
+      }
+    put_t(pt_p, x, tx, ty);
+    __syncwarp();
+    update<DH>(dva, pt_p + 4 * ty, dos + 4 * tx);  // dV += P^T dO
+    dots<DH, 2>(x, vs, dos + tx * L::LD);  // dP^T
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float4 pv = *reinterpret_cast<const float4*>(pt_p + (tx + 8 * j) * PT_LD + 4 * ty);
+      const float p[4] = {pv.x, pv.y, pv.z, pv.w};
+#pragma unroll
+      for (int a = 0; a < 4; ++a)
+        x[a][j] = (keep >> (4 * a + j)) & 1u ? p[a] * (x[a][j] - dl[j]) * scale : 0.f;
+    }
+    put_t(pt_d, x, tx, ty);
+    __syncwarp();
+    update<DH>(dka, pt_d + 4 * ty, qs + 4 * tx);  // dK += dS^T Q
+    __syncthreads();  // Q, dO, P and dS read before the next copies and stores
+  }
+  const auto row_off = [&](int r) { return (((long long)b * Sk + r) * Hkv + hk) * DH; };
+  store_f32<DH>(dk, dka, k0 + kw, Sk, tx, row_off);
+  store_f32<DH>(dv, dva, k0 + kw, Sk, tx, row_off);
+}
+
+template <int DH>
+int launch_dq_f32(const void* q, const void* k, const void* v, const void* mask,
+                  const void* dout, const void* lse, const void* delta, void* dq, int B, int Sq,
+                  int Sk, int H, int Hkv, long long q_sb, long long q_ss, long long k_sb,
+                  long long k_ss, long long v_sb, long long v_ss, long long m_sb,
+                  long long do_sb, long long do_ss, int causal, int window, int offset,
+                  float scale, cudaStream_t stream) {
+  constexpr uint32_t smem = Smem<DH, 1>::BYTES;
+  static bool configured = false;
+  const int rc = configure(flash_bwd_dq_f32_kernel<DH>, smem, &configured);
+  if (rc) return rc;
+  if (Sq == 0 || B == 0) return 0;
+  dim3 grid((Sq + ROWS - 1) / ROWS, H, B);
+  flash_bwd_dq_f32_kernel<DH><<<grid, THREADS, smem, stream>>>(
+      (const float*)q, (const float*)k, (const float*)v, (const int*)mask, (const float*)dout,
+      (const float*)lse, (const float*)delta, (float*)dq, Sq, Sk, H, H / Hkv, q_sb, q_ss, k_sb,
+      k_ss, v_sb, v_ss, m_sb, do_sb, do_ss, causal, window, offset, scale);
+  return (int)cudaGetLastError();
+}
+
+template <int DH>
+int launch_dkv_f32(const void* q, const void* k, const void* v, const void* mask,
+                   const void* dout, const void* lse, const void* delta, void* dk, void* dv,
+                   int B, int Sq, int Sk, int H, int Hkv, long long q_sb, long long q_ss,
+                   long long k_sb, long long k_ss, long long v_sb, long long v_ss,
+                   long long m_sb, long long do_sb, long long do_ss, int causal, int window,
+                   int offset, float scale, cudaStream_t stream) {
+  constexpr uint32_t smem = Smem<DH, 2>::BYTES;
+  static bool configured = false;
+  const int rc = configure(flash_bwd_dkv_f32_kernel<DH>, smem, &configured);
+  if (rc) return rc;
+  if (Sk == 0 || B == 0) return 0;
+  dim3 grid((Sk + ROWS - 1) / ROWS, Hkv, B);
+  flash_bwd_dkv_f32_kernel<DH><<<grid, THREADS, smem, stream>>>(
+      (const float*)q, (const float*)k, (const float*)v, (const int*)mask, (const float*)dout,
+      (const float*)lse, (const float*)delta, (float*)dk, (float*)dv, Sq, Sk, H, Hkv, H / Hkv,
+      q_sb, q_ss, k_sb, k_ss, v_sb, v_ss, m_sb, do_sb, do_ss, causal, window, offset, scale);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace f32
+
 }  // namespace
 
 // Strides are in elements, as the tensors give them; the tensor maps take
@@ -719,3 +1119,49 @@ extern "C" int gritlm_flash_bwd_dkv(const void* q, const void* k, const void* v,
                           offset, scale, (cudaStream_t)stream);
   return (int)cudaErrorInvalidValue;
 }
+
+// K4 and K5 on fp32 q, k, v and dO (gradients fp32): the same arguments as
+// gritlm_flash_bwd_dq / gritlm_flash_bwd_dkv; strides in elements,
+// multiples of 4 (16-byte rows). Dh: 128 or 64.
+extern "C" int gritlm_flash_bwd_dq_f32(const void* q, const void* k, const void* v,
+                                       const void* mask, const void* dout, const void* lse,
+                                       const void* delta, void* dq, int B, int Sq, int Sk,
+                                       int H, int Hkv, int Dh, long long q_sb, long long q_ss,
+                                       long long k_sb, long long k_ss, long long v_sb,
+                                       long long v_ss, long long m_sb, long long do_sb,
+                                       long long do_ss, int causal, int window, int offset,
+                                       float scale, void* stream) {
+  if (Dh == 128)
+    return f32::launch_dq_f32<128>(q, k, v, mask, dout, lse, delta, dq, B, Sq, Sk, H, Hkv,
+                                   q_sb, q_ss, k_sb, k_ss, v_sb, v_ss, m_sb, do_sb, do_ss,
+                                   causal, window, offset, scale, (cudaStream_t)stream);
+  if (Dh == 64)
+    return f32::launch_dq_f32<64>(q, k, v, mask, dout, lse, delta, dq, B, Sq, Sk, H, Hkv,
+                                  q_sb, q_ss, k_sb, k_ss, v_sb, v_ss, m_sb, do_sb, do_ss,
+                                  causal, window, offset, scale, (cudaStream_t)stream);
+  return (int)cudaErrorInvalidValue;
+}
+
+extern "C" int gritlm_flash_bwd_dkv_f32(const void* q, const void* k, const void* v,
+                                        const void* mask, const void* dout, const void* lse,
+                                        const void* delta, void* dk, void* dv, int B, int Sq,
+                                        int Sk, int H, int Hkv, int Dh, long long q_sb,
+                                        long long q_ss, long long k_sb, long long k_ss,
+                                        long long v_sb, long long v_ss, long long m_sb,
+                                        long long do_sb, long long do_ss, int causal,
+                                        int window, int offset, float scale, void* stream) {
+  if (Dh == 128)
+    return f32::launch_dkv_f32<128>(q, k, v, mask, dout, lse, delta, dk, dv, B, Sq, Sk, H,
+                                    Hkv, q_sb, q_ss, k_sb, k_ss, v_sb, v_ss, m_sb, do_sb,
+                                    do_ss, causal, window, offset, scale, (cudaStream_t)stream);
+  if (Dh == 64)
+    return f32::launch_dkv_f32<64>(q, k, v, mask, dout, lse, delta, dk, dv, B, Sq, Sk, H,
+                                   Hkv, q_sb, q_ss, k_sb, k_ss, v_sb, v_ss, m_sb, do_sb,
+                                   do_ss, causal, window, offset, scale, (cudaStream_t)stream);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The dynamic shared memory a block of the fp32 forms takes at Dh 128, in
+// bytes (for reports; ops/flash_attention.f32_bwd_plan computes the same).
+extern "C" int gritlm_flash_bwd_dq_f32_smem() { return (int)f32::Smem<128, 1>::BYTES; }
+extern "C" int gritlm_flash_bwd_dkv_f32_smem() { return (int)f32::Smem<128, 2>::BYTES; }

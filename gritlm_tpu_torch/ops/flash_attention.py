@@ -77,8 +77,23 @@ two cp.async buffers of 32-key tiles, each thread 4 rows x 4 keys of S and
 4 rows x Dh / 8 columns of O, P passed between the two layouts through a
 warp's shared tile. What bounds it: the FMAs (the fp32 lanes' rate). Head
 dims as the bf16 form (64, 128; others padded to 128), with its LSE.
-Any other dtype (float16, or a mix) raises TypeError. The backward (K4,
-K5) takes bf16 only; its fp32 form is ROADMAP Queue 2 E item 3.
+Any other dtype (float16, or a mix) raises TypeError.
+
+fp32 q, k, v and dO run K4's and K5's fp32 forms (`gritlm_flash_bwd_dq_f32`,
+`gritlm_flash_bwd_dkv_f32` in the same source, counted in
+`flash_attention_bwd_dq.f32_launches` / `flash_attention_bwd_dkv.f32_launches`),
+as the Pallas backward computes on fp32 inputs: fp32 products summed in
+fp32, P rebuilt from the LSE that K1 [f32] saved, on the SIMT pipes. One
+block of 128 threads per 64 rows of its own side (K4: Q and dO of 64 query
+rows of a head; K5: K and V of 64 keys of a kv head, the GQA group's query
+heads walked inside the block) held in shared memory, the other side
+streamed through two cp.async buffers of 32-row tiles; each thread scores
+4 rows against 4 tile rows (S and dP, or their transposes) and updates 4
+rows x Dh / 8 columns of its gradients, dS (and P) passing between the two
+layouts through a warp's transposed shared tile (`f32_bwd_plan`; the tiles
+visited: `f32_dq_key_tiles`, `f32_dkv_query_tiles`). No atomics: reruns are
+bit-equal. What bounds them: the FMAs (3 products of Sq x Sk x Dh a head
+for K4, 4 for K5, at the fp32 lanes' rate). Head dims as the bf16 forms.
 
 Differences from the TPU kernel: any Sq runs the kernel (the TPU version
 needed Sq >= 128 and sent shorter queries to an einsum); the padded head
@@ -98,6 +113,51 @@ HEAD_DIM = 128  # the width the kernels pad other head dims to
 # K1's, K4's and K5's compiled instances (csrc/flash_attention.cu,
 # csrc/flash_attention_bwd.cu)
 KERNEL_HEAD_DIMS = (64, 128)
+# K4's and K5's fp32 forms (csrc/flash_attention_bwd.cu, namespace f32)
+F32_BWD_ROWS = 64  # a block's own rows: K4 query rows, K5 keys
+F32_BWD_TILE = 32  # rows of a streamed tile: K4 keys, K5 query rows
+F32_BWD_THREADS = 128
+F32_BWD_PT_LD = 20  # floats a row of a warp's transposed tile
+
+
+def f32_bwd_plan(kind: str, B: int, Sq: int, Sk: int, H: int, Hkv: int, Dh: int):
+    """(grid, dynamic shared memory in bytes) of K4 [f32] (`kind` "dq")
+    or K5 [f32] ("dkv") as csrc/flash_attention_bwd.cu launches them at a
+    compiled head dim: K4 one block per (64 query rows, head, batch row),
+    K5 per (64 keys, kv head, batch row); shared memory for the two
+    resident tiles, the two streamed tiles in two buffers (rows of Dh + 4
+    floats) and one (K4: dS) or two (K5: P, dS) transposed tiles a warp."""
+    ld = Dh + 4
+    n_pt = 1 if kind == "dq" else 2
+    floats = (2 * F32_BWD_ROWS * ld + 4 * F32_BWD_TILE * ld
+              + n_pt * (F32_BWD_THREADS // 32) * F32_BWD_TILE * F32_BWD_PT_LD)
+    rows, heads = (Sq, H) if kind == "dq" else (Sk, Hkv)
+    return (-(-rows // F32_BWD_ROWS), heads, B), 4 * floats
+
+
+def f32_dq_key_tiles(q0: int, Sq: int, Sk: int, *, causal: bool, window: int,
+                     offset: int) -> range:
+    """The first keys of the 32-key tiles K4 [f32]'s block of query rows
+    q0 .. q0 + 63 visits (K1 [f32]'s): up to the causal bound of its last
+    row, from the window's start of its first (`window` 0: none)."""
+    hi = min(Sk, offset + min(Sq, q0 + F32_BWD_ROWS)) if causal else Sk
+    lo = max(0, offset + q0 - window + 1) if window > 0 else 0
+    t0 = lo // F32_BWD_TILE
+    t1 = -(-hi // F32_BWD_TILE) if hi > lo else t0
+    return range(t0 * F32_BWD_TILE, t1 * F32_BWD_TILE, F32_BWD_TILE)
+
+
+def f32_dkv_query_tiles(k0: int, Sq: int, Sk: int, *, causal: bool, window: int,
+                        offset: int) -> range:
+    """The first query rows of the 32-row tiles K5 [f32]'s block of keys
+    k0 .. k0 + 63 visits for each query head of its group: causal rows at
+    or after its first key, window rows before its last key + window."""
+    k_last = min(k0 + F32_BWD_ROWS, Sk) - 1
+    qbeg = max(0, k0 - offset) if causal else 0
+    qend = min(Sq, k_last + window - offset) if window > 0 else Sq
+    qfirst = qbeg // F32_BWD_TILE * F32_BWD_TILE
+    n = -(-(qend - qfirst) // F32_BWD_TILE) if qend > qfirst else 0
+    return range(qfirst, qfirst + n * F32_BWD_TILE, F32_BWD_TILE)
 
 
 def keep_mask(
@@ -231,9 +291,9 @@ def _fn(name: str = "gritlm_flash_fwd", lib: str = "flash_attention"):
         P, I32, I64, F32 = _build.P, _build.I32, _build.I64, _build.F32
         if name in ("gritlm_flash_fwd", "gritlm_flash_fwd_f32"):
             fn.argtypes = [P] * 6 + [I32] * 6 + [I64] * 7 + [I32] * 3 + [F32, P]
-        elif name == "gritlm_flash_bwd_dq":
+        elif name in ("gritlm_flash_bwd_dq", "gritlm_flash_bwd_dq_f32"):
             fn.argtypes = [P] * 8 + [I32] * 6 + [I64] * 9 + [I32] * 3 + [F32, P]
-        else:  # gritlm_flash_bwd_dkv
+        else:  # gritlm_flash_bwd_dkv, gritlm_flash_bwd_dkv_f32
             fn.argtypes = [P] * 9 + [I32] * 6 + [I64] * 9 + [I32] * 3 + [F32, P]
         fn.restype = I32
     return fn
@@ -355,14 +415,13 @@ flash_attention.f32_launches = 0  # launches of the fp32 form
 def _bwd_args(q, k, v, padding_mask, do, lse, delta, causal, sliding_window, offset, scale):
     """Checks and the shared leading arguments of K4 and K5, and the int32
     mask whose pointer they hold (the caller keeps it alive through the
-    launch). `scale` is the forward's softmax scale (None: Dh^-0.5)."""
+    launch). `scale` is the forward's softmax scale (None: Dh^-0.5). Returns
+    (f32, head, tail, mask): f32 when the call takes the fp32 forms."""
     B, Sq, H, Dh = q.shape
     Sk = k.shape[1]
-    if _build.kernel_form(q, k, v, do, what="flash_attention backward") != "bf16":
-        raise TypeError("flash_attention backward: the fp32 form of K4 and K5 is not ported "
-                        "yet (ROADMAP Queue 2 E item 3)")
-    _check_qkv(q, k, v, offset)
-    _check_bshd(do, "do")
+    f32 = _build.kernel_form(q, k, v, do, what="flash_attention backward") == "f32"
+    _check_qkv(q, k, v, offset, q.dtype)
+    _check_bshd(do, "do", q.dtype)
     if do.shape != q.shape:
         raise ValueError(f"flash_attention backward: do {tuple(do.shape)} != q {tuple(q.shape)}")
     _check_rows(lse, (B, H, Sq), "lse")
@@ -375,50 +434,63 @@ def _bwd_args(q, k, v, padding_mask, do, lse, delta, causal, sliding_window, off
             v.stride(0), v.stride(1), mask.stride(0), do.stride(0), do.stride(1),
             int(causal), int(window), offset, Dh ** -0.5 if scale is None else scale,
             _build.stream_of(q))
-    return head, tail, mask
+    return f32, head, tail, mask
 
 
 def flash_attention_bwd_dq(q, k, v, padding_mask, do, lse, delta, *, causal,
                            sliding_window=None, offset=0, scale=None) -> torch.Tensor:
     """K4: dQ [B, Sq, H, Dh] from the saved LSE and delta [B, H, Sq], at the
     forward's softmax scale (None: Dh^-0.5). CPU tensors run the plain
-    version; CUDA tensors run the kernel (Dh 64 or 128) or raise."""
+    version; CUDA tensors run the kernel of their dtype (all bf16, or all
+    fp32; Dh 64 or 128) or raise."""
     if _build.plain_path(q, k, v, padding_mask, do, lse, delta):
         return flash_attention_bwd_dq_plain(q, k, v, padding_mask, do, lse, delta,
                                             causal=causal, sliding_window=sliding_window,
                                             offset=offset, scale=scale)
-    fn = _fn("gritlm_flash_bwd_dq", "flash_attention_bwd")
-    head, tail, _mask = _bwd_args(q, k, v, padding_mask, do, lse, delta, causal,
-                                  sliding_window, offset, scale)
+    # the library before any check of the tensors; q's dtype names the entry
+    fn = _fn("gritlm_flash_bwd_dq_f32" if q.dtype == torch.float32 else "gritlm_flash_bwd_dq",
+             "flash_attention_bwd")
+    f32, head, tail, _mask = _bwd_args(q, k, v, padding_mask, do, lse, delta, causal,
+                                       sliding_window, offset, scale)
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     _build.check(fn(*head, dq.data_ptr(), *tail), "flash_attention_bwd_dq")
-    flash_attention_bwd_dq.launches += 1
+    if f32:
+        flash_attention_bwd_dq.f32_launches += 1
+    else:
+        flash_attention_bwd_dq.launches += 1
     return dq
 
 
 flash_attention_bwd_dq.launches = 0
+flash_attention_bwd_dq.f32_launches = 0  # launches of the fp32 form
 
 
 def flash_attention_bwd_dkv(q, k, v, padding_mask, do, lse, delta, *, causal,
                             sliding_window=None, offset=0, scale=None):
     """K5: (dK, dV), each [B, Sk, Hkv, Dh], summed over each GQA group, at
     the forward's softmax scale (None: Dh^-0.5). CPU tensors run the plain
-    version; CUDA tensors run the kernel (Dh 64 or 128) or raise."""
+    version; CUDA tensors run the kernel of their dtype (all bf16, or all
+    fp32; Dh 64 or 128) or raise."""
     if _build.plain_path(q, k, v, padding_mask, do, lse, delta):
         return flash_attention_bwd_dkv_plain(q, k, v, padding_mask, do, lse, delta,
                                              causal=causal, sliding_window=sliding_window,
                                              offset=offset, scale=scale)
-    fn = _fn("gritlm_flash_bwd_dkv", "flash_attention_bwd")
-    head, tail, _mask = _bwd_args(q, k, v, padding_mask, do, lse, delta, causal,
-                                  sliding_window, offset, scale)
+    fn = _fn("gritlm_flash_bwd_dkv_f32" if q.dtype == torch.float32
+             else "gritlm_flash_bwd_dkv", "flash_attention_bwd")
+    f32, head, tail, _mask = _bwd_args(q, k, v, padding_mask, do, lse, delta, causal,
+                                       sliding_window, offset, scale)
     dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
     dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
     _build.check(fn(*head, dk.data_ptr(), dv.data_ptr(), *tail), "flash_attention_bwd_dkv")
-    flash_attention_bwd_dkv.launches += 1
+    if f32:
+        flash_attention_bwd_dkv.f32_launches += 1
+    else:
+        flash_attention_bwd_dkv.launches += 1
     return dk, dv
 
 
 flash_attention_bwd_dkv.launches = 0
+flash_attention_bwd_dkv.f32_launches = 0  # launches of the fp32 form
 
 
 def flash_attention_bwd(q, k, v, padding_mask, out, lse, do, *, causal,

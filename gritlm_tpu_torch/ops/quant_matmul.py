@@ -58,11 +58,19 @@ prefetched layer index so that the scan never copied a layer; here each
 layer's weights are a view of the stack (`models/transformer._unstack`)
 whose pointer goes to the kernel as it is.
 
-Routing, as in the JAX package: up to MAX_KERNEL_ROWS8 (K6) or
-MAX_KERNEL_ROWS (K7) rows, a CUDA tensor launches a kernel or raises and a
-CPU tensor takes the plain version; more rows dequantize the layer once and
-multiply (`torch.matmul`), which is the function the reference runs at
-those row counts (`_reference8`, `_reference`).
+Routing, as in the JAX package (`kernel_rows`): up to MAX_KERNEL_ROWS8 (K6)
+or MAX_KERNEL_ROWS (K7) rows, a CUDA tensor launches a kernel or raises and
+a CPU tensor takes the plain version; more rows dequantize the layer once
+to x's dtype and multiply (`torch.matmul`), which is the function the
+reference runs at those row counts (`_reference8`, `_reference`).
+
+Activations of either float dtype, as the JAX wrappers take them: the
+result is in x's dtype. At the kernel's rows a CUDA call casts fp32 x to
+bf16 for the kernel (the JAX wrappers' `x2.astype(bfloat16)`) and its bf16
+output to fp32; a CPU call runs the plain version on x as it is, which for
+fp32 x is the fp32 product the JAX wrappers compute off the TPU (their
+reference). Above those rows fp32 x multiplies an fp32 dequantized weight,
+outside any kernel, on either device. float16 x raises TypeError on CUDA.
 """
 
 from __future__ import annotations
@@ -144,6 +152,14 @@ def _rows(x: torch.Tensor) -> int:
     return math.prod(x.shape[:-1])
 
 
+def kernel_rows(M: int, bits: int) -> bool:
+    """Whether a product of M rows takes the kernel's route: K6 (`bits` 8)
+    up to MAX_KERNEL_ROWS8 rows, K7 (4) up to MAX_KERNEL_ROWS, the row
+    ceilings of the JAX wrappers' `use_kernel`. Above them the layer is
+    dequantized to x's dtype and multiplied."""
+    return M <= (MAX_KERNEL_ROWS8 if bits == 8 else MAX_KERNEL_ROWS)
+
+
 def w8a16_matmul_plain(x: torch.Tensor, node: dict) -> torch.Tensor:
     """The plain PyTorch version of K6: the int8 weights exactly in fp32,
     fp32 sums, the per-channel scale at the end, cast to x's dtype."""
@@ -187,9 +203,13 @@ def _launch(fn, what: str, x2, q, scale, M, K, N, planned, *group):
 
 def _x_rows(x: torch.Tensor, K: int, what: str) -> torch.Tensor:
     """x as a contiguous, 16-byte aligned [M, K] bf16 matrix (an activation:
-    a copy here is cheap, unlike one of the weights)."""
-    if x.dtype != torch.bfloat16:
-        raise TypeError(f"{what}: x is {x.dtype}; the kernel takes bfloat16 activations")
+    a copy here is cheap, unlike one of the weights); fp32 x is cast to
+    bf16, as the JAX wrappers cast it for their kernels."""
+    if x.dtype == torch.float32:
+        x = x.to(torch.bfloat16)
+    elif x.dtype != torch.bfloat16:
+        raise TypeError(f"{what}: x is {x.dtype}; the kernel takes bfloat16 or float32 "
+                        "activations")
     x2 = x.reshape(-1, K).contiguous()
     return x2.clone() if x2.data_ptr() % 16 else x2
 
@@ -210,7 +230,7 @@ def w8a16_matmul(x: torch.Tensor, node: dict) -> torch.Tensor:
     if x.shape[-1] != K:
         raise ValueError(f"w8a16_matmul: x {tuple(x.shape)} against q8 {tuple(q8.shape)}")
     M = _rows(x)
-    if M > MAX_KERNEL_ROWS8:
+    if not kernel_rows(M, 8):
         return x @ quant.dequantize_kernel(node, x.dtype)
     if _build.plain_path(x, q8, scale):
         return w8a16_matmul_plain(x, node)
@@ -225,11 +245,11 @@ def w8a16_matmul(x: torch.Tensor, node: dict) -> torch.Tensor:
     _check_weight(scale, "scale", "w8a16_matmul")
     x2 = _x_rows(x, K, "w8a16_matmul")
     if M == 0:
-        return torch.empty((*x.shape[:-1], N), dtype=torch.bfloat16, device=x.device)
+        return torch.empty((*x.shape[:-1], N), dtype=x.dtype, device=x.device)
     out = _launch(fn, "w8a16_matmul", x2, q8, scale, M, K, N,
                   plan_w8(M, K, N, _build.sm_count(x.device)))
     w8a16_matmul.launches += 1
-    return out.reshape(*x.shape[:-1], N)
+    return out.reshape(*x.shape[:-1], N).to(x.dtype)
 
 
 def w4a16_matmul(x: torch.Tensor, node: dict) -> torch.Tensor:
@@ -241,7 +261,7 @@ def w4a16_matmul(x: torch.Tensor, node: dict) -> torch.Tensor:
     if x.shape[-1] != K:
         raise ValueError(f"w4a16_matmul: x {tuple(x.shape)} against q4 {tuple(q4.shape)}")
     M = _rows(x)
-    if M > MAX_KERNEL_ROWS:
+    if not kernel_rows(M, 4):
         return x @ quant.dequantize_kernel_int4(node, x.dtype)
     if _build.plain_path(x, q4, scale):
         return w4a16_matmul_plain(x, node)
@@ -259,11 +279,11 @@ def w4a16_matmul(x: torch.Tensor, node: dict) -> torch.Tensor:
     _check_weight(scale, "scale", "w4a16_matmul")
     x2 = _x_rows(x, K, "w4a16_matmul")
     if M == 0:
-        return torch.empty((*x.shape[:-1], N), dtype=torch.bfloat16, device=x.device)
+        return torch.empty((*x.shape[:-1], N), dtype=x.dtype, device=x.device)
     out = _launch(fn, "w4a16_matmul", x2, q4, scale, M, K, N,
                   plan_w4(M, Kp, N, _build.sm_count(x.device)), g)
     w4a16_matmul.launches += 1
-    return out.reshape(*x.shape[:-1], N)
+    return out.reshape(*x.shape[:-1], N).to(x.dtype)
 
 
 w8a16_matmul.launches = 0

@@ -97,9 +97,8 @@ class RunArguments:
     def check_ported(self) -> None:
         """Raise NotImplementedError for every option the port does not run
         yet: the mesh flags, which wait for the parallel slice (ROADMAP
-        Queue 1 item 12), and fp32 training on the card, whose flash
-        backward (K4, K5) takes bf16 only (ROADMAP Queue 2 E item 3; the
-        run would fail in K4 after its first forward)."""
+        Queue 1 item 12). Every --dtype runs on either device (fp32 on the
+        card through K1's, K4's and K5's fp32 forms)."""
         not_ported = [
             (self.seq_parallel, "--seq_parallel"),
             (self.mesh_stage > 1, "--mesh_stage > 1"),
@@ -110,10 +109,6 @@ class RunArguments:
             if bad:
                 raise NotImplementedError(
                     f"{what} is not ported to gritlm_tpu_torch yet (ROADMAP Queue 1 item 12)")
-        if self.dtype == "float32" and self.device.startswith("cuda"):
-            raise NotImplementedError(
-                "--dtype float32 training on CUDA is not ported to gritlm_tpu_torch yet: the "
-                "flash backward's fp32 form (K4, K5) is ROADMAP Queue 2 E item 3")
 
     def to_train_config(self, total_steps: int):
         from gritlm_tpu_torch.training.train import TrainConfig

@@ -23,8 +23,10 @@ Example (toy run on the CPU, the kernels' plain versions):
       --device cpu --model_preset tiny_mistral --mode unified \\
       --per_device_train_batch_size 2 --max_steps 8 --output_dir /tmp/run
 
-On the GPU drop `--device cpu` (default cuda). The mesh options, which the
-port does not run yet, raise NotImplementedError (RunArguments.check_ported).
+On the GPU drop `--device cpu` (default cuda). `--dtype float32` trains at
+fp32 activations on either device (on the GPU through the fp32 forms of the
+flash forward and backward). The mesh options, which the port does not run
+yet, raise NotImplementedError (RunArguments.check_ported).
 """
 
 from __future__ import annotations

@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
-"""K4 and K5 (the flash backward, `csrc/flash_attention_bwd.cu`) at head dim
-128 against another checkout's, on one CUDA card: the SASS of the Dh-128
-kernels compared instruction for instruction, their outputs compared bit
-for bit on the same inputs, and both timed in turns (that checkout, this
-one, this one, that checkout).
+"""K4 and K5 (the flash backward, `csrc/flash_attention_bwd.cu`, bf16 forms)
+against another checkout's, on one CUDA card: the SASS of the Dh-128 and
+Dh-64 kernels compared instruction for instruction, their outputs compared
+bit for bit on the same inputs, and both timed in turns (that checkout,
+this one, this one, that checkout) at Dh 128.
 
     mkdir -p build/parent && git archive <commit> | tar -x -C build/parent
     python3 scripts/flash_bwd_ab.py build/parent
@@ -13,11 +13,13 @@ Both sources are compiled with this checkout's nvcc flags
 loaded with ctypes side by side. The other checkout's entry points may lack
 the head-dim argument (before the Dh-64 instances): the script reads
 which from the source. SASS: `cuobjdump -sass` of each library, the
-functions named flash_bwd_dq_kernel / flash_bwd_dkv_kernel (this checkout:
-their <128> instances), each function's instructions with its name line
-dropped. Outputs: K4 and K5 at B 2, S 2048, H 32, Hkv 8 (causal with right
-padding, bidirectional, causal with a 512 window), K1's LSE and delta
-computed once by this checkout's wrappers. Times: CUDA events around 20
+functions named flash_bwd_dq_kernel / flash_bwd_dkv_kernel (their <128>
+and, where the other checkout has them, <64> instances; the fp32 forms'
+flash_bwd_*_f32_kernel are other names), each function's instructions with
+its name line dropped. Outputs: K4 and K5 at B 2, S 2048, H 32, Hkv 8
+(causal with right padding, bidirectional, causal with a 512 window; and
+causal with right padding at Dh 64 where the other checkout has it), K1's
+LSE and delta computed once by this checkout's wrappers. Times: CUDA events around 20
 calls launched back to back at the passage shape (B 8, S 2048,
 bidirectional) and the generative shape (B 4, S 2048, causal). ptxas'
 registers and spill bytes of every K4/K5 instance of both builds are
@@ -73,8 +75,9 @@ def build(roots) -> dict:
     return out
 
 
-def dh128_sass(lib: Path) -> dict:
-    """{kernel: its Dh-128 instance's SASS lines, name line dropped}."""
+def kernel_sass(lib: Path) -> dict:
+    """{(kernel, Dh): that instance's SASS lines, name line dropped}, for the
+    Dh-128 instances (or a build without instances) and the Dh-64 ones."""
     from gritlm_tpu_torch.ops import _build
 
     cuobjdump = Path(_build._nvcc()).with_name("cuobjdump")
@@ -93,7 +96,10 @@ def dh128_sass(lib: Path) -> dict:
         names = [n for n in funcs if kernel in n and ("ILi128E" in n or "ILi" not in n)]
         if len(names) != 1:
             raise RuntimeError(f"{lib.name}: {kernel} at Dh 128 is {names}")
-        out[kernel] = [x for x in funcs[names[0]] if x.strip()]
+        out[kernel, 128] = [x for x in funcs[names[0]] if x.strip()]
+        names = [n for n in funcs if kernel in n and "ILi64E" in n]
+        if len(names) == 1:
+            out[kernel, 64] = [x for x in funcs[names[0]] if x.strip()]
     return out
 
 
@@ -151,14 +157,14 @@ def main() -> int:
                           check=True).stdout.strip().splitlines()[0]
     print(f"card {card}", flush=True)
     ok = True
-    sass = {label: dh128_sass(lib) for label, (lib, _) in libs.items()}
-    for kernel in KERNELS:
-        a, b = sass["other"][kernel], sass["this"][kernel]
+    sass = {label: kernel_sass(lib) for label, (lib, _) in libs.items()}
+    for kernel, dh in sass["other"]:
+        a, b = sass["other"][kernel, dh], sass["this"].get((kernel, dh))
         same = a == b
         ok &= same
-        emit(f"sass {kernel} Dh 128 identical", same)
-        print(f"sass {kernel} [Dh 128]: {len(b)} lines, identical to the other checkout's: "
-              f"{same}", flush=True)
+        emit(f"sass {kernel} Dh {dh} identical", same)
+        print(f"sass {kernel} [Dh {dh}]: {len(b or [])} lines, identical to the other "
+              f"checkout's: {same}", flush=True)
 
     from gritlm_tpu_torch.ops import flash_attention as fa
 
@@ -171,9 +177,9 @@ def main() -> int:
     def randn(*shape):
         return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
 
-    def inputs(B, S, causal, window, pad):
-        q, k, v, do = randn(B, S, 32, 128), randn(B, S, 8, 128), randn(B, S, 8, 128), \
-            randn(B, S, 32, 128)
+    def inputs(B, S, causal, window, pad, Dh=128):
+        q, k, v, do = randn(B, S, 32, Dh), randn(B, S, 8, Dh), randn(B, S, 8, Dh), \
+            randn(B, S, 32, Dh)
         mask = torch.ones((B, S), dtype=torch.int32, device=dev)
         if pad:
             mask[-1, S * 3 // 4:] = 0
@@ -181,17 +187,19 @@ def main() -> int:
                                       return_lse=True)
         return q, k, v, mask, do, lse, fa.attention_delta(out, do)
 
-    for label, causal, window in (("causal, right padding", True, 0),
-                                  ("bidirectional, padding", False, 0),
-                                  ("causal, window 512", True, 512)):
-        args = inputs(2, 2048, causal, window, True)
+    cases = [("causal, right padding", True, 0, 128), ("bidirectional, padding", False, 0, 128),
+             ("causal, window 512", True, 512, 128)]
+    if ("flash_bwd_dq_kernel", 64) in sass["other"]:
+        cases.append(("causal, right padding", True, 0, 64))
+    for label, causal, window, dh in cases:
+        args = inputs(2, 2048, causal, window, True, dh)
         got = {name: runner(fns[name], with_dh[name], *args, causal, window)()
                for name in fns}
         torch.cuda.synchronize()
         equal = all(torch.equal(x, y) for x, y in zip(got["other"], got["this"]))
         ok &= equal
-        emit(f"outputs Dh 128 [{label}] bit-equal", equal)
-        print(f"outputs [{label}, B2 S2048 H32 Hkv8 Dh128]: dq, dk, dv bit-equal to the other "
+        emit(f"outputs Dh {dh} [{label}] bit-equal", equal)
+        print(f"outputs [{label}, B2 S2048 H32 Hkv8 Dh{dh}]: dq, dk, dv bit-equal to the other "
               f"checkout's: {equal}", flush=True)
 
     for label, B, causal in (("B8 S2048 bidirectional", 8, False), ("B4 S2048 causal", 4, True)):

@@ -409,15 +409,19 @@ def test_serve_cli_float32_matches_jax(tmp_path, bf16_checkpoint, flags):
 
 @pytest.mark.parametrize("dtype,device,raises", [
     ("float32", "cuda", True), ("float32", "cuda:1", True), ("float32", "cpu", False),
-    ("bfloat16", "cuda", False), (None, "cuda", False),
+    ("bfloat16", "cuda", False), (None, "cuda", False), ("float32", "cpu", True),
+    ("bfloat16", "cuda:1", True),
 ])
 def test_fp32_training_on_cuda_is_not_ported(dtype, device, raises):
-    """`training.run --dtype float32` on CUDA raises NotImplementedError
-    citing Queue 2 E item 3 before any step (without it the run fails in
-    K4's TypeError after its first forward); on the CPU it runs."""
-    args = RunArguments(dtype=dtype, device=device)
+    """`training.run --dtype float32` on CUDA passes `check_ported` (K4 and
+    K5 have their fp32 forms), as every dtype does on every device; what
+    is still not ported, a mesh of more than one device (`raises`: the run
+    asks for mesh_data 2), raises NotImplementedError citing Queue 1 item
+    12 whatever the dtype and device."""
+    RunArguments(dtype=dtype, device=device).check_ported()
+    args = RunArguments(dtype=dtype, device=device, mesh_data=2 if raises else 1)
     if raises:
-        with pytest.raises(NotImplementedError, match="Queue 2 E item 3"):
+        with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
             args.check_ported()
     else:
         args.check_ported()

@@ -776,16 +776,16 @@ BWD_CASES = [(300, 300, True, None, 0, False, (8, 2), False),
              (129, 129, True, 64, 0, True, (8, 2), False)]
 
 
-def _bwd_inputs(gen, cuda, Sq, Sk, heads, strided, B=2):
+def _bwd_inputs(gen, cuda, Sq, Sk, heads, strided, B=2, rand=_randn, Dh=128):
     H, Hkv = heads
-    if strided:  # q, k, v as head slices of one [B, S, H + 2 Hkv, 128] projection
+    if strided:  # q, k, v as head slices of one [B, S, H + 2 Hkv, Dh] projection
         assert Sq == Sk
-        fused = _randn(gen, B, Sq, H + 2 * Hkv, 128, device=cuda)
+        fused = rand(gen, B, Sq, H + 2 * Hkv, Dh, device=cuda)
         q, k, v = fused[:, :, :H], fused[:, :, H:H + Hkv], fused[:, :, H + Hkv:]
     else:
-        q = _randn(gen, B, Sq, H, 128, device=cuda)
-        k, v = _randn(gen, B, Sk, Hkv, 128, device=cuda), _randn(gen, B, Sk, Hkv, 128, device=cuda)
-    do = _randn(gen, B, Sq, H, 128, device=cuda)
+        q = rand(gen, B, Sq, H, Dh, device=cuda)
+        k, v = rand(gen, B, Sk, Hkv, Dh, device=cuda), rand(gen, B, Sk, Hkv, Dh, device=cuda)
+    do = rand(gen, B, Sq, H, Dh, device=cuda)
     mask = torch.ones((B, Sk), dtype=torch.int32, device=cuda)
     mask[1, Sk - min(40, Sk // 3):] = 0
     return q, k, v, do, mask
@@ -1023,7 +1023,10 @@ def test_quant_matmul_layer_view(cuda, bits):
 
 def test_quant_matmul_rejects_geometry(cuda):
     """A CUDA tensor whose geometry the kernel does not take raises; it is
-    never computed by the plain version."""
+    never computed by the plain version. fp32 activations are taken as the
+    JAX wrapper takes them (x cast to bf16 for the kernel, the result cast
+    to fp32: the bf16 call's output exactly, for an x that bf16 holds);
+    float16 activations raise."""
     from gritlm_tpu_torch.ops import quant_matmul as qm
     from gritlm_tpu_torch.training import quant
 
@@ -1035,8 +1038,11 @@ def test_quant_matmul_rejects_geometry(cuda):
     with pytest.raises(NotImplementedError):  # a group of 8 rows
         qm.w4a16_matmul(x, quant.quantize_kernel_int4(torch.randn((256, 128), device=cuda), 8))
     node = quant.quantize_kernel(torch.randn((256, 128), device=cuda))
+    got = qm.w8a16_matmul(x.float(), node)  # fp32 activations
+    assert got.dtype == torch.float32
+    assert torch.equal(got, qm.w8a16_matmul(x, node).float())
     with pytest.raises(TypeError):
-        qm.w8a16_matmul(x.float(), node)  # fp32 activations
+        qm.w8a16_matmul(x.half(), node)  # float16 activations
     with pytest.raises(ValueError):  # a weight that is not contiguous
         qm.w8a16_matmul(x, {"q8": node["q8"].t().contiguous().t(), "scale": node["scale"]})
 
@@ -1801,8 +1807,7 @@ def test_flash_attention_f32_kernel_shapes(fp32_cuda, Sq, Sk):
 
 def test_kernels_reject_other_dtypes(cuda):
     """float16, and a mix of bf16 and fp32, raise TypeError on the card
-    before any launch, in all four wrappers (and the fp32 backward, not
-    ported yet)."""
+    before any launch, in all four wrappers and in the backward's two."""
     from gritlm_tpu_torch.ops import paged_attention
 
     x = torch.zeros((1, 64, 2, 128), device=cuda)
@@ -1825,8 +1830,12 @@ def test_kernels_reject_other_dtypes(cuda):
                                          torch.zeros((1, 2), dtype=torch.int32, device=cuda),
                                          torch.ones((1, 64), dtype=torch.int32, device=cuda))
     lse = torch.zeros((1, 2, 64), device=cuda)
-    with pytest.raises(TypeError):
-        flash_attention.flash_attention_bwd_dq(x, x, x, mask, x, lse, lse, causal=False)
+    for dt in ((torch.float16,) * 4, (torch.float32,) * 3 + (torch.bfloat16,)):
+        q_, k_, v_, do_ = (x.to(d) for d in dt)
+        for bwd in (flash_attention.flash_attention_bwd_dq,
+                    flash_attention.flash_attention_bwd_dkv):
+            with pytest.raises(TypeError):
+                bwd(q_, k_, v_, mask, do_, lse, lse, causal=False)
 
 
 # (B, S, D, strided): a ragged batch with an empty row, a long row, many
@@ -2049,3 +2058,170 @@ def test_verify_checkpoint_fp32_on_cuda(fp32_cuda, tmp_path, capsys):
              fused_pool.fused_norm_mean_pool.f32_launches, k9.scores_segmax.f32_launches,
              flash_attention.flash_attention.launches)
     assert all(a > b for a, b in zip(after[:3], before[:3])) and after[3] == before[3]
+
+
+# ------------------------------------------------- K4 and K5 [f32]
+
+# K4 [f32] and K5 [f32] against the plain backward on the same fp32 inputs.
+# Both sum fp32 products in fp32 in other orders (a gradient entry sums up
+# to a few hundred terms of P or dS times an input of order 1), and the
+# kernels' exp2 is the hardware's approximation (2^-22 relative): about
+# sqrt(n) x 2^-24 of the entries' scale, under 1e-6 of the largest
+# gradient, so 1e-5 of it (chip_smoke.BWD_F32_RTOL) holds with room.
+BWD_F32_RTOL = 1e-5
+
+
+def _bwd_f32_against_plain(q, k, v, do, mask, empty_row, **kw):
+    """K4 [f32] and K5 [f32] through flash_attention_bwd against the plain
+    backward from the same saved LSE (K1 [f32]'s): one fp32 launch each a
+    call and no bf16 launch, a rerun bit-equal, within BWD_F32_RTOL of the
+    largest gradient; a row with no valid key gets exactly zero."""
+    fa = flash_attention
+    out, lse = fa.flash_attention(q, k, v, mask, return_lse=True, **kw)
+    wrappers = (fa.flash_attention_bwd_dq, fa.flash_attention_bwd_dkv)
+    before = [(w.f32_launches, w.launches) for w in wrappers]
+    got = fa.flash_attention_bwd(q, k, v, mask, out, lse, do, **kw)
+    again = fa.flash_attention_bwd(q, k, v, mask, out, lse, do, **kw)
+    torch.cuda.synchronize()
+    assert [(w.f32_launches, w.launches) for w in wrappers] == [(f + 2, b) for f, b in before]
+    want = fa.flash_attention_bwd_plain(q, k, v, mask, out, lse, do, **kw)
+    for g, w, a in zip(got, want, again):
+        assert g.shape == w.shape and g.dtype == torch.float32 and torch.isfinite(g).all()
+        assert torch.equal(g, a)
+        tol = BWD_F32_RTOL * float(w.abs().max())
+        torch.testing.assert_close(g, w, atol=tol, rtol=0)
+        if empty_row:
+            assert float(g[0].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("Sq,Sk,causal,window,offset,empty_row,heads,strided", BWD_CASES)
+def test_flash_backward_f32_kernels(fp32_cuda, Sq, Sk, causal, window, offset, empty_row,
+                                    heads, strided):
+    """K4 [f32] and K5 [f32] over the bf16 forms' grid at Dh 128: causal,
+    bidirectional, a window, an offset, a fully masked row, the edges of
+    their 64-row blocks and 32-row tiles, the 7B head layout, views into a
+    fused projection."""
+    gen = torch.Generator(device=fp32_cuda).manual_seed(70)
+    q, k, v, do, mask = _bwd_inputs(gen, fp32_cuda, Sq, Sk, heads, strided, rand=_randf)
+    if empty_row:
+        mask[0] = 0
+    _bwd_f32_against_plain(q, k, v, do, mask, empty_row, causal=causal, sliding_window=window,
+                           offset=offset)
+
+
+@pytest.mark.parametrize("causal,window,offset,Sq,Sk,empty_row", [
+    (True, None, 0, 300, 300, False), (False, None, 0, 300, 300, True),
+    (True, 64, 0, 300, 300, False), (True, None, 100, 200, 333, False)])
+@pytest.mark.parametrize("Dh,H,Hkv", HEAD_DIM_GEOMETRIES)
+def test_flash_backward_f32_kernels_head_dims(fp32_cuda, Dh, H, Hkv, causal, window, offset,
+                                              Sq, Sk, empty_row):
+    """K4 [f32] and K5 [f32] at Dh 64 (their own instances) and 96
+    (flash_attention_bwd zero-pads to 128, scale 96^-0.5)."""
+    gen = torch.Generator(device=fp32_cuda).manual_seed(90 + Dh)
+    q, k, v, do, mask = _bwd_inputs(gen, fp32_cuda, Sq, Sk, (H, Hkv), False, rand=_randf,
+                                     Dh=Dh)
+    if empty_row:
+        mask[0] = 0
+    _bwd_f32_against_plain(q, k, v, do, mask, empty_row, causal=causal, sliding_window=window,
+                           offset=offset)
+
+
+def test_flash_backward_f32_deterministic(fp32_cuda):
+    """Two launches of K4 [f32] and K5 [f32] on the same inputs give
+    bit-equal dQ, dK and dV (the 7B head layout: K5 sums the group of 4
+    query heads inside its block, in a fixed order)."""
+    gen = torch.Generator(device=fp32_cuda).manual_seed(91)
+    q, k, v, do, mask = _bwd_inputs(gen, fp32_cuda, 300, 300, (32, 8), False, rand=_randf)
+    fa = flash_attention
+    out, lse = fa.flash_attention(q, k, v, mask, causal=True, return_lse=True)
+    first = fa.flash_attention_bwd(q, k, v, mask, out, lse, do, causal=True)
+    second = fa.flash_attention_bwd(q, k, v, mask, out, lse, do, causal=True)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert a.dtype == torch.float32 and torch.equal(a, b)
+
+
+def test_flash_backward_f32_plan_matches_kernels(cuda):
+    """The shared memory `f32_bwd_plan` computes for a Dh-128 block is the
+    kernels' own (csrc/flash_attention_bwd.cu)."""
+    from gritlm_tpu_torch.ops import _build
+
+    lib = _build.load("flash_attention_bwd")
+    for kind, fn in (("dq", lib.gritlm_flash_bwd_dq_f32_smem),
+                     ("dkv", lib.gritlm_flash_bwd_dkv_f32_smem)):
+        assert flash_attention.f32_bwd_plan(kind, 1, 64, 64, 1, 1, 128)[1] == fn(), kind
+
+
+def test_flash_attention_fn_f32_on_cuda(fp32_cuda):
+    """Training attention at fp32 on the card: FlashAttentionFn runs K1
+    [f32] with its LSE, then K4 [f32] and K5 [f32], and its gradients follow
+    autograd through the plain forward within BWD_F32_RTOL."""
+    gen = torch.Generator(device=fp32_cuda).manual_seed(92)
+    leaves = [x.requires_grad_(True) for x in (_randf(gen, 2, 256, 8, 64, device=fp32_cuda),
+                                               _randf(gen, 2, 256, 2, 64, device=fp32_cuda),
+                                               _randf(gen, 2, 256, 2, 64, device=fp32_cuda))]
+    mask = torch.ones((2, 256), dtype=torch.int32, device=fp32_cuda)
+    mask[0, 200:] = 0
+    do = _randf(gen, 2, 256, 8, 64, device=fp32_cuda)
+    fa = flash_attention
+    wrappers = (fa.flash_attention, fa.flash_attention_bwd_dq, fa.flash_attention_bwd_dkv)
+    before = [(w.f32_launches, w.launches) for w in wrappers]
+    out = fa.FlashAttentionFn.apply(*leaves, mask, True, None, 0)
+    got = torch.autograd.grad(out, leaves, do)
+    assert [(w.f32_launches, w.launches) for w in wrappers] == [(f + 1, b) for f, b in before]
+    ref = fa.flash_attention_plain(*leaves, mask, causal=True)
+    want = torch.autograd.grad(ref, leaves, do)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float32
+        torch.testing.assert_close(g, w, atol=BWD_F32_RTOL * float(w.abs().max()), rtol=0)
+
+
+@pytest.mark.parametrize("bits,rows", [(8, (1, 8, 256, 257, 512, 513)), (4, (1, 8, 128, 129))])
+def test_quant_matmul_f32_activations(fp32_cuda, bits, rows):
+    """fp32 x through K6 / K7 at both row routes, as the JAX wrappers take
+    it: at the kernel's rows (K6 up to 512: its rows kernel and its staged
+    template; K7 up to 128) one launch on x cast to bf16, the result the
+    bf16 call's cast to fp32, bit for bit; above them no launch, and the
+    fp32 product of x and the weight dequantized to fp32."""
+    from gritlm_tpu_torch.ops import quant_matmul as qm
+    from gritlm_tpu_torch.training import quant
+
+    gen = torch.Generator(device=fp32_cuda).manual_seed(93 + bits)
+    K, N = 1024, 512
+    node = _quant_node(bits, K, N, gen, fp32_cuda)
+    kernel = qm.w8a16_matmul if bits == 8 else qm.w4a16_matmul
+    for M in rows:
+        x = _randf(gen, M, K, device=fp32_cuda)
+        before = kernel.launches
+        got = kernel(x, node)
+        torch.cuda.synchronize()
+        assert got.dtype == torch.float32 and got.shape == (M, N)
+        if qm.kernel_rows(M, bits):
+            assert kernel.launches == before + 1, M
+            assert torch.equal(got, kernel(x.to(torch.bfloat16), node).float()), M
+        else:
+            assert kernel.launches == before, M
+            want = x @ quant.dequantize_kernel(node, torch.float32)
+            assert torch.equal(got, want), M
+
+
+def test_training_run_f32_on_cuda(fp32_cuda, tmp_path):
+    """`training.run --dtype float32` on the card: two LoRA steps on the toy
+    data with finite losses, every attention call through the fp32 forms of
+    K1, K4 and K5 (tiny_mistral's head dim 16 zero-padded to 128), no bf16
+    attention launch."""
+    import math
+
+    from gritlm_tpu_torch.training.run import main
+
+    fa = flash_attention
+    wrappers = (fa.flash_attention, fa.flash_attention_bwd_dq, fa.flash_attention_bwd_dkv)
+    before = [(w.f32_launches, w.launches) for w in wrappers]
+    r = main(["--train_data", str(Path(__file__).resolve().parent / "toy_data"),
+              "--model_preset", "tiny_mistral", "--dtype", "float32", "--lora",
+              "--per_device_train_batch_size", "2", "--max_steps", "2", "--save_steps", "0",
+              "--query_max_len", "128", "--passage_max_len", "128",
+              "--generative_max_len", "64", "--output_dir", str(tmp_path / "run")])
+    assert r["steps"] == 2 and all(math.isfinite(x) for x in r["final"].values())
+    after = [(w.f32_launches, w.launches) for w in wrappers]
+    assert all(a[0] > b[0] and a[1] == b[1] for a, b in zip(after, before))
